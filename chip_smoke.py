@@ -8,26 +8,40 @@ Phases (any failure raises and the script exits non-zero):
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` with nvcc;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it, and time kernel, plain version and,
-   where one exists, the single PyTorch call computing the same function;
-3. the main path, part one: GPT-3 1.3B (``GPTForCausalLM``, full width,
-   random weights from a seed) forward on a [4, 1024] batch through the
-   flash kernel, held against the same model's dense attention;
-4. the main path, part two: the paged ``LLMEngine`` serving 8 greedy
+   where one exists, the single PyTorch call computing the same function
+   (for the backward kernels B2 and B3 together: the backward of
+   ``scaled_dot_product_attention``, timed without its forward);
+3. the serving path, part one: GPT-3 1.3B (``GPTForCausalLM``, full
+   width, random weights from a seed) forward on a [4, 1024] batch
+   through the flash kernel, held against the same model's dense
+   attention;
+4. the serving path, part two: the paged ``LLMEngine`` serving 8 greedy
    requests of 32 new tokens;
-5. checks and timings off the main path: the forward's device time with
+5. checks and timings off the main paths: the forward's device time with
    flash and with dense attention, one decode step's logits, kernel lane
    against gather lane, on one cache state, and torch.profiler breakdowns
-   of a forward and of a decode step (device busy share, time by kernel).
+   of a forward and of a decode step (device busy share, time by kernel);
+6. the training path: the same 1.3B model trained 5 steps through
+   ``Model.train_batch`` (AdamW, weight decay 0.01, global-norm clip 1.0,
+   linear warmup over cosine decay, ``GPTPretrainingCriterion``) on one
+   fixed [4, 1024] batch, attention forward on B1 and backward on B2 and
+   B3; the loss must be finite and fall, and each step must launch each
+   of the three kernels once per layer;
+7. checks and timings off the training path: a torch.profiler breakdown
+   of a train step (wall, device busy share, tokens/s, peak memory), and
+   one step's gradients through flash against dense attention on fresh
+   weights from the same seed.
 
 Every launch count is set to 0 just before phase 3 and read after phase
-4. The last two lines are a ``{"kernels": [...]}`` summary and
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-rest of the repository beside it, the script exits non-zero and prints
-no result.
+4, and again set to 0 just before phase 6 and read after it. The last two
+lines are a ``{"kernels": [...]}`` summary and ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or without the rest of the repository
+beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -50,6 +64,8 @@ PROMPT_LENS = [17, 64, 129, 255, 400, 513, 777, 900]
 
 TOL = {"fp32": 1e-4, "bf16": 2e-2}     # max abs error, kernel vs plain
 LOGIT_TOL = 2e-3                       # flash vs dense, and kernel vs gather
+GRAD_TOL = 1e-3     # flash vs dense train gradients, per tensor, of its max
+TRAIN_STEPS = 5
 
 
 def log(msg):
@@ -140,6 +156,108 @@ def check_flash(torch, fa_mod, gen):
                    "shape": f"B={b} S={sq} H={h} D={d} fp32 causal"}
         del q, k, v, out, lse, ref, ref_lse
     return row
+
+
+def check_flash_bwd(torch, fa_mod, gen):
+    """B2 and B3 against their plain versions at B=4, S=1024, H=16, D=128
+    (the training path's shape) with a random dO, plus the cases B1
+    runs. Error is max |kernel - plain| over max |plain|, per output.
+    Returns the summary rows of B2 and B3 for the main case (fp32,
+    causal, S=1024)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, d = 4, 16, 128
+    cases = [("fp32", torch.float32, 1024, 1024, True),
+             ("fp32", torch.float32, 1024, 1024, False),
+             ("bf16", torch.bfloat16, 1024, 1024, True),
+             ("bf16", torch.bfloat16, 1024, 1024, False),
+             ("fp32", torch.float32, 1000, 1000, True),
+             ("fp32", torch.float32, 512, 1024, True),
+             ("fp32", torch.float32, 1024, 640, False)]
+    rows = None
+    for name, dt, sq, skv, causal in cases:
+        q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
+        k = torch.randn(b, skv, h, d, generator=gen, device="cuda").to(dt)
+        v = torch.randn(b, skv, h, d, generator=gen, device="cuda").to(dt)
+        do = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
+        out, lse = fa_mod.flash_attention_fwd(q, k, v, causal=causal)
+        delta = fa_mod.attention_delta(out, do)
+        args = (q, k, v, do, lse, delta, causal)
+        dq = fa_mod.flash_attention_bwd_dq(*args)
+        dk, dv = fa_mod.flash_attention_bwd_dkv(*args)
+        rq = fa_mod.flash_attention_bwd_dq_plain(*args)
+        rk, rv = fa_mod.flash_attention_bwd_dkv_plain(*args)
+        torch.cuda.synchronize()
+        errs, abs_errs = {}, {}
+        for g, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+            if not bool(torch.isfinite(got.float()).all()):
+                raise RuntimeError(f"flash backward {g} is not finite")
+            abs_errs[g] = (got.float() - ref.float()).abs().max().item()
+            errs[g] = abs_errs[g] / ref.float().abs().max().item()
+        ok = all(e <= TOL[name] for e in errs.values())
+        extra = ""
+        if rows is None:
+            # independent of the plain version: the same formulas in f64
+            f64 = [x.double() for x in (q, k, v, do)]
+            o64, l64 = fa_mod.flash_attention_fwd_plain(*f64[:3], causal)
+            r64 = fa_mod.flash_attention_bwd_plain(*f64[:3], o64, l64,
+                                                   f64[3], causal)
+            e64 = max(((got.double() - ref).abs().max()
+                       / ref.abs().max()).item()
+                      for got, ref in zip((dq, dk, dv), r64))
+            extra = f" (vs float64 formulas {e64:.3e})"
+            ok = ok and e64 <= TOL[name]
+            del f64, o64, l64, r64
+        ms_dq = time_ms(lambda: fa_mod.flash_attention_bwd_dq(*args))
+        ms_dkv = time_ms(lambda: fa_mod.flash_attention_bwd_dkv(*args))
+        plain_dq = time_ms(lambda: fa_mod.flash_attention_bwd_dq_plain(*args),
+                           iters=3)
+        plain_dkv = time_ms(
+            lambda: fa_mod.flash_attention_bwd_dkv_plain(*args), iters=3)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        o_lib = sdpa(qt, kt, vt, is_causal=causal)
+        do_t = do.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            o_lib, (qt, kt, vt), do_t, retain_graph=True))
+        if causal:
+            pairs = sum(min(i + 1, skv) for i in range(sq))
+        else:
+            pairs = sq * skv
+        elem = q.element_size()
+        bhd = b * h * d
+        in_bytes = (2 * sq + 2 * skv) * bhd * elem + 2 * 4 * b * h * sq
+        peak = PEAK_FP32 if dt == torch.float32 else PEAK_BF16
+        b_dq = bound(6.0 * bhd * pairs, in_bytes + sq * bhd * elem, peak)
+        b_dkv = bound(8.0 * bhd * pairs, in_bytes + 2 * skv * bhd * elem,
+                      peak)
+        log(f"B2/B3 flash bwd {name} Sq={sq} Skv={skv} causal={causal}: "
+            f"max err/max dq {errs['dq']:.3e} dk {errs['dk']:.3e} "
+            f"dv {errs['dv']:.3e}{extra} (tol {TOL[name]:.0e}); "
+            f"B2 {ms_dq:.4f} ms (plain {plain_dq:.4f}, bound "
+            f"{b_dq[0]:.4f} {b_dq[1]}); B3 {ms_dkv:.4f} ms (plain "
+            f"{plain_dkv:.4f}, bound {b_dkv[0]:.4f} {b_dkv[1]}); "
+            f"B2+B3 {ms_dq + ms_dkv:.4f} ms vs sdpa backward {lib_ms:.4f} ms")
+        if not ok:
+            raise RuntimeError(f"flash backward kernels disagree with their "
+                               f"plain versions ({name}, Sq={sq}, "
+                               f"Skv={skv})")
+        if rows is None:
+            shape = f"B={b} S={sq} H={h} D={d} fp32 causal"
+            common = {"tolerance": TOL[name],
+                      "tolerance_of": "max |err| / max |plain|",
+                      "library_ms": lib_ms,
+                      "library": "sdpa backward, for B2+B3 together",
+                      "shape": shape}
+            rows = ({"max_abs_err": abs_errs["dq"],
+                     "max_err_over_max_ref": errs["dq"], "ms": ms_dq,
+                     "plain_ms": plain_dq, "bound_ms": b_dq[0],
+                     "bound_by": b_dq[1], **common},
+                    {"max_abs_err": max(abs_errs["dk"], abs_errs["dv"]),
+                     "max_err_over_max_ref": max(errs["dk"], errs["dv"]),
+                     "ms": ms_dkv, "plain_ms": plain_dkv,
+                     "bound_ms": b_dkv[0], "bound_by": b_dkv[1], **common})
+        del q, k, v, do, out, lse, delta, dq, dk, dv, rq, rk, rv, o_lib
+    return rows
 
 
 def check_paged(torch, pa_mod, gen):
@@ -386,6 +504,99 @@ def profile_forward(torch, model, rng, cfg, dev):
     return profile_steps(torch, f"forward {tuple(ids.shape)} flash", step, 2)
 
 
+def _counters(fa_mod):
+    return (fa_mod.flash_attention_fwd, fa_mod.flash_attention_bwd_dq,
+            fa_mod.flash_attention_bwd_dkv)
+
+
+def _train_model(torch, cfg, dev, impl, with_optimizer=True):
+    """GPT-3 1.3B wrapped in ``Model``, weights from seed 0, with AdamW
+    (weight decay 0.01, global-norm clip 1.0, linear warmup over cosine
+    decay) and the GPT criterion."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    net = GPTForCausalLM(GPTConfig(**cfg, attn_impl=impl), device=dev,
+                         seed=0)
+    opt = sched = None
+    if with_optimizer:
+        # GPT-3 1.3B's published peak lr, a short warmup for a 5-step run
+        sched = lr.LinearWarmup(lr.CosineAnnealingDecay(2e-4, T_max=1000),
+                                warmup_steps=2, start_lr=2e-5, end_lr=2e-4)
+        opt = AdamW(learning_rate=sched, parameters=net.parameters(),
+                    weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0),
+                    device=dev)
+    model = Model(net, device=dev)
+    model.prepare(opt, GPTPretrainingCriterion())
+    return model, sched
+
+
+def run_train(torch, fa_mod, ids, cfg, dev):
+    """Phase 6: TRAIN_STEPS train_batch calls of the 1.3B model on one
+    fixed batch, attention through B1, B2 and B3."""
+    model, sched = _train_model(torch, cfg, dev, "flash")
+    losses, walls = [], []
+    for step in range(TRAIN_STEPS):
+        before = [c.launches for c in _counters(fa_mod)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model.train_batch([ids], [ids])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        sched.step()
+        launched = [c.launches - b for c, b in zip(_counters(fa_mod), before)]
+        losses.append(loss)
+        log(f"train step {step + 1}: loss {loss:.6f} wall "
+            f"{walls[-1] * 1e3:.1f} ms, launches B1/B2/B3 {launched}")
+        if launched != [cfg["num_layers"]] * 3:
+            raise RuntimeError(f"train step {step + 1} launched B1/B2/B3 "
+                               f"{launched} times, not "
+                               f"{cfg['num_layers']} each")
+        if not math.isfinite(loss):
+            raise RuntimeError(f"train step {step + 1}: loss {loss}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the loss did not fall over {TRAIN_STEPS} "
+                           f"steps: {losses}")
+    return model, {"losses": losses, "step_wall_ms": [w * 1e3
+                                                      for w in walls]}
+
+
+def compare_train_grads(torch, ids, cfg, dev):
+    """One step's gradients through flash against dense attention, on
+    fresh weights from the same seed. k_proj.bias has a gradient that is
+    zero but for rounding (softmax ignores a score shift shared by all
+    keys), so it is held to that instead of to a relative error."""
+    model, _ = _train_model(torch, cfg, dev, "flash", with_optimizer=False)
+    net = model.network
+    model.train_batch([ids], [ids], update=False)
+    flash = {n: p.grad for n, p in net.named_parameters()}
+    net.zero_grad(set_to_none=True)
+    net.set_attn_impl("dense")
+    model.train_batch([ids], [ids], update=False)
+    top = max(float(g.abs().max()) for g in flash.values())
+    worst, worst_name, kbias = 0.0, None, 0.0
+    for n, p in net.named_parameters():
+        g_f, g_d = flash[n], p.grad
+        if n.endswith("k_proj.bias"):
+            kbias = max(kbias, float(g_f.abs().max()), float(g_d.abs().max()))
+            continue
+        rel = float((g_f - g_d).abs().max()) / float(g_d.abs().max())
+        if rel > worst:
+            worst, worst_name = rel, n
+    log(f"train gradients flash vs dense (1.3B, one step): worst max|diff|/"
+        f"max|dense| {worst:.3e} at {worst_name} (tol {GRAD_TOL}); "
+        f"k_proj.bias max |grad| {kbias:.3e} against the largest gradient "
+        f"{top:.3e}")
+    # rounding noise: far below what GRAD_TOL allows any other tensor
+    if worst > GRAD_TOL or kbias > 1e-4 * top:
+        raise RuntimeError("1.3B flash gradients disagree with dense")
+    del flash
+    return {"worst_rel": worst, "worst_param": worst_name,
+            "k_bias_max": kbias, "grad_max": top}
+
+
 def main() -> int:
     try:
         import torch
@@ -420,62 +631,124 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
+    def stamp(phase):
+        log(f"-- phase {phase} at {time.perf_counter() - t_start:.1f} s")
+
     # -- phase 1: build -----------------------------------------------------
+    stamp("1 build")
     t_build = kernel_build.build_all()
     log(f"build: {len(kernel_build.KERNEL_SOURCES)} kernels in "
         f"{t_build:.1f} s")
     for name, text in kernel_build.BUILD_LOGS.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            # the entry line names the instantiation (type, head dim)
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "error")):
                 log(f"  {name}: {line.strip()}")
 
     # -- phase 2: kernels against their plain versions -----------------------
+    stamp("2 kernels")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     b1 = check_flash(torch, fa_mod, gen)
+    b2, b3 = check_flash_bwd(torch, fa_mod, gen)
     b4 = check_paged(torch, pa_mod, gen)
     torch.cuda.empty_cache()
 
-    # -- phases 3 and 4: the main path ---------------------------------------
+    # -- phases 3 and 4: the serving path ------------------------------------
+    stamp("3-4 serving path")
     rng = np.random.default_rng(0)
     model = GPTForCausalLM(GPTConfig(**CFG_13B, attn_impl="flash"),
                            device=dev, seed=0).eval()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"model: GPT-3 1.3B, {n_params} parameters, fp32, random weights "
         f"(seed 0)")
-    fa_mod.flash_attention_fwd.launches = 0
-    pa_mod.paged_attention.launches = 0
+    all_counters = (*_counters(fa_mod), pa_mod.paged_attention)
+    for c in all_counters:
+        c.launches = 0
     torch.cuda.reset_peak_memory_stats()
     run_forward(torch, model, fa_mod, rng, CFG_13B, dev)
     serve = run_serving(torch, model, pa_mod, rng, card, CFG_13B,
                         PROMPT_LENS)
-    launches = {"flash_attention_fwd": fa_mod.flash_attention_fwd.launches,
-                "paged_attention": pa_mod.paged_attention.launches}
-    log(f"main path launches: {launches}; peak device memory "
+    serve_launches = {c.__name__: c.launches for c in all_counters}
+    log(f"serving path launches: {serve_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for name, n in launches.items():
-        if n < 1:
+    for name in ("flash_attention_fwd", "paged_attention"):
+        if serve_launches[name] < 1:
             raise RuntimeError(f"kernel {name} was not launched on the "
-                               f"main path")
+                               f"serving path")
     torch.cuda.empty_cache()
+    stamp("5 serving checks")
     time_forward(torch, model, rng, CFG_13B, dev)
     profile_forward(torch, model, rng, CFG_13B, dev)
     dec, kv, params, last = compare_lanes(torch, model, rng, CFG_13B,
                                           PROMPT_LENS, dev)
     profile_decode(torch, dec, kv, params, last, dev)
+    del model, dec, kv, params, last
+    torch.cuda.empty_cache()
 
-    # -- phase 6: summary ----------------------------------------------------
+    # -- phase 6: the training path ------------------------------------------
+    stamp("6 training path")
+    ids = rng.integers(0, CFG_13B["vocab_size"],
+                       (4, CFG_13B["max_position_embeddings"]))
+    for c in all_counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    train_model, train = run_train(torch, fa_mod, ids, CFG_13B, dev)
+    train_launches = {c.__name__: c.launches for c in all_counters}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"training path launches: {train_launches}; losses "
+        f"{[round(x, 6) for x in train['losses']]}; peak device memory "
+        f"{peak:.2f} GiB")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        if train_launches[name] < 1:
+            raise RuntimeError(f"kernel {name} was not launched on the "
+                               f"training path")
+
+    # -- phase 7: off the training path --------------------------------------
+    stamp("7 training checks")
+    prof = profile_steps(torch, f"train step {tuple(ids.shape)} flash",
+                         lambda: train_model.train_batch([ids], [ids]), 2)
+    tokens = ids.size
+    log(f"train step: wall {prof['wall_ms']:.1f} ms, "
+        f"{tokens / prof['wall_ms'] * 1e3:.1f} tokens/s, device busy "
+        f"{100 * prof['device_ms'] / prof['wall_ms']:.1f}%, peak device "
+        f"memory {peak:.2f} GiB")
+    del train_model
+    torch.cuda.empty_cache()
+    grads = compare_train_grads(torch, ids, CFG_13B, dev)
+    torch.cuda.empty_cache()
+
+    # -- phase 8: summary ----------------------------------------------------
+    def launches(name):
+        return {"launches": serve_launches[name] + train_launches[name],
+                "launches_by_path": {"serving": serve_launches[name],
+                                     "training": train_launches[name]}}
+
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces="paddle_tpu/ops/pallas_attention.py:67",
-             launches=launches["flash_attention_fwd"], status="ok", **b1),
+             **launches("flash_attention_fwd"), status="ok", **b1),
+        dict(name="flash_attention_bwd_dq", route="cuda",
+             source="paddle_tpu_torch/csrc/flash_attention_bwd_dq.cu",
+             replaces="paddle_tpu/ops/pallas_attention.py:189",
+             **launches("flash_attention_bwd_dq"), status="ok", **b2),
+        dict(name="flash_attention_bwd_dkv", route="cuda",
+             source="paddle_tpu_torch/csrc/flash_attention_bwd_dkv.cu",
+             replaces="paddle_tpu/ops/pallas_attention.py:227",
+             **launches("flash_attention_bwd_dkv"), status="ok", **b3),
         dict(name="paged_attention", route="cuda",
              source="paddle_tpu_torch/csrc/paged_attention.cu",
              replaces="paddle_tpu/ops/paged_attention.py:76",
-             launches=launches["paged_attention"], status="ok", **b4),
+             **launches("paged_attention"), status="ok", **b4),
     ]
     log(f"serving: {json.dumps(serve)}")
+    log("training: " + json.dumps(dict(
+        train, **grads, peak_gib=peak, step_ms=prof["wall_ms"],
+        device_busy_ms=prof["device_ms"],
+        tokens_per_s=tokens / prof["wall_ms"] * 1e3)))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

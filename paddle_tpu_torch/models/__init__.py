@@ -1,4 +1,5 @@
 """Models of the port (counterpart of ``paddle_tpu/models``)."""
-from .gpt import GPTConfig, GPTForCausalLM, GPTModel
+from .gpt import GPTConfig, GPTForCausalLM, GPTModel, GPTPretrainingCriterion
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel"]
+__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel",
+           "GPTPretrainingCriterion"]

@@ -1,6 +1,6 @@
 """GPT: the decoder-only causal language model (counterpart of
-``paddle_tpu/models/gpt.py``: ``GPTConfig``, ``GPTModel`` and
-``GPTForCausalLM``).
+``paddle_tpu/models/gpt.py``: ``GPTConfig``, ``GPTModel``,
+``GPTForCausalLM`` and ``GPTPretrainingCriterion``).
 
 Pre-norm transformer blocks, a final LayerNorm and an LM head tied to the
 word embedding (``logits = h @ tok.T``). Parameter names match the JAX
@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..core.device import DeviceLike, resolve_device
+from ..nn.functional.loss import cross_entropy
 from ..nn.layers_common import Dropout, Embedding, LayerNorm, reset_parameters
 from ..nn.transformer import (CAUSAL_MASK, TransformerEncoder,
                               TransformerEncoderLayer)
@@ -105,3 +106,13 @@ class GPTForCausalLM(nn.Module):
     def forward(self, input_ids, position_ids=None):
         h = self.gpt(input_ids, position_ids)
         return torch.matmul(h, self.gpt.word_embeddings.weight.t())
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Shifted next-token cross entropy: the logits at position ``t``
+    predict ``labels[:, t + 1]``, mean over the ``B * (S - 1)`` targets."""
+
+    def forward(self, logits, labels):
+        v = logits.shape[-1]
+        return cross_entropy(logits[:, :-1, :].reshape(-1, v),
+                             labels[:, 1:].reshape(-1))

@@ -97,9 +97,11 @@ class Embedding(nn.Module):
 
 class Dropout(nn.Module):
     """paddle's Dropout (``upscale_in_train`` by default). Its mask comes
-    from the device's default generator: the serving path runs with
-    dropout off, and a generator per layer would not survive the deep
-    copies ``TransformerEncoder`` makes."""
+    from the port's seeded generator of the input's device
+    (``core/generator.py``; :func:`paddle_tpu_torch.seed` fixes it), not
+    from torch's global default generator. The layer holds no generator
+    of its own, so the deep copies ``TransformerEncoder`` makes share
+    one stream."""
 
     def __init__(self, p: float = 0.5, mode: str = "upscale_in_train"):
         super().__init__()

@@ -22,7 +22,8 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 #: the kernels of the port, by source name under ``csrc/``
-KERNEL_SOURCES = ("flash_attention_fwd", "paged_attention")
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv", "paged_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

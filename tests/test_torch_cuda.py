@@ -160,3 +160,122 @@ def test_paged_engine_kernel_lane_matches_gather_lane(cuda):
                             if impl == "kernel" else 0)
     assert tokens["kernel"] == tokens["gather"]
     assert all(len(t) == 8 for t in tokens["kernel"])
+
+
+def _bwd_case(cuda, dtype, b, sq, skv, h, d, causal, seed=9):
+    q, k, v, do = (torch.from_numpy(x).to(cuda, dtype) for x in
+                   (*_qkv(seed, b, sq, skv, h, d),
+                    np.random.default_rng(seed + 1).standard_normal(
+                        (b, sq, h, d), dtype=np.float32)))
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=causal)
+    return q, k, v, do, out, lse, tfa.attention_delta(out, do)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(2, 128, 128, 4, 64, True),
+                                   (1, 100, 100, 2, 128, True),
+                                   (2, 48, 130, 2, 32, True),
+                                   (2, 130, 48, 2, 32, True),
+                                   (2, 64, 200, 2, 32, False)])
+def test_flash_backward_kernels_match_plain(cuda, dtype, tol, shape):
+    b, sq, skv, h, d, causal = shape
+    q, k, v, do, out, lse, delta = _bwd_case(cuda, dtype, *shape)
+    before = (tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    assert (tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                        delta=delta)
+    for got, want in zip((dq, dk, dv), ref):
+        assert got.dtype == dtype
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=tol * scale)
+
+
+def test_flash_backward_kernels_read_strided_inputs_and_grad_dtypes(cuda):
+    """q/k/v/dO as column slices of packed tensors, read through strides;
+    f32 gradients from bf16 inputs (the ring-flash grad_dtypes contract)."""
+    b, s, h, d = 2, 96, 2, 64
+    qkv = torch.randn(b, s, 3 * h * d, device=cuda)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    do = torch.randn(b, s, 2 * h * d, device=cuda)[..., :h * d].reshape(
+        b, s, h, d)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    qb, kb, vb, dob = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    out, lse = tfa.flash_attention_fwd(qb, kb, vb, causal=True)
+    f32 = (torch.float32,) * 3
+    got = tfa.flash_attention_bwd(qb, kb, vb, out, lse, dob, True,
+                                  grad_dtypes=f32)
+    want = tfa.flash_attention_bwd_plain(qb, kb, vb, out, lse, dob, True,
+                                         grad_dtypes=f32)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_backward_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v, do, out, lse, delta = _bwd_case(cuda, torch.float32, 1, 32, 32,
+                                             2, 64, True)
+    with pytest.raises(TypeError, match="gradient dtype"):
+        tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True,
+                                   dtype=torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                    delta.transpose(1, 2).contiguous()
+                                    .transpose(1, 2), True)
+    with pytest.raises(ValueError, match="dout"):
+        tfa.flash_attention_bwd_dq(q, k, v, do.to(torch.bfloat16), lse,
+                                   delta, True)
+    q96 = torch.zeros(1, 8, 2, 96, device=cuda)
+    lse96 = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_bwd_dkv(q96, q96, q96, q96, lse96, lse96)
+
+
+def test_train_batch_through_flash_kernels_matches_dense(cuda):
+    """One AdamW train_batch of a 2-layer GPT on the card: the flash step
+    launches B1, B2 and B3 once per layer, and its loss, gradients and
+    updated weights equal the dense-attention step's."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    ids = np.random.default_rng(2).integers(0, MODEL["vocab_size"], (3, 64))
+    res = {}
+    for impl in ("flash", "dense"):
+        counters = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                    tfa.flash_attention_bwd_dkv)
+        before = [c.launches for c in counters]
+        net = GPTForCausalLM(GPTConfig(**MODEL, attn_impl=impl),
+                             device=cuda, seed=0)
+        model = Model(net)
+        model.prepare(AdamW(learning_rate=1e-3, parameters=net.parameters(),
+                            epsilon=1e-6, grad_clip=ClipGradByGlobalNorm(1.0)),
+                      GPTPretrainingCriterion())
+        model.train_batch([ids], [ids], update=False)
+        grads = {n: p.grad.clone() for n, p in net.named_parameters()}
+        net.zero_grad(set_to_none=True)
+        loss, _ = model.train_batch([ids], [ids])
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        res[impl] = (loss, grads, {n: p.detach().clone()
+                                   for n, p in net.named_parameters()})
+        want = 2 * MODEL["num_layers"] if impl == "flash" else 0
+        assert launched == [want] * 3, (impl, launched)
+    assert abs(res["flash"][0] - res["dense"][0]) < 1e-4
+    for n, g in res["dense"][1].items():
+        if n.endswith("k_proj.bias"):
+            continue       # zero up to rounding: softmax is shift invariant
+        torch.testing.assert_close(res["flash"][1][n], g, rtol=0,
+                                   atol=1e-3 * float(g.abs().max()))
+    for n, p in res["dense"][2].items():
+        torch.testing.assert_close(res["flash"][2][n], p, rtol=0, atol=1e-5)
