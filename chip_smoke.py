@@ -30,13 +30,24 @@ Phases (any failure raises and the script exits non-zero):
 7. checks and timings off the training path: a torch.profiler breakdown
    of a train step (wall, device busy share, tokens/s, peak memory), and
    one step's gradients through flash against dense attention on fresh
-   weights from the same seed.
+   weights from the same seed;
+8. the detection path: YOLOv3-DarkNet53 (80 classes, width 1.0, COCO
+   anchors, random weights from seed 0, fp32, eval) serving 16 single
+   608x608 images submitted at once through the dynamic-batching
+   ``Engine`` (buckets 1/2/4/8, 50 ms batching delay), then 3 windows
+   of 64 more through the warm engine, timed for images/s; each batch is one
+   forward and one ``decode`` whose greedy NMS runs on B5;
+9. checks and timings off the detection path: the forward's device time
+   at batch 8, decode's time split into yolo_box, top-k, IoU and B5, the
+   kernel lane's detections against the plain lane's on the same IoU
+   (bitwise), and a torch.profiler breakdown of one served batch.
 
 Every launch count is set to 0 just before phase 3 and read after phase
-4, and again set to 0 just before phase 6 and read after it. The last two
-lines are a ``{"kernels": [...]}`` summary and ``{"ok": true, "device":
-{...}}``. Without a CUDA device, or without the rest of the repository
-beside it, the script exits non-zero and prints no result.
+4, set to 0 again just before phase 6 and read after it, and again just
+before phase 8 and read after it. The last two lines are a
+``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the rest of the repository beside it,
+the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -46,6 +57,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 # GPT-3 1.3B (the repository's flagship serving and training config)
 CFG_13B = dict(vocab_size=50304, hidden_size=2048, num_layers=24,
@@ -61,6 +74,15 @@ PEAK_BYTES = 3.35e12
 
 #: prompt lengths of the 8 serving requests
 PROMPT_LENS = [17, 64, 129, 255, 400, 513, 777, 900]
+
+#: YOLOv3-DarkNet53 at PaddleDetection's eval size, and decode's defaults
+DET_CLASSES = 80
+DET_SIZE = 608
+DET_REQUESTS = 16
+DET_WINDOW = 64     # requests of each timed window after the burst
+DET_WINDOWS = 3
+DET_DECODE = dict(conf_thresh=0.01, nms_thresh=0.45, nms_top_k=400,
+                  keep_top_k=100)
 
 TOL = {"fp32": 1e-4, "bf16": 2e-2}     # max abs error, kernel vs plain
 LOGIT_TOL = 2e-3                       # flash vs dense, and kernel vs gather
@@ -303,6 +325,91 @@ def check_paged(torch, pa_mod, gen):
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "tolerance": TOL["fp32"],
             "shape": f"S={s_n} H={h} D={d} page={page} pages/seq={pps} fp32"}
+
+
+def _nms_case(torch, det_mod, gen, p_n, k, kind="boxes", side=608.0):
+    """iou [P, k, k], valid [P, k] int32, thr [P] on the card: the IoU of
+    random boxes at the detection path's density (a 608 px image, box
+    sides 10 to 300 px) or a random asymmetric matrix; ~15% invalid
+    rows and one problem with none valid."""
+    if kind == "asymmetric":
+        iou = torch.rand(p_n, k, k, generator=gen, device="cuda")
+    else:
+        c = torch.rand(p_n, k, 2, generator=gen, device="cuda") * side
+        wh = 10 + torch.rand(p_n, k, 2, generator=gen, device="cuda") * 290
+        boxes = torch.cat([c - wh / 2, c + wh / 2], dim=-1)
+        iou = det_mod._pairwise_iou(boxes, boxes)
+    valid = (torch.rand(p_n, k, generator=gen, device="cuda") < 0.85
+             ).to(torch.int32)
+    valid[0] = 0
+    thr = torch.full((p_n,), 0.45, device="cuda")
+    return iou.contiguous(), valid, thr
+
+
+def nms_bound(torch, valid, kept):
+    """B5's byte bound for this data: the fewest overlaps any greedy NMS
+    must read. A kept candidate is proven kept only by reading its
+    overlap with every earlier kept one (K * (K - 1) / 2 reads for K
+    kept); a suppressed one needs one overlap above the threshold; an
+    invalid one needs none. Plus valid and thr in and kept out. The
+    operations (one compare per overlap read) are far below the byte
+    time. Also the bound of reading every matrix whole, P * k * k * 4
+    bytes."""
+    p_n, k = valid.shape
+    n_kept = (kept != 0).sum(1).to(torch.int64)
+    n_valid = (valid != 0).sum(1).to(torch.int64)
+    reads = int((n_kept * (n_kept - 1) // 2 + n_valid - n_kept).sum().item())
+    io = 2 * p_n * k * 4 + p_n * 4
+    return ((reads * 4 + io) / PEAK_BYTES * 1e3,
+            (p_n * k * k * 4 + io) / PEAK_BYTES * 1e3)
+
+
+def check_nms(torch, nms_mod, det_mod, gen):
+    """B5 against its plain version, bit for bit (integer masks): P=640
+    problems of k=400 (a batch of 8 images x 80 classes at nms_top_k
+    400), the same with eta 0.9, k=1, k=45 (not a multiple of 32), an
+    asymmetric IoU, and rows with valid 0 in every case. Returns the
+    summary row of the main case."""
+    cases = [("main", 640, 400, "boxes", 1.0),
+             ("eta0.9", 640, 400, "boxes", 0.9),
+             ("k1", 64, 1, "boxes", 1.0),
+             ("k45", 64, 45, "boxes", 1.0),
+             ("asymmetric", 64, 77, "asymmetric", 1.0),
+             ("asymmetric_eta0.7", 64, 77, "asymmetric", 0.7)]
+    row = None
+    for name, p_n, k, kind, eta in cases:
+        iou, valid, thr = _nms_case(torch, det_mod, gen, p_n, k, kind)
+        kept = nms_mod.greedy_nms(iou, valid, thr, eta)
+        ref = nms_mod.greedy_nms_plain(iou, valid, thr, eta)
+        torch.cuda.synchronize()
+        mism = int((kept != ref).sum().item())
+        err = (kept - ref).abs().max().item()
+        n_kept = int(kept.sum().item())
+        ok = mism == 0 and int(kept[0].sum().item()) == 0
+        log(f"B5 greedy NMS {name} P={p_n} k={k} eta={eta}: {mism} "
+            f"mismatches (bit-exact required), {n_kept} kept of "
+            f"{int(valid.sum().item())} valid")
+        if not ok:
+            raise RuntimeError(f"greedy NMS kernel disagrees with its plain "
+                               f"version ({name})")
+        if row is None:
+            ms = time_ms(lambda: nms_mod.greedy_nms(iou, valid, thr, eta))
+            plain_ms = time_ms(
+                lambda: nms_mod.greedy_nms_plain(iou, valid, thr, eta),
+                iters=3)
+            bms, full_ms = nms_bound(torch, valid, kept)
+            log(f"B5 main case: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"bound {bms:.4f} ms (bytes this data needs; reading every "
+                f"matrix whole: {full_ms:.4f} ms), {n_kept / p_n:.1f} kept "
+                f"per problem; no single PyTorch call computes greedy NMS "
+                f"(torchvision is not installed): library null")
+            row = {"max_abs_err": err, "mismatches": mism, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bms, "bound_by": "bytes",
+                   "bound_ms_full_iou": full_ms, "library_ms": None,
+                   "tolerance": 0, "kept_per_problem": n_kept / p_n,
+                   "shape": f"P={p_n} k={k} eta={eta} random boxes"}
+        del iou, valid, thr, kept, ref
+    return row
 
 
 def run_forward(torch, model, fa_mod, rng, cfg, dev):
@@ -597,6 +704,198 @@ def compare_train_grads(torch, ids, cfg, dev):
             "k_bias_max": kbias, "grad_max": top}
 
 
+def _det_batch(torch, rng, n, dev):
+    """n random 608x608 images in [0, 1) and their sizes, on the card."""
+    img = torch.from_numpy(rng.random((n, 3, DET_SIZE, DET_SIZE),
+                                      dtype=np.float32)).to(dev)
+    hw = torch.full((n, 2), DET_SIZE, dtype=torch.int32, device=dev)
+    return img, hw
+
+
+def _det_serve_fn(torch, model):
+    def serve(img, hw):
+        with torch.inference_mode():
+            return model.decode(model(img), hw, **DET_DECODE)
+    return serve
+
+
+def run_detection(torch, model, rng, card, dev, reset_counters):
+    """Phase 8: 16 single-image requests, submitted at once, through the
+    Engine, then DET_WINDOWS windows of DET_WINDOW more, timed for a
+    rate (the median window's); every
+    future resolves with dets [1, 100, 6] and a count <= 100. One warm-up
+    batch of 8 goes first through the same engine: PyTorch keeps cuDNN's
+    execution plans per thread, so the worker's first batch builds them
+    (its time is logged as the cold batch). ``reset_counters`` runs after
+    it, just before the 16 requests."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig
+    eng = Engine(_det_serve_fn(torch, model),
+                 EngineConfig(batch_buckets=(1, 2, 4, 8), max_batch=8,
+                              max_batch_delay=0.05), device=dev)
+    eng.submit([rng.random((8, 3, DET_SIZE, DET_SIZE), dtype=np.float32),
+                np.full((8, 2), DET_SIZE, np.int32)]).result(timeout=600)
+    cold = eng.stats()["histograms"]["serving.batch_exec_ms"]["sum"]
+    reqs = [[rng.random((1, 3, DET_SIZE, DET_SIZE), dtype=np.float32),
+             np.full((1, 2), DET_SIZE, np.int32)]
+            for _ in range(DET_REQUESTS)]
+    window = rng.random((DET_WINDOW, 3, DET_SIZE, DET_SIZE), dtype=np.float32)
+    reset_counters()
+    done = []
+    t0 = time.perf_counter()
+    futs = eng.submit_many(reqs)
+    for f in futs:
+        f.add_done_callback(lambda _f: done.append(time.perf_counter()))
+    results = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    lat = (np.array(done) - t0) * 1e3
+    bex, fill = (st["histograms"][f"serving.{k}"]
+                 for k in ("batch_exec_ms", "batch_fill"))
+    batches = st["stats"]["serving.batches"] - 1
+    bex_mean = (bex["sum"] - cold) / batches
+    fill_mean = (fill["sum"] - 1.0) / batches
+    counts = [int(c[0]) for _, c in results]
+    log(f"serving YOLOv3-DarkNet53 {DET_SIZE}x{DET_SIZE} ({model.num_classes}"
+        f" classes) on {card}: burst of {len(results)} requests (a smoke "
+        f"figure from {batches} batches, not a rate) in {wall:.3f} s; "
+        f"latency p50 {np.median(lat):.1f} ms max {lat.max():.1f} ms; "
+        f"batch_exec_ms mean {bex_mean:.1f} (cold first batch {cold:.1f}),"
+        f" batch_fill mean {fill_mean:.3f}; detections per image {counts}")
+    # a rate: DET_WINDOWS windows of DET_WINDOW more requests at once
+    # through the warm engine, each from its first submit to its last
+    # result; the host's clock varies between windows, so all are kept
+    rates, win_results, done_sum = [], [], bex["sum"]
+    n_batches = batches + 1
+    for w in range(DET_WINDOWS):
+        win_done = []
+        t0 = time.perf_counter()
+        futs = eng.submit_many([[window[i:i + 1],
+                                 np.full((1, 2), DET_SIZE, np.int32)]
+                                for i in range(DET_WINDOW)])
+        for f in futs:
+            f.add_done_callback(
+                lambda _f: win_done.append(time.perf_counter()))
+        win_results += [f.result(timeout=600) for f in futs]
+        win_wall = time.perf_counter() - t0
+        st2 = eng.stats()
+        w_batches = st2["stats"]["serving.batches"] - n_batches
+        bex_sum = st2["histograms"]["serving.batch_exec_ms"]["sum"]
+        w_bex = (bex_sum - done_sum) / w_batches
+        n_batches, done_sum = n_batches + w_batches, bex_sum
+        rates.append(DET_WINDOW / win_wall)
+        # batch completion times: where the window's wall goes
+        ends = sorted(round((t - t0) * 1e3) for t in win_done)
+        ends = [e for i, e in enumerate(ends) if i == 0 or e - ends[i - 1] > 5]
+        log(f"window {w + 1} of {DET_WINDOW} requests: {win_wall:.3f} s = "
+            f"{rates[-1]:.2f} images/s over {w_batches} batches, "
+            f"batch_exec_ms mean {w_bex:.1f}; batches done at (ms) {ends}")
+    eng.drain(timeout=60)
+    for dets, cnt in results + win_results:
+        if dets.shape != (1, DET_DECODE["keep_top_k"], 6) \
+                or cnt.shape != (1,) or cnt.dtype != np.int32 \
+                or not 0 <= int(cnt[0]) <= DET_DECODE["keep_top_k"] \
+                or not np.isfinite(dets).all():
+            raise RuntimeError(f"bad detection result {dets.shape} {cnt}")
+        if (dets[0, int(cnt[0]):, 0] != -1).any():
+            raise RuntimeError("padding rows must carry label -1")
+    return {"burst_s": wall, "burst_latency_ms_p50": float(np.median(lat)),
+            "burst_latency_ms_max": float(lat.max()), "burst_batches": batches,
+            "batch_exec_ms_mean": bex_mean, "cold_batch_ms": cold,
+            "batch_fill": fill_mean, "detections": counts,
+            "images_per_s": float(np.median(rates)),
+            "images_per_s_by_window": rates}
+
+
+def detection_checks(torch, model, nms_mod, det_mod, rng, dev):
+    """Phase 9, on one batch of 8: the forward's device time, decode's
+    time split, the kernel lane against the plain lane on the same IoU,
+    and a profile of one served batch."""
+    img, hw = _det_batch(torch, rng, 8, dev)
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(img), iters=3, warmup=1)
+        outs = model(img)
+        dec_ms = time_ms(lambda: model.decode(outs, hw, **DET_DECODE),
+                         iters=3, warmup=1)
+        boxes, scores = [], []
+
+        def heads():
+            boxes.clear()
+            scores.clear()
+            for out, mask, ds in zip(outs, model.anchor_masks,
+                                     model.downsamples):
+                anchors = []
+                for i in mask:
+                    anchors += model.anchors[2 * i:2 * i + 2]
+                b, s_ = det_mod.yolo_box(
+                    out, hw, anchors=anchors, class_num=model.num_classes,
+                    conf_thresh=DET_DECODE["conf_thresh"],
+                    downsample_ratio=ds)
+                boxes.append(b)
+                scores.append(s_.transpose(1, 2))
+            return torch.cat(boxes, 1), torch.cat(scores, 2)
+
+        yb_ms = time_ms(heads, iters=3, warmup=1)
+        bb, sc = heads()
+        k = DET_DECODE["nms_top_k"]
+        topk_ms = time_ms(lambda: det_mod._top_k(sc, k), iters=3, warmup=1)
+        top_s, order = det_mod._top_k(sc, k)
+        cand = torch.gather(bb[:, None].expand(*sc.shape, 4), -2,
+                            order[..., None].expand(*order.shape, 4))
+        iou_ms = time_ms(lambda: det_mod._pairwise_iou(cand, cand), iters=3,
+                         warmup=1)
+        t_s, labels, cand, iou = det_mod._class_candidates(
+            bb, sc, k, True, -1)
+        n, c_n = t_s.shape[:2]
+        p_n = n * c_n
+        valid = (t_s > DET_DECODE["conf_thresh"]).reshape(p_n, k).to(
+            torch.int32).contiguous()
+        iou_f = iou.reshape(p_n, k, k)
+        thr = torch.full((p_n,), DET_DECODE["nms_thresh"], device=dev)
+        b5_ms = time_ms(lambda: nms_mod.greedy_nms(iou_f, valid, thr),
+                        iters=5, warmup=1)
+        kept_k = nms_mod.greedy_nms(iou_f, valid, thr).reshape(n, c_n, k)
+        kept_p = nms_mod.greedy_nms_plain(iou_f, valid, thr).reshape(
+            n, c_n, k)
+        sel_ms = time_ms(lambda: det_mod._select_detections(
+            t_s, labels, cand, kept_k != 0, DET_DECODE["keep_top_k"]),
+            iters=3, warmup=1)
+        dk, ck = det_mod._select_detections(t_s, labels, cand, kept_k != 0,
+                                            DET_DECODE["keep_top_k"])
+        dp, cp = det_mod._select_detections(t_s, labels, cand, kept_p != 0,
+                                            DET_DECODE["keep_top_k"])
+        dm, cm = model.decode(outs, hw, **DET_DECODE)
+        torch.cuda.synchronize()
+    same = (torch.equal(kept_k, kept_p) and torch.equal(dk, dp)
+            and torch.equal(ck, cp) and torch.equal(dk, dm)
+            and torch.equal(ck, cm))
+    n_valid = int(valid.sum().item())
+    n_kept = int(kept_k.sum().item())
+    b5_bound, _ = nms_bound(torch, valid, kept_k.reshape(p_n, k))
+    iou_mb = iou_f.numel() * 4 / 1e6
+    log(f"YOLOv3 batch 8: forward {fwd_ms:.2f} ms device; decode "
+        f"{dec_ms:.2f} ms = yolo_box x3 {yb_ms:.2f} + candidate top-k "
+        f"{topk_ms:.2f} + IoU {iou_ms:.2f} ({iou_mb:.0f} MB) + B5 "
+        f"{b5_ms:.3f} (P={p_n}, k={k}, {n_valid} valid, {n_kept} kept, "
+        f"bound {b5_bound:.4f} ms) + final top-k/select {sel_ms:.2f} ms "
+        f"(parts timed apart; the rest is gathers and reshapes)")
+    log(f"kernel lane vs plain lane on the same IoU: masks, dets and counts "
+        f"equal {same}; counts {ck.tolist()}")
+    if not same:
+        raise RuntimeError("B5 lane detections differ from the plain lane")
+    serve = _det_serve_fn(torch, model)
+
+    def step():
+        serve(img, hw)
+        torch.cuda.synchronize()
+
+    prof = profile_steps(torch, "served detection batch of 8", step, 2)
+    return {"forward_ms": fwd_ms, "decode_ms": dec_ms, "yolo_box_ms": yb_ms,
+            "topk_ms": topk_ms, "iou_ms": iou_ms, "b5_ms": b5_ms,
+            "b5_bound_ms": b5_bound, "select_ms": sel_ms, "batch_wall_ms": prof["wall_ms"],
+            "batch_device_ms": prof["device_ms"], "kept": n_kept,
+            "valid": n_valid}
+
+
 def main() -> int:
     try:
         import torch
@@ -613,12 +912,14 @@ def main() -> int:
         from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
         from paddle_tpu_torch.ops import kernel_build
         from paddle_tpu_torch.ops import flash_attention as fa_mod
+        from paddle_tpu_torch.ops import custom as nms_mod
+        from paddle_tpu_torch.ops import detection as det_mod
         from paddle_tpu_torch.ops import paged_attention as pa_mod
+        from paddle_tpu_torch.vision.models import yolov3_darknet53
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is not beside "
               f"this script ({e})", file=sys.stderr)
         return 2
-    import numpy as np
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -653,6 +954,7 @@ def main() -> int:
     b1 = check_flash(torch, fa_mod, gen)
     b2, b3 = check_flash_bwd(torch, fa_mod, gen)
     b4 = check_paged(torch, pa_mod, gen)
+    b5 = check_nms(torch, nms_mod, det_mod, gen)
     torch.cuda.empty_cache()
 
     # -- phases 3 and 4: the serving path ------------------------------------
@@ -663,7 +965,8 @@ def main() -> int:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"model: GPT-3 1.3B, {n_params} parameters, fp32, random weights "
         f"(seed 0)")
-    all_counters = (*_counters(fa_mod), pa_mod.paged_attention)
+    all_counters = (*_counters(fa_mod), pa_mod.paged_attention,
+                    nms_mod.greedy_nms)
     for c in all_counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -720,11 +1023,42 @@ def main() -> int:
     grads = compare_train_grads(torch, ids, CFG_13B, dev)
     torch.cuda.empty_cache()
 
-    # -- phase 8: summary ----------------------------------------------------
+    # -- phase 8: the detection path -----------------------------------------
+    stamp("8 detection path")
+    det_model = yolov3_darknet53(num_classes=DET_CLASSES, device=dev,
+                                 seed=0).eval()
+    n_params = sum(p.numel() for p in det_model.parameters())
+    log(f"model: YOLOv3-DarkNet53, {DET_CLASSES} classes, {n_params} "
+        f"parameters, fp32, eval, random weights (seed 0)")
+    def reset_counters():
+        for c in all_counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+
+    det = run_detection(torch, det_model, rng, card, dev, reset_counters)
+    det_launches = {c.__name__: c.launches for c in all_counters}
+    det["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"detection path launches: {det_launches}; peak device memory "
+        f"{det['peak_gib']:.2f} GiB")
+    if det_launches["greedy_nms"] < 1:
+        raise RuntimeError("kernel greedy_nms was not launched on the "
+                           "detection path")
+
+    # -- phase 9: off the detection path -------------------------------------
+    stamp("9 detection checks")
+    det.update(detection_checks(torch, det_model, nms_mod, det_mod, rng,
+                                dev))
+    del det_model
+    torch.cuda.empty_cache()
+
+    # -- phase 10: summary ---------------------------------------------------
+    paths = {"serving": serve_launches, "training": train_launches,
+             "detection": det_launches}
+
     def launches(name):
-        return {"launches": serve_launches[name] + train_launches[name],
-                "launches_by_path": {"serving": serve_launches[name],
-                                     "training": train_launches[name]}}
+        by_path = {k: v[name] for k, v in paths.items()}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
 
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
@@ -743,12 +1077,17 @@ def main() -> int:
              source="paddle_tpu_torch/csrc/paged_attention.cu",
              replaces="paddle_tpu/ops/paged_attention.py:76",
              **launches("paged_attention"), status="ok", **b4),
+        dict(name="greedy_nms", route="cuda",
+             source="paddle_tpu_torch/csrc/greedy_nms.cu",
+             replaces="paddle_tpu/ops/custom.py:109",
+             **launches("greedy_nms"), status="ok", **b5),
     ]
     log(f"serving: {json.dumps(serve)}")
     log("training: " + json.dumps(dict(
         train, **grads, peak_gib=peak, step_ms=prof["wall_ms"],
         device_busy_ms=prof["device_ms"],
         tokens_per_s=tokens / prof["wall_ms"] * 1e3)))
+    log(f"detection: {json.dumps(det)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

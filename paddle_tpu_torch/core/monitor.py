@@ -1,5 +1,5 @@
 """Named counters, gauges and histograms (counterpart of the parts of
-``paddle_tpu/core/monitor.py`` the LLM engine uses). A registry is an
+``paddle_tpu/core/monitor.py`` the serving engines use). A registry is an
 object its owner creates; there is no process-wide default."""
 from __future__ import annotations
 
@@ -22,51 +22,6 @@ class _Histogram:
         self.vmin = float("inf")
         self.vmax = float("-inf")
         self.samples = deque(maxlen=max_samples)
-
-    def observe(self, value: Number):
-        v = float(value)
-        self.count += 1
-        self.total += v
-        self.vmin = min(self.vmin, v)
-        self.vmax = max(self.vmax, v)
-        self.samples.append(v)
-
-    def summary(self) -> Dict[str, float]:
-        xs = sorted(self.samples)
-
-        def _q(q):
-            if not xs:
-                return 0.0
-            pos = q * (len(xs) - 1)
-            lo = int(pos)
-            hi = min(lo + 1, len(xs) - 1)
-            return xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
-
-        n = self.count
-        return {"count": n, "sum": self.total,
-                "min": self.vmin if n else 0.0,
-                "max": self.vmax if n else 0.0,
-                "mean": self.total / n if n else 0.0,
-                "p50": _q(0.50), "p95": _q(0.95), "p99": _q(0.99)}
-
-
-class StatRegistry:
-    """Thread-safe scalar stats (``add``/``set``) and histograms
-    (``observe``), read by dotted prefix."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._stats: Dict[str, Number] = {}
-        self._hists: Dict[str, _Histogram] = {}
-
-    def add(self, name: str, value: Number) -> Number:
-        with self._lock:
-            self._stats[name] = self._stats.get(name, 0) + value
-            return self._stats[name]
-
-    def set(self, name: str, value: Number):
-        with self._lock:
-            self._stats[name] = value
 
     def observe(self, value: Number):
         v = float(value)

@@ -3,13 +3,17 @@ from . import functional
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    GradientClipByGlobalNorm, GradientClipByNorm,
                    GradientClipByValue, clip_grad_norm_)
-from .layers_common import Dropout, Embedding, LayerNorm, Linear
+from .container import Sequential
+from .layers_activation import LeakyReLU
+from .layers_common import (BatchNorm2D, Conv2D, Dropout, Embedding,
+                            LayerNorm, Linear, Upsample)
 from .transformer import (CAUSAL_MASK, MultiHeadAttention,
                           TransformerEncoder, TransformerEncoderLayer)
 
 __all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
            "ClipGradByValue", "GradientClipByGlobalNorm",
            "GradientClipByNorm", "GradientClipByValue", "clip_grad_norm_",
+           "Sequential", "LeakyReLU", "BatchNorm2D", "Conv2D", "Upsample",
            "Dropout", "Embedding", "LayerNorm", "Linear", "CAUSAL_MASK",
            "MultiHeadAttention", "TransformerEncoder",
            "TransformerEncoderLayer"]

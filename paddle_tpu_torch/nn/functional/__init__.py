@@ -1,10 +1,12 @@
 """Functional ops the port's layers are built from (counterpart of
 ``paddle_tpu/nn/functional``)."""
-from .activation import gelu, softmax
-from .common import dropout, embedding, linear
+from .activation import gelu, leaky_relu, softmax
+from .common import dropout, embedding, interpolate, linear, upsample
+from .conv import conv2d
 from .loss import cross_entropy, nll_loss, softmax_with_cross_entropy
-from .norm import layer_norm
+from .norm import batch_norm, layer_norm
 
-__all__ = ["gelu", "softmax", "dropout", "embedding", "linear",
-           "cross_entropy", "nll_loss", "softmax_with_cross_entropy",
+__all__ = ["gelu", "leaky_relu", "softmax", "dropout", "embedding",
+           "interpolate", "linear", "upsample", "conv2d", "cross_entropy",
+           "nll_loss", "softmax_with_cross_entropy", "batch_norm",
            "layer_norm"]

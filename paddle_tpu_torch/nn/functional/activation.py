@@ -1,5 +1,5 @@
 """Activations (counterpart of ``paddle_tpu/nn/functional/activation.py``,
-the part the GPT path uses)."""
+the part the GPT and YOLOv3 paths use)."""
 from __future__ import annotations
 
 import torch
@@ -14,3 +14,7 @@ def gelu(x, approximate: bool = False):
 
 def softmax(x, axis: int = -1, dtype=None):
     return torch.softmax(x, dim=axis, dtype=dtype)
+
+
+def leaky_relu(x, negative_slope: float = 0.01):
+    return torch.nn.functional.leaky_relu(x, negative_slope)

@@ -1,5 +1,6 @@
-"""Linear, dropout and embedding (counterpart of
-``paddle_tpu/nn/functional/common.py``, the part the GPT path uses)."""
+"""Linear, dropout, embedding and nearest interpolation (counterpart of
+``paddle_tpu/nn/functional/common.py``, the part the GPT and YOLOv3
+paths use)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -45,3 +46,43 @@ def embedding(x, weight, padding_idx: Optional[int] = None):
         out = torch.where((x == padding_idx)[..., None],
                           torch.zeros_like(out), out)
     return out
+
+
+def interpolate(x, size=None, scale_factor=None, mode: str = "nearest",
+                align_corners: bool = False, align_mode: int = 0,
+                data_format: str = "NCHW", name=None):
+    """Resize the spatial axes (reference: interpolate_v2_op.cc). Only
+    ``"nearest"`` is ported, with paddle's source index
+    ``floor(i * src / t)`` per axis; the other modes raise
+    (ROADMAP.md queue A9)."""
+    if mode.lower() != "nearest":
+        raise NotImplementedError(
+            f"interpolate mode {mode!r} is not ported yet: a later slice "
+            f"of the port (ROADMAP.md queue A9)")
+    channel_last = data_format in ("NHWC", "NWC", "NDHWC")
+    off = 1 if channel_last else 2
+    spatial = x.shape[off:off + x.dim() - 2]
+    if size is not None:
+        if isinstance(size, torch.Tensor):
+            size = size.tolist()
+        tgt = [int(v) for v in (size if isinstance(size, (list, tuple))
+                                else [size])]
+    else:
+        sf = scale_factor if isinstance(scale_factor, (list, tuple)) \
+            else [scale_factor] * len(spatial)
+        tgt = [int(d * f) for d, f in zip(spatial, sf)]
+    out = x
+    for d, t in enumerate(tgt):
+        src = x.shape[off + d]
+        step = torch.tensor(src / t, dtype=torch.float32, device=x.device)
+        ii = torch.floor(torch.arange(t, dtype=torch.float32,
+                                      device=x.device) * step).long()
+        out = torch.index_select(out, off + d, ii)
+    return out
+
+
+def upsample(x, size=None, scale_factor=None, mode: str = "nearest",
+             align_corners: bool = False, align_mode: int = 0,
+             data_format: str = "NCHW", name=None):
+    return interpolate(x, size, scale_factor, mode, align_corners,
+                       align_mode, data_format, name)

@@ -1,8 +1,58 @@
-"""Normalisation (counterpart of ``paddle_tpu/nn/functional/norm.py``,
-``layer_norm``)."""
+"""Normalisation (counterpart of ``paddle_tpu/nn/functional/norm.py``:
+``batch_norm`` and ``layer_norm``)."""
 from __future__ import annotations
 
 import torch
+
+
+def _stat_dtype(x):
+    """Statistics accumulate in float32 for lower-precision inputs."""
+    return torch.float32 if x.dtype in (torch.float16, torch.bfloat16) \
+        else x.dtype
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training: bool = False, momentum: float = 0.9,
+               epsilon: float = 1e-5, data_format: str = "NCHW",
+               use_global_stats=None, name=None):
+    """paddle's batch norm over every axis but the channel axis (1 for
+    ``NC*`` layouts, else the last).
+
+    With batch statistics (``training`` and not ``use_global_stats``)
+    the output uses the batch mean and biased variance, and the running
+    statistics are updated in place with paddle's convention,
+    ``running = momentum * running + (1 - momentum) * batch``, biased
+    variance included (reference: batch_norm_op.cc; torch's own
+    convention weights the other way and uses the unbiased variance).
+    Otherwise the running statistics normalise, through
+    ``torch.nn.functional.batch_norm`` (cuDNN on the card)."""
+    ch = 1 if data_format.startswith("NC") else x.dim() - 1
+    if not training or use_global_stats:
+        if ch != 1:
+            x = torch.movedim(x, ch, 1)
+        out = torch.nn.functional.batch_norm(
+            x, running_mean, running_var, weight, bias, training=False,
+            eps=epsilon)
+        return torch.movedim(out, 1, ch) if ch != 1 else out
+    axes = tuple(i for i in range(x.dim()) if i != ch)
+    shape = [1] * x.dim()
+    shape[ch] = x.shape[ch]
+    xf = x.to(_stat_dtype(x))
+    mean = xf.mean(dim=axes)
+    var = xf.var(dim=axes, unbiased=False)
+    out = (xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                    + epsilon)
+    if weight is not None:
+        out = out * weight.reshape(shape).to(out.dtype)
+    if bias is not None:
+        out = out + bias.reshape(shape).to(out.dtype)
+    if running_mean is not None:
+        with torch.no_grad():
+            running_mean.copy_(momentum * running_mean
+                               + (1.0 - momentum) * mean.detach())
+            running_var.copy_(momentum * running_var
+                              + (1.0 - momentum) * var.detach())
+    return out.to(x.dtype)
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None,

@@ -1,13 +1,19 @@
-"""Linear, LayerNorm, Embedding and Dropout as ``torch.nn.Module``s
-(counterpart of the same classes in ``paddle_tpu/nn/layers_common.py``).
+"""Linear, LayerNorm, Embedding, Dropout, Conv2D, BatchNorm2D and
+Upsample as ``torch.nn.Module``s (counterpart of the same classes in
+``paddle_tpu/nn/layers_common.py``).
 
 Parameter names and layouts are paddle's, so state dicts carry 1:1
 between the packages: ``Linear.weight`` is ``[in, out]`` and the layer
-computes ``x @ W + b`` (not ``torch.nn.Linear``'s ``[out, in]``).
-Parameters are created on an explicit device and drawn from an explicit
-``torch.Generator`` by :meth:`reset_parameters`, with paddle's default
-initialisers: Xavier-uniform weights and zero biases for ``Linear``,
-``Normal(0, std)`` for ``Embedding``, ones and zeros for ``LayerNorm``.
+computes ``x @ W + b`` (not ``torch.nn.Linear``'s ``[out, in]``);
+``Conv2D.weight`` is OIHW; ``BatchNorm2D`` keeps its running statistics
+in the buffers ``_mean`` and ``_variance``. Parameters are created on an
+explicit device and drawn from an explicit ``torch.Generator`` by
+:meth:`reset_parameters`, with paddle's default initialisers:
+Xavier-uniform weights and zero biases for ``Linear``, ``Normal(0,
+std)`` for ``Embedding``, ones and zeros for ``LayerNorm`` and
+``BatchNorm2D``, ``Uniform(+-sqrt(1/fan_in))`` weights and biases for
+``Conv2D``. A ``ParamAttr`` other than ``None`` or ``False`` (no
+parameter) is not ported yet (ROADMAP.md queue A2, ``nn/initializer``).
 """
 from __future__ import annotations
 
@@ -115,10 +121,128 @@ class Dropout(nn.Module):
         return f"p={self.p}, mode={self.mode}"
 
 
+def _check_attr(attr, what: str):
+    if attr is not None and attr is not False:
+        raise NotImplementedError(
+            f"{what}: ParamAttr is not ported yet: a later slice of the "
+            f"port (ROADMAP.md queue A2, nn/initializer)")
+
+
+class Conv2D(nn.Module):
+    """paddle's Conv2D (the 2-D case of ``_ConvNd``): NCHW input, OIHW
+    weight ``[out, in/groups, kH, kW]``, ``bias_attr=False`` for no bias.
+    As in the JAX package, ``padding_mode`` is accepted and the padding
+    is zeros."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding=0, dilation=1, groups: int = 1,
+                 padding_mode: str = "zeros", weight_attr=None,
+                 bias_attr=None, data_format: str = "NCHW", *,
+                 device: DeviceLike = None, dtype=torch.float32):
+        super().__init__()
+        _check_attr(weight_attr, "Conv2D weight_attr")
+        _check_attr(bias_attr, "Conv2D bias_attr")
+        ks = list(kernel_size) if isinstance(kernel_size, (list, tuple)) \
+            else [kernel_size] * 2
+        self._stride = stride
+        self._padding = padding
+        self._dilation = dilation
+        self._groups = groups
+        self._data_format = data_format
+        self._fan_in = in_channels * ks[0] * ks[1] // groups
+        dev = resolve_device(device)
+        self.weight = nn.Parameter(torch.empty(
+            [out_channels, in_channels // groups] + ks, device=dev,
+            dtype=dtype))
+        self.bias = None if bias_attr is False else nn.Parameter(
+            torch.empty((out_channels,), device=dev, dtype=dtype))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        limit = math.sqrt(1.0 / self._fan_in)
+        self.weight.uniform_(-limit, limit, generator=generator)
+        if self.bias is not None:
+            self.bias.uniform_(-limit, limit, generator=generator)
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, stride=self._stride,
+                        padding=self._padding, dilation=self._dilation,
+                        groups=self._groups, data_format=self._data_format)
+
+    def extra_repr(self):
+        o, i, kh, kw = self.weight.shape
+        return (f"{i * self._groups}, {o}, kernel_size=[{kh}, {kw}], "
+                f"stride={self._stride}, padding={self._padding}")
+
+
+class BatchNorm2D(nn.Module):
+    """paddle's BatchNorm2D: ``weight``/``bias`` (ones/zeros, ``False``
+    for none) and the buffers ``_mean``/``_variance`` (zeros/ones),
+    updated in training mode as
+    ``momentum * running + (1 - momentum) * batch``."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 epsilon: float = 1e-5, weight_attr=None, bias_attr=None,
+                 data_format: str = "NCHW", use_global_stats=None,
+                 name=None, *, device: DeviceLike = None,
+                 dtype=torch.float32):
+        super().__init__()
+        _check_attr(weight_attr, "BatchNorm2D weight_attr")
+        _check_attr(bias_attr, "BatchNorm2D bias_attr")
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self._use_global_stats = use_global_stats
+        dev = resolve_device(device)
+        self.weight = None if weight_attr is False else nn.Parameter(
+            torch.ones((num_features,), device=dev, dtype=dtype))
+        self.bias = None if bias_attr is False else nn.Parameter(
+            torch.zeros((num_features,), device=dev, dtype=dtype))
+        self.register_buffer("_mean", torch.zeros(
+            (num_features,), device=dev, dtype=torch.float32))
+        self.register_buffer("_variance", torch.ones(
+            (num_features,), device=dev, dtype=torch.float32))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        if self.weight is not None:
+            self.weight.fill_(1.0)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x):
+        return F.batch_norm(
+            x, self._mean, self._variance, self.weight, self.bias,
+            training=self.training, momentum=self._momentum,
+            epsilon=self._epsilon, data_format=self._data_format,
+            use_global_stats=self._use_global_stats)
+
+    def extra_repr(self):
+        return (f"num_features={self._mean.shape[0]}, "
+                f"momentum={self._momentum}, epsilon={self._epsilon}")
+
+
+class Upsample(nn.Module):
+    """Resize through :func:`~paddle_tpu_torch.nn.functional.interpolate`
+    (``"nearest"`` only, so far)."""
+
+    def __init__(self, size=None, scale_factor=None, mode: str = "nearest",
+                 align_corners: bool = False, align_mode: int = 0,
+                 data_format: str = "NCHW", name=None):
+        super().__init__()
+        self._kw = dict(size=size, scale_factor=scale_factor, mode=mode,
+                        align_corners=align_corners, align_mode=align_mode,
+                        data_format=data_format)
+
+    def forward(self, x):
+        return F.interpolate(x, **self._kw)
+
+
 def reset_parameters(module: nn.Module,
                      generator: Optional[torch.Generator] = None):
     """Re-draw every parameter of ``module`` from ``generator``, layer by
     layer in registration order (so one seed fixes the whole model)."""
     for m in module.modules():
-        if isinstance(m, (Linear, LayerNorm, Embedding)):
+        if isinstance(m, (Linear, LayerNorm, Embedding, Conv2D,
+                          BatchNorm2D)):
             m.reset_parameters(generator)

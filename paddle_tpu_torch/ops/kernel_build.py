@@ -23,7 +23,7 @@ from typing import Dict, List, Optional
 
 #: the kernels of the port, by source name under ``csrc/``
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd_dq",
-                  "flash_attention_bwd_dkv", "paged_attention")
+                  "flash_attention_bwd_dkv", "paged_attention", "greedy_nms")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

@@ -10,11 +10,13 @@ tick. Host<->device traffic per tick is one fetch of the ``[num_slots]``
 next-token vector, which streaming needs on the host anyway.
 
 Drain stops admission and lets the worker finish every in-flight and
-queued sequence. This slice serves ``kv_layout="paged"`` only; the knobs
-of later slices (``kv_layout="slot"``, ``spec_k > 0``, ``prefix_cache``,
-int8 weights or KV) raise ``NotImplementedError`` naming the queue item
-in ``ROADMAP.md``; hard kill, crash recovery, migration and weight
-hot-swap are not ported yet.
+queued sequence; ``pause_admission`` stops admission alone; ``kill``
+fails the queue and aborts the in-flight sequences before the next tick.
+This slice serves ``kv_layout="paged"`` only; the knobs of later slices
+(``kv_layout="slot"``, ``spec_k > 0``, ``prefix_cache``, int8 weights or
+KV) raise ``NotImplementedError`` naming the queue item in
+``ROADMAP.md``; crash recovery (evacuation for replay), migration and
+weight hot-swap are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from ..buckets import pow2_buckets
 from ..engine import DrainableEngineBase
 from ..queue import BatchQueue
 from ..request import (Deadline, DeadlineExceeded, EngineDraining,
-                       RequestTooLarge)
+                       EngineKilled, RequestTooLarge)
 from .decode import GPTDecoderBase, SamplingParams, pack_sampling
 
 _REQ_IDS = itertools.count(1)
@@ -491,9 +493,18 @@ class LLMEngine(DrainableEngineBase):
         """Enqueue one prompt; returns the :class:`GenerationRequest`
         (``.result()`` for the whole result, ``.iter_tokens()`` when
         ``stream=True``)."""
+        if self._killed.is_set():
+            self._stat_add("rejected_killed", 1)
+            raise EngineKilled(
+                f"engine was hard-killed ({self._kill_reason}); "
+                f"submit rejected")
         if self._draining.is_set():
             self._stat_add("rejected_draining", 1)
             raise EngineDraining("engine is draining; submit rejected")
+        if self._admission_paused.is_set():
+            self._stat_add("rejected_paused", 1)
+            raise EngineDraining(
+                "engine admission is paused; submit rejected")
         arr = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if arr.size > self._config.max_prompt_len:
             self._stat_add("rejected_oversize", 1)
@@ -531,6 +542,16 @@ class LLMEngine(DrainableEngineBase):
         """Synchronous convenience: submit and wait."""
         return self.submit(prompt, **kw).result()
 
+    def kill(self, reason: str = "killed") -> List[dict]:
+        """Hard kill, returning one record per affected request (id,
+        phase, tokens emitted): queued requests fail here, in-flight
+        generations are aborted with :class:`EngineKilled` by the worker
+        before its next tick."""
+        inflight = [{"req_id": r.req_id, "phase": "decode",
+                     "tokens": len(r.tokens)}
+                    for r in list(self._batcher._reqs.values())]
+        return list(super().kill(reason)) + inflight
+
     def drain(self, timeout: Optional[float] = None) -> List:
         """Stop admission, finish every in-flight and queued sequence,
         stop the worker. Returns the requests in flight when the drain
@@ -567,6 +588,14 @@ class LLMEngine(DrainableEngineBase):
         cfg = self._config
         try:
             while True:
+                if self._killed.is_set():
+                    # queued requests were failed by kill() itself
+                    self._batcher.abort_all(
+                        lambda req: EngineKilled(
+                            f"engine hard-killed ({self._kill_reason}) "
+                            f"with request {req.req_id} in flight after "
+                            f"{len(req.tokens)} tokens"))
+                    return
                 if self._draining.is_set() and not self._queue.closed:
                     self._queue.close()
                 free = self._batcher.free_slots

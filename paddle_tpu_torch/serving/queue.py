@@ -5,14 +5,15 @@
 rejects at once with ``block=False``) and raises :class:`QueueFull`, so
 load shedding is an explicit error. Deadline-expired requests are evicted
 at the head and their futures fail before any device work is spent.
-Items duck-type ``expired``, ``fail_expired()`` and ``fail(exc)``.
+Items duck-type ``expired``, ``fail_expired()``, ``fail(exc)`` and
+``req_id``.
 """
 from __future__ import annotations
 
 import threading
 import time
 from collections import deque
-from typing import Optional
+from typing import Callable, Optional
 
 from .request import EngineDraining, QueueFull
 
@@ -78,9 +79,27 @@ class BatchQueue:
             self._dq.append(req)
             self._not_empty.notify()
 
-    def take(self, timeout: Optional[float] = None):
-        """Pop the head request, or None when timed out empty or closed
-        and empty. Expired heads are evicted (their futures fail)."""
+    def fail_all(self, exc_factory: Callable[[], BaseException]) -> list:
+        """Hard-kill path: close admission and fail every queued request
+        with ``exc_factory()`` (a drain lets takers consume the backlog;
+        a kill must not). Returns one record per request failed here,
+        ``{"req_id", "phase": "queued", "tokens": 0}`` (a queued request
+        has generated nothing)."""
+        with self._lock:
+            self._closed = True
+            victims = list(self._dq)
+            self._dq.clear()
+            self._not_empty.notify_all()
+            self._not_full.notify_all()
+        return [{"req_id": req.req_id, "phase": "queued", "tokens": 0}
+                for req in victims if req.fail(exc_factory())]
+
+    def take(self, timeout: Optional[float] = None,
+             fits: Optional[Callable[[object], bool]] = None):
+        """Pop the head request, or None: timed out empty, closed and
+        empty, or the head exists but ``fits(head)`` is False (the
+        caller's batch is full or shape-incompatible; the head stays
+        queued). Expired heads are evicted (their futures fail)."""
         end = None if timeout is None else self._clock() + timeout
         with self._not_empty:
             while True:
@@ -90,7 +109,10 @@ class BatchQueue:
                     self._evicted_expired += 1
                     self._not_full.notify()
                 if self._dq:
-                    head = self._dq.popleft()
+                    head = self._dq[0]
+                    if fits is not None and not fits(head):
+                        return None
+                    self._dq.popleft()
                     self._not_full.notify()
                     return head
                 if self._closed:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-version, the wrappers' refusals (no fallback on a CUDA tensor), and the
-GPT forward and paged engine through the kernels at a small size.
+version, the wrappers' refusals (no fallback on a CUDA tensor), the GPT
+forward and paged engine through the kernels at a small size, and the
+YOLOv3 detection path (greedy NMS on the card against the CPU).
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither jax nor the JAX package, so on a machine with a card but
@@ -14,6 +15,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.ops import custom as tcustom
+from paddle_tpu_torch.ops import detection as tdet
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
@@ -279,3 +282,115 @@ def test_train_batch_through_flash_kernels_matches_dense(cuda):
                                    atol=1e-3 * float(g.abs().max()))
     for n, p in res["dense"][2].items():
         torch.testing.assert_close(res["flash"][2][n], p, rtol=0, atol=1e-5)
+
+
+# -- greedy NMS (B5) and the detection path -----------------------------------
+
+def _nms_case(seed, p_n, k, kind="boxes", side=608.0):
+    """iou [P, k, k], valid [P, k] int32, thr [P] on the CPU: the IoU of
+    random boxes at the YOLOv3 path's density (608 px image, box sides
+    10 to 300 px), or a random asymmetric matrix; ~15% invalid rows."""
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "asymmetric":
+        iou = torch.rand(p_n, k, k, generator=gen)
+    else:
+        c = torch.rand(p_n, k, 2, generator=gen) * side
+        wh = 10 + torch.rand(p_n, k, 2, generator=gen) * 290
+        boxes = torch.cat([c - wh / 2, c + wh / 2], dim=-1)
+        iou = tdet._pairwise_iou(boxes, boxes)
+        if kind == "nan":
+            iou[torch.rand(iou.shape, generator=gen) < 0.05] = float("nan")
+    valid = (torch.rand(p_n, k, generator=gen) < 0.85).to(torch.int32)
+    thr = torch.full((p_n,), 0.45)
+    return iou, valid, thr
+
+
+@pytest.mark.parametrize("p_n,k,kind,eta", [
+    (64, 400, "boxes", 1.0), (64, 400, "boxes", 0.9), (8, 1, "boxes", 1.0),
+    (8, 45, "boxes", 1.0), (8, 77, "asymmetric", 1.0),
+    (8, 77, "asymmetric", 0.7), (8, 300, "nan", 1.0),
+    (1, 12500, "asymmetric", 1.0)],
+    ids=["p64_k400", "p64_k400_eta", "k1", "k45", "asym", "asym_eta",
+         "nan", "k12500_smem_over_48k"])
+def test_nms_kernel_matches_plain_bit_exactly(cuda, p_n, k, kind, eta):
+    iou, valid, thr = _nms_case(k, p_n, k, kind)
+    valid[0] = 0                                   # a problem with none
+    ic, vc, tc = iou.to(cuda), valid.to(cuda), thr.to(cuda)
+    before = tcustom.greedy_nms.launches
+    got = tcustom.greedy_nms(ic, vc, tc, eta)
+    torch.cuda.synchronize()
+    assert tcustom.greedy_nms.launches == before + 1
+    ref = tcustom.greedy_nms_plain(ic, vc, tc, eta)
+    assert got.dtype == torch.int32 and got.shape == (p_n, k)
+    assert torch.equal(got, ref)
+    assert int(got[0].sum()) == 0
+    if p_n > 1:
+        assert torch.equal(got.cpu(), tcustom.greedy_nms_plain(
+            iou, valid, thr, eta))
+
+
+def test_nms_kernel_refuses_what_it_does_not_take(cuda):
+    iou, valid, thr = _nms_case(0, 2, 8)
+    ic, vc, tc = iou.to(cuda), valid.to(cuda), thr.to(cuda)
+    with pytest.raises(TypeError):
+        tcustom.greedy_nms(ic.double(), vc, tc)
+    with pytest.raises(TypeError):
+        tcustom.greedy_nms(ic, vc.long(), tc)
+    with pytest.raises(ValueError, match="contiguous"):
+        tcustom.greedy_nms(ic.transpose(1, 2), vc, tc)
+    with pytest.raises(ValueError, match="share a device"):
+        tcustom.greedy_nms(ic, valid, tc)
+    big = tcustom.MAX_NMS_K + 1
+    with pytest.raises(ValueError, match="exceeds"):
+        tcustom.greedy_nms(torch.empty(1, big, big, device=cuda),
+                           torch.empty(1, big, dtype=torch.int32,
+                                       device=cuda),
+                           torch.empty(1, device=cuda))
+
+
+def test_multiclass_nms_on_the_card_matches_the_cpu(cuda):
+    gen = torch.Generator().manual_seed(3)
+    n, c_n, m = 2, 5, 300
+    ctr = torch.rand(n, m, 2, generator=gen) * 200
+    wh = 4 + torch.rand(n, m, 2, generator=gen) * 60
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1)
+    scores = torch.rand(n, c_n, m, generator=gen)
+    scores[torch.rand(scores.shape, generator=gen) < 0.3] = 0.0
+    kw = dict(score_threshold=0.05, nms_top_k=100, keep_top_k=60,
+              nms_threshold=0.45, background_label=-1)
+    ref_d, ref_c = tdet.multiclass_nms(boxes, scores, **kw)
+    before = tcustom.greedy_nms.launches
+    got_d, got_c = tdet.multiclass_nms(boxes.to(cuda), scores.to(cuda), **kw)
+    assert tcustom.greedy_nms.launches == before + 1
+    assert got_c.dtype == torch.int32
+    assert torch.equal(got_c.cpu(), ref_c)
+    assert torch.equal(got_d[..., 0].cpu(), ref_d[..., 0])
+    torch.testing.assert_close(got_d.cpu(), ref_d, rtol=1e-5, atol=1e-4)
+
+
+def test_yolov3_served_on_the_card_launches_nms(cuda):
+    """The tiny detector through the Engine on the card: every request
+    resolves, rows as submitted, one NMS launch per batch."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig, ExecutableCache
+    from paddle_tpu_torch.vision.models import YOLOv3
+    model = YOLOv3(num_classes=4, width_mult=0.125, device=cuda).eval()
+
+    def serve(img, hw):
+        with torch.inference_mode():
+            return model.decode(model(img), hw)
+
+    rng = np.random.default_rng(0)
+    reqs = [[rng.random((r, 3, 64, 64), dtype=np.float32),
+             np.full((r, 2), 64, np.int32)] for r in (1, 2, 1, 3)]
+    eng = Engine(serve, EngineConfig(batch_buckets=(1, 2, 4), max_batch=4,
+                                     max_batch_delay=0.2),
+                 cache=ExecutableCache())
+    before = tcustom.greedy_nms.launches
+    outs = [f.result(120) for f in eng.submit_many(reqs)]
+    batches = eng.stats()["stats"]["serving.batches"]
+    eng.drain(60)
+    assert tcustom.greedy_nms.launches - before == batches
+    for (img, _), (dets, counts) in zip(reqs, outs):
+        assert dets.shape == (img.shape[0], 100, 6)
+        assert counts.dtype == np.int32 and (counts <= 100).all()
+        assert np.isfinite(dets).all()

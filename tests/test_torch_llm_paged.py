@@ -17,7 +17,8 @@ from paddle_tpu.serving.llm import LLMEngineConfig as JConfig  # noqa: E402
 from paddle_tpu_torch import framework_io  # noqa: E402
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM  # noqa: E402
 from paddle_tpu_torch.ops import paged_attention as tpa  # noqa: E402
-from paddle_tpu_torch.serving import RequestTooLarge  # noqa: E402
+from paddle_tpu_torch.serving import (EngineDraining,  # noqa: E402
+                                      EngineKilled, RequestTooLarge)
 from paddle_tpu_torch.serving.llm import (LLMEngine,  # noqa: E402
                                           LLMEngineConfig)
 from paddle_tpu_torch.serving.llm.decode import (SamplingParams,  # noqa: E402
@@ -167,3 +168,39 @@ def test_small_pool_serves_every_request(models, jax_tokens):
     finally:
         eng.drain(timeout=60)
     assert toks == jax_tokens * 2
+
+
+def test_pause_admission_rejects_then_resumes(models, jax_tokens):
+    _, pm = models
+    eng = LLMEngine(pm, LLMEngineConfig(**ENGINE, warmup=False))
+    try:
+        eng.pause_admission()
+        with pytest.raises(EngineDraining, match="paused"):
+            eng.submit(_prompts()[0], max_new_tokens=8)
+        eng.resume_admission()
+        res = eng.submit(_prompts()[0], max_new_tokens=8).result(timeout=60)
+        stats = eng.stats()
+    finally:
+        eng.drain(timeout=60)
+    assert res["tokens"] == jax_tokens[0]
+    assert stats["stats"]["serving.llm.rejected_paused"] == 1
+
+
+def test_kill_aborts_the_inflight_generation(models):
+    """A hard kill aborts a generation mid-stream (it does not decode it
+    to the end, as a drain would) and rejects later submits."""
+    _, pm = models
+    eng = LLMEngine(pm, LLMEngineConfig(**ENGINE, warmup=False))
+    req = eng.submit(_prompts()[0], max_new_tokens=50, stream=True)
+    next(req.iter_tokens(timeout=60))
+    records = eng.kill("test")
+    assert [(r["req_id"], r["phase"]) for r in records] == \
+        [(req.req_id, "decode")]
+    with pytest.raises(EngineKilled):
+        req.result(timeout=60)
+    assert len(req.tokens) < 50
+    with pytest.raises(EngineKilled):
+        eng.submit(_prompts()[1])
+    assert eng.was_killed
+    eng.drain(timeout=60)
+    assert eng._stopped.is_set()
