@@ -5,12 +5,18 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` with nvcc;
+1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` with nvcc, log
+   each kernel's registers, shared memory and spills (``-Xptxas -v``),
+   and count the tensor-core instructions (HMMA/HGMMA) in the SASS of the
+   backward kernels B2 and B3 (``cuobjdump -sass``; none fails the run);
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it, and time kernel, plain version and,
-   where one exists, the single PyTorch call computing the same function
-   (for the backward kernels B2 and B3 together: the backward of
-   ``scaled_dot_product_attention``, timed without its forward);
+   shapes the main path gives it (B2 and B3 also against float64
+   formulas, and two launches against each other, bit for bit), and time
+   kernel, plain version and, where one exists, the single PyTorch call
+   computing the same function (for B2 and B3 together: the backward of
+   ``scaled_dot_product_attention``, timed without its forward); bounds
+   of B1-B3 on the tensor cores (fp32 as 3xTF32), with the fp32-FMA
+   bound beside;
 3. the serving path, part one: GPT-3 1.3B (``GPTForCausalLM``, full
    width, random weights from a seed) forward on a [4, 1024] batch
    through the flash kernel, held against the same model's dense
@@ -66,9 +72,10 @@ CFG_13B = dict(vocab_size=50304, hidden_size=2048, num_layers=24,
                max_position_embeddings=1024, hidden_dropout_prob=0.0,
                attention_dropout_prob=0.0)
 
-# H100 SXM published peaks (dense): fp32 without tensor cores, bf16 tensor
-# cores, HBM3 bandwidth
+# H100 SXM published peaks (dense): fp32 without tensor cores, TF32 and
+# bf16 tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
@@ -85,6 +92,7 @@ DET_DECODE = dict(conf_thresh=0.01, nms_thresh=0.45, nms_top_k=400,
                   keep_top_k=100)
 
 TOL = {"fp32": 1e-4, "bf16": 2e-2}     # max abs error, kernel vs plain
+F64_TOL = 2e-5      # B2/B3 fp32 (3xTF32) vs float64 formulas, of max |ref|
 LOGIT_TOL = 2e-3                       # flash vs dense, and kernel vs gather
 GRAD_TOL = 1e-3     # flash vs dense train gradients, per tensor, of its max
 TRAIN_STEPS = 5
@@ -120,6 +128,51 @@ def bound(flops, nbytes, peak_flops):
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attn_bound(flops, nbytes, dt):
+    """An attention kernel's bound on the tensor cores: bf16 at its rate;
+    fp32 to fp32 accuracy as 3xTF32, three TF32 operations per operation.
+    Also the bound on fp32 FMA outside the tensor cores (None for bf16),
+    the definition used before the backward kernels moved to tensor
+    cores."""
+    import torch
+    if dt == torch.float32:
+        return (*bound(3.0 * flops, nbytes, PEAK_TF32),
+                bound(flops, nbytes, PEAK_FP32)[0])
+    return (*bound(flops, nbytes, PEAK_BF16), None)
+
+
+def sass_tensor_counts(kernel_build, names):
+    """Tensor-core instructions (HMMA, HGMMA) in the SASS of each kernel
+    function of the built libraries ``names``, from ``cuobjdump -sass``:
+    {library: {function: count}}, or None where the tool is absent."""
+    import re
+    import shutil
+    from pathlib import Path
+    tool = Path(kernel_build.find_nvcc()).with_name("cuobjdump")
+    tool = str(tool) if tool.is_file() else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    out = {}
+    for name in names:
+        sass = subprocess.run([tool, "-sass",
+                               str(kernel_build.library_path(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                # the instantiation: element type and head dim
+                t = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
+                fn = (f"{'fp32' if t.group(1) == 'f' else 'bf16'} D={t.group(2)}"
+                      if t else m.group(1))
+                counts[fn] = 0
+            elif fn is not None and re.search(r"\bHG?MMA\b", line):
+                counts[fn] += 1
+        out[name] = counts
+    return out
 
 
 def check_flash(torch, fa_mod, gen):
@@ -161,19 +214,20 @@ def check_flash(torch, fa_mod, gen):
         flops = 4.0 * d * pairs * b * h
         elem = q.element_size()
         nbytes = (2 * sq + 2 * skv) * b * h * d * elem + 4 * b * h * sq
-        bms, by = bound(flops, nbytes,
-                        PEAK_FP32 if dt == torch.float32 else PEAK_BF16)
+        bms, by, fma_ms = attn_bound(flops, nbytes, dt)
         log(f"B1 flash {name} Sq={sq} Skv={skv} causal={causal}: "
             f"max_abs_err O {err:.3e} LSE {lse_err:.3e} "
             f"(tol {TOL[name]:.0e}/{TOL['fp32']:.0e}) kernel {ms:.4f} ms "
             f"plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
-            f"bound {bms:.4f} ms ({by})")
+            f"bound {bms:.4f} ms ({by}"
+            + (f"; on fp32 FMA {fma_ms:.4f} ms)" if fma_ms else ")"))
         if not ok:
             raise RuntimeError(f"flash kernel disagrees with its plain "
                                f"version ({name}, Sq={sq}, Skv={skv})")
         if row is None:
             row = {"max_abs_err": max(err, lse_err), "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                   "bound_fp32_fma_ms": fma_ms,
                    "library_ms": lib_ms, "tolerance": TOL[name],
                    "shape": f"B={b} S={sq} H={h} D={d} fp32 causal"}
         del q, k, v, out, lse, ref, ref_lse
@@ -184,8 +238,12 @@ def check_flash_bwd(torch, fa_mod, gen):
     """B2 and B3 against their plain versions at B=4, S=1024, H=16, D=128
     (the training path's shape) with a random dO, plus the cases B1
     runs. Error is max |kernel - plain| over max |plain|, per output.
-    Returns the summary rows of B2 and B3 for the main case (fp32,
-    causal, S=1024)."""
+    Every case launches the kernels twice and requires the two results to
+    be bitwise equal (no atomics). The main case (fp32, causal, S=1024) is
+    also held to F64_TOL of the same formulas in float64: the kernels run
+    fp32 as 3xTF32, and a single TF32 product would miss that bar
+    (tests/test_torch_flash_tf32_split.py). Returns the summary rows of B2
+    and B3 for the main case."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b, h, d = 4, 16, 128
     cases = [("fp32", torch.float32, 1024, 1024, True),
@@ -206,17 +264,21 @@ def check_flash_bwd(torch, fa_mod, gen):
         args = (q, k, v, do, lse, delta, causal)
         dq = fa_mod.flash_attention_bwd_dq(*args)
         dk, dv = fa_mod.flash_attention_bwd_dkv(*args)
+        again = (fa_mod.flash_attention_bwd_dq(*args),
+                 *fa_mod.flash_attention_bwd_dkv(*args))
         rq = fa_mod.flash_attention_bwd_dq_plain(*args)
         rk, rv = fa_mod.flash_attention_bwd_dkv_plain(*args)
         torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again))
+        del again
         errs, abs_errs = {}, {}
         for g, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
             if not bool(torch.isfinite(got.float()).all()):
                 raise RuntimeError(f"flash backward {g} is not finite")
             abs_errs[g] = (got.float() - ref.float()).abs().max().item()
             errs[g] = abs_errs[g] / ref.float().abs().max().item()
-        ok = all(e <= TOL[name] for e in errs.values())
-        extra = ""
+        ok = same and all(e <= TOL[name] for e in errs.values())
+        extra, e64 = "", None
         if rows is None:
             # independent of the plain version: the same formulas in f64
             f64 = [x.double() for x in (q, k, v, do)]
@@ -226,8 +288,8 @@ def check_flash_bwd(torch, fa_mod, gen):
             e64 = max(((got.double() - ref).abs().max()
                        / ref.abs().max()).item()
                       for got, ref in zip((dq, dk, dv), r64))
-            extra = f" (vs float64 formulas {e64:.3e})"
-            ok = ok and e64 <= TOL[name]
+            extra = f" (vs float64 formulas {e64:.3e}, tol {F64_TOL:.0e})"
+            ok = ok and e64 <= F64_TOL
             del f64, o64, l64, r64
         ms_dq = time_ms(lambda: fa_mod.flash_attention_bwd_dq(*args))
         ms_dkv = time_ms(lambda: fa_mod.flash_attention_bwd_dkv(*args))
@@ -248,36 +310,41 @@ def check_flash_bwd(torch, fa_mod, gen):
         elem = q.element_size()
         bhd = b * h * d
         in_bytes = (2 * sq + 2 * skv) * bhd * elem + 2 * 4 * b * h * sq
-        peak = PEAK_FP32 if dt == torch.float32 else PEAK_BF16
-        b_dq = bound(6.0 * bhd * pairs, in_bytes + sq * bhd * elem, peak)
-        b_dkv = bound(8.0 * bhd * pairs, in_bytes + 2 * skv * bhd * elem,
-                      peak)
+        b_dq = attn_bound(6.0 * bhd * pairs, in_bytes + sq * bhd * elem, dt)
+        b_dkv = attn_bound(8.0 * bhd * pairs,
+                           in_bytes + 2 * skv * bhd * elem, dt)
+        fma = (f"; on fp32 FMA {b_dq[2]:.4f} / {b_dkv[2]:.4f} ms"
+               if b_dq[2] else "")
         log(f"B2/B3 flash bwd {name} Sq={sq} Skv={skv} causal={causal}: "
             f"max err/max dq {errs['dq']:.3e} dk {errs['dk']:.3e} "
-            f"dv {errs['dv']:.3e}{extra} (tol {TOL[name]:.0e}); "
-            f"B2 {ms_dq:.4f} ms (plain {plain_dq:.4f}, bound "
-            f"{b_dq[0]:.4f} {b_dq[1]}); B3 {ms_dkv:.4f} ms (plain "
-            f"{plain_dkv:.4f}, bound {b_dkv[0]:.4f} {b_dkv[1]}); "
+            f"dv {errs['dv']:.3e}{extra} (tol {TOL[name]:.0e}), two launches "
+            f"bitwise equal {same}; B2 {ms_dq:.4f} ms (plain {plain_dq:.4f}, "
+            f"bound {b_dq[0]:.4f} {b_dq[1]}); B3 {ms_dkv:.4f} ms (plain "
+            f"{plain_dkv:.4f}, bound {b_dkv[0]:.4f} {b_dkv[1]}){fma}; "
             f"B2+B3 {ms_dq + ms_dkv:.4f} ms vs sdpa backward {lib_ms:.4f} ms")
         if not ok:
             raise RuntimeError(f"flash backward kernels disagree with their "
-                               f"plain versions ({name}, Sq={sq}, "
-                               f"Skv={skv})")
+                               f"plain versions, the float64 formulas or "
+                               f"themselves ({name}, Sq={sq}, Skv={skv})")
         if rows is None:
             shape = f"B={b} S={sq} H={h} D={d} fp32 causal"
             common = {"tolerance": TOL[name],
                       "tolerance_of": "max |err| / max |plain|",
+                      "max_err_vs_float64": e64, "float64_tolerance": F64_TOL,
+                      "bitwise_repeatable": same,
                       "library_ms": lib_ms,
                       "library": "sdpa backward, for B2+B3 together",
                       "shape": shape}
             rows = ({"max_abs_err": abs_errs["dq"],
                      "max_err_over_max_ref": errs["dq"], "ms": ms_dq,
                      "plain_ms": plain_dq, "bound_ms": b_dq[0],
-                     "bound_by": b_dq[1], **common},
+                     "bound_by": b_dq[1], "bound_fp32_fma_ms": b_dq[2],
+                     **common},
                     {"max_abs_err": max(abs_errs["dk"], abs_errs["dv"]),
                      "max_err_over_max_ref": max(errs["dk"], errs["dv"]),
                      "ms": ms_dkv, "plain_ms": plain_dkv,
-                     "bound_ms": b_dkv[0], "bound_by": b_dkv[1], **common})
+                     "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
+                     "bound_fp32_fma_ms": b_dkv[2], **common})
         del q, k, v, do, out, lse, delta, dq, dk, dv, rq, rk, rv, o_lib
     return rows
 
@@ -946,6 +1013,18 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "error")):
                 log(f"  {name}: {line.strip()}")
+    tc_libs = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    tc = sass_tensor_counts(kernel_build, tc_libs)
+    if tc is None:
+        log("cuobjdump not found: the tensor-core instruction counts of "
+            f"{', '.join(tc_libs)} are not checked")
+    else:
+        for name, counts in tc.items():
+            log(f"SASS tensor-core instructions (HMMA/HGMMA) in {name}: "
+                f"{counts}")
+            if not counts or min(counts.values()) == 0:
+                raise RuntimeError(f"{name}: a kernel without tensor-core "
+                                   f"instructions: {counts}")
 
     # -- phase 2: kernels against their plain versions -----------------------
     stamp("2 kernels")
@@ -953,6 +1032,9 @@ def main() -> int:
     gen.manual_seed(1234)
     b1 = check_flash(torch, fa_mod, gen)
     b2, b3 = check_flash_bwd(torch, fa_mod, gen)
+    if tc is not None:
+        b2["sass_tensor_core_instructions"] = tc["flash_attention_bwd_dq"]
+        b3["sass_tensor_core_instructions"] = tc["flash_attention_bwd_dkv"]
     b4 = check_paged(torch, pa_mod, gen)
     b5 = check_nms(torch, nms_mod, det_mod, gen)
     torch.cuda.empty_cache()

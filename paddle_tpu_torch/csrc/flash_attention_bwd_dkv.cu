@@ -9,61 +9,59 @@
 // and accumulate dV += P^T.dO and dK += dS^T.(scale Q) with
 // dS = P * (dO.V^T - delta), all in f32. dK and dV are written in the
 // output types the caller asks for (JAX's grad_dtypes). No atomics: every
-// dK/dV row is owned by one block, so the result is deterministic.
+// dK/dV row is owned by one block, and the two warps that share a row add
+// their halves in a fixed order, so the result is deterministic.
 //
 // Layout: q/k/v/dO/dK/dV are [B, S, H, D] read and written through their
-// (b, s, h) strides with D contiguous; there is no transpose and no padding
-// copy, the ragged tails are masked instead. lse and delta are [B, H, Sq]
-// f32, contiguous.
+// (b, s, h) strides with D contiguous; no transpose and no padding copy,
+// the ragged tails are zero-filled by the loads and masked. Every base
+// pointer and stride must be 16-byte aligned (the wrapper checks). lse and
+// delta are [B, H, Sq] f32, contiguous.
 //
-// What bounds it on the H100: the main path runs it in fp32, and the card
-// has no fp32 tensor-core rate (TF32 is off for parity), so the bound is
-// the 67 TFLOP/s of fp32 FMA: four products per visible (q, k) pair (S,
-// dP, dV and dK), 8*B*H*D*pairs flops, against (2*Sq + 2*Skv)*B*H*D*elem
-// bytes plus lse, delta, dK and dV. At B=4, S=1024, H=16, D=128 causal
-// that is 34.4 GFLOP (0.513 ms) against about 200 MB (0.06 ms): compute
-// bound.
-// What the design does about it: one block per (batch, head, 64-row key
-// tile). K and V stay in shared memory; Q (pre-scaled), dO, lse and delta
-// tiles stream through shared memory starting at query row k0 when causal
-// (the first row that sees key k0), so fully masked tiles are never
-// loaded. Every thread holds a 4x4 block of S and of dP and 4 x D/16 blocks
-// of dK and dV in registers, so each shared load feeds several FMAs; the
-// key tiles with the longest causal loops have the lowest block index and
-// are issued first. bf16 inputs are widened to f32 on load and take the
-// same FMA path; wgmma and TMA are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What bounds it on the H100: four products per visible (q, k) pair (S,
+// dP, dV and dK), 8*B*H*D*pairs operations. In bf16 they run at the 989
+// TFLOP/s of the tensor cores; in fp32 as 3xTF32 (flash_bwd_mma.cuh),
+// three TF32 MMAs per product at 495 TFLOP/s, so the fp32-accurate bound
+// is 3 * 8*B*H*D*pairs / 495e12. At B=4, S=1024, H=16, D=128 causal that
+// is 0.208 ms (bf16 0.035 ms) against about 200 MB of traffic (0.06 ms):
+// bound by operations.
+// What the design does about it: one block of 8 warps per (batch, head,
+// 64-key tile); the key tiles with the longest causal loops have the
+// lowest block index and are issued first. K and V stay in shared memory;
+// Q, dO, lse and delta tiles of 64 query rows stream through a two-stage
+// ring of cp.async loads (tile t+1 loads while tile t multiplies), from
+// the first tile the causal mask lets see key k0. Warp (r, c) owns keys
+// 16r..16r+15 and query rows 32c..32c+31 of each tile. It forms the
+// transposed scores S^T = K Q^T and dP^T = V dO^T with mma.sync, so that
+// P^T and dS^T come out as accumulators in the layout of an A operand and
+// feed dV += P^T dO and dK += dS^T Q from registers: P and dS never touch
+// shared memory. Each tile's contributions are summed on the tensor cores
+// from zero and added to the running dK and dV in f32 (mma_rows), so the
+// cores' truncating accumulation does not drift over a long query loop. At
+// the end the two query halves' dK/dV partials meet once in shared memory.
+// Tiles are unpadded and swizzled, so fragment reads are free of bank
+// conflicts. What still bounds it: mma.sync issues at a fraction of the
+// wgmma rate; every warp splits each fp32 operand it reads for 3xTF32
+// (two integer operations and a subtract); and at fp32 D=128 the dK and dV
+// accumulators (128 registers a thread) leave none spare: 255 registers.
+#include "flash_bwd_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per inner tile
+using namespace fbwd;
+
+constexpr int BQ = 64;        // query rows per streamed tile
 constexpr int BK = 64;        // keys per block
-constexpr int THREADS = 256;  // a 16 x 16 grid of threads
-constexpr int PSTR = BK + 1;  // padded row stride of the P and dS tiles
+constexpr int THREADS = 256;  // 8 warps: 4 key groups x 2 query halves
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-// out_bf16: 0 writes float32, 1 writes bfloat16
-__device__ __forceinline__ void store_out(void* base, int64_t i, float x,
-                                          int out_bf16) {
-  if (out_bf16)
-    static_cast<__nv_bfloat16*>(base)[i] = __float2bfloat16(x);
-  else
-    static_cast<float*>(base)[i] = x;
-}
-
-template <int D>
+template <typename T, int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (size_t)(2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * PSTR + 2 * BQ);
+  // K, V, two stages each of Q and dO, and two stages of lse and delta
+  return sizeof(T) * (size_t)(6 * BQ * D) + sizeof(float) * 4 * BQ;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -76,25 +74,28 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      int64_t dk_sb, int64_t dk_ss, int64_t dk_sh,
                      int64_t dv_sb, int64_t dv_ss, int64_t dv_sh,
                      float scale, int causal, int dk_bf16, int dv_bf16) {
-  constexpr int KSTR = D + 1;  // padded row stride of the K, V, Q, dO tiles
-  constexpr int CPT = D / 16;  // dK/dV columns per thread
-  extern __shared__ float smem[];
-  float* sK = smem;              // [BK][KSTR]
-  float* sV = sK + BK * KSTR;    // [BK][KSTR]
-  float* sQ = sV + BK * KSTR;    // [BQ][KSTR], pre-scaled
-  float* sO = sQ + BQ * KSTR;    // [BQ][KSTR], dO
-  float* sP = sO + BQ * KSTR;    // [BQ][PSTR], P
-  float* sS = sP + BQ * PSTR;    // [BQ][PSTR], dS
-  float* sL = sS + BQ * PSTR;    // [BQ], lse
-  float* sD = sL + BQ;           // [BQ], delta
+  using M = Mma<T>;
+  constexpr int TILE = BQ * D;
+  constexpr int NS = BQ / 2 / 8;  // 8-wide query tiles of S^T per warp
+  constexpr int ND = D / 8;       // 8-wide column tiles of dK and dV
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = sK + TILE;
+  T* sQ = sV + TILE;      // [2][TILE]
+  T* sO = sQ + 2 * TILE;  // [2][TILE]
+  float* sL = reinterpret_cast<float*>(sO + 2 * TILE);  // [2][BQ] lse
+  float* sD = sL + 2 * BQ;                               // [2][BQ] delta
 
-  const int kt = blockIdx.x;     // low tiles see the most queries: first
+  const int kt = blockIdx.x;  // low tiles see the most queries: first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int k0 = kt * BK;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int lane = tid & 31;
+  const int wr = (tid >> 5) & 3;  // keys 16 wr ..
+  const int wc = tid >> 7;        // query rows 32 wc .. of each tile
+  const int g = lane >> 2, t = lane & 3;
+  const typename M::Off off = M::template offsets<D>(lane);
 
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + h * k_sh;
@@ -103,120 +104,132 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* lse_bh = lse + ((int64_t)b * H + h) * Sq;
   const float* delta_bh = delta + ((int64_t)b * H + h) * Sq;
 
-  for (int idx = tid; idx < BK * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int col = k0 + r;
-    const bool in = col < Skv;
-    sK[r * KSTR + d] = in ? load_f(kb + col * k_ss + d) : 0.f;
-    sV[r * KSTR + d] = in ? load_f(vb + col * v_ss + d) : 0.f;
-  }
-
-  float gk[4][CPT], gv[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) gk[i][c] = gv[i][c] = 0.f;
-
   const int n_qt = (Sq + BQ - 1) / BQ;
   const int qt0 = causal ? k0 / BQ : 0;  // rows above k0 see no key here
 
+  // start the copy of query tile qt into stage st
+  auto load_q = [&](int qt, int st) {
+    const int r0 = qt * BQ;
+    load_tile<T, D, BQ, THREADS>(sQ + st * TILE, qb, q_ss, r0, Sq, tid);
+    load_tile<T, D, BQ, THREADS>(sO + st * TILE, ob, o_ss, r0, Sq, tid);
+    if (tid < 2 * BQ) {
+      const int i = tid % BQ, row = r0 + i;
+      const float* src = tid < BQ ? lse_bh : delta_bh;
+      float* dst = tid < BQ ? sL : sD;
+      cp_async4(dst + st * BQ + i, row < Sq ? src + row : src, row < Sq);
+    }
+  };
+
+  load_tile<T, D, BK, THREADS>(sK, kb, k_ss, k0, Skv, tid);
+  load_tile<T, D, BK, THREADS>(sV, vb, v_ss, k0, Skv, tid);
+  if (qt0 < n_qt) load_q(qt0, 0);
+  cp_async_commit();
+
+  float gk[ND][4], gv[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) gk[n][i] = gv[n][i] = 0.f;
+
+  // this thread's accumulator rows are keys r0 and r0 + 8
+  const int r0 = k0 + 16 * wr + g;
   for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // the previous tile's readers are done (and sK/sV written)
-    for (int idx = tid; idx < BQ * D; idx += THREADS) {
-      const int r = idx / D, d = idx % D;
-      const int row = q0 + r;
-      const bool in = row < Sq;
-      sQ[r * KSTR + d] = in ? load_f(qb + row * q_ss + d) * scale : 0.f;
-      sO[r * KSTR + d] = in ? load_f(ob + row * o_ss + d) : 0.f;
-    }
-    if (tid < BQ) {
-      const int row = q0 + tid;
-      sL[tid] = row < Sq ? lse_bh[row] : 0.f;
-      sD[tid] = row < Sq ? delta_bh[row] : 0.f;
+    const int st = (qt - qt0) & 1;
+    if (qt + 1 < n_qt) {  // the next tile loads while this one multiplies
+      load_q(qt + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const T* cQ = sQ + st * TILE;
+    const T* cO = sO + st * TILE;
+    const float* cL = sL + st * BQ;
+    const float* cD = sD + st * BQ;
+    const int qw = 32 * wc;  // this warp's first query row in the tile
 
-    // S = (scale Q) K^T and dP = dO V^T; this thread's pairs are query rows
-    // ty + 16 i and keys tx + 16 j of the tile
-    float s[4][4], dp[4][4];
+    // S^T = K Q^T and dP^T = V dO^T over this warp's 16 x 32 pairs
+    float s[NS][4], dp[NS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], o[4], bk[4], bv[4];
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll 2
+    for (int d0 = 0; d0 < D; d0 += M::K) {
+      typename M::A ak, av;
+      M::template a_rows<D>(ak, sK, off, 16 * wr, d0);
+      M::template a_rows<D>(av, sV, off, 16 * wr, d0);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        typename M::B bq, bo;
+        M::template b_rows<D>(bq, cQ, off, qw + 8 * j, d0);
+        M::mma(s[j], ak, bq);
+        M::template b_rows<D>(bo, cO, off, qw + 8 * j, d0);
+        M::mma(dp[j], av, bo);
+      }
+    }
+
+    // P^T = exp(S^T*scale - lse) under the forward's masks, kept in s;
+    // dS^T = P^T (dP^T - delta), kept in dp
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        a[i] = sQ[(ty + 16 * i) * KSTR + d];
-        o[i] = sO[(ty + 16 * i) * KSTR + d];
+        const int key = r0 + 8 * (i >> 1);
+        const int c = qw + 8 * j + 2 * t + (i & 1);  // query row in tile
+        const int row = qt * BQ + c;
+        const bool ok = row < Sq && key < Skv && (!causal || row >= key);
+        const float p = ok ? expf(s[j][i] * scale - cL[c]) : 0.f;
+        s[j][i] = p;
+        dp[j][i] = p * (dp[j][i] - cD[c]);
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bk[j] = sK[(tx + 16 * j) * KSTR + d];
-        bv[j] = sV[(tx + 16 * j) * KSTR + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-          dp[i][j] = fmaf(o[i], bv[j], dp[i][j]);
-        }
-    }
 
-    // P = exp(S - lse) under the forward's masks, dS = P (dP - delta)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = row < Sq && col < Skv && (!causal || row >= col);
-        const float p = ok ? expf(s[i][j] - sL[r]) : 0.f;
-        sP[r * PSTR + tx + 16 * j] = p;
-        sS[r * PSTR + tx + 16 * j] = p * (dp[i][j] - sD[r]);
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T (scale Q); this thread's rows are keys
-    // ty + 16 i of the tile, its columns tx + 16 c
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float p[4], ds[4], o[CPT], qv[CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = sP[qq * PSTR + ty + 16 * i];
-        ds[i] = sS[qq * PSTR + ty + 16 * i];
-      }
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        o[c] = sO[qq * KSTR + tx + 16 * c];
-        qv[c] = sQ[qq * KSTR + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          gv[i][c] = fmaf(p[i], o[c], gv[i][c]);
-          gk[i][c] = fmaf(ds[i], qv[c], gk[i][c]);
-        }
-    }
+    // dV += P^T dO and dK += dS^T Q, both A operands from the accumulators
+    // (and, for bf16 inputs with an f32 gradient, the residual that the
+    // rounding of P or dS to bf16 lost)
+    mma_rows<T, D>(gv, s, !dv_bf16, cO, off, qw);
+    mma_rows<T, D>(gk, dp, !dk_bf16, cQ, off, qw);
+    __syncthreads();  // every warp is done with this stage
   }
+  cp_async_wait<0>();  // a block whose causal loop is empty still loaded K, V
+  __syncthreads();
 
+  // the two query halves' partials meet in shared memory (the Q and dO
+  // stages are free now): column tile n is finished and written by warp
+  // half n/(ND/2)
+  float* red = reinterpret_cast<float*>(sQ);
+  constexpr int PART = 4 * ND * 4 * 32;  // one gradient's floats
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+    if (n / (ND / 2) != wc)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int at = ((wr * ND + n) * 4 + i) * 32 + lane;
+        red[at] = gk[n][i];
+        red[PART + at] = gv[n][i];
+      }
+  __syncthreads();
   const int64_t kbase = b * dk_sb + h * dk_sh;
   const int64_t vbase = b * dv_sb + h * dv_sh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= Skv) continue;
+  for (int n = 0; n < ND; ++n) {
+    if (n / (ND / 2) != wc) continue;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      store_out(dk, kbase + row * dk_ss + tx + 16 * c, gk[i][c], dk_bf16);
-      store_out(dv, vbase + row * dv_ss + tx + 16 * c, gv[i][c], dv_bf16);
+    for (int i = 0; i < 4; ++i) {
+      const int at = ((wr * ND + n) * 4 + i) * 32 + lane;
+      gk[n][i] += red[at];
+      gv[n][i] += red[PART + at];
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + 8 * hh;
+      if (row >= Skv) continue;
+      const int col = 8 * n + 2 * t;
+      store2(dk, kbase + row * dk_ss + col, gk[n][2 * hh] * scale,
+             gk[n][2 * hh + 1] * scale, dk_bf16);
+      store2(dv, vbase + row * dv_ss + col, gv[n][2 * hh],
+             gv[n][2 * hh + 1], dv_bf16);
     }
   }
 }
@@ -227,7 +240,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* dk, void* dv, int B, int H, int Sq, int Skv,
                    const int64_t* st, float scale, int causal, int dk_bf16,
                    int dv_bf16, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

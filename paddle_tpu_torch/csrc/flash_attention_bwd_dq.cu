@@ -8,59 +8,56 @@
 // dQ = scale * sum_k dS.K, all accumulated in f32; dQ is written in the
 // output type the caller asks for (JAX's grad_dtypes). Masked
 // probabilities are exactly 0, so a masked pair adds nothing. No atomics:
-// every dQ row is owned by one block, so the result is deterministic.
+// every dQ row is owned by one block, and the two warps that share a row
+// add their halves in a fixed order, so the result is deterministic.
 //
 // Layout: q/k/v/dO/dQ are [B, S, H, D] read and written through their
-// (b, s, h) strides with D contiguous; there is no transpose and no padding
-// copy, the ragged tail of the last tile is masked instead. lse and delta
-// are [B, H, Sq] f32, contiguous.
+// (b, s, h) strides with D contiguous; no transpose and no padding copy,
+// the ragged tails are zero-filled by the loads and masked. Every base
+// pointer and stride must be 16-byte aligned (the wrapper checks). lse and
+// delta are [B, H, Sq] f32, contiguous.
 //
-// What bounds it on the H100: the main path runs it in fp32, and the card
-// has no fp32 tensor-core rate (TF32 is off for parity), so the bound is
-// the 67 TFLOP/s of fp32 FMA: three products per visible (q, k) pair (S,
-// dP and dQ), 6*B*H*D*pairs flops, against (2*Sq + 2*Skv)*B*H*D*elem
-// bytes plus lse, delta and dQ. At B=4, S=1024, H=16, D=128 causal that is
-// 25.8 GFLOP (0.385 ms) against about 170 MB (0.05 ms): compute bound.
-// What the design does about it: one block per (batch, head, 64-row q
-// tile), as the forward kernel. Q (pre-scaled) and dO stay in shared memory
-// and each thread keeps its rows' lse and delta in registers for the whole
-// key loop; K and V tiles stream through shared memory up to the forward's
-// causal trip count ceil((q0 + 64) / 64). Every thread holds a 4x4 block of
-// S and of dP and a 4 x D/16 block of dQ in registers, so each shared load
-// feeds several FMAs. Heavy causal tiles are issued first. bf16 inputs are
-// widened to f32 on load and take the same FMA path; wgmma and TMA are
-// later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What bounds it on the H100: three products per visible (q, k) pair (S,
+// dP and dQ), 6*B*H*D*pairs operations. In bf16 they run at the 989
+// TFLOP/s of the tensor cores; in fp32 as 3xTF32 (flash_bwd_mma.cuh),
+// three TF32 MMAs per product at 495 TFLOP/s, so the fp32-accurate bound
+// is 3 * 6*B*H*D*pairs / 495e12. At B=4, S=1024, H=16, D=128 causal that
+// is 0.156 ms (bf16 0.026 ms) against about 170 MB of traffic (0.05 ms):
+// bound by operations.
+// What the design does about it: one block of 8 warps per (batch, head,
+// 64-row q tile), heaviest causal tiles issued first. Q and dO stay in
+// shared memory; K and V tiles of 64 keys stream through a two-stage ring
+// of cp.async loads (tile t+1 loads while tile t multiplies) up to B1's
+// causal trip count. Warp (r, c) owns q rows 16r..16r+15 and keys
+// 32c..32c+31 of each tile: it forms S and dP with mma.sync, turns them
+// into dS in registers, and feeds dS straight from its accumulators as
+// the A operand of dQ += dS.K, so P and dS never touch shared memory; each
+// tile's dQ contribution is summed on the tensor cores from zero and added
+// to the running dQ in f32 (mma_rows), so the cores' truncating
+// accumulation does not drift over a long key loop. At the end the two
+// key halves' dQ partials meet once in shared memory. Tiles are unpadded
+// and swizzled, so fragment reads are free of bank conflicts. What still
+// bounds it: mma.sync issues at a fraction of the wgmma rate, and every
+// warp splits each fp32 operand it reads for 3xTF32 (two integer
+// operations and a subtract), also where warps share a tile.
+#include "flash_bwd_mma.cuh"
 
 namespace {
 
+using namespace fbwd;
+
 constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per inner tile
-constexpr int THREADS = 256;  // a 16 x 16 grid of threads
-constexpr int PSTR = BK + 1;  // padded row stride of the dS tile
+constexpr int BK = 64;        // keys per streamed tile
+constexpr int THREADS = 256;  // 8 warps: 4 row groups x 2 key halves
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-// out_bf16: 0 writes float32, 1 writes bfloat16
-__device__ __forceinline__ void store_out(void* base, int64_t i, float x,
-                                          int out_bf16) {
-  if (out_bf16)
-    static_cast<__nv_bfloat16*>(base)[i] = __float2bfloat16(x);
-  else
-    static_cast<float*>(base)[i] = x;
-}
-
-template <int D>
+template <typename T, int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * PSTR);
+  // Q, dO, and two stages each of K and V
+  return sizeof(T) * (size_t)(6 * BQ * D);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -72,128 +69,140 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int64_t o_sb, int64_t o_ss, int64_t o_sh,
                     int64_t g_sb, int64_t g_ss, int64_t g_sh,
                     float scale, int causal, int out_bf16) {
-  constexpr int KSTR = D + 1;  // padded row stride of the Q, dO, K, V tiles
-  constexpr int CPT = D / 16;  // dQ columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;              // [BQ][KSTR], pre-scaled
-  float* sO = sQ + BQ * KSTR;    // [BQ][KSTR], dO
-  float* sK = sO + BQ * KSTR;    // [BK][KSTR]
-  float* sV = sK + BK * KSTR;    // [BK][KSTR]
-  float* sS = sV + BK * KSTR;    // [BQ][PSTR], dS
+  using M = Mma<T>;
+  constexpr int TILE = BQ * D;
+  constexpr int NS = BK / 2 / 8;  // 8-wide key tiles of S per warp
+  constexpr int ND = D / 8;       // 8-wide column tiles of dQ
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sO = sQ + TILE;
+  T* sK = sO + TILE;      // [2][TILE]
+  T* sV = sK + 2 * TILE;  // [2][TILE]
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = qt * BQ;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int lane = tid & 31;
+  const int wr = (tid >> 5) & 3;  // q rows 16 wr ..
+  const int wc = tid >> 7;        // keys 32 wc .. of each tile
+  const int g = lane >> 2, t = lane & 3;
+  const typename M::Off off = M::template offsets<D>(lane);
 
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
   const T* ob = dout + b * o_sb + h * o_sh;
 
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int row = q0 + r;
-    const bool in = row < Sq;
-    sQ[r * KSTR + d] = in ? load_f(qb + row * q_ss + d) * scale : 0.f;
-    sO[r * KSTR + d] = in ? load_f(ob + row * o_ss + d) : 0.f;
-  }
-
-  const float* lse_bh = lse + ((int64_t)b * H + h) * Sq;
-  const float* delta_bh = delta + ((int64_t)b * H + h) * Sq;
-  float lse_r[4], delta_r[4], acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lse_r[i] = row < Sq ? lse_bh[row] : 0.f;
-    delta_r[i] = row < Sq ? delta_bh[row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  }
-
   int n_kt = (Skv + BK - 1) / BK;
   if (causal) n_kt = min(n_kt, (q0 + BQ + BK - 1) / BK);
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done (and sQ/sO written)
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int r = idx / D, d = idx % D;
-      const int col = k0 + r;
-      const bool in = col < Skv;
-      sK[r * KSTR + d] = in ? load_f(kb + col * k_ss + d) : 0.f;
-      sV[r * KSTR + d] = in ? load_f(vb + col * v_ss + d) : 0.f;
-    }
-    __syncthreads();
+  load_tile<T, D, BQ, THREADS>(sQ, qb, q_ss, q0, Sq, tid);
+  load_tile<T, D, BQ, THREADS>(sO, ob, o_ss, q0, Sq, tid);
+  load_tile<T, D, BK, THREADS>(sK, kb, k_ss, 0, Skv, tid);
+  load_tile<T, D, BK, THREADS>(sV, vb, v_ss, 0, Skv, tid);
+  cp_async_commit();
 
-    // S = (scale Q) K^T and dP = dO V^T for this thread's 4 x 4 pairs
-    float s[4][4], dp[4][4];
+  // this thread's accumulator rows: r0 (c[0], c[1]) and r0 + 8 (c[2], c[3])
+  const int r0 = q0 + 16 * wr + g;
+  const float* lse_bh = lse + ((int64_t)b * H + h) * Sq;
+  const float* delta_bh = delta + ((int64_t)b * H + h) * Sq;
+  float lse_r[2], delta_r[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], o[4], bk[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = sQ[(ty + 16 * i) * KSTR + d];
-        o[i] = sO[(ty + 16 * i) * KSTR + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bk[j] = sK[(tx + 16 * j) * KSTR + d];
-        bv[j] = sV[(tx + 16 * j) * KSTR + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-          dp[i][j] = fmaf(o[i], bv[j], dp[i][j]);
-        }
-    }
-
-    // P = exp(S - lse) under the forward's masks, dS = P (dP - delta)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = row < Sq && col < Skv && (!causal || row >= col);
-        const float p = ok ? expf(s[i][j] - lse_r[i]) : 0.f;
-        sS[(ty + 16 * i) * PSTR + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sS[(ty + 16 * i) * PSTR + kk];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) kv[c] = sK[kk * KSTR + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(a[i], kv[c], acc[i][c]);
-    }
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    lse_r[i] = row < Sq ? lse_bh[row] : 0.f;
+    delta_r[i] = row < Sq ? delta_bh[row] : 0.f;
   }
 
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) {  // the next tile loads while this one multiplies
+      const int nxt = (kt + 1) & 1;
+      load_tile<T, D, BK, THREADS>(sK + nxt * TILE, kb, k_ss, (kt + 1) * BK,
+                                   Skv, tid);
+      load_tile<T, D, BK, THREADS>(sV + nxt * TILE, vb, v_ss, (kt + 1) * BK,
+                                   Skv, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* cK = sK + (kt & 1) * TILE;
+    const T* cV = sV + (kt & 1) * TILE;
+    const int kw = 32 * wc;  // this warp's first key in the tile
+
+    // S = Q K^T and dP = dO V^T over this warp's 16 x 32 pairs
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < D; k0 += M::K) {
+      typename M::A aq, ao;
+      M::template a_rows<D>(aq, sQ, off, 16 * wr, k0);
+      M::template a_rows<D>(ao, sO, off, 16 * wr, k0);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        typename M::B bk, bv;
+        M::template b_rows<D>(bk, cK, off, kw + 8 * j, k0);
+        M::mma(s[j], aq, bk);
+        M::template b_rows<D>(bv, cV, off, kw + 8 * j, k0);
+        M::mma(dp[j], ao, bv);
+      }
+    }
+
+    // P = exp(S*scale - lse) under the forward's masks; dS = P (dP - delta)
+    const int c0 = kt * BK + kw + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + 8 * (i >> 1);
+        const int col = c0 + 8 * j + (i & 1);
+        const bool ok = row < Sq && col < Skv && (!causal || row >= col);
+        const float p = ok ? expf(s[j][i] * scale - lse_r[i >> 1]) : 0.f;
+        s[j][i] = p * (dp[j][i] - delta_r[i >> 1]);
+      }
+
+    // dQ += dS K, dS straight from the accumulators (and, for bf16 inputs
+    // with an f32 dQ, the residual that dS's rounding to bf16 lost)
+    mma_rows<T, D>(acc, s, !out_bf16, cK, off, kw);
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  // the two key halves' partials meet in shared memory (K's stages are
+  // free now): column tile n is finished and written by warp half n/(ND/2)
+  float* red = reinterpret_cast<float*>(sK);
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+    if (n / (ND / 2) != wc)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        red[((wr * ND + n) * 4 + i) * 32 + lane] = acc[n][i];
+  __syncthreads();
   const int64_t gb = b * g_sb + h * g_sh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Sq) continue;
+  for (int n = 0; n < ND; ++n) {
+    if (n / (ND / 2) != wc) continue;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      store_out(dq, gb + row * g_ss + tx + 16 * c, acc[i][c] * scale, out_bf16);
+    for (int i = 0; i < 4; ++i)
+      acc[n][i] += red[((wr * ND + n) * 4 + i) * 32 + lane];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + 8 * hh;
+      if (row < Sq)
+        store2(dq, gb + row * g_ss + 8 * n + 2 * t, acc[n][2 * hh] * scale,
+               acc[n][2 * hh + 1] * scale, out_bf16);
+    }
   }
 }
 
@@ -203,7 +212,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* dq, int B, int H, int Sq, int Skv, const int64_t* st,
                    float scale, int causal, int out_bf16,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

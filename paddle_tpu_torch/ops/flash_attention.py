@@ -7,8 +7,10 @@ Counterpart of ``paddle_tpu/ops/pallas_attention.py``: ``flash_attention``,
 ``_fa_bwd_dkv_kernel``) and the ``_fa_core`` custom VJP that joins them.
 The kernels are ``csrc/flash_attention_fwd.cu`` (B1),
 ``csrc/flash_attention_bwd_dq.cu`` (B2) and
-``csrc/flash_attention_bwd_dkv.cu`` (B3); each source note says what
-bounds it on the H100 and how its design answers that. Each wrapper
+``csrc/flash_attention_bwd_dkv.cu`` (B3), the latter two on the tensor
+cores through ``csrc/flash_bwd_mma.cuh`` (fp32 as 3xTF32, bf16 native);
+each source note says what bounds it on the H100 and how its design
+answers that. Each wrapper
 (:func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
 :func:`flash_attention_bwd_dkv`) runs its kernel for CUDA tensors and its
 plain version for CPU tensors (the counterpart of the JAX package's
@@ -220,6 +222,23 @@ def _on_kernel(what, q, *tensors) -> bool:
     return True
 
 
+def _check_aligned(what, *tensors):
+    """The backward kernels copy rows of D elements into shared memory
+    16 bytes at a time: every base pointer, and every (b, s, h) stride of
+    a dimension longer than 1, must be a multiple of 16 bytes. Raise
+    otherwise; there is no scalar path to fall back on."""
+    for t in tensors:
+        es = t.element_size()
+        strides = [st * es for st, n in zip(t.stride()[:3], t.shape[:3])
+                   if n > 1]
+        if t.data_ptr() % 16 or any(st % 16 for st in strides):
+            raise ValueError(
+                f"{what} kernel: every base pointer and (b, s, h) stride "
+                f"must be 16-byte aligned, got pointer offset "
+                f"{t.data_ptr() % 16} and strides {tuple(t.stride()[:3])} "
+                f"of {es}-byte elements")
+
+
 def _out_code(dtype, what):
     if dtype not in _DTYPES:
         raise TypeError(f"{what} kernel: gradient dtype {dtype} is not "
@@ -291,13 +310,16 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
     """B2: ``dQ [B, Sq, H, D]`` (in ``dtype``, default q's) from the
     forward's inputs, the output gradient ``dout``, the saved ``lse`` and
     ``delta`` (both ``[B, H, Sq]`` f32). CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel (float32 as 3xTF32 or bfloat16
+    on the tensor cores; D in :data:`SUPPORTED_HEAD_DIMS`; last dim
+    contiguous; base pointers and strides 16-byte aligned) or raise."""
     _check_bwd(q, k, v, dout, lse, delta)
     dt = dtype or q.dtype
     if not _on_kernel("flash attention dq", q, k, v, dout, lse, delta):
         with torch.no_grad():
             return flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta,
                                                 causal, scale, dt)
+    _check_aligned("flash attention dq", q, k, v, dout)
     b, sq, h, d = q.shape
     dq = torch.empty((b, sq, h, d), dtype=dt, device=q.device)
     code = _out_code(dt, "flash attention dq")
@@ -321,14 +343,15 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B3: ``(dK, dV)``, each ``[B, Skv, H, D]`` (default types k's and
     v's), from the same inputs as :func:`flash_attention_bwd_dq`. CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    tensors take the plain version; CUDA tensors launch the kernel (on
+    the same terms as :func:`flash_attention_bwd_dq`) or raise."""
     _check_bwd(q, k, v, dout, lse, delta)
     dk_dt, dv_dt = dk_dtype or k.dtype, dv_dtype or v.dtype
     if not _on_kernel("flash attention dkv", q, k, v, dout, lse, delta):
         with torch.no_grad():
             return flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta,
                                                  causal, scale, dk_dt, dv_dt)
+    _check_aligned("flash attention dkv", q, k, v, dout)
     b, sq, h, d = q.shape
     skv = k.shape[1]
     dk = torch.empty((b, skv, h, d), dtype=dk_dt, device=q.device)

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own with ``nvcc`` for ``sm_90a`` into ``build/paddle_tpu_torch/`` beside
 the package (a directory ``.gitignore`` lists). The output name carries a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing here runs at import: the first wrapper
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header rebuilds and an unchanged one is reused. Nothing here runs at import: the first wrapper
 that launches a kernel calls :func:`load`, which builds every missing
 library in parallel (one ``nvcc`` per source, all started together) and
 then loads the one it needs.
@@ -47,6 +47,8 @@ def build_dir() -> Path:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(csrc_path(name).read_bytes())
+    for header in sorted((_PKG_DIR / "csrc").glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 

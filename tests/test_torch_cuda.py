@@ -200,6 +200,83 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, tol, shape):
                                    atol=tol * scale)
 
 
+def _rel_errs(got, ref):
+    """max |got - ref| / max |ref| per gradient. A gradient that is zero
+    but for rounding (every query sees one key, so dS = 0) is held to the
+    scale of the largest of the three instead."""
+    top = max(float(r.abs().max()) for r in ref)
+    errs = []
+    for g, r in zip(got, ref):
+        m = float(r.abs().max())
+        errs.append(float((g.double() - r.double()).abs().max())
+                    / (m if m > 1e-3 * top else top))
+    return errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv,d", [
+    (1, 1, 32), (63, 65, 64), (65, 63, 128), (127, 129, 32),
+    (129, 127, 64), (1000, 129, 128), (129, 1000, 32), (1, 1000, 64),
+    (1000, 1, 128), (1000, 1000, 64)])
+def test_flash_backward_kernels_at_tile_edges(cuda, dtype, causal, sq, skv,
+                                              d):
+    """Lengths at and around the kernels' 64-row tiles, Sq != Skv both
+    ways. fp32 (3xTF32 on the tensor cores) is held to 1e-4 of the plain
+    version and to 2e-5 of the same formulas in float64; bf16 to 2e-2 of
+    the plain version."""
+    q, k, v, do, out, lse, delta = _bwd_case(cuda, dtype, 1, sq, skv, 2, d,
+                                             causal, seed=sq + skv + d)
+    args = (q, k, v, do, lse, delta, causal)
+    got = (tfa.flash_attention_bwd_dq(*args),
+           *tfa.flash_attention_bwd_dkv(*args))
+    plain = (tfa.flash_attention_bwd_dq_plain(*args),
+             *tfa.flash_attention_bwd_dkv_plain(*args))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    errs = _rel_errs([g.float() for g in got], [p.float() for p in plain])
+    assert max(errs) <= tol, errs
+    if dtype == torch.float32:
+        f64 = [x.double() for x in (q, k, v, do)]
+        o64, l64 = tfa.flash_attention_fwd_plain(*f64[:3], causal)
+        r64 = tfa.flash_attention_bwd_plain(*f64[:3], o64, l64, f64[3],
+                                            causal)
+        errs = _rel_errs(got, r64)
+        assert max(errs) <= 2e-5, errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels_are_deterministic(cuda, dtype):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    q, k, v, do, out, lse, delta = _bwd_case(cuda, dtype, 2, 1000, 1000, 4,
+                                             128, True)
+    args = (q, k, v, do, lse, delta, True)
+    first = (tfa.flash_attention_bwd_dq(*args),
+             *tfa.flash_attention_bwd_dkv(*args))
+    second = (tfa.flash_attention_bwd_dq(*args),
+              *tfa.flash_attention_bwd_dkv(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_backward_kernels_refuse_misaligned_rows(cuda):
+    """The tiles load 16 bytes at a time: a row stride or a base pointer
+    that is not a multiple of 16 bytes raises, with no scalar fallback."""
+    q, k, v, do, out, lse, delta = _bwd_case(cuda, torch.float32, 2, 32, 32,
+                                             2, 64, True)
+    b, s, h, d = q.shape
+    buf = torch.zeros(b * s * (h * d + 1), device=cuda)
+    odd = buf.as_strided(q.shape, (s * (h * d + 1), h * d + 1, d, 1))
+    odd.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention_bwd_dq(odd, k, v, do, lse, delta, True)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention_bwd_dkv(q, odd, v, do, lse, delta, True)
+    shifted = torch.zeros(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(do)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention_bwd_dkv(q, k, v, shifted, lse, delta, True)
+
+
 def test_flash_backward_kernels_read_strided_inputs_and_grad_dtypes(cuda):
     """q/k/v/dO as column slices of packed tensors, read through strides;
     f32 gradients from bf16 inputs (the ring-flash grad_dtypes contract)."""
