@@ -8,15 +8,21 @@ Phases (any failure raises and the script exits non-zero):
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` with nvcc, log
    each kernel's registers, shared memory and spills (``-Xptxas -v``),
    and count the tensor-core instructions (HMMA/HGMMA) in the SASS of the
-   backward kernels B2 and B3 (``cuobjdump -sass``; none fails the run);
+   flash-attention kernels B1, B2 and B3 (``cuobjdump -sass``; an
+   instantiation without any fails the run);
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it (B2 and B3 also against float64
-   formulas, and two launches against each other, bit for bit), and time
-   kernel, plain version and, where one exists, the single PyTorch call
-   computing the same function (for B2 and B3 together: the backward of
-   ``scaled_dot_product_attention``, timed without its forward); bounds
-   of B1-B3 on the tensor cores (fp32 as 3xTF32), with the fp32-FMA
-   bound beside;
+   shapes the main path gives it (B1, B2 and B3 in fp32 also against
+   float64 formulas; B1-B4 two launches against each other, bit for
+   bit), and time kernel, plain version and, where one exists, the single
+   PyTorch call computing the same function: for B1 the forward of
+   ``scaled_dot_product_attention``, for B2 and B3 together its backward
+   (timed without its forward), each SDPA backend that accepts the case
+   timed on its own and the fastest kept under its name, kernel and
+   library timed in alternating rounds and reported as the median round;
+   kernels and library calls are timed on the device's clock, behind a
+   spin kernel that lets the host queue every call first;
+   bounds of B1-B3 on the tensor cores (fp32 as 3xTF32), with the
+   fp32-FMA bound beside;
 3. the serving path, part one: GPT-3 1.3B (``GPTForCausalLM``, full
    width, random weights from a seed) forward on a [4, 1024] batch
    through the flash kernel, held against the same model's dense
@@ -63,6 +69,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -92,31 +99,121 @@ DET_DECODE = dict(conf_thresh=0.01, nms_thresh=0.45, nms_top_k=400,
                   keep_top_k=100)
 
 TOL = {"fp32": 1e-4, "bf16": 2e-2}     # max abs error, kernel vs plain
-F64_TOL = 2e-5      # B2/B3 fp32 (3xTF32) vs float64 formulas, of max |ref|
+F64_TOL = 2e-5      # B1-B3 fp32 (3xTF32) vs float64 formulas, of max |ref|
 LOGIT_TOL = 2e-3                       # flash vs dense, and kernel vs gather
 GRAD_TOL = 1e-3     # flash vs dense train gradients, per tensor, of its max
 TRAIN_STEPS = 5
+
+#: the library yardstick of B1-B3: each SDPA backend on its own, timed in
+#: ROUNDS alternating rounds of ROUND_ITERS calls against the kernels, on
+#: the device's clock behind a spin of SPIN_CYCLES (~25 ms)
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+ROUNDS = 5
+ROUND_ITERS = 20
+SPIN_CYCLES = 50_000_000
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def time_ms(fn, iters=20, warmup=3):
+def time_ms(fn, iters=20, warmup=3, spin=False):
     """Mean device time of ``fn`` in ms, by CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls."""
+    back-to-back calls after ``warmup`` calls. With ``spin``, a spin
+    kernel of SPIN_CYCLES runs first, so that the host has queued every
+    call before the device reaches them and the events time the device
+    alone, whatever each call costs the host (a call shorter on the
+    device than on the host is otherwise timed on the host's clock); a
+    spin that the host does not outrun is taken again, four times
+    longer, and if the host does not outrun that either the time would be
+    the host's, so it raises."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
+    for cycles in ((SPIN_CYCLES, 4 * SPIN_CYCLES) if spin else (0,)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if cycles:
+            torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()      # the spin still ran: all queued
+        end.synchronize()
+        if ahead:
+            break
+    else:
+        if spin:
+            raise RuntimeError(
+                f"time_ms: the host did not queue {iters} calls within a "
+                f"spin of {4 * SPIN_CYCLES} cycles; the reading would be "
+                f"host time")
     return start.elapsed_time(end) / iters
+
+
+def host_time_ms(fn, calls=20):
+    """Mean host time of ``fn`` in ms over ``calls`` back-to-back calls
+    (what a call costs the host: the device runs behind), then waits for
+    the device."""
+    import torch
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def time_rounds(torch, fns, rounds=ROUNDS, iters=ROUND_ITERS):
+    """Device times of several functions of the same inputs, taken in
+    alternating rounds (each round times every function in turn, the
+    order reversed every other round): {name: median round ms}, and
+    every round's ms by name."""
+    per = {n: [] for n in fns}
+    for r in range(rounds):
+        for n in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            per[n].append(time_ms(fns[n], iters=iters, warmup=1, spin=True))
+    return {n: float(np.median(v)) for n, v in per.items()}, per
+
+
+def sdpa_backends(torch, make):
+    """{backend name: callable} for each SDPA backend that accepts the
+    case: ``make()`` builds the call under the backend (and returns the
+    function to time), and a backend that refuses it raises and is
+    skipped."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            # a backend that refuses the case warns why, then raises
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")
+                fn = make()
+                fn()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+
+        def run(fn=fn, backend=backend):
+            with sdpa_kernel(backend):
+                return fn()
+        out[name] = run
+    return out
+
+
+def fastest(ms_by_name, names):
+    """(name, ms) of the fastest of ``names`` in ``ms_by_name``, or (None,
+    None) when there is none."""
+    got = [(ms_by_name[n], n) for n in names if n in ms_by_name]
+    if not got:
+        return None, None
+    ms, name = min(got)
+    return name, ms
 
 
 def sync(torch, dev):
@@ -177,8 +274,11 @@ def sass_tensor_counts(kernel_build, names):
 
 def check_flash(torch, fa_mod, gen):
     """B1 against its plain version at B=4, S=1024, H=16, D=128, plus the
-    odd length and Sq != Skv cases. Returns the summary row for the main
-    path's case (fp32, causal, S=1024)."""
+    odd length and Sq != Skv cases; every case launches the kernel twice
+    and requires bitwise equal results, and every fp32 case is also held
+    to F64_TOL of the same attention in float64 (O and LSE, max |err| /
+    max |ref|). Returns the summary row for the main path's case (fp32,
+    causal, S=1024), with the bf16 causal case's times beside."""
     fa = fa_mod.flash_attention_fwd
     plain = fa_mod.flash_attention_fwd_plain
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -190,23 +290,40 @@ def check_flash(torch, fa_mod, gen):
              ("fp32", torch.float32, 1000, 1000, True),
              ("fp32", torch.float32, 512, 1024, True),
              ("fp32", torch.float32, 1024, 640, False)]
-    row = None
+    row = bf16 = None
     for name, dt, sq, skv, causal in cases:
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
         k = torch.randn(b, skv, h, d, generator=gen, device="cuda").to(dt)
         v = torch.randn(b, skv, h, d, generator=gen, device="cuda").to(dt)
         out, lse = fa(q, k, v, causal=causal)
+        again = fa(q, k, v, causal=causal)
         ref, ref_lse = plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        del again
         err = (out.float() - ref.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
-        ok = err <= TOL[name] and lse_err <= TOL["fp32"] \
+        ok = same and err <= TOL[name] and lse_err <= TOL["fp32"] \
             and bool(torch.isfinite(out.float()).all())
-        ms = time_ms(lambda: fa(q, k, v, causal=causal))
+        e64, extra = None, ""
+        if dt == torch.float32:
+            o64, l64 = plain(*(x.double() for x in (q, k, v)), causal)
+            e64 = max(((out.double() - o64).abs().max()
+                       / o64.abs().max()).item(),
+                      ((lse.double() - l64).abs().max()
+                       / l64.abs().max()).item())
+            extra = f" vs float64 {e64:.3e} (tol {F64_TOL:.0e})"
+            ok = ok and e64 <= F64_TOL
+            del o64, l64
         plain_ms = time_ms(lambda: plain(q, k, v, causal=causal), iters=5)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         # SDPA's causal mask is top-left aligned, as the kernel's
-        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
+        libs = sdpa_backends(torch, lambda: (
+            lambda: sdpa(qt, kt, vt, is_causal=causal)))
+        med, rounds = time_rounds(
+            torch, {"kernel": lambda: fa(q, k, v, causal=causal), **libs})
+        ms = med["kernel"]
+        lib_name, lib_ms = fastest(med, libs)
         if causal:
             pairs = sum(min(i + 1, skv) for i in range(sq))
         else:
@@ -215,22 +332,37 @@ def check_flash(torch, fa_mod, gen):
         elem = q.element_size()
         nbytes = (2 * sq + 2 * skv) * b * h * d * elem + 4 * b * h * sq
         bms, by, fma_ms = attn_bound(flops, nbytes, dt)
+        lib_txt = ", ".join(f"{n} {med[n]:.4f}" for n in libs)
         log(f"B1 flash {name} Sq={sq} Skv={skv} causal={causal}: "
             f"max_abs_err O {err:.3e} LSE {lse_err:.3e} "
-            f"(tol {TOL[name]:.0e}/{TOL['fp32']:.0e}) kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
+            f"(tol {TOL[name]:.0e}/{TOL['fp32']:.0e}){extra}, two launches "
+            f"bitwise equal {same}; kernel {ms:.4f} ms (rounds "
+            f"{[round(x, 4) for x in rounds['kernel']]}) plain "
+            f"{plain_ms:.4f} ms sdpa {{{lib_txt}}} ms, fastest {lib_name}; "
             f"bound {bms:.4f} ms ({by}"
             + (f"; on fp32 FMA {fma_ms:.4f} ms)" if fma_ms else ")"))
         if not ok:
             raise RuntimeError(f"flash kernel disagrees with its plain "
-                               f"version ({name}, Sq={sq}, Skv={skv})")
+                               f"version, the float64 formulas or itself "
+                               f"({name}, Sq={sq}, Skv={skv})")
         if row is None:
             row = {"max_abs_err": max(err, lse_err), "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                    "bound_fp32_fma_ms": fma_ms,
-                   "library_ms": lib_ms, "tolerance": TOL[name],
+                   "library_ms": lib_ms,
+                   "library": f"sdpa forward, {lib_name} backend",
+                   "library_ms_by_backend": {n: med[n] for n in libs},
+                   "tolerance": TOL[name], "max_err_vs_float64": e64,
+                   "float64_tolerance": F64_TOL,
+                   "bitwise_repeatable": same,
                    "shape": f"B={b} S={sq} H={h} D={d} fp32 causal"}
+        elif name == "bf16" and causal and bf16 is None:
+            bf16 = {"bf16_ms": ms, "bf16_bound_ms": bms,
+                    "bf16_library_ms": lib_ms,
+                    "bf16_library": f"sdpa forward, {lib_name} backend",
+                    "bf16_max_abs_err": max(err, lse_err)}
         del q, k, v, out, lse, ref, ref_lse
+    row.update(bf16)
     return row
 
 
@@ -291,18 +423,26 @@ def check_flash_bwd(torch, fa_mod, gen):
             extra = f" (vs float64 formulas {e64:.3e}, tol {F64_TOL:.0e})"
             ok = ok and e64 <= F64_TOL
             del f64, o64, l64, r64
-        ms_dq = time_ms(lambda: fa_mod.flash_attention_bwd_dq(*args))
-        ms_dkv = time_ms(lambda: fa_mod.flash_attention_bwd_dkv(*args))
         plain_dq = time_ms(lambda: fa_mod.flash_attention_bwd_dq_plain(*args),
                            iters=3)
         plain_dkv = time_ms(
             lambda: fa_mod.flash_attention_bwd_dkv_plain(*args), iters=3)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
-        o_lib = sdpa(qt, kt, vt, is_causal=causal)
         do_t = do.transpose(1, 2)
-        lib_ms = time_ms(lambda: torch.autograd.grad(
-            o_lib, (qt, kt, vt), do_t, retain_graph=True))
+
+        def make():
+            # the backward of the forward this backend ran
+            o_lib = sdpa(qt, kt, vt, is_causal=causal)
+            return lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
+                                               retain_graph=True)
+        libs = sdpa_backends(torch, make)
+        med, _ = time_rounds(torch, {
+            "B2": lambda: fa_mod.flash_attention_bwd_dq(*args),
+            "B3": lambda: fa_mod.flash_attention_bwd_dkv(*args), **libs})
+        ms_dq, ms_dkv = med["B2"], med["B3"]
+        lib_name, lib_ms = fastest(med, libs)
+        lib_txt = ", ".join(f"{n} {med[n]:.4f}" for n in libs)
         if causal:
             pairs = sum(min(i + 1, skv) for i in range(sq))
         else:
@@ -321,7 +461,8 @@ def check_flash_bwd(torch, fa_mod, gen):
             f"bitwise equal {same}; B2 {ms_dq:.4f} ms (plain {plain_dq:.4f}, "
             f"bound {b_dq[0]:.4f} {b_dq[1]}); B3 {ms_dkv:.4f} ms (plain "
             f"{plain_dkv:.4f}, bound {b_dkv[0]:.4f} {b_dkv[1]}){fma}; "
-            f"B2+B3 {ms_dq + ms_dkv:.4f} ms vs sdpa backward {lib_ms:.4f} ms")
+            f"B2+B3 {ms_dq + ms_dkv:.4f} ms vs sdpa backward {{{lib_txt}}} "
+            f"ms, fastest {lib_name}")
         if not ok:
             raise RuntimeError(f"flash backward kernels disagree with their "
                                f"plain versions, the float64 formulas or "
@@ -333,7 +474,9 @@ def check_flash_bwd(torch, fa_mod, gen):
                       "max_err_vs_float64": e64, "float64_tolerance": F64_TOL,
                       "bitwise_repeatable": same,
                       "library_ms": lib_ms,
-                      "library": "sdpa backward, for B2+B3 together",
+                      "library": f"sdpa backward, {lib_name} backend, for "
+                                 f"B2+B3 together",
+                      "library_ms_by_backend": {n: med[n] for n in libs},
                       "shape": shape}
             rows = ({"max_abs_err": abs_errs["dq"],
                      "max_err_over_max_ref": errs["dq"], "ms": ms_dq,
@@ -345,53 +488,93 @@ def check_flash_bwd(torch, fa_mod, gen):
                      "ms": ms_dkv, "plain_ms": plain_dkv,
                      "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
                      "bound_fp32_fma_ms": b_dkv[2], **common})
-        del q, k, v, do, out, lse, delta, dq, dk, dv, rq, rk, rv, o_lib
+        del q, k, v, do, out, lse, delta, dq, dk, dv, rq, rk, rv, libs
     return rows
 
 
-def check_paged(torch, pa_mod, gen):
-    """B4 against its plain version: 8 sequences, H=16, D=128, page 16,
-    64 pages per sequence, block tables with trash entries, positions at
-    page edges and at 0, through a strided layer view of a 2-layer
-    arena."""
+#: B4's cases: the positions of the 8 sequences
+PAGED_CASES = (("main", [0, 15, 16, 255, 512, 1023, 640, 1000]),
+               ("all at 1023", [1023] * 8))
+
+
+def paged_case(torch, gen):
+    """B4's inputs: 8 sequences, H=16, D=128, page 16, 64 pages per
+    sequence, block tables with trash entries, K and V as strided layer
+    views of 2-layer arenas; (q, k view, v view, block tables)."""
     s_n, h, d, page, pps = 8, 16, 128, 16, 64
     n_pages = s_n * pps
     arena_k = torch.randn(n_pages + 1, 2, page, h, d, generator=gen,
                           device="cuda")
     arena_v = torch.randn(n_pages + 1, 2, page, h, d, generator=gen,
                           device="cuda")
-    kb, vb = arena_k[:, 1], arena_v[:, 1]          # strided layer views
     perm = torch.randperm(n_pages, generator=gen, device="cuda")
     bt = perm.reshape(s_n, pps).to(torch.int32)
     trash = torch.rand(s_n, pps, generator=gen, device="cuda") < 0.1
     bt = torch.where(trash, torch.full_like(bt, n_pages), bt)
-    positions = torch.tensor([0, 15, 16, 255, 512, 1023, 640, 1000],
-                             dtype=torch.int32, device="cuda")
     q = torch.randn(s_n, h, d, generator=gen, device="cuda")
-    out = pa_mod.paged_attention(q, kb, vb, bt, positions)
-    ref = pa_mod.paged_attention_plain(q, kb, vb, bt, positions)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    ms = time_ms(lambda: pa_mod.paged_attention(q, kb, vb, bt, positions))
-    plain_ms = time_ms(
-        lambda: pa_mod.paged_attention_plain(q, kb, vb, bt, positions),
-        iters=5)
-    rows = int((positions.long() + 1).clamp(max=pps * page).sum().item())
-    flops = 4.0 * rows * h * d
+    return q, arena_k[:, 1], arena_v[:, 1], bt
+
+
+def paged_bound(torch, q, kb, bt, positions):
+    """B4's bound: (ms, "bytes" or "operations", visible rows)."""
+    s_n, h, d = q.shape
+    rows = int((positions.long() + 1).clamp(
+        max=bt.shape[1] * kb.shape[1]).sum().item())
     nbytes = (2 * rows * h * d * 4 + 2 * s_n * h * d * 4
               + bt.numel() * 4 + s_n * 4)
-    bms, by = bound(flops, nbytes, PEAK_FP32)
-    log(f"B4 paged S={s_n} H={h} D={d} page={page} pages/seq={pps} fp32: "
-        f"max_abs_err {err:.3e} (tol {TOL['fp32']:.0e}) kernel {ms:.4f} ms "
-        f"plain {plain_ms:.4f} ms bound {bms:.4f} ms ({by}), "
-        f"{rows} visible rows")
-    if not (err <= TOL["fp32"] and bool(torch.isfinite(out).all())):
-        raise RuntimeError("paged attention kernel disagrees with its "
-                           "plain version")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "tolerance": TOL["fp32"],
-            "shape": f"S={s_n} H={h} D={d} page={page} pages/seq={pps} fp32"}
+    return (*bound(4.0 * rows * h * d, nbytes, PEAK_FP32), rows)
+
+
+def check_paged(torch, pa_mod, gen):
+    """B4 against its plain version on :func:`paged_case`'s inputs at
+    positions at page edges and at 0, then with all 8 sequences at 1023
+    (PAGED_CASES). Each case launches the kernel twice and requires
+    bitwise equal results. Returns the summary row of the first case,
+    the second's times beside."""
+    q, kb, vb, bt = paged_case(torch, gen)
+    s_n, h, d = q.shape
+    page, pps = kb.shape[1], bt.shape[1]
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk = pa_mod.chunk_pages_for(pps, s_n * h, n_sms)
+    row = None
+    for name, pos in PAGED_CASES:
+        positions = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        out = pa_mod.paged_attention(q, kb, vb, bt, positions)
+        again = pa_mod.paged_attention(q, kb, vb, bt, positions)
+        ref = pa_mod.paged_attention_plain(q, kb, vb, bt, positions)
+        torch.cuda.synchronize()
+        same = torch.equal(out, again)
+        err = (out - ref).abs().max().item()
+        def run():
+            return pa_mod.paged_attention(q, kb, vb, bt, positions)
+        ms = time_ms(run, spin=True)
+        host_ms = host_time_ms(run)
+        plain_ms = time_ms(
+            lambda: pa_mod.paged_attention_plain(q, kb, vb, bt, positions),
+            iters=5)
+        bms, by, rows = paged_bound(torch, q, kb, bt, positions)
+        log(f"B4 paged {name} S={s_n} H={h} D={d} page={page} "
+            f"pages/seq={pps} fp32 ({chunk} pages a chunk, {n_sms} SMs): "
+            f"max_abs_err {err:.3e} (tol {TOL['fp32']:.0e}), two launches "
+            f"bitwise equal {same}; kernel {ms:.4f} ms (the wrapper's host "
+            f"time a call {host_ms:.4f} ms) plain {plain_ms:.4f} ms bound "
+            f"{bms:.4f} ms ({by}), {rows} visible rows")
+        if not (same and err <= TOL["fp32"]
+                and bool(torch.isfinite(out).all())):
+            raise RuntimeError(f"paged attention kernel disagrees with its "
+                               f"plain version or itself ({name})")
+        if row is None:
+            row = {"max_abs_err": err, "ms": ms, "host_ms": host_ms,
+                   "plain_ms": plain_ms,
+                   "bound_ms": bms, "bound_by": by, "library_ms": None,
+                   "tolerance": TOL["fp32"], "bitwise_repeatable": same,
+                   "chunk_pages": chunk,
+                   "shape": f"S={s_n} H={h} D={d} page={page} "
+                            f"pages/seq={pps} fp32"}
+        else:
+            row.update(full_ms=ms, full_bound_ms=bms, full_max_abs_err=err,
+                       full_shape="all 8 sequences at position 1023")
+    return row
 
 
 def _nms_case(torch, det_mod, gen, p_n, k, kind="boxes", side=608.0):
@@ -460,7 +643,8 @@ def check_nms(torch, nms_mod, det_mod, gen):
             raise RuntimeError(f"greedy NMS kernel disagrees with its plain "
                                f"version ({name})")
         if row is None:
-            ms = time_ms(lambda: nms_mod.greedy_nms(iou, valid, thr, eta))
+            ms = time_ms(lambda: nms_mod.greedy_nms(iou, valid, thr, eta),
+                         spin=True)
             plain_ms = time_ms(
                 lambda: nms_mod.greedy_nms_plain(iou, valid, thr, eta),
                 iters=3)
@@ -1013,18 +1197,22 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "error")):
                 log(f"  {name}: {line.strip()}")
-    tc_libs = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    tc_libs = ("flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
     tc = sass_tensor_counts(kernel_build, tc_libs)
     if tc is None:
         log("cuobjdump not found: the tensor-core instruction counts of "
             f"{', '.join(tc_libs)} are not checked")
     else:
+        # fp32 and bf16 at each supported head dim
+        n_inst = 2 * len(fa_mod.SUPPORTED_HEAD_DIMS)
         for name, counts in tc.items():
             log(f"SASS tensor-core instructions (HMMA/HGMMA) in {name}: "
                 f"{counts}")
-            if not counts or min(counts.values()) == 0:
-                raise RuntimeError(f"{name}: a kernel without tensor-core "
-                                   f"instructions: {counts}")
+            if len(counts) != n_inst or min(counts.values()) == 0:
+                raise RuntimeError(f"{name}: {n_inst} instantiations with "
+                                   f"tensor-core instructions expected, "
+                                   f"got {counts}")
 
     # -- phase 2: kernels against their plain versions -----------------------
     stamp("2 kernels")
@@ -1033,6 +1221,7 @@ def main() -> int:
     b1 = check_flash(torch, fa_mod, gen)
     b2, b3 = check_flash_bwd(torch, fa_mod, gen)
     if tc is not None:
+        b1["sass_tensor_core_instructions"] = tc["flash_attention_fwd"]
         b2["sass_tensor_core_instructions"] = tc["flash_attention_bwd_dq"]
         b3["sass_tensor_core_instructions"] = tc["flash_attention_bwd_dkv"]
     b4 = check_paged(torch, pa_mod, gen)

@@ -1,40 +1,71 @@
 #!/usr/bin/env python3
-"""Time variants of the flash-attention backward kernels (B2 and B3)
-against the repository's own, on one CUDA card.
+"""Time variants of the attention kernels (flash forward B1, backward B2
+and B3, paged decode B4) against the repository's own, on one CUDA card.
 
     python3 flash_bwd_ab.py DIR [DIR ...]     # from the repository root
 
-Each DIR holds a variant of ``paddle_tpu_torch/csrc``'s
-``flash_attention_bwd_dq.cu``, ``flash_attention_bwd_dkv.cu`` and
-``flash_bwd_mma.cuh`` (same C entry points). Every variant is built with
-the repository's nvcc flags into DIR and run on the same inputs as the
-repository's kernels: B=4, S=1024, H=16, D=128, causal, fp32 and bf16.
-The script prints each variant's registers and spills, its largest
-difference from the repository's result, its fp32 error against the same
-formulas in float64 (max |err| / max |ref| for dQ, dK, dV, beside the
-plain version's), and B2's and B3's device times taken in turns
-(repository, variants, variants in reverse, repository), and the card's
-name and power limit. It needs one card and exits non-zero without one.
+Each DIR holds either a variant of some of ``paddle_tpu_torch/csrc``'s
+``flash_attention_fwd.cu``, ``flash_attention_bwd_dq.cu`` and
+``flash_attention_bwd_dkv.cu`` (same C entry points), with its own copy of
+``flash_mma.cuh`` beside them, or a whole tree of another version of the
+repository (a DIR holding ``paddle_tpu_torch/``, e.g. an older commit
+unpacked with ``git archive``).
+
+Flash kernels: every source a variant holds is built with the
+repository's nvcc flags into DIR and run on the same inputs as the
+repository's kernel: B=4, S=1024, H=16, D=128, causal, fp32 and bf16. The
+script prints each variant's registers and spills, its largest difference
+from the repository's result, its fp32 error against the same formulas in
+float64 (max |err| / max |ref| for O and LSE, or dQ, dK and dV), and
+each kernel's device times taken in turns
+(repository, variants, variants in reverse, repository).
+
+Paged decode B4, at ``chip_smoke.py``'s two B4 cases: the repository's
+wrapper with its chunk rule at several ``BLOCKS_PER_SM``, and each tree's
+own wrapper and kernel (imported from the tree under another name, built
+there), each held to the plain version at 1e-4 and timed in alternating
+rounds on the device's clock (median round), and the wrappers' host time a
+call, also in alternating rounds.
+
+Every time is taken as ``chip_smoke.py`` takes it (``time_ms(spin=True)``:
+CUDA events around calls queued behind a spin kernel). The script prints
+the card's name and power limit, needs one card and exits non-zero
+without one.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import statistics
 import subprocess
 import sys
 from pathlib import Path
 
-NAMES = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+#: BLOCKS_PER_SM values of B4's chunk rule timed against each other
+BLOCKS_PER_SM = (2, 4, 8, 16, 32)
+#: host time rounds of B4's wrappers, and calls a round
+HOST_ROUNDS = 5
+HOST_CALLS = 100
+
+#: each kernel's source name, pointer count and trailing dtype codes
+KERNELS = {"flash_attention_fwd": ("pt_flash_attention_fwd", 5, 1),
+           "flash_attention_bwd_dq": ("pt_flash_attention_bwd_dq", 7, 2),
+           "flash_attention_bwd_dkv": ("pt_flash_attention_bwd_dkv", 8, 3)}
+LABELS = {"flash_attention_fwd": "B1", "flash_attention_bwd_dq": "B2",
+          "flash_attention_bwd_dkv": "B3"}
 
 
 def build(kb, vdir: Path):
-    """Compile the variant in vdir; returns its two libraries."""
+    """Compile the sources the variant in vdir holds; returns their
+    libraries by name."""
     procs = []
-    for name in NAMES:
+    for name in KERNELS:
+        src = vdir / f"{name}.cu"
+        if not src.is_file():
+            continue
         out = vdir / f"lib{name}.so"
         procs.append((name, out, subprocess.Popen(
-            [kb.find_nvcc(), *kb.NVCC_FLAGS, "-o", str(out),
-             str(vdir / f"{name}.cu")],
+            [kb.find_nvcc(), *kb.NVCC_FLAGS, "-o", str(out), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
     for name, out, proc in procs:
@@ -53,53 +84,142 @@ def report(tag, name, log):
 
 
 def entries(libs):
-    dq = libs["flash_attention_bwd_dq"].pt_flash_attention_bwd_dq
-    dkv = libs["flash_attention_bwd_dkv"].pt_flash_attention_bwd_dkv
-    for fn, n_ptr, n_tail in ((dq, 7, 2), (dkv, 8, 3)):
+    """Each library's C entry point with its argtypes set."""
+    out = {}
+    for name, lib in libs.items():
+        fn_name, n_ptr, n_tail = KERNELS[name]
+        fn = getattr(lib, fn_name)
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
                        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int]
                        + [ctypes.c_int] * n_tail + [ctypes.c_void_p])
-    return dq, dkv
+        out[name] = fn
+    return out
 
 
-def runners(torch, fa, dq_fn, dkv_fn, q, k, v, do, lse, delta):
-    """Closures launching one variant's B2 and B3 (causal) into its own
-    outputs, and those outputs."""
+def runners(torch, fa, fns, q, k, v, do, lse, delta):
+    """{kernel name: (closure launching one variant's kernel (causal)
+    into its own outputs, those outputs)}."""
     b, sq, h, d = q.shape
+    skv = k.shape[1]
     code = fa._DTYPES[q.dtype]
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    st_dq = fa._strides(q, k, v, do, dq)
-    st_dkv = fa._strides(q, k, v, do, dk, dv)
     scale = 1.0 / d ** 0.5
     stream = torch.cuda.current_stream().cuda_stream
-    ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta)]
+    ins = [x.data_ptr() for x in (q, k, v)]
+    grads = [x.data_ptr() for x in (do, lse, delta)]
+    out = {}
+    for name, fn in fns.items():
+        if name == "flash_attention_fwd":
+            res = (torch.empty_like(q),
+                   torch.empty(b, h, sq, device=q.device))
+            st = fa._strides(q, k, v, res[0])
+            args = (*ins, *(x.data_ptr() for x in res), b, h, sq, skv, d,
+                    st, scale, 1, code, stream)
+        elif name == "flash_attention_bwd_dq":
+            res = (torch.empty_like(q),)
+            st = fa._strides(q, k, v, do, res[0])
+            args = (*ins, *grads, res[0].data_ptr(), b, h, sq, skv, d, st,
+                    scale, 1, code, code, stream)
+        else:
+            res = (torch.empty_like(k), torch.empty_like(v))
+            st = fa._strides(q, k, v, do, *res)
+            args = (*ins, *grads, *(x.data_ptr() for x in res), b, h, sq,
+                    skv, d, st, scale, 1, code, code, code, stream)
 
-    def run_dq():
-        if dq_fn(*ptrs, dq.data_ptr(), b, h, sq, k.shape[1], d, st_dq, scale,
-                 1, code, code, stream):
-            raise RuntimeError("B2 launch failed")
-
-    def run_dkv():
-        if dkv_fn(*ptrs, dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[1],
-                  d, st_dkv, scale, 1, code, code, code, stream):
-            raise RuntimeError("B3 launch failed")
-
-    return run_dq, run_dkv, (dq, dk, dv)
+        def run(fn=fn, args=args, st=st, name=name):  # st: kept alive
+            if fn(*args):
+                raise RuntimeError(f"{LABELS[name]} launch failed")
+        out[name] = (run, res)
+    return out
 
 
-def time_ms(torch, fn, iters=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def tree_paged(root: Path, alias: str):
+    """The ``ops.paged_attention`` module of the tree at root, imported
+    as package ``alias`` (its kernels build under root)."""
+    import importlib
+    import importlib.util
+    pkg = root / "paddle_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{alias}.ops.paged_attention")
+
+
+def paged_ab(torch, cs, trees):
+    """B4: the repository's chunk rule at each of BLOCKS_PER_SM and each
+    tree's wrapper, against each other at chip_smoke's B4 cases."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    mods = {"repo": pa}
+    for i, (name, root) in enumerate(trees.items()):
+        mods[name] = tree_paged(root, f"ab_tree_{i}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    q, kb, vb, bt = cs.paged_case(torch, gen)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    default = pa.BLOCKS_PER_SM
+    for n in BLOCKS_PER_SM:
+        pa.BLOCKS_PER_SM = n
+        chunk = pa.chunk_pages_for(bt.shape[1], q.shape[0] * q.shape[1],
+                                   n_sms)
+        print(f"B4 repo {n} blocks/SM: {chunk} pages a chunk of "
+              f"{bt.shape[1]}, {n_sms} SMs")
+    pa.BLOCKS_PER_SM = default
+
+    def at(bps, positions):
+        def run():
+            pa.BLOCKS_PER_SM = bps
+            try:
+                return pa.paged_attention(q, kb, vb, bt, positions)
+            finally:
+                pa.BLOCKS_PER_SM = default
+        return run
+
+    for case, pos in cs.PAGED_CASES:
+        positions = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        fns = {f"repo {n} blocks/SM": at(n, positions)
+               for n in BLOCKS_PER_SM}
+        wrappers = {}       # each tree's wrapper as a user calls it
+        for name, mod in mods.items():
+            wrappers[name] = (lambda mod=mod: mod.paged_attention(
+                q, kb, vb, bt, positions))
+            if name != "repo":
+                fns[name] = wrappers[name]
+        ref = pa.paged_attention_plain(q, kb, vb, bt, positions)
+        for n, fn in fns.items():
+            out, again = fn(), fn()
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            print(f"B4 {case} {n}: max_abs_err {err:.3e}, two launches "
+                  f"bitwise equal {torch.equal(out, again)}")
+            if err > cs.TOL["fp32"]:
+                raise RuntimeError(f"B4 {case} {n} disagrees with the plain "
+                                   f"version")
+        med, per = cs.time_rounds(torch, fns)
+        bms, by, rows = cs.paged_bound(torch, q, kb, bt, positions)
+        for n in fns:
+            print(f"B4 {case} {n} device ms median {med[n]:.4f} rounds "
+                  f"{[round(x, 4) for x in per[n]]} (bound {bms:.4f} ms, "
+                  f"{by}, {rows} rows)")
+        host = {n: [] for n in wrappers}
+        for r in range(HOST_ROUNDS):
+            for n in (list(wrappers) if r % 2 == 0 else list(wrappers)[::-1]):
+                host[n].append(cs.host_time_ms(wrappers[n], HOST_CALLS))
+        for n, t in host.items():
+            print(f"B4 {case} {n} wrapper host ms a call median "
+                  f"{statistics.median(t):.4f} rounds "
+                  f"{[round(x, 4) for x in t]}")
+
+
+def float64_refs(fa, q, k, v, do):
+    """The forward's (O, LSE) and the backward's (dQ, dK, dV) in float64."""
+    f64 = [x.double() for x in (q, k, v, do)]
+    o64, l64 = fa.flash_attention_fwd_plain(*f64[:3], True)
+    grads = fa.flash_attention_bwd_plain(*f64[:3], o64, l64, f64[3], True)
+    return {"flash_attention_fwd": (o64, l64),
+            "flash_attention_bwd_dq": grads[:1],
+            "flash_attention_bwd_dkv": grads[1:]}
 
 
 def main() -> int:
@@ -108,17 +228,22 @@ def main() -> int:
         print("flash_bwd_ab: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke as cs
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import kernel_build as kb
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    kb.build_all(NAMES)
-    for name in NAMES:
+    kb.build_all(tuple(KERNELS))
+    for name in KERNELS:
         report("repo", name, kb.BUILD_LOGS.get(name, ""))
-    variants = {"repo": entries({n: kb.load(n) for n in NAMES})}
+    variants = {"repo": entries({n: kb.load(n) for n in KERNELS})}
+    trees = {}
     for arg in sys.argv[1:]:
-        variants[Path(arg).name] = entries(build(kb, Path(arg)))
+        if (Path(arg) / "paddle_tpu_torch").is_dir():
+            trees[Path(arg).name] = Path(arg)
+        else:
+            variants[Path(arg).name] = entries(build(kb, Path(arg)))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     for dt in (torch.float32, torch.bfloat16):
@@ -126,40 +251,39 @@ def main() -> int:
                                    device="cuda").to(dt) for _ in range(4))
         out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
         delta = fa.attention_delta(out, do)
-        runs = {n: runners(torch, fa, *f, q, k, v, do, lse, delta)
+        runs = {n: runners(torch, fa, f, q, k, v, do, lse, delta)
                 for n, f in variants.items()}
-        for run_dq, run_dkv, _ in runs.values():
-            run_dq()
-            run_dkv()
+        for rs in runs.values():
+            for run, _ in rs.values():
+                run()
         torch.cuda.synchronize()
-        ref = runs["repo"][2]
-        for n, (_, _, outs) in runs.items():
-            diff = [float((a.float() - r.float()).abs().max())
-                    for a, r in zip(outs, ref)]
-            print(f"{dt} {n} max |diff| vs repo (dq, dk, dv) {diff}")
-        if dt == torch.float32:
-            f64 = [x.double() for x in (q, k, v, do)]
-            o64, l64 = fa.flash_attention_fwd_plain(*f64[:3], True)
-            r64 = fa.flash_attention_bwd_plain(*f64[:3], o64, l64, f64[3],
-                                               True)
-            plain = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, True,
-                                                 delta=delta)
-
-            def rel(got):
-                return [f"{float((g.double() - r).abs().max() / r.abs().max()):.3e}"
-                        for g, r in zip(got, r64)]
-            print(f"fp32 plain vs float64 (dq, dk, dv) {rel(plain)}")
-            for n, (_, _, outs) in runs.items():
-                print(f"fp32 {n} vs float64 (dq, dk, dv) {rel(outs)}")
-            del f64, o64, l64, r64, plain
-        names = list(runs)
-        times = {n: [] for n in names}
-        for n in names + names[::-1]:
-            run_dq, run_dkv, _ = runs[n]
-            times[n].append((time_ms(torch, run_dq), time_ms(torch, run_dkv)))
-        for n, t in times.items():
-            print(f"{dt} {n} B2 ms {[round(x[0], 4) for x in t]} "
-                  f"B3 ms {[round(x[1], 4) for x in t]}")
+        refs64 = float64_refs(fa, q, k, v, do) if dt == torch.float32 \
+            else None
+        for name in KERNELS:
+            ref = runs["repo"][name][1]
+            for n, rs in runs.items():
+                if name not in rs:
+                    continue
+                outs = rs[name][1]
+                diff = [float((a.float() - r.float()).abs().max())
+                        for a, r in zip(outs, ref)]
+                line = f"{dt} {LABELS[name]} {n} max |diff| vs repo {diff}"
+                if refs64 is not None:
+                    rel = [float((g.double() - r).abs().max()
+                                 / r.abs().max())
+                           for g, r in zip(outs, refs64[name])]
+                    line += f" vs float64 {[f'{x:.3e}' for x in rel]}"
+                print(line)
+        for name in KERNELS:
+            names = [n for n, rs in runs.items() if name in rs]
+            times = {n: [] for n in names}
+            for n in names + names[::-1]:
+                times[n].append(cs.time_ms(runs[n][name][0], spin=True))
+            for n, t in times.items():
+                print(f"{dt} {LABELS[name]} {n} ms "
+                      f"{[round(x, 4) for x in t]}")
+        del runs, refs64
+    paged_ab(torch, cs, trees)
     return 0
 
 

@@ -20,7 +20,7 @@
 //
 // What bounds it on the H100: four products per visible (q, k) pair (S,
 // dP, dV and dK), 8*B*H*D*pairs operations. In bf16 they run at the 989
-// TFLOP/s of the tensor cores; in fp32 as 3xTF32 (flash_bwd_mma.cuh),
+// TFLOP/s of the tensor cores; in fp32 as 3xTF32 (flash_mma.cuh),
 // three TF32 MMAs per product at 495 TFLOP/s, so the fp32-accurate bound
 // is 3 * 8*B*H*D*pairs / 495e12. At B=4, S=1024, H=16, D=128 causal that
 // is 0.208 ms (bf16 0.035 ms) against about 200 MB of traffic (0.06 ms):
@@ -42,13 +42,13 @@
 // Tiles are unpadded and swizzled, so fragment reads are free of bank
 // conflicts. What still bounds it: mma.sync issues at a fraction of the
 // wgmma rate; every warp splits each fp32 operand it reads for 3xTF32
-// (two integer operations and a subtract); and at fp32 D=128 the dK and dV
+// (an AND and a subtract); and at fp32 D=128 the dK and dV
 // accumulators (128 registers a thread) leave none spare: 255 registers.
-#include "flash_bwd_mma.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
-using namespace fbwd;
+using namespace fmma;
 
 constexpr int BQ = 64;        // query rows per streamed tile
 constexpr int BK = 64;        // keys per block

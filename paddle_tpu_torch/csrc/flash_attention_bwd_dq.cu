@@ -19,7 +19,7 @@
 //
 // What bounds it on the H100: three products per visible (q, k) pair (S,
 // dP and dQ), 6*B*H*D*pairs operations. In bf16 they run at the 989
-// TFLOP/s of the tensor cores; in fp32 as 3xTF32 (flash_bwd_mma.cuh),
+// TFLOP/s of the tensor cores; in fp32 as 3xTF32 (flash_mma.cuh),
 // three TF32 MMAs per product at 495 TFLOP/s, so the fp32-accurate bound
 // is 3 * 6*B*H*D*pairs / 495e12. At B=4, S=1024, H=16, D=128 causal that
 // is 0.156 ms (bf16 0.026 ms) against about 170 MB of traffic (0.05 ms):
@@ -38,13 +38,13 @@
 // key halves' dQ partials meet once in shared memory. Tiles are unpadded
 // and swizzled, so fragment reads are free of bank conflicts. What still
 // bounds it: mma.sync issues at a fraction of the wgmma rate, and every
-// warp splits each fp32 operand it reads for 3xTF32 (two integer
-// operations and a subtract), also where warps share a tile.
-#include "flash_bwd_mma.cuh"
+// warp splits each fp32 operand it reads for 3xTF32 (an AND and a
+// subtract), also where warps share a tile.
+#include "flash_mma.cuh"
 
 namespace {
 
-using namespace fbwd;
+using namespace fmma;
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per streamed tile

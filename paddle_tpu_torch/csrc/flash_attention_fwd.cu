@@ -7,67 +7,120 @@
 // when Sq != Skv) with the key loop cut after ceil((q0 + BQ) / BK) tiles,
 // output O in the input type and f32 LSE = m + log(max(l, 1e-30)).
 // Masked scores take -1e30, never -inf, and masked probabilities are 0, so
-// a row that sees no key gives O = 0 instead of NaN.
+// a row that sees no key gives O = 0 instead of NaN. No atomics: every
+// output row is owned by one block, and the two warps that share a row
+// merge their halves in a fixed order, so the result is deterministic.
 //
-// Layout: q/k/v/o are [B, S, H, D] read through their (b, s, h) strides
-// with D contiguous; there is no transpose and no padding copy, the ragged
-// tail of the last tile is masked instead. lse is [B, H, Sq] contiguous.
+// Layout: q/k/v/o are [B, S, H, D] read and written through their
+// (b, s, h) strides with D contiguous; there is no transpose and no
+// padding copy, the ragged tails are zero-filled by the loads and masked.
+// Every base pointer and stride must be 16-byte aligned (the wrapper
+// checks). lse is [B, H, Sq] f32, contiguous.
 //
-// What bounds it on the H100: the main path runs it in fp32, and the card
-// has no fp32 tensor-core rate (TF32 is off for parity), so the bound is
-// the 67 TFLOP/s of fp32 FMA: 4*B*H*Sq*Skv*D flops (about halved when
-// causal) against (2*Sq + 2*Skv)*B*H*D*4 bytes plus the LSE. At B=4,
-// S=1024, H=16, D=128 causal that is 17.2 GFLOP (0.26 ms) against 134 MB
-// (0.04 ms): compute bound.
-// What the design does about it: each block owns one (batch, head,
-// 64-row q tile) and keeps Q, one 64-key K/V tile and the P tile in shared
-// memory; every thread holds a 4x4 block of scores and a 4 x D/16 block of
-// the output in registers, so each shared-memory load feeds several FMAs.
-// Causal tiles are issued heaviest first. bf16 inputs are widened to f32
-// on load and use the same FMA path; wgmma, TMA and a tuned tile shape are
-// later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What bounds it on the H100: two products per visible (q, k) pair (S and
+// P V), 4*B*H*D*pairs operations. In bf16 they run at the 989 TFLOP/s of
+// the tensor cores; in fp32 as 3xTF32 (flash_mma.cuh), three TF32 MMAs
+// per product at 495 TFLOP/s, so the fp32-accurate bound is
+// 3 * 4*B*H*D*pairs / 495e12. At B=4, S=1024, H=16, D=128 causal that is
+// 0.104 ms (bf16 0.017 ms) against 134 MB of traffic (0.04 ms): bound by
+// operations.
+// What the design does about it: one block of 8 warps per (batch, head,
+// 64-row q tile), heaviest causal tiles issued first. Q stays in shared
+// memory (fp32: scaled in f32 before it is split, as the JAX kernel
+// scales it, here by scale * log2(e)); K and V tiles of 64 keys stream through a three-stage ring
+// of cp.async loads (tiles t+1 and t+2 load while tile t multiplies, one
+// barrier per tile). The softmax runs in base 2 (scores scaled by
+// scale * log2(e), p = exp2(s - m), LSE = m ln 2 + log(l)). Warp (r, c)
+// owns q rows 16r..16r+15 and keys 32c..32c+31 of each tile and carries
+// its own online softmax over its half of the keys: it forms S with
+// mma.sync (bf16: scaled in f32 after the product, since a scale folded
+// into bf16 operands would move the LSE by up to ~1e-2), takes the row
+// maxima over the four lanes of a row, turns S into P in registers and
+// feeds P straight from its accumulators as the A operand of O += P V,
+// so P never touches shared memory. The row sums come from the f32 P,
+// before bf16 rounds it for the product. Each tile's P V is summed on the
+// tensor cores from zero and added to the rescaled O in f32 (mma_rows),
+// so the cores' truncating accumulation does not drift over a long key
+// loop. Masks are applied only in the diagonal tile and the ragged last
+// tile. At the end the two key halves' (m, l, O) meet once in shared
+// memory. What still bounds it: mma.sync issues at a fraction of the wgmma
+// rate, and every warp splits each fp32 operand it reads for 3xTF32.
+#include <type_traits>
+
+#include "flash_mma.cuh"
 
 namespace {
 
+using namespace fmma;
+
 constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per inner tile
-constexpr int THREADS = 256;  // a 16 x 16 grid of threads
-constexpr int PSTR = BK + 1;  // padded row stride of the P tile
+constexpr int BK = 64;        // keys per streamed tile
+constexpr int STAGES = 3;     // K/V tiles in flight: one barrier per tile
+constexpr int THREADS = 256;  // 8 warps: 4 row groups x 2 key halves
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// sum / max over the 16 lanes that share one score row
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * PSTR);
-}
+constexpr double LOG2E = 1.4426950408889634;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+constexpr size_t smem_bytes() {
+  // Q and STAGES stages each of K and V (fp32 at D = 128: 224 KiB)
+  return sizeof(T) * (size_t)((1 + 2 * STAGES) * BQ * D);
+}
+
+// Online softmax over one warp's 16 x 32 scores of a tile, in base 2: s
+// (scaled by scale * log2(e)) in, P = 2^(s - m) out in place; m, l (this
+// thread's partial row sums) and the output rows o rescaled to the new
+// maximum. MASK: some pair of the tile is masked (keys past Skv, or above
+// the causal diagonal).
+template <bool MASK, int NS, int ND>
+__device__ __forceinline__ void softmax_tile(float (*s)[4], float* m,
+                                             float* l, float (*o)[4],
+                                             int row0, int col0, int Skv,
+                                             int causal) {
+  if (MASK) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + 8 * (i >> 1);
+        const int col = col0 + 8 * j + (i & 1);
+        if (col >= Skv || (causal && row < col)) s[j][i] = NEG_INF;
+      }
+  }
+  float m_new[2], alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+    m_new[r] = fmaxf(m[r], quad_max(mx));
+    alpha[r] = exp2f(m[r] - m_new[r]);
+    m[r] = m_new[r];
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = s[j][i];
+      const float p =
+          (MASK && x == NEG_INF) ? 0.f : exp2f(x - m_new[i >> 1]);
+      s[j][i] = p;
+      l[i >> 1] += p;
+    }
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
+}
+
+// bf16 keeps two blocks on an SM (128 registers: at D = 128 it spills
+// 152 bytes and still runs 6% faster than one block of 192 registers,
+// PERF.md); fp32 needs its ~240 registers and one block
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS,
+                                  std::is_same<T, float>::value ? 1 : 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int H, int Sq, int Skv,
@@ -75,129 +128,175 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
                  int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                 float scale, int causal) {
-  constexpr int KSTR = D + 1;  // padded row stride of the Q and K tiles
-  constexpr int CPT = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;             // [BQ][KSTR], pre-scaled
-  float* sK = sQ + BQ * KSTR;   // [BK][KSTR]
-  float* sV = sK + BK * KSTR;   // [BK][D]
-  float* sP = sV + BK * D;      // [BQ][PSTR]
+                 float scale_log2, int causal) {
+  using M = Mma<T>;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int TILE = BQ * D;
+  constexpr int NS = BK / 2 / 8;  // 8-wide key tiles of S per warp
+  constexpr int ND = D / 8;       // 8-wide column tiles of O
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = sQ + TILE;           // [STAGES][TILE]
+  T* sV = sK + STAGES * TILE;  // [STAGES][TILE]
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = qt * BQ;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int lane = tid & 31;
+  const int wr = (tid >> 5) & 3;  // q rows 16 wr ..
+  const int wc = tid >> 7;        // keys 32 wc .. of each tile
+  const int g = lane >> 2, t = lane & 3;
+  const typename M::Off off = M::template offsets<D>(lane);
 
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
 
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int row = q0 + r;
-    sQ[r * KSTR + d] = row < Sq ? load_f(qb + row * q_ss + d) * scale : 0.f;
-  }
-
-  float m[4], l[4], acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  }
-
   int n_kt = (Skv + BK - 1) / BK;
   if (causal) n_kt = min(n_kt, (q0 + BQ + BK - 1) / BK);
 
+  // start the copy of key tile kt into its stage
+  auto load_kv = [&](int kt) {
+    const int st = kt % STAGES;
+    load_tile<T, D, BK, THREADS>(sK + st * TILE, kb, k_ss, kt * BK, Skv, tid);
+    load_tile<T, D, BK, THREADS>(sV + st * TILE, vb, v_ss, kt * BK, Skv, tid);
+  };
+  load_kv(0);
+  if constexpr (F32) {
+    // Q scaled in f32 on its way in, while the first K/V tile loads
+    constexpr int NC = D / 4;
+#pragma unroll
+    for (int i = tid; i < BQ * NC; i += THREADS) {
+      const int r = i / NC, c = i % NC;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < Sq)
+        x = *reinterpret_cast<const float4*>(qb + (int64_t)(q0 + r) * q_ss +
+                                             4 * c);
+      x.x *= scale_log2;
+      x.y *= scale_log2;
+      x.z *= scale_log2;
+      x.w *= scale_log2;
+      *reinterpret_cast<float4*>(sQ + sw<T, D>(r, 4 * c)) = x;
+    }
+  } else {
+    load_tile<T, D, BQ, THREADS>(sQ, qb, q_ss, q0, Sq, tid);
+  }
+  cp_async_commit();
+  if (n_kt > 1) load_kv(1);
+  cp_async_commit();  // one group per tile, empty past the last
+
+  // this thread's accumulator rows: r0 (c[0], c[1]) and r0 + 8 (c[2], c[3])
+  const int r0 = q0 + 16 * wr + g;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done (and sQ is written)
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int r = idx / D, d = idx % D;
-      const int col = k0 + r;
-      const bool in = col < Skv;
-      sK[r * KSTR + d] = in ? load_f(kb + col * k_ss + d) : 0.f;
-      sV[r * D + d] = in ? load_f(vb + col * v_ss + d) : 0.f;
-    }
+    cp_async_wait<1>();  // tile kt has landed (tile kt + 1 may be loading)
+    // tile kt is visible to every warp, and every warp is done with tile
+    // kt - 1, whose stage tile kt + 2 now takes
     __syncthreads();
+    if (kt + 2 < n_kt) load_kv(kt + 2);
+    cp_async_commit();
+    const T* cK = sK + (kt % STAGES) * TILE;
+    const T* cV = sV + (kt % STAGES) * TILE;
+    const int kw = 32 * wc;  // this warp's first key in the tile
 
-    float s[4][4];
+    // S = Q K^T over this warp's 16 x 32 pairs
+    float s[NS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty + 16 * i) * KSTR + d];
+    for (int k0 = 0; k0 < D; k0 += M::K) {
+      typename M::A aq;
+      M::template a_rows<D>(aq, sQ, off, 16 * wr, k0);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = sK[(tx + 16 * j) * KSTR + d];
+      for (int j = 0; j < NS; ++j) {
+        typename M::B bk;
+        M::template b_rows<D>(bk, cK, off, kw + 8 * j, k0);
+        M::mma(s[j], aq, bk);
+      }
+    }
+    if constexpr (!F32) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+        for (int i = 0; i < 4; ++i) s[j][i] *= scale_log2;
     }
 
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      bool ok[4];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        ok[j] = col < Skv && (!causal || row >= col);
-        s[i][j] = ok[j] ? s[i][j] : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = row_max16(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        sP[(ty + 16 * i) * PSTR + tx + 16 * j] = p;
-        rs += p;
-      }
-      rs = row_sum16(rs);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
+    // P = 2^(S - m) under the masks, the rows' m and l, O rescaled
+    const int c0 = kt * BK + kw + 2 * t;
+    const bool edge = (kt + 1) * BK > Skv || (causal && kt * BK + BK - 1 > q0);
+    if (edge)
+      softmax_tile<true, NS, ND>(s, m, l, acc, r0, c0, Skv, causal);
+    else
+      softmax_tile<false, NS, ND>(s, m, l, acc, r0, c0, Skv, causal);
 
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4], vv[CPT];
+    // O += P V, P straight from the accumulators
+    mma_rows<T, D>(acc, s, false, cV, off, kw);
+  }
+  __syncthreads();  // every warp is done with the K and V stages
+
+  // the two key halves meet in shared memory (the K and V stages are free
+  // now): each warp's rows' m and l, and the column tiles of O the other
+  // half finishes (column tile n by warp half n/(ND/2))
+  float* red = reinterpret_cast<float*>(sK);
+  float* sml = reinterpret_cast<float*>(sV);  // [2 halves][m, l][BQ]
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sP[(ty + 16 * i) * PSTR + kk];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) vv[c] = sV[kk * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    if (t == 0) {
+      const int row = 16 * wr + g + 8 * r;
+      sml[(2 * wc) * BQ + row] = m[r];
+      sml[(2 * wc + 1) * BQ + row] = l[r];
     }
   }
-
-  T* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+  for (int n = 0; n < ND; ++n)
+    if (n / (ND / 2) != wc)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      store_f(ob + row * o_ss + tx + 16 * c, acc[i][c] / denom);
-    if (tx == 0) lse[((int64_t)b * H + h) * Sq + row] = m[i] + logf(denom);
+      for (int i = 0; i < 4; ++i)
+        red[((wr * ND + n) * 4 + i) * 32 + lane] = acc[n][i];
+  __syncthreads();
+  float f_own[2], f_other[2], den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * wr + g + 8 * r;
+    const float m_o = sml[(2 * (1 - wc)) * BQ + row];
+    const float l_o = sml[(2 * (1 - wc) + 1) * BQ + row];
+    const float mx = fmaxf(m[r], m_o);
+    f_own[r] = exp2f(m[r] - mx);
+    f_other[r] = exp2f(m_o - mx);
+    const float denom = fmaxf(l[r] * f_own[r] + l_o * f_other[r], 1e-30f);
+    den[r] = denom;
+    const int grow = r0 + 8 * r;
+    if (wc == 0 && t == 0 && grow < Sq)
+      lse[((int64_t)b * H + h) * Sq + grow] = mx * LN2 + logf(denom);
+  }
+  const int64_t ob = b * o_sb + h * o_sh;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    if (n / (ND / 2) != wc) continue;
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = (acc[n][i] * f_own[i >> 1] +
+              red[((wr * ND + n) * 4 + i) * 32 + lane] * f_other[i >> 1]) /
+             den[i >> 1];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + 8 * hh;
+      if (row < Sq)
+        store2(o, ob + row * o_ss + 8 * n + 2 * t, x[2 * hh], x[2 * hh + 1],
+               F32 ? 0 : 1);
+    }
   }
 }
 
@@ -206,7 +305,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int Sq, int Skv,
                    const int64_t* st, float scale, int causal,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -216,7 +315,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Skv,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale, causal);
+      st[9], st[10], st[11], (float)(scale * LOG2E), causal);
   return cudaGetLastError();
 }
 
@@ -227,11 +326,14 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, causal, stream);
+      return launch<T, 32>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, causal,
+                           stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, causal, stream);
+      return launch<T, 64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, causal,
+                           stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, causal, stream);
+      return launch<T, 128>(q, k, v, o, lse, B, H, Sq, Skv, st, scale,
+                            causal, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -252,9 +354,11 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
   float* l = static_cast<float*>(lse);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_d<float>(D, q, k, v, o, l, B, H, Sq, Skv, strides, scale, causal, s);
+    err = dispatch_d<float>(D, q, k, v, o, l, B, H, Sq, Skv, strides, scale,
+                            causal, s);
   else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(D, q, k, v, o, l, B, H, Sq, Skv, strides, scale, causal, s);
+    err = dispatch_d<__nv_bfloat16>(D, q, k, v, o, l, B, H, Sq, Skv, strides,
+                                    scale, causal, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -1,22 +1,24 @@
-// Building blocks shared by the flash-attention backward kernels
-// (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu) for Hopper
-// (sm_90a): asynchronous 16-byte tile loads into a swizzled shared-memory
-// layout, and warp-level tensor-core products through mma.sync.
+// Building blocks shared by the flash-attention kernels, forward
+// (flash_attention_fwd.cu) and backward (flash_attention_bwd_dq.cu,
+// flash_attention_bwd_dkv.cu), for Hopper (sm_90a): asynchronous 16-byte
+// tile loads into a swizzled shared-memory layout, and warp-level
+// tensor-core products through mma.sync.
 //
 // Numerics. bf16 operands take one m16n8k16 bf16 MMA per product (and one
 // more for the residual of P or dS where that gradient is written in f32,
 // see a_res below). fp32
 // operands take m16n8k8 TF32 MMAs as 3xTF32: each operand x is split in
-// registers into big = tf32(x) and small = tf32(x - big) (rounded as
-// cvt.rna: to nearest, ties away from zero) and the product is small*big +
-// big*small + big*big, all into f32 accumulators. The dropped small*small
-// term and the rounding of small leave about fp32 accuracy (relative error
-// near 1e-6), where one TF32 product would keep about 1e-3.
+// registers into big = x with its 13 low mantissa bits cleared and small =
+// x - big (see split), and the product is small*big + big*small + big*big,
+// all into f32 accumulators. The dropped small*small term and the MMA's
+// truncation of small leave about fp32 accuracy (relative error near
+// 1e-6), where one TF32 product would keep about 1e-3.
 //
 // Fragments (PTX ISA, mma.m16n8k8 / m16n8k16; g = lane / 4, t = lane % 4):
 // an accumulator tile of 16 x 8 holds (g, 2t), (g, 2t+1), (g+8, 2t),
-// (g+8, 2t+1) in c[0..3]. A product whose A operand is an earlier
-// accumulator (P or dS) reads it straight from those registers: in fp32
+// (g+8, 2t+1) in c[0..3], so a row's values sit in the four lanes t of
+// one group g (row sums and maxima: shfl_xor 1 and 2). A product whose A
+// operand is an earlier accumulator (P or dS) reads it straight from those registers: in fp32
 // the k index of one 8-wide step is permuted (k = t holds column 2t,
 // k = t+4 column 2t+1) and the matching B rows are read in the same order,
 // which leaves the sum unchanged; in bf16 two accumulator tiles pack into
@@ -32,7 +34,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace fbwd {
+namespace fmma {
 
 // -- asynchronous copies ------------------------------------------------------
 
@@ -96,19 +98,18 @@ __device__ __forceinline__ void load_tile(T* s, const T* g, int64_t stride,
 
 // -- tensor-core fragments ----------------------------------------------------
 
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest on 10
-// mantissa bits, ties away from zero: add half of the 13 dropped bits to
-// the magnitude, clear them), bit for bit, in two integer operations: on
-// sm_90a the cvt itself compiles to a longer sequence, and the split was
-// 17% slower with it (B2 and B3 at the main case, PERF.md).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
+// The split: big = x with its 13 low mantissa bits cleared (one AND),
+// small = x - big (exact in f32, same sign as x), handed to the MMA whole;
+// a TF32 MMA ignores an operand's 13 low bits, so small is truncated
+// there. Each product loses under 2^-20 of its size, toward zero, and the
+// kernels' outputs stay ~1e-6 from float64 (PERF.md). It takes two
+// operations where splitting by rounding (big and small each rounded to
+// nearest, as cvt.rna.tf32.f32 rounds) takes five: the kernels were
+// 11-14% faster with it at their main case, about as accurate.
 __device__ __forceinline__ void split(float x, uint32_t& big,
                                       uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
+  big = __float_as_uint(x) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big));
 }
 
 __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
@@ -155,12 +156,12 @@ __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
 }
 
 // One warp's products C[16 x 8] += A[16 x K] B[K x 8], K = Mma<T>::K, with
-// the four ways the backward kernels read their operands:
+// the four ways the kernels read their operands:
 //   a_rows: A from a tile whose rows are A's rows (Q, dO, K, V)
 //   b_rows: B from a tile whose rows are B's columns (B^T stored: K, V, Q, dO
 //           as the second factor of S = Q K^T and the like)
-//   b_cols: B from a tile whose rows are B's rows (K in dS K; Q, dO in
-//           dS^T Q, P^T dO), read in the permuted k order of a_acc
+//   b_cols: B from a tile whose rows are B's rows (V in P V; K in dS K;
+//           Q, dO in dS^T Q, P^T dO), read in the permuted k order of a_acc
 //   a_acc:  A from accumulator registers c[NT][4] (P, dS), k-step kk
 //   a_res:  the part of a_acc's operand that its rounding lost, where the
 //           type rounds (bf16): P and dS rounded to bf16 carry a relative
@@ -333,9 +334,22 @@ __device__ __forceinline__ void mma_rows(float (*c)[4], const float (*p)[4],
   }
 }
 
+// -- rows of an accumulator ---------------------------------------------------
+
+// max and sum over the four lanes t that hold one accumulator row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // -- output -------------------------------------------------------------------
 
-// two neighbouring elements (i, i + 1) of a gradient, i even; out_bf16: 0
+// two neighbouring elements (i, i + 1) of an output, i even; out_bf16: 0
 // writes float32, 1 bfloat16
 __device__ __forceinline__ void store2(void* base, int64_t i, float x0,
                                        float x1, int out_bf16) {
@@ -347,4 +361,4 @@ __device__ __forceinline__ void store2(void* base, int64_t i, float x0,
         make_float2(x0, x1);
 }
 
-}  // namespace fbwd
+}  // namespace fmma

@@ -7,8 +7,8 @@ Counterpart of ``paddle_tpu/ops/pallas_attention.py``: ``flash_attention``,
 ``_fa_bwd_dkv_kernel``) and the ``_fa_core`` custom VJP that joins them.
 The kernels are ``csrc/flash_attention_fwd.cu`` (B1),
 ``csrc/flash_attention_bwd_dq.cu`` (B2) and
-``csrc/flash_attention_bwd_dkv.cu`` (B3), the latter two on the tensor
-cores through ``csrc/flash_bwd_mma.cuh`` (fp32 as 3xTF32, bf16 native);
+``csrc/flash_attention_bwd_dkv.cu`` (B3), all three on the tensor cores
+through ``csrc/flash_mma.cuh`` (fp32 as 3xTF32, bf16 native);
 each source note says what bounds it on the H100 and how its design
 answers that. Each wrapper
 (:func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
@@ -223,8 +223,8 @@ def _on_kernel(what, q, *tensors) -> bool:
 
 
 def _check_aligned(what, *tensors):
-    """The backward kernels copy rows of D elements into shared memory
-    16 bytes at a time: every base pointer, and every (b, s, h) stride of
+    """The kernels copy rows of D elements into shared memory 16 bytes at
+    a time: every base pointer, and every (b, s, h) stride of
     a dimension longer than 1, must be a multiple of 16 bytes. Raise
     otherwise; there is no scalar path to fall back on."""
     for t in tensors:
@@ -282,13 +282,15 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1: exact attention over ``[B, S, H, D]`` inputs; returns ``(out
     [B, Sq, H, D], lse [B, H, Sq] f32)``. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (float32 or bfloat16, D in
-    :data:`SUPPORTED_HEAD_DIMS`, last dim contiguous) or raise. Not
-    differentiable on either device: :func:`flash_attention` is."""
+    version; CUDA tensors launch the kernel (float32 as 3xTF32 or
+    bfloat16 on the tensor cores; D in :data:`SUPPORTED_HEAD_DIMS`; last
+    dim contiguous; base pointers and strides 16-byte aligned) or raise.
+    Not differentiable on either device: :func:`flash_attention` is."""
     _check(q, k, v)
     if not _on_kernel("flash attention", q, k, v):
         with torch.no_grad():
             return flash_attention_fwd_plain(q, k, v, causal, scale)
+    _check_aligned("flash attention", q, k, v)
     b, sq, h, d = q.shape
     skv = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)

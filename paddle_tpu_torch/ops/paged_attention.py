@@ -7,7 +7,12 @@ sequence attends over K/V rows scattered across a page arena: logical row
 ``t`` of sequence ``s`` lives at page ``block_tables[s, t // page_size]``,
 in-page row ``t % page_size``, and rows ``j <= positions[s]`` are visible.
 The kernel is ``csrc/paged_attention.cu``; its source note says what
-bounds it on the H100 and how its design answers that.
+bounds it on the H100 and how its design answers that. It cuts each
+sequence's visible rows into chunks of :func:`chunk_pages_for` pages,
+spreads the chunks over blocks and merges them inside the same launch;
+the wrapper hands it a workspace for the chunks' partial softmax states
+and a per-(sequence, head) ticket array that every launch leaves zero,
+both made once per device, stream and size.
 
 :func:`paged_attention` launches the kernel for CUDA tensors and runs the
 plain version :func:`paged_attention_plain` for CPU tensors (the
@@ -20,16 +25,59 @@ copied. Not kept from the TPU: ``block_h`` and the tuner's winners.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["paged_attention", "paged_attention_plain"]
+__all__ = ["paged_attention", "paged_attention_plain", "chunk_pages_for"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
+
+#: blocks per SM the chunking aims at when every sequence is full
+BLOCKS_PER_SM = 8
+#: the most pages of one chunk (the kernel keeps them in shared memory)
+MAX_CHUNK_PAGES = 1024
+
+
+def chunk_pages_for(pages_per_seq: int, seq_heads: int, n_sms: int) -> int:
+    """Pages per chunk of B4's split: enough chunks that ``seq_heads``
+    (sequences x heads) full sequences fill ``n_sms`` SMs with about
+    :data:`BLOCKS_PER_SM` blocks each, never more chunks than pages, then
+    the chunks as even as whole pages allow. A fixed rule of the shapes
+    and the card: it reads no data and no environment."""
+    chunks = -(-BLOCKS_PER_SM * n_sms // max(1, seq_heads))
+    chunks = max(1, min(pages_per_seq, chunks))
+    return min(-(-pages_per_seq // chunks), MAX_CHUNK_PAGES)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_SCRATCH: Dict[Tuple[int, ...], Tuple[torch.Tensor, torch.Tensor]] = {}
+_SCRATCH_LOCK = threading.Lock()
+
+
+def _scratch(device, stream: int, n_tickets: int, n_ws: int):
+    """(tickets, workspace) for launches on ``stream``, made once per
+    device, stream and sizes: ``n_tickets`` int32 zeros that each launch
+    leaves zero again, and ``n_ws`` f32 that each launch writes before it
+    reads them. Launches on one stream run in order, so they share both,
+    and none needs a fill or an allocation."""
+    key = (device.index, stream, n_tickets, n_ws)
+    with _SCRATCH_LOCK:
+        got = _SCRATCH.get(key)
+        if got is None:
+            got = _SCRATCH[key] = (
+                torch.zeros(n_tickets, dtype=torch.int32, device=device),
+                torch.empty(n_ws, dtype=torch.float32, device=device))
+        return got
 
 
 def paged_attention_plain(q, k_arena, v_arena, block_tables, positions,
@@ -62,7 +110,7 @@ def _lib():
     fn = lib.pt_paged_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
                           ctypes.c_int, ctypes.c_void_p])
     return lib
@@ -77,7 +125,8 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
     int32; ``positions``: ``[S]`` int32. Returns ``[S, H, D]`` in q's
     type. CPU tensors take the plain version; CUDA tensors launch the
     kernel (float32 or bfloat16 matching q, D in (32, 64, 128), last dim
-    contiguous) or raise."""
+    contiguous, base pointers and strides of q and the arenas 16-byte
+    aligned) or raise."""
     if q.dim() != 3 or k_arena.dim() != 4 or v_arena.dim() != 4:
         raise ValueError("paged_attention takes q [S, H, D] and arenas "
                          "[P+1, page, H, D]")
@@ -113,19 +162,33 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
             or positions.stride(0) != 1):
         raise ValueError("paged_attention kernel: the last dim of every "
                          "input must be contiguous")
+    es = q.element_size()
+    for name, t in (("q", q), ("k_arena", k_arena), ("v_arena", v_arena)):
+        if t.data_ptr() % 16 or any(st * es % 16 for st, n in zip(
+                t.stride()[:-1], t.shape[:-1]) if n > 1):
+            raise ValueError(
+                f"paged_attention kernel: {name}'s base pointer and strides "
+                f"must be 16-byte aligned (rows load 16 bytes a lane), got "
+                f"pointer offset {t.data_ptr() % 16} and strides "
+                f"{tuple(t.stride())} of {es}-byte elements")
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    pps = block_tables.shape[1]
     out = torch.empty((s_n, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 8)(
         *q.stride()[:2], *k_arena.stride()[:3], *v_arena.stride()[:3])
     lib = _lib()
     with torch.cuda.device(q.device):
+        chunk = chunk_pages_for(pps, s_n * h, _sm_count(q.device.index))
+        n_chunks = -(-pps // chunk)
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        tickets, ws = _scratch(q.device, stream, s_n * h,
+                               s_n * h * n_chunks * (d + 2))
         code = lib.pt_paged_attention(
             q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
             out.data_ptr(), block_tables.data_ptr(), positions.data_ptr(),
-            s_n, h, d, k_arena.shape[1], block_tables.shape[1],
-            k_arena.shape[0], strides, block_tables.stride(0), float(sc),
-            _DTYPES[q.dtype], stream)
+            ws.data_ptr(), tickets.data_ptr(), s_n, h, d, k_arena.shape[1],
+            pps, k_arena.shape[0], chunk, strides, block_tables.stride(0),
+            float(sc), _DTYPES[q.dtype], stream)
     paged_attention.launches += 1
     from .kernel_build import check
     check(lib, "pt_paged_attention_error_string", code,

@@ -101,6 +101,68 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         tfa.flash_attention_fwd(q, q, q)
 
 
+def _max_rel(got, ref):
+    """max |got - ref| / max |ref|, in float64."""
+    return float((got.double() - ref.double()).abs().max()
+                 / ref.double().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv,d", [
+    (1, 1, 32), (15, 17, 64), (17, 15, 128), (16, 16, 32), (16, 65, 64),
+    (65, 16, 128), (63, 65, 32), (65, 63, 64), (64, 64, 128), (1, 100, 32),
+    (100, 1, 64), (100, 1000, 128), (1000, 100, 32), (1, 1000, 64),
+    (1000, 1, 128), (1000, 1000, 64)])
+def test_flash_forward_kernel_at_tile_edges(cuda, dtype, causal, sq, skv,
+                                            d):
+    """Lengths at and around B1's 64-row tiles, Sq != Skv both ways. fp32
+    (3xTF32 on the tensor cores) is held to 1e-4 of the plain version and
+    to 2e-5 of the same attention in float64 (max |err| / max |ref|, O
+    and LSE); bf16 to 2e-2 of the plain version (O) and 1e-4 (LSE)."""
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype)
+               for x in _qkv(sq + skv + d, 1, sq, skv, 2, d))
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=causal)
+    ref, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, causal=causal)
+    assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    if dtype == torch.float32:
+        o64, l64 = tfa.flash_attention_fwd_plain(
+            *(x.double() for x in (q, k, v)), causal)
+        errs = (_max_rel(out, o64), _max_rel(lse, l64))
+        assert max(errs) <= 2e-5, errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_kernel_is_deterministic(cuda, dtype):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype)
+               for x in _qkv(10, 2, 1000, 1000, 4, 128))
+    first = tfa.flash_attention_fwd(q, k, v, causal=True)
+    second = tfa.flash_attention_fwd(q, k, v, causal=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_forward_kernel_refuses_misaligned_rows(cuda):
+    """B1 loads tiles 16 bytes at a time, as B2/B3 do: a row stride or a
+    base pointer that is not a multiple of 16 bytes raises."""
+    q, k, v = (torch.from_numpy(x).to(cuda) for x in _qkv(11, 2, 32, 32, 2,
+                                                          64))
+    b, s, h, d = q.shape
+    buf = torch.zeros(b * s * (h * d + 1), device=cuda)
+    odd = buf.as_strided(q.shape, (s * (h * d + 1), h * d + 1, d, 1))
+    odd.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention_fwd(odd, k, v, causal=True)
+    shifted = torch.zeros(v.numel() + 1, device=cuda)[1:].view(v.shape)
+    shifted.copy_(v)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention_fwd(q, k, shifted)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -115,6 +177,64 @@ def test_paged_kernel_matches_plain(cuda, dtype, tol, d):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_kernel_splits_a_long_sequence_into_many_chunks(cuda, dtype,
+                                                              tol):
+    """Two sequences of 256 pages of 4 rows, 4 (sequence, head) pairs: the
+    chunk rule gives one page per chunk, so the 1024 visible rows of the
+    first sequence are merged from 256 chunks in the same launch."""
+    q, ak, av, bt, _ = _paged_case(12, s_n=2, h=2, d=64, page=4, pps=256)
+    pos = np.array([1023, 700], np.int32)
+    q, ak, av, bt, pos = (torch.from_numpy(x).to(cuda)
+                          for x in (q, ak, av, bt, pos))
+    q, ak, av = q.to(dtype), ak.to(dtype), av.to(dtype)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert tpa.chunk_pages_for(256, 4, n_sms) == 1
+    out = tpa.paged_attention(q, ak[:, 1], av[:, 1], bt, pos)
+    ref = tpa.paged_attention_plain(q, ak[:, 1], av[:, 1], bt, pos)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_paged_kernel_position_zero_and_all_trash_tables(cuda):
+    """Position 0 sees the first row only; a table that is all the
+    engine's trash page (index P, inside the arena) reads it as the plain
+    version does; a table whose entries all lie outside the arena sees no
+    row and gets exactly 0, with no NaN from merging its 51 chunks of
+    l = 0."""
+    q, ak, av, bt, _ = _paged_case(13, s_n=3, h=2, d=32, page=4, pps=64)
+    n_pages = ak.shape[0] - 1
+    bt[0, 0] = 7
+    bt[1] = -1
+    bt[2] = n_pages
+    pos = np.array([0, 200, 255], np.int32)
+    q, ak, av, bt, pos = (torch.from_numpy(x).to(cuda)
+                          for x in (q, ak, av, bt, pos))
+    out = tpa.paged_attention(q, ak[:, 0], av[:, 0], bt, pos)
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    torch.testing.assert_close(out[0], av[7, 0, 0], rtol=1e-6, atol=1e-6)
+    keep = [0, 2]
+    ref = tpa.paged_attention_plain(q[keep], ak[:, 0], av[:, 0], bt[keep],
+                                    pos[keep])
+    torch.testing.assert_close(out[keep], ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_is_deterministic(cuda, dtype):
+    """No float atomics: the chunks merge in chunk order whichever block
+    finishes last, so two launches agree bit for bit."""
+    q, ak, av, bt, _ = _paged_case(14, s_n=8, h=16, d=128, page=16, pps=64)
+    pos = np.array([1023, 15, 16, 255, 512, 1023, 640, 1000], np.int32)
+    q, ak, av, bt, pos = (torch.from_numpy(x).to(cuda)
+                          for x in (q, ak, av, bt, pos))
+    q, ak, av = q.to(dtype), ak.to(dtype), av.to(dtype)
+    first = tpa.paged_attention(q, ak[:, 1], av[:, 1], bt, pos)
+    for _ in range(3):
+        assert torch.equal(tpa.paged_attention(q, ak[:, 1], av[:, 1], bt,
+                                               pos), first)
+
+
 def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     q, ak, av, bt, pos = (torch.from_numpy(x).to(cuda)
                           for x in _paged_case(8))
@@ -123,6 +243,10 @@ def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         tpa.paged_attention(q.half(), ak[:, 0].half(), av[:, 0].half(), bt,
                             pos)
+    shifted = torch.zeros(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        tpa.paged_attention(shifted, ak[:, 0], av[:, 0], bt, pos)
 
 
 def test_gpt_forward_through_flash_kernel(cuda):
