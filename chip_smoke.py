@@ -495,32 +495,39 @@ def check_flash_bwd(torch, fa_mod, gen):
 #: B4's cases: the positions of the 8 sequences
 PAGED_CASES = (("main", [0, 15, 16, 255, 512, 1023, 640, 1000]),
                ("all at 1023", [1023] * 8))
+#: B4's other head dims (D, dtype name), at the main case's positions:
+#: GPT-3 2.7B's 80, 96, the widest (256, two vectors a lane in f32) and
+#: the narrowest fp32 one that fills a warp with rows (16)
+PAGED_HEAD_DIMS = ((80, "float32"), (80, "bfloat16"), (96, "float32"),
+                   (96, "bfloat16"), (256, "float32"), (16, "float32"))
 
 
-def paged_case(torch, gen):
-    """B4's inputs: 8 sequences, H=16, D=128, page 16, 64 pages per
-    sequence, block tables with trash entries, K and V as strided layer
-    views of 2-layer arenas; (q, k view, v view, block tables)."""
-    s_n, h, d, page, pps = 8, 16, 128, 16, 64
+def paged_case(torch, gen, d=128, dtype="float32"):
+    """B4's inputs: 8 sequences, H=16, head dim d (128), page 16, 64 pages
+    per sequence, block tables with trash entries, K and V as strided
+    layer views of 2-layer arenas; (q, k view, v view, block tables)."""
+    s_n, h, page, pps = 8, 16, 16, 64
+    dt = getattr(torch, dtype)
     n_pages = s_n * pps
     arena_k = torch.randn(n_pages + 1, 2, page, h, d, generator=gen,
-                          device="cuda")
+                          device="cuda").to(dt)
     arena_v = torch.randn(n_pages + 1, 2, page, h, d, generator=gen,
-                          device="cuda")
+                          device="cuda").to(dt)
     perm = torch.randperm(n_pages, generator=gen, device="cuda")
     bt = perm.reshape(s_n, pps).to(torch.int32)
     trash = torch.rand(s_n, pps, generator=gen, device="cuda") < 0.1
     bt = torch.where(trash, torch.full_like(bt, n_pages), bt)
-    q = torch.randn(s_n, h, d, generator=gen, device="cuda")
+    q = torch.randn(s_n, h, d, generator=gen, device="cuda").to(dt)
     return q, arena_k[:, 1], arena_v[:, 1], bt
 
 
 def paged_bound(torch, q, kb, bt, positions):
     """B4's bound: (ms, "bytes" or "operations", visible rows)."""
     s_n, h, d = q.shape
+    es = kb.element_size()
     rows = int((positions.long() + 1).clamp(
         max=bt.shape[1] * kb.shape[1]).sum().item())
-    nbytes = (2 * rows * h * d * 4 + 2 * s_n * h * d * 4
+    nbytes = (2 * rows * h * d * es + 2 * s_n * h * d * es
               + bt.numel() * 4 + s_n * 4)
     return (*bound(4.0 * rows * h * d, nbytes, PEAK_FP32), rows)
 
@@ -528,7 +535,8 @@ def paged_bound(torch, q, kb, bt, positions):
 def check_paged(torch, pa_mod, gen):
     """B4 against its plain version on :func:`paged_case`'s inputs at
     positions at page edges and at 0, then with all 8 sequences at 1023
-    (PAGED_CASES). Each case launches the kernel twice and requires
+    (PAGED_CASES), then at the first case's positions with the head dims
+    of PAGED_HEAD_DIMS. Each case launches the kernel twice and requires
     bitwise equal results. Returns the summary row of the first case,
     the second's times beside."""
     q, kb, vb, bt = paged_case(torch, gen)
@@ -574,25 +582,74 @@ def check_paged(torch, pa_mod, gen):
         else:
             row.update(full_ms=ms, full_bound_ms=bms, full_max_abs_err=err,
                        full_shape="all 8 sequences at position 1023")
+    positions = torch.tensor(PAGED_CASES[0][1], dtype=torch.int32,
+                             device="cuda")
+    others = {}
+    for d, dtype in PAGED_HEAD_DIMS:
+        q, kb, vb, bt = paged_case(torch, gen, d, dtype)
+        out = pa_mod.paged_attention(q, kb, vb, bt, positions)
+        again = pa_mod.paged_attention(q, kb, vb, bt, positions)
+        ref = pa_mod.paged_attention_plain(q, kb, vb, bt, positions)
+        torch.cuda.synchronize()
+        same = torch.equal(out, again)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = TOL["fp32" if dtype == "float32" else "bf16"]
+        ms = time_ms(lambda: pa_mod.paged_attention(q, kb, vb, bt,
+                                                    positions), spin=True)
+        bms, by, _ = paged_bound(torch, q, kb, bt, positions)
+        log(f"B4 paged main positions D={d} {dtype}: max_abs_err {err:.3e} "
+            f"(tol {tol:.0e}), two launches bitwise equal {same}; kernel "
+            f"{ms:.4f} ms bound {bms:.4f} ms ({by})")
+        if not (same and err <= tol and bool(torch.isfinite(out).all())):
+            raise RuntimeError(f"paged attention kernel disagrees with its "
+                               f"plain version or itself (D={d} {dtype})")
+        others[f"D{d}_{dtype}"] = {"max_abs_err": err, "ms": ms,
+                                   "bound_ms": bms, "bound_by": by}
+    row["head_dims"] = others
     return row
 
 
 def _nms_case(torch, det_mod, gen, p_n, k, kind="boxes", side=608.0):
     """iou [P, k, k], valid [P, k] int32, thr [P] on the card: the IoU of
     random boxes at the detection path's density (a 608 px image, box
-    sides 10 to 300 px) or a random asymmetric matrix; ~15% invalid
-    rows and one problem with none valid."""
+    sides 10 to 300 px) with ~15% invalid rows, or (``kind``) a random
+    asymmetric matrix; boxes on a grid that never overlap, or one box
+    repeated, every row valid (every candidate kept: the longest fold;
+    one kept); random boxes with every overlap NaN in the rows and columns
+    on either side of each 32-candidate boundary and 5% NaN elsewhere;
+    random boxes with a threshold per problem in [0.55, 0.75], which an
+    eta of 0.995 takes under 0.5 at a different candidate in each
+    problem (an eta of 0.9999 never does within 200 candidates). Problem
+    0 has no valid row."""
+    thr = torch.full((p_n,), 0.45, device="cuda")
     if kind == "asymmetric":
         iou = torch.rand(p_n, k, k, generator=gen, device="cuda")
+    elif kind in ("disjoint", "identical"):
+        side_n = math.ceil(math.sqrt(k))
+        cell = torch.arange(k, dtype=torch.float32, device="cuda")
+        c = torch.stack([cell % side_n, cell // side_n], -1) * 20.0
+        if kind == "identical":
+            c = torch.zeros_like(c)
+        boxes = torch.cat([c, c + 10.0], dim=-1).expand(p_n, k, 4)
+        iou = det_mod._pairwise_iou(boxes, boxes)
     else:
         c = torch.rand(p_n, k, 2, generator=gen, device="cuda") * side
         wh = 10 + torch.rand(p_n, k, 2, generator=gen, device="cuda") * 290
         boxes = torch.cat([c - wh / 2, c + wh / 2], dim=-1)
         iou = det_mod._pairwise_iou(boxes, boxes)
+    if kind == "nan_edges":
+        iou[torch.rand(iou.shape, generator=gen, device="cuda") < 0.05] = \
+            float("nan")
+        edges = [e for b in range(32, k, 32) for e in (b - 1, b)]
+        iou[:, edges, :] = float("nan")
+        iou[:, :, edges] = float("nan")
     valid = (torch.rand(p_n, k, generator=gen, device="cuda") < 0.85
              ).to(torch.int32)
+    if kind in ("disjoint", "identical"):
+        valid.fill_(1)
+    if kind == "eta_cross":
+        thr = 0.55 + 0.2 * torch.rand(p_n, generator=gen, device="cuda")
     valid[0] = 0
-    thr = torch.full((p_n,), 0.45, device="cuda")
     return iou.contiguous(), valid, thr
 
 
@@ -614,20 +671,38 @@ def nms_bound(torch, valid, kept):
             (p_n * k * k * 4 + io) / PEAK_BYTES * 1e3)
 
 
+#: B5's cases in check_nms: (name, P, k, kind, eta); the first is the
+#: main case (a batch of 8 images x 80 classes at nms_top_k 400), timed
+#: with the next two: eta 0.9 at threshold 0.45, which never adapts (the
+#: bitmask scan of eta 1), and eta 0.9 at thresholds in [0.55, 0.75],
+#: which takes the adaptive path's per-candidate votes until it falls
+#: to 0.5
+NMS_CASES = ([("main", 640, 400, "boxes", 1.0),
+              ("eta0.9_nonadaptive", 640, 400, "boxes", 0.9),
+              ("eta0.9_adaptive", 640, 400, "eta_cross", 0.9),
+              ("k1", 64, 1, "boxes", 1.0),
+              ("k45", 64, 45, "boxes", 1.0),
+              ("asymmetric", 64, 77, "asymmetric", 1.0),
+              ("asymmetric_eta0.7", 64, 77, "asymmetric", 0.7)]
+             + [(f"edge_k{k}_eta{eta}", 64, k, "boxes", eta)
+                for k in (31, 32, 33, 63, 64, 65, 127, 128, 129)
+                for eta in (1.0, 0.9)]
+             + [("disjoint", 64, 400, "disjoint", 1.0),
+                ("disjoint_eta0.9", 64, 400, "disjoint", 0.9),
+                ("identical", 64, 400, "identical", 1.0),
+                ("eta_cross_in_tile", 64, 300, "eta_cross", 0.995),
+                ("eta_never_crosses", 64, 200, "eta_cross", 0.9999),
+                ("nan_edges", 64, 200, "nan_edges", 1.0),
+                ("nan_edges_eta0.9", 64, 200, "nan_edges", 0.9),
+                ("k12500_smem_over_48k", 2, 12500, "asymmetric", 1.0)])
+
+
 def check_nms(torch, nms_mod, det_mod, gen):
-    """B5 against its plain version, bit for bit (integer masks): P=640
-    problems of k=400 (a batch of 8 images x 80 classes at nms_top_k
-    400), the same with eta 0.9, k=1, k=45 (not a multiple of 32), an
-    asymmetric IoU, and rows with valid 0 in every case. Returns the
-    summary row of the main case."""
-    cases = [("main", 640, 400, "boxes", 1.0),
-             ("eta0.9", 640, 400, "boxes", 0.9),
-             ("k1", 64, 1, "boxes", 1.0),
-             ("k45", 64, 45, "boxes", 1.0),
-             ("asymmetric", 64, 77, "asymmetric", 1.0),
-             ("asymmetric_eta0.7", 64, 77, "asymmetric", 0.7)]
+    """B5 against its plain version, bit for bit (integer masks), in every
+    case of NMS_CASES, rows with valid 0 in each; the main case and its
+    two eta 0.9 twins timed. Returns the summary row of the main case."""
     row = None
-    for name, p_n, k, kind, eta in cases:
+    for name, p_n, k, kind, eta in NMS_CASES:
         iou, valid, thr = _nms_case(torch, det_mod, gen, p_n, k, kind)
         kept = nms_mod.greedy_nms(iou, valid, thr, eta)
         ref = nms_mod.greedy_nms_plain(iou, valid, thr, eta)
@@ -636,13 +711,17 @@ def check_nms(torch, nms_mod, det_mod, gen):
         err = (kept - ref).abs().max().item()
         n_kept = int(kept.sum().item())
         ok = mism == 0 and int(kept[0].sum().item()) == 0
+        if kind == "disjoint":
+            ok = ok and torch.equal(kept[1:], valid[1:])
+        if kind == "identical":
+            ok = ok and n_kept == p_n - 1
         log(f"B5 greedy NMS {name} P={p_n} k={k} eta={eta}: {mism} "
             f"mismatches (bit-exact required), {n_kept} kept of "
             f"{int(valid.sum().item())} valid")
         if not ok:
             raise RuntimeError(f"greedy NMS kernel disagrees with its plain "
                                f"version ({name})")
-        if row is None:
+        if name == "main":
             ms = time_ms(lambda: nms_mod.greedy_nms(iou, valid, thr, eta),
                          spin=True)
             plain_ms = time_ms(
@@ -659,6 +738,14 @@ def check_nms(torch, nms_mod, det_mod, gen):
                    "bound_ms_full_iou": full_ms, "library_ms": None,
                    "tolerance": 0, "kept_per_problem": n_kept / p_n,
                    "shape": f"P={p_n} k={k} eta={eta} random boxes"}
+        elif name.startswith("eta0.9_"):
+            ms = time_ms(lambda: nms_mod.greedy_nms(iou, valid, thr, eta),
+                         spin=True)
+            bms, _ = nms_bound(torch, valid, kept)
+            path = name.split("_")[1]
+            log(f"B5 eta 0.9 {path}: kernel {ms:.4f} ms bound {bms:.4f} ms")
+            row.update({f"eta09_{path}_ms": ms,
+                        f"eta09_{path}_bound_ms": bms})
         del iou, valid, thr, kept, ref
     return row
 
@@ -1103,7 +1190,7 @@ def detection_checks(torch, model, nms_mod, det_mod, rng, dev):
         iou_f = iou.reshape(p_n, k, k)
         thr = torch.full((p_n,), DET_DECODE["nms_thresh"], device=dev)
         b5_ms = time_ms(lambda: nms_mod.greedy_nms(iou_f, valid, thr),
-                        iters=5, warmup=1)
+                        spin=True)
         kept_k = nms_mod.greedy_nms(iou_f, valid, thr).reshape(n, c_n, k)
         kept_p = nms_mod.greedy_nms_plain(iou_f, valid, thr).reshape(
             n, c_n, k)

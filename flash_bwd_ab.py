@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Time variants of the attention kernels (flash forward B1, backward B2
-and B3, paged decode B4) against the repository's own, on one CUDA card.
+"""Time variants of the kernels (flash forward B1, backward B2 and B3,
+paged decode B4, greedy NMS B5) against the repository's own, on one CUDA
+card.
 
-    python3 flash_bwd_ab.py DIR [DIR ...]     # from the repository root
+    python3 flash_bwd_ab.py [--only flash|paged|nms ...] DIR [DIR ...]
+                                              # from the repository root
 
 Each DIR holds either a variant of some of ``paddle_tpu_torch/csrc``'s
 ``flash_attention_fwd.cu``, ``flash_attention_bwd_dq.cu`` and
 ``flash_attention_bwd_dkv.cu`` (same C entry points), with its own copy of
-``flash_mma.cuh`` beside them, or a whole tree of another version of the
-repository (a DIR holding ``paddle_tpu_torch/``, e.g. an older commit
+``flash_mma.cuh`` beside them, and/or of ``greedy_nms.cu`` (an edited
+copy, e.g. another tile width), or a whole tree of another version of
+the repository (a DIR holding ``paddle_tpu_torch/``, e.g. an older commit
 unpacked with ``git archive``).
 
 Flash kernels: every source a variant holds is built with the
@@ -27,6 +30,18 @@ there), each held to the plain version at 1e-4 and timed in alternating
 rounds on the device's clock (median round), and the wrappers' host time a
 call, also in alternating rounds.
 
+Greedy NMS B5, at ``chip_smoke.py``'s main size (P=640 problems of
+k=400 random boxes) in the cases of NMS_AB_CASES: eta 1; eta 0.9 at
+threshold 0.45, which never adapts (the bitmask scan, as eta 1); eta 0.9
+and 0.995 at thresholds in [0.55, 0.75], which take the per-candidate
+votes of the adaptive path until the threshold falls to 0.5. The
+repository's wrapper, each variant DIR's ``greedy_nms.cu`` and each
+tree's own wrapper and kernel, each held to the plain version bit for
+bit and timed in alternating rounds on the device's clock (median
+round), beside the bound.
+
+``--only`` runs the named sections alone (default: all three).
+
 Every time is taken as ``chip_smoke.py`` takes it (``time_ms(spin=True)``:
 CUDA events around calls queued behind a spin kernel). The script prints
 the card's name and power limit, needs one card and exits non-zero
@@ -34,6 +49,7 @@ without one.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import statistics
@@ -47,6 +63,13 @@ BLOCKS_PER_SM = (2, 4, 8, 16, 32)
 HOST_ROUNDS = 5
 HOST_CALLS = 100
 
+#: B5's A/B cases at P=640, k=400: (name, kind of chip_smoke._nms_case,
+#: eta)
+NMS_AB_CASES = (("eta 1", "boxes", 1.0),
+                ("eta 0.9 thr 0.45 (non-adaptive)", "boxes", 0.9),
+                ("eta 0.9 thr 0.55-0.75 (adaptive)", "eta_cross", 0.9),
+                ("eta 0.995 thr 0.55-0.75 (adaptive)", "eta_cross", 0.995))
+
 #: each kernel's source name, pointer count and trailing dtype codes
 KERNELS = {"flash_attention_fwd": ("pt_flash_attention_fwd", 5, 1),
            "flash_attention_bwd_dq": ("pt_flash_attention_bwd_dq", 7, 2),
@@ -59,7 +82,7 @@ def build(kb, vdir: Path):
     """Compile the sources the variant in vdir holds; returns their
     libraries by name."""
     procs = []
-    for name in KERNELS:
+    for name in (*KERNELS, "greedy_nms"):
         src = vdir / f"{name}.cu"
         if not src.is_file():
             continue
@@ -87,6 +110,8 @@ def entries(libs):
     """Each library's C entry point with its argtypes set."""
     out = {}
     for name, lib in libs.items():
+        if name not in KERNELS:
+            continue
         fn_name, n_ptr, n_tail = KERNELS[name]
         fn = getattr(lib, fn_name)
         fn.restype = ctypes.c_int
@@ -133,18 +158,112 @@ def runners(torch, fa, fns, q, k, v, do, lse, delta):
     return out
 
 
-def tree_paged(root: Path, alias: str):
-    """The ``ops.paged_attention`` module of the tree at root, imported
-    as package ``alias`` (its kernels build under root)."""
+def tree_module(root: Path, alias: str, name: str):
+    """Module ``name`` (e.g. ``ops.custom``) of the tree at root, its
+    package imported once as ``alias`` (its kernels build under root)."""
     import importlib
     import importlib.util
-    pkg = root / "paddle_tpu_torch"
-    spec = importlib.util.spec_from_file_location(
-        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[alias] = mod
-    spec.loader.exec_module(mod)
-    return importlib.import_module(f"{alias}.ops.paged_attention")
+    if alias not in sys.modules:
+        pkg = root / "paddle_tpu_torch"
+        spec = importlib.util.spec_from_file_location(
+            alias, pkg / "__init__.py",
+            submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[alias] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(f"{alias}.{name}")
+
+
+def nms_runner(torch, lib, name):
+    """A variant's B5 library as a function of (iou, valid, thr, eta)
+    like the wrapper."""
+    fn = lib.pt_greedy_nms
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                   + [ctypes.c_float, ctypes.c_void_p])
+
+    def run(iou, valid, thr, eta):
+        kept = torch.empty(valid.shape, dtype=torch.int32, device="cuda")
+        code = fn(iou.data_ptr(), valid.data_ptr(), thr.data_ptr(),
+                  kept.data_ptr(), valid.shape[0], valid.shape[1], eta,
+                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"B5 {name}: CUDA error {code}")
+        return kept
+    return run
+
+
+def nms_design_bytes(torch, valid, kept, tile):
+    """Bytes B5 reads at tile width ``tile`` for this data: every kept
+    row's columns after its tile, every valid row's upper triangle of its
+    tile's diagonal block, valid and thr in, kept out."""
+    p_n, k = valid.shape
+    idx = torch.arange(k, device=valid.device)
+    tile_end = torch.clamp((idx // tile + 1) * tile, max=k)
+    folds = int(((kept != 0) * (k - tile_end)).sum())
+    diag = int(((valid != 0) * (tile_end - idx - 1)).sum())
+    return 4 * folds, 4 * diag, 2 * p_n * k * 4 + p_n * 4
+
+
+def nms_ab(torch, cs, variants, trees):
+    """B5: the repository's wrapper against each variant's (name: function
+    of (iou, valid, thr, eta)) and each tree's wrapper, at chip_smoke's
+    main size in each case of NMS_AB_CASES."""
+    from paddle_tpu_torch.ops import custom
+    from paddle_tpu_torch.ops import detection as det_mod
+    fns = {"repo": custom.greedy_nms, **variants}
+    for i, (name, root) in enumerate(trees.items()):
+        fns[name] = tree_module(root, f"ab_tree_{i}", "ops.custom").greedy_nms
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    for case, kind, eta in NMS_AB_CASES:
+        iou, valid, thr = cs._nms_case(torch, det_mod, gen, 640, 400, kind)
+        ref = custom.greedy_nms_plain(iou, valid, thr, eta)
+        runs = {}
+        for n, fn in fns.items():
+            try:
+                kept = fn(iou, valid, thr, eta)
+                torch.cuda.synchronize()
+            except RuntimeError as e:     # e.g. shared memory refused
+                print(f"B5 {case} {n}: does not run: {e}")
+                continue
+            mism = int((kept != ref).sum())
+            print(f"B5 {case} {n}: {mism} mismatches against the plain "
+                  f"version")
+            if mism:
+                raise RuntimeError(f"B5 {n} disagrees with the plain "
+                                   f"version")
+            runs[n] = (lambda fn=fn, eta=eta, x=(iou, valid, thr):
+                       fn(*x, eta))
+        med, per = cs.time_rounds(torch, runs)
+        bms, full = cs.nms_bound(torch, valid, ref)
+        for n in runs:
+            print(f"B5 {case} {n} device ms median {med[n]:.4f} rounds "
+                  f"{[round(x, 4) for x in per[n]]} (bound {bms:.4f} ms; "
+                  f"every matrix whole {full:.4f} ms; "
+                  f"{int(ref.sum()) / ref.shape[0]:.1f} kept a problem)")
+        for tile in (32, 64, 128):
+            folds, diag, io = nms_design_bytes(torch, valid, ref, tile)
+            print(f"B5 {case} reads at T={tile}: {folds / 1e6:.1f} MB of "
+                  f"kept rows after their tile + {diag / 1e6:.1f} MB of "
+                  f"diagonal triangles + {io / 1e6:.1f} MB in/out = "
+                  f"{(folds + diag + io) / cs.PEAK_BYTES * 1e3:.4f} ms at "
+                  f"{cs.PEAK_BYTES / 1e12:.2f} TB/s")
+        idx = torch.arange(valid.shape[1], device=valid.device)
+        strips = 4 * int(((valid != 0) * (valid.shape[1] - idx - 1)).sum())
+        print(f"B5 {case} reads prefetching whole upper strips: "
+              f"{strips / 1e6:.1f} MB of valid rows after the row = "
+              f"{strips / cs.PEAK_BYTES * 1e3:.4f} ms")
+        if kind == "boxes" and eta == 1.0:
+            one = [x[:torch.cuda.get_device_properties(0)
+                     .multi_processor_count].contiguous()
+                   for x in (iou, valid, thr)]
+        del iou, valid, thr, ref, runs
+    # one problem an SM: the chain of one problem, without the others'
+    # loads on its SM
+    ms = cs.time_ms(lambda: custom.greedy_nms(*one), spin=True)
+    print(f"B5 eta 1 repo at P={one[1].shape[0]} (one problem an SM) "
+          f"device ms {ms:.4f}")
 
 
 def paged_ab(torch, cs, trees):
@@ -153,7 +272,8 @@ def paged_ab(torch, cs, trees):
     from paddle_tpu_torch.ops import paged_attention as pa
     mods = {"repo": pa}
     for i, (name, root) in enumerate(trees.items()):
-        mods[name] = tree_paged(root, f"ab_tree_{i}")
+        mods[name] = tree_module(root, f"ab_tree_{i}",
+                                 "ops.paged_attention")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     q, kb, vb, bt = cs.paged_case(torch, gen)
@@ -234,16 +354,34 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    kb.build_all(tuple(KERNELS))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", action="append",
+                    choices=("flash", "paged", "nms"))
+    ap.add_argument("dirs", nargs="*")
+    args = ap.parse_args()
+    wanted = (lambda section: not args.only or section in args.only)
+    kb.build_all()
     for name in KERNELS:
         report("repo", name, kb.BUILD_LOGS.get(name, ""))
+    report("repo", "greedy_nms", kb.BUILD_LOGS.get("greedy_nms", ""))
     variants = {"repo": entries({n: kb.load(n) for n in KERNELS})}
+    nms_variants = {}
     trees = {}
-    for arg in sys.argv[1:]:
+    for arg in args.dirs:
+        name = Path(arg).name
         if (Path(arg) / "paddle_tpu_torch").is_dir():
-            trees[Path(arg).name] = Path(arg)
-        else:
-            variants[Path(arg).name] = entries(build(kb, Path(arg)))
+            trees[name] = Path(arg)
+            continue
+        libs = build(kb, Path(arg))
+        variants[name] = entries(libs)
+        if "greedy_nms" in libs:
+            nms_variants[name] = nms_runner(torch, libs["greedy_nms"], name)
+    if wanted("nms"):
+        nms_ab(torch, cs, nms_variants, trees)
+    if wanted("paged"):
+        paged_ab(torch, cs, trees)
+    if not wanted("flash"):
+        return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     for dt in (torch.float32, torch.bfloat16):
@@ -283,7 +421,6 @@ def main() -> int:
                 print(f"{dt} {LABELS[name]} {n} ms "
                       f"{[round(x, 4) for x in t]}")
         del runs, refs64
-    paged_ab(torch, cs, trees)
     return 0
 
 

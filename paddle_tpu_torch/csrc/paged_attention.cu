@@ -15,9 +15,9 @@
 // owns one (sequence, head, chunk): the grid is (S, H, chunks), and a
 // chunk past its sequence's last visible row exits at once. The block
 // copies its chunk's block-table entries into shared memory; every group
-// of D*elem/16 lanes (one row, 16 bytes a lane) carries its own m/l/acc in
-// registers over the rows it takes, and the block merges its groups' states
-// once through shared memory. A sequence of one chunk writes its output
+// of lanes that loads one row (16 bytes a lane, see "Head dims" below)
+// carries its own m/l/acc in registers over the rows it takes, and the
+// block merges its groups' states once through shared memory. A sequence of one chunk writes its output
 // there. Otherwise each chunk writes (m, l, acc[D]) in f32 to a workspace;
 // the last block of a (sequence, head) to finish, found by __threadfence
 // and an atomic ticket, merges the chunks in chunk order, writes the
@@ -30,6 +30,12 @@
 // nothing is copied. Block-table entries outside [0, n_arena_pages) are
 // treated as masked rather than read. Every base pointer and stride must
 // be 16-byte aligned (the wrapper checks).
+//
+// Head dims: any D up to MAX_D whose row is a whole number of 16-byte
+// vectors (D a multiple of 4 in f32, of 8 in bf16), as the TPU kernel
+// takes any D. A row's NV = D * elem / 16 vectors go to LPR lanes, the
+// power of two at or above NV (at most 32), VPL vectors a lane; lanes past
+// the row load nothing and add 0 (D = 80 in f32: 20 of 32 lanes busy).
 //
 // What bounds it on the H100: bytes. A decode step reads every visible K
 // and V row once, 2 * sum_s(positions[s] + 1) * H * D * elem bytes, and
@@ -48,6 +54,8 @@ namespace {
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int U = 8;  // 16-byte loads of K (and of V) each lane issues a step
+constexpr int MAX_D = 256;  // the widest head taken
+static_assert(MAX_D <= THREADS, "the merge gives each column a thread");
 constexpr float NEG_INF = -1e30f;
 // the most pages of one chunk (its block-table entries in shared memory)
 constexpr int MAX_CHUNK_PAGES = 1024;
@@ -76,27 +84,30 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-template <typename T, int D>
+// LPR lanes a row (a power of two), VPL 16-byte vectors a lane; D at run
+// time, at most LPR * VPL * 16 / elem.
+template <typename T, int LPR, int VPL>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
                        const T* __restrict__ v_arena, T* __restrict__ out,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ positions,
                        float* __restrict__ ws, int* __restrict__ tickets,
-                       int H, int page_size, int pages_per_seq,
+                       int H, int D, int page_size, int pages_per_seq,
                        int n_arena_pages, int chunk_pages,
                        int64_t q_ss, int64_t q_sh,
                        int64_t k_sp, int64_t k_sr, int64_t k_sh,
                        int64_t v_sp, int64_t v_sr, int64_t v_sh,
                        int64_t bt_ss, float scale) {
-  constexpr int EPL = 16 / sizeof(T);  // elements of a row per lane
-  constexpr int LPR = D / EPL;         // lanes per row
+  constexpr int EPL = 16 / sizeof(T);  // elements of a 16-byte vector
   constexpr int RPI = 32 / LPR;        // rows per warp-wide load
-  constexpr int RPS = U * RPI;         // rows a warp takes per step
+  constexpr int UR = U / VPL;          // warp-wide loads a step
+  constexpr int RPS = UR * RPI;        // rows a warp takes per step
   constexpr int GROUPS = WARPS * RPI;  // softmax states per block
+  constexpr int DW = LPR * VPL * EPL;  // the widest row of this shape
   __shared__ int s_bt[MAX_CHUNK_PAGES];
   __shared__ float s_m[GROUPS], s_l[GROUPS];
-  __shared__ float s_acc[GROUPS][D];
+  __shared__ float s_acc[GROUPS][DW];
   __shared__ int s_last;
 
   const int s = blockIdx.x;
@@ -106,7 +117,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int grp = lane / LPR;  // which row of a warp-wide load
-  const int li = lane % LPR;   // which 16 bytes of the row
+  const int li = lane % LPR;   // which vectors of the row: li, li + LPR, ..
+  bool act[VPL];               // whether vector li + v * LPR is in the row
+#pragma unroll
+  for (int v = 0; v < VPL; ++v) act[v] = (li + v * LPR) * EPL < D;
 
   const int chunk_rows = chunk_pages * page_size;
   const int n_rows = min(positions[s] + 1, pages_per_seq * page_size);
@@ -119,47 +133,61 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
   for (int i = tid; i < n_pg; i += THREADS)
     s_bt[i] = block_tables[s * bt_ss + page0 + i];
 
-  float qv[EPL];
-  to_f(__ldg(reinterpret_cast<const uint4*>(q + s * q_ss + h * q_sh +
-                                            li * EPL)),
-       qv, T());
+  float qv[VPL][EPL];
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) qv[e] *= scale;
+  for (int v = 0; v < VPL; ++v) {
+    const uint4 u =
+        act[v] ? __ldg(reinterpret_cast<const uint4*>(
+                     q + s * q_ss + h * q_sh + (li + v * LPR) * EPL))
+               : make_uint4(0u, 0u, 0u, 0u);
+    to_f(u, qv[v], T());
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) qv[v][e] *= scale;
+  }
   __syncthreads();
 
   const T* kh = k_arena + h * k_sh + li * EPL;
   const T* vh = v_arena + h * v_sh + li * EPL;
-  float m = NEG_INF, l = 0.f, acc[EPL];
+  float m = NEG_INF, l = 0.f, acc[VPL][EPL];
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
+  for (int v = 0; v < VPL; ++v)
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[v][e] = 0.f;
 
   for (int j0 = page0 * page_size + warp * RPS; j0 < row_end;
        j0 += WARPS * RPS) {
-    uint4 kr[U], vr[U];
-    bool ok[U];
+    uint4 kr[UR][VPL], vr[UR][VPL];
+    bool ok[UR];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
+    for (int u = 0; u < UR; ++u) {
       const int j = j0 + u * RPI + grp;
       const int pid = j < row_end ? s_bt[j / page_size - page0] : -1;
       ok[u] = pid >= 0 && pid < n_arena_pages;
       const int64_t row = j % page_size;
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (ok[u]) {
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(kh + pid * k_sp +
-                                                     row * k_sr));
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(vh + pid * v_sp +
-                                                     row * v_sr));
+#pragma unroll
+      for (int v = 0; v < VPL; ++v) {
+        kr[u][v] = vr[u][v] = make_uint4(0u, 0u, 0u, 0u);
+        if (ok[u] && act[v]) {
+          const int64_t off = v * LPR * EPL;
+          kr[u][v] = __ldg(reinterpret_cast<const uint4*>(
+              kh + pid * k_sp + row * k_sr + off));
+          vr[u][v] = __ldg(reinterpret_cast<const uint4*>(
+              vh + pid * v_sp + row * v_sr + off));
+        }
       }
     }
-    float sc[U];
+    float sc[UR];
     float mx = NEG_INF;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float kf[EPL];
-      to_f(kr[u], kf, T());
+    for (int u = 0; u < UR; ++u) {
       float dot = 0.f;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) dot = fmaf(qv[e], kf[e], dot);
+      for (int v = 0; v < VPL; ++v) {
+        float kf[EPL];
+        to_f(kr[u][v], kf, T());
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) dot = fmaf(qv[v][e], kf[e], dot);
+      }
 #pragma unroll
       for (int off = LPR / 2; off > 0; off >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -170,15 +198,20 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
     const float alpha = expf(m - m_new);
     l *= alpha;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[e] *= alpha;
+    for (int v = 0; v < VPL; ++v)
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
+      for (int e = 0; e < EPL; ++e) acc[v][e] *= alpha;
+#pragma unroll
+    for (int u = 0; u < UR; ++u) {
       const float p = ok[u] ? expf(sc[u] - m_new) : 0.f;
-      float vf[EPL];
-      to_f(vr[u], vf, T());
       l += p;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[e] = fmaf(p, vf[e], acc[e]);
+      for (int v = 0; v < VPL; ++v) {
+        float vf[EPL];
+        to_f(vr[u][v], vf, T());
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[v][e] = fmaf(p, vf[e], acc[v][e]);
+      }
     }
     m = m_new;
   }
@@ -190,7 +223,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
     s_l[gi] = l;
   }
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) s_acc[gi][li * EPL + e] = acc[e];
+  for (int v = 0; v < VPL; ++v)
+#pragma unroll
+    for (int e = 0; e < EPL; ++e)
+      s_acc[gi][(li + v * LPR) * EPL + e] = acc[v][e];
   __syncthreads();
   float cm = NEG_INF, cl = 0.f, ca = 0.f;
   if (tid < D) {
@@ -238,40 +274,41 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
   if (tid == 0) tickets[sh] = 0;
 }
 
-template <typename T, int D>
+template <typename T, int LPR, int VPL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const int* bt, const int* pos, float* ws, int* tickets,
-                   int S, int H, int page, int pps, int n_pages,
+                   int S, int H, int D, int page, int pps, int n_pages,
                    int chunk_pages, const int64_t* st, float scale,
                    cudaStream_t stream) {
   dim3 grid(S, H, (pps + chunk_pages - 1) / chunk_pages);
-  paged_attention_kernel<T, D><<<grid, THREADS, 0, stream>>>(
+  paged_attention_kernel<T, LPR, VPL><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), bt, pos, ws, tickets,
-      H, page, pps, n_pages, chunk_pages, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], scale);
+      H, D, page, pps, n_pages, chunk_pages, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], scale);
   return cudaGetLastError();
 }
 
+// The shape for D: LPR the power of two at or above the row's vectors,
+// at most 32, and 2 vectors a lane above 32 (f32, D over 128).
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        void* out, const int* bt, const int* pos, float* ws,
                        int* tickets, int S, int H, int page, int pps,
                        int n_pages, int chunk_pages, const int64_t* st,
                        float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, bt, pos, ws, tickets, S, H, page,
-                           pps, n_pages, chunk_pages, st, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, bt, pos, ws, tickets, S, H, page,
-                           pps, n_pages, chunk_pages, st, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, bt, pos, ws, tickets, S, H, page,
-                            pps, n_pages, chunk_pages, st, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  constexpr int EPL = 16 / sizeof(T);
+  if (D < 1 || D > MAX_D || D % EPL) return cudaErrorInvalidValue;
+  const int nv = D / EPL;
+  auto fn = &launch<T, 32, 2>;
+  if (nv <= 1) fn = &launch<T, 1, 1>;
+  else if (nv <= 2) fn = &launch<T, 2, 1>;
+  else if (nv <= 4) fn = &launch<T, 4, 1>;
+  else if (nv <= 8) fn = &launch<T, 8, 1>;
+  else if (nv <= 16) fn = &launch<T, 16, 1>;
+  else if (nv <= 32) fn = &launch<T, 32, 1>;
+  return fn(q, k, v, out, bt, pos, ws, tickets, S, H, D, page, pps, n_pages,
+            chunk_pages, st, scale, stream);
 }
 
 }  // namespace

@@ -57,8 +57,10 @@ class Model:
             raise NotImplementedError("Model.prepare: metrics are not "
                                       "ported yet (ROADMAP A9)")
         if amp_configs is not None:
-            raise NotImplementedError("Model.prepare: AMP is not ported yet "
-                                      "(ROADMAP A4)")
+            raise NotImplementedError(
+                "Model.prepare: amp_configs is not taken; the reference "
+                "accepts and ignores it, and AMP is entered through "
+                "amp.auto_cast / GradScaler / decorate (ROADMAP A4)")
         if getattr(optimizer, "_sentinel", None) is not None:
             raise NotImplementedError("Model.prepare: the numerical "
                                       "sentinel is not ported yet "
@@ -157,7 +159,8 @@ class Model:
         after every batch)."""
         if accumulate_grad_batches != 1:
             raise NotImplementedError(
-                "Model.fit: accumulate_grad_batches is not implemented; use "
+                "Model.fit: accumulate_grad_batches is not taken (the "
+                "reference accepts and ignores it); use "
                 "train_batch(update=False)")
         loader = self._batches(train_data, "fit")
         eval_loader = self._batches(eval_data, "fit") \

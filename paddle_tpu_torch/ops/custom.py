@@ -19,7 +19,10 @@ over score-sorted candidates::
 
 and, with ``eta < 1`` (``_greedy_nms_mask``'s adaptive threshold, in
 ``paddle_tpu/ops/detection.py``), ``thr *= eta`` after each kept box
-while ``thr > 0.5``. The kernel is ``csrc/greedy_nms.cu``; its source
+while ``thr > 0.5``. The kernel is ``csrc/greedy_nms.cu``, a
+tile-blocked scan (one warp decides 64 candidates at a time from their
+overlaps in shared memory while the other warps fold the previous
+tile's kept rows into the later candidates' running maxima); its source
 note says what bounds it on the H100 and how its design answers that.
 CPU tensors take the plain version :func:`greedy_nms_plain`; CUDA
 tensors launch the kernel or raise. Not kept from the TPU: the tuner's
@@ -36,8 +39,10 @@ import torch
 __all__ = ["register_op", "register_kernel_op", "greedy_nms",
            "greedy_nms_plain", "MAX_NMS_K"]
 
-#: the largest candidate count the kernel takes (its running maxima and
-#: valid/kept flags sit in shared memory, 6 bytes per candidate)
+#: the largest candidate count the kernel takes (its running maxima, 4
+#: bytes per candidate, and valid bits sit in shared memory beside two
+#: tiles of 64 x 65 overlaps: 165 KiB at this k, of the 227 KiB a
+#: block may have)
 MAX_NMS_K = 32768
 
 

@@ -32,11 +32,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["paged_attention", "paged_attention_plain", "chunk_pages_for"]
+__all__ = ["paged_attention", "paged_attention_plain", "chunk_pages_for",
+           "takes"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+#: the widest head the kernel takes
+MAX_HEAD_DIM = 256
 
 #: blocks per SM the chunking aims at when every sequence is full
 BLOCKS_PER_SM = 8
@@ -53,6 +55,16 @@ def chunk_pages_for(pages_per_seq: int, seq_heads: int, n_sms: int) -> int:
     chunks = -(-BLOCKS_PER_SM * n_sms // max(1, seq_heads))
     chunks = max(1, min(pages_per_seq, chunks))
     return min(-(-pages_per_seq // chunks), MAX_CHUNK_PAGES)
+
+
+def takes(head_dim: int, dtype) -> bool:
+    """Whether the kernel takes heads of ``head_dim`` in ``dtype``:
+    float32 or bfloat16, at most :data:`MAX_HEAD_DIM`, and a row of whole
+    16-byte vectors (``head_dim`` a multiple of 4 in float32, of 8 in
+    bfloat16). The one rule of the kernel's shapes: the wrapper refuses
+    by it and the paged decoder checks its lane by it."""
+    return (dtype in _DTYPES and 0 < head_dim <= MAX_HEAD_DIM
+            and head_dim * dtype.itemsize % 16 == 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,9 +136,9 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
     single-layer views (dense); ``block_tables``: ``[S, pages_per_seq]``
     int32; ``positions``: ``[S]`` int32. Returns ``[S, H, D]`` in q's
     type. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (float32 or bfloat16 matching q, D in (32, 64, 128), last dim
-    contiguous, base pointers and strides of q and the arenas 16-byte
-    aligned) or raise."""
+    kernel (float32 or bfloat16 matching q, a head dim :func:`takes`
+    accepts, last dim contiguous, base pointers and strides of q and the
+    arenas 16-byte aligned) or raise."""
     if q.dim() != 3 or k_arena.dim() != 4 or v_arena.dim() != 4:
         raise ValueError("paged_attention takes q [S, H, D] and arenas "
                          "[P+1, page, H, D]")
@@ -154,9 +166,10 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
     if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
         raise TypeError("paged_attention kernel: block_tables and positions "
                         "must be int32")
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"paged_attention kernel: head_dim {d} not in "
-                         f"{SUPPORTED_HEAD_DIMS}")
+    if not takes(d, q.dtype):
+        raise ValueError(
+            f"paged_attention kernel: head_dim {d} in {q.dtype} is not "
+            f"taken (at most {MAX_HEAD_DIM}, rows of whole 16-byte vectors)")
     if (q.stride(-1) != 1 or k_arena.stride(-1) != 1
             or v_arena.stride(-1) != 1 or block_tables.stride(-1) != 1
             or positions.stride(0) != 1):

@@ -15,7 +15,10 @@ Two attention lanes sit behind ``attn_impl``:
   package's interpret mode. Float-equal to the gather lane, not bitwise:
   the online softmax sums in another order.
 
-``"auto"`` means the kernel on CUDA and the gather lane on the CPU. Tail
+``"auto"`` means the kernel on CUDA and the gather lane on the CPU. The
+kernel lane on CUDA raises at construction for a model whose heads the
+kernel does not take (``ops.paged_attention.takes``: float32 or bfloat16,
+head dim at most 256, rows of whole 16-byte vectors). Tail
 prefill (prefix reuse), speculative decode and sequence migration are
 later slices of the port.
 """
@@ -27,7 +30,7 @@ from typing import Optional
 import torch
 
 from ....nn.functional import gelu, softmax
-from ....ops.paged_attention import paged_attention
+from ....ops.paged_attention import paged_attention, takes
 from ..decode import (GPTDecodeSpec, GPTDecoderBase, SamplingVectors,
                       _block_prefill, _layer_norm, _sample)
 from ..kvcache import kv_layer_view, valid_mask
@@ -161,7 +164,8 @@ class GPTPagedDecoder(GPTDecoderBase):
     """The paged decoder: ``new_kv`` returns a :class:`PagedKVCache` on
     the model's device and the programs thread its block tables.
     ``attn_impl``: ``"auto"`` (the kernel on CUDA, the gather lane on the
-    CPU), ``"kernel"`` or ``"gather"``."""
+    CPU), ``"kernel"`` or ``"gather"``; the kernel lane on CUDA raises
+    here if the kernel does not take the model's heads."""
 
     def __init__(self, model, max_top_k: int = 64,
                  weight_dtype: str = "float32", kv_dtype: str = "float32",
@@ -177,6 +181,13 @@ class GPTPagedDecoder(GPTDecoderBase):
                 f"{attn_impl!r}")
         if attn_impl == "auto":
             attn_impl = "kernel" if self.device.type == "cuda" else "gather"
+        kv_type = self._model.gpt.word_embeddings.weight.dtype
+        if (attn_impl == "kernel" and self.device.type == "cuda"
+                and not takes(self.spec.head_dim, kv_type)):
+            raise ValueError(
+                f"the paged attention kernel does not take head_dim "
+                f"{self.spec.head_dim} in {kv_type}; serve this model with "
+                f"attn_impl='gather'")
         self.attn_impl = attn_impl
         self.page_size = int(page_size)
         self.num_pages = None if num_pages is None else int(num_pages)

@@ -20,6 +20,7 @@ from paddle_tpu_torch.ops import detection as tdet
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+from paddle_tpu_torch.serving.llm.paged import GPTPagedDecoder
 
 pytestmark = pytest.mark.cuda
 
@@ -165,7 +166,7 @@ def test_flash_forward_kernel_refuses_misaligned_rows(cuda):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 16, 48, 80, 96, 160, 256])
 def test_paged_kernel_matches_plain(cuda, dtype, tol, d):
     q, ak, av, bt, pos = (torch.from_numpy(x).to(cuda)
                           for x in _paged_case(7, d=d))
@@ -247,6 +248,12 @@ def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     shifted.copy_(q)
     with pytest.raises(ValueError, match="16-byte"):
         tpa.paged_attention(shifted, ak[:, 0], av[:, 0], bt, pos)
+    for d, dtype in ((264, torch.float32), (36, torch.bfloat16)):
+        q, ak, av, bt, pos = (torch.from_numpy(x).to(cuda)
+                              for x in _paged_case(8, d=d))
+        q, ak, av = q.to(dtype), ak.to(dtype), av.to(dtype)
+        with pytest.raises(ValueError, match=f"head_dim {d}"):
+            tpa.paged_attention(q, ak[:, 0], av[:, 0], bt, pos)
 
 
 def test_gpt_forward_through_flash_kernel(cuda):
@@ -287,6 +294,47 @@ def test_paged_engine_kernel_lane_matches_gather_lane(cuda):
                             if impl == "kernel" else 0)
     assert tokens["kernel"] == tokens["gather"]
     assert all(len(t) == 8 for t in tokens["kernel"])
+
+
+def test_default_paged_engine_serves_head_dim_80_through_the_kernel(cuda):
+    """head_dim 80 (GPT-3 2.7B's): the default engine config ("auto")
+    serves the model through the paged kernel, one launch a layer a step,
+    with the tokens of the gather lane; a model whose heads the kernel
+    does not take (head_dim 130: rows of 520 bytes) raises on the kernel
+    lane and is served on the gather lane."""
+    cfg = dict(MODEL, hidden_size=160, num_heads=2, intermediate_size=640)
+    model = GPTForCausalLM(GPTConfig(**cfg), device=cuda, seed=0).eval()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg["vocab_size"], n).tolist()
+               for n in (5, 7, 10)]
+    tokens = {}
+    for impl, lane in (("kernel", {}), ("gather", {"paged_attn_impl":
+                                                   "gather"})):
+        before = tpa.paged_attention.launches
+        eng = LLMEngine(model, LLMEngineConfig(
+            num_slots=4, max_seq=64, kv_layout="paged", page_size=4,
+            prefill_buckets=(8, 16), **lane))
+        assert eng.decoder.attn_impl == impl
+        try:
+            reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+            tokens[impl] = [r.result(timeout=120)["tokens"] for r in reqs]
+        finally:
+            eng.drain(timeout=60)
+        launched = tpa.paged_attention.launches - before
+        stats = eng.stats()["stats"]
+        steps = (stats["serving.llm.decode_ticks"]
+                 + stats["serving.llm.warmup_decode_steps"])
+        assert launched == (cfg["num_layers"] * steps
+                            if impl == "kernel" else 0)
+    assert tokens["kernel"] == tokens["gather"]
+    assert all(len(t) == 8 for t in tokens["kernel"])
+    odd = GPTForCausalLM(GPTConfig(**dict(cfg, hidden_size=260)),
+                         device=cuda, seed=0).eval()
+    for impl in ("auto", "kernel"):
+        with pytest.raises(ValueError, match="head_dim 130"):
+            GPTPagedDecoder(odd, page_size=4, attn_impl=impl)
+    assert GPTPagedDecoder(odd, page_size=4,
+                           attn_impl="gather").attn_impl == "gather"
 
 
 def _bwd_case(cuda, dtype, b, sq, skv, h, d, causal, seed=9):
@@ -490,8 +538,30 @@ def test_train_batch_through_flash_kernels_matches_dense(cuda):
 def _nms_case(seed, p_n, k, kind="boxes", side=608.0):
     """iou [P, k, k], valid [P, k] int32, thr [P] on the CPU: the IoU of
     random boxes at the YOLOv3 path's density (608 px image, box sides
-    10 to 300 px), or a random asymmetric matrix; ~15% invalid rows."""
+    10 to 300 px), with ~15% invalid rows, or:
+
+    - ``asymmetric``: a random asymmetric matrix;
+    - ``nan``: 5% of the overlaps NaN;
+    - ``nan_edges``: besides, every overlap NaN in the rows and columns
+      on either side of each 32-candidate boundary;
+    - ``disjoint``: boxes on a grid that never overlap, every row valid
+      (every candidate is kept: the longest fold);
+    - ``identical``: one box repeated, every row valid (one is kept);
+    - ``eta_cross``: a threshold per problem in [0.55, 0.75], so that an
+      eta of 0.995 takes it under 0.5 after 19 to 81 kept boxes, at a
+      different candidate in each problem (and an eta of 0.9999 never
+      does within 200 candidates)."""
     gen = torch.Generator().manual_seed(seed)
+    thr = torch.full((p_n,), 0.45)
+    if kind in ("disjoint", "identical"):
+        side_n = int(np.ceil(np.sqrt(k)))
+        cell = torch.arange(k, dtype=torch.float32)
+        c = torch.stack([cell % side_n, cell // side_n], -1) * 20.0
+        if kind == "identical":
+            c = torch.zeros_like(c)
+        boxes = torch.cat([c, c + 10.0], dim=-1).expand(p_n, k, 4)
+        return (tdet._pairwise_iou(boxes, boxes).contiguous(),
+                torch.ones(p_n, k, dtype=torch.int32), thr)
     if kind == "asymmetric":
         iou = torch.rand(p_n, k, k, generator=gen)
     else:
@@ -499,20 +569,38 @@ def _nms_case(seed, p_n, k, kind="boxes", side=608.0):
         wh = 10 + torch.rand(p_n, k, 2, generator=gen) * 290
         boxes = torch.cat([c - wh / 2, c + wh / 2], dim=-1)
         iou = tdet._pairwise_iou(boxes, boxes)
-        if kind == "nan":
+        if kind in ("nan", "nan_edges"):
             iou[torch.rand(iou.shape, generator=gen) < 0.05] = float("nan")
+        if kind == "nan_edges":
+            edges = [e for b in range(32, k, 32) for e in (b - 1, b)]
+            iou[:, edges, :] = float("nan")
+            iou[:, :, edges] = float("nan")
     valid = (torch.rand(p_n, k, generator=gen) < 0.85).to(torch.int32)
-    thr = torch.full((p_n,), 0.45)
+    if kind == "eta_cross":
+        thr = 0.55 + 0.2 * torch.rand(p_n, generator=gen)
     return iou, valid, thr
+
+
+#: candidate counts at and around the kernel's tile edges (32, 64, 128)
+NMS_EDGE_K = (31, 32, 33, 63, 64, 65, 127, 128, 129)
 
 
 @pytest.mark.parametrize("p_n,k,kind,eta", [
     (64, 400, "boxes", 1.0), (64, 400, "boxes", 0.9), (8, 1, "boxes", 1.0),
     (8, 45, "boxes", 1.0), (8, 77, "asymmetric", 1.0),
     (8, 77, "asymmetric", 0.7), (8, 300, "nan", 1.0),
-    (1, 12500, "asymmetric", 1.0)],
+    (2, 12500, "asymmetric", 1.0)]
+    + [(8, k, "boxes", eta) for k in NMS_EDGE_K for eta in (1.0, 0.9)]
+    + [(8, 400, "disjoint", 1.0), (8, 400, "disjoint", 0.9),
+       (8, 200, "identical", 1.0), (16, 300, "eta_cross", 0.995),
+       (8, 200, "eta_cross", 0.9999),
+       (8, 200, "nan_edges", 1.0), (8, 200, "nan_edges", 0.9)],
     ids=["p64_k400", "p64_k400_eta", "k1", "k45", "asym", "asym_eta",
-         "nan", "k12500_smem_over_48k"])
+         "nan", "k12500_smem_over_48k"]
+    + [f"edge_k{k}_eta{eta}" for k in NMS_EDGE_K for eta in (1.0, 0.9)]
+    + ["disjoint", "disjoint_eta", "identical", "eta_cross_in_tile",
+       "eta_never_crosses",
+       "nan_edges", "nan_edges_eta"])
 def test_nms_kernel_matches_plain_bit_exactly(cuda, p_n, k, kind, eta):
     iou, valid, thr = _nms_case(k, p_n, k, kind)
     valid[0] = 0                                   # a problem with none
@@ -528,6 +616,10 @@ def test_nms_kernel_matches_plain_bit_exactly(cuda, p_n, k, kind, eta):
     if p_n > 1:
         assert torch.equal(got.cpu(), tcustom.greedy_nms_plain(
             iou, valid, thr, eta))
+    if kind == "disjoint":
+        assert torch.equal(got[1:], vc[1:])
+    if kind == "identical":
+        assert got[1:].sum(1).tolist() == [1] * (p_n - 1)
 
 
 def test_nms_kernel_refuses_what_it_does_not_take(cuda):

@@ -204,3 +204,41 @@ def test_kill_aborts_the_inflight_generation(models):
     assert eng.was_killed
     eng.drain(timeout=60)
     assert eng._stopped.is_set()
+
+
+# -- the kernel's head dims; a head_dim-80 model -------------------------------
+
+@pytest.mark.parametrize("head_dim,dtype,taken", [
+    (80, torch.float32, True), (96, torch.bfloat16, True),
+    (128, torch.float32, True), (256, torch.float32, True),
+    (4, torch.float32, True), (40, torch.bfloat16, True),
+    (130, torch.float32, False), (36, torch.bfloat16, False),
+    (264, torch.bfloat16, False), (128, torch.float16, False)])
+def test_paged_kernel_takes_head_dims_up_to_256(head_dim, dtype, taken):
+    """The kernel takes any head dim up to 256 whose row is whole 16-byte
+    vectors, in float32 or bfloat16; the decoder's kernel lane on CUDA
+    and the wrapper's refusal both ask ``takes``."""
+    assert tpa.takes(head_dim, dtype) is taken
+
+
+# head_dim 80 (hidden 160 over 2 heads), GPT-3 2.7B's head dim
+MODEL_HD80 = dict(MODEL, hidden_size=160, num_heads=2, intermediate_size=640)
+
+
+@pytest.mark.parametrize("impl", ["auto", "kernel"])
+def test_head_dim_80_served_with_the_jax_tokens(impl):
+    """On the CPU "auto" takes the gather lane and "kernel" the kernel's
+    plain version; both give the reference's greedy tokens."""
+    paddle.seed(1)
+    jm = JGPT(JGPTConfig(**MODEL_HD80))
+    jm.eval()
+    pm = GPTForCausalLM(GPTConfig(**MODEL_HD80), device="cpu").eval()
+    pm.load_state_dict(framework_io.state_dict_from_reference(
+        {k: np.asarray(v._data) for k, v in jm.state_dict().items()},
+        "cpu"), strict=True)
+    want = _serve(JLLMEngine(jm, JConfig(**ENGINE, paged_attn_impl="gather"),
+                             registry=JStatRegistry()), _prompts())
+    eng = LLMEngine(pm, LLMEngineConfig(**ENGINE, paged_attn_impl=impl))
+    assert eng.decoder.attn_impl == ("gather" if impl == "auto" else impl)
+    assert _serve(eng, _prompts()) == want
+    assert all(len(t) == 8 for t in want)
