@@ -22,7 +22,7 @@ Phases (any failure raises and the script exits non-zero):
    kernels and library calls are timed on the device's clock, behind a
    spin kernel that lets the host queue every call first;
    bounds of B1-B3 on the tensor cores (fp32 as 3xTF32), with the
-   fp32-FMA bound beside;
+   fp32-FMA bound beside; B1-B3 in fp32, bf16 and fp16;
 3. the serving path, part one: GPT-3 1.3B (``GPTForCausalLM``, full
    width, random weights from a seed) forward on a [4, 1024] batch
    through the flash kernel, held against the same model's dense
@@ -43,20 +43,30 @@ Phases (any failure raises and the script exits non-zero):
    of a train step (wall, device busy share, tokens/s, peak memory), and
    one step's gradients through flash against dense attention on fresh
    weights from the same seed;
-8. the detection path: YOLOv3-DarkNet53 (80 classes, width 1.0, COCO
+8. the mixed-precision training paths, each on a fresh 1.3B model from
+   seed 0: 5 ``train_batch`` steps under ``amp.auto_cast()`` (O1,
+   bfloat16) with phase 6's optimizer and batch, each step launching the
+   bfloat16 lanes of B1, B2 and B3 once per layer, the loss falling and
+   its first value within 2e-2 of phase 6's first; a torch.profiler
+   breakdown of one such step (GEMMs, B1-B3, casts, optimizer); 3 O2 steps
+   (``amp.decorate`` and AdamW with float32 masters); 3 eager float16
+   steps with ``amp.GradScaler`` (``auto_cast(dtype="float16")``, scale,
+   backward, step, update), B1-B3 in float16;
+9. the detection path: YOLOv3-DarkNet53 (80 classes, width 1.0, COCO
    anchors, random weights from seed 0, fp32, eval) serving 16 single
    608x608 images submitted at once through the dynamic-batching
    ``Engine`` (buckets 1/2/4/8, 50 ms batching delay), then 3 windows
    of 64 more through the warm engine, timed for images/s; each batch is one
    forward and one ``decode`` whose greedy NMS runs on B5;
-9. checks and timings off the detection path: the forward's device time
+10. checks and timings off the detection path: the forward's device time
    at batch 8, decode's time split into yolo_box, top-k, IoU and B5, the
    kernel lane's detections against the plain lane's on the same IoU
    (bitwise), and a torch.profiler breakdown of one served batch.
 
-Every launch count is set to 0 just before phase 3 and read after phase
-4, set to 0 again just before phase 6 and read after it, and again just
-before phase 8 and read after it. The last two lines are a
+Every launch count (and B1-B3's counts by input type) is set to 0 just
+before phase 3 and read after phase 4, set to 0 again just before phase 6
+and read after it, just before each of phase 8's three paths and read
+after it, and just before phase 9 and read after it. The last two lines are a
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -80,7 +90,7 @@ CFG_13B = dict(vocab_size=50304, hidden_size=2048, num_layers=24,
                attention_dropout_prob=0.0)
 
 # H100 SXM published peaks (dense): fp32 without tensor cores, TF32 and
-# bf16 tensor cores, HBM3 bandwidth
+# bf16 (and fp16, the same rate) tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
@@ -98,11 +108,14 @@ DET_WINDOWS = 3
 DET_DECODE = dict(conf_thresh=0.01, nms_thresh=0.45, nms_top_k=400,
                   keep_top_k=100)
 
-TOL = {"fp32": 1e-4, "bf16": 2e-2}     # max abs error, kernel vs plain
+TOL = {"fp32": 1e-4, "bf16": 2e-2, "fp16": 2e-2}  # kernel vs plain
 F64_TOL = 2e-5      # B1-B3 fp32 (3xTF32) vs float64 formulas, of max |ref|
 LOGIT_TOL = 2e-3                       # flash vs dense, and kernel vs gather
 GRAD_TOL = 1e-3     # flash vs dense train gradients, per tensor, of its max
 TRAIN_STEPS = 5
+AMP_STEPS = 5       # O1 bf16 train steps; O2 and fp16 take AMP_SHORT
+AMP_SHORT = 3
+AMP_LOSS_TOL = 2e-2  # O1 bf16 first loss vs fp32 first loss, relative
 
 #: the library yardstick of B1-B3: each SDPA backend on its own, timed in
 #: ROUNDS alternating rounds of ROUND_ITERS calls against the kernels, on
@@ -228,9 +241,10 @@ def bound(flops, nbytes, peak_flops):
 
 
 def attn_bound(flops, nbytes, dt):
-    """An attention kernel's bound on the tensor cores: bf16 at its rate;
-    fp32 to fp32 accuracy as 3xTF32, three TF32 operations per operation.
-    Also the bound on fp32 FMA outside the tensor cores (None for bf16),
+    """An attention kernel's bound on the tensor cores: bf16 and fp16 at
+    their rate; fp32 to fp32 accuracy as 3xTF32, three TF32 operations per
+    operation. Also the bound on fp32 FMA outside the tensor cores (None
+    for bf16 and fp16),
     the definition used before the backward kernels moved to tensor
     cores."""
     import torch
@@ -262,9 +276,11 @@ def sass_tensor_counts(kernel_build, names):
             m = re.search(r"Function : (\S+)", line)
             if m:
                 # the instantiation: element type and head dim
-                t = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
-                fn = (f"{'fp32' if t.group(1) == 'f' else 'bf16'} D={t.group(2)}"
-                      if t else m.group(1))
+                t = re.search(r"kernelI(f|13__nv_bfloat16|6__half)Li(\d+)E",
+                              m.group(1))
+                kind = {"f": "fp32", "6__half": "fp16"}.get(
+                    t.group(1), "bf16") if t else None
+                fn = f"{kind} D={t.group(2)}" if t else m.group(1)
                 counts[fn] = 0
             elif fn is not None and re.search(r"\bHG?MMA\b", line):
                 counts[fn] += 1
@@ -278,7 +294,7 @@ def check_flash(torch, fa_mod, gen):
     and requires bitwise equal results, and every fp32 case is also held
     to F64_TOL of the same attention in float64 (O and LSE, max |err| /
     max |ref|). Returns the summary row for the main path's case (fp32,
-    causal, S=1024), with the bf16 causal case's times beside."""
+    causal, S=1024), with the bf16 and fp16 causal cases' times beside."""
     fa = fa_mod.flash_attention_fwd
     plain = fa_mod.flash_attention_fwd_plain
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -287,10 +303,12 @@ def check_flash(torch, fa_mod, gen):
              ("fp32", torch.float32, 1024, 1024, False),
              ("bf16", torch.bfloat16, 1024, 1024, True),
              ("bf16", torch.bfloat16, 1024, 1024, False),
+             ("fp16", torch.float16, 1024, 1024, True),
+             ("fp16", torch.float16, 1024, 1024, False),
              ("fp32", torch.float32, 1000, 1000, True),
              ("fp32", torch.float32, 512, 1024, True),
              ("fp32", torch.float32, 1024, 640, False)]
-    row = bf16 = None
+    row, low = None, {}
     for name, dt, sq, skv, causal in cases:
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
         k = torch.randn(b, skv, h, d, generator=gen, device="cuda").to(dt)
@@ -356,13 +374,16 @@ def check_flash(torch, fa_mod, gen):
                    "float64_tolerance": F64_TOL,
                    "bitwise_repeatable": same,
                    "shape": f"B={b} S={sq} H={h} D={d} fp32 causal"}
-        elif name == "bf16" and causal and bf16 is None:
-            bf16 = {"bf16_ms": ms, "bf16_bound_ms": bms,
-                    "bf16_library_ms": lib_ms,
-                    "bf16_library": f"sdpa forward, {lib_name} backend",
-                    "bf16_max_abs_err": max(err, lse_err)}
+        elif name != "fp32" and causal and name not in low:
+            low[name] = {f"{name}_ms": ms, f"{name}_bound_ms": bms,
+                         f"{name}_library_ms": lib_ms,
+                         f"{name}_library": f"sdpa forward, {lib_name} "
+                                            f"backend",
+                         f"{name}_max_abs_err": max(err, lse_err),
+                         f"{name}_bitwise_repeatable": same}
         del q, k, v, out, lse, ref, ref_lse
-    row.update(bf16)
+    for extra in low.values():
+        row.update(extra)
     return row
 
 
@@ -375,17 +396,20 @@ def check_flash_bwd(torch, fa_mod, gen):
     also held to F64_TOL of the same formulas in float64: the kernels run
     fp32 as 3xTF32, and a single TF32 product would miss that bar
     (tests/test_torch_flash_tf32_split.py). Returns the summary rows of B2
-    and B3 for the main case."""
+    and B3 for the main case, with the bf16 and fp16 causal cases' times
+    beside."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b, h, d = 4, 16, 128
     cases = [("fp32", torch.float32, 1024, 1024, True),
              ("fp32", torch.float32, 1024, 1024, False),
              ("bf16", torch.bfloat16, 1024, 1024, True),
              ("bf16", torch.bfloat16, 1024, 1024, False),
+             ("fp16", torch.float16, 1024, 1024, True),
+             ("fp16", torch.float16, 1024, 1024, False),
              ("fp32", torch.float32, 1000, 1000, True),
              ("fp32", torch.float32, 512, 1024, True),
              ("fp32", torch.float32, 1024, 640, False)]
-    rows = None
+    rows, low = None, {}
     for name, dt, sq, skv, causal in cases:
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
         k = torch.randn(b, skv, h, d, generator=gen, device="cuda").to(dt)
@@ -488,7 +512,21 @@ def check_flash_bwd(torch, fa_mod, gen):
                      "ms": ms_dkv, "plain_ms": plain_dkv,
                      "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
                      "bound_fp32_fma_ms": b_dkv[2], **common})
+        elif name != "fp32" and causal and name not in low:
+            lib = {f"{name}_library_ms": lib_ms,
+                   f"{name}_library": f"sdpa backward, {lib_name} backend, "
+                                      f"for B2+B3 together",
+                   f"{name}_bitwise_repeatable": same}
+            low[name] = (
+                {f"{name}_ms": ms_dq, f"{name}_bound_ms": b_dq[0],
+                 f"{name}_max_err_over_max_ref": errs["dq"], **lib},
+                {f"{name}_ms": ms_dkv, f"{name}_bound_ms": b_dkv[0],
+                 f"{name}_max_err_over_max_ref": max(errs["dk"], errs["dv"]),
+                 **lib})
         del q, k, v, do, out, lse, delta, dq, dk, dv, rq, rk, rv, libs
+    for dq_row, dkv_row in low.values():
+        rows[0].update(dq_row)
+        rows[1].update(dkv_row)
     return rows
 
 
@@ -881,10 +919,12 @@ def time_forward(torch, model, rng, cfg, dev):
     return out
 
 
-def profile_steps(torch, label, step, steps):
+def profile_steps(torch, label, step, steps, ranges=()):
     """Where one step's time goes: host wall per step without the
     profiler (each step ends in a host fetch or a synchronize), then
-    device time per step and by kernel from torch.profiler."""
+    device time per step and by kernel from torch.profiler. ``ranges``
+    names record_function ranges the step opens: their rows on the
+    device's timeline are spans, not kernels, and are left out."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -898,7 +938,7 @@ def profile_steps(torch, label, step, steps):
             step()
     rows = []
     for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
+        if not str(e.device_type).endswith("CUDA") or e.key in ranges:
             continue
         dt = getattr(e, "self_device_time_total", None)
         if dt is None:
@@ -913,7 +953,8 @@ def profile_steps(torch, label, step, steps):
         f"{sum(r[1] for r in rows):.0f} kernels")
     for ms, cnt, key in rows[:10]:
         log(f"  {ms:.3f} ms/step  {cnt:.0f}/step  {key[:100]}")
-    return {"wall_ms": wall_ms, "device_ms": dev_ms}
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "kernels": rows,
+            "events": prof.events()}
 
 
 def profile_decode(torch, dec, kv, params, last, dev, steps=10):
@@ -954,17 +995,21 @@ def _counters(fa_mod):
             fa_mod.flash_attention_bwd_dkv)
 
 
-def _train_model(torch, cfg, dev, impl, with_optimizer=True):
+def _train_model(torch, cfg, dev, impl, with_optimizer=True, o2=False):
     """GPT-3 1.3B wrapped in ``Model``, weights from seed 0, with AdamW
     (weight decay 0.01, global-norm clip 1.0, linear warmup over cosine
-    decay) and the GPT criterion."""
-    from paddle_tpu_torch import Model
+    decay) and the GPT criterion. With ``o2``, ``amp.decorate`` casts the
+    model to bfloat16 first and AdamW keeps float32 masters
+    (``multi_precision``)."""
+    from paddle_tpu_torch import Model, amp
     from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                          GPTPretrainingCriterion)
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW, lr
     net = GPTForCausalLM(GPTConfig(**cfg, attn_impl=impl), device=dev,
                          seed=0)
+    if o2:
+        amp.decorate(net, level="O2")
     opt = sched = None
     if with_optimizer:
         # GPT-3 1.3B's published peak lr, a short warmup for a 5-step run
@@ -972,7 +1017,7 @@ def _train_model(torch, cfg, dev, impl, with_optimizer=True):
                                 warmup_steps=2, start_lr=2e-5, end_lr=2e-4)
         opt = AdamW(learning_rate=sched, parameters=net.parameters(),
                     weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0),
-                    device=dev)
+                    multi_precision=o2, device=dev)
     model = Model(net, device=dev)
     model.prepare(opt, GPTPretrainingCriterion())
     return model, sched
@@ -1040,6 +1085,176 @@ def compare_train_grads(torch, ids, cfg, dev):
     del flash
     return {"worst_rel": worst, "worst_param": worst_name,
             "k_bias_max": kbias, "grad_max": top}
+
+
+def _by_dtype(fa_mod, dtype):
+    """B1, B2 and B3's launches on ``dtype`` inputs so far."""
+    return [c.launches_by_dtype.get(dtype, 0) for c in _counters(fa_mod)]
+
+
+def _check_amp_step(fa_mod, cfg, what, step, dtype, before):
+    """One mixed-precision step must launch each of B1, B2 and B3 once per
+    layer on ``dtype`` inputs."""
+    launched = [a - b for a, b in zip(_by_dtype(fa_mod, dtype), before)]
+    if launched != [cfg["num_layers"]] * 3:
+        raise RuntimeError(f"{what} step {step + 1} launched B1/B2/B3 "
+                           f"{launched} times in {dtype}, not "
+                           f"{cfg['num_layers']} each")
+    return launched
+
+
+def run_amp_train(torch, fa_mod, ids, cfg, dev, fp32_first):
+    """Phase 8, O1: AMP_STEPS train_batch calls of the 1.3B model under
+    amp.auto_cast() (bfloat16), phase 6's optimizer and batch; B1-B3 on
+    bfloat16 inputs once per layer a step; float32 weights; the loss
+    finite, falling, and at first within AMP_LOSS_TOL of fp32's."""
+    from paddle_tpu_torch import amp
+    model, sched = _train_model(torch, cfg, dev, "flash")
+    losses, walls = [], []
+    for step in range(AMP_STEPS):
+        before = _by_dtype(fa_mod, "bfloat16")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with amp.auto_cast():
+            loss, _ = model.train_batch([ids], [ids])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        sched.step()
+        launched = _check_amp_step(fa_mod, cfg, "O1 bf16", step, "bfloat16",
+                                   before)
+        losses.append(loss)
+        log(f"O1 bf16 train step {step + 1}: loss {loss:.6f} wall "
+            f"{walls[-1] * 1e3:.1f} ms, bf16 launches B1/B2/B3 {launched}")
+        if not math.isfinite(loss):
+            raise RuntimeError(f"O1 bf16 step {step + 1}: loss {loss}")
+    rel = abs(losses[0] - fp32_first) / abs(fp32_first)
+    log(f"O1 bf16 first loss {losses[0]:.6f} vs fp32 first {fp32_first:.6f}:"
+        f" relative difference {rel:.3e} (tol {AMP_LOSS_TOL})")
+    if not losses[-1] < losses[0] or rel > AMP_LOSS_TOL:
+        raise RuntimeError(f"O1 bf16 losses {losses} (fp32 first "
+                           f"{fp32_first})")
+    if any(p.dtype != torch.float32 for p in model.network.parameters()):
+        raise RuntimeError("O1 changed the weights' type")
+    return model, {"losses": losses, "first_vs_fp32_rel": rel,
+                   "step_wall_ms": [w * 1e3 for w in walls]}
+
+
+def _labelled(torch, fn, label):
+    """``fn`` inside a torch.profiler range named ``label``."""
+    def run(*args, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kw)
+    return run
+
+
+def _kernel_ms(torch, events, name):
+    """Device ms of the kernels launched inside the host events ``name``
+    (their own and their children's)."""
+    total = 0.0
+    for e in events:
+        if e.name == name and e.device_type == torch.autograd.DeviceType.CPU:
+            t = getattr(e, "device_time_total", None)
+            total += (e.cuda_time_total if t is None else t) / 1e3
+    return total
+
+
+def profile_amp_step(torch, model, ids):
+    """Where one O1 bf16 train step's time goes: wall, device busy share,
+    tokens/s, and device time by part: the GEMMs (cuBLAS kernels), B1-B3,
+    the casts (kernels under ``aten::_to_copy``: the weights to bf16 each
+    call, the gradients back), the optimizer (clip and AdamW: the kernels
+    launched inside ``opt.step``) and the rest."""
+    import re
+    from paddle_tpu_torch import amp
+    opt = model._optimizer
+    opt.step = _labelled(torch, opt.step, "optimizer.step")
+
+    def step():
+        with amp.auto_cast():
+            model.train_batch([ids], [ids])
+
+    try:
+        prof = profile_steps(torch, f"O1 bf16 train step {tuple(ids.shape)}",
+                             step, 1, ranges=("optimizer.step",))
+    finally:
+        del opt.step
+    parts = {"gemm": 0.0, "flash_B1_B3": 0.0}
+    for ms, _, key in prof["kernels"]:
+        if re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_kernel<", key):
+            parts["flash_B1_B3"] += ms
+        elif re.search(r"gemm|xmma|nvjet|cutlass|gemv|splitk", key, re.I):
+            parts["gemm"] += ms
+    parts["casts"] = _kernel_ms(torch, prof["events"], "aten::_to_copy")
+    parts["optimizer"] = _kernel_ms(torch, prof["events"], "optimizer.step")
+    parts["other"] = prof["device_ms"] - sum(parts.values())
+    tokens, wall, busy = ids.size, prof["wall_ms"], prof["device_ms"]
+    log(f"O1 bf16 train step: wall {wall:.1f} ms, "
+        f"{tokens / wall * 1e3:.1f} tokens/s, device busy {busy:.1f} ms "
+        f"({100 * busy / wall:.1f}%); by part (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+    return {"step_ms": wall, "device_busy_ms": busy,
+            "tokens_per_s": tokens / wall * 1e3, "device_ms_by_part": parts}
+
+
+def run_amp_o2(torch, fa_mod, ids, cfg, dev):
+    """Phase 8, O2: AMP_SHORT steps of the model cast to bfloat16 by
+    ``amp.decorate(level="O2")``, AdamW with float32 masters, under
+    ``auto_cast(level="O2")``; B1-B3 in bfloat16; losses finite and
+    falling; the parameters stay bfloat16."""
+    from paddle_tpu_torch import amp
+    model, sched = _train_model(torch, cfg, dev, "flash", o2=True)
+    losses = []
+    for step in range(AMP_SHORT):
+        before = _by_dtype(fa_mod, "bfloat16")
+        with amp.auto_cast(level="O2"):
+            loss, _ = model.train_batch([ids], [ids])
+        sched.step()
+        _check_amp_step(fa_mod, cfg, "O2", step, "bfloat16", before)
+        losses.append(loss)
+    types = {str(p.dtype) for p in model.network.parameters()}
+    log(f"O2 bf16 (decorate, AdamW multi_precision): losses "
+        f"{[round(x, 6) for x in losses]}, parameter types {types}")
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0] or types != {"torch.bfloat16"}:
+        raise RuntimeError(f"O2 losses {losses}, parameter types {types}")
+    return {"losses": losses}
+
+
+def run_amp_fp16(torch, fa_mod, ids, cfg, dev):
+    """Phase 8, fp16: AMP_SHORT eager steps with ``amp.GradScaler``: the
+    forward and loss under ``auto_cast(dtype="float16")``, then
+    ``scale(loss).backward()``, ``step``, ``update``; B1-B3 in float16 once
+    per layer a step; the losses of the steps not skipped finite."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    model, sched = _train_model(torch, cfg, dev, "flash")
+    net, opt = model.network, model._optimizer
+    crit = GPTPretrainingCriterion()
+    scaler = amp.GradScaler()
+    x = torch.from_numpy(ids).to(dev)
+    net.train()
+    out = []
+    for step in range(AMP_SHORT):
+        before = _by_dtype(fa_mod, "float16")
+        with amp.auto_cast(dtype="float16"):
+            loss = crit(net(x), x)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        skipped = scaler._found_inf
+        scaler.update()
+        opt.clear_grad()
+        sched.step()
+        _check_amp_step(fa_mod, cfg, "fp16", step, "float16", before)
+        out.append((float(loss.detach()), skipped, scaler.loss_scale))
+        log(f"fp16 GradScaler step {step + 1}: loss {out[-1][0]:.6f}, "
+            f"skipped {skipped}, scale after update {scaler.loss_scale}")
+    kept = [l for l, skipped, _ in out if not skipped]
+    if not all(math.isfinite(x) for x in kept):
+        raise RuntimeError(f"fp16 losses of steps not skipped: {kept}")
+    return {"losses": [l for l, _, _ in out],
+            "skipped": [s_ for _, s_, _ in out],
+            "scales": [c for _, _, c in out],
+            "found_inf_steps": scaler.found_inf_steps}
 
 
 def _det_batch(torch, rng, n, dev):
@@ -1291,8 +1506,8 @@ def main() -> int:
         log("cuobjdump not found: the tensor-core instruction counts of "
             f"{', '.join(tc_libs)} are not checked")
     else:
-        # fp32 and bf16 at each supported head dim
-        n_inst = 2 * len(fa_mod.SUPPORTED_HEAD_DIMS)
+        # fp32, bf16 and fp16 at each supported head dim
+        n_inst = 3 * len(fa_mod.SUPPORTED_HEAD_DIMS)
         for name, counts in tc.items():
             log(f"SASS tensor-core instructions (HMMA/HGMMA) in {name}: "
                 f"{counts}")
@@ -1325,13 +1540,22 @@ def main() -> int:
         f"(seed 0)")
     all_counters = (*_counters(fa_mod), pa_mod.paged_attention,
                     nms_mod.greedy_nms)
-    for c in all_counters:
-        c.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+
+    def reset_counters():
+        for c in all_counters:
+            c.launches = 0
+        for c in _counters(fa_mod):
+            c.launches_by_dtype = {}
+        torch.cuda.reset_peak_memory_stats()
+
+    def read_counters():
+        return {c.__name__: c.launches for c in all_counters}
+
+    reset_counters()
     run_forward(torch, model, fa_mod, rng, CFG_13B, dev)
     serve = run_serving(torch, model, pa_mod, rng, card, CFG_13B,
                         PROMPT_LENS)
-    serve_launches = {c.__name__: c.launches for c in all_counters}
+    serve_launches = read_counters()
     log(f"serving path launches: {serve_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for name in ("flash_attention_fwd", "paged_attention"):
@@ -1352,11 +1576,9 @@ def main() -> int:
     stamp("6 training path")
     ids = rng.integers(0, CFG_13B["vocab_size"],
                        (4, CFG_13B["max_position_embeddings"]))
-    for c in all_counters:
-        c.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
     train_model, train = run_train(torch, fa_mod, ids, CFG_13B, dev)
-    train_launches = {c.__name__: c.launches for c in all_counters}
+    train_launches = read_counters()
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"training path launches: {train_launches}; losses "
         f"{[round(x, 6) for x in train['losses']]}; peak device memory "
@@ -1381,20 +1603,53 @@ def main() -> int:
     grads = compare_train_grads(torch, ids, CFG_13B, dev)
     torch.cuda.empty_cache()
 
-    # -- phase 8: the detection path -----------------------------------------
-    stamp("8 detection path")
+    # -- phase 8: the mixed-precision training paths --------------------------
+    stamp("8 mixed-precision training paths")
+    flash_names = [c.__name__ for c in _counters(fa_mod)]
+    amp_launches, amp_dtypes, amp_peak = {}, {}, {}
+
+    def amp_path(name, dtype, run):
+        """Phase 8's path ``name``: B1-B3 launched, in ``dtype`` only."""
+        reset_counters()
+        out = run()
+        amp_launches[name] = read_counters()
+        amp_dtypes[name] = {c.__name__: dict(c.launches_by_dtype)
+                            for c in _counters(fa_mod)}
+        amp_peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{name} path launches: {amp_launches[name]}, B1-B3 by type "
+            f"{amp_dtypes[name]}; peak device memory {amp_peak[name]:.2f} "
+            f"GiB")
+        for n in flash_names:
+            got = amp_dtypes[name][n]
+            if amp_launches[name][n] < 1 or set(got) != {dtype}:
+                raise RuntimeError(f"kernel {n} was launched {got} on the "
+                                   f"{name} path, not in {dtype} only")
+        return out
+
+    amp_model, amp_o1 = amp_path(
+        "training_amp_bf16", "bfloat16",
+        lambda: run_amp_train(torch, fa_mod, ids, CFG_13B, dev,
+                              train["losses"][0]))
+    amp_o1.update(profile_amp_step(torch, amp_model, ids))
+    del amp_model
+    torch.cuda.empty_cache()
+    amp_o2 = amp_path("training_amp_o2", "bfloat16",
+                      lambda: run_amp_o2(torch, fa_mod, ids, CFG_13B, dev))
+    torch.cuda.empty_cache()
+    amp_fp16 = amp_path("training_amp_fp16", "float16",
+                        lambda: run_amp_fp16(torch, fa_mod, ids, CFG_13B,
+                                             dev))
+    torch.cuda.empty_cache()
+
+    # -- phase 9: the detection path -----------------------------------------
+    stamp("9 detection path")
     det_model = yolov3_darknet53(num_classes=DET_CLASSES, device=dev,
                                  seed=0).eval()
     n_params = sum(p.numel() for p in det_model.parameters())
     log(f"model: YOLOv3-DarkNet53, {DET_CLASSES} classes, {n_params} "
         f"parameters, fp32, eval, random weights (seed 0)")
-    def reset_counters():
-        for c in all_counters:
-            c.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-
     det = run_detection(torch, det_model, rng, card, dev, reset_counters)
-    det_launches = {c.__name__: c.launches for c in all_counters}
+    det_launches = read_counters()
     det["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"detection path launches: {det_launches}; peak device memory "
         f"{det['peak_gib']:.2f} GiB")
@@ -1402,21 +1657,25 @@ def main() -> int:
         raise RuntimeError("kernel greedy_nms was not launched on the "
                            "detection path")
 
-    # -- phase 9: off the detection path -------------------------------------
-    stamp("9 detection checks")
+    # -- phase 10: off the detection path ------------------------------------
+    stamp("10 detection checks")
     det.update(detection_checks(torch, det_model, nms_mod, det_mod, rng,
                                 dev))
     del det_model
     torch.cuda.empty_cache()
 
-    # -- phase 10: summary ---------------------------------------------------
+    # -- phase 11: summary ---------------------------------------------------
     paths = {"serving": serve_launches, "training": train_launches,
-             "detection": det_launches}
+             **amp_launches, "detection": det_launches}
 
     def launches(name):
         by_path = {k: v[name] for k, v in paths.items()}
-        return {"launches": sum(by_path.values()),
-                "launches_by_path": by_path}
+        out = {"launches": sum(by_path.values()),
+               "launches_by_path": by_path}
+        if name in flash_names:
+            out["launches_by_dtype_by_path"] = {
+                k: v[name] for k, v in amp_dtypes.items()}
+        return out
 
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
@@ -1445,6 +1704,9 @@ def main() -> int:
         train, **grads, peak_gib=peak, step_ms=prof["wall_ms"],
         device_busy_ms=prof["device_ms"],
         tokens_per_s=tokens / prof["wall_ms"] * 1e3)))
+    log("training, mixed precision: " + json.dumps(
+        {"o1_bf16": amp_o1, "o2_bf16": amp_o2, "fp16_grad_scaler": amp_fp16,
+         "peak_gib": amp_peak}))
     log(f"detection: {json.dumps(det)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,7 @@ and runs on an NVIDIA H100. It imports ``torch`` and never ``jax`` or
 wrote in Pallas is a hand-written CUDA kernel under ``csrc/`` with a plain
 PyTorch version beside it, which CPU tensors take.
 """
-from . import framework_io, nn, optimizer, regularizer
+from . import amp, framework_io, nn, optimizer, regularizer
 from .core.device import resolve_device
 from .core.generator import seed
 from .framework_io import load, save, state_dict_from_reference
@@ -15,6 +15,6 @@ from .hapi import Model
 
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device", "seed", "framework_io", "load", "save",
-           "state_dict_from_reference", "Model", "nn", "optimizer",
+__all__ = ["resolve_device", "seed", "amp", "framework_io", "load",
+           "save", "state_dict_from_reference", "Model", "nn", "optimizer",
            "regularizer"]

@@ -11,7 +11,12 @@ Resolving a CUDA device also turns TF32 off for matrix products and
 cuDNN (``torch.backends.cuda.matmul.allow_tf32 = False``,
 ``torch.backends.cudnn.allow_tf32 = False``): the port's float32 path is
 held against the JAX reference in full float32, and TF32 keeps only
-about three decimal digits.
+about three decimal digits. It turns off the reduced-precision reductions
+of bfloat16 and float16 products too
+(``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+and ``allow_fp16_reduced_precision_reduction`` = False): XLA sums
+low-precision products in float32, and PyTorch's defaults let cuBLAS add
+split-K partial sums in the low type.
 """
 from __future__ import annotations
 
@@ -33,6 +38,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "is available; pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        matmul = torch.backends.cuda.matmul
+        matmul.allow_bf16_reduced_precision_reduction = False
+        matmul.allow_fp16_reduced_precision_reduction = False
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         return dev

@@ -19,11 +19,11 @@
 // delta are [B, H, Sq] f32, contiguous.
 //
 // What bounds it on the H100: four products per visible (q, k) pair (S,
-// dP, dV and dK), 8*B*H*D*pairs operations. In bf16 they run at the 989
-// TFLOP/s of the tensor cores; in fp32 as 3xTF32 (flash_mma.cuh),
+// dP, dV and dK), 8*B*H*D*pairs operations. In bf16 and fp16 they run at
+// the 989 TFLOP/s of the tensor cores; in fp32 as 3xTF32 (flash_mma.cuh),
 // three TF32 MMAs per product at 495 TFLOP/s, so the fp32-accurate bound
 // is 3 * 8*B*H*D*pairs / 495e12. At B=4, S=1024, H=16, D=128 causal that
-// is 0.208 ms (bf16 0.035 ms) against about 200 MB of traffic (0.06 ms):
+// is 0.208 ms (bf16, fp16 0.035 ms) against about 200 MB of traffic (0.06 ms):
 // bound by operations.
 // What the design does about it: one block of 8 warps per (batch, head,
 // 64-key tile); the key tiles with the longest causal loops have the
@@ -73,7 +73,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      int64_t o_sb, int64_t o_ss, int64_t o_sh,
                      int64_t dk_sb, int64_t dk_ss, int64_t dk_sh,
                      int64_t dv_sb, int64_t dv_ss, int64_t dv_sh,
-                     float scale, int causal, int dk_bf16, int dv_bf16) {
+                     float scale, int causal, int dk_type, int dv_type) {
   using M = Mma<T>;
   constexpr int TILE = BQ * D;
   constexpr int NS = BQ / 2 / 8;  // 8-wide query tiles of S^T per warp
@@ -186,10 +186,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 
     // dV += P^T dO and dK += dS^T Q, both A operands from the accumulators
-    // (and, for bf16 inputs with an f32 gradient, the residual that the
-    // rounding of P or dS to bf16 lost)
-    mma_rows<T, D>(gv, s, !dv_bf16, cO, off, qw);
-    mma_rows<T, D>(gk, dp, !dk_bf16, cQ, off, qw);
+    // (and, for bf16 or fp16 inputs with an f32 gradient, the residual
+    // that the rounding of P or dS lost)
+    mma_rows<T, D>(gv, s, dv_type == 0, cO, off, qw);
+    mma_rows<T, D>(gk, dp, dk_type == 0, cQ, off, qw);
     __syncthreads();  // every warp is done with this stage
   }
   cp_async_wait<0>();  // a block whose causal loop is empty still loaded K, V
@@ -227,9 +227,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (row >= Skv) continue;
       const int col = 8 * n + 2 * t;
       store2(dk, kbase + row * dk_ss + col, gk[n][2 * hh] * scale,
-             gk[n][2 * hh + 1] * scale, dk_bf16);
+             gk[n][2 * hh + 1] * scale, dk_type);
       store2(dv, vbase + row * dv_ss + col, gv[n][2 * hh],
-             gv[n][2 * hh + 1], dv_bf16);
+             gv[n][2 * hh + 1], dv_type);
     }
   }
 }
@@ -238,8 +238,8 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dk, void* dv, int B, int H, int Sq, int Skv,
-                   const int64_t* st, float scale, int causal, int dk_bf16,
-                   int dv_bf16, cudaStream_t stream) {
+                   const int64_t* st, float scale, int causal, int dk_type,
+                   int dv_type, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -251,7 +251,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, dk,
       dv, H, Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], st[9], st[10], st[11], st[12], st[13], st[14], st[15], st[16],
-      st[17], scale, causal, dk_bf16, dv_bf16);
+      st[17], scale, causal, dk_type, dv_type);
   return cudaGetLastError();
 }
 
@@ -260,18 +260,18 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int B, int H,
                        int Sq, int Skv, const int64_t* st, float scale,
-                       int causal, int dk_bf16, int dv_bf16,
+                       int causal, int dk_type, int dv_type,
                        cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch<T, 32>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv,
-                           st, scale, causal, dk_bf16, dv_bf16, stream);
+                           st, scale, causal, dk_type, dv_type, stream);
     case 64:
       return launch<T, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv,
-                           st, scale, causal, dk_bf16, dv_bf16, stream);
+                           st, scale, causal, dk_type, dv_type, stream);
     case 128:
       return launch<T, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv,
-                            st, scale, causal, dk_bf16, dv_bf16, stream);
+                            st, scale, causal, dk_type, dv_type, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -281,8 +281,8 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 // strides: 18 int64 values, the (b, s, h) element strides of q, k, v, dout,
 // dk and dv in that order; dtype (of q, k, v and dout), dk_dtype and
-// dv_dtype: 0 = float32, 1 = bfloat16. lse and delta are [B, H, Sq] f32,
-// contiguous. Returns a cudaError_t.
+// dv_dtype: 0 = float32, 1 = bfloat16, 2 = float16. lse and delta are
+// [B, H, Sq] f32, contiguous. Returns a cudaError_t.
 extern "C" int pt_flash_attention_bwd_dkv(const void* q, const void* k,
                                           const void* v, const void* dout,
                                           const void* lse, const void* delta,
@@ -292,7 +292,7 @@ extern "C" int pt_flash_attention_bwd_dkv(const void* q, const void* k,
                                           int causal, int dtype, int dk_dtype,
                                           int dv_dtype, void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || B > 65535 || H > 65535 ||
-      (dk_dtype != 0 && dk_dtype != 1) || (dv_dtype != 0 && dv_dtype != 1))
+      dk_dtype < 0 || dk_dtype > 2 || dv_dtype < 0 || dv_dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -305,6 +305,9 @@ extern "C" int pt_flash_attention_bwd_dkv(const void* q, const void* k,
     err = dispatch_d<__nv_bfloat16>(D, q, k, v, dout, l, dl, dk, dv, B, H,
                                     Sq, Skv, strides, scale, causal, dk_dtype,
                                     dv_dtype, s);
+  else if (dtype == 2)
+    err = dispatch_d<__half>(D, q, k, v, dout, l, dl, dk, dv, B, H, Sq, Skv,
+                             strides, scale, causal, dk_dtype, dv_dtype, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

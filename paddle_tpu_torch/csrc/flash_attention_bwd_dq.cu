@@ -18,11 +18,11 @@
 // delta are [B, H, Sq] f32, contiguous.
 //
 // What bounds it on the H100: three products per visible (q, k) pair (S,
-// dP and dQ), 6*B*H*D*pairs operations. In bf16 they run at the 989
-// TFLOP/s of the tensor cores; in fp32 as 3xTF32 (flash_mma.cuh),
+// dP and dQ), 6*B*H*D*pairs operations. In bf16 and fp16 they run at the
+// 989 TFLOP/s of the tensor cores; in fp32 as 3xTF32 (flash_mma.cuh),
 // three TF32 MMAs per product at 495 TFLOP/s, so the fp32-accurate bound
 // is 3 * 6*B*H*D*pairs / 495e12. At B=4, S=1024, H=16, D=128 causal that
-// is 0.156 ms (bf16 0.026 ms) against about 170 MB of traffic (0.05 ms):
+// is 0.156 ms (bf16, fp16 0.026 ms) against about 170 MB of traffic (0.05 ms):
 // bound by operations.
 // What the design does about it: one block of 8 warps per (batch, head,
 // 64-row q tile), heaviest causal tiles issued first. Q and dO stay in
@@ -68,7 +68,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int64_t v_sb, int64_t v_ss, int64_t v_sh,
                     int64_t o_sb, int64_t o_ss, int64_t o_sh,
                     int64_t g_sb, int64_t g_ss, int64_t g_sh,
-                    float scale, int causal, int out_bf16) {
+                    float scale, int causal, int out_type) {
   using M = Mma<T>;
   constexpr int TILE = BQ * D;
   constexpr int NS = BK / 2 / 8;  // 8-wide key tiles of S per warp
@@ -173,9 +173,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[j][i] = p * (dp[j][i] - delta_r[i >> 1]);
       }
 
-    // dQ += dS K, dS straight from the accumulators (and, for bf16 inputs
-    // with an f32 dQ, the residual that dS's rounding to bf16 lost)
-    mma_rows<T, D>(acc, s, !out_bf16, cK, off, kw);
+    // dQ += dS K, dS straight from the accumulators (and, for bf16 or fp16
+    // inputs with an f32 dQ, the residual that dS's rounding lost)
+    mma_rows<T, D>(acc, s, out_type == 0, cK, off, kw);
     __syncthreads();  // every warp is done with this stage
   }
 
@@ -201,7 +201,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = r0 + 8 * hh;
       if (row < Sq)
         store2(dq, gb + row * g_ss + 8 * n + 2 * t, acc[n][2 * hh] * scale,
-               acc[n][2 * hh + 1] * scale, out_bf16);
+               acc[n][2 * hh + 1] * scale, out_type);
     }
   }
 }
@@ -210,7 +210,7 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, int B, int H, int Sq, int Skv, const int64_t* st,
-                   float scale, int causal, int out_bf16,
+                   float scale, int causal, int out_type,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -223,7 +223,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, dq,
       H, Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], st[9], st[10], st[11], st[12], st[13], st[14], scale, causal,
-      out_bf16);
+      out_type);
   return cudaGetLastError();
 }
 
@@ -232,17 +232,17 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dq, int B, int H, int Sq,
                        int Skv, const int64_t* st, float scale, int causal,
-                       int out_bf16, cudaStream_t stream) {
+                       int out_type, cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch<T, 32>(q, k, v, dout, lse, delta, dq, B, H, Sq, Skv, st,
-                           scale, causal, out_bf16, stream);
+                           scale, causal, out_type, stream);
     case 64:
       return launch<T, 64>(q, k, v, dout, lse, delta, dq, B, H, Sq, Skv, st,
-                           scale, causal, out_bf16, stream);
+                           scale, causal, out_type, stream);
     case 128:
       return launch<T, 128>(q, k, v, dout, lse, delta, dq, B, H, Sq, Skv, st,
-                            scale, causal, out_bf16, stream);
+                            scale, causal, out_type, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -252,7 +252,8 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 // strides: 15 int64 values, the (b, s, h) element strides of q, k, v, dout
 // and dq in that order; dtype (of q, k, v and dout) and out_dtype (of dq):
-// 0 = float32, 1 = bfloat16. lse and delta are [B, H, Sq] f32, contiguous.
+// 0 = float32, 1 = bfloat16, 2 = float16. lse and delta are [B, H, Sq] f32,
+// contiguous.
 // Returns a cudaError_t.
 extern "C" int pt_flash_attention_bwd_dq(const void* q, const void* k,
                                          const void* v, const void* dout,
@@ -263,7 +264,7 @@ extern "C" int pt_flash_attention_bwd_dq(const void* q, const void* k,
                                          int causal, int dtype, int out_dtype,
                                          void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || B > 65535 || H > 65535 ||
-      (out_dtype != 0 && out_dtype != 1))
+      out_dtype < 0 || out_dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -275,6 +276,9 @@ extern "C" int pt_flash_attention_bwd_dq(const void* q, const void* k,
   else if (dtype == 1)
     err = dispatch_d<__nv_bfloat16>(D, q, k, v, dout, l, dl, dq, B, H, Sq,
                                     Skv, strides, scale, causal, out_dtype, s);
+  else if (dtype == 2)
+    err = dispatch_d<__half>(D, q, k, v, dout, l, dl, dq, B, H, Sq, Skv,
+                             strides, scale, causal, out_dtype, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -18,33 +18,34 @@
 // checks). lse is [B, H, Sq] f32, contiguous.
 //
 // What bounds it on the H100: two products per visible (q, k) pair (S and
-// P V), 4*B*H*D*pairs operations. In bf16 they run at the 989 TFLOP/s of
-// the tensor cores; in fp32 as 3xTF32 (flash_mma.cuh), three TF32 MMAs
-// per product at 495 TFLOP/s, so the fp32-accurate bound is
+// P V), 4*B*H*D*pairs operations. In bf16 and fp16 they run at the 989
+// TFLOP/s of the tensor cores; in fp32 as 3xTF32 (flash_mma.cuh), three
+// TF32 MMAs per product at 495 TFLOP/s, so the fp32-accurate bound is
 // 3 * 4*B*H*D*pairs / 495e12. At B=4, S=1024, H=16, D=128 causal that is
-// 0.104 ms (bf16 0.017 ms) against 134 MB of traffic (0.04 ms): bound by
-// operations.
+// 0.104 ms (bf16, fp16 0.017 ms) against 134 MB of traffic (0.04 ms):
+// bound by operations.
 // What the design does about it: one block of 8 warps per (batch, head,
 // 64-row q tile), heaviest causal tiles issued first. Q stays in shared
 // memory (fp32: scaled in f32 before it is split, as the JAX kernel
-// scales it, here by scale * log2(e)); K and V tiles of 64 keys stream through a three-stage ring
-// of cp.async loads (tiles t+1 and t+2 load while tile t multiplies, one
-// barrier per tile). The softmax runs in base 2 (scores scaled by
-// scale * log2(e), p = exp2(s - m), LSE = m ln 2 + log(l)). Warp (r, c)
-// owns q rows 16r..16r+15 and keys 32c..32c+31 of each tile and carries
-// its own online softmax over its half of the keys: it forms S with
-// mma.sync (bf16: scaled in f32 after the product, since a scale folded
-// into bf16 operands would move the LSE by up to ~1e-2), takes the row
-// maxima over the four lanes of a row, turns S into P in registers and
-// feeds P straight from its accumulators as the A operand of O += P V,
-// so P never touches shared memory. The row sums come from the f32 P,
-// before bf16 rounds it for the product. Each tile's P V is summed on the
-// tensor cores from zero and added to the rescaled O in f32 (mma_rows),
-// so the cores' truncating accumulation does not drift over a long key
-// loop. Masks are applied only in the diagonal tile and the ragged last
-// tile. At the end the two key halves' (m, l, O) meet once in shared
-// memory. What still bounds it: mma.sync issues at a fraction of the wgmma
-// rate, and every warp splits each fp32 operand it reads for 3xTF32.
+// scales it, here by scale * log2(e)); K and V tiles of 64 keys stream
+// through a three-stage ring of cp.async loads (tiles t+1 and t+2 load
+// while tile t multiplies, one barrier per tile). The softmax runs in base
+// 2 (scores scaled by scale * log2(e), p = exp2(s - m), LSE = m ln 2 +
+// log(l)). Warp (r, c) owns q rows 16r..16r+15 and keys 32c..32c+31 of
+// each tile and carries its own online softmax over its half of the keys:
+// it forms S with mma.sync (bf16 and fp16: scaled in f32 after the
+// product, since a scale folded into 16-bit operands would move the LSE
+// by up to ~1e-2), takes the row maxima over the four lanes of a row,
+// turns S into P in registers and feeds P straight from its accumulators
+// as the A operand of O += P V, so P never touches shared memory. The row
+// sums come from the f32 P, before bf16 or fp16 rounds it for the
+// product. Each tile's P V is summed on the tensor cores from zero and
+// added to the rescaled O in f32 (mma_rows), so the cores' truncating
+// accumulation does not drift over a long key loop. Masks are applied
+// only in the diagonal tile and the ragged last tile. At the end the two
+// key halves' (m, l, O) meet once in shared memory. What still bounds it:
+// mma.sync issues at a fraction of the wgmma rate, and every warp splits
+// each fp32 operand it reads for 3xTF32.
 #include <type_traits>
 
 #include "flash_mma.cuh"
@@ -115,9 +116,9 @@ __device__ __forceinline__ void softmax_tile(float (*s)[4], float* m,
     for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
 }
 
-// bf16 keeps two blocks on an SM (128 registers: at D = 128 it spills
-// 152 bytes and still runs 6% faster than one block of 192 registers,
-// PERF.md); fp32 needs its ~240 registers and one block
+// bf16 and fp16 keep two blocks on an SM (128 registers: bf16 at D = 128
+// spills 152 bytes and still runs 6% faster than one block of 192
+// registers, PERF.md); fp32 needs its ~240 registers and one block
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS,
                                   std::is_same<T, float>::value ? 1 : 2)
@@ -295,7 +296,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = r0 + 8 * hh;
       if (row < Sq)
         store2(o, ob + row * o_ss + 8 * n + 2 * t, x[2 * hh], x[2 * hh + 1],
-               F32 ? 0 : 1);
+               type_code<T>());
     }
   }
 }
@@ -342,7 +343,8 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // strides: 12 int64 values, (b, s, h) element strides of q, k, v and o in
-// that order; dtype 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// that order; dtype 0 = float32, 1 = bfloat16, 2 = float16. Returns a
+// cudaError_t.
 extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int B, int H, int Sq, int Skv, int D,
@@ -359,6 +361,9 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
   else if (dtype == 1)
     err = dispatch_d<__nv_bfloat16>(D, q, k, v, o, l, B, H, Sq, Skv, strides,
                                     scale, causal, s);
+  else if (dtype == 2)
+    err = dispatch_d<__half>(D, q, k, v, o, l, B, H, Sq, Skv, strides, scale,
+                             causal, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

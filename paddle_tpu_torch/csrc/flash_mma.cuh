@@ -4,9 +4,12 @@
 // tile loads into a swizzled shared-memory layout, and warp-level
 // tensor-core products through mma.sync.
 //
-// Numerics. bf16 operands take one m16n8k16 bf16 MMA per product (and one
-// more for the residual of P or dS where that gradient is written in f32,
-// see a_res below). fp32
+// Numerics. bf16 and fp16 operands take one m16n8k16 MMA of their type per
+// product (and one more for the residual of P or dS where that gradient is
+// written in f32, see a_res below); the two share fragments, ldmatrix and
+// code (Mma16), and differ in their conversions and the MMA's type. fp16
+// rounds P and dS as the hardware does: a value past its range becomes inf
+// (never clamped), so an overflowing dS reaches the gradient. fp32
 // operands take m16n8k8 TF32 MMAs as 3xTF32: each operand x is split in
 // registers into big = x with its 13 low mantissa bits cleared and small =
 // x - big (see split), and the product is small*big + big*small + big*big,
@@ -21,20 +24,31 @@
 // operand is an earlier accumulator (P or dS) reads it straight from those registers: in fp32
 // the k index of one 8-wide step is permuted (k = t holds column 2t,
 // k = t+4 column 2t+1) and the matching B rows are read in the same order,
-// which leaves the sum unchanged; in bf16 two accumulator tiles pack into
-// one 16-wide A fragment as they stand.
+// which leaves the sum unchanged; in bf16 and fp16 two accumulator tiles
+// pack into one 16-wide A fragment as they stand.
 //
 // Shared-memory layout. A tile is rows of D elements with no padding; the
 // 16-byte chunk c of row r is stored at chunk c ^ (r % 8) (rows of 4
-// chunks, bf16 at D = 32: c ^ (r / 2 % 4)). Every fragment read below
-// (eight rows at one logical chunk, or four rows two apart) then touches
-// 32 distinct banks, and the 16-byte cp.async writes stay whole.
+// chunks, bf16 and fp16 at D = 32: c ^ (r / 2 % 4)). Every fragment read
+// below (eight rows at one logical chunk, or four rows two apart) then
+// touches 32 distinct banks, and the 16-byte cp.async writes stay whole.
 #pragma once
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace fmma {
+
+// the C entry points' type codes: 0 float32, 1 bfloat16, 2 float16
+template <typename T>
+__host__ __device__ constexpr int type_code() {
+  return std::is_same<T, float>::value           ? 0
+         : std::is_same<T, __nv_bfloat16>::value ? 1
+                                                 : 2;
+}
 
 // -- asynchronous copies ------------------------------------------------------
 
@@ -135,6 +149,58 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// x - bf16(x) for two neighbours, packed as bf16
+__device__ __forceinline__ uint32_t res_bf16(float x0, float x1) {
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+  return pack_bf16(x0 - __low2float(hi), x1 - __high2float(hi));
+}
+
+__device__ __forceinline__ void mma_f16(float* c, const uint32_t* a,
+                                        const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// rounds to nearest; past float16's range it gives inf
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x - f16(x) for two neighbours, packed as fp16
+__device__ __forceinline__ uint32_t res_f16(float x0, float x1) {
+  const __half2 hi = __floats2half2_rn(x0, x1);
+  return pack_f16(x0 - __low2float(hi), x1 - __high2float(hi));
+}
+
+// what tells the two 16-bit operand types apart in Mma16
+struct Bf16Ops {
+  __device__ static uint32_t pack(float lo, float hi) {
+    return pack_bf16(lo, hi);
+  }
+  __device__ static uint32_t res(float x0, float x1) {
+    return res_bf16(x0, x1);
+  }
+  __device__ static void mma(float* c, const uint32_t* a, const uint32_t* b) {
+    mma_bf16(c, a, b);
+  }
+};
+
+struct F16Ops {
+  __device__ static uint32_t pack(float lo, float hi) {
+    return pack_f16(lo, hi);
+  }
+  __device__ static uint32_t res(float x0, float x1) {
+    return res_f16(x0, x1);
+  }
+  __device__ static void mma(float* c, const uint32_t* a, const uint32_t* b) {
+    mma_f16(c, a, b);
+  }
+};
+
 __device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
@@ -164,15 +230,16 @@ __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
 //           Q, dO in dS^T Q, P^T dO), read in the permuted k order of a_acc
 //   a_acc:  A from accumulator registers c[NT][4] (P, dS), k-step kk
 //   a_res:  the part of a_acc's operand that its rounding lost, where the
-//           type rounds (bf16): P and dS rounded to bf16 carry a relative
-//           error near 2^-9, which the bf16 output of the gradient hides
-//           but an f32 output (grad_dtypes) would show; one more MMA with
-//           the residual x - bf16(x) brings it near 2^-17. Returns whether
-//           it filled r (never for fp32, whose split keeps fp32 accuracy).
+//           type rounds (bf16, fp16): P and dS rounded to bf16 carry a
+//           relative error near 2^-9 (fp16 2^-12), which a 16-bit output
+//           of the gradient hides but an f32 output (grad_dtypes) would
+//           show; one more MMA with the residual x - T(x) brings it near
+//           2^-17. Returns whether it filled r (never for fp32, whose split
+//           keeps fp32 accuracy).
 // The tile loads take row offsets that are multiples of 8 (of 16 for a_rows
-// and, in bf16, for k) and an Off of per-lane offsets computed once: the
-// swizzle of every fragment then reduces to one XOR with a per-lane key
-// (row r of a fragment has r % 8 fixed by the lane).
+// and, in bf16 and fp16, for k) and an Off of per-lane offsets computed
+// once: the swizzle of every fragment then reduces to one XOR with a
+// per-lane key (row r of a fragment has r % 8 fixed by the lane).
 template <typename T>
 struct Mma;
 
@@ -237,9 +304,9 @@ struct Mma<float> {
   }
 };
 
-template <>
-struct Mma<__nv_bfloat16> {
-  using T = __nv_bfloat16;
+// bf16 and fp16 (T), whose conversions and MMA come from Ops
+template <typename T, typename Ops>
+struct Mma16 {
   static constexpr int K = 16;
   struct A { uint32_t r[4]; };
   struct B { uint32_t r[2]; };
@@ -272,31 +339,32 @@ struct Mma<__nv_bfloat16> {
   }
 
   __device__ static void a_acc(A& a, const float (*c)[4], int kk) {
-    a.r[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a.r[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a.r[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a.r[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-
-  __device__ static uint32_t pack_res(float x0, float x1) {
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-    return pack_bf16(x0 - __low2float(hi), x1 - __high2float(hi));
+    a.r[0] = Ops::pack(c[2 * kk][0], c[2 * kk][1]);
+    a.r[1] = Ops::pack(c[2 * kk][2], c[2 * kk][3]);
+    a.r[2] = Ops::pack(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a.r[3] = Ops::pack(c[2 * kk + 1][2], c[2 * kk + 1][3]);
   }
 
   __device__ static bool a_res(A& a, const float (*c)[4], int kk,
                                bool want) {
     if (!want) return false;
-    a.r[0] = pack_res(c[2 * kk][0], c[2 * kk][1]);
-    a.r[1] = pack_res(c[2 * kk][2], c[2 * kk][3]);
-    a.r[2] = pack_res(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a.r[3] = pack_res(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+    a.r[0] = Ops::res(c[2 * kk][0], c[2 * kk][1]);
+    a.r[1] = Ops::res(c[2 * kk][2], c[2 * kk][3]);
+    a.r[2] = Ops::res(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a.r[3] = Ops::res(c[2 * kk + 1][2], c[2 * kk + 1][3]);
     return true;
   }
 
   __device__ static void mma(float* c, const A& a, const B& b) {
-    mma_bf16(c, a.r, b.r);
+    Ops::mma(c, a.r, b.r);
   }
 };
+
+template <>
+struct Mma<__nv_bfloat16> : Mma16<__nv_bfloat16, Bf16Ops> {};
+
+template <>
+struct Mma<__half> : Mma16<__half, F16Ops> {};
 
 // c[n] += P B over one warp's 32 rows of the tile s (k rows k0..k0+31, b_cols)
 // for every 8-wide column tile n of D, with P held in the accumulators p
@@ -349,13 +417,17 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // -- output -------------------------------------------------------------------
 
-// two neighbouring elements (i, i + 1) of an output, i even; out_bf16: 0
-// writes float32, 1 bfloat16
+// two neighbouring elements (i, i + 1) of an output, i even, in the type
+// of code out (type_code: 0 float32, 1 bfloat16, 2 float16; float16 past
+// its range is inf)
 __device__ __forceinline__ void store2(void* base, int64_t i, float x0,
-                                       float x1, int out_bf16) {
-  if (out_bf16)
+                                       float x1, int out) {
+  if (out == 1)
     *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(base) +
                                        i) = __floats2bfloat162_rn(x0, x1);
+  else if (out == 2)
+    *reinterpret_cast<__half2*>(static_cast<__half*>(base) + i) =
+        __floats2half2_rn(x0, x1);
   else
     *reinterpret_cast<float2*>(static_cast<float*>(base) + i) =
         make_float2(x0, x1);

@@ -14,9 +14,12 @@ applies the sum, as the JAX package's eager path does. Inputs may be NumPy
 arrays or tensors; they move to the model's device.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: metrics and ``Dataset``/``DataLoader`` inputs (A9), AMP configs,
+item: metrics and ``Dataset``/``DataLoader`` inputs (A9),
 ``train_batches`` and ``train_loop`` (A4), ``attach_step_meter`` and a
-numerical sentinel on the optimizer (A8).
+numerical sentinel on the optimizer (A8). ``prepare(amp_configs=...)``
+raises as well, where the reference accepts and ignores it: mixed
+precision is ``amp.auto_cast`` around ``train_batch`` (with
+``amp.decorate`` for O2), which the step reads on every call.
 """
 from __future__ import annotations
 

@@ -24,6 +24,7 @@ from ..nn.functional.loss import cross_entropy
 from ..nn.layers_common import Dropout, Embedding, LayerNorm, reset_parameters
 from ..nn.transformer import (CAUSAL_MASK, TransformerEncoder,
                               TransformerEncoderLayer)
+from ..ops.math import matmul
 
 
 @dataclass
@@ -105,7 +106,7 @@ class GPTForCausalLM(nn.Module):
 
     def forward(self, input_ids, position_ids=None):
         h = self.gpt(input_ids, position_ids)
-        return torch.matmul(h, self.gpt.word_embeddings.weight.t())
+        return matmul(h, self.gpt.word_embeddings.weight, transpose_y=True)
 
 
 class GPTPretrainingCriterion(nn.Module):

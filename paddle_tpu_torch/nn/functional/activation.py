@@ -1,20 +1,26 @@
 """Activations (counterpart of ``paddle_tpu/nn/functional/activation.py``,
-the part the GPT and YOLOv3 paths use)."""
+the part the GPT and YOLOv3 paths use). Each consults the AMP hook under
+the reference's op name first (``paddle_tpu_torch/amp``)."""
 from __future__ import annotations
 
 import torch
+
+from ... import amp
 
 
 def gelu(x, approximate: bool = False):
     """GELU; exact (erf) by default, as the JAX package's
     ``jax.nn.gelu(approximate=False)``."""
+    (x,) = amp.cast_inputs("gelu", x)
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
 
 
 def softmax(x, axis: int = -1, dtype=None):
+    (x,) = amp.cast_inputs("softmax", x)
     return torch.softmax(x, dim=axis, dtype=dtype)
 
 
 def leaky_relu(x, negative_slope: float = 0.01):
+    (x,) = amp.cast_inputs("leaky_relu", x)
     return torch.nn.functional.leaky_relu(x, negative_slope)

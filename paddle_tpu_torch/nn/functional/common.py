@@ -1,17 +1,20 @@
 """Linear, dropout, embedding and nearest interpolation (counterpart of
 ``paddle_tpu/nn/functional/common.py``, the part the GPT and YOLOv3
-paths use)."""
+paths use). Each consults the AMP hook under the reference's op name
+first (``paddle_tpu_torch/amp``)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from ... import amp
 from ...core.generator import default_generator
 
 
 def linear(x, weight, bias=None):
     """``x @ W + b`` with paddle's ``[in, out]`` weight layout."""
+    x, weight, bias = amp.cast_inputs("linear", x, weight, bias)
     out = torch.matmul(x, weight)
     return out + bias if bias is not None else out
 
@@ -27,6 +30,7 @@ def dropout(x, p: float = 0.5, training: bool = True,
     (:func:`~paddle_tpu_torch.core.generator.default_generator`)."""
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"dropout mode {mode!r}")
+    (x,) = amp.cast_inputs("dropout", x)
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:
             return x * (1.0 - p)
@@ -41,6 +45,7 @@ def dropout(x, p: float = 0.5, training: bool = True,
 
 
 def embedding(x, weight, padding_idx: Optional[int] = None):
+    weight, x = amp.cast_inputs("lookup_table_v2", weight, x)
     out = weight[x.long()]
     if padding_idx is not None:
         out = torch.where((x == padding_idx)[..., None],
@@ -59,6 +64,7 @@ def interpolate(x, size=None, scale_factor=None, mode: str = "nearest",
         raise NotImplementedError(
             f"interpolate mode {mode!r} is not ported yet: a later slice "
             f"of the port (ROADMAP.md queue A9)")
+    (x,) = amp.cast_inputs("interpolate_v2", x)
     channel_last = data_format in ("NHWC", "NWC", "NDHWC")
     off = 1 if channel_last else 2
     spatial = x.shape[off:off + x.dim() - 2]

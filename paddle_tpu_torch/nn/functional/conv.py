@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ... import amp
+
 __all__ = ["conv2d"]
 
 
@@ -51,7 +53,8 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW", name=None):
     """``x`` ``[N, C, H, W]`` (``[N, H, W, C]`` with ``data_format="NHWC"``)
     convolved with ``weight`` ``[O, C/groups, kH, kW]``, plus ``bias``
-    ``[O]``."""
+    ``[O]``; op ``conv2d`` under AMP."""
+    x, weight, bias = amp.cast_inputs("conv2d", x, weight, bias)
     channel_last = data_format == "NHWC"
     if channel_last:
         x = x.permute(0, 3, 1, 2)

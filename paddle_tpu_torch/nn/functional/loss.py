@@ -5,11 +5,16 @@ The formulas are the JAX package's: hard labels may carry a trailing
 size-1 class axis and arrive as any integer type (int32 included);
 entries equal to ``ignore_index`` add nothing; ``mean`` divides by the
 number of labels that are not ignored (at least 1), or by the sum of
-their class weights when ``weight`` is given.
+their class weights when ``weight`` is given. Under AMP both are
+black-listed ops (``softmax_with_cross_entropy``, ``nll_loss``): a
+low-type input comes back to float32.
 """
 from __future__ import annotations
 
 import torch
+
+from ... import amp
+from .activation import softmax
 
 
 def _reduce(out, reduction):
@@ -41,6 +46,8 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     """Softmax cross entropy over ``axis`` (``use_softmax=False`` takes
     ``input`` as probabilities). ``soft_label`` takes ``label`` as a
     distribution over the classes."""
+    input, label, weight = amp.cast_inputs("softmax_with_cross_entropy",
+                                           input, label, weight)
     logp = torch.log_softmax(input, dim=axis) if use_softmax \
         else torch.log(input.clamp_min(1e-30))
     if soft_label:
@@ -66,9 +73,13 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     with the softmax."""
     out = cross_entropy(logits, label, soft_label=soft_label,
                         ignore_index=ignore_index, reduction="none",
-                        axis=axis).unsqueeze(axis)
+                        axis=axis)
+    # the reference's unsqueeze is an op of its own ("unsqueeze2"), which
+    # O2 casts to the low type
+    (out,) = amp.cast_inputs("unsqueeze2", out)
+    out = out.unsqueeze(axis)
     if return_softmax:
-        return out, torch.softmax(logits, dim=axis)
+        return out, softmax(logits, axis=axis)
     return out
 
 
@@ -76,6 +87,7 @@ def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
              name=None):
     """Negative log likelihood of ``input`` (log-probabilities, classes on
     axis 1)."""
+    input, label, weight = amp.cast_inputs("nll_loss", input, label, weight)
     loss, valid, safe = _pick(input, label, 1, ignore_index)
     cw = weight[safe] if weight is not None else torch.ones_like(loss)
     loss = torch.where(valid, loss * cw, torch.zeros_like(loss))

@@ -1,8 +1,12 @@
 """Normalisation (counterpart of ``paddle_tpu/nn/functional/norm.py``:
-``batch_norm`` and ``layer_norm``)."""
+``batch_norm`` and ``layer_norm``). Under AMP both are normalisation ops:
+bfloat16 inputs pass through (the statistics are float32 inside), float16
+ones come back to float32 (``paddle_tpu_torch/amp``)."""
 from __future__ import annotations
 
 import torch
+
+from ... import amp
 
 
 def _stat_dtype(x):
@@ -28,12 +32,16 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     ``torch.nn.functional.batch_norm`` (cuDNN on the card)."""
     ch = 1 if data_format.startswith("NC") else x.dim() - 1
     if not training or use_global_stats:
+        x, running_mean, running_var, weight, bias = amp.cast_inputs(
+            "batch_norm", x, running_mean, running_var, weight, bias)
         if ch != 1:
             x = torch.movedim(x, ch, 1)
         out = torch.nn.functional.batch_norm(
             x, running_mean, running_var, weight, bias, training=False,
             eps=epsilon)
         return torch.movedim(out, 1, ch) if ch != 1 else out
+    # the running statistics are updated in place: not cast
+    x, weight, bias = amp.cast_inputs("batch_norm", x, weight, bias)
     axes = tuple(i for i in range(x.dim()) if i != ch)
     shape = [1] * x.dim()
     shape[ch] = x.shape[ch]
@@ -63,6 +71,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None,
     (``nn/functional/norm.py``, ``serving/llm/decode.py::_layer_norm``)."""
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
+    x, weight, bias = amp.cast_inputs("layer_norm", x, weight, bias)
     dims = tuple(range(x.dim() - len(normalized_shape), x.dim()))
     xf = x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
     mean = xf.mean(dim=dims, keepdim=True)

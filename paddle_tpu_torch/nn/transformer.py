@@ -23,6 +23,7 @@ from torch import nn
 
 from ..core.device import DeviceLike
 from ..ops.flash_attention import SUPPORTED_HEAD_DIMS, flash_attention
+from ..ops.math import matmul
 from . import functional as F
 from .layers_common import Dropout, LayerNorm, Linear
 
@@ -109,13 +110,13 @@ class MultiHeadAttention(nn.Module):
                 lk - lq + 1)
         mask = _convert_attention_mask(attn_mask, q.dtype)
         scale = 1.0 / math.sqrt(self.head_dim)
-        product = torch.matmul(q * scale, k.transpose(-1, -2))
+        product = matmul(q * scale, k, transpose_y=True)
         if mask is not None:
             product = product + mask
         weights = F.softmax(product)
         if self.dropout:
             weights = F.dropout(weights, self.dropout, self.training)
-        out = torch.matmul(weights, v).permute(0, 2, 1, 3)  # [B, L, H, D]
+        out = matmul(weights, v).permute(0, 2, 1, 3)        # [B, L, H, D]
         out = self.out_proj(out.reshape(out.shape[0], out.shape[1],
                                         self.embed_dim))
         return (out, weights) if self.need_weights else out

@@ -8,7 +8,7 @@ Counterpart of ``paddle_tpu/ops/pallas_attention.py``: ``flash_attention``,
 The kernels are ``csrc/flash_attention_fwd.cu`` (B1),
 ``csrc/flash_attention_bwd_dq.cu`` (B2) and
 ``csrc/flash_attention_bwd_dkv.cu`` (B3), all three on the tensor cores
-through ``csrc/flash_mma.cuh`` (fp32 as 3xTF32, bf16 native);
+through ``csrc/flash_mma.cuh`` (fp32 as 3xTF32, bf16 and fp16 native);
 each source note says what bounds it on the H100 and how its design
 answers that. Each wrapper
 (:func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
@@ -33,7 +33,13 @@ f32; the backward recomputes ``P = exp(S*scale - lse)`` and takes
 ``delta = rowsum(dO*O)`` in f32 from the stored (rounded) O unless it is
 given; ``grad_dtypes`` sets the gradients' types (default: the inputs').
 Not kept: the TPU's 16-row block rounding, the padding copies and the
-tuner's block sizes.
+tuner's block sizes. Under AMP :func:`flash_attention` is op
+``flash_attention``, on no list: O2 casts its inputs to the low type, O1
+leaves them as they come (low from the low projections).
+
+float16 gradients overflow as the hardware rounds them: a dS past
+float16's range becomes inf as an MMA operand and reaches the gradient,
+never clamped, so a loss scaler sees it and skips the step.
 """
 from __future__ import annotations
 
@@ -43,6 +49,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from .. import amp
 
 __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
@@ -55,7 +63,8 @@ _NEG_INF = -1e30
 
 #: head dims the CUDA kernels are instantiated for
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the C entry points' type codes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _scale(q, scale):
@@ -206,8 +215,8 @@ def _on_kernel(what, q, *tensors) -> bool:
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"{what} kernel: dtype {q.dtype} is not float32 or "
-                        "bfloat16")
+        raise TypeError(f"{what} kernel: dtype {q.dtype} is not float32, "
+                        "bfloat16 or float16")
     d = q.shape[-1]
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{what} kernel: head_dim {d} not in "
@@ -242,7 +251,7 @@ def _check_aligned(what, *tensors):
 def _out_code(dtype, what):
     if dtype not in _DTYPES:
         raise TypeError(f"{what} kernel: gradient dtype {dtype} is not "
-                        "float32 or bfloat16")
+                        "float32, bfloat16 or float16")
     return _DTYPES[dtype]
 
 
@@ -277,13 +286,21 @@ def _run(lib, err_fn, what, q, call):
     check(lib, err_fn, code, what)
 
 
+def _count(wrapper, dtype):
+    """One launch of ``wrapper``'s kernel on inputs of ``dtype``."""
+    wrapper.launches += 1
+    name = str(dtype).replace("torch.", "")
+    wrapper.launches_by_dtype[name] = \
+        wrapper.launches_by_dtype.get(name, 0) + 1
+
+
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1: exact attention over ``[B, S, H, D]`` inputs; returns ``(out
     [B, Sq, H, D], lse [B, H, Sq] f32)``. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (float32 as 3xTF32 or
-    bfloat16 on the tensor cores; D in :data:`SUPPORTED_HEAD_DIMS`; last
+    version; CUDA tensors launch the kernel (float32 as 3xTF32, bfloat16 or
+    float16 on the tensor cores; D in :data:`SUPPORTED_HEAD_DIMS`; last
     dim contiguous; base pointers and strides 16-byte aligned) or raise.
     Not differentiable on either device: :func:`flash_attention` is."""
     _check(q, k, v)
@@ -297,7 +314,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, out)
     lib, fn = _entry("flash_attention_fwd", "pt_flash_attention_fwd", 5, 1)
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, q.dtype)
     _run(lib, "pt_flash_attention_error_string", "flash attention kernel", q,
          lambda stream: fn(
              q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -312,8 +329,8 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
     """B2: ``dQ [B, Sq, H, D]`` (in ``dtype``, default q's) from the
     forward's inputs, the output gradient ``dout``, the saved ``lse`` and
     ``delta`` (both ``[B, H, Sq]`` f32). CPU tensors take the plain
-    version; CUDA tensors launch the kernel (float32 as 3xTF32 or bfloat16
-    on the tensor cores; D in :data:`SUPPORTED_HEAD_DIMS`; last dim
+    version; CUDA tensors launch the kernel (float32 as 3xTF32, bfloat16 or
+    float16 on the tensor cores; D in :data:`SUPPORTED_HEAD_DIMS`; last dim
     contiguous; base pointers and strides 16-byte aligned) or raise."""
     _check_bwd(q, k, v, dout, lse, delta)
     dt = dtype or q.dtype
@@ -328,7 +345,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
     strides = _strides(q, k, v, dout, dq)
     lib, fn = _entry("flash_attention_bwd_dq", "pt_flash_attention_bwd_dq",
                      7, 2)
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, q.dtype)
     _run(lib, "pt_flash_attention_bwd_dq_error_string",
          "flash attention dq kernel", q,
          lambda stream: fn(
@@ -363,7 +380,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
     strides = _strides(q, k, v, dout, dk, dv)
     lib, fn = _entry("flash_attention_bwd_dkv", "pt_flash_attention_bwd_dkv",
                      8, 3)
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, q.dtype)
     _run(lib, "pt_flash_attention_bwd_dkv_error_string",
          "flash attention dkv kernel", q,
          lambda stream: fn(
@@ -374,10 +391,13 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
     return dk, dv
 
 
-#: kernel launches since each count was last set to 0
-flash_attention_fwd.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+#: kernel launches since each count was last set to 0, in all and by the
+#: inputs' type ("float32", "bfloat16", "float16")
+for _w in (flash_attention_fwd, flash_attention_bwd_dq,
+           flash_attention_bwd_dkv):
+    _w.launches = 0
+    _w.launches_by_dtype = {}
+del _w
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,
@@ -452,4 +472,5 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     if return_softmax:
         raise ValueError("flash_attention: the probability matrix is never "
                          "materialized; return_softmax is unsupported")
+    query, key, value = amp.cast_inputs("flash_attention", query, key, value)
     return FlashAttentionFunction.apply(query, key, value, causal, scale), None

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-version, the wrappers' refusals (no fallback on a CUDA tensor), the GPT
-forward and paged engine through the kernels at a small size, and the
-YOLOv3 detection path (greedy NMS on the card against the CPU).
+version (B1-B3 in float32, bfloat16 and float16), the wrappers' refusals
+(no fallback on a CUDA tensor), the GPT forward, an O1 bfloat16 train step
+and the paged engine through the kernels at a small size, and the YOLOv3
+detection path (greedy NMS on the card against the CPU).
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither jax nor the JAX package, so on a machine with a card but
@@ -94,7 +95,7 @@ def test_flash_kernel_reads_strided_inputs(cuda):
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
         tfa.flash_attention_fwd(q, q, q)
     q = torch.zeros(1, 8, 2, 96, device=cuda)
@@ -480,7 +481,7 @@ def test_flash_backward_kernels_refuse_what_they_do_not_take(cuda):
                                              2, 64, True)
     with pytest.raises(TypeError, match="gradient dtype"):
         tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True,
-                                   dtype=torch.float16)
+                                   dtype=torch.float64)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention_bwd_dkv(q, k, v, do, lse,
                                     delta.transpose(1, 2).contiguous()
@@ -531,6 +532,141 @@ def test_train_batch_through_flash_kernels_matches_dense(cuda):
                                    atol=1e-3 * float(g.abs().max()))
     for n, p in res["dense"][2].items():
         torch.testing.assert_close(res["flash"][2][n], p, rtol=0, atol=1e-5)
+
+
+# -- float16 lanes of B1-B3, and AMP on the card ------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv,d", [
+    (1, 1, 32), (15, 17, 64), (17, 15, 128), (63, 65, 32), (65, 63, 64),
+    (64, 64, 128), (127, 129, 32), (129, 127, 64), (1, 1000, 64),
+    (1000, 1, 128), (1000, 129, 128), (129, 1000, 32), (1000, 1000, 64)])
+def test_flash_fp16_kernels_at_tile_edges(cuda, causal, sq, skv, d):
+    """B1, B2 and B3 in float16 at the bf16 cases' tile edges: O within
+    2e-2 of the plain version (LSE 1e-4), the gradients within 2e-2 (max
+    |err| / max |plain|), all finite, in float16."""
+    q, k, v, do, out, lse, delta = _bwd_case(cuda, torch.float16, 1, sq, skv,
+                                             2, d, causal, seed=sq + skv + d)
+    ref, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, causal=causal)
+    assert out.dtype == torch.float16
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    args = (q, k, v, do, lse, delta, causal)
+    got = (tfa.flash_attention_bwd_dq(*args),
+           *tfa.flash_attention_bwd_dkv(*args))
+    plain = (tfa.flash_attention_bwd_dq_plain(*args),
+             *tfa.flash_attention_bwd_dkv_plain(*args))
+    assert all(g.dtype == torch.float16 and bool(torch.isfinite(g).all())
+               for g in got)
+    errs = _rel_errs([g.float() for g in got], [p.float() for p in plain])
+    assert max(errs) <= 2e-2, errs
+
+
+def test_flash_fp16_kernels_are_deterministic_and_take_f32_grads(cuda):
+    """No atomics in float16 either: two launches agree bit for bit. f32
+    gradients from float16 inputs (grad_dtypes) carry the residual of P
+    and dS: within 1e-4 of the plain version."""
+    q, k, v, do, out, lse, delta = _bwd_case(cuda, torch.float16, 2, 1000,
+                                             1000, 4, 128, True)
+    first = tfa.flash_attention_fwd(q, k, v, causal=True)
+    again = tfa.flash_attention_fwd(q, k, v, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    args = (q, k, v, do, lse, delta, True)
+    first = (tfa.flash_attention_bwd_dq(*args),
+             *tfa.flash_attention_bwd_dkv(*args))
+    again = (tfa.flash_attention_bwd_dq(*args),
+             *tfa.flash_attention_bwd_dkv(*args))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    f32 = (torch.float32,) * 3
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, True,
+                                  grad_dtypes=f32)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, True,
+                                         grad_dtypes=f32)
+    errs = _rel_errs(got, want)
+    assert all(g.dtype == torch.float32 for g in got)
+    assert max(errs) <= 1e-4, errs
+
+
+def test_flash_fp16_overflowing_ds_reaches_the_gradient(cuda):
+    """dS rounded to float16 for the dQ and dK products overflows to inf
+    and is never clamped, so the gradient is not finite and a loss scaler
+    skips the step. All keys equal and two of them: P = 1/2 and the two
+    dS of a row cancel in dQ = scale * dS K, so the plain version's dQ
+    (f32 inside) is small and finite, and a clamped dS would cancel too.
+    The same inputs in bfloat16 (whose range holds dS) give a finite dQ."""
+    rng = np.random.default_rng(7)
+    b, sq, skv, h, d = 1, 64, 2, 2, 64
+    q = rng.standard_normal((b, sq, h, d), dtype=np.float32)
+    k = np.repeat(rng.standard_normal((b, 1, h, d), dtype=np.float32), skv,
+                  axis=1)
+    v = rng.standard_normal((b, skv, h, d), dtype=np.float32)
+    do = np.clip(3e4 * rng.standard_normal((b, sq, h, d)), -6e4, 6e4)
+    res = {}
+    for dt in (torch.float16, torch.bfloat16):
+        qt, kt, vt, dot = (torch.from_numpy(np.asarray(x, np.float32)).to(
+            cuda, dt) for x in (q, k, v, do))
+        out, lse = tfa.flash_attention_fwd(qt, kt, vt)
+        delta = tfa.attention_delta(out, dot)
+        args = (qt, kt, vt, dot, lse, delta)
+        res[dt] = (tfa.flash_attention_bwd_dq(*args),
+                   tfa.flash_attention_bwd_dq_plain(*args),
+                   tfa.flash_attention_bwd_dkv(*args)[0])
+    dq, plain_dq, dk = res[torch.float16]
+    assert bool(torch.isfinite(plain_dq).all())
+    assert not bool(torch.isfinite(dq).all())
+    assert not bool(torch.isfinite(dk).all())
+    assert bool(torch.isfinite(res[torch.bfloat16][0]).all())
+
+
+def _amp_train(cuda, impl, steps, ids):
+    from paddle_tpu_torch import Model, amp
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    net = GPTForCausalLM(GPTConfig(**MODEL, attn_impl=impl), device=cuda,
+                         seed=0)
+    model = Model(net)
+    model.prepare(AdamW(learning_rate=1e-3, parameters=net.parameters(),
+                        epsilon=1e-6), GPTPretrainingCriterion())
+    counters = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                tfa.flash_attention_bwd_dkv)
+    losses, launched = [], []
+    for _ in range(steps):
+        before = [c.launches_by_dtype.get("bfloat16", 0) for c in counters]
+        with amp.auto_cast():
+            losses.append(model.train_batch([ids], [ids])[0])
+        launched.append([c.launches_by_dtype.get("bfloat16", 0) - n
+                         for c, n in zip(counters, before)])
+    return losses, launched, net
+
+
+def test_amp_o1_train_step_runs_the_bf16_lanes(cuda):
+    """Three O1 bfloat16 AdamW steps of a 2-layer GPT on the card: the
+    flash model launches the bfloat16 lanes of B1, B2 and B3 once per
+    layer a step, keeps float32 weights, and its losses agree with the
+    dense-attention model's at 2e-2."""
+    ids = np.random.default_rng(2).integers(0, MODEL["vocab_size"], (3, 64))
+    flash, launched, net = _amp_train(cuda, "flash", 3, ids)
+    dense, none, _ = _amp_train(cuda, "dense", 3, ids)
+    assert launched == [[MODEL["num_layers"]] * 3] * 3
+    assert none == [[0] * 3] * 3
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+    assert all(np.isfinite(flash)) and flash[-1] < flash[0]
+    np.testing.assert_allclose(flash, dense, rtol=0, atol=2e-2)
+
+
+def test_resolve_device_turns_reduced_precision_reductions_off(cuda):
+    """Resolving CUDA keeps cuBLAS from adding split-K partial sums of
+    bfloat16 and float16 products in the low type (XLA sums them in
+    float32), beside TF32 off."""
+    from paddle_tpu_torch import resolve_device
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_bf16_reduced_precision_reduction = True
+    matmul.allow_fp16_reduced_precision_reduction = True
+    resolve_device()
+    assert not matmul.allow_bf16_reduced_precision_reduction
+    assert not matmul.allow_fp16_reduced_precision_reduction
+    assert not matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 
 
 # -- greedy NMS (B5) and the detection path -----------------------------------

@@ -57,6 +57,7 @@ def test_import_leaves_no_jax_in_subprocess():
         "import paddle_tpu_torch.core.generator\n"
         "import paddle_tpu_torch.ops.custom, paddle_tpu_torch.ops.detection\n"
         "import paddle_tpu_torch.vision, paddle_tpu_torch.serving.engine\n"
+        "import paddle_tpu_torch.amp, paddle_tpu_torch.ops.math\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(repr(bad))\n")
