@@ -13,7 +13,8 @@ Phases (any failure raises and the script exits non-zero):
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it (B1, B2 and B3 in fp32 also against
    float64 formulas; B1-B4 two launches against each other, bit for
-   bit), and time kernel, plain version and, where one exists, the single
+   bit; B1 also at generate's short causal lengths, B=2, S 64 to 96),
+   and time kernel, plain version and, where one exists, the single
    PyTorch call computing the same function: for B1 the forward of
    ``scaled_dot_product_attention``, for B2 and B3 together its backward
    (timed without its forward), each SDPA backend that accepts the case
@@ -33,40 +34,62 @@ Phases (any failure raises and the script exits non-zero):
    flash and with dense attention, one decode step's logits, kernel lane
    against gather lane, on one cache state, and torch.profiler breakdowns
    of a forward and of a decode step (device busy share, time by kernel);
-6. the training path: the same 1.3B model trained 5 steps through
+6. the static-slot decode plane and ``generate`` on the same model: (a)
+   the default ``LLMEngine`` layout (``kv_layout="slot"``) serving phase
+   4's 8 prompts, 32 greedy new tokens each (tokens/s, tick, TTFT,
+   ``kv_bytes``, peak memory, and how many token lists equal the paged
+   lane's, printed only); (b) one decode step's logits, slot lane against
+   the paged gather lane, on the same 8 prefilled prompts, and a
+   torch.profiler breakdown of a slot decode step (host wall, device busy
+   share, kernels by time, copy kernels, bytes the step allocates and
+   must read), and one layer's attention timed in its block-diagonal form
+   over the slot-major buffers and as plain matmuls over a layer-major
+   copy; (c) ``model.generate`` on a [2, 64] prompt, 32 new tokens,
+   in its three cache modes (static slot, concat, recompute), timed in ms
+   per generated token, the recompute lane launching B1 once a layer a
+   step; held against the dense forward (no B1): the recompute lane's
+   last flash forward gives its logits within 2e-3, every generated
+   token of each mode is its argmax over that mode's sequence, and two
+   modes part only there (a mismatch passes only at a near-tie, top-2
+   gap under 2e-3, and is counted);
+7. the training path: the same 1.3B model trained 5 steps through
    ``Model.train_batch`` (AdamW, weight decay 0.01, global-norm clip 1.0,
    linear warmup over cosine decay, ``GPTPretrainingCriterion``) on one
    fixed [4, 1024] batch, attention forward on B1 and backward on B2 and
    B3; the loss must be finite and fall, and each step must launch each
    of the three kernels once per layer;
-7. checks and timings off the training path: a torch.profiler breakdown
+8. checks and timings off the training path: a torch.profiler breakdown
    of a train step (wall, device busy share, tokens/s, peak memory), and
    one step's gradients through flash against dense attention on fresh
    weights from the same seed;
-8. the mixed-precision training paths, each on a fresh 1.3B model from
+9. the mixed-precision training paths, each on a fresh 1.3B model from
    seed 0: 5 ``train_batch`` steps under ``amp.auto_cast()`` (O1,
-   bfloat16) with phase 6's optimizer and batch, each step launching the
+   bfloat16) with phase 7's optimizer and batch, each step launching the
    bfloat16 lanes of B1, B2 and B3 once per layer, the loss falling and
-   its first value within 2e-2 of phase 6's first; a torch.profiler
+   its first value within 2e-2 of phase 7's first; a torch.profiler
    breakdown of one such step (GEMMs, B1-B3, casts, optimizer); 3 O2 steps
    (``amp.decorate`` and AdamW with float32 masters); 3 eager float16
    steps with ``amp.GradScaler`` (``auto_cast(dtype="float16")``, scale,
    backward, step, update), B1-B3 in float16;
-9. the detection path: YOLOv3-DarkNet53 (80 classes, width 1.0, COCO
+10. the detection path: YOLOv3-DarkNet53 (80 classes, width 1.0, COCO
    anchors, random weights from seed 0, fp32, eval) serving 16 single
    608x608 images submitted at once through the dynamic-batching
    ``Engine`` (buckets 1/2/4/8, 50 ms batching delay), then 3 windows
    of 64 more through the warm engine, timed for images/s; each batch is one
    forward and one ``decode`` whose greedy NMS runs on B5;
-10. checks and timings off the detection path: the forward's device time
+11. checks and timings off the detection path: the forward's device time
    at batch 8, decode's time split into yolo_box, top-k, IoU and B5, the
    kernel lane's detections against the plain lane's on the same IoU
    (bitwise), and a torch.profiler breakdown of one served batch.
 
 Every launch count (and B1-B3's counts by input type) is set to 0 just
-before phase 3 and read after phase 4, set to 0 again just before phase 6
-and read after it, just before each of phase 8's three paths and read
-after it, and just before phase 9 and read after it. The last two lines are a
+before phase 3 and read after phase 4 (the paged serving path), set to 0
+just before phase 6a and read after it (the slot serving path, which
+runs no kernel: its attention is dense, as the JAX package's), just
+before phase 6c's three ``generate`` calls and read after them (the
+generate path), just before phase 7 and read after it, just before each
+of phase 9's three paths and read after it, and just before phase 10 and
+read after it. The last two lines are a
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -288,28 +311,36 @@ def sass_tensor_counts(kernel_build, names):
     return out
 
 
+#: B1 at the shapes of generate's recompute lane: B=2, S from 64 to 95
+#: causal fp32, one partial key tile or one whole one
+GEN_FLASH_LENS = (64, 65, 95, 96)
+
+
 def check_flash(torch, fa_mod, gen):
     """B1 against its plain version at B=4, S=1024, H=16, D=128, plus the
-    odd length and Sq != Skv cases; every case launches the kernel twice
-    and requires bitwise equal results, and every fp32 case is also held
-    to F64_TOL of the same attention in float64 (O and LSE, max |err| /
-    max |ref|). Returns the summary row for the main path's case (fp32,
-    causal, S=1024), with the bf16 and fp16 causal cases' times beside."""
+    odd length and Sq != Skv cases, and at B=2 with the short causal
+    lengths of generate's recompute lane (GEN_FLASH_LENS); every case
+    launches the kernel twice and requires bitwise equal results, and
+    every fp32 case is also held to F64_TOL of the same attention in
+    float64 (O and LSE, max |err| / max |ref|). Returns the summary row
+    for the main path's case (fp32, causal, S=1024), with the bf16 and
+    fp16 causal cases' times beside."""
     fa = fa_mod.flash_attention_fwd
     plain = fa_mod.flash_attention_fwd_plain
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    b, h, d = 4, 16, 128
-    cases = [("fp32", torch.float32, 1024, 1024, True),
-             ("fp32", torch.float32, 1024, 1024, False),
-             ("bf16", torch.bfloat16, 1024, 1024, True),
-             ("bf16", torch.bfloat16, 1024, 1024, False),
-             ("fp16", torch.float16, 1024, 1024, True),
-             ("fp16", torch.float16, 1024, 1024, False),
-             ("fp32", torch.float32, 1000, 1000, True),
-             ("fp32", torch.float32, 512, 1024, True),
-             ("fp32", torch.float32, 1024, 640, False)]
+    h, d = 16, 128
+    cases = [("fp32", torch.float32, 4, 1024, 1024, True),
+             ("fp32", torch.float32, 4, 1024, 1024, False),
+             ("bf16", torch.bfloat16, 4, 1024, 1024, True),
+             ("bf16", torch.bfloat16, 4, 1024, 1024, False),
+             ("fp16", torch.float16, 4, 1024, 1024, True),
+             ("fp16", torch.float16, 4, 1024, 1024, False),
+             ("fp32", torch.float32, 4, 1000, 1000, True),
+             ("fp32", torch.float32, 4, 512, 1024, True),
+             ("fp32", torch.float32, 4, 1024, 640, False)]
+    cases += [("fp32", torch.float32, 2, s, s, True) for s in GEN_FLASH_LENS]
     row, low = None, {}
-    for name, dt, sq, skv, causal in cases:
+    for name, dt, b, sq, skv, causal in cases:
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
         k = torch.randn(b, skv, h, d, generator=gen, device="cuda").to(dt)
         v = torch.randn(b, skv, h, d, generator=gen, device="cuda").to(dt)
@@ -351,7 +382,7 @@ def check_flash(torch, fa_mod, gen):
         nbytes = (2 * sq + 2 * skv) * b * h * d * elem + 4 * b * h * sq
         bms, by, fma_ms = attn_bound(flops, nbytes, dt)
         lib_txt = ", ".join(f"{n} {med[n]:.4f}" for n in libs)
-        log(f"B1 flash {name} Sq={sq} Skv={skv} causal={causal}: "
+        log(f"B1 flash {name} B={b} Sq={sq} Skv={skv} causal={causal}: "
             f"max_abs_err O {err:.3e} LSE {lse_err:.3e} "
             f"(tol {TOL[name]:.0e}/{TOL['fp32']:.0e}){extra}, two launches "
             f"bitwise equal {same}; kernel {ms:.4f} ms (rounds "
@@ -362,7 +393,7 @@ def check_flash(torch, fa_mod, gen):
         if not ok:
             raise RuntimeError(f"flash kernel disagrees with its plain "
                                f"version, the float64 formulas or itself "
-                               f"({name}, Sq={sq}, Skv={skv})")
+                               f"({name}, B={b}, Sq={sq}, Skv={skv})")
         if row is None:
             row = {"max_abs_err": max(err, lse_err), "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -861,9 +892,10 @@ def run_serving(torch, model, pa_mod, rng, card, cfg, lens):
     if launched != cfg["num_layers"] * (ticks + warm_steps):
         raise RuntimeError(f"B4 launched {launched} times for {ticks} "
                            f"ticks (+{warm_steps} warmup)")
-    return {"tokens_per_s": n_tok / wall, "tick_ms_mean": tick["mean"],
-            "tick_ms_p50": tick["p50"], "ticks": ticks,
-            "ttft_ms_p50": ttft["p50"]}
+    return ({"tokens_per_s": n_tok / wall, "tick_ms_mean": tick["mean"],
+             "tick_ms_p50": tick["p50"], "ticks": ticks,
+             "ttft_ms_p50": ttft["p50"]},
+            prompts, [r["tokens"] for r in results])
 
 
 def compare_lanes(torch, model, rng, cfg, lens, dev):
@@ -919,12 +951,14 @@ def time_forward(torch, model, rng, cfg, dev):
     return out
 
 
-def profile_steps(torch, label, step, steps, ranges=()):
+def profile_steps(torch, label, step, steps, ranges=(), memory=False):
     """Where one step's time goes: host wall per step without the
     profiler (each step ends in a host fetch or a synchronize), then
     device time per step and by kernel from torch.profiler. ``ranges``
     names record_function ranges the step opens: their rows on the
-    device's timeline are spans, not kernels, and are left out."""
+    device's timeline are spans, not kernels, and are left out. With
+    ``memory``, also the device bytes the step's operators allocate
+    (``profile_memory``): a copy of a strided view shows there."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -932,8 +966,8 @@ def profile_steps(torch, label, step, steps, ranges=()):
     for _ in range(steps):
         step()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 profile_memory=memory) as prof:
         for _ in range(steps):
             step()
     rows = []
@@ -953,11 +987,25 @@ def profile_steps(torch, label, step, steps, ranges=()):
         f"{sum(r[1] for r in rows):.0f} kernels")
     for ms, cnt, key in rows[:10]:
         log(f"  {ms:.3f} ms/step  {cnt:.0f}/step  {key[:100]}")
-    return {"wall_ms": wall_ms, "device_ms": dev_ms, "kernels": rows,
-            "events": prof.events()}
+    out = {"wall_ms": wall_ms, "device_ms": dev_ms, "kernels": rows,
+           "events": prof.events()}
+    if memory:
+        # operator-level rows (CPU side) carry the device allocations
+        alloc = 0
+        for e in prof.key_averages():
+            b = getattr(e, "self_device_memory_usage", None)
+            if b is None:
+                b = e.self_cuda_memory_usage
+            if not str(e.device_type).endswith("CUDA") and b > 0:
+                alloc += b
+        out["alloc_bytes"] = alloc / steps
+        log(f"  device bytes allocated by the step's operators: "
+            f"{alloc / steps / 2**20:.1f} MiB/step")
+    return out
 
 
-def profile_decode(torch, dec, kv, params, last, dev, steps=10):
+def profile_decode(torch, dec, kv, params, last, dev, steps=10,
+                   label="decode step", memory=False):
     """Where a decode step's time goes, at the engine's 8 slots."""
     from paddle_tpu_torch.serving.llm.decode import (SamplingParams,
                                                      pack_sampling)
@@ -973,7 +1021,8 @@ def profile_decode(torch, dec, kv, params, last, dev, steps=10):
             kv, params, state["fin"], state["last"], samp, gen)
         state["last"].cpu()          # the engine's one fetch per tick
 
-    return profile_steps(torch, f"decode step, {n} slots", step, steps)
+    return profile_steps(torch, f"{label}, {n} slots", step, steps,
+                         memory=memory)
 
 
 def profile_forward(torch, model, rng, cfg, dev):
@@ -988,6 +1037,273 @@ def profile_forward(torch, model, rng, cfg, dev):
         torch.cuda.synchronize()
 
     return profile_steps(torch, f"forward {tuple(ids.shape)} flash", step, 2)
+
+
+def run_slot_serving(torch, model, card, cfg, prompts, paged_tokens):
+    """Phase 6a: the static-slot LLMEngine (the default layout) on phase
+    4's 8 greedy requests, 32 new tokens each; how many token lists equal
+    the paged lane's is printed, not gated (near-ties may flip)."""
+    from paddle_tpu_torch.serving.llm import (GPTStaticDecoder, LLMEngine,
+                                              LLMEngineConfig)
+    t0 = time.perf_counter()
+    eng = LLMEngine(model, LLMEngineConfig(
+        num_slots=8, max_seq=cfg["max_position_embeddings"],
+        kv_layout="slot", seed=0))
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+    results = [r.result(timeout=600) for r in reqs]
+    wall = time.perf_counter() - t0
+    stats = eng.stats()
+    eng.drain(timeout=60)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not isinstance(eng.decoder, GPTStaticDecoder) or \
+            stats["kv_layout"] != "slot":
+        raise RuntimeError("kv_layout='slot' did not serve through "
+                           "GPTStaticDecoder")
+    n_tok = sum(len(r["tokens"]) for r in results)
+    hist = stats["histograms"]
+    tick = hist["serving.llm.decode_tick_ms"]
+    ttft = hist["serving.llm.ttft_ms"]
+    same = sum(r["tokens"] == t for r, t in zip(results, paged_tokens))
+    log(f"serving GPT slot (8 slots, max_seq "
+        f"{cfg['max_position_embeddings']}) on {card}: {len(results)} "
+        f"requests, {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+        f"tokens/s; decode tick mean {tick['mean']:.3f} ms p50 "
+        f"{tick['p50']:.3f} ms over {tick['count']} ticks; TTFT p50 "
+        f"{ttft['p50']:.1f} ms max {ttft['max']:.1f} ms; warmup "
+        f"{t_warm:.1f} s; kv_bytes {stats['kv_bytes']}; peak device memory "
+        f"{peak:.2f} GiB; token lists equal to the paged lane's: {same} "
+        f"of {len(results)}")
+    for r in results:
+        if len(r["tokens"]) != 32:
+            raise RuntimeError(f"request {r['req_id']} returned "
+                               f"{len(r['tokens'])} tokens, not 32")
+    return {"tokens_per_s": n_tok / wall, "tick_ms_mean": tick["mean"],
+            "tick_ms_p50": tick["p50"], "ticks": tick["count"],
+            "ttft_ms_p50": ttft["p50"], "ttft_ms_max": ttft["max"],
+            "warmup_s": t_warm, "kv_bytes": stats["kv_bytes"],
+            "peak_gib": peak, "equal_to_paged": same}
+
+
+def compare_slot_lanes(torch, model, cfg, prompts, dev):
+    """Phase 6b: one decode step's logits, slot lane against the paged
+    gather lane, on the same 8 prefilled prompts."""
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    from paddle_tpu_torch.serving.llm.decode import (SamplingParams,
+                                                     pack_sampling)
+    from paddle_tpu_torch.serving.llm.paged import GPTPagedDecoder
+    sd = GPTStaticDecoder(model)
+    pd = GPTPagedDecoder(model, page_size=16, attn_impl="gather")
+    n, max_seq = len(prompts), cfg["max_position_embeddings"]
+    skv, pkv = sd.new_kv(n, max_seq), pd.new_kv(n, max_seq)
+    params = sd.params()
+    fin = torch.zeros(n, dtype=torch.bool, device=dev)
+    samp = pack_sampling([SamplingParams()], dev)
+    last = torch.zeros(n, dtype=torch.int32, device=dev)
+    for slot, p in enumerate(prompts):
+        lp = 1 << (len(p) - 1).bit_length()
+        toks = torch.zeros(1, lp, dtype=torch.int32, device=dev)
+        toks[0, :len(p)] = torch.tensor(p, dtype=torch.int32, device=dev)
+        args = (toks, torch.tensor([len(p)], dtype=torch.int32, device=dev),
+                torch.tensor([slot], dtype=torch.int32, device=dev), fin,
+                samp, None)
+        skv.alloc()
+        pkv.alloc()
+        pkv.ensure_pages(slot, len(p) + 1)
+        nxt, _ = sd.prefill(skv, params, *args)
+        pd.prefill(pkv, params, *args)
+        last[slot] = nxt[0]
+    ls = sd.decode_logits(skv, params, last)
+    lg = pd.decode_logits(pkv, params, last, "gather")
+    err = (ls - lg).abs().max().item()
+    same = bool((ls.argmax(-1) == lg.argmax(-1)).all())
+    log(f"decode logits slot lane vs paged gather lane ({n} slots): "
+        f"max_abs_err {err:.3e} (tol {LOGIT_TOL}), argmax equal {same}")
+    if err > LOGIT_TOL or not torch.isfinite(ls).all():
+        raise RuntimeError("slot lane disagrees with the paged gather lane")
+    return sd, skv, params, last
+
+
+def profile_slot_decode(torch, dec, kv, params, last, dev):
+    """Phase 6b: where a slot decode step's time goes, the bytes the dense
+    step must read (all weights and every slot's max_seq K/V rows), and
+    the copy kernels and allocations that a copied layer view would add
+    (64 MiB per K or V buffer per layer at 1.3B)."""
+    prof = profile_decode(torch, dec, kv, params, last, dev,
+                          label="slot decode step", memory=True)
+    weights = sum(t.numel() * t.element_size()
+                  for t in [params["tok"], params["pos"], params["fnw"],
+                            params["fnb"]]
+                  + [t for lp in params["layers"] for t in lp.values()])
+    need = weights + kv.kv_bytes()
+    copies = [r for r in prof["kernels"] if "opy" in r[2]]
+    copy_ms = sum(r[0] for r in copies)
+    log(f"slot decode step: device {prof['device_ms']:.3f} ms, reads at "
+        f"least {need / 1e9:.3f} GB (weights {weights / 1e9:.3f}, K/V "
+        f"{kv.kv_bytes() / 1e9:.3f}) = {need / prof['device_ms'] / 1e9:.3f} "
+        f"TB/s; copy kernels {sum(r[1] for r in copies):.0f}/step taking "
+        f"{copy_ms:.3f} ms/step")
+    return {"step_wall_ms": prof["wall_ms"],
+            "step_device_ms": prof["device_ms"],
+            "step_kernels": sum(r[1] for r in prof["kernels"]),
+            "step_bytes_needed": need, "step_copy_ms": copy_ms,
+            "step_alloc_bytes": prof["alloc_bytes"],
+            **time_slot_attention(torch, kv, dev)}
+
+
+def time_slot_attention(torch, kv, dev):
+    """Phase 6b: one layer's slot attention (scores and weights . V, the
+    softmax left out) on the device's clock, two ways at the engine's
+    shapes: the block-diagonal form of ``_block_decode`` over the
+    slot-major layer view ``kv.k[:, 0]`` (``[S, max_seq, H, D]``,
+    strided), and two plain batched matmuls over a layer-major
+    ``[S, H, max_seq, D]`` copy of it, the layout that would need no such
+    form; each against the time to read that layer's K and V once."""
+    s, nh, hd, n = kv.num_slots, kv.num_heads, kv.head_dim, kv.max_seq
+    kb, vb = kv.k[:, 0], kv.v[:, 0]
+    kl, vl = (x.permute(0, 2, 1, 3).contiguous() for x in (kb, vb))
+    q = torch.randn(s, nh, hd, device=dev)
+    w = torch.softmax(torch.randn(s, nh, n, device=dev), dim=-1)
+    eye = torch.eye(nh, device=dev)
+
+    def block_diagonal():
+        qbd = (q[:, :, :, None] * eye[:, None, :]).reshape(s, nh * hd, nh)
+        torch.bmm(kb.flatten(2), qbd)
+        blocks = torch.bmm(w, vb.flatten(2))
+        blocks.view(s, nh, nh, hd).diagonal(dim1=1, dim2=2).transpose(
+            1, 2).reshape(s, nh * hd)
+
+    def layer_major():
+        torch.matmul(kl, q[..., None])
+        torch.matmul(w[:, :, None], vl).reshape(s, nh * hd)
+
+    bd_ms = time_ms(block_diagonal, spin=True)
+    lm_ms = time_ms(layer_major, spin=True)
+    read_ms = 2 * kb.numel() * kb.element_size() / PEAK_BYTES * 1e3
+    nl = kv.num_layers
+    log(f"slot attention, one layer ({s} slots, {n} rows): block-diagonal "
+        f"over the slot-major view {bd_ms:.4f} ms, plain matmuls over a "
+        f"layer-major copy {lm_ms:.4f} ms, reading its K and V once "
+        f"{read_ms:.4f} ms; x{nl} layers: {bd_ms * nl:.3f} / "
+        f"{lm_ms * nl:.3f} / {read_ms * nl:.3f} ms")
+    return {"attn_layer_block_diagonal_ms": bd_ms,
+            "attn_layer_layer_major_ms": lm_ms,
+            "attn_layer_kv_read_bound_ms": read_ms}
+
+
+#: phase 6c: generate's prompt batch and its new tokens
+GEN_BATCH = (2, 64)
+GEN_NEW = 32
+GEN_MODES = (("static", True), ("concat", "concat"), ("recompute", False))
+
+
+def run_generate(torch, model, fa_mod, ids, cfg):
+    """Phase 6c: ``model.generate`` on a [2, 64] prompt in its three cache
+    modes, GEN_NEW greedy tokens each: the static slot, the concat cache
+    and the recompute lane, whose full flash forward at every step
+    launches B1 once a layer (and the other two never)."""
+    outs, ms = {}, {}
+    for name, use_cache in GEN_MODES:
+        before = fa_mod.flash_attention_fwd.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = model.generate(ids, max_length=GEN_NEW,
+                                    use_cache=use_cache)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / GEN_NEW
+        launched = fa_mod.flash_attention_fwd.launches - before
+        want = cfg["num_layers"] * GEN_NEW if use_cache is False else 0
+        if launched != want:
+            raise RuntimeError(f"generate({name}) launched B1 {launched} "
+                               f"times, not {want}")
+        if tuple(outs[name].shape) != (ids.shape[0],
+                                       ids.shape[1] + GEN_NEW):
+            raise RuntimeError(f"generate({name}) returned "
+                               f"{tuple(outs[name].shape)}")
+    return outs, ms
+
+
+def _first_differences(a, b):
+    """``(row, column)`` of each row's first differing token of two
+    equal-shaped token tensors."""
+    diff = (a != b).cpu()
+    return [(r, int(diff[r].nonzero()[0])) for r in range(diff.shape[0])
+            if diff[r].any()]
+
+
+def check_generate(torch, model, ids, outs, first_ms, runs=2):
+    """Phase 6c, off the path: ms per generated token of each mode (the
+    median of the path's call and ``runs`` more), then the holds against
+    the dense forward (``attn_impl="dense"``, no B1):
+
+    - the recompute lane's last step, a flash forward over its returned
+      sequence (B1 at [2, 95]), gives the dense forward's logits within
+      LOGIT_TOL;
+    - in every mode each generated token is the argmax of the dense
+      forward's logits over that mode's sequence, unless that position's
+      top-2 gap is under LOGIT_TOL (counted as a near-tie);
+    - where two modes' tokens part, they part first at a near-tie of the
+      dense forward over their common prefix.
+
+    Any other mismatch fails."""
+    res = {}
+    lin = ids.shape[1]
+    for name, use_cache in GEN_MODES:
+        times = [first_ms[name]]
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.generate(ids, max_length=GEN_NEW, use_cache=use_cache)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / GEN_NEW)
+        res[name] = {"ms_per_token": float(np.median(times)),
+                     "ms_per_token_runs": times}
+    with torch.no_grad():
+        seq = outs["recompute"][:, :-1].long()
+        flash = model(seq)[:, lin - 1:].float()
+        model.set_attn_impl("dense")
+        dense = {n: model(outs[n][:, :-1].long())[:, lin - 1:].float()
+                 for n, _ in GEN_MODES}
+        model.set_attn_impl("flash")
+    err = (flash - dense["recompute"]).abs().max().item()
+    log(f"generate recompute lane: flash forward over its [{seq.shape[0]}, "
+        f"{seq.shape[1]}] sequence vs dense forward: max_abs_err logits "
+        f"{err:.3e} (tol {LOGIT_TOL})")
+    if err > LOGIT_TOL or not torch.isfinite(flash).all():
+        raise RuntimeError("generate's recompute lane: the flash forward "
+                           "disagrees with the dense forward")
+    res["recompute_flash_vs_dense_max_abs_err"] = err
+    near = {}
+    for name, _ in GEN_MODES:
+        top2 = dense[name].topk(2, dim=-1)
+        near[name] = (top2.values[..., 0] - top2.values[..., 1]) < LOGIT_TOL
+        miss = top2.indices[..., 0] != outs[name][:, lin:].long()
+        bad = int((miss & ~near[name]).sum())
+        res[name].update(near_ties=int(near[name].sum()),
+                         near_tie_flips=int((miss & near[name]).sum()))
+        log(f"generate {name} [{ids.shape[0]}, {lin}] + {GEN_NEW}: "
+            f"{res[name]['ms_per_token']:.2f} ms per token (runs "
+            f"{', '.join(f'{t:.2f}' for t in res[name]['ms_per_token_runs'])}"
+            f"); against the dense forward: near-ties "
+            f"{res[name]['near_ties']}, flipped "
+            f"{res[name]['near_tie_flips']}, other mismatches {bad}")
+        if bad:
+            raise RuntimeError(f"generate({name}) disagrees with the dense "
+                               f"forward at {bad} positions")
+    parts = {n: _first_differences(outs["static"], outs[n])
+             for n in ("concat", "recompute")}
+    off_tie = [(n, r, c) for n, p in parts.items() for r, c in p
+               if c < lin or not near["static"][r, c - lin]]
+    same = not any(parts.values())
+    log(f"generate: the three modes' tokens equal: {same}; first "
+        f"differences from the static lane {parts}, not at a near-tie "
+        f"{off_tie}")
+    if off_tie:
+        raise RuntimeError(f"generate's modes part away from a near-tie: "
+                           f"{off_tie}")
+    res["modes_equal"] = same
+    return res
 
 
 def _counters(fa_mod):
@@ -1024,7 +1340,7 @@ def _train_model(torch, cfg, dev, impl, with_optimizer=True, o2=False):
 
 
 def run_train(torch, fa_mod, ids, cfg, dev):
-    """Phase 6: TRAIN_STEPS train_batch calls of the 1.3B model on one
+    """Phase 7: TRAIN_STEPS train_batch calls of the 1.3B model on one
     fixed batch, attention through B1, B2 and B3."""
     model, sched = _train_model(torch, cfg, dev, "flash")
     losses, walls = [], []
@@ -1104,8 +1420,8 @@ def _check_amp_step(fa_mod, cfg, what, step, dtype, before):
 
 
 def run_amp_train(torch, fa_mod, ids, cfg, dev, fp32_first):
-    """Phase 8, O1: AMP_STEPS train_batch calls of the 1.3B model under
-    amp.auto_cast() (bfloat16), phase 6's optimizer and batch; B1-B3 on
+    """Phase 9, O1: AMP_STEPS train_batch calls of the 1.3B model under
+    amp.auto_cast() (bfloat16), phase 7's optimizer and batch; B1-B3 on
     bfloat16 inputs once per layer a step; float32 weights; the loss
     finite, falling, and at first within AMP_LOSS_TOL of fp32's."""
     from paddle_tpu_torch import amp
@@ -1197,7 +1513,7 @@ def profile_amp_step(torch, model, ids):
 
 
 def run_amp_o2(torch, fa_mod, ids, cfg, dev):
-    """Phase 8, O2: AMP_SHORT steps of the model cast to bfloat16 by
+    """Phase 9, O2: AMP_SHORT steps of the model cast to bfloat16 by
     ``amp.decorate(level="O2")``, AdamW with float32 masters, under
     ``auto_cast(level="O2")``; B1-B3 in bfloat16; losses finite and
     falling; the parameters stay bfloat16."""
@@ -1221,7 +1537,7 @@ def run_amp_o2(torch, fa_mod, ids, cfg, dev):
 
 
 def run_amp_fp16(torch, fa_mod, ids, cfg, dev):
-    """Phase 8, fp16: AMP_SHORT eager steps with ``amp.GradScaler``: the
+    """Phase 9, fp16: AMP_SHORT eager steps with ``amp.GradScaler``: the
     forward and loss under ``auto_cast(dtype="float16")``, then
     ``scale(loss).backward()``, ``step``, ``update``; B1-B3 in float16 once
     per layer a step; the losses of the steps not skipped finite."""
@@ -1273,7 +1589,7 @@ def _det_serve_fn(torch, model):
 
 
 def run_detection(torch, model, rng, card, dev, reset_counters):
-    """Phase 8: 16 single-image requests, submitted at once, through the
+    """Phase 10: 16 single-image requests, submitted at once, through the
     Engine, then DET_WINDOWS windows of DET_WINDOW more, timed for a
     rate (the median window's); every
     future resolves with dets [1, 100, 6] and a count <= 100. One warm-up
@@ -1360,7 +1676,7 @@ def run_detection(torch, model, rng, card, dev, reset_counters):
 
 
 def detection_checks(torch, model, nms_mod, det_mod, rng, dev):
-    """Phase 9, on one batch of 8: the forward's device time, decode's
+    """Phase 11, on one batch of 8: the forward's device time, decode's
     time split, the kernel lane against the plain lane on the same IoU,
     and a profile of one served batch."""
     img, hw = _det_batch(torch, rng, 8, dev)
@@ -1553,8 +1869,8 @@ def main() -> int:
 
     reset_counters()
     run_forward(torch, model, fa_mod, rng, CFG_13B, dev)
-    serve = run_serving(torch, model, pa_mod, rng, card, CFG_13B,
-                        PROMPT_LENS)
+    serve, prompts, paged_tokens = run_serving(torch, model, pa_mod, rng,
+                                               card, CFG_13B, PROMPT_LENS)
     serve_launches = read_counters()
     log(f"serving path launches: {serve_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1569,11 +1885,38 @@ def main() -> int:
     dec, kv, params, last = compare_lanes(torch, model, rng, CFG_13B,
                                           PROMPT_LENS, dev)
     profile_decode(torch, dec, kv, params, last, dev)
-    del model, dec, kv, params, last
+    del dec, kv, params, last
     torch.cuda.empty_cache()
 
-    # -- phase 6: the training path ------------------------------------------
-    stamp("6 training path")
+    # -- phase 6: static-slot serving and generate ----------------------------
+    stamp("6 slot serving and generate")
+    reset_counters()
+    slot = run_slot_serving(torch, model, card, CFG_13B, prompts,
+                            paged_tokens)
+    slot_launches = read_counters()
+    log(f"slot serving path launches: {slot_launches}")
+    torch.cuda.empty_cache()
+    sdec, skv, sparams, slast = compare_slot_lanes(torch, model, CFG_13B,
+                                                   prompts, dev)
+    slot.update(profile_slot_decode(torch, sdec, skv, sparams, slast, dev))
+    del sdec, skv, sparams, slast
+    torch.cuda.empty_cache()
+    # a generator of its own keeps the later phases' batches as they were
+    gen_ids = torch.from_numpy(np.random.default_rng(8).integers(
+        0, CFG_13B["vocab_size"], GEN_BATCH)).to(dev)
+    reset_counters()
+    gen_outs, gen_ms = run_generate(torch, model, fa_mod, gen_ids, CFG_13B)
+    gen_launches = read_counters()
+    log(f"generate path launches: {gen_launches}")
+    if gen_launches["flash_attention_fwd"] < 1:
+        raise RuntimeError("kernel flash_attention_fwd was not launched on "
+                           "the generate path")
+    gen = check_generate(torch, model, gen_ids, gen_outs, gen_ms)
+    del model, gen_outs
+    torch.cuda.empty_cache()
+
+    # -- phase 7: the training path ------------------------------------------
+    stamp("7 training path")
     ids = rng.integers(0, CFG_13B["vocab_size"],
                        (4, CFG_13B["max_position_embeddings"]))
     reset_counters()
@@ -1589,8 +1932,8 @@ def main() -> int:
             raise RuntimeError(f"kernel {name} was not launched on the "
                                f"training path")
 
-    # -- phase 7: off the training path --------------------------------------
-    stamp("7 training checks")
+    # -- phase 8: off the training path --------------------------------------
+    stamp("8 training checks")
     prof = profile_steps(torch, f"train step {tuple(ids.shape)} flash",
                          lambda: train_model.train_batch([ids], [ids]), 2)
     tokens = ids.size
@@ -1603,13 +1946,13 @@ def main() -> int:
     grads = compare_train_grads(torch, ids, CFG_13B, dev)
     torch.cuda.empty_cache()
 
-    # -- phase 8: the mixed-precision training paths --------------------------
-    stamp("8 mixed-precision training paths")
+    # -- phase 9: the mixed-precision training paths --------------------------
+    stamp("9 mixed-precision training paths")
     flash_names = [c.__name__ for c in _counters(fa_mod)]
     amp_launches, amp_dtypes, amp_peak = {}, {}, {}
 
     def amp_path(name, dtype, run):
-        """Phase 8's path ``name``: B1-B3 launched, in ``dtype`` only."""
+        """Phase 9's path ``name``: B1-B3 launched, in ``dtype`` only."""
         reset_counters()
         out = run()
         amp_launches[name] = read_counters()
@@ -1641,8 +1984,8 @@ def main() -> int:
                                              dev))
     torch.cuda.empty_cache()
 
-    # -- phase 9: the detection path -----------------------------------------
-    stamp("9 detection path")
+    # -- phase 10: the detection path ----------------------------------------
+    stamp("10 detection path")
     det_model = yolov3_darknet53(num_classes=DET_CLASSES, device=dev,
                                  seed=0).eval()
     n_params = sum(p.numel() for p in det_model.parameters())
@@ -1657,15 +2000,16 @@ def main() -> int:
         raise RuntimeError("kernel greedy_nms was not launched on the "
                            "detection path")
 
-    # -- phase 10: off the detection path ------------------------------------
-    stamp("10 detection checks")
+    # -- phase 11: off the detection path ------------------------------------
+    stamp("11 detection checks")
     det.update(detection_checks(torch, det_model, nms_mod, det_mod, rng,
                                 dev))
     del det_model
     torch.cuda.empty_cache()
 
-    # -- phase 11: summary ---------------------------------------------------
-    paths = {"serving": serve_launches, "training": train_launches,
+    # -- phase 12: summary ---------------------------------------------------
+    paths = {"serving": serve_launches, "serving_slot": slot_launches,
+             "generate": gen_launches, "training": train_launches,
              **amp_launches, "detection": det_launches}
 
     def launches(name):
@@ -1700,6 +2044,8 @@ def main() -> int:
              **launches("greedy_nms"), status="ok", **b5),
     ]
     log(f"serving: {json.dumps(serve)}")
+    log(f"serving, slot: {json.dumps(slot)}")
+    log(f"generate: {json.dumps(gen)}")
     log("training: " + json.dumps(dict(
         train, **grads, peak_gib=peak, step_ms=prof["wall_ms"],
         device_busy_ms=prof["device_ms"],

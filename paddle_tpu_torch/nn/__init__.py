@@ -7,7 +7,8 @@ from .container import Sequential
 from .layers_activation import LeakyReLU
 from .layers_common import (BatchNorm2D, Conv2D, Dropout, Embedding,
                             LayerNorm, Linear, Upsample)
-from .transformer import (CAUSAL_MASK, MultiHeadAttention,
+from .transformer import (CAUSAL_MASK, MultiHeadAttention, Transformer,
+                          TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
 
 __all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
@@ -15,5 +16,6 @@ __all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
            "GradientClipByNorm", "GradientClipByValue", "clip_grad_norm_",
            "Sequential", "LeakyReLU", "BatchNorm2D", "Conv2D", "Upsample",
            "Dropout", "Embedding", "LayerNorm", "Linear", "CAUSAL_MASK",
-           "MultiHeadAttention", "TransformerEncoder",
+           "MultiHeadAttention", "Transformer", "TransformerDecoder",
+           "TransformerDecoderLayer", "TransformerEncoder",
            "TransformerEncoderLayer"]

@@ -1,9 +1,15 @@
 """LLM serving (counterpart of ``paddle_tpu/serving/llm``): the
-continuous-batching :class:`LLMEngine` over the paged KV cache."""
-from .decode import GPTDecodeSpec, SamplingParams, pack_sampling
+continuous-batching :class:`LLMEngine` over the static-slot KV cache (the
+default, :class:`GPTStaticDecoder` on a :class:`StaticKVCache`) or the
+paged one (``paged/``). Prefix reuse and speculative decode are queue A6
+in ROADMAP.md."""
+from .decode import (GPTDecodeSpec, GPTStaticDecoder, SamplingParams,
+                     extract_gpt_params, pack_sampling)
+from .kvcache import StaticKVCache
 from .scheduler import (ContinuousBatcher, GenerationRequest, LLMEngine,
                         LLMEngineConfig)
 
-__all__ = ["GPTDecodeSpec", "SamplingParams", "pack_sampling",
+__all__ = ["StaticKVCache", "GPTDecodeSpec", "GPTStaticDecoder",
+           "SamplingParams", "extract_gpt_params", "pack_sampling",
            "ContinuousBatcher", "GenerationRequest", "LLMEngine",
            "LLMEngineConfig"]

@@ -1,6 +1,8 @@
-"""GPT decode building blocks (counterpart of ``paddle_tpu/serving/llm/decode.py``:
-``GPTDecodeSpec``, ``SamplingParams``, ``pack_sampling``,
-``extract_gpt_params``, ``_layer_norm``, ``_block_prefill``, ``_sample``).
+"""GPT decode building blocks and the static-slot decoder (counterpart of
+``paddle_tpu/serving/llm/decode.py``: ``GPTDecodeSpec``, ``SamplingParams``,
+``pack_sampling``, ``extract_gpt_params``, ``_layer_norm``,
+``_block_prefill``, ``_block_decode``, ``_sample``, the programs of
+``build_prefill_fn`` and ``build_decode_step``, and ``GPTStaticDecoder``).
 
 The math mirrors the model's dense eval path operation for operation
 (LayerNorm with the biased variance, exact GELU, the additive -1e9 causal
@@ -12,18 +14,22 @@ Sampling draws from an explicit ``torch.Generator``: the JAX package's
 ``jax.random`` streams cannot be reproduced, so sampled tokens differ
 between the packages while greedy tokens are the same.
 
-PyTorch runs eagerly, so the JAX package's ``ExecutableCache``, jit trace
-counters and ``GPTStaticDecoder`` façade have no counterpart here;
-:class:`GPTDecoderBase` keeps the part of that façade the engine uses.
+PyTorch runs eagerly: the JAX package jits each program once per shape
+and audits it through its ``ExecutableCache`` and trace counters; here
+each program is a plain function over the cache's buffers, which it
+writes in place (``kvcache.py``), so neither has a counterpart.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
 from ...nn.functional import gelu, softmax
+from .kvcache import (StaticKVCache, _later, append_token_kv, kv_layer_view,
+                      token_index, valid_mask, write_prompt_kv)
 
 
 @dataclass(frozen=True)
@@ -120,9 +126,14 @@ def _sample(lraw, temperature, top_k, do_sample, generator, max_top_k: int):
     sampling divides by it, sets everything below the slot's k-th logit to
     -1e9 when its ``top_k > 0`` (``max_top_k`` bounds k), then takes the
     Gumbel-max draw ``argmax(logits - log(-log(u)))`` with ``u`` from
-    ``generator`` — the recipe of ``jax.random.categorical``.
+    ``generator`` — the recipe of ``jax.random.categorical``. With
+    ``generator=None`` every slot is greedy and nothing is drawn (the
+    caller guarantees that no slot samples), as greedy ``generate`` in
+    the JAX package consumes no key.
     """
     greedy = torch.argmax(lraw, dim=-1).to(torch.int32)
+    if generator is None:
+        return greedy
     lt = lraw / temperature[:, None]
     if max_top_k > 0:
         vals = torch.topk(lt, max_top_k, dim=-1).values   # [S, maxK] desc
@@ -159,6 +170,143 @@ def _block_prefill(spec: GPTDecodeSpec, lp, h, mask, scale):
     x = _layer_norm(h, lp["n2w"], lp["n2b"], spec.ln_epsilon)
     ffn = gelu(x @ lp["w1"] + lp["b1"])
     return h + (ffn @ lp["w2"] + lp["b2"]), k, v
+
+
+def _block_decode(spec: GPTDecodeSpec, lp, h, kb, vb, index, mask, scale,
+                  eye):
+    """One pre-norm block for one new token per slot. ``h``: ``[S, E]``;
+    ``kb``/``vb``: this layer's ``[S, max_seq, H, D]`` views of the slot
+    buffers, into which the token's K/V is written at ``index`` (the
+    step's :func:`~.kvcache.token_index`, in place) before attending over
+    all ``max_seq`` rows under ``mask``. ``eye``: the ``[H, H]`` identity
+    in ``h``'s type. The step builds ``index``, ``mask`` and ``eye`` once
+    for all its layers.
+
+    The attention is dense, as the JAX package's, but never copies the
+    layer view: ``kb[:, li]`` is strided over slots and heads, so
+    ``[S, H, max_seq, D]`` is not one strided batch and ``torch.matmul``
+    would copy it (64 MiB per buffer per layer per tick at 1.3B). Each
+    slot's rows are instead one ``[max_seq, H*D]`` matrix, and the heads
+    become a block-diagonal ``[H*D, H]`` query: one batched GEMM over
+    slots gives every head's scores, a second gives ``[H, H*D]`` from
+    which each head keeps its own diagonal block. That costs ``H`` times
+    the dot products of the dense form and reads each cache byte once."""
+    s = h.shape[0]
+    nh, hd = spec.num_heads, spec.head_dim
+    x = _layer_norm(h, lp["n1w"], lp["n1b"], spec.ln_epsilon)
+    shape = (s, nh, hd)
+    q = (x @ lp["qw"] + lp["qb"]).reshape(shape)
+    kn = (x @ lp["kw"] + lp["kb"]).reshape(shape)
+    vn = (x @ lp["vw"] + lp["vb"]).reshape(shape)
+    append_token_kv(kb, vb, kn, vn, None, index=index)
+    qbd = ((q * scale)[:, :, :, None] * eye[:, None, :]).reshape(
+        s, nh * hd, nh)                                   # [S, H*D, H]
+    prod = torch.bmm(kb.flatten(2), qbd)                  # [S, max, H]
+    weights = softmax(prod.transpose(1, 2) + mask[:, 0])  # [S, H, max]
+    blocks = torch.bmm(weights, vb.flatten(2))            # [S, H, H*D]
+    out = blocks.view(s, nh, nh, hd).diagonal(dim1=1, dim2=2)  # [S, D, H]
+    out = out.transpose(1, 2).reshape(s, spec.hidden_size)
+    h = h + (out @ lp["ow"] + lp["ob"])
+    x = _layer_norm(h, lp["n2w"], lp["n2b"], spec.ln_epsilon)
+    ffn = gelu(x @ lp["w1"] + lp["b1"])
+    return h + (ffn @ lp["w2"] + lp["b2"])
+
+
+def prefill_forward(spec: GPTDecodeSpec, params, tokens, true_lens):
+    """The dense causal forward of right-padded prompts ``tokens [B, Lp]``
+    (``_block_prefill`` per layer): returns the logits of each prompt's
+    last real token ``[B, V]`` f32 and its K/V ``[B, L, Lp, H, D]``.
+    Right padding is safe under the causal mask: real position i attends
+    only j <= i < true_len."""
+    scale = 1.0 / math.sqrt(spec.head_dim)
+    b, lp_len = tokens.shape
+    dev = tokens.device
+    pos = torch.arange(lp_len, device=dev)
+    h = params["tok"][tokens.long()] + params["pos"][pos][None]   # [B, L, E]
+    mask = torch.triu(torch.full((lp_len, lp_len), -1e9, dtype=h.dtype,
+                                 device=dev), 1)[None, None]
+    kcs, vcs = [], []
+    for lp in params["layers"]:
+        h, k, v = _block_prefill(spec, lp, h, mask, scale)
+        kcs.append(k)
+        vcs.append(v)
+    h = _layer_norm(h, params["fnw"], params["fnb"], spec.ln_epsilon)
+    last = h[torch.arange(b, device=dev), true_lens.long() - 1]    # [B, E]
+    lraw = (last @ params["tok"].t()).float()
+    return lraw, torch.stack(kcs, dim=1), torch.stack(vcs, dim=1)
+
+
+def sample_prefill(lraw, slots, finished, samp: SamplingVectors, generator,
+                   max_top_k: int):
+    """The first token of each prefilled prompt, and ``finished`` with
+    the prefilled ``slots`` set by whether it is their eos."""
+    nxt = _sample(lraw, samp.temperature, samp.top_k, samp.do_sample,
+                  generator, max_top_k)
+    finished = finished.clone()
+    finished[slots] = (nxt == samp.eos) & (samp.eos >= 0)
+    return nxt, finished
+
+
+def sample_step(lraw, lengths, finished, samp: SamplingVectors, generator,
+                max_top_k: int):
+    """The tail of every decode step: sample, freeze finished rows to
+    their eos (per-row eos semantics of ``generate``), mark new eos hits
+    and advance every slot's length by one, in place (inactive slots
+    compute junk that the scheduler discards). Returns ``(next_tokens
+    [S], finished [S])``."""
+    nxt = _sample(lraw, samp.temperature, samp.top_k, samp.do_sample,
+                  generator, max_top_k)
+    has_eos = samp.eos >= 0
+    nxt = torch.where(finished & has_eos, samp.eos, nxt)
+    finished = finished | ((nxt == samp.eos) & has_eos)
+    lengths += 1
+    return nxt, finished
+
+
+def static_decode_logits(spec: GPTDecodeSpec, params, kv: StaticKVCache,
+                         last_tokens):
+    """The forward half of a static-slot decode step: embed each slot's
+    last token at its position (clamped to the position table, as the
+    JAX package's), write its K/V into the slot buffers (in place) and
+    return the ``[S, V]`` f32 logits. ``kv.lengths`` is not advanced."""
+    scale = 1.0 / math.sqrt(spec.head_dim)
+    positions = kv.lengths
+    posc = positions.long().clamp(0, spec.max_position_embeddings - 1)
+    h = params["tok"][last_tokens.long()] + params["pos"][posc]   # [S, E]
+    mask = valid_mask(positions, kv.max_seq, h.dtype)
+    index = token_index(positions, kv.max_seq)
+    eye = torch.eye(spec.num_heads, dtype=h.dtype, device=h.device)
+    for li, lp in enumerate(params["layers"]):
+        h = _block_decode(spec, lp, h, kv_layer_view(kv.k, li),
+                          kv_layer_view(kv.v, li), index, mask, scale, eye)
+    h = _layer_norm(h, params["fnw"], params["fnb"], spec.ln_epsilon)
+    return (h @ params["tok"].t()).float()
+
+
+def static_decode_step(spec: GPTDecodeSpec, max_top_k: int, params,
+                       kv: StaticKVCache, finished, last_tokens,
+                       samp: SamplingVectors, generator):
+    """Advance every slot one token (the program of the JAX package's
+    ``build_decode_step``). Returns ``(next_tokens [S], finished [S])``."""
+    lraw = static_decode_logits(spec, params, kv, last_tokens)
+    return sample_step(lraw, kv.lengths, finished, samp, generator,
+                       max_top_k)
+
+
+def static_prefill(spec: GPTDecodeSpec, max_top_k: int, params,
+                   kv: StaticKVCache, tokens, true_lens, slot_ids, finished,
+                   samp: SamplingVectors, generator):
+    """Prefill right-padded prompts ``tokens [B, Lp]`` into ``slot_ids``
+    (the program of ``build_prefill_fn``): all ``Lp`` rows of K/V land in
+    the slots, as the JAX package's ``write_prompt_kv`` writes them (the
+    rows past ``true_len`` stay masked until decode overwrites them), the
+    slots' lengths are set and the first token is sampled. Returns
+    ``(next_tokens [B], finished [S])``."""
+    lraw, k_new, v_new = prefill_forward(spec, params, tokens, true_lens)
+    slots = slot_ids.long()
+    write_prompt_kv(kv.k, kv.v, k_new, v_new, slots)
+    kv.lengths[slots] = true_lens.to(torch.int32)
+    return sample_prefill(lraw, slots, finished, samp, generator, max_top_k)
 
 
 class GPTDecoderBase:
@@ -200,3 +348,54 @@ class GPTDecoderBase:
     def decode_step(self, kv, params, finished, last_tokens, samp,
                     generator):
         raise NotImplementedError
+
+
+class GPTStaticDecoder(GPTDecoderBase):
+    """The static-slot decoder over one GPT model: ``new_kv`` returns a
+    :class:`StaticKVCache` on the model's device, and ``prefill`` /
+    ``decode_step`` write it in place. The JAX package's façade also
+    hands out jitted programs through its ``ExecutableCache``; eager
+    PyTorch has none to hand out. Prefix reuse (``tail_prefill``,
+    ``insert_prefix``) is queue A6 and a slot-sharded mesh A10."""
+
+    def __init__(self, model, max_top_k: int = 64, mesh=None,
+                 weight_dtype: str = "float32", kv_dtype: str = "float32"):
+        if mesh is not None:
+            raise _later("a slot-sharded mesh (mesh=...)", "A10")
+        super().__init__(model, max_top_k=max_top_k,
+                         weight_dtype=weight_dtype, kv_dtype=kv_dtype)
+
+    def new_kv(self, num_slots: int, max_seq: int) -> StaticKVCache:
+        if max_seq > self.spec.max_position_embeddings:
+            raise ValueError(
+                f"max_seq {max_seq} exceeds the model's "
+                f"{self.spec.max_position_embeddings} positions")
+        dtype = self._model.gpt.word_embeddings.weight.dtype
+        return StaticKVCache(num_slots, self.spec.num_layers, max_seq,
+                             self.spec.num_heads, self.spec.head_dim,
+                             dtype=dtype, device=self.device)
+
+    @torch.no_grad()
+    def prefill(self, kv: StaticKVCache, params, tokens, true_lens,
+                slot_ids, finished, samp, generator):
+        return static_prefill(self.spec, self.max_top_k, params, kv, tokens,
+                              true_lens, slot_ids, finished, samp, generator)
+
+    @torch.no_grad()
+    def decode_step(self, kv: StaticKVCache, params, finished, last_tokens,
+                    samp, generator):
+        return static_decode_step(self.spec, self.max_top_k, params, kv,
+                                  finished, last_tokens, samp, generator)
+
+    @torch.no_grad()
+    def decode_logits(self, kv: StaticKVCache, params, last_tokens):
+        """One decode step's logits on the current cache state, without
+        advancing the lengths (for holding the slot lane against the
+        paged lanes on the same prompts)."""
+        return static_decode_logits(self.spec, params, kv, last_tokens)
+
+    def tail_prefill(self, *args, **kw):
+        raise _later("prefix reuse (tail_prefill)", "A6")
+
+    def insert_prefix(self, *args, **kw):
+        raise _later("prefix reuse (insert_prefix)", "A6")

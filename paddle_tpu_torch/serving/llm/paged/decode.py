@@ -32,7 +32,8 @@ import torch
 from ....nn.functional import gelu, softmax
 from ....ops.paged_attention import paged_attention, takes
 from ..decode import (GPTDecodeSpec, GPTDecoderBase, SamplingVectors,
-                      _block_prefill, _layer_norm, _sample)
+                      _layer_norm, prefill_forward, sample_prefill,
+                      sample_step)
 from ..kvcache import kv_layer_view, valid_mask
 from .pool import (PagedKVCache, paged_gather_rows, paged_write_prompt_rows,
                    paged_write_rows)
@@ -108,37 +109,21 @@ def paged_decode_step(spec: GPTDecodeSpec, max_top_k: int, params,
     ``kv.lengths += 1`` for every slot (inactive slots compute junk that
     the scheduler discards). Returns ``(next_tokens [S], finished [S])``."""
     lraw = paged_decode_logits(spec, params, kv, last_tokens, attn_impl)
-    nxt = _sample(lraw, samp.temperature, samp.top_k, samp.do_sample,
-                  generator, max_top_k)
-    has_eos = samp.eos >= 0
-    nxt = torch.where(finished & has_eos, samp.eos, nxt)
-    finished = finished | ((nxt == samp.eos) & has_eos)
-    kv.lengths += 1
-    return nxt, finished
+    return sample_step(lraw, kv.lengths, finished, samp, generator,
+                       max_top_k)
 
 
 def paged_prefill(spec: GPTDecodeSpec, max_top_k: int, params,
                   kv: PagedKVCache, tokens, true_lens, slot_ids, finished,
                   samp: SamplingVectors, generator):
     """Prefill right-padded prompts ``tokens [B, Lp]`` into ``slot_ids``:
-    the dense causal forward of ``_block_prefill``, the K/V rows written
+    the dense causal forward of ``prefill_forward``, the K/V rows written
     through each slot's block table (padding junk to the trash page), the
     slots' lengths set, and the first token sampled. Returns
     ``(next_tokens [B], finished [S])``."""
-    scale = 1.0 / math.sqrt(spec.head_dim)
+    lraw, k_new, v_new = prefill_forward(spec, params, tokens, true_lens)
     b, lp_len = tokens.shape
-    dev = tokens.device
-    pos = torch.arange(lp_len, device=dev)
-    h = params["tok"][tokens.long()] + params["pos"][pos][None]   # [B, L, E]
-    mask = torch.triu(torch.full((lp_len, lp_len), -1e9, dtype=h.dtype,
-                                 device=dev), 1)[None, None]
-    kcs, vcs = [], []
-    for lp in params["layers"]:
-        h, k, v = _block_prefill(spec, lp, h, mask, scale)
-        kcs.append(k)
-        vcs.append(v)
-    k_new = torch.stack(kcs, dim=1)                    # [B, L, Lp, H, D]
-    v_new = torch.stack(vcs, dim=1)
+    pos = torch.arange(lp_len, device=tokens.device)
     ppos = pos % kv.page_size
     page_idx = pos // kv.page_size                     # < PP: buckets fit
     block_tables = kv.block_tables
@@ -150,14 +135,7 @@ def paged_prefill(spec: GPTDecodeSpec, max_top_k: int, params,
         paged_write_prompt_rows(kv.k, k_new[i].transpose(0, 1), pid, ppos)
         paged_write_prompt_rows(kv.v, v_new[i].transpose(0, 1), pid, ppos)
     kv.lengths[slots] = true_lens.to(torch.int32)
-    h = _layer_norm(h, params["fnw"], params["fnb"], spec.ln_epsilon)
-    last = h[torch.arange(b, device=dev), true_lens.long() - 1]    # [B, E]
-    lraw = (last @ params["tok"].t()).float()
-    nxt = _sample(lraw, samp.temperature, samp.top_k, samp.do_sample,
-                  generator, max_top_k)
-    finished = finished.clone()
-    finished[slots] = (nxt == samp.eos) & (samp.eos >= 0)
-    return nxt, finished
+    return sample_prefill(lraw, slots, finished, samp, generator, max_top_k)
 
 
 class GPTPagedDecoder(GPTDecoderBase):

@@ -12,10 +12,12 @@ next-token vector, which streaming needs on the host anyway.
 Drain stops admission and lets the worker finish every in-flight and
 queued sequence; ``pause_admission`` stops admission alone; ``kill``
 fails the queue and aborts the in-flight sequences before the next tick.
-This slice serves ``kv_layout="paged"`` only; the knobs of later slices
-(``kv_layout="slot"``, ``spec_k > 0``, ``prefix_cache``, int8 weights or
-KV) raise ``NotImplementedError`` naming the queue item in
-``ROADMAP.md``; crash recovery (evacuation for replay), migration and
+Both KV layouts are served: ``kv_layout="slot"`` (the default, the
+static-slot :class:`GPTStaticDecoder` under this module's
+:class:`ContinuousBatcher`) and ``kv_layout="paged"`` (``paged/``). The
+knobs of later slices (``spec_k > 0``, ``prefix_cache``, int8 weights or
+KV, ``measure_mfu``) raise ``NotImplementedError`` naming the queue item
+in ``ROADMAP.md``; crash recovery (evacuation for replay), migration and
 weight hot-swap are not ported yet.
 """
 from __future__ import annotations
@@ -36,16 +38,12 @@ from ..engine import DrainableEngineBase
 from ..queue import BatchQueue
 from ..request import (Deadline, DeadlineExceeded, EngineDraining,
                        EngineKilled, RequestTooLarge)
-from .decode import GPTDecoderBase, SamplingParams, pack_sampling
+from .decode import (GPTDecoderBase, GPTStaticDecoder, SamplingParams,
+                     pack_sampling)
+from .kvcache import _later
 
 _REQ_IDS = itertools.count(1)
 _STREAM_END = object()
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: a later slice of the port "
-        f"(ROADMAP.md queue {item})")
 
 
 class GenerationRequest:
@@ -453,8 +451,6 @@ class LLMEngine(DrainableEngineBase):
                  draft_model=None):
         self._config = config or LLMEngineConfig()
         cfg = self._config
-        if cfg.kv_layout != "paged":
-            raise _later("kv_layout='slot' (the static-slot decoder)", "A5")
         if cfg.spec_k > 0 or draft_model is not None:
             raise _later("speculative decoding (spec_k > 0)", "A6")
         if cfg.prefix_cache:
@@ -462,12 +458,21 @@ class LLMEngine(DrainableEngineBase):
         if cfg.measure_mfu:
             raise _later("measure_mfu", "A8")
         self._init_serving_base(registry, cfg.stat_prefix)
-        from .paged import GPTPagedDecoder, PagedBatcher
-        self._decoder = GPTPagedDecoder(
-            model, max_top_k=cfg.max_top_k, weight_dtype=cfg.weight_dtype,
-            kv_dtype=cfg.kv_dtype, page_size=cfg.page_size,
-            num_pages=cfg.num_pages, attn_impl=cfg.paged_attn_impl)
-        self._batcher = PagedBatcher(self._decoder, cfg, self._registry)
+        if cfg.kv_layout == "paged":
+            # lazy import: paged/batcher imports this module's classes
+            from .paged import GPTPagedDecoder, PagedBatcher
+            self._decoder = GPTPagedDecoder(
+                model, max_top_k=cfg.max_top_k,
+                weight_dtype=cfg.weight_dtype, kv_dtype=cfg.kv_dtype,
+                page_size=cfg.page_size, num_pages=cfg.num_pages,
+                attn_impl=cfg.paged_attn_impl)
+            self._batcher = PagedBatcher(self._decoder, cfg, self._registry)
+        else:
+            self._decoder = GPTStaticDecoder(
+                model, max_top_k=cfg.max_top_k,
+                weight_dtype=cfg.weight_dtype, kv_dtype=cfg.kv_dtype)
+            self._batcher = ContinuousBatcher(self._decoder, cfg,
+                                              self._registry)
         self._queue = BatchQueue(max_size=cfg.max_queue)
         if cfg.warmup:
             self._batcher.warmup()
@@ -563,9 +568,12 @@ class LLMEngine(DrainableEngineBase):
         return inflight
 
     def stats(self) -> dict:
-        """Scalar stats, histogram summaries, slot and page occupancy."""
+        """Scalar stats, histogram summaries, slot occupancy, the KV
+        buffers' device bytes, and page occupancy (paged layout; None for
+        the slot layout)."""
         pre = self._prefix + "."
         kv = self._batcher.kv
+        paged = self._config.kv_layout == "paged"
         return {
             "stats": self._registry.stats_with_prefix(pre),
             "histograms": self._registry.histograms_with_prefix(pre),
@@ -577,10 +585,11 @@ class LLMEngine(DrainableEngineBase):
             "role": self._config.role,
             "kv_layout": self._config.kv_layout,
             "device": str(self._decoder.device),
-            "pages": {"total": kv.pool.num_pages,
-                      "free": kv.pool.free_pages,
-                      "pending": len(self._batcher._pending),
-                      "kv_bytes": kv.kv_bytes()},
+            "kv_bytes": kv.kv_bytes(),
+            "pages": ({"total": kv.pool.num_pages,
+                       "free": kv.pool.free_pages,
+                       "pending": len(self._batcher._pending),
+                       "kv_bytes": kv.kv_bytes()} if paged else None),
         }
 
     # -- worker --------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 version (B1-B3 in float32, bfloat16 and float16), the wrappers' refusals
 (no fallback on a CUDA tensor), the GPT forward, an O1 bfloat16 train step
-and the paged engine through the kernels at a small size, and the YOLOv3
-detection path (greedy NMS on the card against the CPU).
+and the paged engine through the kernels at a small size, ``generate`` in
+its three cache modes and the default static-slot engine against the CPU,
+and the YOLOv3 detection path (greedy NMS on the card against the CPU).
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither jax nor the JAX package, so on a machine with a card but
@@ -336,6 +337,95 @@ def test_default_paged_engine_serves_head_dim_80_through_the_kernel(cuda):
             GPTPagedDecoder(odd, page_size=4, attn_impl=impl)
     assert GPTPagedDecoder(odd, page_size=4,
                            attn_impl="gather").attn_impl == "gather"
+
+
+def _cpu_twin(model):
+    twin = GPTForCausalLM(GPTConfig(**MODEL), device="cpu").eval()
+    twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return twin
+
+
+def test_generate_on_the_card_matches_the_cpu(cuda):
+    """``generate`` in all three cache modes on the card gives the same
+    model's CPU tokens; the recompute lane launches B1 once a layer a
+    step, the static and concat lanes never."""
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    ids = np.random.default_rng(2).integers(0, MODEL["vocab_size"], (2, 9))
+    ref = _cpu_twin(model).generate(ids, max_length=12).numpy()
+    for use_cache in (True, "concat", False):
+        before = tfa.flash_attention_fwd.launches
+        out = model.generate(ids, max_length=12, use_cache=use_cache)
+        launched = tfa.flash_attention_fwd.launches - before
+        assert out.device.type == "cuda" and out.dtype == torch.int32
+        np.testing.assert_array_equal(out.cpu().numpy(), ref)
+        assert launched == (MODEL["num_layers"] * 12
+                            if use_cache is False else 0)
+
+
+def test_generate_past_the_position_table_on_the_card(cuda):
+    """Positions past the table embed as NaN (the JAX package's gather)
+    instead of indexing past it, which on CUDA is a device-side assert:
+    the call returns the CPU's tokens, and the card is usable after."""
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    n_pos = MODEL["max_position_embeddings"]
+    ids = np.random.default_rng(4).integers(0, MODEL["vocab_size"],
+                                            (2, n_pos - 5))
+    ref = _cpu_twin(model).generate(ids, max_length=8).numpy()
+    for use_cache in (True, "concat", False):
+        out = model.generate(ids, max_length=8, use_cache=use_cache)
+        np.testing.assert_array_equal(out.cpu().numpy(), ref)
+    torch.cuda.synchronize()
+    assert torch.ones(2, device=cuda).sum().item() == 2.0
+
+
+def test_slot_decode_with_a_free_slot_past_max_seq(cuda):
+    """Every slot advances every tick, free ones included: a slot whose
+    length is past max_seq writes its last row (clamped) instead of a
+    device-side assert, and the live slots' logits are unchanged."""
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    from paddle_tpu_torch.serving.llm.decode import (SamplingParams,
+                                                     pack_sampling)
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    dec = GPTStaticDecoder(model)
+    kv, params = dec.new_kv(3, 16), dec.params()
+    toks = torch.arange(1, 9, dtype=torch.int32, device=cuda)[None]
+    samp = pack_sampling([SamplingParams()], cuda)
+    fin = torch.zeros(3, dtype=torch.bool, device=cuda)
+    nxt, fin = dec.prefill(kv, params, toks,
+                           torch.tensor([6], dtype=torch.int32, device=cuda),
+                           torch.tensor([0], dtype=torch.int32, device=cuda),
+                           fin, samp, None)
+    last = torch.stack([nxt[0], nxt[0], nxt[0]]).to(torch.int32)
+    live = dec.decode_logits(kv, params, last)[0]
+    kv.lengths[1] = 16
+    kv.lengths[2] = 1000
+    torch.testing.assert_close(dec.decode_logits(kv, params, last)[0], live,
+                               rtol=0, atol=0)
+    samp3 = pack_sampling([SamplingParams()] * 3, cuda)
+    for _ in range(3):
+        last, fin = dec.decode_step(kv, params, fin, last, samp3, None)
+    assert kv.host_lengths().tolist() == [9, 19, 1003]
+    assert torch.isfinite(live).all()
+
+
+def test_default_engine_serves_the_slot_layout_on_the_card(cuda):
+    """``LLMEngine(model)`` with no ``kv_layout``: the static-slot
+    decoder on the card, with the CPU model's tokens."""
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    prompts = [[3, 1, 4, 1, 5], [9, 2, 6], list(range(1, 20))]
+    eng = LLMEngine(model, LLMEngineConfig(num_slots=4, max_seq=64))
+    assert isinstance(eng.decoder, GPTStaticDecoder)
+    assert eng.stats()["kv_layout"] == "slot"
+    try:
+        reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        tokens = [r.result(timeout=120)["tokens"] for r in reqs]
+    finally:
+        eng.drain(timeout=60)
+    twin = _cpu_twin(model)
+    for p, t in zip(prompts, tokens):
+        ref = twin.generate(np.array([p]), max_length=8).numpy()[0]
+        assert t == ref[len(p):].tolist()
 
 
 def _bwd_case(cuda, dtype, b, sq, skv, h, d, causal, seed=9):

@@ -95,7 +95,7 @@ def _tiny_model():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kv_layout="slot"),
+    dict(kv_layout="slot", kv_dtype="int8"),
     dict(kv_layout="paged", page_size=4, spec_k=2),
     dict(kv_layout="paged", page_size=4, prefix_cache=True),
     dict(kv_layout="paged", page_size=4, kv_dtype="int8"),
