@@ -13,7 +13,9 @@ Phases (any failure raises and the script exits non-zero):
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it (B1, B2 and B3 in fp32 also against
    float64 formulas; B1-B4 two launches against each other, bit for
-   bit; B1 also at generate's short causal lengths, B=2, S 64 to 96),
+   bit; B1 also at generate's short causal lengths, B=2, S 64 to 96;
+   B4 also captured in a CUDA graph and replayed 20 times on new queries
+   and positions, each replay within 1e-4 of its plain version),
    and time kernel, plain version and, where one exists, the single
    PyTorch call computing the same function: for B1 the forward of
    ``scaled_dot_product_attention``, for B2 and B3 together its backward
@@ -29,25 +31,38 @@ Phases (any failure raises and the script exits non-zero):
    through the flash kernel, held against the same model's dense
    attention;
 4. the serving path, part two: the paged ``LLMEngine`` serving 8 greedy
-   requests of 32 new tokens;
-5. checks and timings off the main paths: the forward's device time with
-   flash and with dense attention, one decode step's logits, kernel lane
-   against gather lane, on one cache state, and torch.profiler breakdowns
-   of a forward and of a decode step (device busy share, time by kernel);
+   requests of 32 new tokens, its decode step and prefill buckets
+   captured as CUDA graphs at warm-up and replayed (``core/graphs.py``:
+   one decode capture, every tick a replay, B4's 24 launches inside it;
+   capture ms per signature and the graph pool's bytes printed);
+5. checks and timings off the main paths: the same engine config on the
+   eager lane (``disable_graphs``), whose tokens must equal the graphed
+   lane's and whose tick is printed beside it; the forward's device time
+   with flash and with dense attention, one decode step's logits, kernel
+   lane against gather lane, on one cache state, the graphed kernel
+   lane's logits bitwise against the eager one's, and torch.profiler
+   breakdowns of a forward and of a decode step in both lanes (device
+   busy share, time by kernel, the SM clock, power and temperature
+   sampled in the window), with the replay's host ms a step and its
+   device ms on the device's clock;
 6. the static-slot decode plane and ``generate`` on the same model: (a)
    the default ``LLMEngine`` layout (``kv_layout="slot"``) serving phase
    4's 8 prompts, 32 greedy new tokens each (tokens/s, tick, TTFT,
    ``kv_bytes``, peak memory, and how many token lists equal the paged
-   lane's, printed only); (b) one decode step's logits, slot lane against
+   lane's, printed only), graphed as phase 4, then on the eager lane
+   (tokens equal, tick beside); (b) one decode step's logits, slot lane against
    the paged gather lane, on the same 8 prefilled prompts, and a
-   torch.profiler breakdown of a slot decode step (host wall, device busy
-   share, kernels by time, copy kernels, bytes the step allocates and
-   must read), and one layer's attention timed in its block-diagonal form
+   torch.profiler breakdown of a slot decode step in both lanes (host
+   wall, device busy share, kernels by time, copy kernels, bytes the
+   step allocates and must read), and one layer's attention timed in its block-diagonal form
    over the slot-major buffers and as plain matmuls over a layer-major
    copy; (c) ``model.generate`` on a [2, 64] prompt, 32 new tokens,
    in its three cache modes (static slot, concat, recompute), timed in ms
    per generated token, the recompute lane launching B1 once a layer a
-   step; held against the dense forward (no B1): the recompute lane's
+   step, the static lane replaying its captured prefill and decode step
+   (a second call captures nothing; its eager lane's tokens equal, its
+   ms per token and both lanes' device ms a token printed beside);
+   held against the dense forward (no B1): the recompute lane's
    last flash forward gives its logits within 2e-3, every generated
    token of each mode is its argmax over that mode's sequence, and two
    modes part only there (a mismatch passes only at a near-tie, top-2
@@ -82,7 +97,9 @@ Phases (any failure raises and the script exits non-zero):
    kernel lane's detections against the plain lane's on the same IoU
    (bitwise), and a torch.profiler breakdown of one served batch.
 
-Every launch count (and B1-B3's counts by input type) is set to 0 just
+A replay of a captured graph adds to each kernel's count the launches
+the graph captured. Every launch count (and B1-B3's counts by input
+type) is set to 0 just
 before phase 3 and read after phase 4 (the paged serving path), set to 0
 just before phase 6a and read after it (the slot serving path, which
 runs no kernel: its attention is dense, as the JAX package's), just
@@ -651,6 +668,7 @@ def check_paged(torch, pa_mod, gen):
         else:
             row.update(full_ms=ms, full_bound_ms=bms, full_max_abs_err=err,
                        full_shape="all 8 sequences at position 1023")
+    row.update(check_paged_replay(torch, pa_mod, gen, q, kb, vb, bt))
     positions = torch.tensor(PAGED_CASES[0][1], dtype=torch.int32,
                              device="cuda")
     others = {}
@@ -676,6 +694,58 @@ def check_paged(torch, pa_mod, gen):
                                    "bound_ms": bms, "bound_by": by}
     row["head_dims"] = others
     return row
+
+
+class _GraphState:
+    """A captured program's state for a lone kernel: its graph pool."""
+
+    def __init__(self, graphs, device):
+        self.graph_pool = graphs.GraphPool(device)
+
+
+PAGED_REPLAYS = 20
+
+
+def check_paged_replay(torch, pa_mod, gen, q, kb, vb, bt):
+    """B4 captured once in a CUDA graph at the main case's shapes, then
+    replayed PAGED_REPLAYS times on new queries and positions (copied
+    into the graph's inputs; positions anywhere up to past the table):
+    each replay within TOL of the plain version, so every launch leaves
+    its tickets zero, and each replay counts one launch."""
+    from paddle_tpu_torch.core import graphs
+    prog = graphs.Program(lambda params, state, q, positions:
+                          pa_mod.paged_attention(q, kb, vb, bt, positions))
+    limit = bt.shape[1] * kb.shape[1] + 3
+    before = pa_mod.paged_attention.launches
+    state = _GraphState(graphs, q.device)
+    prog(None, state, q.clone(),
+         torch.randint(0, limit, (q.shape[0],), generator=gen,
+                       device="cuda", dtype=torch.int32))
+    err = 0.0
+    for _ in range(PAGED_REPLAYS):
+        qi = torch.randn(q.shape, generator=gen, device="cuda")
+        pi = torch.randint(0, limit, (q.shape[0],), generator=gen,
+                           device="cuda", dtype=torch.int32)
+        out = prog(None, state, qi, pi)
+        ref = pa_mod.paged_attention_plain(qi, kb, vb, bt, pi)
+        err = max(err, (out - ref).abs().max().item())
+    launched = pa_mod.paged_attention.launches - before
+    log(f"B4 captured once, replayed {prog.replays} times on new inputs: "
+        f"max_abs_err {err:.3e} (tol {TOL['fp32']:.0e}); launches counted "
+        f"{launched} (1 warm-up + {prog.replays} replays)")
+    if err > TOL["fp32"] or prog.replays != PAGED_REPLAYS or \
+            launched != PAGED_REPLAYS + 1:
+        raise RuntimeError("paged attention kernel replayed from a CUDA "
+                           "graph disagrees with its plain version")
+    return {"replay_max_abs_err": err, "replays_checked": PAGED_REPLAYS}
+
+
+def release_memory(torch):
+    """Collect engines gone out of scope (their KV caches, and with them
+    the graphs bound to those caches) and return the cached blocks."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _nms_case(torch, det_mod, gen, p_n, k, kind="boxes", side=608.0):
@@ -892,10 +962,76 @@ def run_serving(torch, model, pa_mod, rng, card, cfg, lens):
     if launched != cfg["num_layers"] * (ticks + warm_steps):
         raise RuntimeError(f"B4 launched {launched} times for {ticks} "
                            f"ticks (+{warm_steps} warmup)")
+    graph = graph_report(eng, ticks, "paged")
     return ({"tokens_per_s": n_tok / wall, "tick_ms_mean": tick["mean"],
              "tick_ms_p50": tick["p50"], "ticks": ticks,
-             "ttft_ms_p50": ttft["p50"]},
+             "ttft_ms_p50": ttft["p50"], "warmup_s": t_warm, **graph},
             prompts, [r["tokens"] for r in results])
+
+
+def graph_report(eng, ticks, label):
+    """The engine's compiled programs after its run: one decode capture
+    replayed once a tick, one capture per prefill bucket, capture ms per
+    signature, and the graph pool's bytes beside ``kv_bytes``. Raises if
+    the ticks did not all replay the one captured decode step."""
+    dec, cfg = eng.decoder, eng.config
+    fn = dec.decode_fn(cfg.num_slots, cfg.max_seq)
+    caps = {f"decode_{cfg.num_slots}x{cfg.max_seq}": fn.capture_ms}
+    for b in cfg.prefill_buckets:
+        caps[f"prefill_1x{b}"] = dec.prefill_fn(1, b).capture_ms
+    stats = eng.stats()
+    out = {"capture_ms": caps, "decode_traces": fn.trace_counter["traces"],
+           "decode_replays": fn.replays,
+           "graph_pool_bytes": stats["graph_pool_bytes"],
+           "kv_bytes": stats["kv_bytes"],
+           "executable_cache": stats["executable_cache"]}
+    log(f"{label} engine graphs: decode traces {out['decode_traces']}, "
+        f"replays {fn.replays} ({ticks} ticks); capture ms "
+        + ", ".join(f"{k} {'/'.join(f'{x:.1f}' for x in v)}"
+                    for k, v in caps.items())
+        + f"; graph pool {out['graph_pool_bytes']} bytes beside kv_bytes "
+        f"{out['kv_bytes']}; executable cache {out['executable_cache']}")
+    if out["decode_traces"] != 1 or fn.replays != ticks or \
+            any(len(v) != 1 for v in caps.values()):
+        raise RuntimeError(f"{label} engine: the decode step was not "
+                           f"captured once and replayed every tick")
+    return out
+
+
+def run_eager_lane(torch, model, cfg, prompts, graphed, tokens, layout):
+    """The same engine config and requests on the eager lane
+    (``disable_graphs``: every program runs as its plain function): its
+    tick beside the graphed lane's; the token lists must be equal."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+    extra = (dict(kv_layout="paged", page_size=16, paged_attn_impl="kernel")
+             if layout == "paged" else dict(kv_layout="slot"))
+    with graphs.disable_graphs():
+        eng = LLMEngine(model, LLMEngineConfig(
+            num_slots=8, max_seq=cfg["max_position_embeddings"], seed=0,
+            **extra))
+        t0 = time.perf_counter()
+        try:
+            reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+            results = [r.result(timeout=600) for r in reqs]
+            wall = time.perf_counter() - t0
+            stats = eng.stats()
+        finally:
+            eng.drain(timeout=60)
+    tick = stats["histograms"]["serving.llm.decode_tick_ms"]
+    n_tok = sum(len(r["tokens"]) for r in results)
+    same = [r["tokens"] for r in results] == tokens
+    log(f"{layout} engine tick: graphed mean {graphed['tick_ms_mean']:.3f} "
+        f"ms p50 {graphed['tick_ms_p50']:.3f} ms ({graphed['tokens_per_s']:.1f} "
+        f"tokens/s); eager lane mean {tick['mean']:.3f} ms p50 "
+        f"{tick['p50']:.3f} ms ({n_tok / wall:.1f} tokens/s); token lists "
+        f"equal: {same}")
+    if not same:
+        raise RuntimeError(f"{layout} engine: the graphed lane's tokens "
+                           f"differ from the eager lane's")
+    return {"eager_tick_ms_mean": tick["mean"], "eager_tick_ms_p50":
+            tick["p50"], "eager_tokens_per_s": n_tok / wall,
+            "eager_tokens_equal": same}
 
 
 def compare_lanes(torch, model, rng, cfg, lens, dev):
@@ -932,7 +1068,33 @@ def compare_lanes(torch, model, rng, cfg, lens, dev):
         f"{err:.3e} (tol {LOGIT_TOL}), argmax equal {same}")
     if err > LOGIT_TOL or not torch.isfinite(lk).all():
         raise RuntimeError("paged kernel lane disagrees with gather lane")
+    graphed = graphed_logits(torch, dec, kv, params, last, "kernel")
+    bitwise = torch.equal(graphed, lk)
+    log(f"decode logits kernel lane replayed from a CUDA graph (B4 inside) "
+        f"vs eager: bitwise equal {bitwise}, max_abs_err "
+        f"{(graphed - lk).abs().max().item():.3e}")
+    if not bitwise:
+        raise RuntimeError("the replayed kernel lane's logits differ from "
+                           "the eager lane's")
     return dec, kv, params, last
+
+
+def graphed_logits(torch, dec, kv, params, last, attn_impl):
+    """One paged decode step's logits on the cache's current state from a
+    captured CUDA graph: its first call (warm-up and capture), then the
+    replay's output."""
+    import functools
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.serving.llm.paged import paged_decode_logits
+    prog = graphs.Program(functools.partial(
+        paged_decode_logits, dec.spec, attn_impl=attn_impl))
+    kv.refresh_block_tables()
+    with torch.no_grad():
+        prog(params, kv, last)
+        out = prog(params, kv, last).clone()
+    if prog.replays != 1:
+        raise RuntimeError("graphed_logits did not replay")
+    return out
 
 
 def time_forward(torch, model, rng, cfg, dev):
@@ -951,10 +1113,25 @@ def time_forward(torch, model, rng, cfg, dev):
     return out
 
 
+def smi_sample():
+    """Start one ``nvidia-smi`` query of the SM clock, power draw and
+    temperature; returns a function that waits for it and gives its
+    line (the sample lands in the window that follows, or just after)."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], stdout=subprocess.PIPE, text=True)
+
+    def read():
+        out, _ = proc.communicate(timeout=60)
+        return out.strip().splitlines()[0] if out.strip() else "?"
+    return read
+
+
 def profile_steps(torch, label, step, steps, ranges=(), memory=False):
     """Where one step's time goes: host wall per step without the
     profiler (each step ends in a host fetch or a synchronize), then
-    device time per step and by kernel from torch.profiler. ``ranges``
+    device time per step and by kernel from torch.profiler, with the SM
+    clock, power and temperature sampled in that window. ``ranges``
     names record_function ranges the step opens: their rows on the
     device's timeline are spans, not kernels, and are left out. With
     ``memory``, also the device bytes the step's operators allocate
@@ -966,10 +1143,12 @@ def profile_steps(torch, label, step, steps, ranges=(), memory=False):
     for _ in range(steps):
         step()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    sample = smi_sample()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  profile_memory=memory) as prof:
         for _ in range(steps):
             step()
+    smi = sample()
     rows = []
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA") or e.key in ranges:
@@ -984,11 +1163,12 @@ def profile_steps(torch, label, step, steps, ranges=(), memory=False):
     log(f"{label}: host wall {wall_ms:.3f} ms, device busy {dev_ms:.3f} ms "
         f"({100 * dev_ms / wall_ms:.1f}% busy, "
         f"{100 - 100 * dev_ms / wall_ms:.1f}% idle), "
-        f"{sum(r[1] for r in rows):.0f} kernels")
+        f"{sum(r[1] for r in rows):.0f} kernels; SM clock, power, "
+        f"temperature {smi}")
     for ms, cnt, key in rows[:10]:
         log(f"  {ms:.3f} ms/step  {cnt:.0f}/step  {key[:100]}")
     out = {"wall_ms": wall_ms, "device_ms": dev_ms, "kernels": rows,
-           "events": prof.events()}
+           "events": prof.events(), "smi": smi}
     if memory:
         # operator-level rows (CPU side) carry the device allocations
         alloc = 0
@@ -1006,7 +1186,12 @@ def profile_steps(torch, label, step, steps, ranges=(), memory=False):
 
 def profile_decode(torch, dec, kv, params, last, dev, steps=10,
                    label="decode step", memory=False):
-    """Where a decode step's time goes, at the engine's 8 slots."""
+    """Where a decode step's time goes, at the engine's 8 slots, in the
+    lane the caller is in (graphed, or eager inside ``disable_graphs``);
+    also the host ms of one step call without the tick's fetch (for a
+    graph: the replay's host cost) and, graphed, the step's device ms on
+    the device's clock (20 replays behind a spin kernel)."""
+    from paddle_tpu_torch.core import graphs
     from paddle_tpu_torch.serving.llm.decode import (SamplingParams,
                                                      pack_sampling)
     n = kv.num_slots
@@ -1016,13 +1201,41 @@ def profile_decode(torch, dec, kv, params, last, dev, steps=10,
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    def step():
+    def launch():
         state["last"], state["fin"] = dec.decode_step(
             kv, params, state["fin"], state["last"], samp, gen)
+
+    def step():
+        launch()
         state["last"].cpu()          # the engine's one fetch per tick
 
-    return profile_steps(torch, f"{label}, {n} slots", step, steps,
-                         memory=memory)
+    lane = "graphed" if graphs.graphs_enabled() else "eager lane"
+    out = profile_steps(torch, f"{label}, {n} slots, {lane}", step, steps,
+                        memory=memory)
+    out["call_host_ms"] = host_time_ms(launch)
+    line = f"  one step call: host {out['call_host_ms']:.4f} ms"
+    if graphs.graphs_enabled():
+        out["call_device_ms"] = time_ms(launch, spin=True)
+        line += f", device {out['call_device_ms']:.4f} ms (events)"
+    log(line)
+    return out
+
+
+def profile_decode_lanes(torch, dec, kv, params, last, dev, label,
+                         memory=False):
+    """:func:`profile_decode` graphed, then on the eager lane on the same
+    cache (each step advances it: the lanes see rows a few dozen apart)."""
+    from paddle_tpu_torch.core import graphs
+    graphed = profile_decode(torch, dec, kv, params, last, dev,
+                             label=label, memory=memory)
+    with graphs.disable_graphs():
+        eager = profile_decode(torch, dec, kv, params, last, dev,
+                               label=label, memory=memory)
+    log(f"{label}: host wall a tick graphed {graphed['wall_ms']:.3f} ms vs "
+        f"eager {eager['wall_ms']:.3f} ms; device {graphed['device_ms']:.3f}"
+        f" vs {eager['device_ms']:.3f} ms (profiler); step call host "
+        f"{graphed['call_host_ms']:.4f} vs {eager['call_host_ms']:.4f} ms")
+    return graphed, eager
 
 
 def profile_forward(torch, model, rng, cfg, dev):
@@ -1079,11 +1292,12 @@ def run_slot_serving(torch, model, card, cfg, prompts, paged_tokens):
         if len(r["tokens"]) != 32:
             raise RuntimeError(f"request {r['req_id']} returned "
                                f"{len(r['tokens'])} tokens, not 32")
+    graph = graph_report(eng, tick["count"], "slot")
     return {"tokens_per_s": n_tok / wall, "tick_ms_mean": tick["mean"],
             "tick_ms_p50": tick["p50"], "ticks": tick["count"],
             "ttft_ms_p50": ttft["p50"], "ttft_ms_max": ttft["max"],
-            "warmup_s": t_warm, "kv_bytes": stats["kv_bytes"],
-            "peak_gib": peak, "equal_to_paged": same}
+            "warmup_s": t_warm, "peak_gib": peak, "equal_to_paged": same,
+            **graph}, [r["tokens"] for r in results]
 
 
 def compare_slot_lanes(torch, model, cfg, prompts, dev):
@@ -1130,8 +1344,8 @@ def profile_slot_decode(torch, dec, kv, params, last, dev):
     step must read (all weights and every slot's max_seq K/V rows), and
     the copy kernels and allocations that a copied layer view would add
     (64 MiB per K or V buffer per layer at 1.3B)."""
-    prof = profile_decode(torch, dec, kv, params, last, dev,
-                          label="slot decode step", memory=True)
+    prof, eager = profile_decode_lanes(torch, dec, kv, params, last, dev,
+                                       "slot decode step", memory=True)
     weights = sum(t.numel() * t.element_size()
                   for t in [params["tok"], params["pos"], params["fnw"],
                             params["fnb"]]
@@ -1149,6 +1363,14 @@ def profile_slot_decode(torch, dec, kv, params, last, dev):
             "step_kernels": sum(r[1] for r in prof["kernels"]),
             "step_bytes_needed": need, "step_copy_ms": copy_ms,
             "step_alloc_bytes": prof["alloc_bytes"],
+            "step_call_host_ms": prof["call_host_ms"],
+            "step_call_device_ms": prof["call_device_ms"],
+            "eager_step_wall_ms": eager["wall_ms"],
+            "eager_step_device_ms": eager["device_ms"],
+            "eager_step_kernels": sum(r[1] for r in eager["kernels"]),
+            "eager_step_call_host_ms": eager["call_host_ms"],
+            "eager_step_alloc_bytes": eager["alloc_bytes"],
+            "step_smi": prof["smi"], "eager_step_smi": eager["smi"],
             **time_slot_attention(torch, kv, dev)}
 
 
@@ -1291,6 +1513,8 @@ def check_generate(torch, model, ids, outs, first_ms, runs=2):
         if bad:
             raise RuntimeError(f"generate({name}) disagrees with the dense "
                                f"forward at {bad} positions")
+    res["static"].update(generate_lanes(torch, model, ids, outs["static"],
+                                        res["static"]["ms_per_token"]))
     parts = {n: _first_differences(outs["static"], outs[n])
              for n in ("concat", "recompute")}
     off_tie = [(n, r, c) for n, p in parts.items() for r, c in p
@@ -1303,6 +1527,64 @@ def check_generate(torch, model, ids, outs, first_ms, runs=2):
         raise RuntimeError(f"generate's modes part away from a near-tie: "
                            f"{off_tie}")
     res["modes_equal"] = same
+    return res
+
+
+def generate_lanes(torch, model, ids, graphed_out, graphed_ms, runs=3):
+    """Phase 6c: the static lane of ``generate`` replays its captured
+    prefill and decode step (a call captures nothing once the path's
+    call has); on the eager lane (``disable_graphs``) it must give the
+    same tokens; ms per token of each lane (median of ``runs`` eager
+    calls beside the graphed median) and each lane's device ms a token
+    from a torch.profiler breakdown of one call."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    b, lin = ids.shape
+    max_seq = 1 << (lin + GEN_NEW - 1).bit_length()
+    dec = GPTStaticDecoder(model, max_top_k=0)
+    fns = (dec.decode_fn(b, max_seq),
+           dec.prefill_fn(b, 1 << (lin - 1).bit_length()))
+    traces = [f.trace_counter["traces"] for f in fns]
+    replays = fns[0].replays
+
+    def call():
+        return model.generate(ids, max_length=GEN_NEW, use_cache=True)
+
+    graphed = profile_steps(torch, f"generate static {tuple(ids.shape)} + "
+                            f"{GEN_NEW}, graphed", call, 1)
+    with graphs.disable_graphs():
+        eager = profile_steps(torch, f"generate static {tuple(ids.shape)} + "
+                              f"{GEN_NEW}, eager lane", call, 1)
+        times, out = [], None
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / GEN_NEW)
+    same = torch.equal(out, graphed_out)
+    new_traces = [f.trace_counter["traces"] - t for f, t in zip(fns, traces)]
+    res = {"eager_ms_per_token": float(np.median(times)),
+           "eager_ms_per_token_runs": times,
+           "device_ms_per_token": graphed["device_ms"] / GEN_NEW,
+           "eager_device_ms_per_token": eager["device_ms"] / GEN_NEW,
+           "decode_replays_per_call": (fns[0].replays - replays) / 3,
+           "decode_capture_ms": fns[0].capture_ms,
+           "prefill_capture_ms": fns[1].capture_ms,
+           "eager_tokens_equal": same, "smi": graphed["smi"],
+           "eager_smi": eager["smi"]}
+    log(f"generate static lane: graphed {graphed_ms:.2f} ms per token vs "
+        f"eager {res['eager_ms_per_token']:.2f} (runs "
+        f"{', '.join(f'{t:.2f}' for t in times)}); device "
+        f"{res['device_ms_per_token']:.3f} vs "
+        f"{res['eager_device_ms_per_token']:.3f} ms a token; decode "
+        f"replays a call {res['decode_replays_per_call']:.0f}, new captures "
+        f"{new_traces}; capture ms decode {fns[0].capture_ms} prefill "
+        f"{fns[1].capture_ms}; eager lane's tokens equal: {same}")
+    if not same or any(new_traces) or \
+            res["decode_replays_per_call"] != GEN_NEW - 1:
+        raise RuntimeError("generate's static lane did not replay its "
+                           "graphs, or its eager lane's tokens differ")
     return res
 
 
@@ -1878,29 +2160,44 @@ def main() -> int:
         if serve_launches[name] < 1:
             raise RuntimeError(f"kernel {name} was not launched on the "
                                f"serving path")
-    torch.cuda.empty_cache()
+    release_memory(torch)
     stamp("5 serving checks")
+    serve.update(run_eager_lane(torch, model, CFG_13B, prompts, serve,
+                                paged_tokens, "paged"))
+    release_memory(torch)
     time_forward(torch, model, rng, CFG_13B, dev)
     profile_forward(torch, model, rng, CFG_13B, dev)
     dec, kv, params, last = compare_lanes(torch, model, rng, CFG_13B,
                                           PROMPT_LENS, dev)
-    profile_decode(torch, dec, kv, params, last, dev)
+    graphed_step, eager_step = profile_decode_lanes(
+        torch, dec, kv, params, last, dev, "paged decode step")
+    serve.update(step_wall_ms=graphed_step["wall_ms"],
+                 step_device_ms=graphed_step["device_ms"],
+                 step_call_host_ms=graphed_step["call_host_ms"],
+                 step_call_device_ms=graphed_step["call_device_ms"],
+                 eager_step_wall_ms=eager_step["wall_ms"],
+                 eager_step_device_ms=eager_step["device_ms"],
+                 eager_step_call_host_ms=eager_step["call_host_ms"],
+                 step_smi=graphed_step["smi"], eager_step_smi=eager_step["smi"])
     del dec, kv, params, last
-    torch.cuda.empty_cache()
+    release_memory(torch)
 
     # -- phase 6: static-slot serving and generate ----------------------------
     stamp("6 slot serving and generate")
     reset_counters()
-    slot = run_slot_serving(torch, model, card, CFG_13B, prompts,
-                            paged_tokens)
+    slot, slot_tokens = run_slot_serving(torch, model, card, CFG_13B,
+                                         prompts, paged_tokens)
     slot_launches = read_counters()
     log(f"slot serving path launches: {slot_launches}")
-    torch.cuda.empty_cache()
+    release_memory(torch)
+    slot.update(run_eager_lane(torch, model, CFG_13B, prompts, slot,
+                               slot_tokens, "slot"))
+    release_memory(torch)
     sdec, skv, sparams, slast = compare_slot_lanes(torch, model, CFG_13B,
                                                    prompts, dev)
     slot.update(profile_slot_decode(torch, sdec, skv, sparams, slast, dev))
     del sdec, skv, sparams, slast
-    torch.cuda.empty_cache()
+    release_memory(torch)
     # a generator of its own keeps the later phases' batches as they were
     gen_ids = torch.from_numpy(np.random.default_rng(8).integers(
         0, CFG_13B["vocab_size"], GEN_BATCH)).to(dev)
@@ -1913,7 +2210,7 @@ def main() -> int:
                            "the generate path")
     gen = check_generate(torch, model, gen_ids, gen_outs, gen_ms)
     del model, gen_outs
-    torch.cuda.empty_cache()
+    release_memory(torch)
 
     # -- phase 7: the training path ------------------------------------------
     stamp("7 training path")

@@ -15,6 +15,9 @@ tensor- and pipeline-parallel plans are not ported yet.
 """
 from __future__ import annotations
 
+import threading
+import weakref
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Optional
 
@@ -197,43 +200,104 @@ def _sampling(model, b: int, decode_strategy, top_k, temperature,
     return max_top_k, pack_sampling([samp] * b, model.device), gen
 
 
+class _StaticState:
+    """What ``generate``'s static-slot lane keeps between calls of one
+    model and shape: the KV cache its compiled programs are bound to and
+    the per-step static buffers, so a second call replays them, and the
+    lock that makes concurrent calls on them take turns."""
+
+    def __init__(self, dec, b: int, max_seq: int, svecs):
+        dev = dec.device
+        self.lock = threading.Lock()
+        self.kv = dec.new_kv(b, max_seq)
+        self.finished = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.last = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.svecs = type(svecs)(*(v.clone() for v in svecs))
+        self.slots = torch.arange(b, dtype=torch.int32, device=dev)
+
+
+#: generate's static-slot states per model, the newest few shapes each
+_STATIC_STATES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_STATIC_STATES_LOCK = threading.Lock()
+_STATIC_STATES_PER_MODEL = 4
+
+
+def _static_state(model, dec, b, max_seq, svecs, gen) -> _StaticState:
+    """The model's static-slot state for ``b`` rows of ``max_seq``, the
+    sampling bound and generator, and the weights where they lie (moved
+    weights make a new state; the old one ages out), made on first use;
+    the newest :data:`_STATIC_STATES_PER_MODEL` are kept."""
+    key = (b, max_seq, dec.max_top_k, gen is None,
+           tuple(p.data_ptr() for p in model.parameters()))
+    with _STATIC_STATES_LOCK:
+        states = _STATIC_STATES.setdefault(model, OrderedDict())
+        st = states.get(key)
+        if st is None:
+            st = states[key] = _StaticState(dec, b, max_seq, svecs)
+            while len(states) > _STATIC_STATES_PER_MODEL:
+                states.popitem(last=False)
+        states.move_to_end(key)
+        return st
+
+
+def _decode_static(dec, st, ids, lin, lp, max_length, svecs, gen,
+                   eos_token_id):
+    """The prefill and decode loop of :func:`_gpt_generate_static` on the
+    state's cache and buffers; returns ``(tokens [B, max_length], steps
+    taken)``."""
+    b, dev = int(ids.shape[0]), ids.device
+    kv = st.kv
+    params = dec.params()
+    for dst, src in zip(st.svecs, svecs):
+        dst.copy_(src)
+    padded = torch.zeros((b, lp), dtype=torch.int32, device=dev)
+    padded[:, :lin] = ids
+    st.finished.zero_()
+    nxt, finished = dec.prefill(
+        kv, params, padded,
+        torch.full((b,), lin, dtype=torch.int32, device=dev), st.slots,
+        st.finished, st.svecs, gen)
+    out = torch.zeros((b, int(max_length)), dtype=torch.int32, device=dev)
+    out[:, 0] = nxt
+    st.finished.copy_(finished)
+    st.last.copy_(nxt)
+    steps = 1
+    for t in range(1, int(max_length)):
+        nxt, finished = dec.decode_step(kv, params, st.finished, st.last,
+                                        st.svecs, gen)
+        out[:, t] = nxt
+        st.finished.copy_(finished)
+        st.last.copy_(nxt)
+        steps = t + 1
+        if (eos_token_id is not None and t % _EOS_CHECK_EVERY == 0
+                and bool(st.finished.all())):
+            break
+    return out, steps
+
+
 def _gpt_generate_static(model, ids, max_length, decode_strategy, top_k,
                          temperature, eos_token_id):
-    """Static-slot decode: prefill the prompts into a
+    """Static-slot decode through the decoder's compiled programs
+    (``prefill_fn``/``decode_fn``): prefill the prompts into a
     :class:`~paddle_tpu_torch.serving.llm.StaticKVCache` of pow2-rounded
     ``max_seq``, then one decode step a token, with no host sync but the
-    eos probe every :data:`_EOS_CHECK_EVERY` tokens. Token for token the
-    concat lane's (same math, same :func:`_sample`, the same draws)."""
+    eos probe every :data:`_EOS_CHECK_EVERY` tokens. The cache and the
+    step's buffers are the model's for that shape (:func:`_static_state`),
+    so a second call at the same rows and ``max_seq`` replays the graphs
+    the first captured. Token for token the concat lane's (same math,
+    same :func:`_sample`, the same draws)."""
     from ..serving.llm.decode import GPTStaticDecoder
     b, lin = int(ids.shape[0]), int(ids.shape[1])
-    dev = model.device
     max_seq = min(_next_pow2(lin + int(max_length)),
                   model.gpt.config.max_position_embeddings)
     lp = min(_next_pow2(lin), max_seq)
     max_top_k, svecs, gen = _sampling(model, b, decode_strategy, top_k,
                                       temperature, eos_token_id, max_length)
     dec = GPTStaticDecoder(model, max_top_k=max_top_k)
-    kv = dec.new_kv(b, max_seq)
-    params = dec.params()
-    padded = torch.zeros((b, lp), dtype=torch.int32, device=dev)
-    padded[:, :lin] = ids
-    finished = torch.zeros((b,), dtype=torch.bool, device=dev)
-    nxt, finished = dec.prefill(
-        kv, params, padded,
-        torch.full((b,), lin, dtype=torch.int32, device=dev),
-        torch.arange(b, dtype=torch.int32, device=dev), finished, svecs,
-        gen)
-    out = torch.zeros((b, int(max_length)), dtype=torch.int32, device=dev)
-    out[:, 0] = nxt
-    steps = 1
-    for t in range(1, int(max_length)):
-        nxt, finished = dec.decode_step(kv, params, finished, nxt, svecs,
-                                        gen)
-        out[:, t] = nxt
-        steps = t + 1
-        if (eos_token_id is not None and t % _EOS_CHECK_EVERY == 0
-                and bool(finished.all())):
-            break
+    st = _static_state(model, dec, b, max_seq, svecs, gen)
+    with st.lock:
+        out, steps = _decode_static(dec, st, ids, lin, lp, max_length, svecs,
+                                    gen, eos_token_id)
     gen_h = out[:, :steps].cpu().numpy()
     keep = _trim_generated(gen_h, eos_token_id)
     return torch.cat([ids, out[:, :keep]], dim=1)

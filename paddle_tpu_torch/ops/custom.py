@@ -36,6 +36,8 @@ from typing import Callable
 
 import torch
 
+from ..core import graphs
+
 __all__ = ["register_op", "register_kernel_op", "greedy_nms",
            "greedy_nms_plain", "MAX_NMS_K"]
 
@@ -157,3 +159,4 @@ def greedy_nms(iou, valid, thr, eta: float = 1.0):
 
 #: kernel launches since the count was last set to 0
 greedy_nms.launches = 0
+graphs.counted(greedy_nms)

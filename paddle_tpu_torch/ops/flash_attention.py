@@ -51,6 +51,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .. import amp
+from ..core import graphs
 
 __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
@@ -397,6 +398,7 @@ for _w in (flash_attention_fwd, flash_attention_bwd_dq,
            flash_attention_bwd_dkv):
     _w.launches = 0
     _w.launches_by_dtype = {}
+    graphs.counted(_w)
 del _w
 
 

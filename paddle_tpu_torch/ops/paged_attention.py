@@ -12,7 +12,12 @@ sequence's visible rows into chunks of :func:`chunk_pages_for` pages,
 spreads the chunks over blocks and merges them inside the same launch;
 the wrapper hands it a workspace for the chunks' partial softmax states
 and a per-(sequence, head) ticket array that every launch leaves zero,
-both made once per device, stream and size.
+both made once per device, stream and size. Since every launch leaves
+the tickets zero, a CUDA graph replays the launch as often as it likes.
+Under a capture (``core.graphs``) both belong to the graph's state
+rather than to the stream: they are made in the warm-up run that
+precedes the capture, outside the graph's memory pool, and a capture
+that finds none raises.
 
 :func:`paged_attention` launches the kernel for CUDA tensors and runs the
 plain version :func:`paged_attention_plain` for CPU tensors (the
@@ -31,6 +36,8 @@ import threading
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ..core import graphs
 
 __all__ = ["paged_attention", "paged_attention_plain", "chunk_pages_for",
            "takes"]
@@ -72,7 +79,7 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_SCRATCH: Dict[Tuple[int, ...], Tuple[torch.Tensor, torch.Tensor]] = {}
+_SCRATCH: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 _SCRATCH_LOCK = threading.Lock()
 
 
@@ -81,11 +88,22 @@ def _scratch(device, stream: int, n_tickets: int, n_ws: int):
     device, stream and sizes: ``n_tickets`` int32 zeros that each launch
     leaves zero again, and ``n_ws`` f32 that each launch writes before it
     reads them. Launches on one stream run in order, so they share both,
-    and none needs a fill or an allocation."""
-    key = (device.index, stream, n_tickets, n_ws)
+    and none needs a fill or an allocation. During a graph's warm-up and
+    capture the key is the graph's state (:func:`graphs.scratch_owner`)
+    instead of the stream: that state's graphs run one at a time, and
+    another state's graphs replayed beside them never share its scratch.
+    A capture that finds no scratch raises: made inside the capture it
+    would live in the graph's private pool."""
+    owner = graphs.scratch_owner()
+    key = (device.index, ("stream", stream) if owner is None
+           else ("graph", owner), n_tickets, n_ws)
     with _SCRATCH_LOCK:
         got = _SCRATCH.get(key)
         if got is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "paged_attention: no scratch for this launch under "
+                    "capture; the warm-up run before the capture makes it")
             got = _SCRATCH[key] = (
                 torch.zeros(n_tickets, dtype=torch.int32, device=device),
                 torch.empty(n_ws, dtype=torch.float32, device=device))
@@ -209,5 +227,7 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
     return out
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0 (a graph's replay
+#: adds the launches it captured)
 paged_attention.launches = 0
+graphs.counted(paged_attention)

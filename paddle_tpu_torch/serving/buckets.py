@@ -3,10 +3,10 @@
 Prompts are right-padded to the next bucket, which keeps the set of
 prefill shapes small; the dynamic-batching :class:`~.engine.Engine`
 rounds every batch up to the next member of a :class:`BucketSpec`. The
-port runs eagerly and compiles nothing per shape, but keeps the closed
-set of batch shapes: a row-parallel model gives the same rows with or
-without the zero padding rows, and the engine's counters stay those of
-the JAX package.
+LLM engine captures one prefill graph per bucket; the detection engine
+runs its callable eagerly but keeps the closed set of batch shapes: a
+row-parallel model gives the same rows with or without the zero padding
+rows, and the engine's counters stay those of the JAX package.
 """
 from __future__ import annotations
 

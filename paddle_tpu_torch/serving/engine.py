@@ -176,7 +176,7 @@ class Engine(DrainableEngineBase):
         self._config = config or EngineConfig()
         self._init_serving_base(registry, self._config.stat_prefix)
         self._model_fn = model
-        # the port runs eagerly: the cache only records which padded
+        # the callable runs eagerly: the cache only records which padded
         # signatures this engine has seen. Its key is a token of the
         # engine's own, never the model, so no cache keeps a model (and
         # its weights on the card) alive; each engine counts on its own

@@ -2,7 +2,10 @@
 ``paddle_tpu/serving/llm/decode.py``: ``GPTDecodeSpec``, ``SamplingParams``,
 ``pack_sampling``, ``extract_gpt_params``, ``_layer_norm``,
 ``_block_prefill``, ``_block_decode``, ``_sample``, the programs of
-``build_prefill_fn`` and ``build_decode_step``, and ``GPTStaticDecoder``).
+``build_prefill_fn`` and ``build_decode_step`` (here
+:func:`static_prefill` and :func:`static_decode_step`), their compiled
+forms ``get_prefill_fn`` and ``get_decode_step``, and
+``GPTStaticDecoder``).
 
 The math mirrors the model's dense eval path operation for operation
 (LayerNorm with the biased variance, exact GELU, the additive -1e9 causal
@@ -14,20 +17,27 @@ Sampling draws from an explicit ``torch.Generator``: the JAX package's
 ``jax.random`` streams cannot be reproduced, so sampled tokens differ
 between the packages while greedy tokens are the same.
 
-PyTorch runs eagerly: the JAX package jits each program once per shape
-and audits it through its ``ExecutableCache`` and trace counters; here
-each program is a plain function over the cache's buffers, which it
-writes in place (``kvcache.py``), so neither has a counterpart.
+Each program is a plain function over the cache's buffers, which it
+writes in place (``kvcache.py``). As the JAX package jits each program
+once per shape and hands it out through its ``ExecutableCache`` with a
+trace counter, ``get_decode_step``/``get_prefill_fn`` wrap it in a
+:class:`~paddle_tpu_torch.core.graphs.Program` (a CUDA graph captured
+once per shape and KV cache, replayed after; eager on the CPU), and the
+decoders hand those out through ``decode_fn``/``prefill_fn`` under the
+JAX package's keys. ``decode_step``/``prefill`` run through them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
+from ...core.graphs import Program
 from ...nn.functional import gelu, softmax
+from ..cache import ExecutableCache, default_cache
 from .kvcache import (StaticKVCache, _later, append_token_kv, kv_layer_view,
                       token_index, valid_mask, write_prompt_kv)
 
@@ -309,14 +319,42 @@ def static_prefill(spec: GPTDecodeSpec, max_top_k: int, params,
     return sample_prefill(lraw, slots, finished, samp, generator, max_top_k)
 
 
+def get_decode_step(spec: GPTDecodeSpec, max_top_k: int) -> Program:
+    """THE static-slot decode step as a compiled program (the JAX
+    package's ``get_decode_step``): ``fn(params, kv, finished,
+    last_tokens, samp, generator) -> (next_tokens, finished)``, captured
+    once per KV cache (``fn.trace_counter["traces"]`` counts captures) and
+    replayed after. A new program each call, unlike the JAX package's
+    ``lru_cache``: a program owns its graphs, and an ``ExecutableCache``
+    eviction releases them, so two cache entries never share one."""
+    return Program(functools.partial(static_decode_step, spec, max_top_k))
+
+
+def get_prefill_fn(spec: GPTDecodeSpec, max_top_k: int) -> Program:
+    """The static-slot prefill as a compiled program (``get_prefill_fn``):
+    ``fn(params, kv, tokens, true_lens, slot_ids, finished, samp,
+    generator) -> (next_tokens, finished)``, one per prompt shape."""
+    return Program(functools.partial(static_prefill, spec, max_top_k))
+
+
 class GPTDecoderBase:
     """What the engine needs of a decoder over one GPT model: its spec,
-    its device, its parameters and the sampling bound; subclasses add the
-    KV substrate (``new_kv``) and the programs (``prefill``,
-    ``decode_step``)."""
+    its device, its parameters, the sampling bound and its programs
+    (``decode_fn``/``prefill_fn``, from ``exec_cache`` under the JAX
+    package's keys; the process-wide ``default_cache()`` when None);
+    subclasses add the KV substrate (``new_kv``) and the program makers
+    (``_decode_program``, ``_prefill_program``).
+
+    The programs' graphs read the tensors ``params()`` returns where they
+    lie: weights are changed in place (``Tensor.copy_``), or the cache's
+    entries dropped (``exec_cache.clear()``); a program called with
+    weights elsewhere raises. The AMP state a program saw at its first
+    call stays in its graph, as a jit keeps what it saw at its first
+    trace."""
 
     def __init__(self, model, max_top_k: int = 64,
-                 weight_dtype: str = "float32", kv_dtype: str = "float32"):
+                 weight_dtype: str = "float32", kv_dtype: str = "float32",
+                 exec_cache: Optional[ExecutableCache] = None):
         if weight_dtype != "float32":
             raise NotImplementedError(
                 f"weight_dtype={weight_dtype!r}: int8 weights are a later "
@@ -330,6 +368,11 @@ class GPTDecoderBase:
         self.max_top_k = max(0, min(int(max_top_k), self.spec.vocab_size))
         self.weight_dtype = weight_dtype
         self.kv_dtype = kv_dtype
+        # `is not None`: an empty ExecutableCache has len() 0 and is falsy
+        self.exec_cache = (exec_cache if exec_cache is not None
+                           else default_cache())
+        self._key = ("gpt-static", self.spec, self.max_top_k,
+                     self.weight_dtype, self.kv_dtype)
 
     @property
     def device(self) -> torch.device:
@@ -341,29 +384,61 @@ class GPTDecoderBase:
     def new_kv(self, num_slots: int, max_seq: int):
         raise NotImplementedError
 
-    def prefill(self, kv, params, tokens, true_lens, slot_ids, finished,
-                samp, generator):
+    def _decode_program(self) -> Program:
         raise NotImplementedError
 
+    def _prefill_program(self) -> Program:
+        raise NotImplementedError
+
+    # -- compiled-program access --------------------------------------------
+    def decode_fn(self, num_slots: int, max_seq: int) -> Program:
+        """The decode step for ``num_slots`` x ``max_seq`` caches; the key
+        carries the shape pair, so a miss is a new signature."""
+        return self.exec_cache.get_or_compile(
+            self._key + ("decode", num_slots, max_seq), self._decode_program)
+
+    def prefill_fn(self, batch: int, prompt_len: int) -> Program:
+        """The prefill of ``batch`` prompts padded to ``prompt_len``."""
+        return self.exec_cache.get_or_compile(
+            self._key + ("prefill", batch, prompt_len),
+            self._prefill_program)
+
+    @torch.no_grad()
+    def prefill(self, kv, params, tokens, true_lens, slot_ids, finished,
+                samp, generator):
+        """Prefill ``tokens [B, Lp]`` into ``slot_ids`` through
+        ``prefill_fn(B, Lp)``; returns ``(next_tokens [B], finished [S])``,
+        the program's output buffers (read them before the next call)."""
+        fn = self.prefill_fn(tokens.shape[0], tokens.shape[1])
+        return fn(params, kv, tokens, true_lens, slot_ids, finished, samp,
+                  generator)
+
+    @torch.no_grad()
     def decode_step(self, kv, params, finished, last_tokens, samp,
                     generator):
-        raise NotImplementedError
+        """Advance every slot one token through ``decode_fn``; returns
+        ``(next_tokens [S], finished [S])``, the program's output
+        buffers."""
+        fn = self.decode_fn(kv.num_slots, kv.max_seq)
+        return fn(params, kv, finished, last_tokens, samp, generator)
 
 
 class GPTStaticDecoder(GPTDecoderBase):
     """The static-slot decoder over one GPT model: ``new_kv`` returns a
     :class:`StaticKVCache` on the model's device, and ``prefill`` /
-    ``decode_step`` write it in place. The JAX package's façade also
-    hands out jitted programs through its ``ExecutableCache``; eager
-    PyTorch has none to hand out. Prefix reuse (``tail_prefill``,
-    ``insert_prefix``) is queue A6 and a slot-sharded mesh A10."""
+    ``decode_step`` write it in place through the compiled programs that
+    ``prefill_fn``/``decode_fn`` hand out. Prefix reuse
+    (``tail_prefill``, ``insert_prefix``) is queue A6 and a slot-sharded
+    mesh A10."""
 
-    def __init__(self, model, max_top_k: int = 64, mesh=None,
+    def __init__(self, model, max_top_k: int = 64,
+                 exec_cache: Optional[ExecutableCache] = None, mesh=None,
                  weight_dtype: str = "float32", kv_dtype: str = "float32"):
         if mesh is not None:
             raise _later("a slot-sharded mesh (mesh=...)", "A10")
         super().__init__(model, max_top_k=max_top_k,
-                         weight_dtype=weight_dtype, kv_dtype=kv_dtype)
+                         weight_dtype=weight_dtype, kv_dtype=kv_dtype,
+                         exec_cache=exec_cache)
 
     def new_kv(self, num_slots: int, max_seq: int) -> StaticKVCache:
         if max_seq > self.spec.max_position_embeddings:
@@ -375,17 +450,11 @@ class GPTStaticDecoder(GPTDecoderBase):
                              self.spec.num_heads, self.spec.head_dim,
                              dtype=dtype, device=self.device)
 
-    @torch.no_grad()
-    def prefill(self, kv: StaticKVCache, params, tokens, true_lens,
-                slot_ids, finished, samp, generator):
-        return static_prefill(self.spec, self.max_top_k, params, kv, tokens,
-                              true_lens, slot_ids, finished, samp, generator)
+    def _decode_program(self) -> Program:
+        return get_decode_step(self.spec, self.max_top_k)
 
-    @torch.no_grad()
-    def decode_step(self, kv: StaticKVCache, params, finished, last_tokens,
-                    samp, generator):
-        return static_decode_step(self.spec, self.max_top_k, params, kv,
-                                  finished, last_tokens, samp, generator)
+    def _prefill_program(self) -> Program:
+        return get_prefill_fn(self.spec, self.max_top_k)
 
     @torch.no_grad()
     def decode_logits(self, kv: StaticKVCache, params, last_tokens):

@@ -10,8 +10,12 @@ gates which rows are valid. The JAX package rebuilds the buffers
 functionally every step and restacks the layers; eager PyTorch would copy
 them (3.2 GB a tick for GPT-3 1.3B with 8 slots of 1024 rows), so here
 every write lands IN PLACE through the layer view, as the paged arena's
-do. int8 KV is queue A7, a slot-sharded mesh A10 and the prefix export
-A6 in ROADMAP.md; each raises naming its item.
+do. The buffers and ``lengths`` keep their addresses for the life of
+the cache (``reset`` zeroes them in place), since the decoder's CUDA
+graphs bind them; ``graph_pool`` is the memory pool and capture stream
+those graphs share (``core/graphs.py``). int8 KV is queue A7, a
+slot-sharded mesh A10 and the prefix export A6 in ROADMAP.md; each
+raises naming its item.
 
 Slot lifecycle (host side, no device traffic):
 
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from ...core.device import DeviceLike, resolve_device
+from ...core.graphs import GraphPool
 
 
 class SlotsExhausted(RuntimeError):
@@ -58,7 +63,8 @@ class StaticKVCache:
     ``device``; ``lengths``: ``[num_slots]`` int32 on ``device``, the
     number of valid rows of each slot (the position its next token is
     written at). The decoder's programs write all three in place; the
-    free list lives on the host.
+    free list lives on the host. ``graph_pool``: what the programs'
+    graphs bound to this cache share.
     """
 
     def __init__(self, num_slots: int, num_layers: int, max_seq: int,
@@ -91,6 +97,7 @@ class StaticKVCache:
                                    device=self.device)
         self._free: List[int] = list(range(self.num_slots))
         self._active: set = set()
+        self.graph_pool = GraphPool(self.device)
 
     # -- slot lifecycle (host side) -----------------------------------------
     @property
@@ -124,10 +131,12 @@ class StaticKVCache:
         self._free.sort()
 
     def reset(self):
-        """Free every slot and zero the lengths (the buffers keep their
-        bytes; the lengths gate validity)."""
+        """Free every slot and zero the buffers and lengths in place
+        (their addresses never change: graphs bind them)."""
         self._free = list(range(self.num_slots))
         self._active.clear()
+        self.k.zero_()
+        self.v.zero_()
         self.lengths.zero_()
 
     def kv_bytes(self) -> int:

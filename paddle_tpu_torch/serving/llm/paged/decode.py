@@ -1,5 +1,8 @@
-"""Paged prefill, the paged decode step and GPTPagedDecoder (counterpart
-of ``paddle_tpu/serving/llm/paged/decode.py``).
+"""Paged prefill, the paged decode step, their compiled forms and
+GPTPagedDecoder (counterpart of ``paddle_tpu/serving/llm/paged/decode.py``:
+``build_paged_prefill_fn``/``build_paged_decode_step`` as
+:func:`paged_prefill`/:func:`paged_decode_step`,
+``get_paged_prefill_fn``/``get_paged_decode_step``, ``GPTPagedDecoder``).
 
 The forward math is the model's dense eval path; only where K/V rows live
 changes: they are written into the page arena through each slot's block
@@ -18,17 +21,22 @@ Two attention lanes sit behind ``attn_impl``:
 ``"auto"`` means the kernel on CUDA and the gather lane on the CPU. The
 kernel lane on CUDA raises at construction for a model whose heads the
 kernel does not take (``ops.paged_attention.takes``: float32 or bfloat16,
-head dim at most 256, rows of whole 16-byte vectors). Tail
+head dim at most 256, rows of whole 16-byte vectors). On CUDA the
+decode step runs as a replayed CUDA graph (``core/graphs.py``), the
+kernel lane's 24 launches of B4 inside it at GPT-3 1.3B; the decoder
+refreshes the device block tables before each program runs. Tail
 prefill (prefix reuse), speculative decode and sequence migration are
 later slices of the port.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 
+from ....core.graphs import Program
 from ....nn.functional import gelu, softmax
 from ....ops.paged_attention import paged_attention, takes
 from ..decode import (GPTDecodeSpec, GPTDecoderBase, SamplingVectors,
@@ -124,18 +132,36 @@ def paged_prefill(spec: GPTDecodeSpec, max_top_k: int, params,
     lraw, k_new, v_new = prefill_forward(spec, params, tokens, true_lens)
     b, lp_len = tokens.shape
     pos = torch.arange(lp_len, device=tokens.device)
-    ppos = pos % kv.page_size
+    ppos = (pos % kv.page_size).repeat(b)
     page_idx = pos // kv.page_size                     # < PP: buckets fit
-    block_tables = kv.block_tables
     slots = slot_ids.long()
-    for i in range(b):
-        bt_row = block_tables[slots[i]].long()
-        pid = torch.where(pos < true_lens[i], bt_row[page_idx],
-                          torch.full_like(pos, kv.trash))
-        paged_write_prompt_rows(kv.k, k_new[i].transpose(0, 1), pid, ppos)
-        paged_write_prompt_rows(kv.v, v_new[i].transpose(0, 1), pid, ppos)
+    mapped = kv.block_tables[slots].long()[:, page_idx]   # [B, Lp]
+    pid = torch.where(pos[None, :] < true_lens.long()[:, None], mapped,
+                      torch.full_like(mapped, kv.trash))
+    rows = (b * lp_len,) + tuple(k_new.shape[1:2] + k_new.shape[3:])
+    paged_write_prompt_rows(kv.k, k_new.transpose(1, 2).reshape(rows),
+                            pid.reshape(-1), ppos)
+    paged_write_prompt_rows(kv.v, v_new.transpose(1, 2).reshape(rows),
+                            pid.reshape(-1), ppos)
     kv.lengths[slots] = true_lens.to(torch.int32)
     return sample_prefill(lraw, slots, finished, samp, generator, max_top_k)
+
+
+def get_paged_decode_step(spec: GPTDecodeSpec, max_top_k: int,
+                          attn_impl: str) -> Program:
+    """The paged decode step as a compiled program (the JAX package's
+    ``get_paged_decode_step``), ``trace_counter`` as ``get_decode_step``'s:
+    ``fn(params, kv, finished, last_tokens, samp, generator)``. The page
+    size, a parameter of the JAX package's, is read from ``kv``."""
+    return Program(functools.partial(paged_decode_step, spec, max_top_k,
+                                     attn_impl=attn_impl))
+
+
+def get_paged_prefill_fn(spec: GPTDecodeSpec, max_top_k: int) -> Program:
+    """The paged prefill as a compiled program (``get_paged_prefill_fn``):
+    ``fn(params, kv, tokens, true_lens, slot_ids, finished, samp,
+    generator)``."""
+    return Program(functools.partial(paged_prefill, spec, max_top_k))
 
 
 class GPTPagedDecoder(GPTDecoderBase):
@@ -143,14 +169,18 @@ class GPTPagedDecoder(GPTDecoderBase):
     the model's device and the programs thread its block tables.
     ``attn_impl``: ``"auto"`` (the kernel on CUDA, the gather lane on the
     CPU), ``"kernel"`` or ``"gather"``; the kernel lane on CUDA raises
-    here if the kernel does not take the model's heads."""
+    here if the kernel does not take the model's heads. The programs'
+    cache key adds ``("paged", page_size, attn_impl)`` to the static
+    decoder's, as the JAX package's does."""
 
     def __init__(self, model, max_top_k: int = 64,
                  weight_dtype: str = "float32", kv_dtype: str = "float32",
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto",
+                 exec_cache=None):
         super().__init__(model, max_top_k=max_top_k,
-                         weight_dtype=weight_dtype, kv_dtype=kv_dtype)
+                         weight_dtype=weight_dtype, kv_dtype=kv_dtype,
+                         exec_cache=exec_cache)
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if attn_impl not in ("auto", "gather", "kernel"):
@@ -169,6 +199,7 @@ class GPTPagedDecoder(GPTDecoderBase):
         self.attn_impl = attn_impl
         self.page_size = int(page_size)
         self.num_pages = None if num_pages is None else int(num_pages)
+        self._key = self._key + ("paged", self.page_size, self.attn_impl)
 
     def new_kv(self, num_slots: int, max_seq: int) -> PagedKVCache:
         if max_seq > self.spec.max_position_embeddings:
@@ -181,18 +212,26 @@ class GPTPagedDecoder(GPTDecoderBase):
                             page_size=self.page_size,
                             num_pages=self.num_pages, device=self.device)
 
+    def _decode_program(self) -> Program:
+        return get_paged_decode_step(self.spec, self.max_top_k,
+                                     self.attn_impl)
+
+    def _prefill_program(self) -> Program:
+        return get_paged_prefill_fn(self.spec, self.max_top_k)
+
     @torch.no_grad()
     def prefill(self, kv: PagedKVCache, params, tokens, true_lens,
                 slot_ids, finished, samp, generator):
-        return paged_prefill(self.spec, self.max_top_k, params, kv, tokens,
-                             true_lens, slot_ids, finished, samp, generator)
+        kv.refresh_block_tables()
+        return super().prefill(kv, params, tokens, true_lens, slot_ids,
+                               finished, samp, generator)
 
     @torch.no_grad()
     def decode_step(self, kv: PagedKVCache, params, finished, last_tokens,
                     samp, generator):
-        return paged_decode_step(self.spec, self.max_top_k, params, kv,
-                                 finished, last_tokens, samp, generator,
-                                 self.attn_impl)
+        kv.refresh_block_tables()
+        return super().decode_step(kv, params, finished, last_tokens, samp,
+                                   generator)
 
     @torch.no_grad()
     def decode_logits(self, kv: PagedKVCache, params, last_tokens,

@@ -18,8 +18,12 @@ Writes happen IN PLACE (``index_put_`` into the arena). The JAX package
 rebuilds the arena functionally and leaves the copy to XLA's buffer
 donation; in eager PyTorch a functional update would copy the whole
 arena — 3.2 GB for GPT-3 1.3B with 8 slots of 1024 tokens — on every
-tick. The host holds the authoritative block table; the device copy is
-refreshed once before a program reads it after a mapping changed.
+tick. The host holds the authoritative block table; the decoder refreshes
+the device copy (:meth:`PagedKVCache.refresh_block_tables`, in place)
+before a program runs, never inside one: a CUDA graph binds the device
+table's address and cannot record a copy from pageable host memory. The
+arenas, the table and ``lengths`` keep their addresses for the life of
+the cache.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from ....core.device import DeviceLike, resolve_device
+from ....core.graphs import GraphPool
 from ..kvcache import SlotsExhausted, kv_nbytes
 
 
@@ -213,14 +218,27 @@ class PagedKVCache:
                                              range(self.num_slots)]
         self._free: List[int] = list(range(self.num_slots))
         self._active: set = set()
+        self.graph_pool = GraphPool(self.device)
+
+    def refresh_block_tables(self):
+        """Copy the host block tables into the device table, in place, if
+        a mapping changed since the last refresh. Raises under a CUDA
+        graph capture, which would record a copy from pageable memory:
+        the decoder refreshes before a program runs."""
+        if self._bt_dirty:
+            if self.device.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "block tables changed under a capture; refresh them "
+                    "before the program runs")
+            self._bt_dev.copy_(torch.from_numpy(self._bt_host))
+            self._bt_dirty = False
 
     @property
     def block_tables(self) -> torch.Tensor:
-        """The device block tables, refreshed from the host copy if a
-        mapping changed since the last read."""
-        if self._bt_dirty:
-            self._bt_dev.copy_(torch.from_numpy(self._bt_host))
-            self._bt_dirty = False
+        """The device block tables (``[num_slots, pages_per_seq]`` int32,
+        a fixed address), refreshed first if a mapping changed."""
+        self.refresh_block_tables()
         return self._bt_dev
 
     # -- slot lifecycle (host side) ------------------------------------------
@@ -252,8 +270,9 @@ class PagedKVCache:
         self._free.sort()
 
     def reset(self):
-        """Free every slot and page and zero the lengths (the arenas keep
-        their bytes; lengths and trash routing gate validity)."""
+        """Free every slot and page, point every table entry at the trash
+        page and zero the arenas and lengths, all in place (their
+        addresses never change: graphs bind them)."""
         for slot in list(self._active):
             self.free(slot)
         self._free = list(range(self.num_slots))
@@ -261,6 +280,8 @@ class PagedKVCache:
         self.pool.reset()
         self._bt_host[:] = self.trash
         self._bt_dirty = True
+        self.k.zero_()
+        self.v.zero_()
         self.lengths.zero_()
 
     # -- page mapping (the host decides, the block table records) ------------

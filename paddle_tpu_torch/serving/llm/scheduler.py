@@ -7,7 +7,12 @@ sequences join (bucketed prefill into a free slot, straight off the
 eviction) — continuous batching: admission never waits for the current
 batch to finish, and a finished sequence's slot is reusable on the next
 tick. Host<->device traffic per tick is one fetch of the ``[num_slots]``
-next-token vector, which streaming needs on the host anyway.
+next-token vector, which streaming needs on the host anyway. The decode
+step and each prefill bucket run as compiled programs from the engine's
+``ExecutableCache`` (``cache=``, the process-wide ``default_cache()``
+when None): captured as CUDA graphs at warm-up and replayed every tick;
+the per-slot device vectors they read are static buffers, written in
+place between ticks and never rebound.
 
 Drain stops admission and lets the worker finish every in-flight and
 queued sequence; ``pause_admission`` stops admission alone; ``kill``
@@ -34,6 +39,7 @@ import torch
 
 from ...core.monitor import StatRegistry
 from ..buckets import pow2_buckets
+from ..cache import ExecutableCache, default_cache
 from ..engine import DrainableEngineBase
 from ..queue import BatchQueue
 from ..request import (Deadline, DeadlineExceeded, EngineDraining,
@@ -277,6 +283,8 @@ class ContinuousBatcher:
         self._reqs: Dict[int, GenerationRequest] = {}
         self._slot_samp: List[SamplingParams] = [
             SamplingParams() for _ in range(config.num_slots)]
+        # static buffers: the compiled programs bind these addresses, so
+        # they are written in place and never rebound
         self._samp_vecs = pack_sampling(self._slot_samp, self.device)
         self._finished = torch.zeros((config.num_slots,), dtype=torch.bool,
                                      device=self.device)
@@ -313,12 +321,13 @@ class ContinuousBatcher:
         lp = self.config.bucket_for(req.prompt_len)
         padded = np.zeros((1, lp), np.int32)
         padded[0, :req.prompt_len] = req.prompt
-        nxt, self._finished = self.decoder.prefill(
+        nxt, finished = self.decoder.prefill(
             self.kv, self._params,
             torch.from_numpy(padded).to(self.device),
             self._ids([req.prompt_len]), self._ids([slot]),
             self._finished, pack_sampling([req.sampling], self.device),
             self._gen)
+        self._finished.copy_(finished)
         return nxt
 
     def _start(self, req: GenerationRequest, slot: int, t0: float):
@@ -326,7 +335,9 @@ class ContinuousBatcher:
         token (the fetch streaming needs for time to first token)."""
         self._reqs[slot] = req
         self._slot_samp[slot] = req.sampling
-        self._samp_vecs = pack_sampling(self._slot_samp, self.device)
+        for dst, src in zip(self._samp_vecs,
+                            pack_sampling(self._slot_samp, self.device)):
+            dst.copy_(src)
         nxt = self._prefill_one(req, slot)
         self._last[slot] = nxt[0]
         tok = int(nxt[0].item())
@@ -353,10 +364,11 @@ class ContinuousBatcher:
         if not self._reqs:
             return 0
         t0 = self._clock()
-        nxt, self._finished = self.decoder.decode_step(
+        nxt, finished = self.decoder.decode_step(
             self.kv, self._params, self._finished, self._last,
             self._samp_vecs, self._gen)
-        self._last = nxt
+        self._finished.copy_(finished)
+        self._last.copy_(nxt)
         # THE one host fetch of the tick: streaming delivery and host-side
         # finish detection both need the [num_slots] token vector
         toks = nxt.cpu().numpy()
@@ -419,9 +431,9 @@ class ContinuousBatcher:
     # -- warmup --------------------------------------------------------------
     def warmup(self):
         """Run one prefill per bucket and one decode step through the real
-        buffers before serving (builds the kernels and warms the
-        libraries), then reset the slot state; the junk K/V is masked by
-        the zeroed lengths."""
+        buffers before serving: each is its program's first call, which
+        captures it on CUDA (and builds the kernels), so no request pays
+        a capture. Then reset the slot state in place."""
         t0 = self._clock()
         samp = pack_sampling([SamplingParams()], self.device)
         slot0 = self._ids([0])
@@ -448,6 +460,7 @@ class LLMEngine(DrainableEngineBase):
 
     def __init__(self, model, config: Optional[LLMEngineConfig] = None,
                  registry: Optional[StatRegistry] = None,
+                 cache: Optional[ExecutableCache] = None,
                  draft_model=None):
         self._config = config or LLMEngineConfig()
         cfg = self._config
@@ -458,6 +471,8 @@ class LLMEngine(DrainableEngineBase):
         if cfg.measure_mfu:
             raise _later("measure_mfu", "A8")
         self._init_serving_base(registry, cfg.stat_prefix)
+        # `is not None`: an empty ExecutableCache has len() 0 and is falsy
+        self._cache = cache if cache is not None else default_cache()
         if cfg.kv_layout == "paged":
             # lazy import: paged/batcher imports this module's classes
             from .paged import GPTPagedDecoder, PagedBatcher
@@ -465,11 +480,11 @@ class LLMEngine(DrainableEngineBase):
                 model, max_top_k=cfg.max_top_k,
                 weight_dtype=cfg.weight_dtype, kv_dtype=cfg.kv_dtype,
                 page_size=cfg.page_size, num_pages=cfg.num_pages,
-                attn_impl=cfg.paged_attn_impl)
+                attn_impl=cfg.paged_attn_impl, exec_cache=self._cache)
             self._batcher = PagedBatcher(self._decoder, cfg, self._registry)
         else:
             self._decoder = GPTStaticDecoder(
-                model, max_top_k=cfg.max_top_k,
+                model, max_top_k=cfg.max_top_k, exec_cache=self._cache,
                 weight_dtype=cfg.weight_dtype, kv_dtype=cfg.kv_dtype)
             self._batcher = ContinuousBatcher(self._decoder, cfg,
                                               self._registry)
@@ -485,6 +500,11 @@ class LLMEngine(DrainableEngineBase):
     @property
     def config(self) -> LLMEngineConfig:
         return self._config
+
+    @property
+    def cache(self) -> ExecutableCache:
+        """The cache the decoder's compiled programs live in."""
+        return self._cache
 
     @property
     def decoder(self) -> GPTDecoderBase:
@@ -569,8 +589,9 @@ class LLMEngine(DrainableEngineBase):
 
     def stats(self) -> dict:
         """Scalar stats, histogram summaries, slot occupancy, the KV
-        buffers' device bytes, and page occupancy (paged layout; None for
-        the slot layout)."""
+        buffers' device bytes and the bytes of the memory pool their
+        graphs share (0 on the CPU), the executable cache's counters, and
+        page occupancy (paged layout; None for the slot layout)."""
         pre = self._prefix + "."
         kv = self._batcher.kv
         paged = self._config.kv_layout == "paged"
@@ -586,6 +607,8 @@ class LLMEngine(DrainableEngineBase):
             "kv_layout": self._config.kv_layout,
             "device": str(self._decoder.device),
             "kv_bytes": kv.kv_bytes(),
+            "graph_pool_bytes": kv.graph_pool.nbytes(),
+            "executable_cache": self._cache.stats(),
             "pages": ({"total": kv.pool.num_pages,
                        "free": kv.pool.free_pages,
                        "pending": len(self._batcher._pending),

@@ -12,6 +12,8 @@ without jax it runs on its own, without the repository's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -913,3 +915,242 @@ def test_yolov3_served_on_the_card_launches_nms(cuda):
         assert dets.shape == (img.shape[0], 100, 6)
         assert counts.dtype == np.int32 and (counts <= 100).all()
         assert np.isfinite(dets).all()
+
+
+# -- compiled decode: CUDA graphs against the eager lane -----------------------
+
+def _serve_lanes(model, prompts, new=8, one_at_a_time=False, **cfg):
+    """``{lane: (token lists, engine)}`` of one engine config, graphed
+    (the default) and on the eager lane (``disable_graphs``). With
+    ``one_at_a_time`` each request waits for the one before, so both
+    lanes tick the same slots in the same order (sampling draws for every
+    slot every tick)."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.serving import ExecutableCache
+    out = {}
+    for lane in ("graphed", "eager"):
+        ctx = (graphs.disable_graphs() if lane == "eager"
+               else contextlib.nullcontext())
+        with ctx:
+            eng = LLMEngine(model, LLMEngineConfig(
+                num_slots=4, max_seq=64, prefill_buckets=(8, 16), **cfg),
+                cache=ExecutableCache())
+            try:
+                if one_at_a_time:
+                    toks = [eng.submit(p, max_new_tokens=new,
+                                       **samp).result(timeout=120)["tokens"]
+                            for p, samp in prompts]
+                else:
+                    reqs = [eng.submit(p, max_new_tokens=new, **samp)
+                            for p, samp in prompts]
+                    toks = [r.result(timeout=120)["tokens"] for r in reqs]
+            finally:
+                eng.drain(timeout=60)
+        out[lane] = (toks, eng)
+    return out
+
+
+def _steps(eng):
+    stats = eng.stats()["stats"]
+    return (stats["serving.llm.decode_ticks"]
+            + stats["serving.llm.warmup_decode_steps"])
+
+
+@pytest.mark.parametrize("lane", [{}, {"kv_layout": "paged", "page_size": 4,
+                                       "paged_attn_impl": "kernel"},
+                                  {"kv_layout": "paged", "page_size": 4,
+                                   "paged_attn_impl": "gather"}],
+                         ids=["slot", "paged_kernel", "paged_gather"])
+def test_graphed_engine_gives_the_eager_lanes_tokens(cuda, lane):
+    """The engine's decode step and prefills replay CUDA graphs captured
+    at warm-up (one decode capture, one per bucket, none after) and give
+    the eager lane's greedy tokens exactly; on the kernel lane B4's count
+    takes the replays: one launch a layer a step in both lanes."""
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    rng = np.random.default_rng(1)
+    prompts = [(rng.integers(0, MODEL["vocab_size"], n).tolist(), {})
+               for n in (5, 7, 10, 13)]
+    before = tpa.paged_attention.launches
+    lanes = _serve_lanes(model, prompts, **lane)
+    (graphed, eng), (eager, eager_eng) = lanes["graphed"], lanes["eager"]
+    assert graphed == eager
+    assert all(len(t) == 8 for t in graphed)
+    fn = eng.decoder.decode_fn(4, 64)
+    assert fn.trace_counter["traces"] == 1
+    assert fn.replays == eng.stats()["stats"]["serving.llm.decode_ticks"]
+    assert [eng.decoder.prefill_fn(1, b).trace_counter["traces"]
+            for b in (8, 16)] == [1, 1]
+    assert eng.stats()["graph_pool_bytes"] > 0
+    assert eager_eng.decoder.decode_fn(4, 64).trace_counter["traces"] == 0
+    launched = tpa.paged_attention.launches - before
+    if lane.get("paged_attn_impl") == "kernel":
+        assert launched == MODEL["num_layers"] * (_steps(eng)
+                                                  + _steps(eager_eng))
+    else:
+        assert launched == 0
+
+
+def test_graphed_sampled_engine_streams_equal_the_eager_lanes(cuda):
+    """Sampled requests: the graph registers the engine's generator, so
+    each replay draws at the generator's advancing offset, as the eager
+    lane does: the streams are equal at one seed."""
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    samp = dict(do_sample=True, temperature=0.9, top_k=20)
+    prompts = [([3, 1, 4, 1, 5], samp), ([9, 2, 6], samp), ([5, 5], {}),
+               ([8] * 12, dict(samp, top_k=0))]
+    lanes = _serve_lanes(model, prompts, new=12, one_at_a_time=True, seed=7)
+    assert lanes["graphed"][0] == lanes["eager"][0]
+    # the draws move from replay to replay: a sampled stream is not flat
+    assert len(set(lanes["graphed"][0][0])) > 1
+
+
+@pytest.mark.parametrize("strategy", ["greedy", "sampling"])
+def test_graphed_generate_gives_the_eager_lanes_tokens(cuda, strategy):
+    """``generate``'s static lane replays its programs: the eager lane's
+    tokens (sampling from one seed), and a second call captures nothing."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    ids = np.random.default_rng(2).integers(0, MODEL["vocab_size"], (2, 9))
+    kw = dict(max_length=12, decode_strategy=strategy, top_k=8)
+    seed(3)
+    first = model.generate(ids, **kw).cpu().numpy()
+    dec = GPTStaticDecoder(model, max_top_k=8 if strategy == "sampling"
+                           else 0)
+    fns = (dec.decode_fn(2, 32), dec.prefill_fn(2, 16))
+    traces = [f.trace_counter["traces"] for f in fns]
+    replays = fns[0].replays
+    seed(3)
+    second = model.generate(ids, **kw).cpu().numpy()
+    assert [f.trace_counter["traces"] for f in fns] == traces
+    assert fns[0].replays == replays + 11
+    seed(3)
+    with graphs.disable_graphs():
+        eager = model.generate(ids, **kw).cpu().numpy()
+    np.testing.assert_array_equal(first, eager)
+    np.testing.assert_array_equal(second, eager)
+    if strategy == "greedy":
+        ref = _cpu_twin(model).generate(ids, max_length=12).numpy()
+        np.testing.assert_array_equal(first, ref)
+
+
+def _graphed_logits(dec, kv, params, last, attn_impl=None):
+    """One decode step's logits through a captured graph (its first call,
+    the warm-up, and a replay) on the cache's current state."""
+    import functools
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.serving.llm.decode import static_decode_logits
+    from paddle_tpu_torch.serving.llm.paged import paged_decode_logits
+    if attn_impl is None:
+        raw = functools.partial(static_decode_logits, dec.spec)
+    else:
+        raw = functools.partial(paged_decode_logits, dec.spec,
+                                attn_impl=attn_impl)
+        kv.refresh_block_tables()
+    prog = graphs.Program(raw)
+    with torch.no_grad():
+        first = prog(params, kv, last).clone()
+        replayed = prog(params, kv, last).clone()
+    assert prog.trace_counter["traces"] == 1 and prog.replays == 1
+    return first, replayed
+
+
+@pytest.mark.parametrize("lane", ["slot", "kernel", "gather"])
+def test_graphed_decode_logits_are_bitwise_the_eager_lanes(cuda, lane):
+    """The same kernels on the same inputs: a replayed decode step's
+    logits equal the eager step's bit for bit."""
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    from paddle_tpu_torch.serving.llm.decode import (SamplingParams,
+                                                     pack_sampling)
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    dec = (GPTStaticDecoder(model) if lane == "slot"
+           else GPTPagedDecoder(model, page_size=4, attn_impl=lane))
+    kv, params = dec.new_kv(4, 64), dec.params()
+    fin = torch.zeros(4, dtype=torch.bool, device=cuda)
+    samp = pack_sampling([SamplingParams()], cuda)
+    last = torch.zeros(4, dtype=torch.int32, device=cuda)
+    rng = np.random.default_rng(5)
+    for slot, n in enumerate((3, 17, 30, 9)):
+        kv.alloc()
+        if lane != "slot":
+            kv.ensure_pages(slot, n + 1)
+        lp = 1 << (n - 1).bit_length()
+        toks = torch.zeros(1, lp, dtype=torch.int32, device=cuda)
+        toks[0, :n] = torch.from_numpy(rng.integers(0, 256, n))
+        nxt, fin = dec.prefill(
+            kv, params, toks, torch.tensor([n], dtype=torch.int32,
+                                           device=cuda),
+            torch.tensor([slot], dtype=torch.int32, device=cuda), fin,
+            samp, None)
+        last[slot] = nxt[0]
+    eager = (dec.decode_logits(kv, params, last) if lane == "slot"
+             else dec.decode_logits(kv, params, last, lane))
+    first, replayed = _graphed_logits(dec, kv, params, last,
+                                      None if lane == "slot" else lane)
+    assert torch.equal(first, eager)
+    assert torch.equal(replayed, eager)
+
+
+class _State:
+    """A program's state for a lone kernel: only the graph pool."""
+
+    def __init__(self, device):
+        from paddle_tpu_torch.core import graphs
+        self.graph_pool = graphs.GraphPool(device)
+
+
+def test_captured_paged_kernel_replays_match_plain(cuda):
+    """B4 captured once and replayed 20 times on new queries and
+    positions (copied into the graph's inputs): every replay within 1e-4
+    of the plain version, so the ticket array is back at zero after each,
+    and each replay counts one launch."""
+    from paddle_tpu_torch.core import graphs
+    q, ak, av, bt, pos = (torch.from_numpy(x).to(cuda)
+                          for x in _paged_case(11, pps=8))
+    kb, vb = ak[:, 1], av[:, 1]
+    prog = graphs.Program(lambda params, state, q, positions:
+                          tpa.paged_attention(q, kb, vb, bt, positions))
+    state = _State(cuda)
+    before = tpa.paged_attention.launches
+    prog(None, state, q.clone(), pos.clone())
+    assert tpa.paged_attention.launches == before + 1   # the warm-up
+    rng = np.random.default_rng(12)
+    limit = bt.shape[1] * ak.shape[2] + 3
+    for _ in range(20):
+        qi = torch.from_numpy(rng.standard_normal(
+            tuple(q.shape), dtype=np.float32)).to(cuda)
+        pi = torch.from_numpy(rng.integers(
+            0, limit, pos.shape[0]).astype(np.int32)).to(cuda)
+        out = prog(None, state, qi, pi)
+        ref = tpa.paged_attention_plain(qi, kb, vb, bt, pi)
+        assert (out - ref).abs().max().item() <= 1e-4
+    assert prog.replays == 20 and prog.trace_counter["traces"] == 1
+    assert tpa.paged_attention.launches == before + 21
+
+
+def test_two_same_shape_engines_on_the_card_give_their_own_tokens(cuda):
+    """Two models of one config, two engines serving at once in one
+    process (one program per signature in the shared default cache, one
+    graph per KV cache): each gives its own model's CPU tokens."""
+    models = [GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=s).eval()
+              for s in (0, 5)]
+    prompts = [[3, 1, 4, 1, 5], [9, 2, 6], list(range(1, 20))]
+    engines = [LLMEngine(m, LLMEngineConfig(num_slots=4, max_seq=64,
+                                            prefill_buckets=(8, 32)))
+               for m in models]
+    try:
+        fn = engines[0].decoder.decode_fn(4, 64)
+        assert fn is engines[1].decoder.decode_fn(4, 64)
+        reqs = [[e.submit(p, max_new_tokens=8) for p in prompts]
+                for e in engines]
+        got = [[r.result(timeout=120)["tokens"] for r in rs] for rs in reqs]
+    finally:
+        for e in engines:
+            e.drain(timeout=60)
+    for m, toks in zip(models, got):
+        twin = _cpu_twin(m)
+        for p, t in zip(prompts, toks):
+            ref = twin.generate(np.array([p]), max_length=8).numpy()[0]
+            assert t == ref[len(p):].tolist()
+    assert got[0] != got[1]

@@ -6,8 +6,8 @@ equal the JAX package's slot engine and the port's paged engine, on the
 flagship config (vocab 256, hidden 128, 2 layers, 4 heads, max_seq 64).
 
 The JAX package's trace-count tests (one decode trace across occupancy
-changes, prefill traces bounded by the buckets) have no counterpart: the
-port runs its programs eagerly, with no XLA trace to count."""
+changes, prefill traces bounded by the buckets) have their counterparts
+in ``tests/test_torch_llm_compile.py``."""
 import time
 
 import numpy as np
