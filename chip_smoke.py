@@ -71,21 +71,36 @@ Phases (any failure raises and the script exits non-zero):
    ``Model.train_batch`` (AdamW, weight decay 0.01, global-norm clip 1.0,
    linear warmup over cosine decay, ``GPTPretrainingCriterion``) on one
    fixed [4, 1024] batch, attention forward on B1 and backward on B2 and
-   B3; the loss must be finite and fall, and each step must launch each
-   of the three kernels once per layer;
+   B3; the step is the compiled program of ``hapi/model.py`` (forward,
+   gradients, clip and the in-place AdamW update): the first call runs
+   it eagerly and captures it as a CUDA graph, the other four replay it
+   (exactly one capture; capture ms and the graph pool's bytes printed);
+   the loss must be finite and fall, and each step must launch each of
+   the three kernels once per layer, counted through the replays;
 8. checks and timings off the training path: a torch.profiler breakdown
-   of a train step (wall, device busy share, tokens/s, peak memory), and
-   one step's gradients through flash against dense attention on fresh
-   weights from the same seed;
+   of a graphed train step (wall, device busy and idle share, kernels a
+   step, tokens/s, peak memory), the optimizer's update alone replayed
+   from its own graph (device ms and kernels against its byte bound);
+   then the eager lane (``disable_graphs``) on fresh weights from the
+   same seed: 5 steps whose losses must equal the graphed lane's (bitwise,
+   or within 1e-5 relative, the first differing step named), its profile
+   and its update timed the same way; and one step's gradients through
+   flash against dense attention on fresh weights, on the eager lane;
 9. the mixed-precision training paths, each on a fresh 1.3B model from
-   seed 0: 5 ``train_batch`` steps under ``amp.auto_cast()`` (O1,
+   seed 0: 5 graphed ``train_batch`` steps under ``amp.auto_cast()`` (O1,
    bfloat16) with phase 7's optimizer and batch, each step launching the
    bfloat16 lanes of B1, B2 and B3 once per layer, the loss falling and
-   its first value within 2e-2 of phase 7's first; a torch.profiler
-   breakdown of one such step (GEMMs, B1-B3, casts, optimizer); 3 O2 steps
-   (``amp.decorate`` and AdamW with float32 masters); 3 eager float16
-   steps with ``amp.GradScaler`` (``auto_cast(dtype="float16")``, scale,
-   backward, step, update), B1-B3 in float16;
+   its first value within 2e-2 of phase 7's first, one capture; both
+   lanes profiled as in phase 8 (the eager one also by part: GEMMs,
+   B1-B3, casts, optimizer), the eager lane's losses equal the graphed
+   lane's; ``train_loop`` over the batch stacked 5 times (parameters,
+   gradients and AdamW state in flat buffers, one captured program),
+   whose losses must equal 5 graphed ``train_batch`` calls with the lr
+   held, as a call holds it (bitwise or within 1e-5 relative), and its
+   flat update timed alone; 3 graphed O2 steps (``amp.decorate`` and
+   AdamW with float32 masters); 3 eager float16 steps with
+   ``amp.GradScaler`` (``auto_cast(dtype="float16")``, scale, backward,
+   step, update), B1-B3 in float16;
 10. the detection path: YOLOv3-DarkNet53 (80 classes, width 1.0, COCO
    anchors, random weights from seed 0, fp32, eval) serving 16 single
    608x608 images submitted at once through the dynamic-batching
@@ -105,14 +120,15 @@ just before phase 6a and read after it (the slot serving path, which
 runs no kernel: its attention is dense, as the JAX package's), just
 before phase 6c's three ``generate`` calls and read after them (the
 generate path), just before phase 7 and read after it, just before each
-of phase 9's three paths and read after it, and just before phase 10 and
-read after it. The last two lines are a
+of phase 9's four paths (O1 ``train_batch``, O1 ``train_loop``, O2,
+fp16) and read after it, and just before phase 10 and read after it. The last two lines are a
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -156,6 +172,10 @@ TRAIN_STEPS = 5
 AMP_STEPS = 5       # O1 bf16 train steps; O2 and fp16 take AMP_SHORT
 AMP_SHORT = 3
 AMP_LOSS_TOL = 2e-2  # O1 bf16 first loss vs fp32 first loss, relative
+#: graphed against eager lane, and train_loop against graphed
+#: train_batch: the losses bitwise equal or within this, relative
+LANE_TOL = 1e-5
+LOOP_STEPS = 5      # O1 bf16 steps of one train_loop call
 
 #: the library yardstick of B1-B3: each SDPA backend on its own, timed in
 #: ROUNDS alternating rounds of ROUND_ITERS calls against the kernels, on
@@ -1648,7 +1668,134 @@ def run_train(torch, fa_mod, ids, cfg, dev):
         raise RuntimeError(f"the loss did not fall over {TRAIN_STEPS} "
                            f"steps: {losses}")
     return model, {"losses": losses, "step_wall_ms": [w * 1e3
-                                                      for w in walls]}
+                                                      for w in walls],
+                   **program_report(model, "fp32 train step", TRAIN_STEPS)}
+
+
+def program_report(model, label, steps):
+    """The compiled train step's program after ``steps`` train_batch
+    calls: exactly one capture, then replays; capture ms and the graph
+    pool's bytes."""
+    prog = model._train_step_fn["fn"]
+    out = {"traces": prog.trace_counter["traces"], "replays": prog.replays,
+           "capture_ms": list(prog.capture_ms),
+           "graph_pool_bytes": model._train_state.graph_pool.nbytes()}
+    log(f"{label}: {out['traces']} capture ({', '.join(f'{c:.1f}' for c in out['capture_ms'])} ms), "
+        f"{out['replays']} replays, graph pool {out['graph_pool_bytes']} B")
+    if out["traces"] != 1 or out["replays"] != steps - 1:
+        raise RuntimeError(f"{label}: {out['traces']} captures and "
+                           f"{out['replays']} replays over {steps} calls, "
+                           f"not 1 and {steps - 1}")
+    return out
+
+
+def check_lane_losses(got, ref, what, tol=LANE_TOL):
+    """``got`` equal to ``ref`` step by step, bitwise or within ``tol``
+    relative; the first differing step is named."""
+    diffs = [(i + 1, abs(a - b) / abs(b))
+             for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+    worst = max((r for _, r in diffs), default=0.0)
+    first = diffs[0][0] if diffs else None
+    log(f"{what}: " + (f"bitwise equal over {len(got)} steps" if not diffs
+                       else f"first differing step {first}, worst relative "
+                            f"difference {worst:.3e} (tol {tol})"))
+    if len(got) != len(ref) or worst > tol:
+        raise RuntimeError(f"{what}: {got} vs {ref}")
+    return {"bitwise": not diffs, "first_differing_step": first,
+            "worst_rel": worst}
+
+
+def profile_update(torch, model, label, fused=False):
+    """The optimizer's update alone (global-norm clip and AdamW, in place)
+    on the model's parameters and state: from stand-in gradients through
+    ``Optimizer._apply_update``, or, ``fused``, ``train_loop``'s flat
+    update from the flat gradients its last step left. Eagerly inside
+    ``disable_graphs``, else one replay of its own CUDA graph. Host wall
+    (to a synchronize), device ms and kernels per update, against its
+    byte bound: AdamW reads p, g, m, v and writes p, m, v; the clip reads
+    g for the norm and reads and writes it scaled. It moves the weights:
+    call it last on a model."""
+    from paddle_tpu_torch.core import graphs
+    opt = model._optimizer
+    if fused:
+        run = model._fused_loop["update"]
+    else:
+        trainable = model._train_step_fn["trainable"]
+        held = {id(p): i for i, p in enumerate(opt._parameter_list)}
+        idx = [held[id(p)] for p in trainable]
+        grads = [torch.full_like(p, 1e-4) for p in trainable]
+
+        def run():
+            opt._apply_update(idx, grads)
+    n_bytes = sum(p.numel() * p.element_size()
+                  for p in model._train_step_fn["trainable"])
+    opt._fill_scalars()
+    graph = None
+    if graphs.graphs_enabled():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            run()
+    call = graph.replay if graph is not None else run
+
+    def step():
+        call()
+        torch.cuda.synchronize()
+
+    prof = profile_steps(torch, label, step, 2)
+    kernels = sum(r[1] for r in prof["kernels"])
+    bound_bytes = 10 * n_bytes
+    bound_ms = bound_bytes / PEAK_BYTES * 1e3
+    log(f"{label}: device {prof['device_ms']:.3f} ms, {kernels:.0f} "
+        f"kernels, bound {bound_ms:.3f} ms ({bound_bytes / 1e9:.2f} GB), "
+        f"{prof['device_ms'] / bound_ms:.2f}x it")
+    del graph
+    return {"wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+            "kernels": kernels, "bound_ms": bound_ms,
+            "bound_bytes": bound_bytes}
+
+
+def eager_train_lane(torch, ids, cfg, dev, o1, steps, ref_losses):
+    """The eager lane (``disable_graphs``) beside a graphed run: a fresh
+    1.3B model from seed 0, phase 7's optimizer and batch, ``steps``
+    train_batch calls (under ``auto_cast`` when ``o1``), the scheduler
+    stepped as in the graphed run; its losses equal the graphed lane's
+    (:func:`check_lane_losses`); then its step profiled, and its update
+    timed (:func:`profile_update`). Releases the model."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import graphs
+    cast = amp.auto_cast if o1 else contextlib.nullcontext
+    what = "O1 bf16" if o1 else "fp32"
+    torch.cuda.reset_peak_memory_stats()
+    model, sched = _train_model(torch, cfg, dev, "flash")
+    losses, walls = [], []
+
+    def one():
+        with cast():
+            return model.train_batch([ids], [ids])[0]
+
+    with graphs.disable_graphs():
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(one())
+            walls.append((time.perf_counter() - t0) * 1e3)
+            sched.step()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cmp = check_lane_losses(ref_losses, losses,
+                                f"{what} train_batch, graphed vs eager lane")
+        prof = profile_train_step(torch, model, ids, o1, "eager lane")
+        update = profile_update(torch, model,
+                                f"{what} optimizer update, eager lane")
+    out = {"losses": losses, "step_wall_ms": walls, **cmp,
+           **lane_summary(f"{what} eager lane", prof, update, peak)}
+    del model
+    release_memory(torch)
+    return out
 
 
 def compare_train_grads(torch, ids, cfg, dev):
@@ -1734,7 +1881,74 @@ def run_amp_train(torch, fa_mod, ids, cfg, dev, fp32_first):
     if any(p.dtype != torch.float32 for p in model.network.parameters()):
         raise RuntimeError("O1 changed the weights' type")
     return model, {"losses": losses, "first_vs_fp32_rel": rel,
-                   "step_wall_ms": [w * 1e3 for w in walls]}
+                   "step_wall_ms": [w * 1e3 for w in walls],
+                   **program_report(model, "O1 bf16 train step", AMP_STEPS)}
+
+
+def run_train_loop(torch, fa_mod, ids, cfg, dev):
+    """Phase 9's train_loop path: a fresh O1 bf16 1.3B model from seed 0
+    trained LOOP_STEPS steps by one ``train_loop`` call on the batch
+    stacked LOOP_STEPS times (parameters, gradients and AdamW state in
+    flat buffers, one captured program replayed), B1-B3 in bfloat16 once
+    per layer a step, the scheduler held (the lr is fixed for a call).
+    Then a second call of LOOP_STEPS, timed, and the flat update alone
+    (:func:`profile_update`)."""
+    from paddle_tpu_torch import amp
+    model, _ = _train_model(torch, cfg, dev, "flash")
+    stack = np.stack([ids] * LOOP_STEPS)
+    before = _by_dtype(fa_mod, "bfloat16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with amp.auto_cast():
+        losses = model.train_loop([stack], [stack])
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launched = [a - b for a, b in zip(_by_dtype(fa_mod, "bfloat16"), before)]
+    fused = model._fused_loop
+    if fused is None:
+        raise RuntimeError("train_loop fell back to train_batch on O1")
+    prog = fused["fn"]
+    log(f"O1 train_loop x{LOOP_STEPS}: losses "
+        f"{[round(x, 6) for x in losses]}, first call {first_ms:.1f} ms, "
+        f"bf16 launches B1/B2/B3 {launched}, {prog.trace_counter['traces']}"
+        f" capture ({', '.join(f'{c:.1f}' for c in prog.capture_ms)} ms), "
+        f"{prog.replays} replays, {len(fused['pieces'])} update pieces, "
+        f"graph pool {model._train_state.graph_pool.nbytes()} B")
+    if launched != [cfg["num_layers"] * LOOP_STEPS] * 3 \
+            or prog.trace_counter["traces"] != 1 \
+            or prog.replays != LOOP_STEPS - 1:
+        raise RuntimeError(f"train_loop: launches {launched}, "
+                           f"{prog.trace_counter} traces, {prog.replays} "
+                           "replays")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with amp.auto_cast():
+        again = model.train_loop([stack], [stack])
+    step_ms = (time.perf_counter() - t0) * 1e3 / LOOP_STEPS
+    log(f"O1 train_loop, second call: {step_ms:.1f} ms a step (wall, "
+        f"{LOOP_STEPS} replays and one read), losses "
+        f"{[round(x, 6) for x in again]}")
+    update = profile_update(torch, model, "O1 flat update (train_loop), "
+                            "one replay", fused=True)
+    return model, {"losses": losses, "first_call_ms": first_ms,
+                   "step_ms": step_ms, "capture_ms": list(prog.capture_ms),
+                   "graph_pool_bytes": model._train_state.graph_pool.nbytes(),
+                   "update_pieces": len(fused["pieces"]), "update": update,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def held_lr_train_batch(torch, ids, cfg, dev, steps):
+    """The reference of the train_loop path: a fresh O1 bf16 1.3B model
+    from seed 0, ``steps`` graphed train_batch calls with the scheduler
+    held, as one train_loop call holds it. Returns the losses; releases
+    the model."""
+    from paddle_tpu_torch import amp
+    model, _ = _train_model(torch, cfg, dev, "flash")
+    with amp.auto_cast():
+        losses = [model.train_batch([ids], [ids])[0] for _ in range(steps)]
+    program_report(model, "O1 train_batch, lr held", steps)
+    del model
+    release_memory(torch)
+    return losses
 
 
 def _labelled(torch, fn, label):
@@ -1756,42 +1970,70 @@ def _kernel_ms(torch, events, name):
     return total
 
 
-def profile_amp_step(torch, model, ids):
-    """Where one O1 bf16 train step's time goes: wall, device busy share,
-    tokens/s, and device time by part: the GEMMs (cuBLAS kernels), B1-B3,
+def profile_train_step(torch, model, ids, o1, lane):
+    """Where one train step's time goes (fp32, or O1 bf16 under
+    ``auto_cast``), in the lane the caller is in: wall, device busy and
+    idle share, kernels a step, tokens/s, and device time by part: the
+    GEMMs (cuBLAS kernels), B1-B3 and the rest; on the eager lane also
     the casts (kernels under ``aten::_to_copy``: the weights to bf16 each
-    call, the gradients back), the optimizer (clip and AdamW: the kernels
-    launched inside ``opt.step``) and the rest."""
+    call, the gradients back) and the optimizer (clip and AdamW: the
+    kernels launched inside ``Optimizer._apply_update``), which a graph's
+    replay does not attribute (its update is timed alone by
+    :func:`profile_update`)."""
     import re
     from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import graphs
+    eager = not graphs.graphs_enabled()
     opt = model._optimizer
-    opt.step = _labelled(torch, opt.step, "optimizer.step")
+    what = "O1 bf16" if o1 else "fp32"
+    opt._apply_update = _labelled(torch, opt._apply_update,
+                                  "optimizer.update")
+    cast = amp.auto_cast if o1 else contextlib.nullcontext
 
     def step():
-        with amp.auto_cast():
+        with cast():
             model.train_batch([ids], [ids])
 
     try:
-        prof = profile_steps(torch, f"O1 bf16 train step {tuple(ids.shape)}",
-                             step, 1, ranges=("optimizer.step",))
+        prof = profile_steps(torch, f"{what} train step {tuple(ids.shape)}, "
+                             f"{lane}", step, 2, ranges=("optimizer.update",))
     finally:
-        del opt.step
+        del opt._apply_update
     parts = {"gemm": 0.0, "flash_B1_B3": 0.0}
     for ms, _, key in prof["kernels"]:
         if re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_kernel<", key):
             parts["flash_B1_B3"] += ms
         elif re.search(r"gemm|xmma|nvjet|cutlass|gemv|splitk", key, re.I):
             parts["gemm"] += ms
-    parts["casts"] = _kernel_ms(torch, prof["events"], "aten::_to_copy")
-    parts["optimizer"] = _kernel_ms(torch, prof["events"], "optimizer.step")
+    if eager:       # the profile's two steps' events
+        parts["casts"] = _kernel_ms(torch, prof["events"],
+                                    "aten::_to_copy") / 2
+        parts["optimizer"] = _kernel_ms(torch, prof["events"],
+                                        "optimizer.update") / 2
     parts["other"] = prof["device_ms"] - sum(parts.values())
     tokens, wall, busy = ids.size, prof["wall_ms"], prof["device_ms"]
-    log(f"O1 bf16 train step: wall {wall:.1f} ms, "
+    kernels = sum(r[1] for r in prof["kernels"])
+    log(f"{what} train step, {lane}: wall {wall:.1f} ms, "
         f"{tokens / wall * 1e3:.1f} tokens/s, device busy {busy:.1f} ms "
-        f"({100 * busy / wall:.1f}%); by part (ms): "
+        f"({100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%), "
+        f"{kernels:.0f} kernels; by part (ms): "
         + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
     return {"step_ms": wall, "device_busy_ms": busy,
-            "tokens_per_s": tokens / wall * 1e3, "device_ms_by_part": parts}
+            "idle_share": 1 - busy / wall, "kernels_per_step": kernels,
+            "tokens_per_s": tokens / wall * 1e3, "device_ms_by_part": parts,
+            "smi": prof["smi"]}
+
+
+def lane_summary(label, prof, update, peak_gib):
+    """One lane's line: step wall, device ms, idle share, kernels a step,
+    the optimizer's device ms and the lane's peak memory."""
+    out = dict(prof, update=update, peak_gib=peak_gib)
+    log(f"{label}: step wall {out['step_ms']:.1f} ms, device "
+        f"{out['device_busy_ms']:.1f} ms, idle {100 * out['idle_share']:.1f}"
+        f"%, {out['kernels_per_step']:.0f} kernels a step, optimizer update "
+        f"{update['device_ms']:.3f} ms ({update['kernels']:.0f} kernels, "
+        f"bound {update['bound_ms']:.3f}), peak {out['peak_gib']:.2f} GiB")
+    return out
 
 
 def run_amp_o2(torch, fa_mod, ids, cfg, dev):
@@ -2047,6 +2289,101 @@ def detection_checks(torch, model, nms_mod, det_mod, rng, dev):
             "valid": n_valid}
 
 
+def training_phases(torch, fa_mod, cfg, dev, ids, reset_counters,
+                    read_counters, stamp):
+    """Phases 7 to 9 on the model config ``cfg`` and the batch ``ids``;
+    returns their results by name."""
+    # -- phase 7: the training path ------------------------------------------
+    stamp("7 training path")
+    reset_counters()
+    train_model, train = run_train(torch, fa_mod, ids, cfg, dev)
+    train_launches = read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"training path launches: {train_launches}; losses "
+        f"{[round(x, 6) for x in train['losses']]}; peak device memory "
+        f"{peak:.2f} GiB")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        if train_launches[name] < 1:
+            raise RuntimeError(f"kernel {name} was not launched on the "
+                               f"training path")
+
+    # -- phase 8: off the training path --------------------------------------
+    stamp("8 training checks")
+    from paddle_tpu_torch.core import graphs
+    prof = profile_train_step(torch, train_model, ids, False, "graphed")
+    update = profile_update(torch, train_model,
+                            "fp32 optimizer update, one replay")
+    train["graphed"] = lane_summary("fp32 graphed lane", prof, update, peak)
+    del train_model
+    release_memory(torch)
+    train["eager"] = eager_train_lane(torch, ids, cfg, dev, False,
+                                      TRAIN_STEPS, train["losses"])
+    with graphs.disable_graphs():
+        grads = compare_train_grads(torch, ids, cfg, dev)
+    release_memory(torch)
+
+    # -- phase 9: the mixed-precision training paths --------------------------
+    stamp("9 mixed-precision training paths")
+    flash_names = [c.__name__ for c in _counters(fa_mod)]
+    amp_launches, amp_dtypes, amp_peak = {}, {}, {}
+
+    def amp_path(name, dtype, run):
+        """Phase 9's path ``name``: B1-B3 launched, in ``dtype`` only."""
+        reset_counters()
+        out = run()
+        amp_launches[name] = read_counters()
+        amp_dtypes[name] = {c.__name__: dict(c.launches_by_dtype)
+                            for c in _counters(fa_mod)}
+        amp_peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{name} path launches: {amp_launches[name]}, B1-B3 by type "
+            f"{amp_dtypes[name]}; peak device memory {amp_peak[name]:.2f} "
+            f"GiB")
+        for n in flash_names:
+            got = amp_dtypes[name][n]
+            if amp_launches[name][n] < 1 or set(got) != {dtype}:
+                raise RuntimeError(f"kernel {n} was launched {got} on the "
+                                   f"{name} path, not in {dtype} only")
+        return out
+
+    amp_model, amp_o1 = amp_path(
+        "training_amp_bf16", "bfloat16",
+        lambda: run_amp_train(torch, fa_mod, ids, cfg, dev,
+                              train["losses"][0]))
+    prof = profile_train_step(torch, amp_model, ids, True, "graphed")
+    update = profile_update(torch, amp_model,
+                            "O1 bf16 optimizer update, one replay")
+    amp_o1["graphed"] = lane_summary("O1 bf16 graphed lane", prof, update,
+                                     amp_peak["training_amp_bf16"])
+    del amp_model
+    release_memory(torch)
+    amp_o1["eager"] = eager_train_lane(torch, ids, cfg, dev, True,
+                                       AMP_STEPS, amp_o1["losses"])
+    loop_ref = held_lr_train_batch(torch, ids, cfg, dev, LOOP_STEPS)
+    loop_model, amp_loop = amp_path(
+        "training_loop_bf16", "bfloat16",
+        lambda: run_train_loop(torch, fa_mod, ids, cfg, dev))
+    amp_loop["train_batch_losses"] = loop_ref
+    amp_loop.update(check_lane_losses(
+        amp_loop["losses"], loop_ref,
+        f"O1 train_loop x{LOOP_STEPS} vs {LOOP_STEPS} graphed train_batch"))
+    del loop_model
+    release_memory(torch)
+    amp_o2 = amp_path("training_amp_o2", "bfloat16",
+                      lambda: run_amp_o2(torch, fa_mod, ids, cfg, dev))
+    release_memory(torch)
+    amp_fp16 = amp_path("training_amp_fp16", "float16",
+                        lambda: run_amp_fp16(torch, fa_mod, ids, cfg,
+                                             dev))
+    release_memory(torch)
+
+    return dict(train=train, train_launches=train_launches, peak=peak,
+                grads=grads, flash_names=flash_names,
+                amp_launches=amp_launches, amp_dtypes=amp_dtypes,
+                amp_peak=amp_peak, amp_o1=amp_o1, amp_loop=amp_loop,
+                amp_o2=amp_o2, amp_fp16=amp_fp16)
+
+
 def main() -> int:
     try:
         import torch
@@ -2212,74 +2549,18 @@ def main() -> int:
     del model, gen_outs
     release_memory(torch)
 
-    # -- phase 7: the training path ------------------------------------------
-    stamp("7 training path")
+    # -- phases 7 to 9: the training paths -----------------------------------
     ids = rng.integers(0, CFG_13B["vocab_size"],
                        (4, CFG_13B["max_position_embeddings"]))
-    reset_counters()
-    train_model, train = run_train(torch, fa_mod, ids, CFG_13B, dev)
-    train_launches = read_counters()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"training path launches: {train_launches}; losses "
-        f"{[round(x, 6) for x in train['losses']]}; peak device memory "
-        f"{peak:.2f} GiB")
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv"):
-        if train_launches[name] < 1:
-            raise RuntimeError(f"kernel {name} was not launched on the "
-                               f"training path")
-
-    # -- phase 8: off the training path --------------------------------------
-    stamp("8 training checks")
-    prof = profile_steps(torch, f"train step {tuple(ids.shape)} flash",
-                         lambda: train_model.train_batch([ids], [ids]), 2)
-    tokens = ids.size
-    log(f"train step: wall {prof['wall_ms']:.1f} ms, "
-        f"{tokens / prof['wall_ms'] * 1e3:.1f} tokens/s, device busy "
-        f"{100 * prof['device_ms'] / prof['wall_ms']:.1f}%, peak device "
-        f"memory {peak:.2f} GiB")
-    del train_model
-    torch.cuda.empty_cache()
-    grads = compare_train_grads(torch, ids, CFG_13B, dev)
-    torch.cuda.empty_cache()
-
-    # -- phase 9: the mixed-precision training paths --------------------------
-    stamp("9 mixed-precision training paths")
-    flash_names = [c.__name__ for c in _counters(fa_mod)]
-    amp_launches, amp_dtypes, amp_peak = {}, {}, {}
-
-    def amp_path(name, dtype, run):
-        """Phase 9's path ``name``: B1-B3 launched, in ``dtype`` only."""
-        reset_counters()
-        out = run()
-        amp_launches[name] = read_counters()
-        amp_dtypes[name] = {c.__name__: dict(c.launches_by_dtype)
-                            for c in _counters(fa_mod)}
-        amp_peak[name] = torch.cuda.max_memory_allocated() / 2**30
-        log(f"{name} path launches: {amp_launches[name]}, B1-B3 by type "
-            f"{amp_dtypes[name]}; peak device memory {amp_peak[name]:.2f} "
-            f"GiB")
-        for n in flash_names:
-            got = amp_dtypes[name][n]
-            if amp_launches[name][n] < 1 or set(got) != {dtype}:
-                raise RuntimeError(f"kernel {n} was launched {got} on the "
-                                   f"{name} path, not in {dtype} only")
-        return out
-
-    amp_model, amp_o1 = amp_path(
-        "training_amp_bf16", "bfloat16",
-        lambda: run_amp_train(torch, fa_mod, ids, CFG_13B, dev,
-                              train["losses"][0]))
-    amp_o1.update(profile_amp_step(torch, amp_model, ids))
-    del amp_model
-    torch.cuda.empty_cache()
-    amp_o2 = amp_path("training_amp_o2", "bfloat16",
-                      lambda: run_amp_o2(torch, fa_mod, ids, CFG_13B, dev))
-    torch.cuda.empty_cache()
-    amp_fp16 = amp_path("training_amp_fp16", "float16",
-                        lambda: run_amp_fp16(torch, fa_mod, ids, CFG_13B,
-                                             dev))
-    torch.cuda.empty_cache()
+    tr = training_phases(torch, fa_mod, CFG_13B, dev, ids, reset_counters,
+                         read_counters, stamp)
+    train, train_launches, peak, grads = (tr["train"], tr["train_launches"],
+                                          tr["peak"], tr["grads"])
+    flash_names, amp_launches, amp_dtypes, amp_peak = (
+        tr["flash_names"], tr["amp_launches"], tr["amp_dtypes"],
+        tr["amp_peak"])
+    amp_o1, amp_loop, amp_o2, amp_fp16 = (tr["amp_o1"], tr["amp_loop"],
+                                          tr["amp_o2"], tr["amp_fp16"])
 
     # -- phase 10: the detection path ----------------------------------------
     stamp("10 detection path")
@@ -2343,12 +2624,10 @@ def main() -> int:
     log(f"serving: {json.dumps(serve)}")
     log(f"serving, slot: {json.dumps(slot)}")
     log(f"generate: {json.dumps(gen)}")
-    log("training: " + json.dumps(dict(
-        train, **grads, peak_gib=peak, step_ms=prof["wall_ms"],
-        device_busy_ms=prof["device_ms"],
-        tokens_per_s=tokens / prof["wall_ms"] * 1e3)))
+    log("training: " + json.dumps(dict(train, **grads, peak_gib=peak)))
     log("training, mixed precision: " + json.dumps(
-        {"o1_bf16": amp_o1, "o2_bf16": amp_o2, "fp16_grad_scaler": amp_fp16,
+        {"o1_bf16": amp_o1, "o1_bf16_train_loop": amp_loop,
+         "o2_bf16": amp_o2, "fp16_grad_scaler": amp_fp16,
          "peak_gib": amp_peak}))
     log(f"detection: {json.dumps(det)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

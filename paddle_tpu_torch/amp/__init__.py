@@ -18,8 +18,11 @@ call costs one dict lookup. Tensor operators (``+``, ``*``, slicing,
 reshape) do not consult it, where the reference casts them too at O2.
 The casts go through ``Tensor.to``, which is differentiable: a float32
 weight that an O1 op reads in bfloat16 gets its gradient back in float32.
-The state is read on every call; the reference's compiled train step reads
-it once, when it is first traced for an input signature.
+The state is read on every call of an op. ``Model.train_batch`` keys its
+compiled step by :func:`state_key` beside the input signature, so a step
+captured under one state is never replayed under another; the reference's
+compiled train step reads the state once, when it is first traced for an
+input signature, and keeps it.
 
 ``GradScaler`` (alias ``AmpScaler``) does dynamic loss scaling, as the
 float16 recipe needs; with bfloat16 it only tracks non-finite steps.
@@ -43,7 +46,7 @@ import torch
 __all__ = ["WHITE_LIST", "BLACK_LIST", "NORM_OPS", "cast_inputs",
            "auto_cast", "amp_guard", "enable_operator_amp",
            "disable_operator_amp", "is_auto_cast_enabled", "get_amp_dtype",
-           "decorate", "GradScaler", "AmpScaler"]
+           "state_key", "decorate", "GradScaler", "AmpScaler"]
 
 # reference: imperative/amp_auto_cast.cc default lists
 WHITE_LIST = {
@@ -152,6 +155,16 @@ def get_amp_dtype():
     """The low type of the current state (a torch dtype), or None before
     any AMP state was set."""
     return _STATE["dtype"]
+
+
+def state_key():
+    """A hashable key of the AMP state the ops read now: ``(False,)``
+    when off, else the type, level and custom lists."""
+    if not _STATE["enabled"]:
+        return (False,)
+    return (True, str(_STATE["dtype"]), _STATE["level"],
+            tuple(sorted(_STATE["custom_white"])),
+            tuple(sorted(_STATE["custom_black"])))
 
 
 def decorate(models, optimizers=None, level="O1", dtype="bfloat16",

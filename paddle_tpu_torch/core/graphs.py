@@ -1,16 +1,16 @@
 """Compiled programs: one CUDA graph per shape signature and state
-(counterpart of ``jax.jit`` as the JAX package's serving programs use it,
-and of ``jax.disable_jit``).
+(counterpart of ``jax.jit`` as the JAX package's serving programs and
+``Model``'s train step use it, and of ``jax.disable_jit``).
 
-The JAX package jits each serving program once per shape signature and
-counts the traces (``trace_counter``); every later call with the same
-shapes runs the compiled executable. Here a :class:`Program` wraps the
+The JAX package jits each serving program and train step once per shape
+signature and counts the traces (``trace_counter``); every later call
+with the same shapes runs the compiled executable. Here a :class:`Program` wraps the
 same plain function (``raw(params, state, *inputs)``) and, on CUDA,
 captures it once into a CUDA graph, whose replay relaunches every kernel
 of the step from one host call. A graph binds addresses where a jit binds
 shapes, so a program keeps one graph per *state*, the object whose device
-buffers the step reads and writes in place (a decoder's KV cache), and
-per generator:
+buffers the step reads and writes in place (a decoder's KV cache, a
+``Model``'s train state), and per generator:
 
 - the first call for a state runs ``raw`` eagerly on the state's capture
   stream (the warm-up: it builds the kernels, makes the cuBLAS workspace
@@ -23,10 +23,18 @@ per generator:
   graph's inputs: a caller that passes the same tensors every time (the
   engine's static vectors) copies nothing. Outputs are the graph's own
   buffers, overwritten by the next call: read or copy them first;
-- ``params`` (the weights) are read where they were at capture: a call
-  with weights at other addresses raises, so new weights are copied in
-  place (``Tensor.copy_``) or the programs dropped
-  (``ExecutableCache.clear``).
+- ``params`` (the weights; for a train step also the optimizer's state
+  and its lr and step scalars) are read where they were at capture: a
+  call with any of them at other addresses raises, so new weights are
+  copied in place (``Tensor.copy_``) or the programs dropped
+  (``ExecutableCache.clear``, ``Program.release``).
+
+The function must have no host side effects: the warm-up and the capture
+both run it, so a train step's host counters (``_global_step``) move
+outside it, and tensors it needs across calls (optimizer state) are made
+before the first call (made during a capture they would live in the
+graph's pool). Autograd's backward runs inside the capture on the
+forward's stream, custom kernels included.
 
 On the CPU a program runs the same static-buffer program eagerly (the
 inputs copied into the first call's tensors, the outputs into the first
@@ -240,8 +248,11 @@ class Program:
     captured once per state and generator (the last input that is a
     ``torch.Generator`` or None when none is), replayed after.
 
-    ``state`` carries ``graph_pool`` (a :class:`GraphPool`) and is held
-    weakly: when it is collected its graphs go with it. ``inputs`` are
+    ``state`` carries ``graph_pool`` (a :class:`GraphPool`), and may
+    carry ``generators``, the CUDA generators the function draws from
+    without taking them as inputs (a model's dropout generator), which
+    every graph registers; it is held weakly: when it is collected its
+    graphs go with it. ``inputs`` are
     tensors, tuples of tensors (``SamplingVectors``), a generator or
     None. ``trace_counter["traces"]`` counts captures (first sightings
     on the CPU), ``capture_ms`` each capture's wall time, ``replays`` the
@@ -300,8 +311,10 @@ class Program:
         _record(outs, caller)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        if gen is not None and gen.device.type == "cuda":
-            graph.register_generator_state(gen)
+        gens = {id(g): g for g in (gen, *getattr(state, "generators", ()))
+                if g is not None and g.device.type == "cuda"}
+        for g in gens.values():
+            graph.register_generator_state(g)
         before = _snapshot_counts()
         try:
             with _owning(pool), torch.cuda.graph(

@@ -5,7 +5,7 @@ from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    GradientClipByValue, clip_grad_norm_)
 from .container import Sequential
 from .layers_activation import LeakyReLU
-from .layers_common import (BatchNorm2D, Conv2D, Dropout, Embedding,
+from .layers_common import (BatchNorm1D, BatchNorm2D, Conv2D, Dropout, Embedding,
                             LayerNorm, Linear, Upsample)
 from .transformer import (CAUSAL_MASK, MultiHeadAttention, Transformer,
                           TransformerDecoder, TransformerDecoderLayer,
@@ -14,7 +14,7 @@ from .transformer import (CAUSAL_MASK, MultiHeadAttention, Transformer,
 __all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
            "ClipGradByValue", "GradientClipByGlobalNorm",
            "GradientClipByNorm", "GradientClipByValue", "clip_grad_norm_",
-           "Sequential", "LeakyReLU", "BatchNorm2D", "Conv2D", "Upsample",
+           "Sequential", "LeakyReLU", "BatchNorm1D", "BatchNorm2D", "Conv2D", "Upsample",
            "Dropout", "Embedding", "LayerNorm", "Linear", "CAUSAL_MASK",
            "MultiHeadAttention", "Transformer", "TransformerDecoder",
            "TransformerDecoderLayer", "TransformerEncoder",

@@ -1,12 +1,12 @@
-"""Linear, LayerNorm, Embedding, Dropout, Conv2D, BatchNorm2D and
+"""Linear, LayerNorm, Embedding, Dropout, Conv2D, BatchNorm1D/2D and
 Upsample as ``torch.nn.Module``s (counterpart of the same classes in
 ``paddle_tpu/nn/layers_common.py``).
 
 Parameter names and layouts are paddle's, so state dicts carry 1:1
 between the packages: ``Linear.weight`` is ``[in, out]`` and the layer
 computes ``x @ W + b`` (not ``torch.nn.Linear``'s ``[out, in]``);
-``Conv2D.weight`` is OIHW; ``BatchNorm2D`` keeps its running statistics
-in the buffers ``_mean`` and ``_variance``. Parameters are created on an
+``Conv2D.weight`` is OIHW; ``BatchNorm1D``/``2D`` keep their running
+statistics in the buffers ``_mean`` and ``_variance``. Parameters are created on an
 explicit device and drawn from an explicit ``torch.Generator`` by
 :meth:`reset_parameters`, with paddle's default initialisers:
 Xavier-uniform weights and zero biases for ``Linear``, ``Normal(0,
@@ -216,6 +216,21 @@ class BatchNorm2D(nn.Module):
             training=self.training, momentum=self._momentum,
             epsilon=self._epsilon, data_format=self._data_format,
             use_global_stats=self._use_global_stats)
+
+
+class BatchNorm1D(BatchNorm2D):
+    """paddle's BatchNorm1D over ``[N, C]`` or ``[N, C, L]`` (``"NCL"``;
+    ``"NLC"`` puts the channels last): BatchNorm2D's parameters, buffers
+    and statistics."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 epsilon: float = 1e-5, weight_attr=None, bias_attr=None,
+                 data_format: str = "NCL", use_global_stats=None,
+                 name=None, *, device: DeviceLike = None,
+                 dtype=torch.float32):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, use_global_stats, name,
+                         device=device, dtype=dtype)
 
     def extra_repr(self):
         return (f"num_features={self._mean.shape[0]}, "

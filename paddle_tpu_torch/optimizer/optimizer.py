@@ -2,29 +2,39 @@
 ``paddle_tpu/optimizer/optimizer.py:25-340``).
 
 Each optimizer defines one update rule ``_update(p, g, state, lr, step,
-ctx) -> (new_p, new_state)``; :meth:`Optimizer.step` applies it parameter
+ctx) -> (p, state)``; :meth:`Optimizer.step` applies it parameter
 by parameter in the JAX package's order: clip the gradients
 (``grad_clip``), add the coupled regularizer ``coeff * p``
 (:meth:`Optimizer._regularized_grad`), cast the gradient to the
 parameter's type, update. The JAX package fuses the whole step into one
-jitted program; here each rule runs as eager tensor operations on the
-parameters' device and the result is copied into the parameter in place.
-The learning rate and the step counter are float32 scalars, and Adam's
-bias correction is ``1 - beta ** step``. AdamW applies its decoupled decay
-``p * (1 - lr * ratio * coeff)`` before the Adam update, with
-``ctx = (coeff or 0, ratio)`` from ``apply_decay_param_fun(name)`` and
-``lr_ratio(p)``. A torch tensor cannot carry paddle's ``p.name``, so
-``parameters`` may hold ``(name, parameter)`` pairs, as
-``module.named_parameters()`` gives them; a bare parameter's name is ""
-(the JAX package passes ``p.name or ""``, which is "" for every
-parameter a layer creates unnamed).
+jitted program and rebinds the results; here each rule runs the
+reference's arithmetic as the in-place forms of its operations, in its
+order, on the parameter and its state tensors (moments, velocity,
+masters; an O2 master is cast back into its bfloat16 parameter), so
+they keep their addresses: a CUDA graph that captured the step
+(``hapi.Model``) reads and writes the optimizer's own tensors, and
+:meth:`state_dict` returns live tensors. The learning rate and the step
+counter are two float32 scalars on the parameters' device (``_lr_t``,
+``_step_t``), filled from :meth:`get_lr` and ``_global_step + 1`` before
+each update (a fill is a launch, not a host sync; a captured step reads
+them where they are). Adam's bias correction is ``1 - beta ** step``.
+AdamW applies its decoupled decay ``p * (1 - lr * ratio * coeff)`` before
+the Adam update, with ``ctx = (coeff or 0, ratio)`` from
+``apply_decay_param_fun(name)`` and ``lr_ratio(p)``. A torch tensor
+cannot carry paddle's ``p.name``, so ``parameters`` may hold ``(name,
+parameter)`` pairs, as ``module.named_parameters()`` gives them; a bare
+parameter's name is "" (the JAX package passes ``p.name or ""``, which is
+"" for every parameter a layer creates unnamed). ``_elementwise_update``
+marks a rule that is elementwise in ``(p, g, state)`` (all four here), so
+``Model.train_loop`` may run it on coalesced flat buffers.
 
 ``state_dict`` keys are the JAX package's (``param_{i}.moment1``,
 ``.moment2``, ``.velocity``, ``.master``, ``global_step``,
 ``LR_Scheduler``), ``i`` being the parameter's position in
-``parameters``, so a ``.pdopt`` file moves between the packages. Like
-every entry point of the port, an optimizer lives on CUDA unless
-``device`` says otherwise, and refuses parameters elsewhere.
+``parameters``, so a ``.pdopt`` file moves between the packages;
+:meth:`set_state_dict` copies into the live state in place. Like every
+entry point of the port, an optimizer lives on CUDA unless ``device``
+says otherwise, and refuses parameters elsewhere.
 
 Not ported yet (ROADMAP A4): Adamax, Adagrad, Adadelta, RMSProp, Lamb,
 LarsMomentum, Ftrl and ExponentialMovingAverage.
@@ -64,6 +74,10 @@ class Optimizer:
         # state by position in the parameter list
         self._state: Dict[int, dict] = {}
         self._global_step = 0
+        # the lr and step (float32 scalars on the device) and, during one
+        # update, the scalars derived from them (see _scalar)
+        self._lr_t = self._step_t = None
+        self._memo = None
 
     # -- lr -------------------------------------------------------------
     def get_lr(self) -> float:
@@ -78,9 +92,29 @@ class Optimizer:
 
     # -- state ----------------------------------------------------------
     def _ensure_state(self):
+        """Make the state of every parameter and the lr and step scalars,
+        once (a captured step must find them made: state made during a
+        capture would live in the graph's memory pool)."""
         if not self._state:
             for i, p in enumerate(self._parameter_list):
                 self._state[i] = self._init_state(p)
+        if self._lr_t is None:
+            self._lr_t = torch.zeros((), dtype=torch.float32,
+                                     device=self._device)
+            self._step_t = torch.zeros((), dtype=torch.float32,
+                                       device=self._device)
+
+    def _fill_scalars(self):
+        """Write :meth:`get_lr` and the step number, ``_global_step + 1``,
+        into the device scalars the update reads."""
+        self._lr_t.fill_(self.get_lr())
+        self._step_t.fill_(self._global_step + 1)
+
+    def _state_tensors(self):
+        """Every state tensor and the lr and step scalars: what a captured
+        step reads and writes in place."""
+        return [self._state[i] for i in range(len(self._parameter_list))] \
+            + [self._lr_t, self._step_t]
 
     def _init_state(self, p) -> dict:
         return {}
@@ -100,7 +134,8 @@ class Optimizer:
 
     def set_state_dict(self, state):
         """Load :meth:`state_dict` output, from this package or the JAX
-        package (values may be tensors or arrays)."""
+        package (values may be tensors or arrays), copied into the live
+        state in place."""
         self._ensure_state()
         for i in range(len(self._parameter_list)):
             cur = self._state[i]
@@ -110,15 +145,31 @@ class Optimizer:
                     v = state[key]
                     if not isinstance(v, torch.Tensor):
                         v = torch.as_tensor(np.asarray(v))
-                    cur[k] = v.to(device=cur[k].device, dtype=cur[k].dtype)
+                    with torch.no_grad():
+                        cur[k].copy_(v.reshape(cur[k].shape))
         self._global_step = int(state.get("global_step", self._global_step))
         if "LR_Scheduler" in state and \
                 isinstance(self._learning_rate, LRScheduler):
             self._learning_rate.set_state_dict(state["LR_Scheduler"])
 
     # -- update rule (override) -----------------------------------------
+    #: True when ``_update`` is elementwise in ``(p, g, state)``, so it may
+    #: run on coalesced flat buffers (``Model.train_loop``)
+    _elementwise_update = False
+
     def _update(self, p, g, state, lr, step, ctx=None):
         raise NotImplementedError
+
+    def _scalar(self, key, make):
+        """The scalar tensor ``make()`` (from the lr or step tensors),
+        made once per update and shared by every parameter's rule; made
+        anew outside an update."""
+        if self._memo is None:
+            return make()
+        v = self._memo.get(key)
+        if v is None:
+            v = self._memo[key] = make()
+        return v
 
     def _regularized_grad(self, p, g):
         """The coupled regularizer's coefficient for ``p`` (the caller
@@ -153,22 +204,40 @@ class Optimizer:
                if p.grad is not None and p.requires_grad]
         if not idx:
             return
+        self._fill_scalars()
+        self._apply_update(idx, [self._parameter_list[i].grad for i in idx])
+        self._global_step += 1
+
+    @torch.no_grad()
+    def _apply_update(self, idx, grads):
+        """Clip, coupled regularizer and update of the parameters at
+        positions ``idx`` by ``grads``, in place, with the lr and step the
+        device scalars hold. No host sync and no host state changes, so a
+        CUDA graph can hold it; the caller fills the scalars and counts
+        the step."""
         params = [self._parameter_list[i] for i in idx]
-        grads = [p.grad for p in params]
         if self._grad_clip is not None:
             grads = self._grad_clip._clip_raw(params, grads)
-        # float32 scalars, as the JAX step's lr and step arrays
-        lr = np.float32(self.get_lr())
-        step_no = np.float32(self._global_step + 1)
         ctxs = self._param_update_ctx(params)
-        for i, p, g, ctx in zip(idx, params, grads, ctxs):
-            rc = self._regularized_grad(p, None)
-            if rc is not None:
-                g = g + rc * p
-            new_p, self._state[i] = self._update(
-                p, g.to(p.dtype), self._state[i], lr, step_no, ctx)
-            p.copy_(new_p)
-        self._global_step += 1
+        self._memo = {}
+        try:
+            for i, p, g, ctx in zip(idx, params, grads, ctxs):
+                rc = self._regularized_grad(p, None)
+                if rc is not None:
+                    g = g + rc * p
+                self._update_into(p, g.to(p.dtype), self._state[i], ctx)
+        finally:
+            self._memo = None
+
+    def _update_into(self, p, g, state, ctx):
+        """``_update`` with the device lr and step; what it returns as new
+        tensors (a master's cast) is copied into ``p`` and ``state``."""
+        new_p, new_state = self._update(p, g, state, self._lr_t,
+                                        self._step_t, ctx)
+        for k, v in new_state.items():
+            if v is not state[k]:
+                state[k].copy_(v)
+        p.copy_(new_p)
 
     def clear_grad(self, set_to_zero=False):
         for p in self._parameter_list:
@@ -197,6 +266,8 @@ class Optimizer:
 
 
 class SGD(Optimizer):
+    _elementwise_update = True
+
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None, *,
                  device: DeviceLike = None):
@@ -204,10 +275,12 @@ class SGD(Optimizer):
                          name, device=device)
 
     def _update(self, p, g, s, lr, step, ctx=None):
-        return p - lr * g, s
+        return p.sub_(lr * g), s
 
 
 class Momentum(Optimizer):
+    _elementwise_update = True
+
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
                  name=None, *, device: DeviceLike = None):
@@ -221,15 +294,17 @@ class Momentum(Optimizer):
                                         device=p.device)}
 
     def _update(self, p, g, s, lr, step, ctx=None):
-        v = self._momentum * s["velocity"] + g
+        v = s["velocity"].mul_(self._momentum).add_(g)
         if self._nesterov:
-            p2 = p - lr * (g + self._momentum * v)
+            p.sub_(lr * (g + self._momentum * v))
         else:
-            p2 = p - lr * v
-        return p2, {"velocity": v}
+            p.sub_(lr * v)
+        return p, s
 
 
 class Adam(Optimizer):
+    _elementwise_update = True
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
@@ -254,16 +329,14 @@ class Adam(Optimizer):
         master = s.get("master")
         work = master if master is not None else p
         gf = g.to(work.dtype)
-        m = b1 * s["moment1"] + (1 - b1) * gf
-        v = b2 * s["moment2"] + (1 - b2) * gf * gf
-        mhat = m / (1 - b1 ** step)
-        vhat = v / (1 - b2 ** step)
-        new_work = work - lr * mhat / (torch.sqrt(vhat) + eps)
-        ns = {"moment1": m, "moment2": v}
+        m = s["moment1"].mul_(b1).add_((1 - b1) * gf)
+        v = s["moment2"].mul_(b2).add_((1 - b2) * gf * gf)
+        mhat = m / self._scalar(("bc", b1), lambda: 1 - b1 ** step)
+        vhat = v / self._scalar(("bc", b2), lambda: 1 - b2 ** step)
+        work.sub_(lr * mhat / (torch.sqrt(vhat) + eps))
         if master is not None:
-            ns["master"] = new_work
-            return new_work.to(p.dtype), ns
-        return new_work, ns
+            return work.to(p.dtype), s
+        return work, s
 
 
 class AdamW(Adam):
@@ -307,10 +380,9 @@ class AdamW(Adam):
 
     def _update(self, p, g, s, lr, step, ctx=None):
         coeff, ratio = ctx
-        lr = lr * ratio
+        lr = self._scalar(("lr", ratio), lambda: lr * ratio)
         master = s.get("master")
         work = master if master is not None else p
-        decayed = work * (1.0 - lr * coeff)
-        if master is not None:
-            return super()._update(p, g, dict(s, master=decayed), lr, step)
-        return super()._update(decayed, g, s, lr, step)
+        work.mul_(self._scalar(("decay", ratio, coeff),
+                               lambda: 1.0 - lr * coeff))
+        return super()._update(p, g, s, lr, step)

@@ -1154,3 +1154,163 @@ def test_two_same_shape_engines_on_the_card_give_their_own_tokens(cuda):
             ref = twin.generate(np.array([p]), max_length=8).numpy()[0]
             assert t == ref[len(p):].tolist()
     assert got[0] != got[1]
+
+
+# -- the compiled train step (core/graphs.py, hapi/model.py) ------------------
+
+def _flash_counts():
+    return [c.launches for c in (tfa.flash_attention_fwd,
+                                 tfa.flash_attention_bwd_dq,
+                                 tfa.flash_attention_bwd_dkv)]
+
+
+def _train_model(cuda, precision="fp32", clip="global", dropout=0.0,
+                 lr=1e-3):
+    """A 2-layer flash GPT from seed 0 in a Model with AdamW (eps 1e-6,
+    so k_proj.bias's zero-up-to-rounding gradient stays small); O2 casts
+    the model to bfloat16 and keeps float32 masters."""
+    from paddle_tpu_torch import Model, amp, nn
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = dict(MODEL, hidden_dropout_prob=dropout)
+    net = GPTForCausalLM(GPTConfig(**cfg, attn_impl="flash"), device=cuda,
+                         seed=0)
+    if precision == "o2":
+        amp.decorate(net, level="O2")
+    clips = {"global": nn.ClipGradByGlobalNorm(1.0),
+             "norm": nn.ClipGradByNorm(0.5), "value": nn.ClipGradByValue(0.01)}
+    model = Model(net)
+    model.prepare(AdamW(learning_rate=lr, parameters=net.parameters(),
+                        epsilon=1e-6, grad_clip=clips[clip],
+                        multi_precision=precision == "o2"),
+                  GPTPretrainingCriterion())
+    return model, net
+
+
+def _cast(precision):
+    from paddle_tpu_torch import amp
+    if precision == "fp32":
+        return contextlib.nullcontext()
+    return amp.auto_cast(level="O2" if precision == "o2" else "O1")
+
+
+def _equal_or_close(got, ref, what):
+    """Bitwise, or within 1e-5 relative; names the first step that is
+    neither."""
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a == b or abs(a - b) <= 1e-5 * abs(b), \
+            f"{what}: step {i + 1} differs: {a} vs {b}"
+
+
+TRAIN_IDS = np.random.default_rng(3).integers(0, MODEL["vocab_size"],
+                                              (5, 2, 64))
+
+
+@pytest.mark.parametrize("precision,clip", [
+    ("fp32", "global"), ("o1", "global"), ("o2", "global"),
+    ("fp32", "norm"), ("fp32", "value")])
+def test_graphed_train_batch_equals_the_eager_lane(cuda, precision, clip):
+    """Five train_batch steps captured once and replayed against the same
+    five steps on the eager lane (disable_graphs), fresh weights from one
+    seed: equal losses and weights, one trace, four replays, and B1-B3
+    counted once per layer a step through the replays."""
+    from paddle_tpu_torch.core import graphs
+    res = {}
+    for lane in ("graphed", "eager"):
+        model, net = _train_model(cuda, precision, clip)
+        before = _flash_counts()
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        with ctx, _cast(precision):
+            losses = [model.train_batch([b], [b])[0] for b in TRAIN_IDS]
+        launched = [a - b for a, b in zip(_flash_counts(), before)]
+        assert launched == [len(TRAIN_IDS) * MODEL["num_layers"]] * 3, \
+            (lane, launched)
+        res[lane] = (losses, {n: p.detach().clone()
+                              for n, p in net.named_parameters()}, model)
+    prog = res["graphed"][2]._train_step_fn["fn"]
+    assert prog.trace_counter["traces"] == 1 and prog.replays == 4
+    assert res["eager"][2]._train_step_fn["fn"].trace_counter["traces"] == 0
+    _equal_or_close(res["graphed"][0], res["eager"][0], "losses")
+    assert all(np.isfinite(res["graphed"][0]))
+    for n, p in res["eager"][1].items():
+        torch.testing.assert_close(res["graphed"][1][n], p, rtol=1e-5,
+                                   atol=1e-5, msg=n)
+
+
+def test_graphed_train_step_draws_fresh_dropout_masks(cuda):
+    """With hidden dropout 0.1 (and lr 0, so the weights stay), each
+    replay draws new masks from the model's generator, registered with
+    the graph: two replays give two losses, and re-seeding repeats
+    them."""
+    import paddle_tpu_torch as P
+    model, _ = _train_model(cuda, dropout=0.1, lr=0.0)
+    b = TRAIN_IDS[0]
+    model.train_batch([b], [b])                 # warm-up and capture
+    P.seed(5)
+    first = [model.train_batch([b], [b])[0] for _ in range(2)]
+    P.seed(5)
+    again = [model.train_batch([b], [b])[0] for _ in range(2)]
+    assert model._train_step_fn["fn"].replays == 4
+    assert first[0] != first[1] and first == again
+
+
+def test_graphed_train_step_refuses_a_moved_parameter(cuda):
+    model, net = _train_model(cuda)
+    b = TRAIN_IDS[0]
+    model.train_batch([b], [b])
+    model.train_batch([b], [b])
+    w = net.gpt.word_embeddings.weight
+    w.data = w.data.clone()
+    with pytest.raises(RuntimeError, match="not where"):
+        model.train_batch([b], [b])
+
+
+@pytest.mark.parametrize("precision", ["fp32", "o1"])
+def test_train_loop_equals_graphed_train_batch(cuda, precision):
+    """train_loop over 5 steps (flat buffers, one captured program)
+    against 5 graphed train_batch calls on fresh weights from one seed,
+    and train_batches against both."""
+    res = {}
+    for how in ("train_batch", "train_loop", "train_batches"):
+        model, net = _train_model(cuda, precision)
+        before = _flash_counts()
+        with _cast(precision):
+            if how == "train_batch":
+                losses = [model.train_batch([b], [b])[0] for b in TRAIN_IDS]
+            else:
+                losses = getattr(model, how)([TRAIN_IDS], [TRAIN_IDS])
+        launched = [a - b for a, b in zip(_flash_counts(), before)]
+        assert launched == [len(TRAIN_IDS) * MODEL["num_layers"]] * 3, \
+            (how, launched)
+        if how == "train_loop":
+            assert model._fused_loop is not None
+            assert model._fused_loop["fn"].replays == len(TRAIN_IDS) - 1
+        res[how] = (losses, {n: p.detach().clone()
+                             for n, p in net.named_parameters()})
+    for how in ("train_loop", "train_batches"):
+        _equal_or_close(res[how][0], res["train_batch"][0], how)
+        for n, p in res["train_batch"][1].items():
+            torch.testing.assert_close(res[how][1][n], p, rtol=1e-5,
+                                       atol=1e-5, msg=f"{how} {n}")
+
+
+@pytest.mark.parametrize("method", ["train_batches", "train_loop"])
+def test_multi_step_does_not_sync_between_steps(cuda, method):
+    """Once captured, K steps of train_batches or train_loop make one
+    synchronizing call, the losses' read at the end."""
+    import warnings
+    model, _ = _train_model(cuda)
+    ids = torch.from_numpy(TRAIN_IDS).to(cuda)
+    getattr(model, method)([ids[:2]], [ids[:2]])   # warm-up and capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            losses = getattr(model, method)([ids], [ids])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(losses) == len(TRAIN_IDS)
+    assert len(syncs) == 1, [str(w.message) for w in syncs]

@@ -261,9 +261,6 @@ def test_unported_options_raise():
         m.prepare(None, None, amp_configs={"level": "O1"})
     with pytest.raises(NotImplementedError, match="A8"):
         m.attach_step_meter()
-    for fn in (m.train_batches, m.train_loop):
-        with pytest.raises(NotImplementedError, match="A4"):
-            fn([np.zeros((1, 2), np.float32)])
     m.prepare(topt.SGD(parameters=net.parameters(), device="cpu"),
               torch.nn.functional.mse_loss)
     with pytest.raises(NotImplementedError, match="A9"):
