@@ -15,7 +15,9 @@ Phases (any failure raises and the script exits non-zero):
    float64 formulas; B1-B4 two launches against each other, bit for
    bit; B1 also at generate's short causal lengths, B=2, S 64 to 96;
    B4 also captured in a CUDA graph and replayed 20 times on new queries
-   and positions, each replay within 1e-4 of its plain version),
+   and positions, each replay within 1e-4 of its plain version, and at
+   head dims 16 to 1024 in fp32, bf16 and fp16, rows of one element a
+   lane included),
    and time kernel, plain version and, where one exists, the single
    PyTorch call computing the same function: for B1 the forward of
    ``scaled_dot_product_attention``, for B2 and B3 together its backward
@@ -25,7 +27,9 @@ Phases (any failure raises and the script exits non-zero):
    kernels and library calls are timed on the device's clock, behind a
    spin kernel that lets the host queue every call first;
    bounds of B1-B3 on the tensor cores (fp32 as 3xTF32), with the
-   fp32-FMA bound beside; B1-B3 in fp32, bf16 and fp16;
+   fp32-FMA bound beside; B1-B3 in fp32, bf16 and fp16; B1-B3 also at
+   BERT-base's attention (B=256, S=128, H=12, D=64, non-causal) in fp32
+   (and against float64) and bf16, the same checks and timings;
 3. the serving path, part one: GPT-3 1.3B (``GPTForCausalLM``, full
    width, random weights from a seed) forward on a [4, 1024] batch
    through the flash kernel, held against the same model's dense
@@ -110,7 +114,48 @@ Phases (any failure raises and the script exits non-zero):
 11. checks and timings off the detection path: the forward's device time
    at batch 8, decode's time split into yolo_box, top-k, IoU and B5, the
    kernel lane's detections against the plain lane's on the same IoU
-   (bitwise), and a torch.profiler breakdown of one served batch.
+   (bitwise), and a torch.profiler breakdown of one served batch;
+12. ResNet-50 training at bench.py's TPU shape: ``resnet50(num_classes=
+   1000)`` from seed 0, Momentum(0.1, 0.9, weight decay 1e-4) and
+   ``CrossEntropyLoss`` through ``Model.train_batch`` on bench.py's batch
+   (256 images of 224x224 and their labels from ``RandomState(0)``): 5
+   graphed fp32 steps (one capture, four replays) and 5 on the eager lane
+   on fresh weights, the same in O1 bf16 (``auto_cast``); losses and BN
+   running statistics graphed against eager (bitwise, or within 1e-5
+   relative: cuDNN's weight-gradient algorithms may sum with atomics);
+   each lane's imgs/s, step wall, device ms, idle share, kernels a step,
+   capture ms, graph-pool bytes, peak memory, device time by part (the
+   graphed lanes by kernel name, the eager lanes by the host op that
+   launched each kernel: convolutions forward and backward, BN forward
+   and backward, ReLU, residual adds, pooling, casts, the update, the
+   rest) and train TFLOP/s by bench.py's count (3 x 4.09 GFLOP an
+   image), the Momentum update timed alone against its byte bound; then
+   an O1 ``train_loop`` over the batch stacked 5 times, its losses equal
+   to the graphed O1 ones (the lr is constant); no kernel of the port
+   runs on this path;
+13. BERT-base training at bench.py's TPU shape: ``BertConfig()`` (both
+   dropouts 0.1) under bench.py's MLM head and flat cross entropy,
+   AdamW(1e-4, weight decay 0.01), ids [256, 128] from ``RandomState(0)``;
+   the lanes, checks and prints of phase 12 with tokens/s and bench.py's
+   6·N·tokens TFLOP/s (attention dense while dropout trains, as in the
+   JAX package: no kernel on this path); then two kernel checks on the
+   same model: (a) ``BertModel`` in eval with no mask takes B1 once a
+   layer (12), held against the dense lane in fp32 (1e-4) and, in O1
+   bf16, by its distance from the dense fp32 output (at most 1.2 times
+   the dense bf16 lane's), as max |diff| over max |dense|; (b) one eager
+   step with both dropouts 0 runs B1-B3 once a layer, its gradients held
+   against the dense lane's within 1e-3 of each tensor's largest entry,
+   or, for a tensor over it, no farther from a float64 step than 1.2
+   times the flash formula run in fp32 without the kernels;
+14. C6: the default paged engine (``paged_attn_impl="auto"``) serves a
+   float16 GPT and a bfloat16 GPT of head dim 100 through B4, an
+   explicit ``"kernel"`` is the same lane, and the kernel lane's and an
+   explicit gather engine's greedy tokens each lie within twice the
+   model's own rounding of a float32 copy's argmax.
+
+Each model, its programs and its cache are released between phases
+(``release_memory``): GPT-3 1.3B, ResNet-50 and BERT-base are never
+resident at once.
 
 A replay of a captured graph adds to each kernel's count the launches
 the graph captured. Every launch count (and B1-B3's counts by input
@@ -121,7 +166,10 @@ runs no kernel: its attention is dense, as the JAX package's), just
 before phase 6c's three ``generate`` calls and read after them (the
 generate path), just before phase 7 and read after it, just before each
 of phase 9's four paths (O1 ``train_batch``, O1 ``train_loop``, O2,
-fp16) and read after it, and just before phase 10 and read after it. The last two lines are a
+fp16) and read after it, just before phase 10 and read after it, just
+before phases 12 and 13's training paths and read after each (no kernel
+of the port runs on either), just before phase 13's kernel checks and
+read after them, and just before phase 14 and read after it. The last two lines are a
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -353,31 +401,49 @@ def sass_tensor_counts(kernel_build, names):
 GEN_FLASH_LENS = (64, 65, 95, 96)
 
 
+#: B1-B3 at BERT-base's attention: B=256, S=128, H=12, D=64, non-causal
+BERT_ATTN = (256, 128, 12, 64)
+
+
+def _flash_cases(torch, with_gen):
+    """Phase 2's B1-B3 cases, (type name, dtype, B, Sq, Skv, H, D, causal,
+    summary tag): the training path's B=4, S=1024, H=16, D=128, the odd
+    length and Sq != Skv cases, BERT-base's shape (BERT_ATTN, tag
+    "bert"), and for B1 the short causal lengths of generate's recompute
+    lane (GEN_FLASH_LENS)."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    b, s, h, d = BERT_ATTN
+    cases = [("fp32", f32, 4, 1024, 1024, 16, 128, True, None),
+             ("fp32", f32, 4, 1024, 1024, 16, 128, False, None),
+             ("bf16", bf16, 4, 1024, 1024, 16, 128, True, None),
+             ("bf16", bf16, 4, 1024, 1024, 16, 128, False, None),
+             ("fp16", f16, 4, 1024, 1024, 16, 128, True, None),
+             ("fp16", f16, 4, 1024, 1024, 16, 128, False, None),
+             ("fp32", f32, 4, 1000, 1000, 16, 128, True, None),
+             ("fp32", f32, 4, 512, 1024, 16, 128, True, None),
+             ("fp32", f32, 4, 1024, 640, 16, 128, False, None),
+             ("fp32", f32, b, s, s, h, d, False, "bert"),
+             ("bf16", bf16, b, s, s, h, d, False, "bert")]
+    if with_gen:
+        cases += [("fp32", f32, 2, n, n, 16, 128, True, None)
+                  for n in GEN_FLASH_LENS]
+    return cases
+
+
 def check_flash(torch, fa_mod, gen):
-    """B1 against its plain version at B=4, S=1024, H=16, D=128, plus the
-    odd length and Sq != Skv cases, and at B=2 with the short causal
-    lengths of generate's recompute lane (GEN_FLASH_LENS); every case
+    """B1 against its plain version on :func:`_flash_cases`; every case
     launches the kernel twice and requires bitwise equal results, and
     every fp32 case is also held to F64_TOL of the same attention in
     float64 (O and LSE, max |err| / max |ref|). Returns the summary row
     for the main path's case (fp32, causal, S=1024), with the bf16 and
-    fp16 causal cases' times beside."""
+    fp16 causal cases' times beside and the BERT-shape cases' under
+    ``bert_<type>_*`` keys."""
     fa = fa_mod.flash_attention_fwd
     plain = fa_mod.flash_attention_fwd_plain
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    h, d = 16, 128
-    cases = [("fp32", torch.float32, 4, 1024, 1024, True),
-             ("fp32", torch.float32, 4, 1024, 1024, False),
-             ("bf16", torch.bfloat16, 4, 1024, 1024, True),
-             ("bf16", torch.bfloat16, 4, 1024, 1024, False),
-             ("fp16", torch.float16, 4, 1024, 1024, True),
-             ("fp16", torch.float16, 4, 1024, 1024, False),
-             ("fp32", torch.float32, 4, 1000, 1000, True),
-             ("fp32", torch.float32, 4, 512, 1024, True),
-             ("fp32", torch.float32, 4, 1024, 640, False)]
-    cases += [("fp32", torch.float32, 2, s, s, True) for s in GEN_FLASH_LENS]
-    row, low = None, {}
-    for name, dt, b, sq, skv, causal in cases:
+    row, low, tagged = None, {}, {}
+    for name, dt, b, sq, skv, h, d, causal, tag in _flash_cases(torch,
+                                                                True):
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
         k = torch.randn(b, skv, h, d, generator=gen, device="cuda").to(dt)
         v = torch.randn(b, skv, h, d, generator=gen, device="cuda").to(dt)
@@ -419,7 +485,8 @@ def check_flash(torch, fa_mod, gen):
         nbytes = (2 * sq + 2 * skv) * b * h * d * elem + 4 * b * h * sq
         bms, by, fma_ms = attn_bound(flops, nbytes, dt)
         lib_txt = ", ".join(f"{n} {med[n]:.4f}" for n in libs)
-        log(f"B1 flash {name} B={b} Sq={sq} Skv={skv} causal={causal}: "
+        log(f"B1 flash {name} B={b} Sq={sq} Skv={skv} H={h} D={d} "
+            f"causal={causal}: "
             f"max_abs_err O {err:.3e} LSE {lse_err:.3e} "
             f"(tol {TOL[name]:.0e}/{TOL['fp32']:.0e}){extra}, two launches "
             f"bitwise equal {same}; kernel {ms:.4f} ms (rounds "
@@ -430,7 +497,8 @@ def check_flash(torch, fa_mod, gen):
         if not ok:
             raise RuntimeError(f"flash kernel disagrees with its plain "
                                f"version, the float64 formulas or itself "
-                               f"({name}, B={b}, Sq={sq}, Skv={skv})")
+                               f"({name}, B={b}, Sq={sq}, Skv={skv}, H={h}, "
+                               f"D={d})")
         if row is None:
             row = {"max_abs_err": max(err, lse_err), "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -442,6 +510,18 @@ def check_flash(torch, fa_mod, gen):
                    "float64_tolerance": F64_TOL,
                    "bitwise_repeatable": same,
                    "shape": f"B={b} S={sq} H={h} D={d} fp32 causal"}
+        elif tag is not None:
+            t = f"{tag}_{name}"
+            tagged.update({
+                f"{t}_ms": ms, f"{t}_plain_ms": plain_ms,
+                f"{t}_bound_ms": bms, f"{t}_bound_by": by,
+                f"{t}_max_abs_err": max(err, lse_err),
+                f"{t}_library_ms": lib_ms,
+                f"{t}_library": f"sdpa forward, {lib_name} backend",
+                f"{t}_shape": f"B={b} S={sq} H={h} D={d} non-causal",
+                f"{t}_bitwise_repeatable": same})
+            if e64 is not None:
+                tagged[f"{t}_max_err_vs_float64"] = e64
         elif name != "fp32" and causal and name not in low:
             low[name] = {f"{name}_ms": ms, f"{name}_bound_ms": bms,
                          f"{name}_library_ms": lib_ms,
@@ -450,35 +530,29 @@ def check_flash(torch, fa_mod, gen):
                          f"{name}_max_abs_err": max(err, lse_err),
                          f"{name}_bitwise_repeatable": same}
         del q, k, v, out, lse, ref, ref_lse
+        torch.cuda.empty_cache()
     for extra in low.values():
         row.update(extra)
+    row.update(tagged)
     return row
 
 
 def check_flash_bwd(torch, fa_mod, gen):
-    """B2 and B3 against their plain versions at B=4, S=1024, H=16, D=128
-    (the training path's shape) with a random dO, plus the cases B1
-    runs. Error is max |kernel - plain| over max |plain|, per output.
-    Every case launches the kernels twice and requires the two results to
-    be bitwise equal (no atomics). The main case (fp32, causal, S=1024) is
-    also held to F64_TOL of the same formulas in float64: the kernels run
-    fp32 as 3xTF32, and a single TF32 product would miss that bar
-    (tests/test_torch_flash_tf32_split.py). Returns the summary rows of B2
-    and B3 for the main case, with the bf16 and fp16 causal cases' times
-    beside."""
+    """B2 and B3 against their plain versions on :func:`_flash_cases`
+    (all but generate's short ones) with a random dO. Error is max
+    |kernel - plain| over max |plain|, per output. Every case launches
+    the kernels twice and requires the two results to be bitwise equal
+    (no atomics). The main case (fp32, causal, S=1024) and the BERT-shape
+    fp32 case are also held to F64_TOL of the same formulas in float64:
+    the kernels run fp32 as 3xTF32, and a single TF32 product would miss
+    that bar (tests/test_torch_flash_tf32_split.py). Returns the summary
+    rows of B2 and B3 for the main case, with the bf16 and fp16 causal
+    cases' times beside and the BERT-shape cases' under ``bert_<type>_*``
+    keys."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    b, h, d = 4, 16, 128
-    cases = [("fp32", torch.float32, 1024, 1024, True),
-             ("fp32", torch.float32, 1024, 1024, False),
-             ("bf16", torch.bfloat16, 1024, 1024, True),
-             ("bf16", torch.bfloat16, 1024, 1024, False),
-             ("fp16", torch.float16, 1024, 1024, True),
-             ("fp16", torch.float16, 1024, 1024, False),
-             ("fp32", torch.float32, 1000, 1000, True),
-             ("fp32", torch.float32, 512, 1024, True),
-             ("fp32", torch.float32, 1024, 640, False)]
-    rows, low = None, {}
-    for name, dt, sq, skv, causal in cases:
+    rows, low, tagged = None, {}, ({}, {})
+    for name, dt, b, sq, skv, h, d, causal, tag in _flash_cases(torch,
+                                                                False):
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
         k = torch.randn(b, skv, h, d, generator=gen, device="cuda").to(dt)
         v = torch.randn(b, skv, h, d, generator=gen, device="cuda").to(dt)
@@ -503,7 +577,7 @@ def check_flash_bwd(torch, fa_mod, gen):
             errs[g] = abs_errs[g] / ref.float().abs().max().item()
         ok = same and all(e <= TOL[name] for e in errs.values())
         extra, e64 = "", None
-        if rows is None:
+        if rows is None or (tag is not None and dt == torch.float32):
             # independent of the plain version: the same formulas in f64
             f64 = [x.double() for x in (q, k, v, do)]
             o64, l64 = fa_mod.flash_attention_fwd_plain(*f64[:3], causal)
@@ -547,7 +621,8 @@ def check_flash_bwd(torch, fa_mod, gen):
                            in_bytes + 2 * skv * bhd * elem, dt)
         fma = (f"; on fp32 FMA {b_dq[2]:.4f} / {b_dkv[2]:.4f} ms"
                if b_dq[2] else "")
-        log(f"B2/B3 flash bwd {name} Sq={sq} Skv={skv} causal={causal}: "
+        log(f"B2/B3 flash bwd {name} B={b} Sq={sq} Skv={skv} H={h} D={d} "
+            f"causal={causal}: "
             f"max err/max dq {errs['dq']:.3e} dk {errs['dk']:.3e} "
             f"dv {errs['dv']:.3e}{extra} (tol {TOL[name]:.0e}), two launches "
             f"bitwise equal {same}; B2 {ms_dq:.4f} ms (plain {plain_dq:.4f}, "
@@ -558,7 +633,8 @@ def check_flash_bwd(torch, fa_mod, gen):
         if not ok:
             raise RuntimeError(f"flash backward kernels disagree with their "
                                f"plain versions, the float64 formulas or "
-                               f"themselves ({name}, Sq={sq}, Skv={skv})")
+                               f"themselves ({name}, B={b}, Sq={sq}, "
+                               f"Skv={skv}, H={h}, D={d})")
         if rows is None:
             shape = f"B={b} S={sq} H={h} D={d} fp32 causal"
             common = {"tolerance": TOL[name],
@@ -580,6 +656,23 @@ def check_flash_bwd(torch, fa_mod, gen):
                      "ms": ms_dkv, "plain_ms": plain_dkv,
                      "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
                      "bound_fp32_fma_ms": b_dkv[2], **common})
+        elif tag is not None:
+            t = f"{tag}_{name}"
+            common = {f"{t}_library_ms": lib_ms,
+                      f"{t}_library": f"sdpa backward, {lib_name} backend, "
+                                      f"for B2+B3 together",
+                      f"{t}_shape": f"B={b} S={sq} H={h} D={d} non-causal",
+                      f"{t}_bitwise_repeatable": same}
+            if e64 is not None:
+                common[f"{t}_max_err_vs_float64"] = e64
+            for out_row, ms, pms, bd, e in (
+                    (tagged[0], ms_dq, plain_dq, b_dq, errs["dq"]),
+                    (tagged[1], ms_dkv, plain_dkv, b_dkv,
+                     max(errs["dk"], errs["dv"]))):
+                out_row.update({f"{t}_ms": ms, f"{t}_plain_ms": pms,
+                                f"{t}_bound_ms": bd[0],
+                                f"{t}_bound_by": bd[1],
+                                f"{t}_max_err_over_max_ref": e, **common})
         elif name != "fp32" and causal and name not in low:
             lib = {f"{name}_library_ms": lib_ms,
                    f"{name}_library": f"sdpa backward, {lib_name} backend, "
@@ -592,9 +685,12 @@ def check_flash_bwd(torch, fa_mod, gen):
                  f"{name}_max_err_over_max_ref": max(errs["dk"], errs["dv"]),
                  **lib})
         del q, k, v, do, out, lse, delta, dq, dk, dv, rq, rk, rv, libs
+        torch.cuda.empty_cache()
     for dq_row, dkv_row in low.values():
         rows[0].update(dq_row)
         rows[1].update(dkv_row)
+    rows[0].update(tagged[0])
+    rows[1].update(tagged[1])
     return rows
 
 
@@ -602,10 +698,17 @@ def check_flash_bwd(torch, fa_mod, gen):
 PAGED_CASES = (("main", [0, 15, 16, 255, 512, 1023, 640, 1000]),
                ("all at 1023", [1023] * 8))
 #: B4's other head dims (D, dtype name), at the main case's positions:
-#: GPT-3 2.7B's 80, 96, the widest (256, two vectors a lane in f32) and
-#: the narrowest fp32 one that fills a warp with rows (16)
+#: GPT-3 2.7B's 80, 96, 256 (two vectors a lane in f32), the narrowest
+#: fp32 one that fills a warp with rows (16), float16, rows that are not
+#: whole 16-byte vectors (100 in the half types, 130 in f32: one element
+#: a lane) and the widest (1024)
 PAGED_HEAD_DIMS = ((80, "float32"), (80, "bfloat16"), (96, "float32"),
-                   (96, "bfloat16"), (256, "float32"), (16, "float32"))
+                   (96, "bfloat16"), (256, "float32"), (16, "float32"),
+                   (128, "float16"), (100, "float16"), (100, "bfloat16"),
+                   (130, "float32"), (1024, "float32"))
+#: the tolerance of each type, kernel against plain
+TYPE_TOL = {"float32": TOL["fp32"], "bfloat16": TOL["bf16"],
+            "float16": TOL["fp16"]}
 
 
 def paged_case(torch, gen, d=128, dtype="float32"):
@@ -700,7 +803,7 @@ def check_paged(torch, pa_mod, gen):
         torch.cuda.synchronize()
         same = torch.equal(out, again)
         err = (out.float() - ref.float()).abs().max().item()
-        tol = TOL["fp32" if dtype == "float32" else "bf16"]
+        tol = TYPE_TOL[dtype]
         ms = time_ms(lambda: pa_mod.paged_attention(q, kb, vb, bt,
                                                     positions), spin=True)
         bms, by, _ = paged_bound(torch, q, kb, bt, positions)
@@ -713,6 +816,22 @@ def check_paged(torch, pa_mod, gen):
         others[f"D{d}_{dtype}"] = {"max_abs_err": err, "ms": ms,
                                    "bound_ms": bms, "bound_by": by}
     row["head_dims"] = others
+    # the main case's inputs shifted one element off 16 bytes: the same
+    # kernel, one element a lane
+    q, kb, vb, bt = paged_case(torch, gen)
+    qs = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    qs.copy_(q)
+    out = pa_mod.paged_attention(qs, kb, vb, bt, positions)
+    ref = pa_mod.paged_attention_plain(q, kb, vb, bt, positions)
+    err = (out - ref).abs().max().item()
+    ms = time_ms(lambda: pa_mod.paged_attention(qs, kb, vb, bt, positions),
+                 spin=True)
+    log(f"B4 paged main positions, q shifted off 16 bytes: max_abs_err "
+        f"{err:.3e} (tol {TOL['fp32']:.0e}); kernel {ms:.4f} ms")
+    if err > TOL["fp32"] or not bool(torch.isfinite(out).all()):
+        raise RuntimeError("paged attention kernel disagrees with its plain "
+                           "version on a view off 16 bytes")
+    row["shifted_q"] = {"max_abs_err": err, "ms": ms}
     return row
 
 
@@ -1705,16 +1824,17 @@ def check_lane_losses(got, ref, what, tol=LANE_TOL):
             "worst_rel": worst}
 
 
-def profile_update(torch, model, label, fused=False):
+def profile_update(torch, model, label, fused=False, passes=10):
     """The optimizer's update alone (global-norm clip and AdamW, in place)
     on the model's parameters and state: from stand-in gradients through
     ``Optimizer._apply_update``, or, ``fused``, ``train_loop``'s flat
     update from the flat gradients its last step left. Eagerly inside
     ``disable_graphs``, else one replay of its own CUDA graph. Host wall
     (to a synchronize), device ms and kernels per update, against its
-    byte bound: AdamW reads p, g, m, v and writes p, m, v; the clip reads
-    g for the norm and reads and writes it scaled. It moves the weights:
-    call it last on a model."""
+    byte bound, ``passes`` times the parameters' bytes: AdamW reads p, g,
+    m, v and writes p, m, v; the clip reads g for the norm and reads and
+    writes it scaled (10; AdamW alone 7; Momentum reads p, g, v and
+    writes p, v: 5). It moves the weights: call it last on a model."""
     from paddle_tpu_torch.core import graphs
     opt = model._optimizer
     if fused:
@@ -1748,7 +1868,7 @@ def profile_update(torch, model, label, fused=False):
 
     prof = profile_steps(torch, label, step, 2)
     kernels = sum(r[1] for r in prof["kernels"])
-    bound_bytes = 10 * n_bytes
+    bound_bytes = passes * n_bytes
     bound_ms = bound_bytes / PEAK_BYTES * 1e3
     log(f"{label}: device {prof['device_ms']:.3f} ms, {kernels:.0f} "
         f"kernels, bound {bound_ms:.3f} ms ({bound_bytes / 1e9:.2f} GB), "
@@ -1970,16 +2090,76 @@ def _kernel_ms(torch, events, name):
     return total
 
 
-def profile_train_step(torch, model, ids, o1, lane):
+def _chain(e):
+    """A host event and its enclosing host events, innermost first."""
+    while e is not None:
+        yield e
+        e = e.cpu_parent
+
+
+def op_attribution(torch, events, parts, steps):
+    """Device ms a step by part, each kernel counted once, from the host
+    ops that launched it: a kernel goes to the first part of ``parts``
+    ((name, pattern)) that matches the op it was launched under or an
+    op or range enclosing it. A pattern is a regex on the event's name,
+    or ``"link:<range>"``: the backward of the ops run inside the
+    forward range ``<range>``, found by the sequence number each forward
+    op gives its autograd node and the engine's
+    ``evaluate_function`` event carries."""
+    import re
+    cpu = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    linked = {}
+    for name, pat in parts:
+        if pat.startswith("link:"):
+            label = pat[5:]
+            linked[name] = {
+                e.sequence_nr for e in cpu if e.sequence_nr >= 0
+                and not e.name.startswith("autograd::")
+                and any(c.name == label for c in _chain(e))}
+    out = {name: 0.0 for name, _ in parts}
+    for e in cpu:
+        t = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if t is None else t
+        if us <= 0:
+            continue
+        up = [(c.name, c.sequence_nr) for c in _chain(e)]
+        for name, pat in parts:
+            if pat.startswith("link:"):
+                hit = any(n.startswith("autograd::engine::evaluate_function")
+                          and sq in linked[name] for n, sq in up)
+            else:
+                hit = any(re.search(pat, n) for n, _ in up)
+            if hit:
+                out[name] += us / 1e3 / steps
+                break
+    return out
+
+
+#: device time by part of a GPT train step: kernels by name, first match
+GPT_PARTS = (("flash_B1_B3", r"flash_(fwd|bwd_dq|bwd_dkv)_kernel<"),
+             ("gemm", r"gemm|xmma|nvjet|cutlass|gemv|splitk"))
+
+
+def profile_train_step(torch, model, ids, o1, lane, batch=None,
+                       count=None, unit="tokens", parts=GPT_PARTS,
+                       op_parts=(), labels=()):
     """Where one train step's time goes (fp32, or O1 bf16 under
     ``auto_cast``), in the lane the caller is in: wall, device busy and
-    idle share, kernels a step, tokens/s, and device time by part: the
-    GEMMs (cuBLAS kernels), B1-B3 and the rest; on the eager lane also
-    the casts (kernels under ``aten::_to_copy``: the weights to bf16 each
-    call, the gradients back) and the optimizer (clip and AdamW: the
-    kernels launched inside ``Optimizer._apply_update``), which a graph's
-    replay does not attribute (its update is timed alone by
-    :func:`profile_update`)."""
+    idle share, kernels a step, ``unit``/s (``count`` of them a step,
+    by default ``ids.size``; a ``batch`` of (inputs, labels) replaces
+    ``[ids], [ids]``), and device
+    time by part: kernels by name into ``parts`` ((name, regex), first
+    match; by default the GEMMs and B1-B3) and the rest; on the eager lane
+    also the casts (kernels under ``aten::_to_copy``: the weights to bf16
+    each call, the gradients back) and the optimizer (clip and update:
+    the kernels launched inside ``Optimizer._apply_update``), which a
+    graph's replay does not attribute (its update is timed alone by
+    :func:`profile_update`). With ``op_parts``, the eager lane's parts
+    are instead :func:`op_attribution`'s, each kernel once by the op that
+    launched it (cuDNN names some convolution kernels with no word a
+    pattern could rely on), and ``labels`` ((module, attribute, label))
+    wraps those functions in ranges named ``label`` for the profile."""
     import re
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.core import graphs
@@ -1989,38 +2169,50 @@ def profile_train_step(torch, model, ids, o1, lane):
     opt._apply_update = _labelled(torch, opt._apply_update,
                                   "optimizer.update")
     cast = amp.auto_cast if o1 else contextlib.nullcontext
+    xs, ys = batch if batch is not None else ([ids], [ids])
+    count = ids.size if count is None else count
 
     def step():
         with cast():
-            model.train_batch([ids], [ids])
+            model.train_batch(xs, ys)
 
+    wrapped = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in labels]
+    for (mod, attr, fn), (_, _, label) in zip(wrapped, labels):
+        setattr(mod, attr, _labelled(torch, fn, label))
     try:
-        prof = profile_steps(torch, f"{what} train step {tuple(ids.shape)}, "
-                             f"{lane}", step, 2, ranges=("optimizer.update",))
+        prof = profile_steps(torch, f"{what} train step "
+                             f"{tuple(xs[0].shape)}, {lane}", step, 2,
+                             ranges=("optimizer.update",
+                                     *(lb for _, _, lb in labels)))
     finally:
         del opt._apply_update
-    parts = {"gemm": 0.0, "flash_B1_B3": 0.0}
+        for mod, attr, fn in wrapped:
+            setattr(mod, attr, fn)
+    out = {name: 0.0 for name, _ in parts}
     for ms, _, key in prof["kernels"]:
-        if re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_kernel<", key):
-            parts["flash_B1_B3"] += ms
-        elif re.search(r"gemm|xmma|nvjet|cutlass|gemv|splitk", key, re.I):
-            parts["gemm"] += ms
-    if eager:       # the profile's two steps' events
-        parts["casts"] = _kernel_ms(torch, prof["events"],
-                                    "aten::_to_copy") / 2
-        parts["optimizer"] = _kernel_ms(torch, prof["events"],
-                                        "optimizer.update") / 2
-    parts["other"] = prof["device_ms"] - sum(parts.values())
-    tokens, wall, busy = ids.size, prof["wall_ms"], prof["device_ms"]
+        for name, pattern in parts:
+            if re.search(pattern, key, re.I):
+                out[name] += ms
+                break
+    if eager and op_parts:
+        out = op_attribution(torch, prof["events"], op_parts, 2)
+    elif eager:       # the profile's two steps' events
+        if "casts" not in out:
+            out["casts"] = _kernel_ms(torch, prof["events"],
+                                      "aten::_to_copy") / 2
+        out["optimizer"] = _kernel_ms(torch, prof["events"],
+                                      "optimizer.update") / 2
+    out["other"] = prof["device_ms"] - sum(out.values())
+    wall, busy = prof["wall_ms"], prof["device_ms"]
     kernels = sum(r[1] for r in prof["kernels"])
     log(f"{what} train step, {lane}: wall {wall:.1f} ms, "
-        f"{tokens / wall * 1e3:.1f} tokens/s, device busy {busy:.1f} ms "
+        f"{count / wall * 1e3:.1f} {unit}/s, device busy {busy:.1f} ms "
         f"({100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%), "
         f"{kernels:.0f} kernels; by part (ms): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
     return {"step_ms": wall, "device_busy_ms": busy,
             "idle_share": 1 - busy / wall, "kernels_per_step": kernels,
-            "tokens_per_s": tokens / wall * 1e3, "device_ms_by_part": parts,
+            f"{unit}_per_s": count / wall * 1e3, "device_ms_by_part": out,
             "smi": prof["smi"]}
 
 
@@ -2287,6 +2479,586 @@ def detection_checks(torch, model, nms_mod, det_mod, rng, dev):
             "b5_bound_ms": b5_bound, "select_ms": sel_ms, "batch_wall_ms": prof["wall_ms"],
             "batch_device_ms": prof["device_ms"], "kept": n_kept,
             "valid": n_valid}
+
+
+# -- phases 12 and 13: ResNet-50 and BERT-base training (bench.py) ------------
+
+#: bench.py's TPU shapes: ResNet-50 (:96-112), BERT-base (:131-170)
+RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 256, 224, 1000
+RESNET_FWD_GFLOP = 4.09      # bench.py's forward count an image at 224
+BERT_BATCH, BERT_SEQ = 256, 128
+MODEL_STEPS = 5              # train_batch steps of each lane
+
+#: device time by part of a ResNet step on the graphed lane: kernels by
+#: name, first match (a replay has no host ops; some cuDNN convolution
+#: kernels match no pattern and fall into "other")
+VISION_PARTS = (
+    ("pooling", r"pool"),
+    ("conv_and_gemm", r"conv|cudnn|xmma|gemm|implicit|winograd|fft|"
+                      r"nchwToNhwc|nhwcToNchw|sm90|sm80|cutlass|nvjet"),
+    ("relu", r"clamp|threshold"),
+    ("bn_statistics", r"reduce_kernel|welford"),
+    ("casts", r"copy"))
+#: and on the eager lane, by the host op that launched each kernel
+#: (:func:`op_attribution`): BN is the port's F.batch_norm, wrapped in a
+#: range for the profile, and the backward of the ops it ran
+VISION_OP_PARTS = (
+    ("optimizer", r"^optimizer\.update$"),
+    ("bn_fwd", r"^F\.batch_norm$"),
+    ("bn_bwd", "link:F.batch_norm"),
+    ("conv_fwd", r"^aten::convolution$"),
+    ("conv_bwd", r"^aten::convolution_backward$"),
+    ("pooling", r"pool"),
+    ("relu", r"^aten::(relu|threshold_backward|clamp_min)"),
+    ("loss", r"cross_entropy|log_softmax|nll_loss"),
+    ("linear", r"^aten::(addmm|mm|linear)$"),
+    ("residual_add", r"^aten::add_?$"),
+    ("casts", r"^aten::_to_copy$"))
+#: and of a BERT step
+BERT_PARTS = (
+    ("gemm", r"gemm|xmma|nvjet|cutlass|gemv|splitk"),
+    ("softmax", r"softmax"),
+    ("dropout_draws", r"distribution|uniform|philox|bernoulli"),
+    ("gelu", r"gelu"),
+    ("reductions", r"reduce_kernel|welford"),
+    ("embedding", r"index|embedding|gather|scatter|radix|sort"),
+    ("casts", r"copy"))
+
+
+def _resnet_model(torch, dev):
+    """bench.py's ResNet-50 run (:100-105): weights from seed 0,
+    Momentum(0.1, 0.9, weight decay 1e-4), CrossEntropyLoss."""
+    from paddle_tpu_torch import Model, nn
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    net = resnet50(num_classes=RESNET_CLASSES, device=dev, seed=0)
+    model = Model(net, device=dev)
+    model.prepare(Momentum(learning_rate=0.1, momentum=0.9,
+                           parameters=net.parameters(), weight_decay=1e-4,
+                           device=dev), nn.CrossEntropyLoss())
+    return model
+
+
+def _bert_model(torch, dev, cfg):
+    """bench.py's BERT-base run (:143-165): the BERT of ``cfg``
+    (``BertConfig()`` there) under its MLM head (a vocabulary linear over
+    the sequence output) and its flat cross entropy, AdamW(1e-4, weight
+    decay 0.01); weights from seeds 0 and 1."""
+    from paddle_tpu_torch import Model, nn
+    from paddle_tpu_torch.models import BertModel
+    from paddle_tpu_torch.nn.layers_common import reset_parameters
+    from paddle_tpu_torch.optimizer import AdamW
+
+    class MLMHead(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.bert = BertModel(cfg, device=dev, seed=0)
+            self.head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                  device=dev)
+            reset_parameters(self.head,
+                             torch.Generator(device=dev).manual_seed(1))
+
+        def forward(self, ids):
+            seq_out, _ = self.bert(ids)
+            return self.head(seq_out)
+
+    class FlatCE(torch.nn.Module):
+        def forward(self, logits, labels):
+            v = logits.shape[-1]
+            return nn.functional.cross_entropy(logits.reshape(-1, v),
+                                               labels.reshape(-1))
+
+    net = MLMHead()
+    model = Model(net, device=dev)
+    model.prepare(AdamW(learning_rate=1e-4, parameters=net.parameters(),
+                        weight_decay=0.01, device=dev), FlatCE())
+    return model
+
+
+def _state_diff(torch, got, ref):
+    """(bitwise equal, worst max |a - b| / max |b| over the tensors)."""
+    worst = 0.0
+    for k, b in ref.items():
+        if not torch.equal(got[k], b):
+            scale = float(b.abs().max()) or 1.0
+            worst = max(worst, float((got[k] - b).abs().max()) / scale)
+    return worst == 0.0, worst
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch, on=True):
+    """cuDNN held to its deterministic algorithms inside (when ``on``):
+    its default weight-gradient algorithms may sum with atomics, so two
+    runs of one step part by rounding, which training amplifies."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = was or on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def _train_lane(torch, spec, prec, lane, label):
+    """One lane of :func:`model_lanes`: a fresh model (the generator
+    re-seeded), MODEL_STEPS train_batch calls (graphed, or eager inside
+    ``disable_graphs``), then its profile and its update timed alone.
+    Returns (results, buffers after the steps); releases the model."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import graphs
+    xs, ys = spec["batch"]
+    cast = amp.auto_cast if prec == "o1" else contextlib.nullcontext
+    torch.cuda.reset_peak_memory_stats()
+    P.seed(0)
+    model = spec["build"]()
+    ctx = graphs.disable_graphs() if lane == "eager" \
+        else contextlib.nullcontext()
+    losses, walls = [], []
+    with ctx:
+        for _ in range(MODEL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with cast():
+                losses.append(model.train_batch([xs], [ys])[0])
+            walls.append((time.perf_counter() - t0) * 1e3)
+        buffers = {k: b.detach().clone()
+                   for k, b in model.network.named_buffers()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{label}: losses {[round(x, 6) for x in losses]}, step walls "
+            f"{[round(w, 1) for w in walls]} ms, peak {peak:.2f} GiB")
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"{label}: losses {losses}")
+        res = {"losses": losses, "step_wall_ms": walls}
+        if lane != "eager":
+            res.update(program_report(model, label, MODEL_STEPS))
+        prof = profile_train_step(
+            torch, model, None, prec == "o1", label, batch=([xs], [ys]),
+            count=spec["count"], unit=spec["unit"], parts=spec["parts"],
+            op_parts=spec.get("op_parts", ()),
+            labels=spec.get("labels", ()))
+        update = profile_update(
+            torch, model, f"{label}, optimizer update"
+            + (" (eager)" if lane == "eager" else " (one replay)"),
+            passes=spec["passes"])
+        flops = spec["flops"](model.network)
+    res.update(lane_summary(label, prof, update, peak))
+    per_s = prof[f"{spec['unit']}_per_s"]
+    res["train_tflops"] = per_s * flops / 1e12
+    log(f"{label}: {per_s:.1f} {spec['unit']}/s, {res['train_tflops']:.2f} "
+        f"train TFLOP/s by bench.py's count ({flops / 1e9:.3f} GFLOP per "
+        f"{spec['unit'][:-1]})")
+    del model
+    release_memory(torch)
+    return res, buffers
+
+
+def model_lanes(torch, spec):
+    """Phase 12 or 13 on ``spec`` (name, build, batch, count and unit of
+    a step, train FLOPs a unit as a function of the model, parts, update
+    passes, ``deterministic``): for fp32 and O1 bf16, MODEL_STEPS graphed
+    train_batch steps (one capture, then replays) and the same on the
+    eager lane on fresh weights, each lane's dropout generator
+    re-seeded; the losses and the buffers (BN running statistics) equal
+    between the lanes, bitwise or within LANE_TOL relative; each lane
+    profiled (wall, device, idle, kernels a step, time by part) and its
+    optimizer update timed alone (:func:`_train_lane`). With
+    ``deterministic`` (convolutions) both lanes run with cuDNN's
+    deterministic algorithms (:func:`cudnn_deterministic`; its default
+    ones sum weight gradients with atomics, and steps at lr 0.1 amplify
+    what that rounding parts), and the graphed lane runs once more with
+    the default algorithms, profiled: the speed a caller gets by default.
+    Then an O1 train_loop over the batch stacked MODEL_STEPS times, held
+    to the graphed O1 losses (the lr is constant). Returns the results;
+    releases every model."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import amp
+    name, xs, ys = spec["name"], spec["batch"][0], spec["batch"][1]
+    det = spec.get("deterministic", False)
+    out = {}
+    for prec in ("fp32", "o1"):
+        lanes = {}
+        with cudnn_deterministic(torch, det):
+            for lane in ("graphed", "eager"):
+                lanes[lane] = _train_lane(
+                    torch, spec, prec, lane, f"{name} {prec} {lane} lane"
+                    + (" (cuDNN deterministic)" if det else ""))
+        (g, gbuf), (e, ebuf) = lanes["graphed"], lanes["eager"]
+        g.update(check_lane_losses(g["losses"], e["losses"],
+                                   f"{name} {prec} train_batch, graphed vs "
+                                   f"eager lane"))
+        same, worst = _state_diff(torch, gbuf, ebuf)
+        log(f"{name} {prec} buffers ({len(gbuf)}: BN running statistics), "
+            f"graphed vs eager: " + ("bitwise equal" if same else
+                                     f"worst relative {worst:.3e} (tol "
+                                     f"{LANE_TOL})"))
+        if worst > LANE_TOL:
+            raise RuntimeError(f"{name} {prec}: graphed buffers differ from "
+                               f"the eager lane's by {worst}")
+        g["buffers_bitwise"], g["buffers_worst_rel"] = same, worst
+        out[prec] = {"graphed": g, "eager": e}
+        if det:
+            # the speed a caller gets by default: the graphed lane again
+            # with cuDNN free to choose its algorithms
+            d, _ = _train_lane(torch, spec, prec, "graphed",
+                               f"{name} {prec} graphed lane, default cuDNN "
+                               f"algorithms")
+            rel = [abs(a - b) / abs(b) for a, b in zip(d["losses"],
+                                                       g["losses"])]
+            log(f"{name} {prec}: losses with cuDNN's default algorithms "
+                f"against the deterministic lane's, relative by step: "
+                f"{[float(f'{r:.3e}') for r in rel]}")
+            d["losses_rel_to_deterministic"] = rel
+            out[prec]["graphed_default_cudnn"] = d
+    # the O1 train_loop over the batch stacked MODEL_STEPS times
+    torch.cuda.reset_peak_memory_stats()
+    P.seed(0)
+    model = spec["build"]()
+    stack_x = np.stack([xs] * MODEL_STEPS)
+    stack_y = np.stack([ys] * MODEL_STEPS)
+    with cudnn_deterministic(torch, det):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with amp.auto_cast():
+            losses = model.train_loop([stack_x], [stack_y])
+        first_ms = (time.perf_counter() - t0) * 1e3
+        fused = model._fused_loop
+        if fused is None:
+            raise RuntimeError(f"{name}: train_loop fell back to "
+                               f"train_batch")
+        prog = fused["fn"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with amp.auto_cast():
+            model.train_loop([stack_x], [stack_y])
+        step_ms = (time.perf_counter() - t0) * 1e3 / MODEL_STEPS
+    loop = {"losses": losses, "first_call_ms": first_ms, "step_ms": step_ms,
+            "capture_ms": list(prog.capture_ms),
+            "graph_pool_bytes": model._train_state.graph_pool.nbytes(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"{name} O1 train_loop x{MODEL_STEPS}: losses "
+        f"{[round(x, 6) for x in losses]}, first call {first_ms:.1f} ms, "
+        f"second {step_ms:.1f} ms a step, capture "
+        f"{[round(c, 1) for c in prog.capture_ms]} ms, graph pool "
+        f"{loop['graph_pool_bytes']} B, peak {loop['peak_gib']:.2f} GiB")
+    loop.update(check_lane_losses(
+        losses, out["o1"]["graphed"]["losses"],
+        f"{name} O1 train_loop x{MODEL_STEPS} vs {MODEL_STEPS} graphed "
+        f"train_batch"))
+    out["o1_train_loop"] = loop
+    # the loop's program holds the model, and the model its graph pool
+    del model, fused, prog, stack_x, stack_y
+    release_memory(torch)
+    return out
+
+
+#: a lane's distance from float64 may exceed its yardstick's by this factor
+WITNESS_RATIO = 1.2
+#: micro-batches of the float64 witness step (its memory at the full batch
+#: would not fit beside the fp32 model); the loss is a mean over equal
+#: micro-batches, so their mean gradient is the full batch's
+F64_MICRO = 4
+
+
+def _bert_grads(torch, net, ids, labels, micro=1):
+    """d(flat cross entropy of ``net(ids)``)/d(parameter) for every
+    parameter, over ``micro`` equal micro-batches averaged (zeros where
+    the loss does not reach)."""
+    from paddle_tpu_torch import nn
+    params = dict(net.named_parameters())
+    total = {n: torch.zeros_like(p) for n, p in params.items()}
+    for x, y in zip(ids.chunk(micro), labels.chunk(micro)):
+        logits = net(x)
+        loss = nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), y.reshape(-1)) / micro
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        for n, g in zip(params, grads):
+            if g is not None:
+                total[n] += g
+        del logits, loss, grads
+    return total
+
+
+@contextlib.contextmanager
+def plain_flash(fa_mod):
+    """B1-B3's wrappers swapped for their plain versions inside: the flash
+    formula (O and LSE saved, delta = rowsum(dO O), P recomputed from the
+    LSE, as the JAX package's ``_fa_core``) in PyTorch float32 on the
+    card, with no kernel."""
+    saved = (fa_mod.flash_attention_fwd, fa_mod.flash_attention_bwd_dq,
+             fa_mod.flash_attention_bwd_dkv)
+    fa_mod.flash_attention_fwd = (
+        lambda q, k, v, causal=False, scale=None:
+        fa_mod.flash_attention_fwd_plain(q, k, v, causal, scale))
+    fa_mod.flash_attention_bwd_dq = fa_mod.flash_attention_bwd_dq_plain
+    fa_mod.flash_attention_bwd_dkv = fa_mod.flash_attention_bwd_dkv_plain
+    try:
+        yield
+    finally:
+        (fa_mod.flash_attention_fwd, fa_mod.flash_attention_bwd_dq,
+         fa_mod.flash_attention_bwd_dkv) = saved
+
+
+def bert_flash_checks(torch, fa_mod, dev, ids, cfg):
+    """Phase 13's kernel checks on the BERT of ``cfg`` (BERT-base): (a)
+    ``BertModel`` in eval with no mask at ``ids``' [256, 128] takes B1
+    (non-causal, D = 64) once a layer, held against the dense lane (max
+    |diff| over max |dense| of the sequence and pooled outputs): fp32
+    within TOL; in O1 bf16 the flash lane's distance from the dense fp32
+    output may be at most WITNESS_RATIO times the dense bf16 lane's (the
+    fp32 output is the reference both lanes round away from). (b) one
+    eager train step with both dropouts 0 runs B1-B3 once a layer; each
+    gradient, flash against dense, within GRAD_TOL of its tensor's
+    largest entry (phase 8's rule), or, where it is not, the kernel lane
+    no farther from the same step in float64 (dense, F64_MICRO
+    micro-batches) than WITNESS_RATIO times the flash formula computed in
+    float32 without the kernels (:func:`plain_flash`) is: the formula
+    (delta from the stored O) itself lies farther from float64 than a
+    dense float32 step where the gradients cancel, and the kernel is held
+    to the formula's own accuracy (the distances of all three lanes are
+    printed); k_proj.bias, zero but for rounding, held to 1e-4 of the
+    largest gradient; the pooler, which the MLM loss does not reach, zero
+    in both."""
+    import copy
+    import dataclasses
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.models import BertModel
+    n_layers = cfg.num_layers
+    net = BertModel(cfg, device=dev, seed=0).eval()
+    x = torch.from_numpy(ids).to(dev)
+
+    def diff(got, ref):
+        return max(float((a.float() - b.float()).abs().max())
+                   / float(b.float().abs().max()) for a, b in zip(got, ref))
+
+    def set_impl(layers, impl):
+        for layer in layers:
+            layer.self_attn.attn_impl = impl
+
+    res, outs = {}, {}
+    for prec, cast in (("fp32", contextlib.nullcontext),
+                       ("bf16", amp.auto_cast)):
+        before = fa_mod.flash_attention_fwd.launches
+        with torch.no_grad(), cast():
+            outs[f"flash_{prec}"] = net(x)
+            launched = fa_mod.flash_attention_fwd.launches - before
+            set_impl(net.encoder.layers, "dense")
+            outs[f"dense_{prec}"] = net(x)
+            set_impl(net.encoder.layers, "auto")
+        if launched != n_layers:
+            raise RuntimeError(f"BERT eval forward {prec}: {launched} B1 "
+                               f"launches, {n_layers} expected")
+    ref = outs["dense_fp32"]
+    err32 = diff(outs["flash_fp32"], ref)
+    w_flash, w_dense = diff(outs["flash_bf16"], ref), diff(outs["dense_bf16"],
+                                                           ref)
+    err16 = diff(outs["flash_bf16"], outs["dense_bf16"])
+    log(f"BERT-base eval forward {list(ids.shape)}: B1 launched {n_layers} "
+        f"times a precision; fp32 flash vs dense max |diff| / max |dense| "
+        f"{err32:.3e} (tol {TOL['fp32']:.0e}); O1 bf16 from the dense fp32 "
+        f"output: flash {w_flash:.3e}, dense {w_dense:.3e} (flash at most "
+        f"{WITNESS_RATIO} x dense); flash bf16 vs dense bf16 {err16:.3e}")
+    if err32 > TOL["fp32"] or w_flash > WITNESS_RATIO * w_dense:
+        raise RuntimeError(f"BERT eval forward: fp32 error {err32}, bf16 "
+                           f"flash {w_flash} vs dense {w_dense} from fp32")
+    res.update(eval_fp32_max_diff_over_max=err32,
+               eval_bf16_max_diff_over_max=err16,
+               eval_bf16_flash_vs_fp32=w_flash,
+               eval_bf16_dense_vs_fp32=w_dense)
+    del net, outs, ref
+    release_memory(torch)
+    model = _bert_model(torch, dev, dataclasses.replace(
+        cfg, hidden_dropout_prob=0.0, attention_dropout_prob=0.0))
+    net = model.network
+    layers = net.bert.encoder.layers
+    with graphs.disable_graphs():
+        before = [c.launches for c in _counters(fa_mod)]
+        model.train_batch([ids], [ids.astype(np.int64)], update=False)
+        launched = [c.launches - b for c, b in zip(_counters(fa_mod), before)]
+        flash = {n: p.grad.detach().clone()
+                 for n, p in net.named_parameters()}
+        net.zero_grad(set_to_none=True)
+        with plain_flash(fa_mod):
+            model.train_batch([ids], [ids.astype(np.int64)], update=False)
+        formula = {n: p.grad.detach().clone()
+                   for n, p in net.named_parameters()}
+        net.zero_grad(set_to_none=True)
+        set_impl(layers, "dense")
+        model.train_batch([ids], [ids.astype(np.int64)], update=False)
+        dense = {n: p.grad.detach().clone()
+                 for n, p in net.named_parameters()}
+    net.zero_grad(set_to_none=True)
+    net64 = copy.deepcopy(net).double()
+    del model, net
+    release_memory(torch)
+    lab = torch.from_numpy(ids.astype(np.int64)).to(dev)
+    g64 = _bert_grads(torch, net64, lab, lab, micro=F64_MICRO)
+    del net64
+    release_memory(torch)
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max()) / (
+            float(b.abs().max()) or 1.0)
+
+    top = max(float(g.abs().max()) for g in flash.values())
+    kbias, zero, rows = 0.0, [], []
+    for n, g_d in dense.items():
+        g_f = flash[n]
+        if n.endswith("k_proj.bias"):
+            kbias = max(kbias, float(g_f.abs().max()), float(g_d.abs().max()))
+            continue
+        m = float(g_d.abs().max())
+        if m == 0.0:
+            zero.append(n)
+            if float(g_f.abs().max()) != 0.0:
+                raise RuntimeError(f"{n}: zero dense gradient, flash "
+                                   f"{float(g_f.abs().max())}")
+            continue
+        e = float((g_f - g_d).abs().max()) / m
+        rows.append((e, n, rel(g_f, g64[n]), rel(formula[n], g64[n]),
+                     rel(g_d, g64[n])))
+    rows.sort(reverse=True)
+    over = [r for r in rows if r[0] > GRAD_TOL]
+    bad = [r for r in over if r[2] > WITNESS_RATIO * r[3]]
+    far = max(rows, key=lambda r: r[2])
+    log(f"BERT-base one step, dropout 0 {list(ids.shape)}: B1/B2/B3 "
+        f"launched {launched}; gradients flash vs dense, per tensor max "
+        f"|diff| / max |dense|: worst {rows[0][0]:.3e} at {rows[0][1]} (tol "
+        f"{GRAD_TOL}); {len(over)} tensors over it, each held to the "
+        f"float64 step ({F64_MICRO} micro-batches), distance from it of "
+        f"kernel / formula in fp32 / dense fp32 (kernel at most "
+        f"{WITNESS_RATIO} x formula): "
+        + ("; ".join(f"{n} {f:.3e} / {p_:.3e} / {d_:.3e}"
+                     for _, n, f, p_, d_ in over[:8]) or "none")
+        + f"; kernel farthest from float64 at {far[1]}: {far[2]:.3e} / "
+        f"{far[3]:.3e} / {far[4]:.3e}; k_proj.bias max |grad| {kbias:.3e} "
+        f"of the largest {top:.3e}; zero in both: {zero}")
+    if launched != [n_layers] * 3 or bad or kbias > 1e-4 * top:
+        raise RuntimeError(f"BERT-base flash gradients disagree with dense "
+                           f"and float64: {bad[:4]}")
+    res.update(grad_worst_rel=rows[0][0], grad_worst_param=rows[0][1],
+               grad_over_tol={n: {"flash_vs_dense": e, "flash_vs_f64": f,
+                                  "formula_vs_f64": p_,
+                                  "dense_vs_f64": d_}
+                              for e, n, f, p_, d_ in over},
+               grad_farthest_from_f64={
+                   "param": far[1], "flash_vs_f64": far[2],
+                   "formula_vs_f64": far[3], "dense_vs_f64": far[4]},
+               k_bias_max=kbias, grad_max=top, zero_grads=zero,
+               step_launches=launched)
+    del flash, formula, dense, g64
+    release_memory(torch)
+    return res
+
+
+def _greedy_holds(torch, model, ref, prompts, tokens, near):
+    """Per request, the logits of ``model`` and of ``ref`` (its float32
+    copy, dense attention) at each position that chose one of ``tokens``
+    (teacher-forced over the prompt and the tokens before); returns
+    (max |model - ref| over them, [(request, step, token, ref argmax,
+    ref gap)] where the token is not within ``near`` of the reference's
+    best logit). ``near=None`` measures only."""
+    worst, off = 0.0, []
+    with torch.no_grad():
+        for r, (p, toks) in enumerate(zip(prompts, tokens)):
+            seq = torch.tensor([p + list(toks[:-1])], device=ref.device)
+            sl = slice(len(p) - 1, None)
+            want = ref(seq)[0, sl].float()
+            got = model(seq)[0, sl].float()
+            worst = max(worst, float((got - want).abs().max()))
+            if near is None:
+                continue
+            top = want.max(dim=-1).values
+            chosen = want.gather(1, torch.tensor(toks, device=ref.device)[
+                :, None])[:, 0]
+            for t in (top - chosen > near).nonzero()[:, 0].tolist():
+                off.append((r, t, toks[t], int(want[t].argmax()),
+                            float(top[t] - chosen[t])))
+    return worst, off
+
+
+def check_c6(torch, dev):
+    """Phase 14: the default paged engine ("auto") serves a float16 GPT
+    and a bfloat16 GPT of head dim 100 through the paged kernel (B4
+    launched), and an explicit "kernel" is the same lane. Each lane's
+    greedy tokens, the kernel's and an explicit gather engine's, are
+    held to the model's float32 copy with dense attention, teacher-forced
+    over each lane's own tokens: every token is that reference's argmax,
+    or within twice the model's own distance from it (the dense forward
+    in the model's type against the float32 copy, measured over the same
+    sequences) of its best logit: a near-tie, which a lane in a 16-bit
+    type may break either way. Where the two lanes' tokens part, they
+    part at such a near-tie (counted)."""
+    import copy
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops import paged_attention as pa_mod
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+    from paddle_tpu_torch.serving.llm.paged import GPTPagedDecoder
+    base = dict(vocab_size=1024, num_layers=4, max_position_embeddings=256,
+                hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    cases = (("float16, head_dim 128", torch.float16,
+              dict(base, hidden_size=512, num_heads=4,
+                   intermediate_size=2048)),
+             ("bfloat16, head_dim 100", torch.bfloat16,
+              dict(base, hidden_size=400, num_heads=4,
+                   intermediate_size=1600)))
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, base["vocab_size"], n).tolist()
+               for n in (9, 40, 100, 130)]
+    out = {}
+    for what, dt, cfg in cases:
+        model = GPTForCausalLM(GPTConfig(**cfg), device=dev,
+                               seed=0).eval().to(dt)
+        tokens, lanes, launched = {}, {}, {}
+        for lane in ("auto", "gather"):
+            before = pa_mod.paged_attention.launches
+            eng = LLMEngine(model, LLMEngineConfig(
+                num_slots=4, max_seq=256, kv_layout="paged", page_size=16,
+                paged_attn_impl=lane))
+            lanes[lane] = eng.decoder.attn_impl
+            try:
+                reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+                tokens[lane] = [r.result(timeout=300)["tokens"]
+                                for r in reqs]
+            finally:
+                eng.drain(timeout=120)
+            launched[lane] = pa_mod.paged_attention.launches - before
+        explicit = GPTPagedDecoder(model, page_size=16,
+                                   attn_impl="kernel").attn_impl
+        ref = copy.deepcopy(model).float()
+        ref.set_attn_impl("dense")
+        model.set_attn_impl("dense")
+        noise = max(_greedy_holds(torch, model, ref, prompts, tokens[n],
+                                  None)[0] for n in tokens)
+        off = {n: _greedy_holds(torch, model, ref, prompts, tokens[n],
+                                2 * noise)[1] for n in tokens}
+        parts = [(r, next(t for t, (a, b) in enumerate(zip(ta, tb))
+                          if a != b))
+                 for r, (ta, tb) in enumerate(zip(tokens["auto"],
+                                                  tokens["gather"]))
+                 if ta != tb]
+        log(f"C6 {what}: default engine lane {lanes['auto']} (B4 launched "
+            f"{launched['auto']} times, the gather engine "
+            f"{launched['gather']}), explicit kernel lane {explicit}; "
+            f"tokens equal the gather engine's "
+            f"{tokens['auto'] == tokens['gather']} (first differences "
+            f"(request, step) {parts}); against the float32 copy, the "
+            f"model's own logit distance {noise:.3e}, tokens off its argmax "
+            f"by more than twice that: {off}")
+        if lanes != {"auto": "kernel", "gather": "gather"} \
+                or explicit != "kernel" or launched["auto"] < 1 \
+                or launched["gather"] != 0 or any(off.values()) \
+                or not all(len(t) == 16 for t in tokens["auto"]):
+            raise RuntimeError(f"C6 {what}: lanes {lanes}, launches "
+                               f"{launched}, explicit {explicit}, off the "
+                               f"float32 reference {off}")
+        out[what] = {"lane": lanes["auto"], "launches": launched["auto"],
+                     "tokens_equal": tokens["auto"] == tokens["gather"],
+                     "first_differences": parts, "logit_noise": noise}
+        del model, ref
+        release_memory(torch)
+    return out
 
 
 def training_phases(torch, fa_mod, cfg, dev, ids, reset_counters,
@@ -2583,12 +3355,87 @@ def main() -> int:
     det.update(detection_checks(torch, det_model, nms_mod, det_mod, rng,
                                 dev))
     del det_model
-    torch.cuda.empty_cache()
+    release_memory(torch)
 
-    # -- phase 12: summary ---------------------------------------------------
+    # -- phase 12: ResNet-50 training at bench.py's TPU shape -----------------
+    stamp("12 ResNet-50 training")
+    from paddle_tpu_torch.nn import functional as port_functional
+    brng = np.random.RandomState(0)         # bench.py:106-108
+    vx = brng.rand(RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE).astype(
+        np.float32)
+    vy = brng.randint(0, RESNET_CLASSES, (RESNET_BATCH,)).astype(np.int64)
+    log(f"model: ResNet-50, {RESNET_CLASSES} classes, batch {RESNET_BATCH} "
+        f"at {RESNET_SIZE}x{RESNET_SIZE}, Momentum(0.1, 0.9, weight decay "
+        f"1e-4), random weights (seed 0); {smi}")
+    reset_counters()
+    resnet = model_lanes(torch, dict(
+        name="ResNet-50", build=lambda: _resnet_model(torch, dev),
+        batch=(vx, vy), count=RESNET_BATCH, unit="imgs",
+        flops=lambda net: 3 * RESNET_FWD_GFLOP * 1e9, parts=VISION_PARTS,
+        op_parts=VISION_OP_PARTS,
+        labels=((port_functional, "batch_norm", "F.batch_norm"),),
+        passes=5, deterministic=True))
+    resnet_launches = read_counters()
+    log(f"ResNet-50 training path launches: {resnet_launches} (no kernel "
+        f"of the port is on it: cuDNN convolutions, BN as a composition)")
+    if any(resnet_launches.values()):
+        raise RuntimeError("a port kernel launched on the ResNet-50 path")
+    del vx, vy
+
+    # -- phase 13: BERT-base training at bench.py's TPU shape -----------------
+    stamp("13 BERT-base training")
+    from paddle_tpu_torch.models import BertConfig
+    bcfg = BertConfig()
+    bert_ids = np.random.RandomState(0).randint(
+        0, bcfg.vocab_size, (BERT_BATCH, BERT_SEQ)).astype(np.int32)
+    log(f"model: BERT-base ({bcfg}) under bench.py's MLM head, "
+        f"[{BERT_BATCH}, {BERT_SEQ}], AdamW(1e-4, weight decay 0.01), "
+        f"random weights (seeds 0 and 1); {smi}")
+    reset_counters()
+    bert = model_lanes(torch, dict(
+        name="BERT-base", build=lambda: _bert_model(torch, dev, bcfg),
+        batch=(bert_ids, bert_ids.astype(np.int64)),
+        count=BERT_BATCH * BERT_SEQ, unit="tokens",
+        flops=lambda net: 6 * sum(p.numel() for p in net.parameters()),
+        parts=BERT_PARTS, passes=7))
+    bert_launches = read_counters()
+    log(f"BERT-base training path launches: {bert_launches} (attention "
+        f"dense while dropout trains, as in the JAX package)")
+    if any(bert_launches.values()):
+        raise RuntimeError("a port kernel launched on the BERT training "
+                           "path, whose attention drops probabilities")
+    reset_counters()
+    bert["flash_checks"] = bert_flash_checks(torch, fa_mod, dev, bert_ids,
+                                             bcfg)
+    bert_flash_launches = read_counters()
+    bert_dtypes = {c.__name__: dict(c.launches_by_dtype)
+                   for c in _counters(fa_mod)}
+    log(f"BERT-base kernel checks launches: {bert_flash_launches}, B1-B3 "
+        f"by type {bert_dtypes}")
+    for n in flash_names:
+        if bert_flash_launches[n] < 1:
+            raise RuntimeError(f"kernel {n} was not launched by the BERT "
+                               f"kernel checks")
+
+    # -- phase 14: C6, the paged engine's "auto" lane -------------------------
+    stamp("14 C6")
+    reset_counters()
+    c6 = check_c6(torch, dev)
+    c6_launches = read_counters()
+    log(f"C6 serving path launches: {c6_launches}")
+    if c6_launches["paged_attention"] < 1:
+        raise RuntimeError("kernel paged_attention was not launched on the "
+                           "C6 serving path")
+
+    # -- summary --------------------------------------------------------------
     paths = {"serving": serve_launches, "serving_slot": slot_launches,
              "generate": gen_launches, "training": train_launches,
-             **amp_launches, "detection": det_launches}
+             **amp_launches, "detection": det_launches,
+             "training_resnet50": resnet_launches,
+             "training_bert": bert_launches,
+             "bert_flash_checks": bert_flash_launches,
+             "serving_c6": c6_launches}
+    amp_dtypes["bert_flash_checks"] = bert_dtypes
 
     def launches(name):
         by_path = {k: v[name] for k, v in paths.items()}
@@ -2630,6 +3477,9 @@ def main() -> int:
          "o2_bf16": amp_o2, "fp16_grad_scaler": amp_fp16,
          "peak_gib": amp_peak}))
     log(f"detection: {json.dumps(det)}")
+    log(f"training, ResNet-50: {json.dumps(resnet)}")
+    log(f"training, BERT-base: {json.dumps(bert)}")
+    log(f"C6: {json.dumps(c6)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

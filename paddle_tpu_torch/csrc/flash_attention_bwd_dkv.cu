@@ -42,7 +42,7 @@
 // Tiles are unpadded and swizzled, so fragment reads are free of bank
 // conflicts. What still bounds it: mma.sync issues at a fraction of the
 // wgmma rate; every warp splits each fp32 operand it reads for 3xTF32
-// (an AND and a subtract); and at fp32 D=128 the dK and dV
+// (five operations, see split); and at fp32 D=128 the dK and dV
 // accumulators (128 registers a thread) leave none spare: 255 registers.
 #include "flash_mma.cuh"
 
@@ -164,9 +164,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < NS; ++j) {
         typename M::B bq, bo;
         M::template b_rows<D>(bq, cQ, off, qw + 8 * j, d0);
-        M::mma(s[j], ak, bq);
+        M::mma_add(s[j], ak, bq);
         M::template b_rows<D>(bo, cO, off, qw + 8 * j, d0);
-        M::mma(dp[j], av, bo);
+        M::mma_add(dp[j], av, bo);
       }
     }
 

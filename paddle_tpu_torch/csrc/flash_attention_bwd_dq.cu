@@ -38,8 +38,8 @@
 // key halves' dQ partials meet once in shared memory. Tiles are unpadded
 // and swizzled, so fragment reads are free of bank conflicts. What still
 // bounds it: mma.sync issues at a fraction of the wgmma rate, and every
-// warp splits each fp32 operand it reads for 3xTF32 (an AND and a
-// subtract), also where warps share a tile.
+// warp splits each fp32 operand it reads for 3xTF32 (five operations,
+// see split), also where warps share a tile.
 #include "flash_mma.cuh"
 
 namespace {
@@ -154,9 +154,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < NS; ++j) {
         typename M::B bk, bv;
         M::template b_rows<D>(bk, cK, off, kw + 8 * j, k0);
-        M::mma(s[j], aq, bk);
+        M::mma_add(s[j], aq, bk);
         M::template b_rows<D>(bv, cV, off, kw + 8 * j, k0);
-        M::mma(dp[j], ao, bv);
+        M::mma_add(dp[j], ao, bv);
       }
     }
 

@@ -222,7 +222,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < NS; ++j) {
         typename M::B bk;
         M::template b_rows<D>(bk, cK, off, kw + 8 * j, k0);
-        M::mma(s[j], aq, bk);
+        M::mma_add(s[j], aq, bk);
       }
     }
     if constexpr (!F32) {

@@ -11,11 +11,17 @@
 // rounds P and dS as the hardware does: a value past its range becomes inf
 // (never clamped), so an overflowing dS reaches the gradient. fp32
 // operands take m16n8k8 TF32 MMAs as 3xTF32: each operand x is split in
-// registers into big = x with its 13 low mantissa bits cleared and small =
-// x - big (see split), and the product is small*big + big*small + big*big,
-// all into f32 accumulators. The dropped small*small term and the MMA's
-// truncation of small leave about fp32 accuracy (relative error near
-// 1e-6), where one TF32 product would keep about 1e-3.
+// registers into big = x rounded to TF32 and small = x - big rounded to
+// TF32 (see split), and the product is small*big + big*small + big*big.
+// The tensor cores truncate as they accumulate, so every fp32 k-step (8
+// products, three MMAs) is summed from zero and added to its f32
+// accumulator in one round-to-nearest add (mma_add), never chained
+// through a long run of MMAs. That leaves about fp32 accuracy (relative
+// error under 1e-6 at D = 128), where one TF32 product would keep about
+// 1e-3. Both cost time (PERF.md): held against a float64 step on
+// BERT-base's gradients, a truncating split with chained k-steps put the
+// q/k projections' gradients several times farther from float64 than a
+// dense float32 step (ROADMAP C7).
 //
 // Fragments (PTX ISA, mma.m16n8k8 / m16n8k16; g = lane / 4, t = lane % 4):
 // an accumulator tile of 16 x 8 holds (g, 2t), (g, 2t+1), (g+8, 2t),
@@ -112,18 +118,18 @@ __device__ __forceinline__ void load_tile(T* s, const T* g, int64_t stride,
 
 // -- tensor-core fragments ----------------------------------------------------
 
-// The split: big = x with its 13 low mantissa bits cleared (one AND),
-// small = x - big (exact in f32, same sign as x), handed to the MMA whole;
-// a TF32 MMA ignores an operand's 13 low bits, so small is truncated
-// there. Each product loses under 2^-20 of its size, toward zero, and the
-// kernels' outputs stay ~1e-6 from float64 (PERF.md). It takes two
-// operations where splitting by rounding (big and small each rounded to
-// nearest, as cvt.rna.tf32.f32 rounds) takes five: the kernels were
-// 11-14% faster with it at their main case, about as accurate.
+// The split: big = x rounded to nearest TF32 (ties away from zero, as
+// cvt.rna.tf32.f32 rounds, in two integer operations: cvt itself is slow
+// on sm_90a), small = x - big (exact in f32) rounded the same way, so the
+// MMA's reading of an operand's top 19 bits drops nothing. A product then
+// misses only small*small and small's rounding, each under 2^-22 of its
+// size and of either sign, where truncating both (two operations fewer)
+// lost up to 2^-20, always toward zero.
 __device__ __forceinline__ void split(float x, uint32_t& big,
                                       uint32_t& small) {
-  big = __float_as_uint(x) & 0xFFFFE000u;
-  small = __float_as_uint(x - __uint_as_float(big));
+  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) &
+          0xFFFFE000u;
 }
 
 __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
@@ -302,6 +308,15 @@ struct Mma<float> {
     mma_tf32(c, a.big, b.small);
     mma_tf32(c, a.big, b.big);
   }
+
+  // c += A B for one k-step: its three MMAs summed from zero, then added
+  // to c in one round-to-nearest add
+  __device__ static void mma_add(float* c, const A& a, const B& b) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma(t, a, b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] += t[i];
+  }
 };
 
 // bf16 and fp16 (T), whose conversions and MMA come from Ops
@@ -358,6 +373,12 @@ struct Mma16 {
   __device__ static void mma(float* c, const A& a, const B& b) {
     Ops::mma(c, a.r, b.r);
   }
+
+  // one MMA a k-step, chained: the operands' 16-bit rounding is far
+  // above what the accumulation's truncation loses
+  __device__ static void mma_add(float* c, const A& a, const B& b) {
+    Ops::mma(c, a.r, b.r);
+  }
 };
 
 template <>
@@ -373,6 +394,7 @@ struct Mma<__half> : Mma16<__half, F16Ops> {};
 // tensor cores truncate as they accumulate, and a running sum fed by one
 // MMA per k-step over a long sequence would drift by that bias (dK 1.1e-5
 // of max |dK| from float64 at S = 1024 in fp32; 3.7e-6 with these sums).
+// In fp32 each of its k-steps is itself summed from zero (mma_add).
 template <typename T, int D>
 __device__ __forceinline__ void mma_rows(float (*c)[4], const float (*p)[4],
                                          bool two, const T* s,
@@ -394,7 +416,7 @@ __device__ __forceinline__ void mma_rows(float (*c)[4], const float (*p)[4],
     for (int kk = 0; kk < KS; ++kk) {
       typename M::B b;
       M::template b_cols<D>(b, s, o, k0 + kk * M::K, 8 * n);
-      M::mma(t, a[kk], b);
+      M::mma_add(t, a[kk], b);
       if (use_res) M::mma(t, res[kk], b);
     }
 #pragma unroll

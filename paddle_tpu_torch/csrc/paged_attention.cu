@@ -28,14 +28,18 @@
 // The arena arguments are ONE layer's view of a [P+1, L, page, H, D] arena,
 // so they are strided: the page, row and head strides are passed in and
 // nothing is copied. Block-table entries outside [0, n_arena_pages) are
-// treated as masked rather than read. Every base pointer and stride must
-// be 16-byte aligned (the wrapper checks).
+// treated as masked rather than read.
 //
-// Head dims: any D up to MAX_D whose row is a whole number of 16-byte
-// vectors (D a multiple of 4 in f32, of 8 in bf16), as the TPU kernel
-// takes any D. A row's NV = D * elem / 16 vectors go to LPR lanes, the
-// power of two at or above NV (at most 32), VPL vectors a lane; lanes past
-// the row load nothing and add 0 (D = 80 in f32: 20 of 32 lanes busy).
+// Types and head dims: float32, bfloat16 and float16, any D from 1 to
+// MAX_D, as the TPU kernel takes any type and head dim. Lanes load a row
+// in vectors of VB bytes: 16 where the row is whole 16-byte vectors and
+// every base pointer and stride is 16-byte aligned (the wrapper checks),
+// else one element (D = 100 in bf16, or a view shifted off 16 bytes). A
+// row's NV = D * elem / VB vectors go to LPR lanes, the power of two at
+// or above NV (at most 32; always 32 for one-element vectors), VPL
+// vectors a lane; lanes past the row load nothing and add 0 (D = 80 in
+// f32: 20 of 32 lanes busy). Every type accumulates in f32 and rounds
+// once, at the output.
 //
 // What bounds it on the H100: bytes. A decode step reads every visible K
 // and V row once, 2 * sum_s(positions[s] + 1) * H * D * elem bytes, and
@@ -43,9 +47,11 @@
 // above the compute time. What the design does about it: the chunks spread
 // a long sequence over many SMs (one block per (sequence, head) left most
 // SMs idle while the longest sequence walked all its rows), and each lane
-// issues eight 16-byte K loads and eight V loads before it uses any of
-// them, neighbouring lanes on neighbouring bytes of a row.
+// issues eight K loads and eight V loads (16 bytes each on the wide path)
+// before it uses any of them, neighbouring lanes on neighbouring bytes of
+// a row.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,12 +59,17 @@ namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int U = 8;  // 16-byte loads of K (and of V) each lane issues a step
-constexpr int MAX_D = 256;  // the widest head taken
-static_assert(MAX_D <= THREADS, "the merge gives each column a thread");
+constexpr int U = 8;  // loads of K (and of V) each lane issues a step
+constexpr int MAX_D = 1024;  // the widest head taken
 constexpr float NEG_INF = -1e30f;
 // the most pages of one chunk (its block-table entries in shared memory)
 constexpr int MAX_CHUNK_PAGES = 1024;
+
+// a vector of VB bytes as the kernel loads it
+template <int VB> struct Vec;
+template <> struct Vec<16> { using type = uint4; };
+template <> struct Vec<4> { using type = unsigned int; };
+template <> struct Vec<2> { using type = unsigned short; };
 
 __device__ __forceinline__ void to_f(const uint4& u, float* f, float) {
   f[0] = __uint_as_float(u.x);
@@ -79,14 +90,40 @@ __device__ __forceinline__ void to_f(const uint4& u, float* f,
   }
 }
 
+__device__ __forceinline__ void to_f(const uint4& u, float* f, __half) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+__device__ __forceinline__ void to_f(unsigned int u, float* f, float) {
+  f[0] = __uint_as_float(u);
+}
+
+__device__ __forceinline__ void to_f(unsigned short u, float* f,
+                                     __nv_bfloat16) {
+  f[0] = __bfloat162float(__ushort_as_bfloat16(u));
+}
+
+__device__ __forceinline__ void to_f(unsigned short u, float* f, __half) {
+  f[0] = __half2float(__ushort_as_half(u));
+}
+
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
+__device__ __forceinline__ void store_f(__half* p, float x) {
+  *p = __float2half(x);
+}
 
-// LPR lanes a row (a power of two), VPL 16-byte vectors a lane; D at run
-// time, at most LPR * VPL * 16 / elem.
-template <typename T, int LPR, int VPL>
+// VB-byte vectors, LPR lanes a row (a power of two), VPL vectors a lane;
+// D at run time, at most LPR * VPL * VB / elem.
+template <typename T, int VB, int LPR, int VPL>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
                        const T* __restrict__ v_arena, T* __restrict__ out,
@@ -99,9 +136,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
                        int64_t k_sp, int64_t k_sr, int64_t k_sh,
                        int64_t v_sp, int64_t v_sr, int64_t v_sh,
                        int64_t bt_ss, float scale) {
-  constexpr int EPL = 16 / sizeof(T);  // elements of a 16-byte vector
+  using V = typename Vec<VB>::type;
+  constexpr int EPL = VB / sizeof(T);  // elements of a vector
   constexpr int RPI = 32 / LPR;        // rows per warp-wide load
-  constexpr int UR = U / VPL;          // warp-wide loads a step
+  constexpr int UR = VPL < U ? U / VPL : 1;  // warp-wide loads a step
   constexpr int RPS = UR * RPI;        // rows a warp takes per step
   constexpr int GROUPS = WARPS * RPI;  // softmax states per block
   constexpr int DW = LPR * VPL * EPL;  // the widest row of this shape
@@ -136,10 +174,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
   float qv[VPL][EPL];
 #pragma unroll
   for (int v = 0; v < VPL; ++v) {
-    const uint4 u =
-        act[v] ? __ldg(reinterpret_cast<const uint4*>(
-                     q + s * q_ss + h * q_sh + (li + v * LPR) * EPL))
-               : make_uint4(0u, 0u, 0u, 0u);
+    const V u = act[v] ? __ldg(reinterpret_cast<const V*>(
+                             q + s * q_ss + h * q_sh + (li + v * LPR) * EPL))
+                       : V();
     to_f(u, qv[v], T());
 #pragma unroll
     for (int e = 0; e < EPL; ++e) qv[v][e] *= scale;
@@ -156,7 +193,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
 
   for (int j0 = page0 * page_size + warp * RPS; j0 < row_end;
        j0 += WARPS * RPS) {
-    uint4 kr[UR][VPL], vr[UR][VPL];
+    V kr[UR][VPL], vr[UR][VPL];
     bool ok[UR];
 #pragma unroll
     for (int u = 0; u < UR; ++u) {
@@ -166,13 +203,13 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
       const int64_t row = j % page_size;
 #pragma unroll
       for (int v = 0; v < VPL; ++v) {
-        kr[u][v] = vr[u][v] = make_uint4(0u, 0u, 0u, 0u);
+        kr[u][v] = vr[u][v] = V();
         if (ok[u] && act[v]) {
           const int64_t off = v * LPR * EPL;
-          kr[u][v] = __ldg(reinterpret_cast<const uint4*>(
-              kh + pid * k_sp + row * k_sr + off));
-          vr[u][v] = __ldg(reinterpret_cast<const uint4*>(
-              vh + pid * v_sp + row * v_sr + off));
+          kr[u][v] = __ldg(
+              reinterpret_cast<const V*>(kh + pid * k_sp + row * k_sr + off));
+          vr[u][v] = __ldg(
+              reinterpret_cast<const V*>(vh + pid * v_sp + row * v_sr + off));
         }
       }
     }
@@ -228,27 +265,30 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
     for (int e = 0; e < EPL; ++e)
       s_acc[gi][(li + v * LPR) * EPL + e] = acc[v][e];
   __syncthreads();
-  float cm = NEG_INF, cl = 0.f, ca = 0.f;
-  if (tid < D) {
+  float cm = NEG_INF, cl = 0.f;
 #pragma unroll 8
-    for (int i = 0; i < GROUPS; ++i) cm = fmaxf(cm, s_m[i]);
+  for (int i = 0; i < GROUPS; ++i) cm = fmaxf(cm, s_m[i]);
 #pragma unroll 8
-    for (int i = 0; i < GROUPS; ++i) {
-      const float f = expf(s_m[i] - cm);
-      cl = fmaf(s_l[i], f, cl);
-      ca = fmaf(s_acc[i][tid], f, ca);
-    }
-  }
+  for (int i = 0; i < GROUPS; ++i) cl = fmaf(s_l[i], expf(s_m[i] - cm), cl);
+  // column col of the chunk's accumulator, its groups' in group order
+  auto chunk_acc = [&](int col) {
+    float ca = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < GROUPS; ++i)
+      ca = fmaf(s_acc[i][col], expf(s_m[i] - cm), ca);
+    return ca;
+  };
   T* o = out + ((int64_t)s * H + h) * D;
   if (n_chunks == 1) {
-    if (tid < D) store_f(o + tid, ca / fmaxf(cl, 1e-30f));
+    for (int col = tid; col < D; col += THREADS)
+      store_f(o + col, chunk_acc(col) / fmaxf(cl, 1e-30f));
     return;
   }
 
   // several chunks: publish this one, and the last to finish merges all
   const int64_t sh = (int64_t)s * H + h;
   float* w = ws + (sh * gridDim.z + c) * (D + 2);
-  if (tid < D) w[2 + tid] = ca;
+  for (int col = tid; col < D; col += THREADS) w[2 + col] = chunk_acc(col);
   if (tid == 0) {
     w[0] = cm;
     w[1] = cl;
@@ -259,29 +299,32 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  if (tid < D) {
-    const float* w0 = ws + sh * gridDim.z * (D + 2);
-    float M = NEG_INF, L = 0.f, A = 0.f;
-    for (int i = 0; i < n_chunks; ++i) M = fmaxf(M, __ldcg(w0 + i * (D + 2)));
+  const float* w0 = ws + sh * gridDim.z * (D + 2);
+  float M = NEG_INF, L = 0.f;
+  for (int i = 0; i < n_chunks; ++i) M = fmaxf(M, __ldcg(w0 + i * (D + 2)));
+  for (int i = 0; i < n_chunks; ++i) {
+    const float* wi = w0 + i * (D + 2);
+    L = fmaf(__ldcg(wi + 1), expf(__ldcg(wi) - M), L);
+  }
+  for (int col = tid; col < D; col += THREADS) {
+    float A = 0.f;
     for (int i = 0; i < n_chunks; ++i) {
       const float* wi = w0 + i * (D + 2);
-      const float f = expf(__ldcg(wi) - M);
-      L = fmaf(__ldcg(wi + 1), f, L);
-      A = fmaf(__ldcg(wi + 2 + tid), f, A);
+      A = fmaf(__ldcg(wi + 2 + col), expf(__ldcg(wi) - M), A);
     }
-    store_f(o + tid, A / fmaxf(L, 1e-30f));
+    store_f(o + col, A / fmaxf(L, 1e-30f));
   }
   if (tid == 0) tickets[sh] = 0;
 }
 
-template <typename T, int LPR, int VPL>
+template <typename T, int VB, int LPR, int VPL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const int* bt, const int* pos, float* ws, int* tickets,
                    int S, int H, int D, int page, int pps, int n_pages,
                    int chunk_pages, const int64_t* st, float scale,
                    cudaStream_t stream) {
   dim3 grid(S, H, (pps + chunk_pages - 1) / chunk_pages);
-  paged_attention_kernel<T, LPR, VPL><<<grid, THREADS, 0, stream>>>(
+  paged_attention_kernel<T, VB, LPR, VPL><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), bt, pos, ws, tickets,
       H, D, page, pps, n_pages, chunk_pages, st[0], st[1], st[2], st[3],
@@ -289,24 +332,51 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// The shape for D: LPR the power of two at or above the row's vectors,
-// at most 32, and 2 vectors a lane above 32 (f32, D over 128).
+using LaunchFn = cudaError_t (*)(const void*, const void*, const void*,
+                                 void*, const int*, const int*, float*, int*,
+                                 int, int, int, int, int, int, int,
+                                 const int64_t*, float, cudaStream_t);
+
+// The shape for a row of nv VB-byte vectors: on the 16-byte path LPR the
+// power of two at or above nv (at most 32), on the one-element path 32;
+// then VPL the power of two that covers the rest. nullptr past MAX_D.
+template <typename T, int VB>
+LaunchFn shape_for(int nv) {
+  constexpr int MAX_NV = MAX_D * (int)sizeof(T) / VB;
+  if constexpr (VB == 16) {
+    if (nv <= 1) return &launch<T, VB, 1, 1>;
+    if (nv <= 2) return &launch<T, VB, 2, 1>;
+    if (nv <= 4) return &launch<T, VB, 4, 1>;
+    if (nv <= 8) return &launch<T, VB, 8, 1>;
+    if (nv <= 16) return &launch<T, VB, 16, 1>;
+  }
+  if (nv <= 32) return &launch<T, VB, 32, 1>;
+  if (nv <= 64) return &launch<T, VB, 32, 2>;
+  if (nv <= 128) return &launch<T, VB, 32, 4>;
+  if constexpr (MAX_NV > 128) {
+    if (nv <= 256) return &launch<T, VB, 32, 8>;
+  }
+  if constexpr (MAX_NV > 256) {
+    if (nv <= 512) return &launch<T, VB, 32, 16>;
+    if (nv <= 1024) return &launch<T, VB, 32, 32>;
+  }
+  return nullptr;
+}
+
 template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* out, const int* bt, const int* pos, float* ws,
-                       int* tickets, int S, int H, int page, int pps,
-                       int n_pages, int chunk_pages, const int64_t* st,
-                       float scale, cudaStream_t stream) {
-  constexpr int EPL = 16 / sizeof(T);
-  if (D < 1 || D > MAX_D || D % EPL) return cudaErrorInvalidValue;
-  const int nv = D / EPL;
-  auto fn = &launch<T, 32, 2>;
-  if (nv <= 1) fn = &launch<T, 1, 1>;
-  else if (nv <= 2) fn = &launch<T, 2, 1>;
-  else if (nv <= 4) fn = &launch<T, 4, 1>;
-  else if (nv <= 8) fn = &launch<T, 8, 1>;
-  else if (nv <= 16) fn = &launch<T, 16, 1>;
-  else if (nv <= 32) fn = &launch<T, 32, 1>;
+cudaError_t dispatch(int D, int vec_bytes, const void* q, const void* k,
+                     const void* v, void* out, const int* bt, const int* pos,
+                     float* ws, int* tickets, int S, int H, int page,
+                     int pps, int n_pages, int chunk_pages,
+                     const int64_t* st, float scale, cudaStream_t stream) {
+  constexpr int ES = sizeof(T);
+  if (D < 1 || D > MAX_D) return cudaErrorInvalidValue;
+  LaunchFn fn = nullptr;
+  if (vec_bytes == 16 && D * ES % 16 == 0)
+    fn = shape_for<T, 16>(D * ES / 16);
+  else if (vec_bytes == ES)
+    fn = shape_for<T, ES>(D);
+  if (fn == nullptr) return cudaErrorInvalidValue;
   return fn(q, k, v, out, bt, pos, ws, tickets, S, H, D, page, pps, n_pages,
             chunk_pages, st, scale, stream);
 }
@@ -317,7 +387,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 // head), v arena (page, row, head); bt_ss is the block-table row stride.
 // workspace: S * H * ceil(pages_per_seq / chunk_pages) * (D + 2) floats,
 // uninitialised; tickets: S * H int32 zeros, left zero by every launch.
-// dtype 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// dtype 0 = float32, 1 = bfloat16, 2 = float16; vec_bytes 16 (rows of
+// whole 16-byte vectors, every base pointer and stride 16-byte aligned)
+// or the element size. Returns a cudaError_t.
 extern "C" int pt_paged_attention(const void* q, const void* k_arena,
                                   const void* v_arena, void* out,
                                   const void* block_tables,
@@ -326,7 +398,8 @@ extern "C" int pt_paged_attention(const void* q, const void* k_arena,
                                   int page_size, int pages_per_seq,
                                   int n_arena_pages, int chunk_pages,
                                   const int64_t* strides, int64_t bt_ss,
-                                  float scale, int dtype, void* stream) {
+                                  float scale, int dtype, int vec_bytes,
+                                  void* stream) {
   if (S < 1 || H < 1 || page_size < 1 || pages_per_seq < 1 || H > 65535 ||
       chunk_pages < 1 || chunk_pages > MAX_CHUNK_PAGES ||
       (pages_per_seq + chunk_pages - 1) / chunk_pages > 65535)
@@ -339,18 +412,19 @@ extern "C" int pt_paged_attention(const void* q, const void* k_arena,
   const int* pos = static_cast<const int*>(positions);
   float* ws = static_cast<float*>(workspace);
   int* tk = static_cast<int*>(tickets);
-  cudaError_t err;
   if (dtype == 0)
-    err = dispatch_d<float>(D, q, k_arena, v_arena, out, bt, pos, ws, tk, S,
-                            H, page_size, pages_per_seq, n_arena_pages,
-                            chunk_pages, st, scale, s);
-  else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(D, q, k_arena, v_arena, out, bt, pos, ws,
-                                    tk, S, H, page_size, pages_per_seq,
-                                    n_arena_pages, chunk_pages, st, scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+    return (int)dispatch<float>(D, vec_bytes, q, k_arena, v_arena, out, bt,
+                                pos, ws, tk, S, H, page_size, pages_per_seq,
+                                n_arena_pages, chunk_pages, st, scale, s);
+  if (dtype == 1)
+    return (int)dispatch<__nv_bfloat16>(
+        D, vec_bytes, q, k_arena, v_arena, out, bt, pos, ws, tk, S, H,
+        page_size, pages_per_seq, n_arena_pages, chunk_pages, st, scale, s);
+  if (dtype == 2)
+    return (int)dispatch<__half>(D, vec_bytes, q, k_arena, v_arena, out, bt,
+                                 pos, ws, tk, S, H, page_size, pages_per_seq,
+                                 n_arena_pages, chunk_pages, st, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* pt_paged_attention_error_string(int err) {

@@ -8,7 +8,10 @@ that format, so a state dict moves between them with no conversion: the
 parameter names are the same 1:1 (``gpt.word_embeddings.weight``,
 ``gpt.decoder.layers.{i}.self_attn.q_proj.weight``, ...,
 ``gpt.decoder.norm.bias``) and so are the layouts (``Linear`` weights are
-``[in, out]``). Loading unpickles, so only load files you trust.
+``[in, out]``); so do the vision models' and BERT's (``layer1.0.conv1.
+weight`` OIHW, BN's running statistics as the buffers ``_mean`` and
+``_variance``, ``encoder.layers.{i}.self_attn.q_proj.weight``), with
+no renaming. Loading unpickles, so only load files you trust.
 """
 from __future__ import annotations
 

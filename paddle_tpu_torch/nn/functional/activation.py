@@ -1,11 +1,23 @@
 """Activations (counterpart of ``paddle_tpu/nn/functional/activation.py``,
-the part the GPT and YOLOv3 paths use). Each consults the AMP hook under
-the reference's op name first (``paddle_tpu_torch/amp``)."""
+the part the GPT, YOLOv3, ResNet and BERT paths use). Each consults the
+AMP hook under the reference's op name first (``paddle_tpu_torch/amp``)."""
 from __future__ import annotations
 
 import torch
 
 from ... import amp
+
+
+def relu(x, name=None):
+    """``max(x, 0)`` (``:25``); op ``relu`` under AMP."""
+    (x,) = amp.cast_inputs("relu", x)
+    return torch.relu(x)
+
+
+def tanh(x, name=None):
+    """``tanh(x)`` (``:46``); op ``tanh`` under AMP."""
+    (x,) = amp.cast_inputs("tanh", x)
+    return torch.tanh(x)
 
 
 def gelu(x, approximate: bool = False):

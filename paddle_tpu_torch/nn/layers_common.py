@@ -1,6 +1,7 @@
-"""Linear, LayerNorm, Embedding, Dropout, Conv2D, BatchNorm1D/2D and
-Upsample as ``torch.nn.Module``s (counterpart of the same classes in
-``paddle_tpu/nn/layers_common.py``).
+"""Linear, LayerNorm, Embedding, Dropout, Conv2D, BatchNorm1D/2D,
+Upsample, the pooling layers (``MaxPool1D/2D``, ``AvgPool1D/2D``,
+``AdaptiveAvgPool1D/2D``) and ``Flatten`` as ``torch.nn.Module``s
+(counterpart of the same classes in ``paddle_tpu/nn/layers_common.py``).
 
 Parameter names and layouts are paddle's, so state dicts carry 1:1
 between the packages: ``Linear.weight`` is ``[in, out]`` and the layer
@@ -24,6 +25,7 @@ import torch
 from torch import nn
 
 from ..core.device import DeviceLike, resolve_device
+from ..ops.manipulation import flatten
 from . import functional as F
 
 
@@ -251,6 +253,70 @@ class Upsample(nn.Module):
 
     def forward(self, x):
         return F.interpolate(x, **self._kw)
+
+
+class _PoolNd(nn.Module):
+    """A pooling functional with its arguments fixed at construction, as
+    the JAX package's ``_PoolNd`` (``:335``) passes them."""
+
+    def __init__(self, fn, *args):
+        super().__init__()
+        self._fn = fn
+        self._args = args
+
+    def forward(self, x):
+        return self._fn(x, *self._args)
+
+
+class MaxPool1D(_PoolNd):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 return_mask=False, ceil_mode=False, name=None):
+        super().__init__(F.max_pool1d, kernel_size, stride, padding,
+                         return_mask, ceil_mode)
+
+
+class MaxPool2D(_PoolNd):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 return_mask=False, ceil_mode=False, data_format="NCHW",
+                 name=None):
+        super().__init__(F.max_pool2d, kernel_size, stride, padding,
+                         return_mask, ceil_mode, data_format)
+
+
+class AvgPool1D(_PoolNd):
+    def __init__(self, kernel_size, stride=None, padding=0, exclusive=True,
+                 ceil_mode=False, name=None):
+        super().__init__(F.avg_pool1d, kernel_size, stride, padding,
+                         exclusive, ceil_mode)
+
+
+class AvgPool2D(_PoolNd):
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 exclusive=True, divisor_override=None, data_format="NCHW",
+                 name=None):
+        super().__init__(F.avg_pool2d, kernel_size, stride, padding,
+                         ceil_mode, exclusive, divisor_override, data_format)
+
+
+class AdaptiveAvgPool1D(_PoolNd):
+    def __init__(self, output_size, name=None):
+        super().__init__(F.adaptive_avg_pool1d, output_size)
+
+
+class AdaptiveAvgPool2D(_PoolNd):
+    def __init__(self, output_size, data_format="NCHW", name=None):
+        super().__init__(F.adaptive_avg_pool2d, output_size, data_format)
+
+
+class Flatten(nn.Module):
+    """Merge axes ``start_axis..stop_axis`` (``:488``)."""
+
+    def __init__(self, start_axis: int = 1, stop_axis: int = -1):
+        super().__init__()
+        self._start, self._stop = start_axis, stop_axis
+
+    def forward(self, x):
+        return flatten(x, self._start, self._stop)
 
 
 def reset_parameters(module: nn.Module,

@@ -167,8 +167,10 @@ class MultiHeadAttention(nn.Module):
             # absolute position lk - lq + i, so the triu shifts by the
             # cached prefix (offset 1 when lq == lk)
             lq, lk = q.shape[2], k.shape[2]
+            # made in float32, then cast: -inf in float16, as the JAX
+            # package's creation.full(-1e9, float16) gives
             attn_mask = torch.triu(
-                torch.full((lq, lk), -1e9, dtype=q.dtype, device=q.device),
+                torch.full((lq, lk), -1e9, device=q.device).to(q.dtype),
                 lk - lq + 1)
         mask = _convert_attention_mask(attn_mask, q.dtype)
         scale = 1.0 / math.sqrt(self.head_dim)

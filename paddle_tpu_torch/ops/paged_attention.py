@@ -22,10 +22,15 @@ that finds none raises.
 :func:`paged_attention` launches the kernel for CUDA tensors and runs the
 plain version :func:`paged_attention_plain` for CPU tensors (the
 counterpart of the JAX package's interpret mode). There is no fallback: a
-CUDA input the kernel does not take raises. The arena arguments may be
-strided layer views (``arena[:, li]`` of a ``[P+1, L, page, H, D]``
-arena): the kernel reads them through their strides, so a view is never
-copied. Not kept from the TPU: ``block_h`` and the tuner's winners.
+CUDA input the kernel does not take raises. The kernel takes float32,
+bfloat16 and float16 at any head dim up to :data:`MAX_HEAD_DIM`, as the
+TPU kernel takes any type and head dim; rows of whole 16-byte vectors at
+16-byte aligned addresses load 16 bytes a lane, other rows (D = 100 in
+bfloat16, a view shifted off 16 bytes) one element a lane. The arena
+arguments may be strided layer views (``arena[:, li]`` of a
+``[P+1, L, page, H, D]`` arena): the kernel reads them through their
+strides, so a view is never copied. Not kept from the TPU: ``block_h``
+and the tuner's winners.
 """
 from __future__ import annotations
 
@@ -43,9 +48,9 @@ __all__ = ["paged_attention", "paged_attention_plain", "chunk_pages_for",
            "takes"]
 
 _NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the widest head the kernel takes
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 1024
 
 #: blocks per SM the chunking aims at when every sequence is full
 BLOCKS_PER_SM = 8
@@ -66,12 +71,23 @@ def chunk_pages_for(pages_per_seq: int, seq_heads: int, n_sms: int) -> int:
 
 def takes(head_dim: int, dtype) -> bool:
     """Whether the kernel takes heads of ``head_dim`` in ``dtype``:
-    float32 or bfloat16, at most :data:`MAX_HEAD_DIM`, and a row of whole
-    16-byte vectors (``head_dim`` a multiple of 4 in float32, of 8 in
-    bfloat16). The one rule of the kernel's shapes: the wrapper refuses
-    by it and the paged decoder checks its lane by it."""
-    return (dtype in _DTYPES and 0 < head_dim <= MAX_HEAD_DIM
-            and head_dim * dtype.itemsize % 16 == 0)
+    float32, bfloat16 or float16, from 1 to :data:`MAX_HEAD_DIM`. The one
+    rule of the kernel's shapes: the wrapper refuses by it and the paged
+    decoder checks its lane by it."""
+    return dtype in _DTYPES and 0 < head_dim <= MAX_HEAD_DIM
+
+
+def _vec_bytes(tensors, d: int, es: int) -> int:
+    """The bytes a lane loads at once: 16 where a row is whole 16-byte
+    vectors and every base pointer and stride of ``tensors`` is 16-byte
+    aligned, else one element."""
+    if d * es % 16:
+        return es
+    for t in tensors:
+        if t.data_ptr() % 16 or any(st * es % 16 for st, n in zip(
+                t.stride()[:-1], t.shape[:-1]) if n > 1):
+            return es
+    return 16
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,7 +158,7 @@ def _lib():
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
-                          ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     return lib
 
 
@@ -154,9 +170,8 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
     single-layer views (dense); ``block_tables``: ``[S, pages_per_seq]``
     int32; ``positions``: ``[S]`` int32. Returns ``[S, H, D]`` in q's
     type. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (float32 or bfloat16 matching q, a head dim :func:`takes`
-    accepts, last dim contiguous, base pointers and strides of q and the
-    arenas 16-byte aligned) or raise."""
+    kernel (float32, bfloat16 or float16 matching q, a head dim
+    :func:`takes` accepts, last dim contiguous) or raise."""
     if q.dim() != 3 or k_arena.dim() != 4 or v_arena.dim() != 4:
         raise ValueError("paged_attention takes q [S, H, D] and arenas "
                          "[P+1, page, H, D]")
@@ -180,28 +195,20 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
     if q.dtype not in _DTYPES or k_arena.dtype != q.dtype \
             or v_arena.dtype != q.dtype:
         raise TypeError("paged_attention kernel: q and the arenas must all "
-                        "be float32 or all bfloat16")
+                        "be float32, all bfloat16 or all float16")
     if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
         raise TypeError("paged_attention kernel: block_tables and positions "
                         "must be int32")
     if not takes(d, q.dtype):
         raise ValueError(
             f"paged_attention kernel: head_dim {d} in {q.dtype} is not "
-            f"taken (at most {MAX_HEAD_DIM}, rows of whole 16-byte vectors)")
+            f"taken (float32, bfloat16 or float16, at most {MAX_HEAD_DIM})")
     if (q.stride(-1) != 1 or k_arena.stride(-1) != 1
             or v_arena.stride(-1) != 1 or block_tables.stride(-1) != 1
             or positions.stride(0) != 1):
         raise ValueError("paged_attention kernel: the last dim of every "
                          "input must be contiguous")
-    es = q.element_size()
-    for name, t in (("q", q), ("k_arena", k_arena), ("v_arena", v_arena)):
-        if t.data_ptr() % 16 or any(st * es % 16 for st, n in zip(
-                t.stride()[:-1], t.shape[:-1]) if n > 1):
-            raise ValueError(
-                f"paged_attention kernel: {name}'s base pointer and strides "
-                f"must be 16-byte aligned (rows load 16 bytes a lane), got "
-                f"pointer offset {t.data_ptr() % 16} and strides "
-                f"{tuple(t.stride())} of {es}-byte elements")
+    vec = _vec_bytes((q, k_arena, v_arena), d, q.element_size())
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
     pps = block_tables.shape[1]
     out = torch.empty((s_n, h, d), dtype=q.dtype, device=q.device)
@@ -219,7 +226,7 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
             out.data_ptr(), block_tables.data_ptr(), positions.data_ptr(),
             ws.data_ptr(), tickets.data_ptr(), s_n, h, d, k_arena.shape[1],
             pps, k_arena.shape[0], chunk, strides, block_tables.stride(0),
-            float(sc), _DTYPES[q.dtype], stream)
+            float(sc), _DTYPES[q.dtype], vec, stream)
     paged_attention.launches += 1
     from .kernel_build import check
     check(lib, "pt_paged_attention_error_string", code,

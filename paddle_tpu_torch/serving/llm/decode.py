@@ -233,8 +233,10 @@ def prefill_forward(spec: GPTDecodeSpec, params, tokens, true_lens):
     dev = tokens.device
     pos = torch.arange(lp_len, device=dev)
     h = params["tok"][tokens.long()] + params["pos"][pos][None]   # [B, L, E]
-    mask = torch.triu(torch.full((lp_len, lp_len), -1e9, dtype=h.dtype,
-                                 device=dev), 1)[None, None]
+    # -1e9 made in float32, then cast: -inf in float16, as the JAX
+    # package's jnp.full(-1e9, float16) gives
+    mask = torch.triu(torch.full((lp_len, lp_len), -1e9, device=dev)
+                      .to(h.dtype), 1)[None, None]
     kcs, vcs = [], []
     for lp in params["layers"]:
         h, k, v = _block_prefill(spec, lp, h, mask, scale)

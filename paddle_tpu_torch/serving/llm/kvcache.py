@@ -214,5 +214,6 @@ def valid_mask(lengths: torch.Tensor, max_seq: int,
     idx = torch.arange(max_seq, device=lengths.device)[None, :]
     ok = idx <= lengths.long()[:, None]
     zero = torch.zeros((), dtype=dtype, device=lengths.device)
-    neg = torch.full((), -1e9, dtype=dtype, device=lengths.device)
+    # cast from float32: -inf in float16, as the JAX package's cast gives
+    neg = torch.full((), -1e9, device=lengths.device).to(dtype)
     return torch.where(ok, zero, neg)[:, None, None, :]

@@ -18,10 +18,11 @@ Two attention lanes sit behind ``attn_impl``:
   package's interpret mode. Float-equal to the gather lane, not bitwise:
   the online softmax sums in another order.
 
-``"auto"`` means the kernel on CUDA and the gather lane on the CPU. The
-kernel lane on CUDA raises at construction for a model whose heads the
-kernel does not take (``ops.paged_attention.takes``: float32 or bfloat16,
-head dim at most 256, rows of whole 16-byte vectors). On CUDA the
+``"auto"`` means the kernel on CUDA and the gather lane on the CPU, as
+the JAX package's ``"auto"`` means the kernel on the TPU. The kernel
+takes every float type of a model (float32, bfloat16, float16) at any
+head dim up to 1024 (``ops.paged_attention.takes``); the kernel lane on
+CUDA raises at construction for heads past that. On CUDA the
 decode step runs as a replayed CUDA graph (``core/graphs.py``), the
 kernel lane's 24 launches of B4 inside it at GPT-3 1.3B; the decoder
 refreshes the device block tables before each program runs. Tail
@@ -157,6 +158,22 @@ def get_paged_decode_step(spec: GPTDecodeSpec, max_top_k: int,
                                      attn_impl=attn_impl))
 
 
+def _resolve_attn_impl(impl: str, device_type: str, head_dim: int,
+                       dtype) -> str:
+    """The attention lane of a paged decoder: ``"auto"`` is the kernel on
+    CUDA and the gather lane on the CPU; the kernel lane on CUDA raises
+    for heads the kernel does not take (``takes``), never leaving the
+    kernel for the gather lane unasked."""
+    if impl == "auto":
+        impl = "kernel" if device_type == "cuda" else "gather"
+    if impl == "kernel" and device_type == "cuda" \
+            and not takes(head_dim, dtype):
+        raise ValueError(
+            f"the paged attention kernel does not take head_dim {head_dim} "
+            f"in {dtype}; serve this model with attn_impl='gather'")
+    return impl
+
+
 def get_paged_prefill_fn(spec: GPTDecodeSpec, max_top_k: int) -> Program:
     """The paged prefill as a compiled program (``get_paged_prefill_fn``):
     ``fn(params, kv, tokens, true_lens, slot_ids, finished, samp,
@@ -187,16 +204,9 @@ class GPTPagedDecoder(GPTDecoderBase):
             raise ValueError(
                 f"attn_impl must be 'auto', 'gather' or 'kernel', got "
                 f"{attn_impl!r}")
-        if attn_impl == "auto":
-            attn_impl = "kernel" if self.device.type == "cuda" else "gather"
-        kv_type = self._model.gpt.word_embeddings.weight.dtype
-        if (attn_impl == "kernel" and self.device.type == "cuda"
-                and not takes(self.spec.head_dim, kv_type)):
-            raise ValueError(
-                f"the paged attention kernel does not take head_dim "
-                f"{self.spec.head_dim} in {kv_type}; serve this model with "
-                f"attn_impl='gather'")
-        self.attn_impl = attn_impl
+        self.attn_impl = _resolve_attn_impl(
+            attn_impl, self.device.type, self.spec.head_dim,
+            self._model.gpt.word_embeddings.weight.dtype)
         self.page_size = int(page_size)
         self.num_pages = None if num_pages is None else int(num_pages)
         self._key = self._key + ("paged", self.page_size, self.attn_impl)

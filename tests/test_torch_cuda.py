@@ -70,7 +70,8 @@ def _paged_case(seed, s_n=4, h=4, d=32, page=16, pps=8, layers=2):
 @pytest.mark.parametrize("shape", [(2, 128, 128, 4, 64, True),
                                    (1, 100, 100, 2, 128, True),
                                    (2, 48, 130, 2, 32, True),
-                                   (2, 64, 200, 2, 32, False)])
+                                   (2, 64, 200, 2, 32, False),
+                                   (2, 128, 128, 12, 64, False)])
 def test_flash_kernel_matches_plain(cuda, dtype, tol, shape):
     b, sq, skv, h, d, causal = shape
     q, k, v = (torch.from_numpy(x).to(cuda, dtype)
@@ -169,8 +170,10 @@ def test_flash_forward_kernel_refuses_misaligned_rows(cuda):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("d", [32, 64, 128, 16, 48, 80, 96, 160, 256])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-3)])
+@pytest.mark.parametrize("d", [32, 64, 128, 16, 48, 80, 96, 160, 256,
+                               100, 130, 36, 7, 1, 512, 1024])
 def test_paged_kernel_matches_plain(cuda, dtype, tol, d):
     q, ak, av, bt, pos = (torch.from_numpy(x).to(cuda)
                           for x in _paged_case(7, d=d))
@@ -183,7 +186,8 @@ def test_paged_kernel_matches_plain(cuda, dtype, tol, d):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-3)])
 def test_paged_kernel_splits_a_long_sequence_into_many_chunks(cuda, dtype,
                                                               tol):
     """Two sequences of 256 pages of 4 rows, 4 (sequence, head) pairs: the
@@ -225,7 +229,8 @@ def test_paged_kernel_position_zero_and_all_trash_tables(cuda):
     torch.testing.assert_close(out[keep], ref, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_paged_kernel_is_deterministic(cuda, dtype):
     """No float atomics: the chunks merge in chunk order whichever block
     finishes last, so two launches agree bit for bit."""
@@ -241,23 +246,53 @@ def test_paged_kernel_is_deterministic(cuda, dtype):
 
 
 def test_paged_kernel_refuses_what_it_does_not_take(cuda):
+    """int64 tables, float64 and mixed types, and heads past 1024 raise;
+    nothing the kernel does not take is served another way."""
     q, ak, av, bt, pos = (torch.from_numpy(x).to(cuda)
                           for x in _paged_case(8))
     with pytest.raises(TypeError, match="int32"):
         tpa.paged_attention(q, ak[:, 0], av[:, 0], bt.long(), pos)
     with pytest.raises(TypeError):
-        tpa.paged_attention(q.half(), ak[:, 0].half(), av[:, 0].half(), bt,
-                            pos)
-    shifted = torch.zeros(q.numel() + 1, device=cuda)[1:].view(q.shape)
-    shifted.copy_(q)
-    with pytest.raises(ValueError, match="16-byte"):
-        tpa.paged_attention(shifted, ak[:, 0], av[:, 0], bt, pos)
-    for d, dtype in ((264, torch.float32), (36, torch.bfloat16)):
+        tpa.paged_attention(q.double(), ak[:, 0].double(),
+                            av[:, 0].double(), bt, pos)
+    with pytest.raises(TypeError):
+        tpa.paged_attention(q.half(), ak[:, 0], av[:, 0], bt, pos)
+    for d, dtype in ((1032, torch.float32), (1040, torch.bfloat16)):
         q, ak, av, bt, pos = (torch.from_numpy(x).to(cuda)
-                              for x in _paged_case(8, d=d))
+                              for x in _paged_case(8, s_n=2, h=1, d=d,
+                                                   pps=2))
         q, ak, av = q.to(dtype), ak.to(dtype), av.to(dtype)
         with pytest.raises(ValueError, match=f"head_dim {d}"):
             tpa.paged_attention(q, ak[:, 0], av[:, 0], bt, pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_paged_kernel_reads_views_off_16_bytes(cuda, dtype):
+    """A query and an arena shifted one element off 16 bytes load one
+    element a lane and agree with the plain version, as do rows cut to
+    60 of their 64 elements (strided rows, whole 16-byte vectors in
+    float32 only)."""
+    q, ak, av, bt, pos = (torch.from_numpy(x).to(cuda)
+                          for x in _paged_case(8, d=64))
+    q, ak, av = q.to(dtype), ak.to(dtype), av.to(dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    shifted = torch.zeros(q.numel() + 1, dtype=dtype,
+                          device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    ks = torch.zeros(ak.numel() + 1, dtype=dtype,
+                     device=cuda)[1:].view(ak.shape)
+    ks.copy_(ak)
+    ref = tpa.paged_attention_plain(q, ak[:, 0], av[:, 0], bt, pos)
+    for args in ((shifted, ak[:, 0], av[:, 0]), (q, ks[:, 0], av[:, 0]),
+                 (q[..., :60], ak[:, 0, ..., :60], av[:, 0, ..., :60])):
+        before = tpa.paged_attention.launches
+        out = tpa.paged_attention(*args, bt, pos)
+        assert tpa.paged_attention.launches == before + 1
+        want = ref if args[1].shape[-1] == 64 else \
+            tpa.paged_attention_plain(*args, bt, pos)
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
 
 
 def test_gpt_forward_through_flash_kernel(cuda):
@@ -303,9 +338,10 @@ def test_paged_engine_kernel_lane_matches_gather_lane(cuda):
 def test_default_paged_engine_serves_head_dim_80_through_the_kernel(cuda):
     """head_dim 80 (GPT-3 2.7B's): the default engine config ("auto")
     serves the model through the paged kernel, one launch a layer a step,
-    with the tokens of the gather lane; a model whose heads the kernel
-    does not take (head_dim 130: rows of 520 bytes) raises on the kernel
-    lane and is served on the gather lane."""
+    with the tokens of the gather lane; head_dim 130 (rows of 520 bytes)
+    takes the kernel too, and a model whose heads the kernel does not
+    take (head_dim 1040, past 1024) raises on "auto" and "kernel" alike
+    and is served only on an explicit gather lane."""
     cfg = dict(MODEL, hidden_size=160, num_heads=2, intermediate_size=640)
     model = GPTForCausalLM(GPTConfig(**cfg), device=cuda, seed=0).eval()
     rng = np.random.default_rng(1)
@@ -335,10 +371,53 @@ def test_default_paged_engine_serves_head_dim_80_through_the_kernel(cuda):
     odd = GPTForCausalLM(GPTConfig(**dict(cfg, hidden_size=260)),
                          device=cuda, seed=0).eval()
     for impl in ("auto", "kernel"):
-        with pytest.raises(ValueError, match="head_dim 130"):
-            GPTPagedDecoder(odd, page_size=4, attn_impl=impl)
-    assert GPTPagedDecoder(odd, page_size=4,
+        assert GPTPagedDecoder(odd, page_size=4,
+                               attn_impl=impl).attn_impl == "kernel"
+    wide = GPTForCausalLM(GPTConfig(**dict(cfg, hidden_size=1040,
+                                           num_heads=1)),
+                          device=cuda, seed=0).eval()
+    for impl in ("auto", "kernel"):
+        with pytest.raises(ValueError, match="head_dim 1040"):
+            GPTPagedDecoder(wide, page_size=4, attn_impl=impl)
+    assert GPTPagedDecoder(wide, page_size=4,
                            attn_impl="gather").attn_impl == "gather"
+
+
+@pytest.mark.parametrize("dtype,cfg", [
+    (torch.float16, MODEL),
+    (torch.bfloat16, dict(MODEL, hidden_size=200, num_heads=2,
+                          intermediate_size=800))],
+    ids=["float16_head_dim_32", "bfloat16_head_dim_100"])
+def test_default_paged_engine_serves_float16_and_head_dim_100_through_the_kernel(
+        cuda, dtype, cfg):
+    """A float16 model and 200-byte bfloat16 rows (head_dim 100): the
+    default engine ("auto") serves both through the paged kernel, one
+    launch a layer a step, with an explicit gather engine's tokens."""
+    model = GPTForCausalLM(GPTConfig(**cfg), device=cuda,
+                           seed=0).eval().to(dtype)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg["vocab_size"], n).tolist()
+               for n in (5, 7, 10)]
+    tokens = {}
+    for lane in ("kernel", "gather"):
+        before = tpa.paged_attention.launches
+        eng = LLMEngine(model, LLMEngineConfig(
+            num_slots=4, max_seq=64, kv_layout="paged", page_size=4,
+            prefill_buckets=(8, 16),
+            **({} if lane == "kernel" else {"paged_attn_impl": lane})))
+        assert eng.decoder.attn_impl == lane
+        try:
+            reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+            tokens[lane] = [r.result(timeout=120)["tokens"] for r in reqs]
+        finally:
+            eng.drain(timeout=60)
+        stats = eng.stats()["stats"]
+        steps = (stats["serving.llm.decode_ticks"]
+                 + stats["serving.llm.warmup_decode_steps"])
+        assert tpa.paged_attention.launches - before == (
+            cfg["num_layers"] * steps if lane == "kernel" else 0)
+    assert tokens["kernel"] == tokens["gather"]
+    assert all(len(t) == 8 for t in tokens["kernel"])
 
 
 def _cpu_twin(model):
@@ -445,7 +524,8 @@ def _bwd_case(cuda, dtype, b, sq, skv, h, d, causal, seed=9):
                                    (1, 100, 100, 2, 128, True),
                                    (2, 48, 130, 2, 32, True),
                                    (2, 130, 48, 2, 32, True),
-                                   (2, 64, 200, 2, 32, False)])
+                                   (2, 64, 200, 2, 32, False),
+                                   (2, 128, 128, 12, 64, False)])
 def test_flash_backward_kernels_match_plain(cuda, dtype, tol, shape):
     b, sq, skv, h, d, causal = shape
     q, k, v, do, out, lse, delta = _bwd_case(cuda, dtype, *shape)
@@ -1314,3 +1394,212 @@ def test_multi_step_does_not_sync_between_steps(cuda, method):
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     assert len(losses) == len(TRAIN_IDS)
     assert len(syncs) == 1, [str(w.message) for w in syncs]
+
+
+# -- ResNet and BERT training on the card -------------------------------------
+
+def _vision_model(cuda, net, lr=0.01):
+    from paddle_tpu_torch import Model, nn
+    from paddle_tpu_torch.optimizer import Momentum
+    model = Model(net)
+    model.prepare(Momentum(learning_rate=lr, momentum=0.9,
+                           parameters=net.parameters(), weight_decay=1e-4),
+                  nn.CrossEntropyLoss())
+    return model
+
+
+class _ConvBN(torch.nn.Module):
+    """conv, train-mode BN, ReLU, max pool, adaptive pool, flatten, linear."""
+
+    def __init__(self, cuda):
+        super().__init__()
+        from paddle_tpu_torch import nn
+        self.conv = nn.Conv2D(3, 8, 3, padding=1, bias_attr=False,
+                              device=cuda)
+        self.bn = nn.BatchNorm2D(8, device=cuda)
+        self.pool = nn.MaxPool2D(3, 2, 1)
+        self.avg = nn.AdaptiveAvgPool2D(1)
+        self.fc = nn.Linear(8, 10, device=cuda)
+        nn.layers_common.reset_parameters(self, torch.Generator(
+            device=cuda).manual_seed(0))
+
+    def forward(self, x):
+        from paddle_tpu_torch.nn import functional as F
+        x = self.pool(F.relu(self.bn(self.conv(x))))
+        return self.fc(torch.flatten(self.avg(x), 1))
+
+
+# 16 images of 64x64: BN's last stages see 4 values a channel per image,
+# enough that rounding does not swamp a 5-step comparison
+VISION_X = np.random.default_rng(5).random((5, 16, 3, 64, 64),
+                                           dtype=np.float32)
+VISION_Y = np.random.default_rng(6).integers(0, 10, (5, 16))
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """cuDNN held to its deterministic algorithms: its default
+    weight-gradient algorithms may sum with atomics, so two runs of one
+    step part by rounding, which training amplifies."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def _vision_lanes(cuda, build, precision, lr=0.001):
+    """Five train_batch steps graphed and on the eager lane, fresh weights
+    each, cuDNN deterministic: (losses, state dict) per lane."""
+    from paddle_tpu_torch.core import graphs
+    res = {}
+    for lane in ("graphed", "eager"):
+        net = build()
+        model = _vision_model(cuda, net, lr)
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        with ctx, _cast(precision), _cudnn_deterministic():
+            losses = [model.train_batch([x], [y])[0]
+                      for x, y in zip(VISION_X, VISION_Y)]
+        res[lane] = (losses, {k: v.detach().clone()
+                              for k, v in net.state_dict().items()}, model)
+    prog = res["graphed"][2]._train_step_fn["fn"]
+    assert prog.trace_counter["traces"] == 1 and prog.replays == 4
+    return res
+
+
+def test_graphed_batch_norm_step_equals_the_eager_lane_bitwise(cuda):
+    """Train-mode BN's running statistics are buffers updated in place
+    inside the captured step: five replays leave the losses, weights and
+    statistics bitwise those of five eager steps (cuDNN deterministic in
+    both lanes)."""
+    res = _vision_lanes(cuda, lambda: _ConvBN(cuda), "fp32", lr=0.01)
+    assert res["graphed"][0] == res["eager"][0]
+    for k, v in res["eager"][1].items():
+        assert torch.equal(res["graphed"][1][k], v), k
+    assert not torch.equal(res["eager"][1]["bn._mean"],
+                           torch.zeros_like(res["eager"][1]["bn._mean"]))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "o1"])
+def test_graphed_resnet_train_batch_equals_the_eager_lane(cuda, precision):
+    """ResNet-18 (10 classes) on 16 images of 64x64, Momentum with the
+    coupled decay, cuDNN deterministic: graphed against eager, losses,
+    weights and BN statistics bitwise."""
+    from paddle_tpu_torch.vision.models import resnet18
+    res = _vision_lanes(cuda, lambda: resnet18(num_classes=10, device=cuda,
+                                               seed=0), precision)
+    assert res["graphed"][0] == res["eager"][0]
+    assert all(np.isfinite(res["graphed"][0]))
+    for k, v in res["eager"][1].items():
+        assert torch.equal(res["graphed"][1][k], v), k
+
+
+def test_resnet_train_loop_equals_graphed_train_batch(cuda):
+    """Momentum's elementwise update on flat buffers: train_loop over five
+    stacked batches against five graphed train_batch calls, cuDNN
+    deterministic."""
+    from paddle_tpu_torch.vision.models import resnet18
+    got = {}
+    for how in ("train_batch", "train_loop"):
+        net = resnet18(num_classes=10, device=cuda, seed=0)
+        model = _vision_model(cuda, net, 0.001)
+        with _cudnn_deterministic():
+            if how == "train_batch":
+                losses = [model.train_batch([x], [y])[0]
+                          for x, y in zip(VISION_X, VISION_Y)]
+            else:
+                losses = model.train_loop([VISION_X], [VISION_Y])
+                assert model._fused_loop is not None
+        got[how] = (losses, {k: v.detach().clone()
+                             for k, v in net.state_dict().items()})
+    _equal_or_close(got["train_loop"][0], got["train_batch"][0], "losses")
+    for k, v in got["train_batch"][1].items():
+        torch.testing.assert_close(got["train_loop"][1][k], v, rtol=1e-5,
+                                   atol=1e-5, msg=k)
+
+
+BERT_SMALL = dict(vocab_size=1000, hidden_size=128, num_layers=2,
+                  num_heads=2, intermediate_size=256,
+                  max_position_embeddings=64)
+
+
+class _MLMHead(torch.nn.Module):
+    """bench.py's MLM head: BERT and a vocabulary linear."""
+
+    def __init__(self, cuda, dropout):
+        super().__init__()
+        from paddle_tpu_torch import nn
+        from paddle_tpu_torch.models import BertConfig, BertModel
+        cfg = BertConfig(**BERT_SMALL, hidden_dropout_prob=dropout,
+                         attention_dropout_prob=dropout)
+        self.bert = BertModel(cfg, device=cuda, seed=0)
+        self.head = nn.Linear(cfg.hidden_size, cfg.vocab_size, device=cuda)
+        nn.layers_common.reset_parameters(self.head, torch.Generator(
+            device=cuda).manual_seed(1))
+
+    def forward(self, ids):
+        return self.head(self.bert(ids)[0])
+
+
+def _bert_model(cuda, dropout=0.0):
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    net = _MLMHead(cuda, dropout)
+    model = Model(net)
+    model.prepare(AdamW(learning_rate=1e-4, parameters=net.parameters(),
+                        weight_decay=0.01, epsilon=1e-6),
+                  lambda logits, labels: F.cross_entropy(
+                      logits.reshape(-1, logits.shape[-1]),
+                      labels.reshape(-1)))
+    return model, net
+
+
+BERT_IDS = np.random.default_rng(7).integers(0, BERT_SMALL["vocab_size"],
+                                             (5, 4, 64))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "o1"])
+def test_graphed_bert_train_batch_equals_the_eager_lane(cuda, precision):
+    """The MLM head with dropout 0: attention takes B1-B3 (head dim 64,
+    non-causal, once a layer a step, counted through the replays);
+    graphed against eager, losses bitwise or 1e-5, weights within 1e-5,
+    the unused pooler only decayed."""
+    from paddle_tpu_torch.core import graphs
+    res = {}
+    for lane in ("graphed", "eager"):
+        model, net = _bert_model(cuda)
+        pooler0 = net.bert.pooler.dense.weight.detach().clone()
+        before = _flash_counts()
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        with ctx, _cast(precision):
+            losses = [model.train_batch([b], [b.astype(np.int64)])[0]
+                      for b in BERT_IDS]
+        launched = [a - b for a, b in zip(_flash_counts(), before)]
+        assert launched == [len(BERT_IDS) * BERT_SMALL["num_layers"]] * 3, \
+            (lane, launched)
+        torch.testing.assert_close(net.bert.pooler.dense.weight,
+                                   pooler0 * (1 - 1e-4 * 0.01) ** 5)
+        res[lane] = (losses, {k: v.detach().clone()
+                              for k, v in net.state_dict().items()}, model)
+    prog = res["graphed"][2]._train_step_fn["fn"]
+    assert prog.trace_counter["traces"] == 1 and prog.replays == 4
+    _equal_or_close(res["graphed"][0], res["eager"][0], "losses")
+    for k, v in res["eager"][1].items():
+        torch.testing.assert_close(res["graphed"][1][k], v, rtol=1e-5,
+                                   atol=1e-5, msg=k)
+
+
+def test_graphed_bert_with_dropout_trains_on_the_dense_lane(cuda):
+    """bench.py's dropout 0.1: attention is dense (no flash launch, as in
+    the JAX package), each replay draws fresh masks, the losses finite."""
+    model, _ = _bert_model(cuda, dropout=0.1)
+    before = _flash_counts()
+    losses = [model.train_batch([b], [b.astype(np.int64)])[0]
+              for b in BERT_IDS]
+    assert _flash_counts() == before
+    assert all(np.isfinite(losses))
+    assert model._train_step_fn["fn"].replays == len(BERT_IDS) - 1

@@ -3,13 +3,12 @@
 
 The kernels B1, B2 and B3 (``paddle_tpu_torch/csrc/flash_mma.cuh``) take
 fp32 products on the tensor cores: each operand x is split into big = x
-with its 13 low mantissa bits cleared and small = x - big, which the MMA
-reads without its 13 low bits, and a product is small*big + big*small +
-big*big in f32. This file applies that split, and a single TF32 product
-for contrast, to B1's online-softmax forward and to B2's and B3's
-formulas on the CPU and holds both to the same formulas in float64:
-3xTF32 stays within 2e-5 (max |err| / max |ref|, per output), one TF32
-product does not. No card and no jax needed.
+rounded to TF32 and small = x - big rounded to TF32, and a product is
+small*big + big*small + big*big in f32. This file applies that split, and
+a single TF32 product for contrast, to B1's online-softmax forward and to
+B2's and B3's formulas on the CPU and holds both to the same formulas in
+float64: 3xTF32 stays within 2e-5 (max |err| / max |ref|, per output),
+one TF32 product does not. No card and no jax needed.
 """
 import numpy as np
 import pytest
@@ -26,11 +25,18 @@ def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
     return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 rounded to nearest, ties away from zero, as the
+    kernels' split rounds (add half of the 13 dropped bits, then clear
+    them)."""
+    return ((x.contiguous().view(torch.int32) + 4096) & -8192).view(
+        torch.float32)
+
+
 def mm_3xtf32(a, b):
-    """The kernels' 3xTF32: big = trunc(x), small = x - big, truncated
-    again by the MMA."""
-    ab, bb = tf32_trunc(a), tf32_trunc(b)
-    a_s, b_s = tf32_trunc(a - ab), tf32_trunc(b - bb)
+    """The kernels' 3xTF32: big = round(x), small = round(x - big)."""
+    ab, bb = tf32_round(a), tf32_round(b)
+    a_s, b_s = tf32_round(a - ab), tf32_round(b - bb)
     return a_s @ bb + ab @ b_s + ab @ bb
 
 
@@ -155,3 +161,18 @@ def test_tf32_truncation_clears_the_low_bits_toward_zero():
     assert torch.equal((big.double() + small.double()).float(), x)
     err = (big + tf32_trunc(small) - x).abs() / x.abs()
     assert float(err.max()) < 2.0 ** -20
+
+
+def test_tf32_rounding_split_misses_under_2_22():
+    """The kernels' split: big and small are whole TF32 values (the MMA
+    reads them without loss), big is x rounded to nearest (within 2^-11
+    of it), and big + small is within 2^-22 of x, on either side."""
+    x = torch.randn(1000, generator=torch.Generator().manual_seed(2))
+    big = tf32_round(x)
+    small = tf32_round(x - big)
+    for t in (big, small):
+        assert (t.view(torch.int32) & 0x1FFF == 0).all()
+    assert float(((big - x).abs() / x.abs()).max()) <= 2.0 ** -11
+    err = (big.double() + small.double() - x.double()) / x.double().abs()
+    assert float(err.abs().max()) < 2.0 ** -22
+    assert float(err.min()) < 0 < float(err.max())

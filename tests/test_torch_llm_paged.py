@@ -212,12 +212,16 @@ def test_kill_aborts_the_inflight_generation(models):
     (80, torch.float32, True), (96, torch.bfloat16, True),
     (128, torch.float32, True), (256, torch.float32, True),
     (4, torch.float32, True), (40, torch.bfloat16, True),
-    (130, torch.float32, False), (36, torch.bfloat16, False),
-    (264, torch.bfloat16, False), (128, torch.float16, False)])
+    (130, torch.float32, True), (36, torch.bfloat16, True),
+    (264, torch.bfloat16, True), (128, torch.float16, True),
+    (100, torch.bfloat16, True), (1, torch.float16, True),
+    (1024, torch.float32, True), (1025, torch.float32, False),
+    (0, torch.float32, False), (64, torch.float64, False)])
 def test_paged_kernel_takes_head_dims_up_to_256(head_dim, dtype, taken):
-    """The kernel takes any head dim up to 256 whose row is whole 16-byte
-    vectors, in float32 or bfloat16; the decoder's kernel lane on CUDA
-    and the wrapper's refusal both ask ``takes``."""
+    """The kernel takes every head dim from 1 to 1024 in float32,
+    bfloat16 or float16 (rows of whole 16-byte vectors load 16 bytes a
+    lane, others one element); the decoder's kernel lane on CUDA and the
+    wrapper's refusal both ask ``takes``."""
     assert tpa.takes(head_dim, dtype) is taken
 
 
@@ -242,3 +246,39 @@ def test_head_dim_80_served_with_the_jax_tokens(impl):
     assert eng.decoder.attn_impl == ("gather" if impl == "auto" else impl)
     assert _serve(eng, _prompts()) == want
     assert all(len(t) == 8 for t in want)
+
+
+# -- the paged decoder's lane choice (C6) ----------------------------------------
+
+@pytest.mark.parametrize("device_type,dtype,head_dim,lane", [
+    ("cuda", torch.float16, 128, "kernel"),
+    ("cuda", torch.bfloat16, 100, "kernel"),
+    ("cuda", torch.float32, 128, "kernel"),
+    ("cuda", torch.float32, 2048, None),
+    ("cuda", torch.float64, 64, None),
+    ("cpu", torch.float32, 128, "gather"),
+    ("cpu", torch.float16, 128, "gather"),
+    ("cpu", torch.bfloat16, 100, "gather"),
+    ("cpu", torch.float32, 2048, "gather")],
+    ids=["cuda_f16_128", "cuda_bf16_100", "cuda_f32_128", "cuda_f32_2048",
+         "cuda_f64_64", "cpu_f32_128", "cpu_f16_128", "cpu_bf16_100",
+         "cpu_f32_2048"])
+def test_auto_lane_is_the_kernel_on_cuda(device_type, dtype, head_dim,
+                                         lane):
+    """"auto" is the kernel on CUDA, float16 and head_dim 100 included,
+    and the gather lane on the CPU, as the JAX package's "auto" is the
+    kernel on the TPU; where the kernel does not take the heads (None),
+    "auto" and "kernel" raise on CUDA rather than leave the kernel for
+    the gather lane; "gather" is kept as asked."""
+    from paddle_tpu_torch.serving.llm.paged.decode import _resolve_attn_impl
+    assert _resolve_attn_impl("gather", device_type, head_dim,
+                              dtype) == "gather"
+    if lane is None:
+        for impl in ("auto", "kernel"):
+            with pytest.raises(ValueError, match=f"head_dim {head_dim}"):
+                _resolve_attn_impl(impl, device_type, head_dim, dtype)
+    else:
+        assert _resolve_attn_impl("auto", device_type, head_dim,
+                                  dtype) == lane
+        assert _resolve_attn_impl("kernel", device_type, head_dim,
+                                  dtype) == "kernel"

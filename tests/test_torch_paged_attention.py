@@ -70,6 +70,33 @@ def test_plain_matches_jax_explicit_scale_and_d64():
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype,d", [("float16", 32), ("float16", 100),
+                                     ("bfloat16", 100), ("float32", 7)])
+def test_plain_matches_jax_interpret_in_every_type_and_head_dim(dtype, d):
+    """The types and head dims the CUDA kernel takes since it serves every
+    model (float16, rows that are not whole 16-byte vectors): the plain
+    version against the Pallas kernel in interpret mode on the same
+    half-precision inputs, both accumulating in float32 and rounding once
+    to the input type (one rounding step of it)."""
+    q, ak, av, bt, pos = _case(5, d=d)
+    q, ak, av = (x.astype(dtype if dtype != "bfloat16" else np.float32)
+                 for x in (q, ak, av))
+    jd = getattr(jnp, dtype)
+    ref = jax_paged_attention(jnp.asarray(q, jd), jnp.asarray(ak[:, 1], jd),
+                              jnp.asarray(av[:, 1], jd), jnp.asarray(bt),
+                              jnp.asarray(pos), interpret=True)
+    td = getattr(torch, dtype)
+    out = tpa.paged_attention(torch.from_numpy(q).to(td),
+                              torch.from_numpy(ak).to(td)[:, 1],
+                              torch.from_numpy(av).to(td)[:, 1],
+                              torch.from_numpy(bt), torch.from_numpy(pos))
+    assert out.dtype == td
+    tol = {"float16": 1e-3, "bfloat16": 8e-3, "float32": 1e-5}[dtype]
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
 def test_position_zero_attends_first_row_only():
     q, ak, av, bt, pos = _case(4)
     bt[0, 0] = 5
