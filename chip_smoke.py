@@ -29,7 +29,9 @@ Phases (any failure raises and the script exits non-zero):
    bounds of B1-B3 on the tensor cores (fp32 as 3xTF32), with the
    fp32-FMA bound beside; B1-B3 in fp32, bf16 and fp16; B1-B3 also at
    BERT-base's attention (B=256, S=128, H=12, D=64, non-causal) in fp32
-   (and against float64) and bf16, the same checks and timings;
+   (and against float64) and bf16, and at the long-context GPT's
+   (S=4096, D=64, causal: B=1, H=2 in fp32, against float64 too, and
+   bf16; timed at its B=4, H=12), the same checks and timings;
 3. the serving path, part one: GPT-3 1.3B (``GPTForCausalLM``, full
    width, random weights from a seed) forward on a [4, 1024] batch
    through the flash kernel, held against the same model's dense
@@ -151,11 +153,36 @@ Phases (any failure raises and the script exits non-zero):
    float16 GPT and a bfloat16 GPT of head dim 100 through B4, an
    explicit ``"kernel"`` is the same lane, and the kernel lane's and an
    explicit gather engine's greedy tokens each lie within twice the
-   model's own rounding of a float32 copy's argmax.
+   model's own rounding of a float32 copy's argmax;
+15. YOLOv3-DarkNet53 training at bench.py's TPU shape (:197-217):
+   ``YOLOv3(80 classes, width 1.0)`` from seed 0, Momentum(1e-3, 0.9,
+   weight decay 5e-4) and ``YOLOv3Loss`` through ``Model.train_batch``
+   on bench.py's batch (32 images of 416x416, 1 to 7 gt boxes each in 50
+   slots, from ``RandomState(0)``): the lanes, checks and prints of
+   phase 12 (fp32 and O1, graphed and eager under cuDNN's deterministic
+   algorithms, a graphed lane with its default ones, an O1
+   ``train_loop``), with losses and BN statistics held bitwise between
+   the lanes, bench.py's count (3 x 65.86 GFLOP x (416/608)^2 an image)
+   and the eager lanes' time by op: convolutions, BN and the loss, each
+   forward and backward, the update; no kernel of the port runs on this
+   path (B5 is detection inference's);
+16. the GPT at S = 4096 (bench.py:264-319): ``GPTConfig(50304, 768, 12
+   layers, 12 heads, 4096 positions, dropouts 0, attn_impl "auto")``
+   from seed 0, every ``layers.{i}`` forward through
+   ``distributed.fleet.utils.recompute``, AdamW(1e-4, weight decay
+   0.01), [4, 4096] ids from ``RandomState(0)``: 5 steps each of O1
+   graphed, O1 eager, fp32 graphed and O1 graphed without recompute,
+   every step launching B1 twice a layer (forward and re-run; once
+   without recompute) and B2 and B3 once; tokens/s, step wall and
+   device, idle share, B1-B3's share of device time, peak memory; the
+   O1 lanes' losses graphed against eager (bitwise or 1e-5) and with
+   recompute against without (bitwise), and one eager O1 step's loss and
+   gradients with and without recompute bitwise, with the memory the
+   step takes above the weights and optimizer state in each.
 
 Each model, its programs and its cache are released between phases
-(``release_memory``): GPT-3 1.3B, ResNet-50 and BERT-base are never
-resident at once.
+(``release_memory``): GPT-3 1.3B, ResNet-50, BERT-base, YOLOv3 and the
+S = 4096 GPT are never resident at once.
 
 A replay of a captured graph adds to each kernel's count the launches
 the graph captured. Every launch count (and B1-B3's counts by input
@@ -169,7 +196,9 @@ of phase 9's four paths (O1 ``train_batch``, O1 ``train_loop``, O2,
 fp16) and read after it, just before phase 10 and read after it, just
 before phases 12 and 13's training paths and read after each (no kernel
 of the port runs on either), just before phase 13's kernel checks and
-read after them, and just before phase 14 and read after it. The last two lines are a
+read after them, just before phase 14 and read after it, just before
+phase 15 and read after it, and just before each of phase 16's four
+lanes and read after it. The last two lines are a
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -404,15 +433,27 @@ GEN_FLASH_LENS = (64, 65, 95, 96)
 #: B1-B3 at BERT-base's attention: B=256, S=128, H=12, D=64, non-causal
 BERT_ATTN = (256, 128, 12, 64)
 
+#: B1-B3 at the long-context GPT's attention (bench.py:264-319): S=4096,
+#: H=12, D=64, causal, timed at its batch of 4 ("s4096") and checked,
+#: against float64 too, on two heads of one sequence ("s4096_check")
+LONG_ATTN = (4, 4096, 12, 64)
+LONG_CHECK = (1, 4096, 2, 64)
+#: cases timed only: the float64 formulas at LONG_ATTN would hold tens of
+#: GB of score matrices; LONG_CHECK holds the same kernels to them
+NO_F64_TAGS = ("s4096",)
+
 
 def _flash_cases(torch, with_gen):
     """Phase 2's B1-B3 cases, (type name, dtype, B, Sq, Skv, H, D, causal,
     summary tag): the training path's B=4, S=1024, H=16, D=128, the odd
     length and Sq != Skv cases, BERT-base's shape (BERT_ATTN, tag
-    "bert"), and for B1 the short causal lengths of generate's recompute
-    lane (GEN_FLASH_LENS)."""
+    "bert"), the long-context GPT's (LONG_ATTN, tag "s4096", and
+    LONG_CHECK, tag "s4096_check"), and for B1 the short causal lengths
+    of generate's recompute lane (GEN_FLASH_LENS)."""
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     b, s, h, d = BERT_ATTN
+    lb, ls, lh, ld = LONG_ATTN
+    cb, cs, ch, cd = LONG_CHECK
     cases = [("fp32", f32, 4, 1024, 1024, 16, 128, True, None),
              ("fp32", f32, 4, 1024, 1024, 16, 128, False, None),
              ("bf16", bf16, 4, 1024, 1024, 16, 128, True, None),
@@ -423,7 +464,11 @@ def _flash_cases(torch, with_gen):
              ("fp32", f32, 4, 512, 1024, 16, 128, True, None),
              ("fp32", f32, 4, 1024, 640, 16, 128, False, None),
              ("fp32", f32, b, s, s, h, d, False, "bert"),
-             ("bf16", bf16, b, s, s, h, d, False, "bert")]
+             ("bf16", bf16, b, s, s, h, d, False, "bert"),
+             ("fp32", f32, cb, cs, cs, ch, cd, True, "s4096_check"),
+             ("bf16", bf16, cb, cs, cs, ch, cd, True, "s4096_check"),
+             ("fp32", f32, lb, ls, ls, lh, ld, True, "s4096"),
+             ("bf16", bf16, lb, ls, ls, lh, ld, True, "s4096")]
     if with_gen:
         cases += [("fp32", f32, 2, n, n, 16, 128, True, None)
                   for n in GEN_FLASH_LENS]
@@ -458,7 +503,7 @@ def check_flash(torch, fa_mod, gen):
         ok = same and err <= TOL[name] and lse_err <= TOL["fp32"] \
             and bool(torch.isfinite(out.float()).all())
         e64, extra = None, ""
-        if dt == torch.float32:
+        if dt == torch.float32 and tag not in NO_F64_TAGS:
             o64, l64 = plain(*(x.double() for x in (q, k, v)), causal)
             e64 = max(((out.double() - o64).abs().max()
                        / o64.abs().max()).item(),
@@ -518,7 +563,8 @@ def check_flash(torch, fa_mod, gen):
                 f"{t}_max_abs_err": max(err, lse_err),
                 f"{t}_library_ms": lib_ms,
                 f"{t}_library": f"sdpa forward, {lib_name} backend",
-                f"{t}_shape": f"B={b} S={sq} H={h} D={d} non-causal",
+                f"{t}_shape": f"B={b} S={sq} H={h} D={d} "
+                              + ("causal" if causal else "non-causal"),
                 f"{t}_bitwise_repeatable": same})
             if e64 is not None:
                 tagged[f"{t}_max_err_vs_float64"] = e64
@@ -577,7 +623,8 @@ def check_flash_bwd(torch, fa_mod, gen):
             errs[g] = abs_errs[g] / ref.float().abs().max().item()
         ok = same and all(e <= TOL[name] for e in errs.values())
         extra, e64 = "", None
-        if rows is None or (tag is not None and dt == torch.float32):
+        if rows is None or (tag not in (None, *NO_F64_TAGS)
+                            and dt == torch.float32):
             # independent of the plain version: the same formulas in f64
             f64 = [x.double() for x in (q, k, v, do)]
             o64, l64 = fa_mod.flash_attention_fwd_plain(*f64[:3], causal)
@@ -661,7 +708,8 @@ def check_flash_bwd(torch, fa_mod, gen):
             common = {f"{t}_library_ms": lib_ms,
                       f"{t}_library": f"sdpa backward, {lib_name} backend, "
                                       f"for B2+B3 together",
-                      f"{t}_shape": f"B={b} S={sq} H={h} D={d} non-causal",
+                      f"{t}_shape": f"B={b} S={sq} H={h} D={d} "
+                                    + ("causal" if causal else "non-causal"),
                       f"{t}_bitwise_repeatable": same}
             if e64 is not None:
                 common[f"{t}_max_err_vs_float64"] = e64
@@ -2598,6 +2646,13 @@ def cudnn_deterministic(torch, on=True):
         torch.backends.cudnn.deterministic = was
 
 
+def _listed(batch):
+    """A spec's batch as (inputs, labels) lists: one array each, or
+    lists (YOLOv3's box and label tensors)."""
+    return tuple(list(b) if isinstance(b, (list, tuple)) else [b]
+                 for b in batch)
+
+
 def _train_lane(torch, spec, prec, lane, label):
     """One lane of :func:`model_lanes`: a fresh model (the generator
     re-seeded), MODEL_STEPS train_batch calls (graphed, or eager inside
@@ -2606,7 +2661,7 @@ def _train_lane(torch, spec, prec, lane, label):
     import paddle_tpu_torch as P
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.core import graphs
-    xs, ys = spec["batch"]
+    xs, ys = _listed(spec["batch"])
     cast = amp.auto_cast if prec == "o1" else contextlib.nullcontext
     torch.cuda.reset_peak_memory_stats()
     P.seed(0)
@@ -2619,7 +2674,7 @@ def _train_lane(torch, spec, prec, lane, label):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with cast():
-                losses.append(model.train_batch([xs], [ys])[0])
+                losses.append(model.train_batch(xs, ys)[0])
             walls.append((time.perf_counter() - t0) * 1e3)
         buffers = {k: b.detach().clone()
                    for k, b in model.network.named_buffers()}
@@ -2632,7 +2687,7 @@ def _train_lane(torch, spec, prec, lane, label):
         if lane != "eager":
             res.update(program_report(model, label, MODEL_STEPS))
         prof = profile_train_step(
-            torch, model, None, prec == "o1", label, batch=([xs], [ys]),
+            torch, model, None, prec == "o1", label, batch=(xs, ys),
             count=spec["count"], unit=spec["unit"], parts=spec["parts"],
             op_parts=spec.get("op_parts", ()),
             labels=spec.get("labels", ()))
@@ -2672,8 +2727,10 @@ def model_lanes(torch, spec):
     releases every model."""
     import paddle_tpu_torch as P
     from paddle_tpu_torch import amp
-    name, xs, ys = spec["name"], spec["batch"][0], spec["batch"][1]
+    name = spec["name"]
+    xs, ys = _listed(spec["batch"])
     det = spec.get("deterministic", False)
+    tol = spec.get("lane_tol", LANE_TOL)
     out = {}
     for prec in ("fp32", "o1"):
         lanes = {}
@@ -2685,13 +2742,13 @@ def model_lanes(torch, spec):
         (g, gbuf), (e, ebuf) = lanes["graphed"], lanes["eager"]
         g.update(check_lane_losses(g["losses"], e["losses"],
                                    f"{name} {prec} train_batch, graphed vs "
-                                   f"eager lane"))
+                                   f"eager lane", tol))
         same, worst = _state_diff(torch, gbuf, ebuf)
         log(f"{name} {prec} buffers ({len(gbuf)}: BN running statistics), "
             f"graphed vs eager: " + ("bitwise equal" if same else
                                      f"worst relative {worst:.3e} (tol "
-                                     f"{LANE_TOL})"))
-        if worst > LANE_TOL:
+                                     f"{tol})"))
+        if worst > tol:
             raise RuntimeError(f"{name} {prec}: graphed buffers differ from "
                                f"the eager lane's by {worst}")
         g["buffers_bitwise"], g["buffers_worst_rel"] = same, worst
@@ -2713,13 +2770,13 @@ def model_lanes(torch, spec):
     torch.cuda.reset_peak_memory_stats()
     P.seed(0)
     model = spec["build"]()
-    stack_x = np.stack([xs] * MODEL_STEPS)
-    stack_y = np.stack([ys] * MODEL_STEPS)
+    stack_x = [np.stack([x] * MODEL_STEPS) for x in xs]
+    stack_y = [np.stack([y] * MODEL_STEPS) for y in ys]
     with cudnn_deterministic(torch, det):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with amp.auto_cast():
-            losses = model.train_loop([stack_x], [stack_y])
+            losses = model.train_loop(stack_x, stack_y)
         first_ms = (time.perf_counter() - t0) * 1e3
         fused = model._fused_loop
         if fused is None:
@@ -2729,7 +2786,7 @@ def model_lanes(torch, spec):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with amp.auto_cast():
-            model.train_loop([stack_x], [stack_y])
+            model.train_loop(stack_x, stack_y)
         step_ms = (time.perf_counter() - t0) * 1e3 / MODEL_STEPS
     loop = {"losses": losses, "first_call_ms": first_ms, "step_ms": step_ms,
             "capture_ms": list(prog.capture_ms),
@@ -2743,12 +2800,242 @@ def model_lanes(torch, spec):
     loop.update(check_lane_losses(
         losses, out["o1"]["graphed"]["losses"],
         f"{name} O1 train_loop x{MODEL_STEPS} vs {MODEL_STEPS} graphed "
-        f"train_batch"))
+        f"train_batch", tol))
     out["o1_train_loop"] = loop
     # the loop's program holds the model, and the model its graph pool
     del model, fused, prog, stack_x, stack_y
     release_memory(torch)
     return out
+
+
+# -- phase 15: YOLOv3-DarkNet53 training (bench.py:185-262) -------------------
+
+#: bench.py's TPU shape (:197): batch 32 at 416x416, width 1.0, 80
+#: classes, 50 gt slots
+YOLO_BATCH, YOLO_SIZE, YOLO_CLASSES, YOLO_BOXES = 32, 416, 80, 50
+#: bench.py's forward count an image at 608 (:255-256), scaled by area
+YOLO_FWD_GFLOP_608 = 65.86
+#: device time by part of a YOLOv3 step: the graphed lanes by kernel
+#: name, the eager lanes by the op that launched each kernel (the loss is
+#: yolov3_loss wrapped in a range, its backward linked as BN's is)
+YOLO_PARTS = (("leaky_relu", r"leaky"), *VISION_PARTS)
+YOLO_OP_PARTS = (
+    ("optimizer", r"^optimizer\.update$"),
+    ("loss_fwd", r"^yolov3_loss$"),
+    ("loss_bwd", "link:yolov3_loss"),
+    ("bn_fwd", r"^F\.batch_norm$"),
+    ("bn_bwd", "link:F.batch_norm"),
+    ("conv_fwd", r"^aten::convolution$"),
+    ("conv_bwd", r"^aten::convolution_backward$"),
+    ("leaky_relu", r"leaky_relu|LeakyReluBackward"),
+    ("upsample_concat", r"^aten::(index_select|cat)$|IndexSelectBackward"),
+    ("residual_add", r"^aten::add_?$"),
+    ("casts", r"^aten::_to_copy$"))
+
+
+def _yolo_batch():
+    """bench.py:205-217: images and gt boxes from RandomState(0), 1 to 7
+    boxes an image in the 50 slots."""
+    rng = np.random.RandomState(0)
+    x = rng.rand(YOLO_BATCH, 3, YOLO_SIZE, YOLO_SIZE).astype(np.float32)
+    gt_box = np.zeros((YOLO_BATCH, YOLO_BOXES, 4), np.float32)
+    gt_label = np.zeros((YOLO_BATCH, YOLO_BOXES), np.int64)
+    for i in range(YOLO_BATCH):
+        for b in range(rng.randint(1, 8)):
+            cx, cy = rng.uniform(0.2, 0.8, 2)
+            w, h = rng.uniform(0.05, 0.4, 2)
+            gt_box[i, b] = [cx, cy, w, h]
+            gt_label[i, b] = rng.randint(0, YOLO_CLASSES)
+    return x, gt_box, gt_label
+
+
+def _yolo_model(torch, dev, width=1.0):
+    """bench.py's YOLOv3 run (:198-203): the detector from seed 0,
+    Momentum(1e-3, 0.9, weight decay 5e-4), YOLOv3Loss."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import YOLOv3, YOLOv3Loss
+    net = YOLOv3(num_classes=YOLO_CLASSES, width_mult=width,
+                 num_max_boxes=YOLO_BOXES, device=dev, seed=0)
+    model = Model(net, device=dev)
+    model.prepare(Momentum(learning_rate=1e-3, momentum=0.9,
+                           parameters=net.parameters(), weight_decay=5e-4,
+                           device=dev), YOLOv3Loss(net))
+    return model
+
+
+def yolo_spec(torch, dev, batch, width=1.0):
+    """Phase 15's :func:`model_lanes` spec: bench.py's model (at
+    ``width``) and ``batch``, images/s, bench.py's FLOP count (3 x 65.86
+    GFLOP x (size/608)^2 an image), parts by kernel name and by op (the
+    loss, BN and convolutions each forward and backward), cuDNN
+    deterministic and the lanes held bitwise."""
+    from paddle_tpu_torch.nn import functional as port_functional
+    from paddle_tpu_torch.vision.models import yolov3 as yolo_mod
+    x, gt_box, gt_label = batch
+    size = x.shape[-1]
+    return dict(
+        name="YOLOv3-DarkNet53",
+        build=lambda: _yolo_model(torch, dev, width),
+        batch=([x], [gt_box, gt_label]), count=x.shape[0], unit="imgs",
+        flops=lambda net: 3 * YOLO_FWD_GFLOP_608 * 1e9 * (size / 608) ** 2,
+        parts=YOLO_PARTS, op_parts=YOLO_OP_PARTS,
+        labels=((port_functional, "batch_norm", "F.batch_norm"),
+                (yolo_mod, "yolov3_loss", "yolov3_loss")),
+        passes=5, deterministic=True, lane_tol=0.0)
+
+
+# -- phase 16: the GPT at S = 4096 under recompute (bench.py:264-319) ---------
+
+#: bench.py's TPU config (:282-287) and batch
+LONG_CFG = dict(vocab_size=50304, hidden_size=768, num_layers=12,
+                num_heads=12, max_position_embeddings=4096,
+                hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+LONG_BATCH = (4, 4096)
+#: the lanes: (precision, lane, every block recomputed)
+LONG_LANES = (("o1", "graphed", True), ("o1", "eager", True),
+              ("fp32", "graphed", True), ("o1", "graphed", False))
+
+
+def _long_gpt_model(torch, dev, cfg, recompute):
+    """bench.py's GPT at S = 4096 (:282-304): weights from seed 0, every
+    ``layers.{i}`` forward through ``fleet.utils.recompute`` (when
+    ``recompute``), AdamW(1e-4, weight decay 0.01), the GPT criterion."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.distributed.fleet import utils as fleet_utils
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    net = GPTForCausalLM(GPTConfig(**cfg, attn_impl="auto"), device=dev,
+                         seed=0)
+    if recompute:
+        blocks = tuple(f"layers.{i}" for i in range(cfg["num_layers"]))
+        for name, sub in net.named_modules():
+            if name.endswith(blocks):
+                orig = sub.forward
+                sub.forward = (lambda *a, __f=orig, **k:
+                               fleet_utils.recompute(__f, *a, **k))
+    model = Model(net, device=dev)
+    model.prepare(AdamW(learning_rate=1e-4, parameters=net.parameters(),
+                        weight_decay=0.01, device=dev),
+                  GPTPretrainingCriterion())
+    return model
+
+
+def _long_lane(torch, fa_mod, dev, cfg, ids, prec, lane, recompute):
+    """One lane of phase 16: a fresh model, MODEL_STEPS train_batch calls
+    (B1 launching twice a layer a step with recompute, once without; B2
+    and B3 once), then its profile. Returns the lane's results."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import graphs
+    label = (f"GPT S={ids.shape[1]} {prec} {lane} lane, "
+             + ("recompute" if recompute else "no recompute"))
+    cast = amp.auto_cast if prec == "o1" else contextlib.nullcontext
+    ctx = graphs.disable_graphs() if lane == "eager" \
+        else contextlib.nullcontext()
+    torch.cuda.reset_peak_memory_stats()
+    P.seed(0)
+    model = _long_gpt_model(torch, dev, cfg, recompute)
+    want = [cfg["num_layers"] * (2 if recompute else 1),
+            cfg["num_layers"], cfg["num_layers"]]
+    losses, walls = [], []
+    with ctx:
+        for step in range(MODEL_STEPS):
+            before = [c.launches for c in _counters(fa_mod)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with cast():
+                losses.append(model.train_batch([ids], [ids])[0])
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launched = [c.launches - b
+                        for c, b in zip(_counters(fa_mod), before)]
+            if launched != want:
+                raise RuntimeError(f"{label}: step {step + 1} launched "
+                                   f"B1/B2/B3 {launched}, not {want}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{label}: losses {[round(x, 6) for x in losses]}, step walls "
+            f"{[round(w, 1) for w in walls]} ms, B1/B2/B3 {want} a step, "
+            f"peak {peak:.2f} GiB")
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"{label}: losses {losses}")
+        res = {"losses": losses, "step_wall_ms": walls, "peak_gib": peak,
+               "launches_per_step": want}
+        if lane != "eager":
+            res.update(program_report(model, label, MODEL_STEPS))
+        prof = profile_train_step(torch, model, ids, prec == "o1", label)
+    res.update(prof)
+    flash = prof["device_ms_by_part"]["flash_B1_B3"]
+    res["flash_share"] = flash / max(prof["device_busy_ms"], 1e-9)
+    log(f"{label}: {prof['tokens_per_s']:.1f} tokens/s, B1-B3 "
+        f"{flash:.2f} ms of {prof['device_busy_ms']:.2f} device "
+        f"({100 * res['flash_share']:.1f}%)")
+    del model
+    release_memory(torch)
+    return res
+
+
+def _long_grads(torch, dev, cfg, ids, recompute):
+    """One eager O1 step's loss and gradients (``train_batch(update=
+    False)``) on fresh weights, and the step's peak memory."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import graphs
+    P.seed(0)
+    model = _long_gpt_model(torch, dev, cfg, recompute)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with graphs.disable_graphs(), amp.auto_cast():
+        loss = model.train_batch([ids], [ids], update=False)[0]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    grads = {n: p.grad for n, p in model.network.named_parameters()}
+    del model
+    return loss, grads, peak
+
+
+def run_long_gpt(torch, fa_mod, dev, cfg, ids, reset_counters,
+                 read_counters):
+    """Phase 16 on ``cfg`` and ``ids``: the lanes of LONG_LANES, each
+    with its launches read (counts set to 0 before it); the O1 graphed
+    lane's losses against the eager lane's (bitwise or LANE_TOL) and
+    against the graphed lane without recompute (bitwise); one eager O1
+    step's loss and gradients with and without recompute, bitwise, with
+    the step's peak memory beside (what recompute saves)."""
+    out, paths, dtypes = {}, {}, {}
+    for prec, lane, rc in LONG_LANES:
+        key = f"{prec}_{lane}" + ("" if rc else "_no_recompute")
+        reset_counters()
+        out[key] = _long_lane(torch, fa_mod, dev, cfg, ids, prec, lane, rc)
+        paths[key] = read_counters()
+        dtypes[key] = {c.__name__: dict(c.launches_by_dtype)
+                       for c in _counters(fa_mod)}
+    g = out["o1_graphed"]
+    g.update(eager=check_lane_losses(
+        g["losses"], out["o1_eager"]["losses"],
+        f"GPT S={ids.shape[1]} O1 recompute, graphed vs eager lane"))
+    g.update(no_recompute=check_lane_losses(
+        g["losses"], out["o1_graphed_no_recompute"]["losses"],
+        f"GPT S={ids.shape[1]} O1 graphed, recompute vs none", tol=0.0))
+    rl, rg, rpeak = _long_grads(torch, dev, cfg, ids, True)
+    pl, pg, ppeak = _long_grads(torch, dev, cfg, ids, False)
+    differ = [n for n, v in rg.items() if not torch.equal(v, pg[n])]
+    log(f"GPT S={ids.shape[1]} O1 eager step, recompute vs none: loss "
+        f"{rl!r} vs "
+        f"{pl!r}, gradients bitwise equal in {len(rg) - len(differ)} of "
+        f"{len(rg)} tensors; the step's peak above its weights and state "
+        f"{rpeak:.2f} GiB with recompute, {ppeak:.2f} GiB without "
+        f"({ppeak - rpeak:.2f} GiB saved)")
+    if rl != pl or differ:
+        raise RuntimeError(f"GPT S={ids.shape[1]}: recompute changes the "
+                           f"loss or the "
+                           f"gradients of {differ[:5]}")
+    out["recompute_vs_none"] = {
+        "loss": rl, "grads_bitwise": True, "step_peak_gib": rpeak,
+        "step_peak_gib_no_recompute": ppeak}
+    del rg, pg
+    release_memory(torch)
+    return out, paths, dtypes
 
 
 #: a lane's distance from float64 may exceed its yardstick's by this factor
@@ -3427,6 +3714,38 @@ def main() -> int:
         raise RuntimeError("kernel paged_attention was not launched on the "
                            "C6 serving path")
 
+    # -- phase 15: YOLOv3-DarkNet53 training at bench.py's TPU shape ---------
+    stamp("15 YOLOv3-DarkNet53 training")
+    log(f"model: YOLOv3-DarkNet53, {YOLO_CLASSES} classes, width 1.0, "
+        f"batch {YOLO_BATCH} at {YOLO_SIZE}x{YOLO_SIZE}, {YOLO_BOXES} gt "
+        f"slots, Momentum(1e-3, 0.9, weight decay 5e-4), random weights "
+        f"(seed 0); {smi}")
+    reset_counters()
+    yolo = model_lanes(torch, yolo_spec(torch, dev, _yolo_batch()))
+    yolo_launches = read_counters()
+    log(f"YOLOv3 training path launches: {yolo_launches} (no kernel of the "
+        f"port is on it: B5 runs in detection inference only)")
+    if any(yolo_launches.values()):
+        raise RuntimeError("a port kernel launched on the YOLOv3 training "
+                           "path")
+
+    # -- phase 16: the GPT at S = 4096, every block recomputed ----------------
+    stamp("16 GPT S=4096 training")
+    long_ids = np.random.RandomState(0).randint(
+        0, LONG_CFG["vocab_size"], LONG_BATCH).astype(np.int32)
+    log(f"model: GPT ({LONG_CFG}), attn_impl auto, {list(LONG_BATCH)}, "
+        f"AdamW(1e-4, weight decay 0.01), every decoder block through "
+        f"fleet.utils.recompute, random weights (seed 0); {smi}")
+    long_gpt, long_paths, long_dtypes = run_long_gpt(
+        torch, fa_mod, dev, LONG_CFG, long_ids, reset_counters,
+        read_counters)
+    log(f"GPT S=4096 training paths launches: {long_paths}, B1-B3 by type "
+        f"{long_dtypes}")
+    for n in flash_names:
+        if long_paths["o1_graphed"][n] < 1:
+            raise RuntimeError(f"kernel {n} was not launched on the GPT "
+                               f"S=4096 training path")
+
     # -- summary --------------------------------------------------------------
     paths = {"serving": serve_launches, "serving_slot": slot_launches,
              "generate": gen_launches, "training": train_launches,
@@ -3434,8 +3753,11 @@ def main() -> int:
              "training_resnet50": resnet_launches,
              "training_bert": bert_launches,
              "bert_flash_checks": bert_flash_launches,
-             "serving_c6": c6_launches}
+             "serving_c6": c6_launches, "training_yolov3": yolo_launches,
+             **{f"training_gpt_s4096_{k}": v for k, v in long_paths.items()}}
     amp_dtypes["bert_flash_checks"] = bert_dtypes
+    amp_dtypes.update({f"training_gpt_s4096_{k}": v
+                       for k, v in long_dtypes.items()})
 
     def launches(name):
         by_path = {k: v[name] for k, v in paths.items()}
@@ -3480,6 +3802,8 @@ def main() -> int:
     log(f"training, ResNet-50: {json.dumps(resnet)}")
     log(f"training, BERT-base: {json.dumps(bert)}")
     log(f"C6: {json.dumps(c6)}")
+    log(f"training, YOLOv3-DarkNet53: {json.dumps(yolo)}")
+    log(f"training, GPT S=4096: {json.dumps(long_gpt)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,20 +10,32 @@ generator, as ``paddle.seed`` does. ``Dropout`` and
 global default generator, so a seeded training step repeats bit for bit.
 The two packages draw different bits from the same seed: tests that need
 the same noise in both feed it from NumPy.
+
+:func:`draw` is the one door every random mask of the port goes through,
+so that activation recompute (``distributed/fleet/utils.py``) can keep a
+block's draws from its forward (:func:`keeping_draws`) and hand the same
+tensors to its re-run in the backward (:func:`reusing_draws`), which then
+draws nothing. The JAX package gets the same masks by passing the same
+keys to the re-run.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
 
-__all__ = ["seed", "default_generator", "get_rng_state", "set_rng_state"]
+__all__ = ["seed", "default_generator", "get_rng_state", "set_rng_state",
+           "draw", "keeping_draws", "reusing_draws"]
 
 _LOCK = threading.Lock()
 _SEED = [0]
 _GENERATORS: Dict[torch.device, torch.Generator] = {}
+#: the draws list of the innermost keeping_draws / reusing_draws block
+#: of this thread, with the next position to reuse (None when keeping)
+_DRAWS = threading.local()
 
 
 def _key(device) -> torch.device:
@@ -70,3 +82,47 @@ def set_rng_state(state: Dict[str, torch.Tensor]):
     """Restore states from :func:`get_rng_state`."""
     for name, s in state.items():
         default_generator(name).set_state(s)
+
+
+def draw(make: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """``make()``, a tensor drawn from a generator. Inside
+    :func:`keeping_draws` it is also appended to the block's list; inside
+    :func:`reusing_draws` the next tensor of the list is returned instead
+    and nothing is drawn."""
+    state = getattr(_DRAWS, "state", None)
+    if state is None:
+        return make()
+    draws, pos = state
+    if pos is None:
+        t = make()
+        draws.append(t)
+        return t
+    if pos[0] >= len(draws):
+        raise RuntimeError("recompute: the re-run draws more random masks "
+                           "than its forward did")
+    t = draws[pos[0]]
+    pos[0] += 1
+    return t
+
+
+@contextlib.contextmanager
+def keeping_draws(draws: List[torch.Tensor]):
+    """Append every :func:`draw` of this thread inside to ``draws``."""
+    prev = getattr(_DRAWS, "state", None)
+    _DRAWS.state = (draws, None)
+    try:
+        yield
+    finally:
+        _DRAWS.state = prev
+
+
+@contextlib.contextmanager
+def reusing_draws(draws: List[torch.Tensor]):
+    """Answer the :func:`draw` calls of this thread inside with
+    ``draws``, in order, from the first."""
+    prev = getattr(_DRAWS, "state", None)
+    _DRAWS.state = (draws, [0])
+    try:
+        yield
+    finally:
+        _DRAWS.state = prev

@@ -9,7 +9,7 @@ from typing import Optional
 import torch
 
 from ... import amp
-from ...core.generator import default_generator
+from ...core.generator import default_generator, draw
 
 
 def linear(x, weight, bias=None):
@@ -27,7 +27,9 @@ def dropout(x, p: float = 0.5, training: bool = True,
     ``downscale_in_infer`` keeps values while training and scales by
     ``1-p`` at inference. The mask is drawn from ``generator``, by default
     the port's seeded generator of ``x``'s device
-    (:func:`~paddle_tpu_torch.core.generator.default_generator`)."""
+    (:func:`~paddle_tpu_torch.core.generator.default_generator`), through
+    :func:`~paddle_tpu_torch.core.generator.draw`, so a recomputed block
+    reuses its forward's mask."""
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"dropout mode {mode!r}")
     (x,) = amp.cast_inputs("dropout", x)
@@ -37,8 +39,8 @@ def dropout(x, p: float = 0.5, training: bool = True,
         return x
     if generator is None:
         generator = default_generator(x.device)
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) < (1.0 - p)
+    keep = draw(lambda: torch.rand(x.shape, generator=generator,
+                                   device=x.device) < (1.0 - p))
     if mode == "upscale_in_train":
         return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
     return torch.where(keep, x, torch.zeros_like(x))
@@ -80,9 +82,11 @@ def interpolate(x, size=None, scale_factor=None, mode: str = "nearest",
     out = x
     for d, t in enumerate(tgt):
         src = x.shape[off + d]
-        step = torch.tensor(src / t, dtype=torch.float32, device=x.device)
+        # float32 arange times the float32 step, as the JAX package's
+        # weak-typed scale; a scalar, not a tensor from the host, so a
+        # CUDA graph can capture it
         ii = torch.floor(torch.arange(t, dtype=torch.float32,
-                                      device=x.device) * step).long()
+                                      device=x.device) * (src / t)).long()
         out = torch.index_select(out, off + d, ii)
     return out
 

@@ -1,6 +1,7 @@
-"""Detection ops on the YOLOv3 serving path (counterpart of
-``paddle_tpu/ops/detection.py:44-212``): ``yolo_box``,
-``iou_similarity``, ``box_clip`` and ``multiclass_nms``.
+"""Detection ops of the YOLOv3 serving and training paths (counterpart
+of ``paddle_tpu/ops/detection.py:44-212`` and ``:316-430``):
+``yolo_box``, ``iou_similarity``, ``box_clip``, ``multiclass_nms`` and
+``yolov3_loss``.
 
 Outputs keep the JAX package's fixed sizes: ``multiclass_nms`` returns
 exactly ``keep_top_k`` rows per image, padded rows carry label -1, and
@@ -17,18 +18,26 @@ same function, routed to the kernel. ``lax.top_k`` keeps the lower
 index first among equal values and ``torch.topk`` promises no order on
 CUDA, so every top-k here is the head of a stable descending sort.
 
-The other ops of the JAX module (``yolov3_loss``, ``prior_box``,
-``box_coder``, ``generate_proposals``, ...) are not ported yet
-(ROADMAP.md queue A9).
+``yolov3_loss`` keeps the reference's arithmetic op for op and reads
+nothing on the host, so a train step that calls it can be captured as a
+CUDA graph: gathers at the assigned cells are tensor indexing, the
+objectness target a scatter-max over flat cell indices. The backward of
+the cell gather (:class:`_CellGather`) is deterministic: gradients of gt
+boxes that share a cell are summed in gt order, then written once.
+
+The other ops of the JAX module (``prior_box``, ``box_coder``,
+``generate_proposals``, ...) are not ported yet (ROADMAP.md queue A9).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import amp
 from .custom import greedy_nms
 
-__all__ = ["yolo_box", "iou_similarity", "box_clip", "multiclass_nms"]
+__all__ = ["yolo_box", "iou_similarity", "box_clip", "multiclass_nms",
+           "yolov3_loss"]
 
 
 def _top_k(x, k: int):
@@ -226,3 +235,164 @@ def multiclass_nms(bboxes, scores, score_threshold=0.0, nms_top_k=400,
     kept = _nms_kept(iou, top_scores > score_threshold, nms_threshold,
                      nms_eta)
     return _select_detections(top_scores, labels, cand, kept, keep_top_k)
+
+
+# -- yolov3_loss --------------------------------------------------------------
+
+def _bce(pred_logit, target):
+    """The reference's BCE on a logit, through ``sigmoid`` and ``log``
+    with eps 1e-7 (not the fused logit form, which rounds otherwise)."""
+    p = torch.sigmoid(pred_logit)
+    eps = 1e-7
+    return -(target * torch.log(p + eps)
+             + (1 - target) * torch.log(1 - p + eps))
+
+
+class _CellGather(torch.autograd.Function):
+    """``p[b, a[b, g], :, j[b, g], i[b, g]]`` -> ``[N, G, K]`` with a
+    deterministic backward. Gt boxes on one cell gather the same entries;
+    the gradient of each entry is the sum of theirs in gt order (a fixed
+    reduction over a ``[N, G, G]`` same-cell mask), written once per
+    cell, where the default backward of indexing would add them with
+    atomics on the card."""
+
+    @staticmethod
+    def forward(ctx, p, bidx, a, j, i):
+        ctx.save_for_backward(bidx, a, j, i)
+        ctx.shape = p.shape
+        return p[bidx, a, :, j, i]
+
+    @staticmethod
+    def backward(ctx, grad):
+        bidx, a, j, i = ctx.saved_tensors
+        n, _, _, h, w = ctx.shape
+        cell = (a * h + j) * w + i                          # [N, G]
+        same = (cell[:, :, None] == cell[:, None, :]).to(grad.dtype)
+        summed = (same[..., None] * grad[:, None, :, :]).sum(dim=2)
+        out = grad.new_zeros(ctx.shape)
+        out[bidx, a, :, j, i] = summed
+        return out, None, None, None, None
+
+
+#: small constant vectors of the loss on each device, made once by scalar
+#: fills (a host-to-device copy would not be capturable in a CUDA graph)
+_CONSTS = {}
+
+
+def _device_const(values, device, dtype):
+    key = (tuple(float(v) for v in values), str(device), dtype)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = torch.empty(len(key[0]), dtype=dtype, device=device)
+        for k, v in enumerate(key[0]):
+            t[k] = v
+        _CONSTS[key] = t
+    return t
+
+
+def yolov3_loss(x, gt_box, gt_label, anchors, anchor_mask, class_num,
+                ignore_thresh, downsample_ratio, gt_score=None,
+                use_label_smooth=False, name=None, scale_x_y=1.0):
+    """reference: detection/yolov3_loss_op.cc, as the JAX package writes
+    it (``paddle_tpu/ops/detection.py:321-430``).
+
+    x: ``[N, A*(5+C), H, W]`` raw predictions of one scale; gt_box:
+    ``[N, B, 4]`` (cx, cy, w, h normalized to [0, 1]), zero-padded slots;
+    gt_label: ``[N, B]`` int; anchors: the full anchor list (pairs);
+    anchor_mask: this scale's anchors. Returns the loss of each image,
+    ``[N]``: BCE on x/y, objectness and classes, squared error on w/h,
+    the size weight ``2 - w*h``, and no-object loss ignored where the
+    best IoU of the (detached) predicted box with a valid gt box exceeds
+    ``ignore_thresh``. ``gt_score`` is accepted and not read, and so is
+    ``scale_x_y``, as in the JAX package. Under AMP the op is
+    ``"yolov3_loss"``, in no list: O1 passes its inputs through."""
+    x, gt_box, gt_label, _ = amp.cast_inputs("yolov3_loss", x, gt_box,
+                                             gt_label, gt_score)
+    all_anchors = np.asarray(anchors, np.float32).reshape(-1, 2)
+    mask = list(anchor_mask)
+    a_n = len(mask)
+    c_n = int(class_num)
+    n, _, h, w = x.shape
+    dt, dev = x.dtype, x.device
+    f32 = torch.float32
+    p = x.reshape(n, a_n, 5 + c_n, h, w)
+    norm = all_anchors / np.array([float(w * downsample_ratio),
+                                   float(h * downsample_ratio)], np.float32)
+    all_w = _device_const(norm[:, 0], dev, f32)             # [Atot]
+    all_h = _device_const(norm[:, 1], dev, f32)
+    an_w = _device_const(norm[mask, 0], dev, f32)           # [A]
+    an_h = _device_const(norm[mask, 1], dev, f32)
+    gbox = gt_box
+    valid = (gbox[..., 2] > 0) & (gbox[..., 3] > 0)          # [N, B]
+
+    # best anchor of each gt box: shape-only IoU against every anchor
+    gw = gbox[..., 2][..., None]
+    gh = gbox[..., 3][..., None]
+    inter = torch.minimum(gw, all_w) * torch.minimum(gh, all_h)
+    union = gw * gh + all_w * all_h - inter
+    shape_iou = inter / (union + 1e-9)                       # [N, B, Atot]
+    best_anchor = torch.argmax(shape_iou, dim=-1)           # first maximum
+    mask_arr = _device_const(mask, dev, best_anchor.dtype)
+    in_mask = best_anchor[..., None] == mask_arr             # [N, B, A]
+    local_a = torch.argmax(in_mask.to(torch.uint8), dim=-1)  # first True
+    responsible = valid & in_mask.any(dim=-1)
+
+    # truncate toward zero, then clip, as astype(int32) then clip
+    gi = (gbox[..., 0] * w).to(torch.int32).clamp(0, w - 1)
+    gj = (gbox[..., 1] * h).to(torch.int32).clamp(0, h - 1)
+    tx = gbox[..., 0] * w - gi
+    ty = gbox[..., 1] * h - gj
+    tw = torch.log(gbox[..., 2] / (an_w[local_a] + 1e-9) + 1e-9)
+    th = torch.log(gbox[..., 3] / (an_h[local_a] + 1e-9) + 1e-9)
+    box_w = 2.0 - gbox[..., 2] * gbox[..., 3]               # size weight
+
+    # predictions at the assigned cells: [N, B, 5 + C]
+    bidx = torch.arange(n, device=dev)[:, None].expand(n, gi.shape[1])
+    gil, gjl = gi.long(), gj.long()
+    cells = _CellGather.apply(p, bidx, local_a, gjl, gil)
+    px, py, pw, ph = (cells[..., k] for k in range(4))
+    pcls = cells[..., 5:]
+
+    rmask = responsible.to(dt)
+    loss_xy = (_bce(px, tx) + _bce(py, ty)) * box_w * rmask
+    loss_wh = ((pw - tw) ** 2 + (ph - th) ** 2) * 0.5 * box_w * rmask
+    smooth = 1.0 / max(c_n, 1) if use_label_smooth else 0.0
+    # jax.nn.one_hot: float32, a label outside [0, C) gives a zero row
+    onehot = (gt_label[..., None].long()
+              == torch.arange(c_n, device=dev)).to(f32)
+    onehot = onehot * (1 - 2 * smooth) + smooth
+    loss_cls = torch.sum(_bce(pcls, onehot), dim=-1) * rmask
+
+    # objectness: target 1 at responsible cells (a scatter-max, as gt
+    # boxes may share a cell); 0 elsewhere unless the predicted box
+    # overlaps some gt box above ignore_thresh
+    obj_logit = p[:, :, 4]                                   # [N, A, H, W]
+    flat = ((bidx * a_n + local_a) * h + gjl) * w + gil
+    tobj = torch.zeros(n * a_n * h * w, dtype=dt, device=dev).scatter_reduce(
+        0, flat.reshape(-1), rmask.reshape(-1), reduce="amax",
+        include_self=True).reshape(n, a_n, h, w)
+
+    pd = p.detach()
+    grid_x = torch.arange(w, dtype=dt, device=dev).reshape(1, 1, 1, w)
+    grid_y = torch.arange(h, dtype=dt, device=dev).reshape(1, 1, h, 1)
+    bx = (torch.sigmoid(pd[:, :, 0]) + grid_x) / w
+    by = (torch.sigmoid(pd[:, :, 1]) + grid_y) / h
+    bw = torch.exp(torch.clamp(pd[:, :, 2], -10, 10)) * an_w.reshape(
+        1, a_n, 1, 1)
+    bh = torch.exp(torch.clamp(pd[:, :, 3], -10, 10)) * an_h.reshape(
+        1, a_n, 1, 1)
+    pred_xyxy = torch.stack([bx - bw / 2, by - bh / 2,
+                             bx + bw / 2, by + bh / 2], -1)  # [N,A,H,W,4]
+    g_xyxy = torch.stack([gbox[..., 0] - gbox[..., 2] / 2,
+                          gbox[..., 1] - gbox[..., 3] / 2,
+                          gbox[..., 0] + gbox[..., 2] / 2,
+                          gbox[..., 1] + gbox[..., 3] / 2], -1)  # [N,B,4]
+    iou = _pairwise_iou(pred_xyxy.reshape(n, -1, 4), g_xyxy)   # [N,AHW,B]
+    iou = torch.where(valid[:, None, :], iou, torch.zeros_like(iou))
+    best_iou = iou.max(dim=-1).values.reshape(n, a_n, h, w)
+    noobj_mask = ((best_iou < ignore_thresh) & (tobj < 0.5)).to(dt)
+    loss_obj = (_bce(obj_logit, torch.ones_like(tobj)) * tobj
+                + _bce(obj_logit, torch.zeros_like(tobj)) * noobj_mask)
+
+    return (loss_xy.sum(dim=1) + loss_wh.sum(dim=1) + loss_cls.sum(dim=1)
+            + loss_obj.sum(dim=(1, 2, 3)))

@@ -1,5 +1,6 @@
 """YOLOv3 detector (counterpart of ``paddle_tpu/vision/models/yolov3.py``:
-``YOLOv3`` with ``forward`` and ``decode``, and ``yolov3_darknet53``).
+``YOLOv3`` with ``forward``, ``loss`` and ``decode``, ``YOLOv3Loss`` and
+``yolov3_darknet53``).
 
 DarkNet-53 backbone, a 3-scale FPN head (C5 -> C4 -> C3 through 1x1
 route convs and nearest 2x upsampling) and raw per-scale outputs
@@ -8,18 +9,22 @@ route convs and nearest 2x upsampling) and raw per-scale outputs
 ``keep_top_k`` output; its greedy scan runs on the NMS kernel
 (``csrc/greedy_nms.cu``) on the card. Parameter names match the JAX
 package 1:1 (``backbone.*``, ``yolo_block{i}.*``, ``yolo_out{i}.*``,
-``route{i}.*``). Training (``loss``, ``YOLOv3Loss``, ``yolov3_loss``)
-is not ported yet (ROADMAP.md queue A9).
+``route{i}.*``). ``loss`` and ``YOLOv3Loss`` sum the three scales'
+batch means of ``yolov3_loss``; ``YOLOv3Loss`` is the loss a ``Model``
+trains the detector with (``Model.prepare(opt, YOLOv3Loss(net))``, then
+``train_batch([img], [gt_box, gt_label])``), one compiled step per
+input size.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ... import amp
 from ...core.device import DeviceLike, resolve_device
 from ...nn import Conv2D, Upsample
 from ...nn.layers_common import reset_parameters
-from ...ops.detection import multiclass_nms, yolo_box
+from ...ops.detection import multiclass_nms, yolo_box, yolov3_loss
 from .darknet import ConvBNLayer, DarkNet
 
 __all__ = ["YOLOv3", "YOLOv3Loss", "yolov3_darknet53"]
@@ -30,10 +35,19 @@ DEFAULT_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119,
 DEFAULT_ANCHOR_MASKS = [[6, 7, 8], [3, 4, 5], [0, 1, 2]]
 
 
-def _training_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: YOLOv3 training (yolov3_loss) is not ported yet: a "
-        f"later slice of the port (ROADMAP.md queue A9)")
+def _scales_loss(outputs, gt_box, gt_label, anchors, anchor_masks,
+                 num_classes, ignore_thresh, downsamples, gt_score=None):
+    """Sum over the scales of the batch mean of ``yolov3_loss`` (the
+    mean is op ``reduce_mean`` under AMP, as ``ops.mean``)."""
+    total = None
+    for out, mask, ds in zip(outputs, anchor_masks, downsamples):
+        (per_img,) = amp.cast_inputs("reduce_mean", yolov3_loss(
+            out, gt_box, gt_label, anchors=anchors, anchor_mask=mask,
+            class_num=num_classes, ignore_thresh=ignore_thresh,
+            downsample_ratio=ds, gt_score=gt_score))
+        loss = torch.mean(per_img)
+        total = loss if total is None else total + loss
+    return total
 
 
 class YoloDetBlock(nn.Module):
@@ -119,7 +133,11 @@ class YOLOv3(nn.Module):
         return outs
 
     def loss(self, outputs, gt_box, gt_label, gt_score=None):
-        raise _training_not_ported("YOLOv3.loss")
+        """Sum of the three per-scale ``yolov3_loss`` terms, each meaned
+        over the batch."""
+        return _scales_loss(outputs, gt_box, gt_label, self.anchors,
+                            self.anchor_masks, self.num_classes,
+                            self.ignore_thresh, self.downsamples, gt_score)
 
     def decode(self, outputs, img_size, conf_thresh=0.01, nms_thresh=0.45,
                keep_top_k=100, nms_top_k=400):
@@ -146,11 +164,21 @@ class YOLOv3(nn.Module):
 
 
 class YOLOv3Loss(nn.Module):
-    """The hapi loss head of the JAX package; not ported yet."""
+    """The ``Model`` loss head: ``loss(out32, out16, out8, gt_box,
+    gt_label)``, the detector's anchors, classes and ignore threshold
+    read at construction."""
 
     def __init__(self, model: YOLOv3):
         super().__init__()
-        raise _training_not_ported("YOLOv3Loss")
+        self._cfg = dict(anchors=model.anchors,
+                         anchor_masks=model.anchor_masks,
+                         num_classes=model.num_classes,
+                         ignore_thresh=model.ignore_thresh,
+                         downsamples=model.downsamples)
+
+    def forward(self, out32, out16, out8, gt_box, gt_label):
+        return _scales_loss([out32, out16, out8], gt_box, gt_label,
+                            **self._cfg)
 
 
 def yolov3_darknet53(num_classes=80, pretrained=False, **kwargs):

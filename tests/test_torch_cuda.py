@@ -1603,3 +1603,162 @@ def test_graphed_bert_with_dropout_trains_on_the_dense_lane(cuda):
     assert _flash_counts() == before
     assert all(np.isfinite(losses))
     assert model._train_step_fn["fn"].replays == len(BERT_IDS) - 1
+
+
+# -- B1-B3 at S = 4096, YOLOv3 training, recompute ----------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernels_at_s4096_match_plain(cuda, dtype, tol):
+    """B1, B2 and B3 at the long-context GPT's length (S = 4096, D = 64,
+    causal), two heads: each against its plain version."""
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype)
+               for x in _qkv(11, 1, 4096, 4096, 2, 64))
+    do = torch.from_numpy(_qkv(12, 1, 4096, 4096, 2, 64)[0]).to(cuda, dtype)
+    before = _flash_counts()
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    ref, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, causal=True)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    delta = tfa.attention_delta(out, do)
+    args = (q, k, v, do, lse, delta, True)
+    got = (tfa.flash_attention_bwd_dq(*args),
+           *tfa.flash_attention_bwd_dkv(*args))
+    want = (tfa.flash_attention_bwd_dq_plain(*args),
+            *tfa.flash_attention_bwd_dkv_plain(*args))
+    assert [a - b for a, b in zip(_flash_counts(), before)] == [1, 1, 1]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _max_rel(a, b) <= tol, name
+
+
+def _yolo_case(seed, n=4, h=13, classes=80, slots=50):
+    """A head of one scale and bench.py-style gt boxes (1-7 an image),
+    with two boxes copied onto the cell of a third in every image."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 3 * (5 + classes), h, h),
+                            dtype=np.float32)
+    gt_box = np.zeros((n, slots, 4), np.float32)
+    gt_label = np.zeros((n, slots), np.int64)
+    for i in range(n):
+        m = int(rng.integers(1, 8))
+        gt_box[i, :m, :2] = rng.uniform(0.2, 0.8, (m, 2))
+        gt_box[i, :m, 2:] = rng.uniform(0.05, 0.4, (m, 2))
+        gt_label[i, :m] = rng.integers(0, classes, m)
+        gt_box[i, m:m + 2] = gt_box[i, 0]
+        gt_label[i, m:m + 2] = (gt_label[i, 0] + 1) % classes
+    return x, gt_box, gt_label
+
+
+def test_yolov3_loss_on_the_card_matches_the_cpu(cuda):
+    """yolov3_loss at bench.py's coarsest scale (13x13 at 416, 80
+    classes, 50 gt slots): loss and input gradient on the card against
+    the same call on the CPU at 1e-5 (of the largest), gt boxes sharing
+    cells included; the gradient repeats bitwise."""
+    anchors = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119,
+               116, 90, 156, 198, 373, 326]
+    x, gt_box, gt_label = _yolo_case(21)
+    out = {}
+    for dev in ("cpu", cuda, cuda):
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        loss = tdet.yolov3_loss(xt, torch.from_numpy(gt_box).to(dev),
+                                torch.from_numpy(gt_label).to(dev), anchors,
+                                [6, 7, 8], 80, 0.7, 32)
+        loss.sum().backward()
+        out.setdefault(str(dev), []).append(
+            (loss.detach().cpu(), xt.grad.cpu()))
+    (lc, gc), = out["cpu"]
+    (l1, g1), (l2, g2) = out[str(cuda)]
+    torch.testing.assert_close(l1, lc, rtol=1e-5, atol=0)
+    assert (g1 - gc).abs().max() <= 1e-5 * gc.abs().max()
+    assert torch.equal(g1, g2) and torch.equal(l1, l2)
+
+
+def _tiny_yolo_model(cuda):
+    """bench.py's YOLOv3 recipe at the tiny size: Momentum(1e-3, 0.9,
+    weight decay 5e-4) and YOLOv3Loss."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import YOLOv3, YOLOv3Loss
+    net = YOLOv3(num_classes=80, width_mult=0.125, device=cuda, seed=0)
+    model = Model(net)
+    model.prepare(Momentum(learning_rate=1e-3, momentum=0.9,
+                           parameters=net.parameters(), weight_decay=5e-4),
+                  YOLOv3Loss(net))
+    return model, net
+
+
+YOLO_X = np.random.default_rng(13).random((5, 4, 3, 128, 128),
+                                          dtype=np.float32)
+YOLO_GT = [_yolo_case(30 + i, n=4)[1:] for i in range(5)]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "o1"])
+def test_graphed_yolov3_train_batch_equals_the_eager_lane(cuda, precision):
+    """Five YOLOv3 train steps (three head outputs, a box and a label
+    tensor, train-mode BN updated inside the graph) captured once and
+    replayed, against the eager lane on fresh weights, cuDNN
+    deterministic: losses, weights and BN statistics bitwise (or within
+    1e-5); no port kernel launches."""
+    from paddle_tpu_torch.core import graphs
+    res = {}
+    for lane in ("graphed", "eager"):
+        model, net = _tiny_yolo_model(cuda)
+        before = _flash_counts() + [tcustom.greedy_nms.launches]
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        with ctx, _cast(precision), _cudnn_deterministic():
+            losses = [model.train_batch([x], list(gt))[0]
+                      for x, gt in zip(YOLO_X, YOLO_GT)]
+        assert _flash_counts() + [tcustom.greedy_nms.launches] == before
+        res[lane] = (losses, {k: v.detach().clone()
+                              for k, v in net.state_dict().items()}, model)
+    prog = res["graphed"][2]._train_step_fn["fn"]
+    assert prog.trace_counter["traces"] == 1 and prog.replays == 4
+    assert all(np.isfinite(res["graphed"][0]))
+    _equal_or_close(res["graphed"][0], res["eager"][0], "losses")
+    for k, v in res["eager"][1].items():
+        torch.testing.assert_close(res["graphed"][1][k], v, rtol=1e-5,
+                                   atol=1e-5, msg=k)
+
+
+def _recompute_blocks(net):
+    """bench.py:296-301: every decoder block's forward through
+    ``fleet.utils.recompute``."""
+    from paddle_tpu_torch.distributed.fleet import utils
+    for layer in net.gpt.decoder.layers:
+        orig = layer.forward
+        layer.forward = (lambda *a, __f=orig, **k:
+                         utils.recompute(__f, *a, **k))
+
+
+def test_graphed_recompute_step_with_dropout_equals_eager_and_plain(cuda):
+    """Hidden dropout 0.1, every block recomputed: five graphed steps
+    (the recomputed forward inside the captured backward reuses the
+    forward's masks) equal five eager ones and five graphed steps
+    without recompute, losses and weights; B1 launches twice a layer a
+    step, B2 and B3 once."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import graphs
+    res = {}
+    for lane in ("graphed", "eager", "plain"):
+        P.seed(9)
+        model, net = _train_model(cuda, dropout=0.1)
+        if lane != "plain":
+            _recompute_blocks(net)
+        before = _flash_counts()
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        with ctx:
+            losses = [model.train_batch([b], [b])[0] for b in TRAIN_IDS]
+        launched = [a - b for a, b in zip(_flash_counts(), before)]
+        per = len(TRAIN_IDS) * MODEL["num_layers"]
+        assert launched == [per * (1 if lane == "plain" else 2), per, per], \
+            (lane, launched)
+        res[lane] = (losses, {n: p.detach().clone()
+                              for n, p in net.named_parameters()})
+    assert len(set(res["plain"][0])) == len(TRAIN_IDS)
+    for lane in ("eager", "plain"):
+        _equal_or_close(res["graphed"][0], res[lane][0], lane)
+        for n, p in res[lane][1].items():
+            torch.testing.assert_close(res["graphed"][1][n], p, rtol=1e-5,
+                                       atol=1e-5, msg=f"{lane} {n}")

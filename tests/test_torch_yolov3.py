@@ -18,7 +18,7 @@ import paddle_tpu as paddle  # noqa: E402
 from paddle_tpu.vision.models import YOLOv3 as JYOLOv3  # noqa: E402
 from paddle_tpu_torch import framework_io  # noqa: E402
 from paddle_tpu_torch import nn as tnn  # noqa: E402
-from paddle_tpu_torch.vision.models import (YOLOv3, YOLOv3Loss,  # noqa: E402
+from paddle_tpu_torch.vision.models import (YOLOv3,  # noqa: E402
                                             darknet53, yolov3_darknet53)
 
 TOL = 1e-5
@@ -91,12 +91,7 @@ def test_decode_of_the_same_head_outputs_matches_jax(tiny):
     assert (tc.numpy() > 0).all()
 
 
-def test_training_and_pretrained_raise():
-    tm = YOLOv3(**TINY, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tm.loss(None, None, None)
-    with pytest.raises(NotImplementedError, match="A9"):
-        YOLOv3Loss(tm)
+def test_pretrained_raises():
     with pytest.raises(ValueError, match="no bundled weights"):
         yolov3_darknet53(pretrained=True, device="cpu")
 
