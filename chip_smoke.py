@@ -178,7 +178,35 @@ Phases (any failure raises and the script exits non-zero):
    O1 lanes' losses graphed against eager (bitwise or 1e-5) and with
    recompute against without (bitwise), and one eager O1 step's loss and
    gradients with and without recompute bitwise, with the memory the
-   step takes above the weights and optimizer state in each.
+   step takes above the weights and optimizer state in each;
+17. prefix reuse on GPT-3 1.3B (the weights of phases 3-6): chat traffic
+   of 34 greedy requests, 32 new tokens each, 8 slots, max_seq 1024 (24
+   under one 496-token system prompt with 8-64-token tails, 8 unique
+   256-512-token prompts, and a pair whose second request diverges inside
+   a page of the first's head), through the slot engine (host store of
+   8 GiB) and the paged engine (1280 pages, page 16, B4), each with reuse
+   on and off (graphed) and on in the eager lane: hit rate, reused
+   tokens, TTFT p50/p95, tokens/s, the slot lane's export and insert ms,
+   the paged lane's shared and copied bytes and COW splits; held: tokens
+   with reuse on equal those with it off under the near-tie rule (where
+   they part, the plain lane's top-2 logits there lie within the lanes'
+   measured logit difference: tail against full prefill, and the next
+   decode step over the two caches), graphed equal to eager, every byte
+   copied on the paged lane a COW page (the one split; aligned hits copy
+   none), at least 24 hits; B4 held against its plain version on a block
+   table of the arena's shared pages; the tail prefill's and the full
+   prefill's device ms;
+18. speculative decode (k = 4) on phase 4's 8 requests, through the slot
+   and the paged engine: for ``GPTConfig.draft()`` of the 1.3B config
+   (hidden 512, 6 layers, 4 heads, random from seed 1) graphed and eager,
+   and for the target as its own draft graphed: acceptance, tokens a slot
+   a tick, fallback ticks, tick ms, and the device ms of the plain step,
+   the draft's micro-steps, the verify and the whole spec step, each
+   replayed from its own captured program, tokens/s against phases 4 and
+   6a; held: spec tokens equal the plain engines' under the near-tie rule
+   (the lanes' difference measured as the plain step chained over k+1
+   tokens against the verify's logits), graphed equal to eager, and the
+   target as its own draft accepting at least 0.9.
 
 Each model, its programs and its cache are released between phases
 (``release_memory``): GPT-3 1.3B, ResNet-50, BERT-base, YOLOv3 and the
@@ -197,8 +225,12 @@ fp16) and read after it, just before phase 10 and read after it, just
 before phases 12 and 13's training paths and read after each (no kernel
 of the port runs on either), just before phase 13's kernel checks and
 read after them, just before phase 14 and read after it, just before
-phase 15 and read after it, and just before each of phase 16's four
-lanes and read after it. The last two lines are a
+phase 15 and read after it, just before each of phase 16's four
+lanes and read after it, and just before phase 17's engine runs and
+phase 18's and read after each (B4 there runs in the plain paged steps
+only, 24 launches a step; the prefills, tail prefills and the verify
+attend densely, as the JAX package's, so B1 launches nothing on
+either). The last two lines are a
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -3443,6 +3475,592 @@ def training_phases(torch, fa_mod, cfg, dev, ids, reset_counters,
                 amp_o2=amp_o2, amp_fp16=amp_fp16)
 
 
+# -- phases 17 and 18: prefix reuse and speculative decode (GPT-3 1.3B) ------
+
+#: phase 17's chat traffic: a 496-token system prompt (31 pages of 16)
+#: under 24 requests with tails of 8-64 tokens, 8 requests of unique
+#: 256-512-token prompts, and a pair whose second request diverges inside
+#: a page of the first's head (a COW split on the paged layout)
+PREFIX_SYS = 496
+PREFIX_SHARED = 24
+PREFIX_UNIQUE = 8
+PREFIX_NEW = 32
+#: the buckets the traffic needs: tails, unique prompts, whole prompts
+PREFIX_BUCKETS = (64, 512, 1024)
+#: the host store's budget (one 496-token entry is 186 MiB at 1.3B fp32,
+#: the engine's default 256 MB holds one): every head of the traffic
+#: fits, so hits and misses do not hang on timing
+PREFIX_CAPACITY_MB = 8192
+#: the paged pool: the page-sharing store holds a quarter, and every
+#: head of the traffic fits in that quarter
+PREFIX_PAGES = 1280
+#: phase 18: the speculation depth and the run's two drafts
+SPEC_K = 4
+
+
+def prefix_traffic(vocab):
+    """Phase 17's 34 prompts in arrival order (3 shared-prompt requests,
+    then a unique one, 8 times; then the COW pair) and the index of the
+    pair's second request."""
+    rng = np.random.default_rng(17)
+    sysp = rng.integers(0, vocab, PREFIX_SYS).tolist()
+    shared = [sysp + rng.integers(0, vocab, int(rng.integers(8, 65))
+                                  ).tolist() for _ in range(PREFIX_SHARED)]
+    unique = [rng.integers(0, vocab, int(rng.integers(256, 513))).tolist()
+              for _ in range(PREFIX_UNIQUE)]
+    order = []
+    for i in range(PREFIX_UNIQUE):
+        order += shared[3 * i:3 * i + 3] + [unique[i]]
+    head = rng.integers(0, vocab, 520).tolist()
+    order += [head, head[:510] + [(head[510] + 1) % vocab]]
+    return order
+
+
+def _engine_run(torch, model, cfg_kw, prompts, new, eager=False,
+                draft=None):
+    """One engine over ``prompts`` (submitted at once), built and
+    drained here (inside ``disable_graphs`` for the eager lane): its
+    tokens, stats, warm-up and serving wall seconds, and the engine."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.serving import ExecutableCache
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+    ctx = graphs.disable_graphs() if eager else contextlib.nullcontext()
+    with ctx:
+        t0 = time.perf_counter()
+        eng = LLMEngine(model, LLMEngineConfig(**cfg_kw),
+                        cache=ExecutableCache(), draft_model=draft)
+        warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+            toks = [r.result(timeout=600)["tokens"] for r in reqs]
+            wall = time.perf_counter() - t0
+            stats = eng.stats()
+        finally:
+            eng.drain(timeout=120)
+    for t in toks:
+        if len(t) != new:
+            raise RuntimeError(f"a request returned {len(t)} tokens, not "
+                               f"{new}")
+    return {"tokens": toks, "stats": stats, "warm_s": warm, "wall_s": wall,
+            "tokens_per_s": sum(map(len, toks)) / wall, "engine": eng}
+
+
+def near_tie_parts(torch, dec, params, prompts, ref, got, noise, what):
+    """The near-tie rule: where ``got``'s tokens part from ``ref``'s, the
+    first differing step's logits of the plain lane (the dense prefill of
+    the prompt and ``ref``'s tokens before that step) must have their
+    top two within ``noise``, the two lanes' measured logit difference.
+    Returns [(request, step, top-2 gap)]; any other difference raises."""
+    from paddle_tpu_torch.serving.llm.decode import prefill_forward
+    parts = []
+    for r, (p, a, b) in enumerate(zip(prompts, ref, got)):
+        if a == b:
+            continue
+        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if t is None:
+            raise RuntimeError(f"{what}: request {r} returned {len(b)} "
+                               f"tokens where the plain lane gave {len(a)}")
+        seq = torch.tensor([list(p) + list(a[:t])], dtype=torch.int32,
+                           device=dec.device)
+        with torch.no_grad():
+            lraw, _, _ = prefill_forward(dec.spec, params, seq, torch.tensor(
+                [seq.shape[1]], dtype=torch.int32, device=dec.device))
+        top = lraw[0].topk(2).values
+        gap = float(top[0] - top[1])
+        parts.append((r, t, gap))
+        if gap > noise:
+            raise RuntimeError(
+                f"{what}: request {r} parts from the plain lane at step {t} "
+                f"where the plain lane's top-2 gap {gap:.3e} exceeds the "
+                f"lanes' measured logit difference {noise:.3e}")
+    return parts
+
+
+def _prefill_slots(torch, dec, kv, params, prompts, extra=0):
+    """Each prompt prefilled into its own slot (at its pow2 bucket; the
+    paged cache maps ``extra`` more rows); returns the first tokens."""
+    from paddle_tpu_torch.serving.llm.decode import (SamplingParams,
+                                                     pack_sampling)
+    dev = dec.device
+    fin = torch.zeros(kv.num_slots, dtype=torch.bool, device=dev)
+    samp = pack_sampling([SamplingParams()], dev)
+    last = torch.zeros(kv.num_slots, dtype=torch.int32, device=dev)
+    for slot, p in enumerate(prompts):
+        kv.alloc()
+        if hasattr(kv, "ensure_pages"):
+            kv.ensure_pages(slot, min(len(p) + extra, kv.max_seq))
+        lp = 1 << (len(p) - 1).bit_length()
+        toks = torch.zeros(1, lp, dtype=torch.int32, device=dev)
+        toks[0, :len(p)] = torch.tensor(p, device=dev)
+        nxt, _ = dec.prefill(
+            kv, params, toks,
+            torch.tensor([len(p)], dtype=torch.int32, device=dev),
+            torch.tensor([slot], dtype=torch.int32, device=dev), fin, samp,
+            None)
+        last[slot] = nxt[0]
+    return last
+
+
+def prefix_noise_and_times(torch, model, dev, prompt):
+    """Phase 17, off the path, on one shared-prompt request: (a) the
+    lanes' measured logit difference, the larger of the first token's
+    logits from a tail prefill (the 496-token head reused) against a full
+    prefill, and of the next decode step's logits over the two caches;
+    (b) the tail prefill's and the full prefill's device ms, both
+    replayed from their captured programs, on each layout."""
+    import functools
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    from paddle_tpu_torch.serving.llm.decode import (SamplingParams,
+                                                     insert_prefix_rows,
+                                                     pack_sampling,
+                                                     prefill_forward,
+                                                     tail_forward)
+    from paddle_tpu_torch.serving.llm.kvcache import write_prompt_kv
+    from paddle_tpu_torch.serving.llm.paged import GPTPagedDecoder
+    n, start = len(prompt), PREFIX_SYS
+    ids = torch.tensor([prompt], dtype=torch.int32, device=dev)
+    i32 = functools.partial(torch.tensor, dtype=torch.int32, device=dev)
+    dec = GPTStaticDecoder(model)
+    kv, params = dec.new_kv(2, CFG_13B["max_position_embeddings"]), \
+        dec.params()
+    with torch.no_grad():
+        lfull, kf, vf = prefill_forward(dec.spec, params, ids, i32([n]))
+        write_prompt_kv(kv.k, kv.v, kf, vf, [0])
+        _, kh, vh = prefill_forward(dec.spec, params, ids[:, :start],
+                                    i32([start]))
+        write_prompt_kv(kv.k, kv.v, kh, vh, [1])
+
+        def write(li, k, v):
+            kv.k[1, li, start:n] = k[0]
+            kv.v[1, li, start:n] = v[0]
+
+        ltail, _, _ = tail_forward(
+            dec.spec, params, ids[:, start:], i32([n - start]),
+            i32([start]), kv.max_seq, write,
+            lambda li: (kv.k[1:2, li], kv.v[1:2, li]))
+        kv.lengths.fill_(n)
+        nxt = lfull.argmax(-1).to(torch.int32)
+        step = dec.decode_logits(kv, params, nxt.repeat(2))
+    first = float((lfull - ltail).abs().max())
+    after = float((step[0] - step[1]).abs().max())
+    out = {"logit_diff_first": first, "logit_diff_next_step": after,
+           "noise": max(first, after),
+           "tokens_equal": bool(torch.equal(lfull.argmax(-1),
+                                            ltail.argmax(-1)))}
+
+    def wall(fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            fn()
+            sync(torch, dev)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    # the slot lane's host copies of a 512-row head: the engine's (pinned
+    # memory, a layer a copy) against pageable memory
+    rows = 512
+    out["export_pinned_ms"] = wall(lambda: kv.host_slot_kv(0, rows))
+    out["export_pageable_ms"] = wall(lambda: (
+        kv.k[0, :, :rows].cpu().numpy(), kv.v[0, :, :rows].cpu().numpy()))
+    kp, vp = kv.host_slot_kv(0, rows)
+    ka, va = np.array(kp), np.array(vp)
+    out["insert_pinned_ms"] = wall(lambda: insert_prefix_rows(
+        kv, kp[:, :start], vp[:, :start], 1))
+    out["insert_pageable_ms"] = wall(lambda: insert_prefix_rows(
+        kv, ka[:, :start], va[:, :start], 1))
+    del kv, kp, vp, ka, va
+    samp = pack_sampling([SamplingParams()], dev)
+    for layout in ("slot", "paged"):
+        d = (GPTStaticDecoder(model) if layout == "slot"
+             else GPTPagedDecoder(model, page_size=16, attn_impl="kernel"))
+        kv, p = d.new_kv(8, CFG_13B["max_position_embeddings"]), d.params()
+        kv.alloc()
+        if layout == "paged":
+            kv.ensure_pages(0, n)
+        fin = torch.zeros(8, dtype=torch.bool, device=dev)
+        full = torch.zeros(1, PREFIX_BUCKETS[-1], dtype=torch.int32,
+                           device=dev)
+        full[0, :n] = ids[0]
+        tail = torch.zeros(1, PREFIX_BUCKETS[0], dtype=torch.int32,
+                           device=dev)
+        tail[0, :n - start] = ids[0, start:]
+        a = (i32([n]), i32([0]), fin, samp, None)
+        b = (i32([n - start]), i32([start]), i32([0]), fin, samp, None)
+        out[f"{layout}_full_prefill_ms"] = time_ms(
+            lambda: d.prefill(kv, p, full, *a), iters=10, warmup=2,
+            spin=True)
+        out[f"{layout}_tail_prefill_ms"] = time_ms(
+            lambda: d.tail_prefill(kv, p, tail, *b), iters=10, warmup=2,
+            spin=True)
+        del kv
+        release_memory(torch)
+    log(f"phase 17 lanes: first-token logits tail prefill vs full prefill "
+        f"max |diff| {first:.3e} (argmax equal {out['tokens_equal']}), the "
+        f"next decode step over the two caches {after:.3e}; device ms "
+        f"(replayed programs), full prefill [1, {PREFIX_BUCKETS[-1]}] vs "
+        f"tail prefill [1, {PREFIX_BUCKETS[0]}] at row {start}: slot "
+        f"{out['slot_full_prefill_ms']:.2f} vs "
+        f"{out['slot_tail_prefill_ms']:.2f}, paged "
+        f"{out['paged_full_prefill_ms']:.2f} vs "
+        f"{out['paged_tail_prefill_ms']:.2f}; host copies of a {rows}-row "
+        f"head (K and V), wall ms: export {out['export_pinned_ms']:.1f} "
+        f"pinned against {out['export_pageable_ms']:.1f} pageable, insert "
+        f"of its {start} rows {out['insert_pinned_ms']:.1f} pinned against "
+        f"{out['insert_pageable_ms']:.1f} pageable")
+    return out
+
+
+def check_shared_b4(torch, pa_mod, eng, gen):
+    """B4 against its plain version on a block table of phase 17's paged
+    arena in which pages are shared: four rows on the system prompt's
+    cached pages, four on the COW pair's head, at varied positions."""
+    kv, store = eng._batcher.kv, eng.prefix_store
+    entries = sorted(store._entries.values(), key=lambda e: e.n_tokens)
+    sys_e = next(e for e in entries if e.n_tokens >= PREFIX_SYS
+                 and e.n_tokens < PREFIX_SYS + 64)
+    pair_e = entries[-1]
+    bt = torch.full((8, kv.pages_per_seq), kv.trash, dtype=torch.int32,
+                    device=kv.device)
+    for r, e in enumerate([sys_e] * 4 + [pair_e] * 4):
+        bt[r, :len(e.page_ids)] = torch.tensor(e.page_ids, device=kv.device)
+    pos = torch.tensor([495, 300, 17, sys_e.n_tokens - 1, 511, 256, 40, 0],
+                       dtype=torch.int32, device=kv.device)
+    q = torch.randn((8, kv.num_heads, kv.head_dim), generator=gen,
+                    device=kv.device)
+    li = kv.num_layers // 2
+    kb, vb = kv.k[:, li], kv.v[:, li]
+    shared = int((bt[:, :, None] == bt.flatten()[None, None, :]).sum(-1)
+                 .gt(1).logical_and(bt != kv.trash).sum())
+    out = pa_mod.paged_attention(q, kb, vb, bt, pos)
+    ref = pa_mod.paged_attention_plain(q, kb, vb, bt, pos)
+    err = float((out - ref).abs().max())
+    log(f"B4 on phase 17's arena (layer {li}), a block table of {shared} "
+        f"shared entries (system prompt {len(sys_e.page_ids)} pages x4, COW "
+        f"pair head {len(pair_e.page_ids)} pages x4): max_abs_err vs plain "
+        f"{err:.3e} (tol {TOL['fp32']:.0e})")
+    if err > TOL["fp32"] or shared < 1:
+        raise RuntimeError("the paged attention kernel disagrees with its "
+                           "plain version over shared pages")
+    return {"shared_table_max_abs_err": err, "shared_entries": shared}
+
+
+def run_prefix_phase(torch, model, pa_mod, dev, smi, gen, reset_counters,
+                     read_counters):
+    """Phase 17: the traffic of :func:`prefix_traffic` through the slot
+    and the paged engine, reuse on and off (graphed) and reuse on in the
+    eager lane, the launch counts read over those runs alone; then, off
+    the path, B4 over the paged arena's shared pages, the lanes' logit
+    difference and the prefill timings, and the holds. Returns the
+    phase's numbers and its launches."""
+    prompts = prefix_traffic(CFG_13B["vocab_size"])
+    base = dict(num_slots=8, max_seq=CFG_13B["max_position_embeddings"],
+                prefill_buckets=PREFIX_BUCKETS, seed=0)
+    layouts = {"slot": dict(prefix_capacity_mb=PREFIX_CAPACITY_MB),
+               "paged": dict(kv_layout="paged", page_size=16,
+                             paged_attn_impl="kernel",
+                             num_pages=PREFIX_PAGES)}
+    reset_counters()
+    runs, b4_steps = {}, 0
+    for layout, kw in layouts.items():
+        for lane, on, eager in (("on", True, False), ("off", False, False),
+                                ("on_eager", True, True)):
+            run = _engine_run(torch, model, dict(base, prefix_cache=on, **kw),
+                              prompts, PREFIX_NEW, eager=eager)
+            st = run["stats"]["stats"]
+            if layout == "paged":
+                b4_steps += (st.get("serving.llm.decode_ticks", 0)
+                             + st.get("serving.llm.warmup_decode_steps", 0))
+            if not (layout == "paged" and lane == "on"):
+                run["engine"] = None     # the arena of paged-on stays
+                release_memory(torch)
+            runs[(layout, lane)] = run
+    launched = read_counters()
+    want = CFG_13B["num_layers"] * b4_steps
+    log(f"phase 17 path launches: {launched} (B4 expected {want}: "
+        f"{b4_steps} paged decode steps; the prefills and tail prefills "
+        f"attend densely, as the JAX package's)")
+    if launched["paged_attention"] != want:
+        raise RuntimeError(f"phase 17: B4 launched "
+                           f"{launched['paged_attention']} times, not {want}")
+    out = {"requests": len(prompts), "capacity_mb": PREFIX_CAPACITY_MB,
+           "pages": PREFIX_PAGES, "b4_steps": b4_steps}
+    out["b4_shared"] = check_shared_b4(torch, pa_mod,
+                                       runs[("paged", "on")]["engine"], gen)
+    runs[("paged", "on")]["engine"] = None
+    release_memory(torch)
+    out["noise"] = noise = prefix_noise_and_times(torch, model, dev,
+                                                  prompts[0])
+    release_memory(torch)
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    ref_dec = GPTStaticDecoder(model)
+    ref_params = ref_dec.params()
+    pre = "serving.llm.prefix."
+    for layout in layouts:
+        on, off, eager = (runs[(layout, x)] for x in ("on", "off",
+                                                      "on_eager"))
+        st, hist = on["stats"]["stats"], on["stats"]["histograms"]
+        hits, misses = st.get(pre + "hits", 0), st.get(pre + "misses", 0)
+        ps = on["stats"]["prefix_store"]
+        parts = near_tie_parts(torch, ref_dec, ref_params, prompts,
+                               off["tokens"], on["tokens"], noise["noise"],
+                               f"phase 17 {layout} reuse on vs off")
+        if on["tokens"] != eager["tokens"]:
+            raise RuntimeError(f"phase 17 {layout}: the graphed lane's "
+                               f"tokens differ from the eager lane's")
+        ttft, ttft_off = (r["stats"]["histograms"]["serving.llm.ttft_ms"]
+                          for r in (on, off))
+        row = {"hit_rate": hits / max(1, hits + misses), "hits": hits,
+               "misses": misses,
+               "reused_tokens": st.get(pre + "reused_tokens", 0),
+               "ttft_ms_p50": ttft["p50"], "ttft_ms_p95": ttft["p95"],
+               "off_ttft_ms_p50": ttft_off["p50"],
+               "off_ttft_ms_p95": ttft_off["p95"],
+               "tokens_per_s": on["tokens_per_s"],
+               "off_tokens_per_s": off["tokens_per_s"],
+               "eager_tokens_per_s": eager["tokens_per_s"],
+               "tick_ms_p50": hist["serving.llm.decode_tick_ms"]["p50"],
+               "warm_s": on["warm_s"], "off_warm_s": off["warm_s"],
+               "tokens_equal_off": on["tokens"] == off["tokens"],
+               "near_tie_parts": parts, "prefix_store": ps}
+        if layout == "slot":
+            row["export_ms_mean"] = hist[pre + "export_ms"]["mean"]
+            row["insert_ms_mean"] = hist[pre + "insert_ms"]["mean"]
+            row["exports"] = hist[pre + "export_ms"]["count"]
+        else:
+            pages = on["stats"]["pages"]
+            row["cow_splits"] = pages["cow_splits"]
+            page_nbytes = on["stats"]["kv_bytes"] // (PREFIX_PAGES + 1)
+            row["page_nbytes"] = page_nbytes
+            # every copied byte is a COW page: the aligned hits copy none
+            if ps["bytes_copied"] != pages["cow_splits"] * page_nbytes \
+                    or pages["cow_splits"] != 1 or ps["bytes_shared"] < 1:
+                raise RuntimeError(
+                    f"phase 17 paged: bytes_copied {ps['bytes_copied']} for "
+                    f"{pages['cow_splits']} COW splits of {page_nbytes} "
+                    f"bytes (one expected), bytes_shared "
+                    f"{ps['bytes_shared']}")
+        if hits < PREFIX_SHARED or row["reused_tokens"] < \
+                (PREFIX_SHARED - 1) * PREFIX_SYS:
+            raise RuntimeError(f"phase 17 {layout}: {hits} hits reusing "
+                               f"{row['reused_tokens']} tokens")
+        log(f"phase 17 {layout} (8 slots, {len(prompts)} requests x "
+            f"{PREFIX_NEW} new; {smi}): hit rate {row['hit_rate']:.3f} "
+            f"({hits} hits, {misses} misses), reused tokens "
+            f"{row['reused_tokens']}; TTFT p50/p95 reuse on "
+            f"{row['ttft_ms_p50']:.1f}/{row['ttft_ms_p95']:.1f} ms, off "
+            f"{row['off_ttft_ms_p50']:.1f}/{row['off_ttft_ms_p95']:.1f} ms; "
+            f"tokens/s on {row['tokens_per_s']:.1f}, off "
+            f"{row['off_tokens_per_s']:.1f}, eager lane "
+            f"{row['eager_tokens_per_s']:.1f}; tick p50 "
+            f"{row['tick_ms_p50']:.2f} ms; "
+            + (f"export {row['export_ms_mean']:.1f} ms a miss "
+               f"({row['exports']}), insert {row['insert_ms_mean']:.1f} ms "
+               f"a hit; " if layout == "slot" else
+               f"COW splits {row['cow_splits']}; ")
+            + f"store {ps}; reuse on vs off tokens equal "
+            f"{row['tokens_equal_off']}, parts at (request, step, top-2 "
+            f"gap) {parts}; graphed equals eager")
+        out[layout] = row
+    return out, launched
+
+
+def spec_noise(torch, model, dev, prompts, layout):
+    """Phase 18, off the path: the lanes' measured logit difference on
+    one state of the 8 prompts: the plain decode step chained over
+    SPEC_K + 1 greedy tokens against the verify step's logits over the
+    same tokens (both write the same rows)."""
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    from paddle_tpu_torch.serving.llm.paged import GPTPagedDecoder
+    from paddle_tpu_torch.serving.llm.paged.spec import paged_verify_logits
+    from paddle_tpu_torch.serving.llm.spec import static_verify_logits
+    paged = layout == "paged"
+    dec = (GPTPagedDecoder(model, page_size=16, attn_impl="kernel") if paged
+           else GPTStaticDecoder(model))
+    kv, params = dec.new_kv(8, CFG_13B["max_position_embeddings"]), \
+        dec.params()
+    last = _prefill_slots(torch, dec, kv, params, prompts, extra=SPEC_K + 2)
+    u, plain = [last], []
+    with torch.no_grad():
+        for _ in range(SPEC_K + 1):
+            lg = dec.decode_logits(kv, params, u[-1])
+            plain.append(lg)
+            u.append(lg.argmax(-1).to(torch.int32))
+            kv.lengths += 1
+        kv.lengths -= SPEC_K + 1
+        uu = torch.stack(u[:-1], dim=1)
+        ver = (paged_verify_logits if paged else static_verify_logits)(
+            dec.spec, params, kv, uu)
+    diff = float((torch.stack(plain, dim=1) - ver).abs().max())
+    del kv
+    release_memory(torch)
+    return diff
+
+
+def spec_times(torch, model, draft, dev, prompts, layout):
+    """Phase 18, off the path: device ms of the plain decode step, the
+    draft's SPEC_K + 1 micro-steps, the verify, and the whole spec step,
+    each replayed from its own captured program on one state of the 8
+    prompts (the lengths put back before each call)."""
+    import functools as ft
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.serving.llm import GPTSpecDecoder, GPTStaticDecoder
+    from paddle_tpu_torch.serving.llm.decode import (SamplingParams,
+                                                     pack_sampling)
+    from paddle_tpu_torch.serving.llm.paged import (GPTPagedDecoder,
+                                                    GPTPagedSpecDecoder)
+    from paddle_tpu_torch.serving.llm.paged.spec import paged_verify_logits
+    from paddle_tpu_torch.serving.llm.spec import (draft_propose,
+                                                   static_verify_logits)
+    paged = layout == "paged"
+    dec = (GPTPagedDecoder(model, page_size=16, attn_impl="kernel") if paged
+           else GPTStaticDecoder(model))
+    spec = (GPTPagedSpecDecoder if paged else GPTSpecDecoder)(
+        dec, draft, k=SPEC_K)
+    kv, params = dec.new_kv(8, CFG_13B["max_position_embeddings"]), \
+        dec.params()
+    kvd = spec.new_draft_kv(8, kv.max_seq, lengths=kv.lengths)
+    pd = spec.draft_params()
+    last = _prefill_slots(torch, dec, kv, params, prompts, extra=SPEC_K + 2)
+    _prefill_slots(torch, GPTStaticDecoder(draft), kvd, pd, prompts)
+    saved = kv.lengths.clone()
+    fin = torch.zeros(8, dtype=torch.bool, device=dev)
+    samp = pack_sampling([SamplingParams()] * 8, dev)
+    gen = torch.Generator(device=dev)
+    u = torch.cat([last[:, None], last[:, None].repeat(1, SPEC_K)], dim=1)
+    verify = paged_verify_logits if paged else static_verify_logits
+    progs = {
+        "plain_step": (graphs.Program(lambda p, s, t: dec.decode_logits(
+            s, p, t)), params, kv, (last,)),
+        "draft": (graphs.Program(lambda p, s, t: draft_propose(
+            spec.dspec, p, s, s.lengths, t, SPEC_K)), pd, kvd, (last,)),
+        "verify": (graphs.Program(ft.partial(verify, dec.spec)), params, kv,
+                   (u,)),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (prog, p, state, args) in progs.items():
+            if paged:
+                kv.refresh_block_tables()
+            out[f"{name}_ms"] = time_ms(lambda: prog(p, state, *args),
+                                        iters=10, warmup=2, spin=True)
+
+        def step():
+            kv.lengths.copy_(saved)
+            spec.step(kv, kvd, params, pd, fin, last, samp, gen)
+
+        out["spec_step_ms"] = time_ms(step, iters=10, warmup=2, spin=True)
+    del kv, kvd
+    release_memory(torch)
+    return out
+
+
+def run_spec_phase(torch, model, dev, smi, prompts, plain, reset_counters,
+                   read_counters):
+    """Phase 18: phase 4's 8 requests through the slot and the paged spec
+    engines with SPEC_K: graphed for the drafted config (random, seed 1)
+    and for the target as its own draft, and in the eager lane for the
+    drafted config; the launch counts read over those runs alone; then,
+    off the path, the lanes' logit difference, the device ms of the
+    step's parts, and the holds. ``plain``: {layout: (tokens, tokens/s)}
+    of phases 4 and 6a. Returns the phase's numbers and its launches."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    dcfg = GPTConfig(**CFG_13B).draft()
+    small = GPTForCausalLM(dcfg, device=dev, seed=1).eval()
+    log(f"draft: GPTConfig.draft() of the 1.3B config, hidden "
+        f"{dcfg.hidden_size}, {dcfg.num_layers} layers, {dcfg.num_heads} "
+        f"heads, {sum(p.numel() for p in small.parameters())} parameters, "
+        f"random (seed 1)")
+    base = dict(num_slots=8, max_seq=CFG_13B["max_position_embeddings"],
+                seed=0, spec_k=SPEC_K)
+    layouts = {"slot": dict(kv_layout="slot"),
+               "paged": dict(kv_layout="paged", page_size=16,
+                             paged_attn_impl="kernel")}
+    drafts = {"draft": small, "self": model}
+    reset_counters()
+    runs, b4_steps = {}, 0
+    for layout, kw in layouts.items():
+        for name, lane in (("draft", "graphed"), ("draft", "eager"),
+                           ("self", "graphed")):
+            run = _engine_run(torch, model, dict(base, **kw), prompts, 32,
+                              eager=lane == "eager", draft=drafts[name])
+            st = run["stats"]["stats"]
+            if layout == "paged":
+                b4_steps += (st.get("serving.llm.decode_ticks", 0)
+                             + st.get("serving.llm.warmup_decode_steps", 0))
+            run["engine"] = None
+            release_memory(torch)
+            runs[(layout, name, lane)] = run
+    launched = read_counters()
+    want = CFG_13B["num_layers"] * b4_steps
+    log(f"phase 18 path launches: {launched} (B4 expected {want}: "
+        f"{b4_steps} plain paged decode steps, warm-ups and fallback "
+        f"ticks; the verify attends densely, as the JAX package's)")
+    if launched["paged_attention"] != want:
+        raise RuntimeError(f"phase 18: B4 launched "
+                           f"{launched['paged_attention']} times, not {want}")
+    ref_dec = GPTStaticDecoder(model)
+    ref_params = ref_dec.params()
+    out = {"k": SPEC_K, "b4_steps": b4_steps}
+    for layout in layouts:
+        noise = spec_noise(torch, model, dev, prompts, layout)
+        out[f"{layout}_noise"] = noise
+        for name in drafts:
+            g = runs[(layout, name, "graphed")]
+            st, hist = g["stats"]["stats"], g["stats"]["histograms"]
+            eager = runs.get((layout, name, "eager"))
+            if eager is not None and g["tokens"] != eager["tokens"]:
+                raise RuntimeError(f"phase 18 {layout} {name}: the graphed "
+                                   f"lane's tokens differ from the eager "
+                                   f"lane's")
+            parts = near_tie_parts(torch, ref_dec, ref_params, prompts,
+                                   plain[layout][0], g["tokens"], noise,
+                                   f"phase 18 {layout} {name}")
+            rate = st.get("serving.llm.spec.acceptance_rate", 0.0)
+            ticks = st.get("serving.llm.spec.ticks", 0)
+            slot_ticks = st.get("serving.llm.spec.proposed", 0) / SPEC_K
+            row = {"acceptance_rate": rate, "spec_ticks": ticks,
+                   "fallback_ticks": st.get("serving.llm.spec.fallback_ticks",
+                                            0),
+                   "tokens_per_slot_tick": 1 + st.get(
+                       "serving.llm.spec.accepted", 0) / max(1, slot_ticks),
+                   "tick_ms_mean": hist["serving.llm.decode_tick_ms"]["mean"],
+                   "tick_ms_p50": hist["serving.llm.decode_tick_ms"]["p50"],
+                   "tokens_per_s": g["tokens_per_s"],
+                   "eager_tokens_per_s": (eager["tokens_per_s"]
+                                          if eager else None),
+                   "plain_tokens_per_s": plain[layout][1],
+                   "tokens_equal_plain": g["tokens"] == plain[layout][0],
+                   "warm_s": g["warm_s"], "near_tie_parts": parts}
+            row.update(spec_times(torch, model, drafts[name], dev, prompts,
+                                  layout))
+            log(f"phase 18 {layout}, {name} draft (k={SPEC_K}; {smi}): "
+                f"acceptance {rate:.3f}, {row['tokens_per_slot_tick']:.2f} "
+                f"tokens a slot a tick, {ticks} spec ticks, "
+                f"{row['fallback_ticks']} fallback ticks; tick mean "
+                f"{row['tick_ms_mean']:.2f} ms p50 {row['tick_ms_p50']:.2f} "
+                f"ms; device ms: spec step {row['spec_step_ms']:.2f} (draft "
+                f"{row['draft_ms']:.2f} + verify {row['verify_ms']:.2f}), "
+                f"plain step {row['plain_step_ms']:.2f}; tokens/s "
+                f"{row['tokens_per_s']:.1f} (eager lane "
+                f"{row['eager_tokens_per_s']}) against the plain engine's "
+                f"{plain[layout][1]:.1f}; the lanes' logit difference "
+                f"{noise:.3e}; tokens equal plain "
+                f"{row['tokens_equal_plain']}, parts (request, step, top-2 "
+                f"gap) {parts}" + ("; graphed equals eager" if eager
+                                   else ""))
+            if name == "self" and rate < 0.9:
+                raise RuntimeError(f"phase 18 {layout}: the target as its "
+                                   f"own draft accepted {rate:.3f} < 0.9")
+            out[f"{layout}_{name}"] = row
+    del small
+    release_memory(torch)
+    return out, launched
+
+
 def main() -> int:
     try:
         import torch
@@ -3746,6 +4364,26 @@ def main() -> int:
             raise RuntimeError(f"kernel {n} was not launched on the GPT "
                                f"S=4096 training path")
 
+    # -- phases 17 and 18: prefix reuse and speculative decode ----------------
+    stamp("17 prefix reuse")
+    model = GPTForCausalLM(GPTConfig(**CFG_13B, attn_impl="flash"),
+                           device=dev, seed=0).eval()
+    log(f"model: GPT-3 1.3B, the weights of phases 3-6 (seed 0), fp32, "
+        f"TF32 off; {smi}")
+    g17 = torch.Generator(device="cuda")
+    g17.manual_seed(17)
+    prefix, prefix_launches = run_prefix_phase(
+        torch, model, pa_mod, dev, smi, g17, reset_counters, read_counters)
+    b4.update(prefix["b4_shared"])
+    stamp("18 speculative decode")
+    spec, spec_launches = run_spec_phase(
+        torch, model, dev, smi, prompts,
+        {"paged": (paged_tokens, serve["tokens_per_s"]),
+         "slot": (slot_tokens, slot["tokens_per_s"])},
+        reset_counters, read_counters)
+    del model
+    release_memory(torch)
+
     # -- summary --------------------------------------------------------------
     paths = {"serving": serve_launches, "serving_slot": slot_launches,
              "generate": gen_launches, "training": train_launches,
@@ -3754,7 +4392,8 @@ def main() -> int:
              "training_bert": bert_launches,
              "bert_flash_checks": bert_flash_launches,
              "serving_c6": c6_launches, "training_yolov3": yolo_launches,
-             **{f"training_gpt_s4096_{k}": v for k, v in long_paths.items()}}
+             **{f"training_gpt_s4096_{k}": v for k, v in long_paths.items()},
+             "serving_prefix": prefix_launches, "serving_spec": spec_launches}
     amp_dtypes["bert_flash_checks"] = bert_dtypes
     amp_dtypes.update({f"training_gpt_s4096_{k}": v
                        for k, v in long_dtypes.items()})
@@ -3804,6 +4443,8 @@ def main() -> int:
     log(f"C6: {json.dumps(c6)}")
     log(f"training, YOLOv3-DarkNet53: {json.dumps(yolo)}")
     log(f"training, GPT S=4096: {json.dumps(long_gpt)}")
+    log(f"serving, prefix reuse: {json.dumps(prefix)}")
+    log(f"serving, speculative decode: {json.dumps(spec)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,9 @@ buffers the step reads and writes in place (a decoder's KV cache, a
   copied in place (``Tensor.copy_``) or the programs dropped
   (``ExecutableCache.clear``, ``Program.release``).
 
+No garbage is collected during a capture (``_collector_held``): a
+dropped graph destroyed inside another capture would invalidate it.
+
 The function must have no host side effects: the warm-up and the capture
 both run it, so a train step's host counters (``_global_step``) move
 outside it, and tensors it needs across calls (optimizer state) are made
@@ -51,6 +54,7 @@ capture added is added again at every replay.
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import threading
 import time
@@ -64,6 +68,9 @@ __all__ = ["Program", "GraphPool", "disable_graphs", "graphs_enabled",
 
 _EAGER = [0]
 _EAGER_LOCK = threading.Lock()
+#: captures in flight, and whether the collector ran before the first
+_HELD = {"captures": 0, "was_enabled": False}
+_HELD_LOCK = threading.Lock()
 _LOCAL = threading.local()
 _TOKENS = itertools.count(1)
 #: kernel wrappers whose ``launches`` (and ``launches_by_dtype``) a
@@ -87,6 +94,30 @@ def disable_graphs():
 
 def graphs_enabled() -> bool:
     return _EAGER[0] == 0
+
+
+@contextlib.contextmanager
+def _collector_held():
+    """Keep Python's cyclic garbage collector from running while a graph
+    is captured. A dropped program's graph lives on in reference cycles
+    (an engine and its worker thread) until the collector finds it; a
+    collection that lands inside another capture destroys that graph
+    there, which is not permitted during a capture and invalidates it
+    (torch no longer collects when a capture begins). So hold the
+    collector off until the last capture in flight ends; what it would
+    have found is collected after."""
+    with _HELD_LOCK:
+        if _HELD["captures"] == 0:
+            _HELD["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _HELD["captures"] += 1
+    try:
+        yield
+    finally:
+        with _HELD_LOCK:
+            _HELD["captures"] -= 1
+            if _HELD["captures"] == 0 and _HELD["was_enabled"]:
+                gc.enable()
 
 
 def counted(wrapper: Callable) -> Callable:
@@ -317,7 +348,7 @@ class Program:
             graph.register_generator_state(g)
         before = _snapshot_counts()
         try:
-            with _owning(pool), torch.cuda.graph(
+            with _collector_held(), _owning(pool), torch.cuda.graph(
                     graph, pool=pool.handle, stream=stream,
                     capture_error_mode="thread_local"):
                 static = self.raw(params, state, *inputs)

@@ -52,6 +52,29 @@ class GPTConfig:
     def ffn_size(self) -> int:
         return self.intermediate_size or 4 * self.hidden_size
 
+    def draft(self, scale: int = 4, *, hidden_size: Optional[int] = None,
+              num_layers: Optional[int] = None,
+              num_heads: Optional[int] = None) -> "GPTConfig":
+        """A small draft-model config for speculative decoding against
+        this target (the JAX package's ``GPTConfig.draft``): the same
+        vocab and positions (the verify step compares token ids and shares
+        the position range), everything else shrunk by ``scale`` unless
+        given; heads drop until they divide the draft's hidden size."""
+        h = hidden_size if hidden_size is not None \
+            else max(1, self.hidden_size // scale)
+        nl = num_layers if num_layers is not None \
+            else max(1, self.num_layers // scale)
+        nh = num_heads if num_heads is not None \
+            else max(1, self.num_heads // scale)
+        while h % nh:
+            nh -= 1
+        return GPTConfig(
+            vocab_size=self.vocab_size, hidden_size=h, num_layers=nl,
+            num_heads=nh,
+            max_position_embeddings=self.max_position_embeddings,
+            hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+            attn_impl=self.attn_impl)
+
 
 class GPTModel(nn.Module):
     """Token + position embedding -> pre-norm decoder stack -> final norm."""

@@ -2,10 +2,12 @@
 ``paddle_tpu/serving/llm/decode.py``: ``GPTDecodeSpec``, ``SamplingParams``,
 ``pack_sampling``, ``extract_gpt_params``, ``_layer_norm``,
 ``_block_prefill``, ``_block_decode``, ``_sample``, the programs of
-``build_prefill_fn`` and ``build_decode_step`` (here
-:func:`static_prefill` and :func:`static_decode_step`), their compiled
-forms ``get_prefill_fn`` and ``get_decode_step``, and
-``GPTStaticDecoder``).
+``build_prefill_fn``, ``build_decode_step``, ``build_tail_prefill_fn``
+and ``build_insert_prefix_fn`` (here :func:`static_prefill`,
+:func:`static_decode_step`, :func:`static_tail_prefill` and
+:func:`insert_prefix_rows`), their compiled forms ``get_prefill_fn``,
+``get_decode_step``, ``get_tail_prefill_fn`` and
+``get_insert_prefix_fn``, and ``GPTStaticDecoder``).
 
 The math mirrors the model's dense eval path operation for operation
 (LayerNorm with the biased variance, exact GELU, the additive -1e9 causal
@@ -24,12 +26,17 @@ trace counter, ``get_decode_step``/``get_prefill_fn`` wrap it in a
 :class:`~paddle_tpu_torch.core.graphs.Program` (a CUDA graph captured
 once per shape and KV cache, replayed after; eager on the CPU), and the
 decoders hand those out through ``decode_fn``/``prefill_fn`` under the
-JAX package's keys. ``decode_step``/``prefill`` run through them.
+JAX package's keys. ``decode_step``/``prefill``/``tail_prefill`` run
+through them. The prefix insert (``insert_prefix``) copies host rows into
+the cache from another host buffer at every hit, which a graph, binding
+addresses, would have to stage through one of its own: it stays eager,
+one copy per layer and buffer (:class:`EagerProgram`).
 """
 from __future__ import annotations
 
 import functools
 import math
+import weakref
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Sequence
 
@@ -321,6 +328,118 @@ def static_prefill(spec: GPTDecodeSpec, max_top_k: int, params,
     return sample_prefill(lraw, slots, finished, samp, generator, max_top_k)
 
 
+def tail_forward(spec: GPTDecodeSpec, params, tokens, tail_lens, starts,
+                 max_seq: int, write_layer, read_layer):
+    """The forward of prompt tails ``tokens [B, Lt]`` (right-padded,
+    ``tail_lens`` real tokens) at per-request offsets ``starts`` over a
+    cache whose rows ``[0, starts)`` already hold each prompt's head
+    (the JAX package's ``build_tail_prefill_fn`` math). Per layer the
+    tail's K/V is written first (``write_layer(li, k, v)``, ``[B, Lt, H,
+    D]``, in place) and the whole ``[B, max_seq, H, D]`` row read back
+    (``read_layer(li)``), which the JAX package reads as the gathered row
+    with the tail spliced in; tail query i, at absolute position
+    ``starts + i``, attends rows ``j <= starts + i`` under the additive
+    -1e9 mask. Returns the ``[B, V]`` f32 logits of each tail's last real
+    token and the tail's K/V ``[B, L, Lt, H, D]``."""
+    scale = 1.0 / math.sqrt(spec.head_dim)
+    b, lt = tokens.shape
+    dev = tokens.device
+    pos = starts.long()[:, None] + torch.arange(lt, device=dev)[None, :]
+    posc = pos.clamp(0, spec.max_position_embeddings - 1)
+    h = params["tok"][tokens.long()] + params["pos"][posc]   # [B, Lt, E]
+    j = torch.arange(max_seq, device=dev)[None, None, :]
+    zero = torch.zeros((), dtype=h.dtype, device=dev)
+    neg = torch.full((), -1e9, device=dev).to(h.dtype)
+    mask = torch.where(j <= pos[:, :, None], zero, neg)[:, None]  # [B,1,Lt,max]
+    kcs, vcs = [], []
+    for li, lp in enumerate(params["layers"]):
+        x = _layer_norm(h, lp["n1w"], lp["n1b"], spec.ln_epsilon)
+
+        def heads(t):
+            return t.reshape(b, lt, spec.num_heads, spec.head_dim)
+
+        q = heads(x @ lp["qw"] + lp["qb"])
+        kn = heads(x @ lp["kw"] + lp["kb"])
+        vn = heads(x @ lp["vw"] + lp["vb"])
+        write_layer(li, kn, vn)
+        row_k, row_v = read_layer(li)                        # [B, max, H, D]
+        qh = (q * scale).permute(0, 2, 1, 3)                 # [B, H, Lt, D]
+        kt = row_k.to(h.dtype).permute(0, 2, 1, 3)           # [B, H, max, D]
+        vt = row_v.to(h.dtype).permute(0, 2, 1, 3)
+        weights = softmax(torch.matmul(qh, kt.transpose(-1, -2)) + mask)
+        out = torch.matmul(weights, vt).permute(0, 2, 1, 3).reshape(
+            b, lt, spec.hidden_size)
+        h = h + (out @ lp["ow"] + lp["ob"])
+        x = _layer_norm(h, lp["n2w"], lp["n2b"], spec.ln_epsilon)
+        ffn = gelu(x @ lp["w1"] + lp["b1"])
+        h = h + (ffn @ lp["w2"] + lp["b2"])
+        kcs.append(kn)
+        vcs.append(vn)
+    h = _layer_norm(h, params["fnw"], params["fnb"], spec.ln_epsilon)
+    last = h[torch.arange(b, device=dev), tail_lens.long() - 1]      # [B, E]
+    lraw = (last @ params["tok"].t()).float()
+    return lraw, torch.stack(kcs, dim=1), torch.stack(vcs, dim=1)
+
+
+def static_tail_prefill(spec: GPTDecodeSpec, max_top_k: int, params,
+                        kv: StaticKVCache, tokens, tail_lens, starts,
+                        slot_ids, finished, samp: SamplingVectors,
+                        generator):
+    """Prefill prompt tails ``tokens [B, Lt]`` into ``slot_ids`` at row
+    offsets ``starts``, behind heads an :func:`insert_prefix_rows` landed
+    (the program of ``build_tail_prefill_fn``): all ``Lt`` rows land at
+    ``starts`` (clamped as ``dynamic_update_slice`` clamps), the lengths
+    become ``starts + tail_lens`` and the first token is sampled.
+    Returns ``(next_tokens [B], finished [S])``."""
+    slots = slot_ids.long()
+    lt = tokens.shape[1]
+    start = starts.long().clamp(0, kv.max_seq - lt)
+    rows = start[:, None] + torch.arange(lt, device=tokens.device)[None, :]
+
+    def write_layer(li, kn, vn):
+        kv.k[slots[:, None], li, rows] = kn.to(kv.dtype)
+        kv.v[slots[:, None], li, rows] = vn.to(kv.dtype)
+
+    def read_layer(li):
+        return kv.k[slots, li], kv.v[slots, li]
+
+    lraw, _, _ = tail_forward(spec, params, tokens, tail_lens, starts,
+                              kv.max_seq, write_layer, read_layer)
+    kv.lengths[slots] = (starts + tail_lens).to(torch.int32)
+    return sample_prefill(lraw, slots, finished, samp, generator, max_top_k)
+
+
+def insert_prefix_rows(kv: StaticKVCache, k_pre, v_pre, slot: int):
+    """Copy a cached host prefix ``[L, n, H, D]`` into ``slot``'s rows
+    ``[0, n)`` (the program of ``build_insert_prefix_fn``), one copy per
+    layer and buffer: a layer's rows are one contiguous block on both
+    sides, where the whole ``[L, n]`` slice of a longer entry is not, and
+    a strided host source would first be gathered into pageable memory.
+    The slot's length is the tail prefill's to set."""
+    for li in range(k_pre.shape[0]):
+        kv.k[slot, li, :k_pre.shape[1]].copy_(torch.as_tensor(k_pre[li]))
+        kv.v[slot, li, :v_pre.shape[1]].copy_(torch.as_tensor(v_pre[li]))
+
+
+class EagerProgram:
+    """A program that runs eagerly on every device, with a
+    ``trace_counter`` that counts a trace at each state's first call, as
+    the CPU counts a :class:`~paddle_tpu_torch.core.graphs.Program`'s
+    (the prefix insert, a copy from host memory that a CUDA graph cannot
+    record)."""
+
+    def __init__(self, raw):
+        self.raw = raw
+        self.trace_counter = {"traces": 0}
+        self._seen = weakref.WeakSet()
+
+    def __call__(self, state, *args):
+        if state not in self._seen:
+            self._seen.add(state)
+            self.trace_counter["traces"] += 1
+        return self.raw(state, *args)
+
+
 def get_decode_step(spec: GPTDecodeSpec, max_top_k: int) -> Program:
     """THE static-slot decode step as a compiled program (the JAX
     package's ``get_decode_step``): ``fn(params, kv, finished,
@@ -337,6 +456,21 @@ def get_prefill_fn(spec: GPTDecodeSpec, max_top_k: int) -> Program:
     ``fn(params, kv, tokens, true_lens, slot_ids, finished, samp,
     generator) -> (next_tokens, finished)``, one per prompt shape."""
     return Program(functools.partial(static_prefill, spec, max_top_k))
+
+
+def get_tail_prefill_fn(spec: GPTDecodeSpec, max_top_k: int) -> Program:
+    """The static-slot tail prefill as a compiled program
+    (``get_tail_prefill_fn``): ``fn(params, kv, tokens, tail_lens,
+    starts, slot_ids, finished, samp, generator)``, one per (batch, tail
+    bucket); ``starts`` is a device input, so one program serves every
+    reuse offset."""
+    return Program(functools.partial(static_tail_prefill, spec, max_top_k))
+
+
+def get_insert_prefix_fn() -> EagerProgram:
+    """The prefix insert (``get_insert_prefix_fn``): ``fn(kv, k_pre,
+    v_pre, slot)``, eager (:class:`EagerProgram`)."""
+    return EagerProgram(insert_prefix_rows)
 
 
 class GPTDecoderBase:
@@ -392,6 +526,17 @@ class GPTDecoderBase:
     def _prefill_program(self) -> Program:
         raise NotImplementedError
 
+    def _tail_prefill_program(self) -> Program:
+        raise NotImplementedError
+
+    def prefix_sig(self, kv):
+        """The shape a prefix-store entry must match to be reusable in
+        this decoder's cache (``max_seq`` is not part of it: a prefix
+        from a longer-row engine fits a shorter row as long as the
+        scheduler's reuse cap holds)."""
+        return (self.spec.num_layers, self.spec.num_heads,
+                self.spec.head_dim, _dtype_name(kv.dtype))
+
     # -- compiled-program access --------------------------------------------
     def decode_fn(self, num_slots: int, max_seq: int) -> Program:
         """The decode step for ``num_slots`` x ``max_seq`` caches; the key
@@ -404,6 +549,24 @@ class GPTDecoderBase:
         return self.exec_cache.get_or_compile(
             self._key + ("prefill", batch, prompt_len),
             self._prefill_program)
+
+    def tail_prefill_fn(self, batch: int, tail_len: int) -> Program:
+        """The tail prefill of ``batch`` prompt tails padded to
+        ``tail_len``, under the JAX package's key."""
+        return self.exec_cache.get_or_compile(
+            self._key + ("tail_prefill", batch, tail_len),
+            self._tail_prefill_program)
+
+    @torch.no_grad()
+    def tail_prefill(self, kv, params, tokens, tail_lens, starts, slot_ids,
+                     finished, samp, generator):
+        """Prefill prompt tails ``tokens [B, Lt]`` at row offsets
+        ``starts`` through ``tail_prefill_fn(B, Lt)``, behind heads the
+        cache already holds; returns ``(next_tokens [B], finished [S])``,
+        the program's output buffers."""
+        fn = self.tail_prefill_fn(tokens.shape[0], tokens.shape[1])
+        return fn(params, kv, tokens, tail_lens, starts, slot_ids, finished,
+                  samp, generator)
 
     @torch.no_grad()
     def prefill(self, kv, params, tokens, true_lens, slot_ids, finished,
@@ -428,10 +591,10 @@ class GPTDecoderBase:
 class GPTStaticDecoder(GPTDecoderBase):
     """The static-slot decoder over one GPT model: ``new_kv`` returns a
     :class:`StaticKVCache` on the model's device, and ``prefill`` /
-    ``decode_step`` write it in place through the compiled programs that
-    ``prefill_fn``/``decode_fn`` hand out. Prefix reuse
-    (``tail_prefill``, ``insert_prefix``) is queue A6 and a slot-sharded
-    mesh A10."""
+    ``tail_prefill`` / ``decode_step`` write it in place through the
+    compiled programs that ``prefill_fn``/``tail_prefill_fn``/
+    ``decode_fn`` hand out; ``insert_prefix`` copies a prefix-store entry
+    into a slot. A slot-sharded mesh is queue A10."""
 
     def __init__(self, model, max_top_k: int = 64,
                  exec_cache: Optional[ExecutableCache] = None, mesh=None,
@@ -465,8 +628,25 @@ class GPTStaticDecoder(GPTDecoderBase):
         paged lanes on the same prompts)."""
         return static_decode_logits(self.spec, params, kv, last_tokens)
 
-    def tail_prefill(self, *args, **kw):
-        raise _later("prefix reuse (tail_prefill)", "A6")
+    def _tail_prefill_program(self) -> Program:
+        return get_tail_prefill_fn(self.spec, self.max_top_k)
 
-    def insert_prefix(self, *args, **kw):
-        raise _later("prefix reuse (insert_prefix)", "A6")
+    def insert_prefix_fn(self, prefix_len: int) -> EagerProgram:
+        """The prefix insert of ``prefix_len`` rows, under the JAX
+        package's key."""
+        return self.exec_cache.get_or_compile(
+            self._key + ("insert_prefix", prefix_len), get_insert_prefix_fn)
+
+    @torch.no_grad()
+    def insert_prefix(self, kv: StaticKVCache, k_pre, v_pre, slot: int):
+        """Copy a cached host prefix ``[L, n, H, D]`` into ``slot``'s rows
+        ``[0, n)`` through ``insert_prefix_fn(n)``; the tail prefill that
+        follows sets the slot's length."""
+        self.insert_prefix_fn(int(k_pre.shape[1]))(kv, k_pre, v_pre,
+                                                   int(slot))
+
+
+def _dtype_name(dtype) -> str:
+    """``torch.float32`` -> ``"float32"``, the JAX package's dtype
+    string in a prefix signature."""
+    return str(dtype).replace("torch.", "")

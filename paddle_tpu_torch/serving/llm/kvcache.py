@@ -1,7 +1,7 @@
 """StaticKVCache and its writers (counterpart of
 ``paddle_tpu/serving/llm/kvcache.py``: ``StaticKVCache``,
-``append_token_kv``, ``write_prompt_kv``, ``valid_mask``, the layer view
-and ``kv_nbytes``).
+``append_token_kv``, ``append_tokens_kv``, ``write_prompt_kv``,
+``write_prompt_kv_at``, ``valid_mask``, the layer view and ``kv_nbytes``).
 
 K and V live in ``[num_slots, num_layers, max_seq, H, D]`` buffers on the
 device; a sequence holds one slot row for its whole life, and the
@@ -13,9 +13,8 @@ every write lands IN PLACE through the layer view, as the paged arena's
 do. The buffers and ``lengths`` keep their addresses for the life of
 the cache (``reset`` zeroes them in place), since the decoder's CUDA
 graphs bind them; ``graph_pool`` is the memory pool and capture stream
-those graphs share (``core/graphs.py``). int8 KV is queue A7, a
-slot-sharded mesh A10 and the prefix export A6 in ROADMAP.md; each
-raises naming its item.
+those graphs share (``core/graphs.py``). int8 KV is queue A7 and a
+slot-sharded mesh A10 in ROADMAP.md; each raises naming its item.
 
 Slot lifecycle (host side, no device traffic):
 
@@ -148,8 +147,27 @@ class StaticKVCache:
         stats; the tick loop never calls it)."""
         return self.lengths.cpu().numpy()
 
-    def host_slot_kv(self, slot: int, n: int):
-        raise _later("the prefix export (host_slot_kv)", "A6")
+    def host_slot_kv(self, slot: int, n: int) -> Tuple[np.ndarray,
+                                                        np.ndarray]:
+        """One deliberate device-to-host copy of a slot's first ``n``
+        K/V rows as host ``[num_layers, n, heads, head_dim]`` arrays (new
+        memory, contiguous): the prefix store's export, once per
+        admission, never on the tick path. From CUDA the arrays lie in
+        pinned (page-locked) memory, so the copy out and the later copies
+        back in (``decode.insert_prefix_rows``) run at the bus's rate
+        rather than a pageable buffer's."""
+        if not (0 <= slot < self.num_slots) or not (0 < n <= self.max_seq):
+            raise ValueError(f"bad prefix export slot={slot} n={n}")
+
+        def fetch(buf):
+            src = buf[slot, :, :n]
+            if src.device.type != "cuda":
+                return src.clone().numpy()
+            out = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            out.copy_(src)
+            return out.numpy()
+
+        return fetch(self.k), fetch(self.v)
 
     def __repr__(self):
         return (f"StaticKVCache(slots={self.num_slots}, "
@@ -184,6 +202,43 @@ def append_token_kv(kb, vb, k_new, v_new, positions, index=None):
     kb[idx] = k_new.to(kb.dtype)
     vb[idx] = v_new.to(vb.dtype)
     return kb, vb
+
+
+def append_tokens_kv(kb, vb, k_new, v_new, positions):
+    """Write ``T`` new tokens' K/V per slot at rows ``positions ..
+    positions + T - 1``, in place, into one layer's ``[S, max_seq, H, D]``
+    views (the speculative verify step lands its k+1 candidate rows with
+    this). ``k_new``/``v_new``: ``[S, T, H, D]``. The start clamps into
+    ``[0, max_seq - T]``, as ``lax.dynamic_update_slice``'s does."""
+    t = k_new.shape[1]
+    start = positions.long().clamp(0, kb.shape[1] - t)
+    rows = start[:, None] + torch.arange(t, device=kb.device)[None, :]
+    slots = torch.arange(kb.shape[0], device=kb.device)[:, None]
+    kb[slots, rows] = k_new.to(kb.dtype)
+    vb[slots, rows] = v_new.to(vb.dtype)
+    return kb, vb
+
+
+def write_prompt_kv_at(k_buf, v_buf, k_new, v_new, slot_ids, starts):
+    """Write K/V rows ``[B, L_layers, L, H, D]`` into ``slot_ids`` at
+    per-request row offsets ``starts`` (the prefix-reuse writer; starts
+    of 0 are :func:`write_prompt_kv`), all layers in one indexed write
+    per buffer, in place. Each start clamps into ``[0, max_seq - L]`` and
+    each slot id into range, as ``dynamic_update_slice`` clamps."""
+    lp = k_new.shape[2]
+    n_slots, n_layers, max_seq = k_buf.shape[:3]
+    if lp > max_seq:
+        raise ValueError(f"{lp} rows exceed max_seq {max_seq}")
+    dev = k_buf.device
+    slots = torch.as_tensor(slot_ids, device=dev).long().clamp(
+        0, n_slots - 1)
+    start = torch.as_tensor(starts, device=dev).long().clamp(0, max_seq - lp)
+    layers = torch.arange(n_layers, device=dev)
+    rows = start[:, None] + torch.arange(lp, device=dev)[None, :]  # [B, L]
+    idx = (slots[:, None, None], layers[None, :, None], rows[:, None, :])
+    k_buf[idx] = k_new.to(k_buf.dtype)
+    v_buf[idx] = v_new.to(v_buf.dtype)
+    return k_buf, v_buf
 
 
 def write_prompt_kv(k_buf, v_buf, k_prompt, v_prompt, slot_ids):

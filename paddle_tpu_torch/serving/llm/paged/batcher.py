@@ -1,6 +1,6 @@
 """PagedBatcher: admission on pages at current lengths, not max_seq slots
-(counterpart of ``paddle_tpu/serving/llm/paged/batcher.py``; the prefix
-store, speculative decode and migration are later slices).
+(counterpart of ``paddle_tpu/serving/llm/paged/batcher.py``; sequence
+migration is a later slice).
 
 With paged KV the scarce resource is the page pool, so admission asks
 "are there pages for THIS prompt at ITS length, plus headroom for the
@@ -13,19 +13,31 @@ sequences already running":
   pages). A request that cannot fit even into an otherwise empty pool
   fails with :class:`RequestTooLarge` instead of deadlocking.
 - **per-tick capacity**: before each tick one pass maps the next write
-  position of every active slot. When the pool runs dry mid-stream the
+  position of every active slot (``+k+1`` under speculation). When the
+  pool runs dry mid-stream, unpinned prefix entries go first, then the
   YOUNGEST request is evicted (least progress lost); a lone sequence that
   cannot grow finishes with reason ``"length"``.
+- **prefix sharing copies nothing** (``prefix_cache=True``, a
+  :class:`PagedPrefixStore`): a hit adopts the full shared pages by table
+  splice (``bytes_shared``); where the entry runs past the last full
+  page the sequence may reuse, that one partial page is COW-split
+  (``adopt_copied_page``, the only bytes a hit copies, in
+  ``bytes_copied``). A miss's page-aligned head is claimed by the store
+  by reference. Gauges ``pages_free`` and ``pages_cow_splits`` publish
+  the pool at every admission and tick.
 """
 from __future__ import annotations
 
 import collections
 from typing import Optional
 
+import numpy as np
+
 from ...request import RequestTooLarge
 from ..scheduler import ContinuousBatcher, GenerationRequest
 from .decode import GPTPagedDecoder
 from .pool import PagedKVCache, PagesExhausted, pages_for_tokens
+from .prefix import PagedPrefixStore
 
 
 class PagedBatcher(ContinuousBatcher):
@@ -33,15 +45,27 @@ class PagedBatcher(ContinuousBatcher):
     like the base: only the engine worker calls in."""
 
     def __init__(self, decoder: GPTPagedDecoder, config, registry,
-                 clock=None):
+                 clock=None, prefix_store=None, spec_decoder=None):
         if not isinstance(decoder, GPTPagedDecoder):
             raise TypeError("PagedBatcher needs a GPTPagedDecoder "
                             "(kv_layout='paged')")
+        if prefix_store is not None:
+            raise NotImplementedError(
+                "paged engines share prefix pages inside their own arena; "
+                "an external (host) PrefixStore cannot be attached - set "
+                "prefix_cache=True and let the batcher build its "
+                "PagedPrefixStore")
         kw = {} if clock is None else {"clock": clock}
-        super().__init__(decoder, config, registry, **kw)
+        super().__init__(decoder, config, registry, spec_decoder=spec_decoder,
+                         **kw)
         self.kv: PagedKVCache
         self._pending = collections.deque()
+        if config.prefix_cache:
+            self.prefix_store = PagedPrefixStore(
+                self.kv, registry=registry,
+                stat_prefix=f"{config.stat_prefix}.prefix")
         self._stat_set("pages_free", self.kv.pool.free_pages)
+        self._stat_set("pages_cow_splits", 0)
 
     # -- introspection -------------------------------------------------------
     @property
@@ -60,6 +84,7 @@ class PagedBatcher(ContinuousBatcher):
 
     def _publish_pages(self):
         self._stat_set("pages_free", self.kv.pool.free_pages)
+        self._stat_set("pages_cow_splits", self.kv.cow_splits)
 
     # -- admission -----------------------------------------------------------
     def admit(self, req: GenerationRequest):
@@ -100,20 +125,70 @@ class PagedBatcher(ContinuousBatcher):
         self._stat_add("rejected_pool_exhausted", 1)
 
     def _try_admit(self, req: GenerationRequest) -> bool:
-        """Admit ``req`` if a slot AND its pages are available; no partial
-        state on False (the page math runs before any allocation)."""
+        """Admit ``req`` if a slot AND its pages are available at its
+        length, its shared prefix pages counted as free; no partial state
+        on False (the page math runs before any allocation)."""
         if self.kv.free_slots < 1:
             return False
-        need = pages_for_tokens(req.prompt_len, self.kv.page_size)
-        # headroom: one lookahead page per running sequence, so admitting
-        # cannot force a mid-stream eviction at the next capacity pass
-        if need + len(self._reqs) > self.kv.pool.free_pages:
+        page = self.kv.page_size
+        entry, reuse_n = None, 0
+        if self.prefix_store is not None:
+            entry, reuse_n = self._lookup_prefix(req, page)
+        # COW extension: where the entry runs past the last FULL page the
+        # sequence may share (hits are page-aligned, the reuse cap of
+        # prompt_len - 1 seldom is), the partial page is copied and the
+        # tail overwrites the private copy from its first own row: rows
+        # [reuse_n, ext_n) come along for free
+        cow_src = None
+        ext_n = min(entry.n_tokens, req.prompt_len - 1) if entry else 0
+        if (entry is not None and reuse_n < ext_n
+                and ext_n - reuse_n < page
+                and ext_n + self.config.bucket_for(
+                    req.prompt_len - ext_n) <= self.config.max_seq
+                and np.array_equal(entry.tokens[reuse_n:ext_n],
+                                   req.prompt[reuse_n:ext_n])):
+            cow_src = entry.page_ids[reuse_n // page]
+        else:
+            ext_n = reuse_n
+        # the COW page is one of the pages to allocate; headroom: one
+        # lookahead page per running sequence, so admitting cannot force
+        # a mid-stream eviction at the next capacity pass
+        need_alloc = pages_for_tokens(req.prompt_len, page) - reuse_n // page
+        shortfall = need_alloc + len(self._reqs) - self.kv.pool.free_pages
+        if shortfall > 0 and self.prefix_store is not None:
+            shortfall -= self.prefix_store.evict_unpinned(shortfall)
+        if shortfall > 0:
+            if entry is not None:
+                self.prefix_store.unpin(entry)
             return False
         t0 = self._clock()
         slot = self.kv.alloc()
+        if reuse_n > 0:
+            for pid in entry.page_ids[:reuse_n // page]:
+                self.kv.adopt_shared_page(slot, pid)
+            self.prefix_store.note_shared(
+                (reuse_n // page) * self.kv.page_nbytes())
+        if cow_src is not None:
+            self.kv.adopt_copied_page(slot, cow_src)
+            self.prefix_store.note_copied(self.kv.page_nbytes())
+            self._stat_add("prefix.cow_splits", 1)
         self.kv.ensure_pages(slot, req.prompt_len)
-        self._start(req, slot, t0)
+        self._start(req, slot, t0, entry, ext_n)
         return True
+
+    def _export_prefix(self, req: GenerationRequest, slot: int):
+        """After a miss's prefill the store claims the page-aligned head
+        BY REFERENCE: it retains the sequence's own pages, nothing
+        moves."""
+        page = self.kv.page_size
+        n = (req.prompt_len // page) * page
+        if n < page:
+            return
+        ins = self.prefix_store.insert(req.prompt[:n],
+                                       self.kv.slot_page_ids(slot)[:n // page],
+                                       self.decoder.prefix_sig(self.kv))
+        if ins is not None:
+            req._prefix_entry = ins
 
     # -- per-tick capacity ---------------------------------------------------
     def tick(self) -> int:
@@ -128,19 +203,29 @@ class PagedBatcher(ContinuousBatcher):
         return n
 
     def _ensure_decode_capacity(self):
-        """Map the next write position of every active slot before the
-        tick. Pool dry: evict the youngest other request; a lone sequence
-        that cannot grow finishes at its current length."""
+        """Map the next write positions of every active slot before the
+        tick: one token plain, k+1 under speculation (the verify writes
+        k+1 candidate rows). Pool dry: drop unpinned prefix entries, then
+        evict the youngest other request; a lone sequence that cannot
+        grow finishes at its current length."""
+        horizon = self.spec.k + 1 if self.spec is not None else 1
         for slot in sorted(self._reqs):
             req = self._reqs.get(slot)
             if req is None:
                 continue
-            need_tok = min(req.seq_len, self.config.max_seq)
+            need_tok = min(req.seq_len - 1 + horizon, self.config.max_seq)
             while True:
                 try:
                     self.kv.ensure_pages(slot, need_tok)
                     break
                 except PagesExhausted:
+                    short = (pages_for_tokens(need_tok, self.kv.page_size)
+                             - self.kv.mapped_pages(slot)
+                             - self.kv.pool.free_pages)
+                    if self.prefix_store is not None and \
+                            self.prefix_store.evict_unpinned(
+                                max(1, short)) > 0:
+                        continue
                     victim = self._youngest_other(slot)
                     if victim is None:
                         self._stat_add("pages_truncations", 1)
@@ -157,6 +242,7 @@ class PagedBatcher(ContinuousBatcher):
     def _evict_for_pages(self, slot: int):
         req = self._reqs.pop(slot)
         self.kv.free(slot)
+        self._unpin_prefix(req)
         req.fail(PagesExhausted(
             f"request {req.req_id} evicted after {len(req.tokens)} "
             f"tokens: page pool exhausted and it was the youngest "

@@ -1,8 +1,9 @@
 """Paged prefill, the paged decode step, their compiled forms and
 GPTPagedDecoder (counterpart of ``paddle_tpu/serving/llm/paged/decode.py``:
-``build_paged_prefill_fn``/``build_paged_decode_step`` as
-:func:`paged_prefill`/:func:`paged_decode_step`,
-``get_paged_prefill_fn``/``get_paged_decode_step``, ``GPTPagedDecoder``).
+``build_paged_prefill_fn``/``build_paged_decode_step``/
+``build_paged_tail_prefill_fn`` as :func:`paged_prefill`/
+:func:`paged_decode_step`/:func:`paged_tail_prefill`, their ``get_*``
+forms, ``GPTPagedDecoder``).
 
 The forward math is the model's dense eval path; only where K/V rows live
 changes: they are written into the page arena through each slot's block
@@ -25,9 +26,9 @@ head dim up to 1024 (``ops.paged_attention.takes``); the kernel lane on
 CUDA raises at construction for heads past that. On CUDA the
 decode step runs as a replayed CUDA graph (``core/graphs.py``), the
 kernel lane's 24 launches of B4 inside it at GPT-3 1.3B; the decoder
-refreshes the device block tables before each program runs. Tail
-prefill (prefix reuse), speculative decode and sequence migration are
-later slices of the port.
+refreshes the device block tables before each program runs. The tail
+prefill of prefix reuse attends densely over the gathered row, as the
+JAX package's does; sequence migration is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ from ....nn.functional import gelu, softmax
 from ....ops.paged_attention import paged_attention, takes
 from ..decode import (GPTDecodeSpec, GPTDecoderBase, SamplingVectors,
                       _layer_norm, prefill_forward, sample_prefill,
-                      sample_step)
+                      sample_step, tail_forward)
 from ..kvcache import kv_layer_view, valid_mask
 from .pool import (PagedKVCache, paged_gather_rows, paged_write_prompt_rows,
                    paged_write_rows)
@@ -148,6 +149,53 @@ def paged_prefill(spec: GPTDecodeSpec, max_top_k: int, params,
     return sample_prefill(lraw, slots, finished, samp, generator, max_top_k)
 
 
+def paged_tail_prefill(spec: GPTDecodeSpec, max_top_k: int, params,
+                       kv: PagedKVCache, tokens, tail_lens, starts,
+                       slot_ids, finished, samp: SamplingVectors,
+                       generator):
+    """Prefill prompt tails ``tokens [B, Lt]`` into ``slot_ids`` at
+    offsets ``starts`` behind heads that arrived as shared pages (the
+    program of ``build_paged_tail_prefill_fn``): each layer's tail rows
+    go through the block table (the padding's to the trash page), then
+    the slot's whole logical row is gathered back for the dense
+    offset-causal attention of ``tail_forward``; the lengths become
+    ``starts + tail_lens`` and the first token is sampled. Returns
+    ``(next_tokens [B], finished [S])``."""
+    b, lt = tokens.shape
+    slots = slot_ids.long()
+    bt_sel = kv.block_tables[slots]                          # [B, PP]
+    pp_n = bt_sel.shape[1]
+    t = torch.arange(lt, device=tokens.device)
+    pos = starts.long()[:, None] + t[None, :]                # [B, Lt]
+    page_idx = (pos // kv.page_size).clamp(0, pp_n - 1)
+    pid = torch.where(t[None, :] < tail_lens.long()[:, None],
+                      bt_sel.long().gather(1, page_idx),
+                      torch.full_like(page_idx, kv.trash)).reshape(-1)
+    ppos = (pos % kv.page_size).reshape(-1)
+    rows = (b * lt, spec.num_heads, spec.head_dim)
+
+    def write_layer(li, kn, vn):
+        paged_write_rows(kv_layer_view(kv.k, li), kn.reshape(rows), pid, ppos)
+        paged_write_rows(kv_layer_view(kv.v, li), vn.reshape(rows), pid, ppos)
+
+    def read_layer(li):
+        return (paged_gather_rows(kv_layer_view(kv.k, li), bt_sel),
+                paged_gather_rows(kv_layer_view(kv.v, li), bt_sel))
+
+    lraw, _, _ = tail_forward(spec, params, tokens, tail_lens, starts,
+                              pp_n * kv.page_size, write_layer, read_layer)
+    kv.lengths[slots] = (starts + tail_lens).to(torch.int32)
+    return sample_prefill(lraw, slots, finished, samp, generator, max_top_k)
+
+
+def get_paged_tail_prefill_fn(spec: GPTDecodeSpec,
+                              max_top_k: int) -> Program:
+    """The paged tail prefill as a compiled program
+    (``get_paged_tail_prefill_fn``): ``fn(params, kv, tokens, tail_lens,
+    starts, slot_ids, finished, samp, generator)``."""
+    return Program(functools.partial(paged_tail_prefill, spec, max_top_k))
+
+
 def get_paged_decode_step(spec: GPTDecodeSpec, max_top_k: int,
                           attn_impl: str) -> Program:
     """The paged decode step as a compiled program (the JAX package's
@@ -229,12 +277,38 @@ class GPTPagedDecoder(GPTDecoderBase):
     def _prefill_program(self) -> Program:
         return get_paged_prefill_fn(self.spec, self.max_top_k)
 
+    def _tail_prefill_program(self) -> Program:
+        return get_paged_tail_prefill_fn(self.spec, self.max_top_k)
+
+    def prefix_sig(self, kv: PagedKVCache):
+        """Paged entries are page ids into THIS arena, so the signature
+        also holds the page size."""
+        return super().prefix_sig(kv) + (self.page_size,)
+
+    def insert_prefix_fn(self, prefix_len: int):
+        raise NotImplementedError(
+            "paged prefix reuse shares pages through the block table "
+            "(PagedPrefixStore): there is no bulk copy to compile")
+
+    def insert_prefix(self, kv, k_pre, v_pre, slot: int):
+        raise NotImplementedError(
+            "paged prefix reuse shares pages through the block table "
+            "(PagedPrefixStore.lookup and PagedKVCache.adopt_shared_page);"
+            " a bulk copy would defeat the zero-copy contract")
+
     @torch.no_grad()
     def prefill(self, kv: PagedKVCache, params, tokens, true_lens,
                 slot_ids, finished, samp, generator):
         kv.refresh_block_tables()
         return super().prefill(kv, params, tokens, true_lens, slot_ids,
                                finished, samp, generator)
+
+    @torch.no_grad()
+    def tail_prefill(self, kv: PagedKVCache, params, tokens, tail_lens,
+                     starts, slot_ids, finished, samp, generator):
+        kv.refresh_block_tables()
+        return super().tail_prefill(kv, params, tokens, tail_lens, starts,
+                                    slot_ids, finished, samp, generator)
 
     @torch.no_grad()
     def decode_step(self, kv: PagedKVCache, params, finished, last_tokens,

@@ -23,12 +23,20 @@ the device copy (:meth:`PagedKVCache.refresh_block_tables`, in place)
 before a program runs, never inside one: a CUDA graph binds the device
 table's address and cannot record a copy from pageable host memory. The
 arenas, the table and ``lengths`` keep their addresses for the life of
-the cache.
+the cache, so a shared-page adoption or a copy-on-write split between
+ticks reaches a captured program through those in-place writes.
+
+Pages are shared by refcount (a page of a cached prefix and two live
+sequences has refcount 3): prefix reuse splices shared pages into a
+table (``adopt_shared_page``, zero bytes copied) and the first page a
+sequence writes is its own (``adopt_copied_page``, the copy-on-write
+split). Sequence export and import (``read_pages``, ``write_page``) are
+not ported yet.
 """
 from __future__ import annotations
 
 import heapq
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -219,6 +227,8 @@ class PagedKVCache:
         self._free: List[int] = list(range(self.num_slots))
         self._active: set = set()
         self.graph_pool = GraphPool(self.device)
+        #: copy-on-write splits made (admission divergence)
+        self.cow_splits = 0
 
     def refresh_block_tables(self):
         """Copy the host block tables into the device table, in place, if
@@ -285,6 +295,15 @@ class PagedKVCache:
         self.lengths.zero_()
 
     # -- page mapping (the host decides, the block table records) ------------
+    def mapped_pages(self, slot: int) -> int:
+        return len(self._slot_pages[slot])
+
+    def mapped_tokens(self, slot: int) -> int:
+        return len(self._slot_pages[slot]) * self.page_size
+
+    def slot_page_ids(self, slot: int) -> Tuple[int, ...]:
+        return tuple(self._slot_pages[slot])
+
     def _map_page(self, slot: int, pid: int):
         idx = len(self._slot_pages[slot])
         if idx >= self.pages_per_seq:
@@ -307,9 +326,39 @@ class PagedKVCache:
             self._map_page(slot, pid)
         return len(fresh)
 
+    def adopt_shared_page(self, slot: int, pid: int):
+        """Splice a live page (a prefix-store page) into the slot's table
+        at its next logical index: one more reference, zero bytes
+        copied."""
+        self.pool.retain(pid)
+        self._map_page(slot, pid)
+
+    def adopt_copied_page(self, slot: int, src_pid: int) -> int:
+        """Copy-on-write split: claim a private page, copy the shared
+        page's rows into it (both arenas, every layer, in place) and map
+        it, so the new occupant writes its divergent rows without
+        touching the sharers. Returns the new page."""
+        pid = self.pool.alloc()
+        self.k[pid].copy_(self.k[src_pid])
+        self.v[pid].copy_(self.v[src_pid])
+        self._map_page(slot, pid)
+        self.cow_splits += 1
+        return pid
+
+    def set_length(self, slot: int, n_tokens: int):
+        """Set a slot's position in the device lengths (in place)."""
+        if not (0 <= n_tokens <= self.max_seq):
+            raise ValueError(f"set_length({slot}, {n_tokens})")
+        self.lengths[slot] = int(n_tokens)
+
     def kv_bytes(self) -> int:
         """Device bytes of the K+V arenas (trash page included)."""
         return kv_nbytes(self.k) + kv_nbytes(self.v)
+
+    def page_nbytes(self) -> int:
+        """Device bytes of ONE physical page across both arenas and every
+        layer: the unit of the prefix store's byte counters."""
+        return self.kv_bytes() // (self.num_pages + 1)
 
     def host_lengths(self) -> np.ndarray:
         return self.lengths.cpu().numpy()

@@ -19,11 +19,15 @@ queued sequence; ``pause_admission`` stops admission alone; ``kill``
 fails the queue and aborts the in-flight sequences before the next tick.
 Both KV layouts are served: ``kv_layout="slot"`` (the default, the
 static-slot :class:`GPTStaticDecoder` under this module's
-:class:`ContinuousBatcher`) and ``kv_layout="paged"`` (``paged/``). The
-knobs of later slices (``spec_k > 0``, ``prefix_cache``, int8 weights or
-KV, ``measure_mfu``) raise ``NotImplementedError`` naming the queue item
-in ``ROADMAP.md``; crash recovery (evacuation for replay), migration and
-weight hot-swap are not ported yet.
+:class:`ContinuousBatcher`) and ``kv_layout="paged"`` (``paged/``), each
+with prefix reuse (``prefix_cache=True``: a hit prefills only the
+prompt's tail behind a cached head; the slot layout copies the head from
+a host :class:`PrefixStore`, the paged one shares its pages) and draft-
+model speculative decoding (``spec_k > 0`` with a ``draft_model``: a
+tick emits 1 to k+1 tokens, ``spec.py``). The knobs of later slices (int8
+weights or KV, ``measure_mfu``) raise ``NotImplementedError`` naming the
+queue item in ``ROADMAP.md``; crash recovery (evacuation for replay),
+migration and weight hot-swap are not ported yet.
 """
 from __future__ import annotations
 
@@ -47,6 +51,8 @@ from ..request import (Deadline, DeadlineExceeded, EngineDraining,
 from .decode import (GPTDecoderBase, GPTStaticDecoder, SamplingParams,
                      pack_sampling)
 from .kvcache import _later
+from .prefix import PrefixStore
+from .spec import GPTSpecDecoder
 
 _REQ_IDS = itertools.count(1)
 _STREAM_END = object()
@@ -62,7 +68,7 @@ class GenerationRequest:
 
     __slots__ = ("req_id", "prompt", "sampling", "deadline", "future",
                  "t_enqueue", "t_first_token", "tokens", "finish_reason",
-                 "_stream_q", "_clock", "_t_last")
+                 "_stream_q", "_clock", "_t_last", "_prefix_entry")
 
     def __init__(self, prompt, sampling: SamplingParams,
                  deadline: Optional[Deadline] = None, stream: bool = False,
@@ -82,6 +88,9 @@ class GenerationRequest:
         self.finish_reason: Optional[str] = None
         self._stream_q = _pyqueue.Queue() if stream else None
         self._t_last: Optional[float] = None
+        # the prefix-store pin held while the request is in flight (the
+        # batcher unpins it on every exit)
+        self._prefix_entry = None
 
     @property
     def prompt_len(self) -> int:
@@ -265,13 +274,18 @@ class ContinuousBatcher:
 
     Owns the KV cache, the per-slot device vectors (``finished``,
     ``last_tokens``, packed sampling params), the sampling generator and
-    the slot -> request table. ``admit`` prefills and delivers the first
-    token; ``tick`` advances every active sequence one token and retires
-    finished or evicted slots. Only the engine worker calls in.
+    the slot -> request table; with a ``prefix_store`` the prefix reuse
+    of admission, with a ``spec_decoder`` the draft's cache (sharing the
+    target cache's lengths) and the speculative tick. ``admit`` prefills
+    and delivers the first token; ``tick`` advances every active sequence
+    (one token, or 1..k+1 speculatively) and retires finished or evicted
+    slots. Only the engine worker calls in.
     """
 
     def __init__(self, decoder: GPTDecoderBase, config: LLMEngineConfig,
-                 registry: StatRegistry, clock=time.monotonic):
+                 registry: StatRegistry, clock=time.monotonic,
+                 prefix_store: Optional[PrefixStore] = None,
+                 spec_decoder: Optional[GPTSpecDecoder] = None):
         self.decoder = decoder
         self.config = config
         self._registry = registry
@@ -280,6 +294,18 @@ class ContinuousBatcher:
         self.device = decoder.device
         self.kv = decoder.new_kv(config.num_slots, config.max_seq)
         self._params = decoder.params()
+        self.prefix_store = prefix_store
+        self.spec = spec_decoder
+        self.kv_draft = None
+        self._draft_params = None
+        if spec_decoder is not None:
+            # the draft cache mirrors the target's slots and positions;
+            # ONE lengths tensor advances both
+            self.kv_draft = spec_decoder.new_draft_kv(
+                config.num_slots, config.max_seq, lengths=self.kv.lengths)
+            self._draft_params = spec_decoder.draft_params()
+        self._spec_proposed = 0
+        self._spec_accepted = 0
         self._reqs: Dict[int, GenerationRequest] = {}
         self._slot_samp: List[SamplingParams] = [
             SamplingParams() for _ in range(config.num_slots)]
@@ -315,30 +341,97 @@ class ContinuousBatcher:
     def _ids(self, values) -> torch.Tensor:
         return torch.tensor(values, dtype=torch.int32, device=self.device)
 
-    def _prefill_one(self, req: GenerationRequest, slot: int):
+    def _padded(self, tokens) -> torch.Tensor:
+        """``tokens`` right-padded to their prefill bucket, ``[1, Lp]``
+        on the device."""
+        padded = np.zeros((1, self.config.bucket_for(len(tokens))),
+                          np.int32)
+        padded[0, :len(tokens)] = tokens
+        return torch.from_numpy(padded).to(self.device)
+
+    def _prefill_one(self, req: GenerationRequest, slot: int, samp1):
         """Bucketed prefill of ``req`` into ``slot``; returns the first
         token as a ``[1]`` device tensor."""
-        lp = self.config.bucket_for(req.prompt_len)
-        padded = np.zeros((1, lp), np.int32)
-        padded[0, :req.prompt_len] = req.prompt
         nxt, finished = self.decoder.prefill(
-            self.kv, self._params,
-            torch.from_numpy(padded).to(self.device),
+            self.kv, self._params, self._padded(req.prompt),
             self._ids([req.prompt_len]), self._ids([slot]),
-            self._finished, pack_sampling([req.sampling], self.device),
-            self._gen)
+            self._finished, samp1, self._gen)
         self._finished.copy_(finished)
         return nxt
 
-    def _start(self, req: GenerationRequest, slot: int, t0: float):
-        """Register ``req`` in ``slot``, prefill it and deliver its first
-        token (the fetch streaming needs for time to first token)."""
+    def _tail_prefill_one(self, req: GenerationRequest, slot: int,
+                          start: int, samp1):
+        """Bucketed prefill of ``req``'s tail from ``start`` into
+        ``slot``, whose rows ``[0, start)`` hold the reused head; returns
+        the first token as a ``[1]`` device tensor."""
+        tail = req.prompt[start:]
+        nxt, finished = self.decoder.tail_prefill(
+            self.kv, self._params, self._padded(tail),
+            self._ids([int(tail.size)]), self._ids([start]),
+            self._ids([slot]), self._finished, samp1, self._gen)
+        self._finished.copy_(finished)
+        return nxt
+
+    def _lookup_prefix(self, req: GenerationRequest, step: int):
+        """The prefix store's hit for ``req`` (pinned) and its reusable
+        token count, shrunk by ``step`` until the padded tail bucket fits
+        behind the head (a clamped write would corrupt the reused rows);
+        ``(None, 0)`` on a miss. At least one prompt token prefills, the
+        logits' source."""
+        entry, reuse_n = self.prefix_store.lookup(
+            req.prompt, req.prompt_len - 1, self.decoder.prefix_sig(self.kv))
+        while reuse_n > 0 and reuse_n + self.config.bucket_for(
+                req.prompt_len - reuse_n) > self.config.max_seq:
+            reuse_n -= step
+        if entry is not None and reuse_n <= 0:
+            self.prefix_store.unpin(entry)
+            entry, reuse_n = None, 0
+        return entry, reuse_n
+
+    def _export_prefix(self, req: GenerationRequest, slot: int):
+        """After a miss's prefill: hand the block-aligned head of the
+        prompt to the store (pinned by ``req`` until it leaves). The slot
+        layout copies its rows to the host, one device-to-host copy."""
+        blk = self.prefix_store.block_tokens
+        n = (req.prompt_len // blk) * blk
+        if n < blk:
+            return
+        t0 = self._clock()
+        k_h, v_h = self.kv.host_slot_kv(slot, n)
+        self._stat_observe("prefix.export_ms", (self._clock() - t0) * 1e3)
+        ins = self.prefix_store.insert(req.prompt[:n], k_h, v_h,
+                                       self.decoder.prefix_sig(self.kv))
+        if ins is not None:
+            req._prefix_entry = ins
+
+    def _start(self, req: GenerationRequest, slot: int, t0: float,
+               entry=None, reuse_n: int = 0):
+        """Register ``req`` in ``slot``, prefill it (its tail only behind
+        a reused head of ``reuse_n`` rows when ``entry`` hit, pinned until
+        the request leaves; a miss exports its head to the store), prefill
+        the draft cache under speculation, and deliver the first token
+        (the fetch streaming needs for time to first token)."""
         self._reqs[slot] = req
         self._slot_samp[slot] = req.sampling
         for dst, src in zip(self._samp_vecs,
                             pack_sampling(self._slot_samp, self.device)):
             dst.copy_(src)
-        nxt = self._prefill_one(req, slot)
+        samp1 = pack_sampling([req.sampling], self.device)
+        if entry is not None:
+            req._prefix_entry = entry
+            nxt = self._tail_prefill_one(req, slot, reuse_n, samp1)
+            self._stat_add("prefix.reused_tokens", reuse_n)
+        else:
+            nxt = self._prefill_one(req, slot, samp1)
+            if self.prefix_store is not None:
+                self._export_prefix(req, slot)
+        if self.spec is not None:
+            # the draft never reuses prefixes (it is cheap and its K/V is
+            # not stored): a full-prompt prefill, K/V kept
+            self.spec.draft_prefill(
+                self.kv_draft, self._draft_params, self._padded(req.prompt),
+                self._ids([req.prompt_len]), self._ids([slot]),
+                self._finished, samp1)
         self._last[slot] = nxt[0]
         tok = int(nxt[0].item())
         now = self._clock()
@@ -356,13 +449,107 @@ class ContinuousBatcher:
         The caller guarantees ``free_slots > 0`` and a bucket-fitting
         prompt (``submit`` validated both)."""
         t0 = self._clock()
-        self._start(req, self.kv.alloc(), t0)
+        slot = self.kv.alloc()
+        entry, reuse_n = None, 0
+        if self.prefix_store is not None:
+            entry, reuse_n = self._lookup_prefix(
+                req, self.prefix_store.block_tokens)
+        if entry is not None:
+            # a hit: copy the cached head in, prefill only the tail
+            t1 = self._clock()
+            self.decoder.insert_prefix(self.kv, entry.k[:, :reuse_n],
+                                       entry.v[:, :reuse_n], slot)
+            self._stat_observe("prefix.insert_ms",
+                               (self._clock() - t1) * 1e3)
+            self.prefix_store.note_copied(
+                int(entry.k[:, :reuse_n].nbytes
+                    + entry.v[:, :reuse_n].nbytes))
+        self._start(req, slot, t0, entry, reuse_n)
 
     def tick(self) -> int:
-        """One decode tick: advance every slot, deliver tokens, retire
-        finished slots. Returns the number of sequences advanced."""
+        """One decode tick: advance every slot (one token, or 1..k+1
+        under speculation), deliver tokens, retire finished slots.
+        Returns the number of sequences advanced."""
         if not self._reqs:
             return 0
+        if self.spec is not None:
+            if self._spec_room_ok():
+                return self._spec_tick()
+            # near the end of a row there is no room for k+1 candidate
+            # rows: the plain one-token step instead
+            self._stat_add("spec.fallback_ticks", 1)
+        return self._plain_tick()
+
+    def _spec_room_ok(self) -> bool:
+        """True when every active slot can take k+1 candidate rows: its
+        next write position is ``seq_len - 1`` (the last emitted token is
+        not in the cache yet) and the verify writes up to position + k."""
+        k = self.spec.k
+        return all(req.seq_len - 1 + k + 1 <= self.config.max_seq
+                   for req in self._reqs.values())
+
+    def _spec_tick(self) -> int:
+        t0 = self._clock()
+        finished, last, out_dev = self.spec.step(
+            self.kv, self.kv_draft, self._params, self._draft_params,
+            self._finished, self._last, self._samp_vecs, self._gen)
+        self._finished.copy_(finished)
+        self._last.copy_(last)
+        # THE one host fetch of the tick: the packed [S, k+2]
+        # (count | tokens...) matrix
+        out = out_dev.cpu().numpy()
+        n = len(self._reqs)
+        dt = max(self._clock() - t0, 1e-9)
+        total = 0
+        for slot, req in list(self._reqs.items()):
+            if req.expired:
+                self._evict(slot, req)
+                continue
+            n_emit = int(out[slot, 0])
+            if not req.sampling.do_sample:
+                # acceptance is a greedy-lane count: sampling slots take
+                # one verified token a tick by construction
+                self._spec_proposed += self.spec.k
+                self._spec_accepted += n_emit - 1
+                self._stat_add("spec.proposed", self.spec.k)
+                self._stat_add("spec.accepted", n_emit - 1)
+            total += self._emit_many(slot, req, out[slot, 1:1 + n_emit])
+        self._stat_observe("decode_tick_ms", dt * 1000.0)
+        # per token: the tick advanced each slot total/n tokens on average
+        self._stat_observe("tpot_ms", dt * 1000.0 * n / max(1, total))
+        self._stat_add("tokens_generated", total)
+        self._stat_set("tokens_per_sec", total / dt)
+        self._stat_add("spec.ticks", 1)
+        if self._spec_proposed:
+            self._stat_set("spec.acceptance_rate",
+                           self._spec_accepted / self._spec_proposed)
+        return n
+
+    def _emit_many(self, slot: int, req: GenerationRequest, toks) -> int:
+        """Deliver a spec tick's tokens in order, stopping at the first
+        finish (eos before the budgets, as :meth:`_maybe_finish`); the
+        tokens past it are dropped with the slot."""
+        emitted = 0
+        now = self._clock()
+        if req._t_last is not None:
+            self._stat_observe("intertoken_ms",
+                               (now - req._t_last) * 1000.0)
+        req._t_last = now
+        s = req.sampling
+        for tok in toks:
+            tok = int(tok)
+            req._emit(tok)
+            emitted += 1
+            if s.eos_token_id is not None and tok == int(s.eos_token_id):
+                self._release(slot, req, "stop")
+                break
+            if len(req.tokens) >= s.max_new_tokens \
+                    or req.seq_len >= self.config.max_seq:
+                self._release(slot, req, "length")
+                break
+        return emitted
+
+    def _plain_tick(self) -> int:
         t0 = self._clock()
         nxt, finished = self.decoder.decode_step(
             self.kv, self._params, self._finished, self._last,
@@ -402,9 +589,17 @@ class ContinuousBatcher:
         elif req.seq_len >= self.config.max_seq:
             self._release(slot, req, "length")
 
+    def _unpin_prefix(self, req: GenerationRequest):
+        """Drop the request's prefix-store pin, if any, as it leaves the
+        engine (every exit calls this): its entry may be evicted again."""
+        if req._prefix_entry is not None and self.prefix_store is not None:
+            self.prefix_store.unpin(req._prefix_entry)
+            req._prefix_entry = None
+
     def _release(self, slot: int, req: GenerationRequest, reason: str):
         del self._reqs[slot]
         self.kv.free(slot)
+        self._unpin_prefix(req)
         req._finish(reason)
         self._stat_add("completed", 1)
         self._stat_observe("request_latency_ms",
@@ -415,6 +610,7 @@ class ContinuousBatcher:
         future fails."""
         del self._reqs[slot]
         self.kv.free(slot)
+        self._unpin_prefix(req)
         req.fail(DeadlineExceeded(
             f"generation request {req.req_id} exceeded its "
             f"{req.deadline.seconds}s deadline after "
@@ -426,27 +622,54 @@ class ContinuousBatcher:
         for slot, req in list(self._reqs.items()):
             del self._reqs[slot]
             self.kv.free(slot)
+            self._unpin_prefix(req)
             req.fail(exc_factory(req))
 
     # -- warmup --------------------------------------------------------------
     def warmup(self):
-        """Run one prefill per bucket and one decode step through the real
-        buffers before serving: each is its program's first call, which
-        captures it on CUDA (and builds the kernels), so no request pays
-        a capture. Then reset the slot state in place."""
+        """Run one prefill per bucket (and with a prefix store one tail
+        prefill, under speculation one draft prefill), one decode step and
+        under speculation one spec step through the real buffers before
+        serving: each is its program's first call, which captures it on
+        CUDA (and builds the kernels), so no request pays a capture. Then
+        reset the slot state in place."""
         t0 = self._clock()
         samp = pack_sampling([SamplingParams()], self.device)
         slot0 = self._ids([0])
         for lp in self.config.prefill_buckets:
-            self.decoder.prefill(
-                self.kv, self._params,
-                torch.zeros((1, lp), dtype=torch.int32, device=self.device),
-                self._ids([lp]), slot0, self._finished, samp, self._gen)
+            zeros = torch.zeros((1, lp), dtype=torch.int32,
+                                device=self.device)
+            self.decoder.prefill(self.kv, self._params, zeros,
+                                 self._ids([lp]), slot0, self._finished,
+                                 samp, self._gen)
+            if self.prefix_store is not None:
+                # one program per tail bucket serves every reuse offset:
+                # the starts are a device input
+                self.decoder.tail_prefill(
+                    self.kv, self._params, zeros, self._ids([lp]),
+                    self._ids([0]), slot0, self._finished, samp, self._gen)
+            if self.spec is not None:
+                self.spec.draft_prefill(
+                    self.kv_draft, self._draft_params, zeros,
+                    self._ids([lp]), slot0, self._finished, samp)
         nxt, _ = self.decoder.decode_step(
             self.kv, self._params, self._finished, self._last,
             self._samp_vecs, self._gen)
         nxt.cpu()
         self._stat_set("warmup_decode_steps", 1)
+        if self.spec is not None:
+            # the spec step needs room for k+1 candidate rows: run it on
+            # zeroed lengths
+            self.kv.reset()
+            self.kv_draft.reset()
+            self._finished.zero_()
+            self._last.zero_()
+            _, _, out = self.spec.step(
+                self.kv, self.kv_draft, self._params, self._draft_params,
+                self._finished, self._last, self._samp_vecs, self._gen)
+            out.cpu()
+            self._stat_set("warmup_spec_steps", 1)
+            self.kv_draft.reset()
         self.kv.reset()
         self._finished.zero_()
         self._last.zero_()
@@ -456,18 +679,21 @@ class ContinuousBatcher:
 class LLMEngine(DrainableEngineBase):
     """submit()/generate()/drain() continuous-batching generation over one
     GPT model, on the model's device. Construction warms up (optionally)
-    and starts the worker thread."""
+    and starts the worker thread.
+
+    ``draft_model`` (a small GPT on the same device and vocab) serves
+    ``spec_k > 0``; ``prefix_store`` (slot layout only) shares one host
+    :class:`PrefixStore` between engines and turns prefix reuse on even
+    without ``prefix_cache``; a paged engine builds its own page-sharing
+    store from ``prefix_cache``."""
 
     def __init__(self, model, config: Optional[LLMEngineConfig] = None,
                  registry: Optional[StatRegistry] = None,
                  cache: Optional[ExecutableCache] = None,
-                 draft_model=None):
+                 draft_model=None,
+                 prefix_store: Optional[PrefixStore] = None):
         self._config = config or LLMEngineConfig()
         cfg = self._config
-        if cfg.spec_k > 0 or draft_model is not None:
-            raise _later("speculative decoding (spec_k > 0)", "A6")
-        if cfg.prefix_cache:
-            raise _later("prefix caching (prefix_cache=True)", "A6/A7")
         if cfg.measure_mfu:
             raise _later("measure_mfu", "A8")
         self._init_serving_base(registry, cfg.stat_prefix)
@@ -475,19 +701,48 @@ class LLMEngine(DrainableEngineBase):
         self._cache = cache if cache is not None else default_cache()
         if cfg.kv_layout == "paged":
             # lazy import: paged/batcher imports this module's classes
-            from .paged import GPTPagedDecoder, PagedBatcher
+            from .paged import (GPTPagedDecoder, GPTPagedSpecDecoder,
+                                PagedBatcher)
+            if prefix_store is not None:
+                raise NotImplementedError(
+                    "paged engines share prefix pages inside their own "
+                    "arena; an external PrefixStore cannot be attached "
+                    "- set prefix_cache=True instead")
             self._decoder = GPTPagedDecoder(
                 model, max_top_k=cfg.max_top_k,
                 weight_dtype=cfg.weight_dtype, kv_dtype=cfg.kv_dtype,
                 page_size=cfg.page_size, num_pages=cfg.num_pages,
                 attn_impl=cfg.paged_attn_impl, exec_cache=self._cache)
-            self._batcher = PagedBatcher(self._decoder, cfg, self._registry)
+            spec_decoder = None
+            if cfg.spec_k > 0:
+                spec_decoder = GPTPagedSpecDecoder(
+                    self._decoder, _require_draft(draft_model),
+                    k=cfg.spec_k, exec_cache=self._cache)
+            self._batcher = PagedBatcher(self._decoder, cfg, self._registry,
+                                         spec_decoder=spec_decoder)
+            # the batcher builds its page-sharing store (it needs the
+            # arena); the engine shows it as it shows the host store
+            self._prefix_store = self._batcher.prefix_store
         else:
             self._decoder = GPTStaticDecoder(
                 model, max_top_k=cfg.max_top_k, exec_cache=self._cache,
                 weight_dtype=cfg.weight_dtype, kv_dtype=cfg.kv_dtype)
-            self._batcher = ContinuousBatcher(self._decoder, cfg,
-                                              self._registry)
+            # an explicit store (engines sharing one) turns reuse on even
+            # when the config's flag is off
+            self._prefix_store = prefix_store
+            if self._prefix_store is None and cfg.prefix_cache:
+                self._prefix_store = PrefixStore(
+                    capacity_bytes=int(cfg.prefix_capacity_mb * (1 << 20)),
+                    block_tokens=cfg.prefix_block, registry=self._registry,
+                    stat_prefix=f"{cfg.stat_prefix}.prefix")
+            spec_decoder = None
+            if cfg.spec_k > 0:
+                spec_decoder = GPTSpecDecoder(
+                    self._decoder, _require_draft(draft_model),
+                    k=cfg.spec_k, exec_cache=self._cache)
+            self._batcher = ContinuousBatcher(
+                self._decoder, cfg, self._registry,
+                prefix_store=self._prefix_store, spec_decoder=spec_decoder)
         self._queue = BatchQueue(max_size=cfg.max_queue)
         if cfg.warmup:
             self._batcher.warmup()
@@ -509,6 +764,12 @@ class LLMEngine(DrainableEngineBase):
     @property
     def decoder(self) -> GPTDecoderBase:
         return self._decoder
+
+    @property
+    def prefix_store(self):
+        """The engine's prefix store (a host :class:`PrefixStore` on the
+        slot layout, a ``PagedPrefixStore`` on the paged one), or None."""
+        return self._prefix_store
 
     def submit(self, prompt, *, max_new_tokens: Optional[int] = None,
                do_sample: bool = False, temperature: float = 1.0,
@@ -590,8 +851,10 @@ class LLMEngine(DrainableEngineBase):
     def stats(self) -> dict:
         """Scalar stats, histogram summaries, slot occupancy, the KV
         buffers' device bytes and the bytes of the memory pool their
-        graphs share (0 on the CPU), the executable cache's counters, and
-        page occupancy (paged layout; None for the slot layout)."""
+        graphs share (0 on the CPU), the executable cache's counters, the
+        speculation depth, the prefix store's stats (None without one),
+        and page occupancy with the COW splits (paged layout; None for the
+        slot layout)."""
         pre = self._prefix + "."
         kv = self._batcher.kv
         paged = self._config.kv_layout == "paged"
@@ -609,8 +872,12 @@ class LLMEngine(DrainableEngineBase):
             "kv_bytes": kv.kv_bytes(),
             "graph_pool_bytes": kv.graph_pool.nbytes(),
             "executable_cache": self._cache.stats(),
+            "spec_k": self._config.spec_k,
+            "prefix_store": (self._prefix_store.stats()
+                             if self._prefix_store is not None else None),
             "pages": ({"total": kv.pool.num_pages,
                        "free": kv.pool.free_pages,
+                       "cow_splits": kv.cow_splits,
                        "pending": len(self._batcher._pending),
                        "kv_bytes": kv.kv_bytes()} if paged else None),
         }
@@ -651,3 +918,11 @@ class LLMEngine(DrainableEngineBase):
             raise
         finally:
             self._stopped.set()
+
+
+def _require_draft(draft_model):
+    if draft_model is None:
+        raise ValueError(
+            "spec_k > 0 requires a draft_model (the small GPT that "
+            "proposes candidate tokens)")
+    return draft_model

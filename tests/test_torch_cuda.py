@@ -3,7 +3,9 @@ version (B1-B3 in float32, bfloat16 and float16), the wrappers' refusals
 (no fallback on a CUDA tensor), the GPT forward, an O1 bfloat16 train step
 and the paged engine through the kernels at a small size, ``generate`` in
 its three cache modes and the default static-slot engine against the CPU,
-and the YOLOv3 detection path (greedy NMS on the card against the CPU).
+the YOLOv3 detection path (greedy NMS on the card against the CPU), and
+the engine's prefix reuse and speculative decode, graphed against eager,
+with B4 over shared pages.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither jax nor the JAX package, so on a machine with a card but
@@ -999,7 +1001,8 @@ def test_yolov3_served_on_the_card_launches_nms(cuda):
 
 # -- compiled decode: CUDA graphs against the eager lane -----------------------
 
-def _serve_lanes(model, prompts, new=8, one_at_a_time=False, **cfg):
+def _serve_lanes(model, prompts, new=8, one_at_a_time=False, draft=None,
+                 **cfg):
     """``{lane: (token lists, engine)}`` of one engine config, graphed
     (the default) and on the eager lane (``disable_graphs``). With
     ``one_at_a_time`` each request waits for the one before, so both
@@ -1014,7 +1017,7 @@ def _serve_lanes(model, prompts, new=8, one_at_a_time=False, **cfg):
         with ctx:
             eng = LLMEngine(model, LLMEngineConfig(
                 num_slots=4, max_seq=64, prefill_buckets=(8, 16), **cfg),
-                cache=ExecutableCache())
+                cache=ExecutableCache(), draft_model=draft)
             try:
                 if one_at_a_time:
                     toks = [eng.submit(p, max_new_tokens=new,
@@ -1115,6 +1118,99 @@ def test_graphed_generate_gives_the_eager_lanes_tokens(cuda, strategy):
         np.testing.assert_array_equal(first, ref)
 
 
+_LAYOUTS = {"slot": {}, "paged": {"kv_layout": "paged", "page_size": 4,
+                                  "paged_attn_impl": "kernel"}}
+
+
+@pytest.mark.parametrize("draft", ["self", "small"])
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_graphed_spec_engine_gives_the_eager_lanes_tokens(cuda, layout,
+                                                          draft):
+    """Speculative decode (k = 3) replays its captured spec step (one
+    capture, a replay a spec tick) and gives the eager lane's greedy
+    tokens exactly, on both layouts; the target as its own draft accepts
+    (nearly) every proposal, and the paged lane's B4 runs only in the
+    plain steps (warm-up and fallback ticks)."""
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    small = GPTForCausalLM(GPTConfig(**MODEL).draft(2, num_layers=1),
+                           device=cuda, seed=1).eval()
+    rng = np.random.default_rng(3)
+    prompts = [(rng.integers(0, MODEL["vocab_size"], n).tolist(), {})
+               for n in (5, 9, 14, 16)]
+    before = tpa.paged_attention.launches
+    lanes = _serve_lanes(model, prompts, new=12, spec_k=3,
+                         draft=model if draft == "self" else small,
+                         **_LAYOUTS[layout])
+    (graphed, eng), (eager, eager_eng) = lanes["graphed"], lanes["eager"]
+    assert graphed == eager
+    assert all(len(t) == 12 for t in graphed)
+    stats = eng.stats()["stats"]
+    fn = eng._batcher.spec.spec_step_fn(4, 64)
+    assert fn.trace_counter["traces"] == 1
+    assert fn.replays == stats["serving.llm.spec.ticks"] > 0
+    if draft == "self":
+        assert stats["serving.llm.spec.acceptance_rate"] >= 0.9
+    launched = tpa.paged_attention.launches - before
+    plain = sum(e.stats()["stats"].get("serving.llm.decode_ticks", 0)
+                + e.stats()["stats"]["serving.llm.warmup_decode_steps"]
+                for e in (eng, eager_eng))
+    assert launched == (MODEL["num_layers"] * plain if layout == "paged"
+                        else 0)
+
+
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_graphed_tail_prefill_gives_the_eager_lanes_tokens(cuda, layout):
+    """Prefix reuse on the card: the requests sharing a 12-token head hit
+    the store and prefill only their tails through the captured tail
+    prefill (one capture a bucket), and give the eager lane's tokens;
+    an aligned paged hit copies no byte."""
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    rng = np.random.default_rng(4)
+    head = rng.integers(0, MODEL["vocab_size"], 12).tolist()
+    prompts = [(head + rng.integers(0, MODEL["vocab_size"], n).tolist(), {})
+               for n in (1, 3, 2, 4)]
+    lanes = _serve_lanes(model, prompts, one_at_a_time=True,
+                         prefix_cache=True, prefix_block=4,
+                         **_LAYOUTS[layout])
+    (graphed, eng), (eager, _) = lanes["graphed"], lanes["eager"]
+    assert graphed == eager
+    stats = eng.stats()
+    assert stats["stats"]["serving.llm.prefix.hits"] == 3
+    assert [eng.decoder.tail_prefill_fn(1, b).trace_counter["traces"]
+            for b in (8, 16)] == [1, 1]
+    if layout == "paged":
+        assert stats["prefix_store"]["bytes_copied"] == 0
+        assert stats["prefix_store"]["bytes_shared"] > 0
+
+
+def test_paged_kernel_over_shared_pages_matches_plain(cuda):
+    """B4 on a block table whose rows share pages (a cached head under
+    three sequences, each with its own last page), at positions inside
+    and at the end of the shared head: within 1e-4 of the plain
+    version."""
+    rng = np.random.default_rng(21)
+    page, h, d, n_pages = 16, 4, 32, 40
+    shape = (n_pages + 1, 2, page, h, d)
+    ak = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        cuda)
+    av = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        cuda)
+    bt = np.full((4, 8), n_pages, np.int32)
+    bt[:3, :5] = [3, 7, 1, 30, 12]                # the shared head
+    bt[:3, 5] = [20, 21, 22]                      # each its own page
+    bt[3, :2] = [7, 1]                            # a fourth shares two
+    pos = np.array([80, 95, 64, 20], np.int32)
+    q = torch.from_numpy(rng.standard_normal((4, h, d),
+                                             dtype=np.float32)).to(cuda)
+    bt_t, pos_t = torch.from_numpy(bt).to(cuda), torch.from_numpy(pos).to(
+        cuda)
+    before = tpa.paged_attention.launches
+    out = tpa.paged_attention(q, ak[:, 1], av[:, 1], bt_t, pos_t)
+    ref = tpa.paged_attention_plain(q, ak[:, 1], av[:, 1], bt_t, pos_t)
+    assert tpa.paged_attention.launches == before + 1
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
 def _graphed_logits(dec, kv, params, last, attn_impl=None):
     """One decode step's logits through a captured graph (its first call,
     the warm-up, and a replay) on the cache's current state."""
@@ -1178,6 +1274,46 @@ class _State:
     def __init__(self, device):
         from paddle_tpu_torch.core import graphs
         self.graph_pool = graphs.GraphPool(device)
+
+
+def test_capture_holds_off_collecting_a_dropped_graph(cuda):
+    """A dropped program's graph that lives on in a reference cycle (as
+    an engine and its worker thread hold one) is not collected inside
+    another capture, where destroying it would invalidate that capture:
+    here the cycle loses its last outside reference while the second
+    program is being captured, with the collector set to run at every
+    allocation, and the capture and its replay still hold."""
+    import gc
+    from paddle_tpu_torch.core import graphs
+    old, old_state = graphs.Program(lambda params, state, x: x * 2), \
+        _State(cuda)
+    old(None, old_state, torch.ones(4, device=cuda))
+    assert old.trace_counter["traces"] == 1
+    cycle = [old, old_state]
+    cycle.append(cycle)
+    holder = {"cycle": cycle}
+    del old, old_state, cycle
+    calls = []
+
+    def raw(params, state, x):
+        calls.append(1)
+        if len(calls) == 2:                  # the capture, not the warm-up
+            holder.clear()
+            junk = [[] for _ in range(100)]
+            del junk
+        return x + 1
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        new, state = graphs.Program(raw), _State(cuda)
+        new(None, state, torch.ones(4, device=cuda))
+        out = new(None, state, torch.full((4,), 2.0, device=cuda))
+    finally:
+        gc.set_threshold(*thresholds)
+    assert new.trace_counter["traces"] == 1 and new.replays == 1
+    assert torch.equal(out, torch.full((4,), 3.0, device=cuda))
+    assert gc.isenabled()
 
 
 def test_captured_paged_kernel_replays_match_plain(cuda):

@@ -94,14 +94,34 @@ def _tiny_model():
     return GPTForCausalLM(cfg, device="cpu").eval()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(kv_layout="slot", kv_dtype="int8"),
-    dict(kv_layout="paged", page_size=4, spec_k=2),
-    dict(kv_layout="paged", page_size=4, prefix_cache=True),
-    dict(kv_layout="paged", page_size=4, kv_dtype="int8"),
-    dict(kv_layout="paged", page_size=4, weight_dtype="int8"),
-], ids=["slot", "spec", "prefix", "int8_kv", "int8_weights"])
-def test_later_slice_knobs_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLMEngine(_tiny_model(), LLMEngineConfig(max_seq=16, warmup=False,
-                                                 **kw))
+@pytest.mark.parametrize("kw,engine_kw,exc,match", [
+    (dict(kv_layout="slot", kv_dtype="int8"), {}, NotImplementedError,
+     "queue A7"),
+    # prefix reuse and speculation are ported: the reference's own gates
+    # remain, a spec engine without a draft and a paged engine given a
+    # host store, and the config's refusal of either knob over int8 KV
+    (dict(kv_layout="paged", page_size=4, spec_k=2), {}, ValueError,
+     "draft_model"),
+    (dict(kv_layout="paged", page_size=4, prefix_cache=True),
+     dict(prefix_store="store"), NotImplementedError, "prefix_cache=True"),
+    (dict(kv_layout="paged", page_size=4, kv_dtype="int8"), {},
+     NotImplementedError, "queue A7"),
+    (dict(kv_layout="paged", page_size=4, weight_dtype="int8"), {},
+     NotImplementedError, "queue A7"),
+    (dict(kv_layout="slot", spec_k=2), {}, ValueError, "draft_model"),
+    (dict(kv_layout="slot", kv_dtype="int8", prefix_cache=True), {},
+     ValueError, "prefix_cache requires a dense KV cache"),
+    (dict(kv_layout="paged", page_size=4, kv_dtype="int8", spec_k=2),
+     dict(draft_model="draft"), ValueError,
+     "speculative decoding .* requires a dense KV cache"),
+    (dict(measure_mfu=True), {}, NotImplementedError, "queue A8"),
+], ids=["slot", "spec", "prefix", "int8_kv", "int8_weights",
+        "slot_spec_without_draft", "prefix_int8", "spec_int8", "mfu"])
+def test_later_slice_knobs_raise(kw, engine_kw, exc, match):
+    from paddle_tpu_torch.serving.llm import PrefixStore
+    model = _tiny_model()
+    objs = {"store": PrefixStore(), "draft": model}
+    engine_kw = {k: objs[v] for k, v in engine_kw.items()}
+    with pytest.raises(exc, match=match):
+        LLMEngine(model, LLMEngineConfig(max_seq=16, warmup=False, **kw),
+                  **engine_kw)

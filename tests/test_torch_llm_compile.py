@@ -365,3 +365,25 @@ def test_engine_warmup_and_ticks_keep_static_buffers(models):
     bound = next(iter(_decode_fn(eng)._bound.values()))[b._gen]
     assert bound.inputs[0] is b._finished and bound.inputs[1] is b._last
     assert bound.inputs[2] is b._samp_vecs
+
+
+def test_collector_held_nests_and_restores_the_collector():
+    """Captures hold Python's cyclic collector off (a graph collected
+    inside another capture would invalidate it): nested holds keep it off
+    until the outermost ends, which restores what it found."""
+    import gc
+    from paddle_tpu_torch.core import graphs
+    assert gc.isenabled()
+    with graphs._collector_held():
+        assert not gc.isenabled()
+        with graphs._collector_held():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with graphs._collector_held():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

@@ -138,9 +138,17 @@ def test_cache_later_slice_knobs_raise(kw, item):
 
 
 def test_cache_prefix_export_raises_naming_a6():
+    """The prefix export (queue A6, ported): a slot's first rows as host
+    ``[L, n, H, D]`` arrays, and a ValueError for a slot or a row count
+    out of range."""
     kv = StaticKVCache(2, 1, 8, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        kv.host_slot_kv(0, 4)
+    kv.k[1, 0, :3] = 2.0
+    k, v = kv.host_slot_kv(1, 4)
+    assert k.shape == v.shape == (1, 4, 1, 4)
+    assert k[0, :3].min() == 2.0 and k[0, 3].max() == 0.0
+    for slot, n in ((2, 4), (-1, 4), (0, 0), (0, 9)):
+        with pytest.raises(ValueError, match="prefix export"):
+            kv.host_slot_kv(slot, n)
 
 
 def _rand(seed, *shape):
@@ -303,12 +311,16 @@ def test_prefill_and_decode_match_jax_decoder(models):
 
 
 def test_decoder_knobs_of_later_slices_raise(models):
+    """The A10 mesh and A7 int8 raises stay; prefix reuse (A6) is ported,
+    and the paged decoder keeps the reference's refusal of a bulk prefix
+    insert (it shares pages instead)."""
     _, pm = models
     dec = GPTStaticDecoder(pm)
-    with pytest.raises(NotImplementedError, match="A6"):
-        dec.tail_prefill()
-    with pytest.raises(NotImplementedError, match="A6"):
-        dec.insert_prefix()
+    assert dec.tail_prefill_fn(1, 8) is dec.tail_prefill_fn(1, 8)
+    with pytest.raises(NotImplementedError, match="block table"):
+        GPTPagedDecoder(pm, page_size=4).insert_prefix(None, None, None, 0)
+    with pytest.raises(NotImplementedError, match="A7"):
+        GPTStaticDecoder(pm, kv_dtype="int8")
     with pytest.raises(NotImplementedError, match="A10"):
         GPTStaticDecoder(pm, mesh=object())
     with pytest.raises(ValueError, match="positions"):
