@@ -206,7 +206,24 @@ Phases (any failure raises and the script exits non-zero):
    6a; held: spec tokens equal the plain engines' under the near-tie rule
    (the lanes' difference measured as the plain step chained over k+1
    tokens against the verify's logits), graphed equal to eager, and the
-   target as its own draft accepting at least 0.9.
+   target as its own draft accepting at least 0.9;
+19. int8 serving on the same model: phase 4's 8 requests through the
+   slot and the paged engine with int8 weights (fp32 KV), int8 KV (fp32
+   weights) and both, graphed, and both on the eager lane (tokens equal
+   the graphed lane's), then int8 weights with prefix reuse on phase
+   17's first 12 chat requests (paged); printed for each: tokens/s, tick,
+   TTFT, the decode step's device ms replayed from its program, kv_bytes
+   and its ratio to fp32's, KV bytes a token, the parameter dict's bytes
+   against fp32's, the slot lane's dequant share of the step, and the
+   decode step's projection GEMMs int8 against fp32; held: the
+   int8-weight lanes' tokens equal an fp32 engine's over the dequantized
+   weights ``q * s`` under the near-tie rule (the lanes' measured logit
+   difference), the KV rows of one int8 decode step within 2% of the
+   fp32 range, int8 KV at least 1.8x fewer bytes, B4 24 launches a step
+   over dense pages and none over int8 pages (the gather lane), and
+   ``Int8Linear``'s int8 x int8 lane (``torch._int_mm``, padded) equal to
+   its exact int32 product at BERT-base's FFN shape and an odd shape,
+   timed against the weight-only lane.
 
 Each model, its programs and its cache are released between phases
 (``release_memory``): GPT-3 1.3B, ResNet-50, BERT-base, YOLOv3 and the
@@ -226,11 +243,12 @@ before phases 12 and 13's training paths and read after each (no kernel
 of the port runs on either), just before phase 13's kernel checks and
 read after them, just before phase 14 and read after it, just before
 phase 15 and read after it, just before each of phase 16's four
-lanes and read after it, and just before phase 17's engine runs and
-phase 18's and read after each (B4 there runs in the plain paged steps
-only, 24 launches a step; the prefills, tail prefills and the verify
-attend densely, as the JAX package's, so B1 launches nothing on
-either). The last two lines are a
+lanes and read after it, and just before phase 17's engine runs,
+phase 18's and phase 19's and read after each (B4 there runs in the plain
+paged steps only, 24 launches a step; in phase 19 in the paged runs over
+dense pages, int8 weights included, and in none over int8 pages; the
+prefills, tail prefills and the verify attend densely, as the JAX
+package's, so B1 launches nothing on any of them). The last two lines are a
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -4061,6 +4079,420 @@ def run_spec_phase(torch, model, dev, smi, prompts, plain, reset_counters,
     return out, launched
 
 
+# -- phase 19: int8 serving (GPT-3 1.3B) -------------------------------------
+
+#: (name, weight_dtype, kv_dtype) of phase 19's engines
+INT8_COMBOS = (("w8", "int8", "float32"), ("kv8", "float32", "int8"),
+               ("w8kv8", "int8", "int8"))
+#: phase 17's chat traffic, cut to its first requests, for prefix reuse
+#: over int8 weights
+INT8_PREFIX_REQUESTS = 12
+#: Int8Linear's int8 x int8 lane at BERT-base's FFN (M = 256 x 128
+#: tokens) and at an odd shape that needs padding
+INT8_LINEAR_SHAPES = {"bert_ffn": (256 * 128, 768, 3072),
+                      "odd": (37, 100, 130)}
+
+
+def _int8_layout(layout):
+    return (dict(kv_layout="paged", page_size=16) if layout == "paged"
+            else dict(kv_layout="slot"))
+
+
+def _int8_decoder(model, layout, w, kvd):
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    from paddle_tpu_torch.serving.llm.paged import GPTPagedDecoder
+    if layout == "paged":
+        return GPTPagedDecoder(model, page_size=16, weight_dtype=w,
+                               kv_dtype=kvd)
+    return GPTStaticDecoder(model, weight_dtype=w, kv_dtype=kvd)
+
+
+def _tree_nbytes(params):
+    from paddle_tpu_torch.core.graphs import _leaves
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def replayed_ms(torch, fn, dev):
+    """Device ms of ``fn()`` captured once as a CUDA graph and replayed
+    (for work of many small launches, which the host would not queue
+    behind a spin one by one)."""
+    from paddle_tpu_torch.core import graphs
+    prog = graphs.Program(lambda params, state: fn())
+    state = _GraphState(graphs, dev)
+    with torch.no_grad():
+        return time_ms(lambda: prog(None, state), iters=10, warmup=2,
+                       spin=True)
+
+
+def int8_step_times(torch, model, dev, prompts, cfg, layout, w, kvd):
+    """Phase 19, off the path: on the 8 prompts prefilled into a fresh
+    cache, the decode step's device ms replayed from its program; for
+    int8 KV on the slot layout also the device ms of dequantizing every
+    layer's K and V view (the step's own dequant, replayed alone from a
+    graph) and its share of the step."""
+    from paddle_tpu_torch.serving.llm.decode import (SamplingParams,
+                                                     pack_sampling)
+    from paddle_tpu_torch.serving.llm.kvcache import (dequantize_kv,
+                                                      kv_layer_view)
+    dec = _int8_decoder(model, layout, w, kvd)
+    kv, params = dec.new_kv(8, cfg["max_position_embeddings"]), dec.params()
+    last = _prefill_slots(torch, dec, kv, params, prompts, extra=24)
+    fin = torch.zeros(8, dtype=torch.bool, device=dev)
+    samp = pack_sampling([SamplingParams()] * 8, dev)
+    out = {"step_ms": time_ms(lambda: dec.decode_step(
+        kv, params, fin, last, samp, None), iters=10, warmup=2, spin=True)}
+    if kvd == "int8" and layout == "slot":
+        def dequant():
+            return [dequantize_kv(kv_layer_view(buf, li), torch.float32)
+                    for li in range(cfg["num_layers"])
+                    for buf in (kv.k, kv.v)][-1]
+        out["dequant_ms"] = replayed_ms(torch, dequant, dev)
+        out["dequant_share"] = out["dequant_ms"] / out["step_ms"]
+    del kv
+    release_memory(torch)
+    return out
+
+
+def int8_gemm_times(torch, model, dev):
+    """Phase 19, off the path: the decode step's six projection GEMMs of
+    every layer at M = 8 (one token a slot), int8 codes through ``_mm``
+    (the codes cast to fp32, the product scaled) against the fp32
+    weights, device ms of each set replayed from a CUDA graph; and the
+    parameter dicts' bytes."""
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    from paddle_tpu_torch.serving.llm.decode import _QUANT_WEIGHT_KEYS, _mm
+    p8 = GPTStaticDecoder(model, weight_dtype="int8").params()
+    p32 = GPTStaticDecoder(model).params()
+    xs = {k: torch.randn(8, p32["layers"][0][k].shape[0], device=dev)
+          for k in _QUANT_WEIGHT_KEYS}
+
+    def gemms(p):
+        return [_mm(xs[k], lp[k]) for lp in p["layers"]
+                for k in _QUANT_WEIGHT_KEYS][-1]
+
+    out = {"gemm_int8_ms": replayed_ms(torch, lambda: gemms(p8), dev),
+           "gemm_fp32_ms": replayed_ms(torch, lambda: gemms(p32), dev)}
+    out["params_bytes_int8"] = _tree_nbytes(p8)
+    out["params_bytes_fp32"] = _tree_nbytes(p32)
+    out["params_ratio"] = out["params_bytes_fp32"] / out["params_bytes_int8"]
+    del p8
+    release_memory(torch)
+    return out
+
+
+def int8_kv_error(torch, model, dev, prompts, cfg):
+    """Phase 19, off the path: one decode step from the same state with
+    fp32 KV and with int8 KV (the fp32 cache after the 8 prefills,
+    quantized row by row into the int8 cache): the largest difference of
+    the dequantized int8 rows from the fp32 rows over every valid row of
+    every layer (the new row included), as a share of the fp32 rows'
+    range (the JAX package's bar is 2%)."""
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    from paddle_tpu_torch.serving.llm.kvcache import (dequantize_kv,
+                                                      kv_layer_view,
+                                                      quantize_kv_rows)
+    d32 = GPTStaticDecoder(model)
+    d8 = GPTStaticDecoder(model, kv_dtype="int8")
+    max_seq = cfg["max_position_embeddings"]
+    k32, k8 = d32.new_kv(8, max_seq), d8.new_kv(8, max_seq)
+    params = d32.params()
+    last = _prefill_slots(torch, d32, k32, params, prompts)
+    with torch.no_grad():
+        for b32, b8 in ((k32.k, k8.k), (k32.v, k8.v)):
+            for li in range(cfg["num_layers"]):
+                q = quantize_kv_rows(b32[:, li])
+                b8["q"][:, li].copy_(q["q"])
+                b8["s"][:, li].copy_(q["s"])
+        k8.lengths.copy_(k32.lengths)
+        d32.decode_logits(k32, params, last)
+        d8.decode_logits(k8, params, last)
+        rows = torch.arange(max_seq, device=dev)[None, :, None, None]
+        valid = rows <= k32.lengths.long()[:, None, None, None]
+        err = rng = 0.0
+        for b32, b8 in ((k32.k, k8.k), (k32.v, k8.v)):
+            for li in range(cfg["num_layers"]):
+                ref = kv_layer_view(b32, li)
+                got = dequantize_kv(kv_layer_view(b8, li))
+                err = max(err, float(((got - ref).abs() * valid).max()))
+                rng = max(rng, float((ref.abs() * valid).max()))
+    del k32, k8
+    release_memory(torch)
+    return {"kv_row_err": err / rng, "kv_row_err_abs": err,
+            "kv_fp32_range": rng}
+
+
+def _dequantized_twin(torch, cfg, dev):
+    """GPT-3 1.3B with the phase's weights (seed 0) whose six projection
+    weights of every layer are the int8 lane's dequantized ``q * s``."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.quantization import quantize_weight_int8
+    twin = GPTForCausalLM(GPTConfig(**cfg, attn_impl="flash"), device=dev,
+                          seed=0).eval()
+    with torch.no_grad():
+        for lyr in twin.gpt.decoder.layers:
+            a = lyr.self_attn
+            for lin in (a.q_proj, a.k_proj, a.v_proj, a.out_proj,
+                        lyr.linear1, lyr.linear2):
+                q, s = quantize_weight_int8(lin.weight, quant_axis=1)
+                lin.weight.copy_(q.float() * s)
+    return twin
+
+
+def int8_weight_noise(torch, model, twin, dev, prompts, cfg):
+    """Phase 19, off the path: the lanes' measured logit difference, int8
+    weights against the dequantized fp32 twin, on the 8 prompts: the
+    larger of the first tokens' logits (each prefill) and of the next
+    decode step's (each lane over its own cache, the same last tokens)."""
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    from paddle_tpu_torch.serving.llm.decode import prefill_forward
+    d8 = GPTStaticDecoder(model, weight_dtype="int8")
+    dd = GPTStaticDecoder(twin)
+    max_seq = cfg["max_position_embeddings"]
+    k8, kd = d8.new_kv(8, max_seq), dd.new_kv(8, max_seq)
+    p8, pd = d8.params(), dd.params()
+    first = 0.0
+    with torch.no_grad():
+        for p in prompts:
+            ids = torch.tensor([p], dtype=torch.int32, device=dev)
+            n = torch.tensor([len(p)], dtype=torch.int32, device=dev)
+            a = prefill_forward(d8.spec, p8, ids, n)[0]
+            b = prefill_forward(dd.spec, pd, ids, n)[0]
+            first = max(first, float((a - b).abs().max()))
+        _prefill_slots(torch, d8, k8, p8, prompts)
+        last = _prefill_slots(torch, dd, kd, pd, prompts)
+        step = float((d8.decode_logits(k8, p8, last)
+                      - dd.decode_logits(kd, pd, last)).abs().max())
+    del k8, kd
+    release_memory(torch)
+    return {"logit_diff_first": first, "logit_diff_next_step": step,
+            "noise": max(first, step)}
+
+
+def int8_linear_checks(torch, dev):
+    """Phase 19, off the path: ``Int8Linear`` with a calibrated
+    activation scale at BERT-base's FFN shape and at an odd shape: its
+    int32 product (``torch._int_mm``, padded where the shape needs it)
+    against the exact product (float64 on the card), and its output
+    against the same rescale of that exact product, both bitwise; device
+    ms of the int8 x int8 lane, the weight-only lane and an fp32
+    ``x @ W``."""
+    from paddle_tpu_torch.quantization import (Int8Linear, int8_matmul,
+                                               int8_matmul_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    out = {}
+    for name, (m, k, n) in INT8_LINEAR_SHAPES.items():
+        w = torch.randn(k, n, generator=gen, device=dev) * 0.05
+        x = torch.randn(m, k, generator=gen, device=dev)
+        lin = Int8Linear.from_float(w, act_scale=float(x.abs().max()))
+        wonly = Int8Linear.from_float(w)
+        sa = max(lin._act_scale, 1e-8) / 127.0
+        with torch.no_grad():
+            aq = torch.clamp(torch.round(x / sa), -127.0, 127.0).to(
+                torch.int8)
+            acc = int8_matmul(aq, lin.weight_q)
+            exact = int8_matmul_plain(aq, lin.weight_q)
+            y = lin(x)
+            row = {"product_equal": bool(torch.equal(acc, exact)),
+                   "output_equal": bool(torch.equal(
+                       y, exact.float() * (sa * lin.w_scale))),
+                   "int8_ms": time_ms(lambda: lin(x), iters=10, warmup=2,
+                                      spin=True),
+                   "weight_only_ms": time_ms(lambda: wonly(x), iters=10,
+                                             warmup=2, spin=True),
+                   "fp32_ms": time_ms(lambda: x @ w, iters=10, warmup=2,
+                                      spin=True),
+                   "max_abs_err_vs_fp32": float((y - x @ w).abs().max())}
+        log(f"Int8Linear {name} [{m}, {k}] x [{k}, {n}]: int32 product "
+            f"equal to the exact one {row['product_equal']}, output equal "
+            f"to its plain rescale {row['output_equal']}; device ms int8 x "
+            f"int8 {row['int8_ms']:.4f}, weight-only "
+            f"{row['weight_only_ms']:.4f}, fp32 x @ W {row['fp32_ms']:.4f}; max |int8 - fp32| "
+            f"{row['max_abs_err_vs_fp32']:.3e}")
+        if not (row["product_equal"] and row["output_equal"]):
+            raise RuntimeError(f"Int8Linear {name}: the int8 x int8 lane "
+                               f"differs from its int32 plain version")
+        out[name] = row
+    return out
+
+
+def run_int8_phase(torch, model, pa_mod, dev, smi, prompts, cfg,
+                   reset_counters, read_counters):
+    """Phase 19: phase 4's 8 requests through the slot and the paged
+    engine with int8 weights, int8 KV and both (graphed), both int8 on
+    the eager lane, and int8 weights with prefix reuse on the first
+    requests of phase 17's chat traffic (paged), the launch counts read
+    over those runs alone; then, off the path, the step and GEMM device
+    times, the dequant's share, the KV-row error, the dequantized-fp32
+    twin's tokens and the holds. Returns the phase's numbers and its
+    launches."""
+    n_layers = cfg["num_layers"]
+    base = dict(num_slots=8, max_seq=cfg["max_position_embeddings"],
+                seed=0)
+    runs = {}
+    reset_counters()
+    b4_want = 0
+    for layout in ("slot", "paged"):
+        for name, w, kvd in INT8_COMBOS:
+            lanes = ("graphed", "eager") if name == "w8kv8" else ("graphed",)
+            for lane in lanes:
+                before = pa_mod.paged_attention.launches
+                run = _engine_run(torch, model, dict(
+                    base, weight_dtype=w, kv_dtype=kvd,
+                    **_int8_layout(layout)), prompts, 32,
+                    eager=lane == "eager")
+                st = run["stats"]["stats"]
+                steps = (st.get("serving.llm.decode_ticks", 0)
+                         + st.get("serving.llm.warmup_decode_steps", 0))
+                run["b4"] = pa_mod.paged_attention.launches - before
+                run["steps"] = steps
+                want = n_layers * steps if (layout == "paged"
+                                            and kvd == "float32") else 0
+                if run["b4"] != want:
+                    raise RuntimeError(
+                        f"phase 19 {layout} {name} {lane}: B4 launched "
+                        f"{run['b4']} times over {steps} steps, not {want}")
+                b4_want += want
+                run["attn_impl"] = getattr(run["engine"].decoder, "attn_impl",
+                                           "slot")
+                run["engine"] = None
+                release_memory(torch)
+                runs[(layout, name, lane)] = run
+    traffic = prefix_traffic(cfg["vocab_size"])[:INT8_PREFIX_REQUESTS]
+    before = pa_mod.paged_attention.launches
+    pre = _engine_run(torch, model, dict(
+        base, weight_dtype="int8", prefix_cache=True,
+        prefill_buckets=PREFIX_BUCKETS, num_pages=PREFIX_PAGES,
+        **_int8_layout("paged")), traffic, PREFIX_NEW)
+    pst = pre["stats"]["stats"]
+    pre_steps = (pst.get("serving.llm.decode_ticks", 0)
+                 + pst.get("serving.llm.warmup_decode_steps", 0))
+    pre["b4"] = pa_mod.paged_attention.launches - before
+    if pre["b4"] != n_layers * pre_steps:
+        raise RuntimeError(f"phase 19 prefix: B4 launched {pre['b4']} "
+                           f"times over {pre_steps} steps")
+    b4_want += n_layers * pre_steps
+    pre["engine"] = None
+    release_memory(torch)
+    launched = read_counters()
+    log(f"phase 19 path launches: {launched} (B4 expected {b4_want}: 24 a "
+        f"step in the paged runs over dense pages, 0 over int8 pages, "
+        f"which take the gather lane)")
+    if launched["paged_attention"] != b4_want:
+        raise RuntimeError(f"phase 19: B4 launched "
+                           f"{launched['paged_attention']} times, not "
+                           f"{b4_want}")
+    out = {"b4_steps": b4_want // n_layers}
+    hits = pst.get("serving.llm.prefix.hits", 0)
+    misses = pst.get("serving.llm.prefix.misses", 0)
+    ttft = pre["stats"]["histograms"]["serving.llm.ttft_ms"]
+    out["paged_w8_prefix"] = {
+        "requests": len(traffic), "hits": hits, "misses": misses,
+        "reused_tokens": pst.get("serving.llm.prefix.reused_tokens", 0),
+        "ttft_ms_p50": ttft["p50"], "ttft_ms_p95": ttft["p95"],
+        "tokens_per_s": pre["tokens_per_s"], "b4": pre["b4"]}
+    log(f"phase 19 paged int8 weights, prefix reuse ({len(traffic)} chat "
+        f"requests; {smi}): {hits} hits, {misses} misses, reused "
+        f"{out['paged_w8_prefix']['reused_tokens']} tokens; TTFT p50/p95 "
+        f"{ttft['p50']:.1f}/{ttft['p95']:.1f} ms; "
+        f"{pre['tokens_per_s']:.1f} tokens/s; B4 {pre['b4']}")
+    if hits < 1:
+        raise RuntimeError("phase 19 prefix: no request reused a prefix")
+    for layout in ("slot", "paged"):
+        g, e = (runs[(layout, "w8kv8", x)] for x in ("graphed", "eager"))
+        if g["tokens"] != e["tokens"]:
+            raise RuntimeError(f"phase 19 {layout} int8/int8: the graphed "
+                               f"lane's tokens differ from the eager "
+                               f"lane's")
+    gemm = int8_gemm_times(torch, model, dev)
+    out["gemm"] = gemm
+    kverr = int8_kv_error(torch, model, dev, prompts, cfg)
+    out["kv_row_error"] = kverr
+    twin = _dequantized_twin(torch, cfg, dev)
+    noise = int8_weight_noise(torch, model, twin, dev, prompts, cfg)
+    out["noise"] = noise
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    ref_dec = GPTStaticDecoder(twin)
+    ref_params = ref_dec.params()
+    fp32_kv_bytes = {}
+    for layout in ("slot", "paged"):
+        deq = _engine_run(torch, twin, dict(base, **_int8_layout(layout)),
+                          prompts, 32)
+        fp32_kv_bytes[layout] = deq["stats"]["kv_bytes"]
+        deq["engine"] = None
+        release_memory(torch)
+        for name, w, kvd in INT8_COMBOS:
+            run = runs[(layout, name, "graphed")]
+            hist, st = run["stats"]["histograms"], run["stats"]["stats"]
+            kvb = run["stats"]["kv_bytes"]
+            row = {"tokens_per_s": run["tokens_per_s"],
+                   "tick_ms_mean": hist["serving.llm.decode_tick_ms"]["mean"],
+                   "tick_ms_p50": hist["serving.llm.decode_tick_ms"]["p50"],
+                   "ttft_ms_p50": hist["serving.llm.ttft_ms"]["p50"],
+                   "warm_s": run["warm_s"], "kv_bytes": kvb,
+                   "kv_ratio": fp32_kv_bytes[layout] / kvb,
+                   "kv_bytes_a_token": kvb / (
+                       8 * base["max_seq"] if layout == "slot" else
+                       (run["stats"]["pages"]["total"] + 1) * 16),
+                   "attn_impl": run["attn_impl"], "b4": run["b4"],
+                   "steps": run["steps"],
+                   "params_ratio": (gemm["params_ratio"] if w == "int8"
+                                    else 1.0)}
+            if name == "w8kv8":
+                eager = runs[(layout, name, "eager")]
+                row["eager_tokens_per_s"] = eager["tokens_per_s"]
+                row["eager_tick_ms_p50"] = eager["stats"]["histograms"][
+                    "serving.llm.decode_tick_ms"]["p50"]
+            if w == "int8" and kvd == "float32":
+                row["near_tie_parts"] = near_tie_parts(
+                    torch, ref_dec, ref_params, prompts, deq["tokens"],
+                    run["tokens"], noise["noise"],
+                    f"phase 19 {layout} int8 weights vs dequantized fp32")
+                row["tokens_equal_dequantized"] = (run["tokens"]
+                                                   == deq["tokens"])
+            row.update(int8_step_times(torch, model, dev, prompts, cfg,
+                                       layout, w, kvd))
+            if kvd == "int8" and row["kv_ratio"] < 1.8:
+                raise RuntimeError(f"phase 19 {layout} {name}: kv_bytes "
+                                   f"ratio {row['kv_ratio']:.3f} < 1.8")
+            log(f"phase 19 {layout} {name} (weights {w}, KV {kvd}; 8 "
+                f"requests x 32 new; {smi}): {row['tokens_per_s']:.1f} "
+                f"tokens/s, tick p50 {row['tick_ms_p50']:.2f} ms (mean "
+                f"{row['tick_ms_mean']:.2f}), TTFT p50 "
+                f"{row['ttft_ms_p50']:.1f} ms, decode step device "
+                f"{row['step_ms']:.3f} ms (replayed); lane "
+                f"{row['attn_impl']}, B4 {row['b4']} over {row['steps']} "
+                f"steps; kv_bytes {kvb} ({row['kv_ratio']:.3f}x fewer than "
+                f"fp32's {fp32_kv_bytes[layout]})"
+                + f", {row['kv_bytes_a_token']:.0f} B a token"
+                + (f"; dequant {row['dequant_ms']:.3f} ms, "
+                   f"{100 * row['dequant_share']:.1f}% of the step"
+                   if "dequant_ms" in row else "")
+                + (f"; eager lane {row['eager_tokens_per_s']:.1f} tokens/s,"
+                   f" tick p50 {row['eager_tick_ms_p50']:.2f} ms, tokens "
+                   f"equal graphed" if "eager_tokens_per_s" in row else "")
+                + (f"; tokens equal the dequantized fp32 engine's "
+                   f"{row['tokens_equal_dequantized']}, parts (request, "
+                   f"step, top-2 gap) {row['near_tie_parts']}"
+                   if "near_tie_parts" in row else ""))
+            out[f"{layout}_{name}"] = row
+    del twin
+    release_memory(torch)
+    log(f"phase 19 ({smi}): parameter dict {gemm['params_bytes_int8']} B "
+        f"with int8 weights against {gemm['params_bytes_fp32']} B fp32 "
+        f"({gemm['params_ratio']:.3f}x; the model's fp32 weights stay "
+        f"resident beside the codes); the decode step's projection GEMMs "
+        f"at M = 8, {n_layers} layers: int8 {gemm['gemm_int8_ms']:.3f} ms "
+        f"against fp32 {gemm['gemm_fp32_ms']:.3f} ms device; KV-row error of one "
+        f"int8 step {100 * kverr['kv_row_err']:.3f}% of the fp32 range "
+        f"(bar 2%); the lanes' logit difference {noise['noise']:.3e}")
+    if kverr["kv_row_err"] > 0.02:
+        raise RuntimeError(f"phase 19: the int8 KV rows part from fp32 by "
+                           f"{100 * kverr['kv_row_err']:.3f}% of the range")
+    out["int8_linear"] = int8_linear_checks(torch, dev)
+    return out, launched
+
+
 def main() -> int:
     try:
         import torch
@@ -4381,6 +4813,10 @@ def main() -> int:
         {"paged": (paged_tokens, serve["tokens_per_s"]),
          "slot": (slot_tokens, slot["tokens_per_s"])},
         reset_counters, read_counters)
+    stamp("19 int8 serving")
+    int8, int8_launches = run_int8_phase(
+        torch, model, pa_mod, dev, smi, prompts, CFG_13B, reset_counters,
+        read_counters)
     del model
     release_memory(torch)
 
@@ -4393,7 +4829,8 @@ def main() -> int:
              "bert_flash_checks": bert_flash_launches,
              "serving_c6": c6_launches, "training_yolov3": yolo_launches,
              **{f"training_gpt_s4096_{k}": v for k, v in long_paths.items()},
-             "serving_prefix": prefix_launches, "serving_spec": spec_launches}
+             "serving_prefix": prefix_launches, "serving_spec": spec_launches,
+             "serving_int8": int8_launches}
     amp_dtypes["bert_flash_checks"] = bert_dtypes
     amp_dtypes.update({f"training_gpt_s4096_{k}": v
                        for k, v in long_dtypes.items()})
@@ -4445,6 +4882,7 @@ def main() -> int:
     log(f"training, GPT S=4096: {json.dumps(long_gpt)}")
     log(f"serving, prefix reuse: {json.dumps(prefix)}")
     log(f"serving, speculative decode: {json.dumps(spec)}")
+    log(f"serving, int8: {json.dumps(int8)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

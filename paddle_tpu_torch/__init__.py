@@ -7,7 +7,7 @@ and runs on an NVIDIA H100. It imports ``torch`` and never ``jax`` or
 wrote in Pallas is a hand-written CUDA kernel under ``csrc/`` with a plain
 PyTorch version beside it, which CPU tensors take.
 """
-from . import amp, framework_io, nn, optimizer, regularizer
+from . import amp, framework_io, nn, optimizer, quantization, regularizer
 from .core.device import resolve_device
 from .core.generator import seed
 from .framework_io import load, save, state_dict_from_reference
@@ -17,4 +17,4 @@ __version__ = "0.1.0"
 
 __all__ = ["resolve_device", "seed", "amp", "framework_io", "load",
            "save", "state_dict_from_reference", "Model", "nn", "optimizer",
-           "regularizer"]
+           "quantization", "regularizer"]

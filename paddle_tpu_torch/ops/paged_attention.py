@@ -171,7 +171,15 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
     int32; ``positions``: ``[S]`` int32. Returns ``[S, H, D]`` in q's
     type. CPU tensors take the plain version; CUDA tensors launch the
     kernel (float32, bfloat16 or float16 matching q, a head dim
-    :func:`takes` accepts, last dim contiguous) or raise."""
+    :func:`takes` accepts, last dim contiguous) or raise. Int8 arenas
+    (the ``{"q", "s"}`` pages of an int8 KV cache, or int8 tensors) raise
+    on every device, as the JAX package's wrapper refuses them: their
+    decode dequantizes on the gather lane."""
+    if any(isinstance(a, dict) or a.dtype == torch.int8
+           for a in (k_arena, v_arena)):
+        raise ValueError("paged_attention reads dense arenas (float32, "
+                         "bfloat16 or float16); int8 pages take the gather "
+                         "lane, which dequantizes them")
     if q.dim() != 3 or k_arena.dim() != 4 or v_arena.dim() != 4:
         raise ValueError("paged_attention takes q [S, H, D] and arenas "
                          "[P+1, page, H, D]")

@@ -1,7 +1,8 @@
 """GPT decode building blocks and the static-slot decoder (counterpart of
 ``paddle_tpu/serving/llm/decode.py``: ``GPTDecodeSpec``, ``SamplingParams``,
-``pack_sampling``, ``extract_gpt_params``, ``_layer_norm``,
-``_block_prefill``, ``_block_decode``, ``_sample``, the programs of
+``pack_sampling``, ``extract_gpt_params``, ``_QUANT_WEIGHT_KEYS``,
+``quantize_gpt_params``, ``_mm``, ``_layer_norm``, ``_block_prefill``,
+``_block_decode``, ``_sample``, the programs of
 ``build_prefill_fn``, ``build_decode_step``, ``build_tail_prefill_fn``
 and ``build_insert_prefix_fn`` (here :func:`static_prefill`,
 :func:`static_decode_step`, :func:`static_tail_prefill` and
@@ -31,6 +32,18 @@ through them. The prefix insert (``insert_prefix``) copies host rows into
 the cache from another host buffer at every hit, which a graph, binding
 addresses, would have to stage through one of its own: it stays eager,
 one copy per layer and buffer (:class:`EagerProgram`).
+
+int8 serving (``weight_dtype="int8"``, ``kv_dtype="int8"``): every block
+multiplies through :func:`_mm`, which takes a dense weight or an int8
+``{"q", "s"}`` leaf of :func:`quantize_gpt_params` (per-out-channel
+scales applied to the product); an int8 KV cache (``kvcache.py``) is
+written quantized and each layer's rows are dequantized before the
+attention, the JAX package's order. A decoder quantizes its weights once
+into tensors it keeps, and re-quantizes into the same tensors
+(``copy_``) at every ``params()`` call, so a captured program reads new
+weights after an in-place change. The model's float weights stay
+resident beside the codes, as in the JAX package. The tail prefill and
+the prefix insert over an int8 cache raise, as the JAX package's.
 """
 from __future__ import annotations
 
@@ -45,8 +58,9 @@ import torch
 from ...core.graphs import Program
 from ...nn.functional import gelu, softmax
 from ..cache import ExecutableCache, default_cache
-from .kvcache import (StaticKVCache, _later, append_token_kv, kv_layer_view,
-                      token_index, valid_mask, write_prompt_kv)
+from .kvcache import (StaticKVCache, _later, append_token_kv, dequantize_kv,
+                      kv_layer_view, token_index, valid_mask,
+                      write_prompt_kv)
 
 
 @dataclass(frozen=True)
@@ -130,6 +144,47 @@ def extract_gpt_params(model) -> Dict:
             "layers": tuple(layers)}
 
 
+#: the per-layer weight matrices that become int8 (biases and norms stay
+#: float: O(E) bytes and scale-sensitive)
+_QUANT_WEIGHT_KEYS = ("qw", "kw", "vw", "ow", "w1", "w2")
+
+
+@torch.no_grad()
+def quantize_gpt_params(params: Dict, out: Optional[Dict] = None) -> Dict:
+    """Per-out-channel int8 weights of the GPT parameter dict: each of
+    :data:`_QUANT_WEIGHT_KEYS` becomes ``{"q": int8 [in, out], "s": f32
+    [out]}`` with ``w ~ q * s`` (``quantization.quantize_weight_int8``);
+    the embeddings (``tok`` is also the logit head), biases and norms stay
+    as they are. With ``out`` (an earlier result for the same model) the
+    codes and scales are written into ``out``'s tensors in place and the
+    new dict holds those tensors."""
+    from ...quantization import quantize_weight_int8
+
+    def q8(key, li, w):
+        q, s = quantize_weight_int8(w, quant_axis=1)
+        if out is None:
+            return {"q": q, "s": s}
+        leaf = out["layers"][li][key]
+        leaf["q"].copy_(q)
+        leaf["s"].copy_(s)
+        return leaf
+
+    layers = tuple({k: (q8(k, li, v) if k in _QUANT_WEIGHT_KEYS else v)
+                    for k, v in lp.items()}
+                   for li, lp in enumerate(params["layers"]))
+    return dict(params, layers=layers)
+
+
+def _mm(x, w):
+    """``x @ w`` for a dense weight, or for an int8 ``{"q", "s"}`` leaf
+    ``(x @ q) * s``: the codes in ``x``'s type, the per-out-channel scale
+    applied to the product (equal to dequantizing first up to the
+    reassociated rounding)."""
+    if isinstance(w, dict):
+        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+    return x @ w
+
+
 def _layer_norm(x, w, b, eps):
     mean = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, unbiased=False, keepdim=True)
@@ -174,19 +229,19 @@ def _block_prefill(spec: GPTDecodeSpec, lp, h, mask, scale):
     def heads(t):
         return t.reshape(b, l, spec.num_heads, spec.head_dim)
 
-    q = heads(x @ lp["qw"] + lp["qb"])
-    k = heads(x @ lp["kw"] + lp["kb"])
-    v = heads(x @ lp["vw"] + lp["vb"])
+    q = heads(_mm(x, lp["qw"]) + lp["qb"])
+    k = heads(_mm(x, lp["kw"]) + lp["kb"])
+    v = heads(_mm(x, lp["vw"]) + lp["vb"])
     qh = (q * scale).permute(0, 2, 1, 3)                  # [B, H, L, D]
     kh = k.permute(0, 2, 1, 3)
     vh = v.permute(0, 2, 1, 3)
     weights = softmax(torch.matmul(qh, kh.transpose(-1, -2)) + mask)
     out = torch.matmul(weights, vh).permute(0, 2, 1, 3).reshape(
         b, l, spec.hidden_size)
-    h = h + (out @ lp["ow"] + lp["ob"])
+    h = h + (_mm(out, lp["ow"]) + lp["ob"])
     x = _layer_norm(h, lp["n2w"], lp["n2b"], spec.ln_epsilon)
-    ffn = gelu(x @ lp["w1"] + lp["b1"])
-    return h + (ffn @ lp["w2"] + lp["b2"]), k, v
+    ffn = gelu(_mm(x, lp["w1"]) + lp["b1"])
+    return h + (_mm(ffn, lp["w2"]) + lp["b2"]), k, v
 
 
 def _block_decode(spec: GPTDecodeSpec, lp, h, kb, vb, index, mask, scale,
@@ -195,7 +250,9 @@ def _block_decode(spec: GPTDecodeSpec, lp, h, kb, vb, index, mask, scale,
     ``kb``/``vb``: this layer's ``[S, max_seq, H, D]`` views of the slot
     buffers, into which the token's K/V is written at ``index`` (the
     step's :func:`~.kvcache.token_index`, in place) before attending over
-    all ``max_seq`` rows under ``mask``. ``eye``: the ``[H, H]`` identity
+    all ``max_seq`` rows under ``mask``; an int8 view is written quantized
+    and its rows dequantized into ``h``'s type before the attention, as
+    the JAX package's step does. ``eye``: the ``[H, H]`` identity
     in ``h``'s type. The step builds ``index``, ``mask`` and ``eye`` once
     for all its layers.
 
@@ -212,10 +269,12 @@ def _block_decode(spec: GPTDecodeSpec, lp, h, kb, vb, index, mask, scale,
     nh, hd = spec.num_heads, spec.head_dim
     x = _layer_norm(h, lp["n1w"], lp["n1b"], spec.ln_epsilon)
     shape = (s, nh, hd)
-    q = (x @ lp["qw"] + lp["qb"]).reshape(shape)
-    kn = (x @ lp["kw"] + lp["kb"]).reshape(shape)
-    vn = (x @ lp["vw"] + lp["vb"]).reshape(shape)
+    q = (_mm(x, lp["qw"]) + lp["qb"]).reshape(shape)
+    kn = (_mm(x, lp["kw"]) + lp["kb"]).reshape(shape)
+    vn = (_mm(x, lp["vw"]) + lp["vb"]).reshape(shape)
     append_token_kv(kb, vb, kn, vn, None, index=index)
+    if isinstance(kb, dict):
+        kb, vb = dequantize_kv(kb, h.dtype), dequantize_kv(vb, h.dtype)
     qbd = ((q * scale)[:, :, :, None] * eye[:, None, :]).reshape(
         s, nh * hd, nh)                                   # [S, H*D, H]
     prod = torch.bmm(kb.flatten(2), qbd)                  # [S, max, H]
@@ -223,10 +282,10 @@ def _block_decode(spec: GPTDecodeSpec, lp, h, kb, vb, index, mask, scale,
     blocks = torch.bmm(weights, vb.flatten(2))            # [S, H, H*D]
     out = blocks.view(s, nh, nh, hd).diagonal(dim1=1, dim2=2)  # [S, D, H]
     out = out.transpose(1, 2).reshape(s, spec.hidden_size)
-    h = h + (out @ lp["ow"] + lp["ob"])
+    h = h + (_mm(out, lp["ow"]) + lp["ob"])
     x = _layer_norm(h, lp["n2w"], lp["n2b"], spec.ln_epsilon)
-    ffn = gelu(x @ lp["w1"] + lp["b1"])
-    return h + (ffn @ lp["w2"] + lp["b2"])
+    ffn = gelu(_mm(x, lp["w1"]) + lp["b1"])
+    return h + (_mm(ffn, lp["w2"]) + lp["b2"])
 
 
 def prefill_forward(spec: GPTDecodeSpec, params, tokens, true_lens):
@@ -358,9 +417,9 @@ def tail_forward(spec: GPTDecodeSpec, params, tokens, tail_lens, starts,
         def heads(t):
             return t.reshape(b, lt, spec.num_heads, spec.head_dim)
 
-        q = heads(x @ lp["qw"] + lp["qb"])
-        kn = heads(x @ lp["kw"] + lp["kb"])
-        vn = heads(x @ lp["vw"] + lp["vb"])
+        q = heads(_mm(x, lp["qw"]) + lp["qb"])
+        kn = heads(_mm(x, lp["kw"]) + lp["kb"])
+        vn = heads(_mm(x, lp["vw"]) + lp["vb"])
         write_layer(li, kn, vn)
         row_k, row_v = read_layer(li)                        # [B, max, H, D]
         qh = (q * scale).permute(0, 2, 1, 3)                 # [B, H, Lt, D]
@@ -369,10 +428,10 @@ def tail_forward(spec: GPTDecodeSpec, params, tokens, tail_lens, starts,
         weights = softmax(torch.matmul(qh, kt.transpose(-1, -2)) + mask)
         out = torch.matmul(weights, vt).permute(0, 2, 1, 3).reshape(
             b, lt, spec.hidden_size)
-        h = h + (out @ lp["ow"] + lp["ob"])
+        h = h + (_mm(out, lp["ow"]) + lp["ob"])
         x = _layer_norm(h, lp["n2w"], lp["n2b"], spec.ln_epsilon)
-        ffn = gelu(x @ lp["w1"] + lp["b1"])
-        h = h + (ffn @ lp["w2"] + lp["b2"])
+        ffn = gelu(_mm(x, lp["w1"]) + lp["b1"])
+        h = h + (_mm(ffn, lp["w2"]) + lp["b2"])
         kcs.append(kn)
         vcs.append(vn)
     h = _layer_norm(h, params["fnw"], params["fnb"], spec.ln_epsilon)
@@ -390,7 +449,9 @@ def static_tail_prefill(spec: GPTDecodeSpec, max_top_k: int, params,
     (the program of ``build_tail_prefill_fn``): all ``Lt`` rows land at
     ``starts`` (clamped as ``dynamic_update_slice`` clamps), the lengths
     become ``starts + tail_lens`` and the first token is sampled.
-    Returns ``(next_tokens [B], finished [S])``."""
+    Returns ``(next_tokens [B], finished [S])``. An int8 cache raises,
+    as the JAX package's."""
+    _dense_only(kv, "tail prefill (prefix reuse)")
     slots = slot_ids.long()
     lt = tokens.shape[1]
     start = starts.long().clamp(0, kv.max_seq - lt)
@@ -415,10 +476,19 @@ def insert_prefix_rows(kv: StaticKVCache, k_pre, v_pre, slot: int):
     layer and buffer: a layer's rows are one contiguous block on both
     sides, where the whole ``[L, n]`` slice of a longer entry is not, and
     a strided host source would first be gathered into pageable memory.
-    The slot's length is the tail prefill's to set."""
+    The slot's length is the tail prefill's to set. An int8 cache raises,
+    as the JAX package's."""
+    _dense_only(kv, "insert_prefix")
     for li in range(k_pre.shape[0]):
         kv.k[slot, li, :k_pre.shape[1]].copy_(torch.as_tensor(k_pre[li]))
         kv.v[slot, li, :v_pre.shape[1]].copy_(torch.as_tensor(v_pre[li]))
+
+
+def _dense_only(kv, what: str):
+    if getattr(kv, "quantized", False):
+        raise NotImplementedError(
+            f"{what} over an int8 KV cache is unsupported; "
+            f"LLMEngineConfig gates prefix_cache off for kv_dtype='int8'")
 
 
 class EagerProgram:
@@ -484,21 +554,22 @@ class GPTDecoderBase:
     The programs' graphs read the tensors ``params()`` returns where they
     lie: weights are changed in place (``Tensor.copy_``), or the cache's
     entries dropped (``exec_cache.clear()``); a program called with
-    weights elsewhere raises. The AMP state a program saw at its first
-    call stays in its graph, as a jit keeps what it saw at its first
-    trace."""
+    weights elsewhere raises. With ``weight_dtype="int8"``, ``params()``
+    quantizes into the decoder's own code and scale tensors (the same
+    ones at every call), so call it again after an in-place change. The
+    AMP state a program saw at its first call stays in its graph, as a
+    jit keeps what it saw at its first trace."""
 
     def __init__(self, model, max_top_k: int = 64,
                  weight_dtype: str = "float32", kv_dtype: str = "float32",
                  exec_cache: Optional[ExecutableCache] = None):
-        if weight_dtype != "float32":
-            raise NotImplementedError(
-                f"weight_dtype={weight_dtype!r}: int8 weights are a later "
-                "slice of the port (queue A7 in ROADMAP.md)")
-        if kv_dtype != "float32":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: int8 KV is a later slice of the "
-                "port (queue A7 in ROADMAP.md)")
+        if weight_dtype not in ("float32", "int8"):
+            raise ValueError(
+                f"weight_dtype must be 'float32' or 'int8', got "
+                f"{weight_dtype!r}")
+        if kv_dtype not in ("float32", "int8"):
+            raise ValueError(
+                f"kv_dtype must be 'float32' or 'int8', got {kv_dtype!r}")
         self.spec = GPTDecodeSpec.from_model(model)
         self._model = model
         self.max_top_k = max(0, min(int(max_top_k), self.spec.vocab_size))
@@ -509,13 +580,25 @@ class GPTDecoderBase:
                            else default_cache())
         self._key = ("gpt-static", self.spec, self.max_top_k,
                      self.weight_dtype, self.kv_dtype)
+        self._qparams = None
 
     @property
     def device(self) -> torch.device:
         return self._model.gpt.word_embeddings.weight.device
 
     def params(self):
-        return extract_gpt_params(self._model)
+        """The GPT parameter dict; with int8 weights its projection
+        weights quantized into the decoder's resident tensors (written in
+        place at every call after the first)."""
+        p = extract_gpt_params(self._model)
+        if self.weight_dtype == "int8":
+            self._qparams = quantize_gpt_params(p, out=self._qparams)
+            return self._qparams
+        return p
+
+    @property
+    def _kv_arg(self):
+        return "int8" if self.kv_dtype == "int8" else None
 
     def new_kv(self, num_slots: int, max_seq: int):
         raise NotImplementedError
@@ -563,7 +646,9 @@ class GPTDecoderBase:
         """Prefill prompt tails ``tokens [B, Lt]`` at row offsets
         ``starts`` through ``tail_prefill_fn(B, Lt)``, behind heads the
         cache already holds; returns ``(next_tokens [B], finished [S])``,
-        the program's output buffers."""
+        the program's output buffers. An int8 cache raises, as the JAX
+        package's."""
+        _dense_only(kv, "tail_prefill")
         fn = self.tail_prefill_fn(tokens.shape[0], tokens.shape[1])
         return fn(params, kv, tokens, tail_lens, starts, slot_ids, finished,
                   samp, generator)
@@ -613,7 +698,8 @@ class GPTStaticDecoder(GPTDecoderBase):
         dtype = self._model.gpt.word_embeddings.weight.dtype
         return StaticKVCache(num_slots, self.spec.num_layers, max_seq,
                              self.spec.num_heads, self.spec.head_dim,
-                             dtype=dtype, device=self.device)
+                             dtype=dtype, kv_dtype=self._kv_arg,
+                             device=self.device)
 
     def _decode_program(self) -> Program:
         return get_decode_step(self.spec, self.max_top_k)
@@ -641,7 +727,8 @@ class GPTStaticDecoder(GPTDecoderBase):
     def insert_prefix(self, kv: StaticKVCache, k_pre, v_pre, slot: int):
         """Copy a cached host prefix ``[L, n, H, D]`` into ``slot``'s rows
         ``[0, n)`` through ``insert_prefix_fn(n)``; the tail prefill that
-        follows sets the slot's length."""
+        follows sets the slot's length. An int8 cache raises."""
+        _dense_only(kv, "insert_prefix")
         self.insert_prefix_fn(int(k_pre.shape[1]))(kv, k_pre, v_pre,
                                                    int(slot))
 

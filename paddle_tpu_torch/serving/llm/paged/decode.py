@@ -29,6 +29,14 @@ kernel lane's 24 launches of B4 inside it at GPT-3 1.3B; the decoder
 refreshes the device block tables before each program runs. The tail
 prefill of prefix reuse attends densely over the gathered row, as the
 JAX package's does; sequence migration is a later slice of the port.
+
+int8 serving: with ``weight_dtype="int8"`` every block multiplies
+through ``decode._mm``, and the kernel lane runs B4 as with float
+weights. An int8 arena (``kv_dtype="int8"``) is the JAX package's case
+too: the kernel reads dense arenas only, so ``"auto"`` takes the gather
+lane, which dequantizes the gathered rows before the attention, and
+``"kernel"`` raises at construction (B4's wrapper refuses an int8 arena
+itself). The tail prefill over int8 pages raises, as the JAX package's.
 """
 from __future__ import annotations
 
@@ -42,9 +50,9 @@ from ....core.graphs import Program
 from ....nn.functional import gelu, softmax
 from ....ops.paged_attention import paged_attention, takes
 from ..decode import (GPTDecodeSpec, GPTDecoderBase, SamplingVectors,
-                      _layer_norm, prefill_forward, sample_prefill,
-                      sample_step, tail_forward)
-from ..kvcache import kv_layer_view, valid_mask
+                      _dense_only, _layer_norm, _mm, prefill_forward,
+                      sample_prefill, sample_step, tail_forward)
+from ..kvcache import dequantize_kv, kv_layer_view, valid_mask
 from .pool import (PagedKVCache, paged_gather_rows, paged_write_prompt_rows,
                    paged_write_rows)
 
@@ -67,27 +75,27 @@ def _paged_block_decode(spec: GPTDecodeSpec, lp, h, kb, vb, block_tables,
     s = h.shape[0]
     x = _layer_norm(h, lp["n1w"], lp["n1b"], spec.ln_epsilon)
     shape = (s, spec.num_heads, spec.head_dim)
-    q = (x @ lp["qw"] + lp["qb"]).reshape(shape)
-    kn = (x @ lp["kw"] + lp["kb"]).reshape(shape)
-    vn = (x @ lp["vw"] + lp["vb"]).reshape(shape)
+    q = (_mm(x, lp["qw"]) + lp["qb"]).reshape(shape)
+    kn = (_mm(x, lp["kw"]) + lp["kb"]).reshape(shape)
+    vn = (_mm(x, lp["vw"]) + lp["vb"]).reshape(shape)
     paged_write_rows(kb, kn, pid, ppos)
     paged_write_rows(vb, vn, pid, ppos)
     if attn_impl == "kernel":
         out = paged_attention(q, kb, vb, block_tables, positions,
                               scale=scale).reshape(s, spec.hidden_size)
     else:
-        kd = paged_gather_rows(kb, block_tables).to(h.dtype)
-        vd = paged_gather_rows(vb, block_tables).to(h.dtype)
+        kd = dequantize_kv(paged_gather_rows(kb, block_tables), h.dtype)
+        vd = dequantize_kv(paged_gather_rows(vb, block_tables), h.dtype)
         qh = (q * scale)[:, :, None, :]                   # [S, H, 1, D]
         kt = kd.permute(0, 2, 1, 3)                       # [S, H, max, D]
         vt = vd.permute(0, 2, 1, 3)
         weights = softmax(torch.matmul(qh, kt.transpose(-1, -2)) + mask)
         out = torch.matmul(weights, vt).permute(0, 2, 1, 3).reshape(
             s, spec.hidden_size)
-    h = h + (out @ lp["ow"] + lp["ob"])
+    h = h + (_mm(out, lp["ow"]) + lp["ob"])
     x = _layer_norm(h, lp["n2w"], lp["n2b"], spec.ln_epsilon)
-    ffn = gelu(x @ lp["w1"] + lp["b1"])
-    return h + (ffn @ lp["w2"] + lp["b2"])
+    ffn = gelu(_mm(x, lp["w1"]) + lp["b1"])
+    return h + (_mm(ffn, lp["w2"]) + lp["b2"])
 
 
 def paged_decode_logits(spec: GPTDecodeSpec, params, kv: PagedKVCache,
@@ -160,7 +168,9 @@ def paged_tail_prefill(spec: GPTDecodeSpec, max_top_k: int, params,
     the slot's whole logical row is gathered back for the dense
     offset-causal attention of ``tail_forward``; the lengths become
     ``starts + tail_lens`` and the first token is sampled. Returns
-    ``(next_tokens [B], finished [S])``."""
+    ``(next_tokens [B], finished [S])``. int8 pages raise, as the JAX
+    package's."""
+    _dense_only(kv, "tail prefill (prefix reuse)")
     b, lt = tokens.shape
     slots = slot_ids.long()
     bt_sel = kv.block_tables[slots]                          # [B, PP]
@@ -207,13 +217,19 @@ def get_paged_decode_step(spec: GPTDecodeSpec, max_top_k: int,
 
 
 def _resolve_attn_impl(impl: str, device_type: str, head_dim: int,
-                       dtype) -> str:
+                       dtype, kv_dtype: str = "float32") -> str:
     """The attention lane of a paged decoder: ``"auto"`` is the kernel on
-    CUDA and the gather lane on the CPU; the kernel lane on CUDA raises
-    for heads the kernel does not take (``takes``), never leaving the
-    kernel for the gather lane unasked."""
+    CUDA over dense arenas and the gather lane on the CPU or over int8
+    arenas; ``"kernel"`` over int8 arenas raises (as the JAX package's),
+    and on CUDA for heads the kernel does not take (``takes``), never
+    leaving the kernel for the gather lane unasked."""
+    if impl == "kernel" and kv_dtype == "int8":
+        raise ValueError(
+            "the paged kernel lane reads dense arenas; int8 pages use "
+            "attn_impl='gather' (dequantized in the step)")
     if impl == "auto":
-        impl = "kernel" if device_type == "cuda" else "gather"
+        impl = ("kernel" if device_type == "cuda" and kv_dtype != "int8"
+                else "gather")
     if impl == "kernel" and device_type == "cuda" \
             and not takes(head_dim, dtype):
         raise ValueError(
@@ -233,8 +249,9 @@ class GPTPagedDecoder(GPTDecoderBase):
     """The paged decoder: ``new_kv`` returns a :class:`PagedKVCache` on
     the model's device and the programs thread its block tables.
     ``attn_impl``: ``"auto"`` (the kernel on CUDA, the gather lane on the
-    CPU), ``"kernel"`` or ``"gather"``; the kernel lane on CUDA raises
-    here if the kernel does not take the model's heads. The programs'
+    CPU and over int8 pages), ``"kernel"`` or ``"gather"``; the kernel
+    lane raises here over int8 pages, and on CUDA if the kernel does not
+    take the model's heads. The programs'
     cache key adds ``("paged", page_size, attn_impl)`` to the static
     decoder's, as the JAX package's does."""
 
@@ -254,7 +271,7 @@ class GPTPagedDecoder(GPTDecoderBase):
                 f"{attn_impl!r}")
         self.attn_impl = _resolve_attn_impl(
             attn_impl, self.device.type, self.spec.head_dim,
-            self._model.gpt.word_embeddings.weight.dtype)
+            self._model.gpt.word_embeddings.weight.dtype, kv_dtype)
         self.page_size = int(page_size)
         self.num_pages = None if num_pages is None else int(num_pages)
         self._key = self._key + ("paged", self.page_size, self.attn_impl)
@@ -267,7 +284,7 @@ class GPTPagedDecoder(GPTDecoderBase):
         return PagedKVCache(num_slots, self.spec.num_layers, max_seq,
                             self.spec.num_heads, self.spec.head_dim,
                             dtype=self._model.gpt.word_embeddings.weight.dtype,
-                            page_size=self.page_size,
+                            kv_dtype=self._kv_arg, page_size=self.page_size,
                             num_pages=self.num_pages, device=self.device)
 
     def _decode_program(self) -> Program:

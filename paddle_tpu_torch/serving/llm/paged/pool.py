@@ -30,8 +30,12 @@ Pages are shared by refcount (a page of a cached prefix and two live
 sequences has refcount 3): prefix reuse splices shared pages into a
 table (``adopt_shared_page``, zero bytes copied) and the first page a
 sequence writes is its own (``adopt_copied_page``, the copy-on-write
-split). Sequence export and import (``read_pages``, ``write_page``) are
-not ported yet.
+split). With ``kv_dtype="int8"`` each arena is a ``{"q": int8 codes,
+"s": float32 [P+1, L, page] scales}`` dict (``kvcache.py``'s
+representation, one scale a row): the writers quantize the rows they
+land and the gather returns both leaves. Sequence export and import
+(``read_pages``, ``write_page``) belong to the fleet's migration (queue A8
+of ROADMAP.md) and are not ported yet.
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ import torch
 
 from ....core.device import DeviceLike, resolve_device
 from ....core.graphs import GraphPool
-from ..kvcache import SlotsExhausted, kv_nbytes
+from ..kvcache import (SlotsExhausted, _zero_buf, is_quantized_kv,
+                       kv_leaves, kv_nbytes, put_rows)
 
 
 class PagesExhausted(RuntimeError):
@@ -140,27 +145,35 @@ def paged_write_rows(buf, rows, pids, ppos):
     """Write one row per entry into a single layer's arena view, in place.
     ``buf``: ``[P+1, page, H, D]``; ``rows``: ``[N, H, D]``;
     ``pids``/``ppos``: ``[N]`` physical page and in-page offset. Rows sent
-    to the trash page may collide; they are junk by construction."""
-    buf.index_put_((pids.long(), ppos.long()), rows.to(buf.dtype))
-    return buf
+    to the trash page may collide; they are junk by construction. An
+    int8 view's rows are quantized (one scale each) and both leaves
+    written."""
+    return put_rows(buf, (pids.long(), ppos.long()), rows)
 
 
 def paged_write_prompt_rows(buf, rows, pids, ppos):
     """Write ``N`` tokens' rows for ALL layers into a whole arena, in
     place. ``buf``: ``[P+1, L, page, H, D]``; ``rows``: ``[N, L, H, D]``;
-    token ``n``'s layer-``l`` row lands at ``buf[pids[n], l, ppos[n]]``."""
+    token ``n``'s layer-``l`` row lands at ``buf[pids[n], l, ppos[n]]``
+    (an int8 arena's quantized, both leaves)."""
     num_layers = rows.shape[1]
-    li = torch.arange(num_layers, device=buf.device)[None, :]  # [1, L]
-    buf.index_put_((pids.long()[:, None], li, ppos.long()[:, None]),
-                   rows.to(buf.dtype))
-    return buf
+    li = torch.arange(num_layers, device=rows.device)[None, :]  # [1, L]
+    return put_rows(buf, (pids.long()[:, None], li, ppos.long()[:, None]),
+                    rows)
 
 
 def paged_gather_rows(buf, block_tables):
     """Contiguous logical rows from a single layer's arena view:
     ``[P+1, page, H, D]`` through ``[S, PP]`` block tables ->
-    ``[S, PP*page, H, D]`` (a copy)."""
-    g = buf[block_tables.long()]
+    ``[S, PP*page, H, D]`` (a copy); an int8 view gives ``{"q": [S,
+    PP*page, H, D], "s": [S, PP*page]}``."""
+    bt = block_tables.long()
+    if is_quantized_kv(buf):
+        q, s = buf["q"][bt], buf["s"][bt]
+        sh = q.shape
+        return {"q": q.reshape(sh[0], sh[1] * sh[2], sh[3], sh[4]),
+                "s": s.reshape(sh[0], sh[1] * sh[2])}
+    g = buf[bt]
     sh = g.shape
     return g.reshape(sh[0], sh[1] * sh[2], sh[3], sh[4])
 
@@ -176,7 +189,9 @@ class PagedKVCache:
     token is written at), all on ``device``.
 
     ``k``/``v``: ``[num_pages + 1, num_layers, page_size, H, D]`` (index
-    ``num_pages`` is the trash page). :attr:`block_tables`:
+    ``num_pages`` is the trash page), or with ``kv_dtype="int8"`` the
+    ``{"q", "s"}`` dicts of int8 codes and ``[num_pages + 1, num_layers,
+    page_size]`` scales. :attr:`block_tables`:
     ``[num_slots, pages_per_seq]`` int32 on the device, unmapped entries
     pointing at the trash page. The host tracks the pages each slot holds
     references on; ``free`` returns them to the :class:`PagePool`.
@@ -184,12 +199,17 @@ class PagedKVCache:
 
     def __init__(self, num_slots: int, num_layers: int, max_seq: int,
                  num_heads: int, head_dim: int, dtype=torch.float32,
-                 page_size: int = 16, num_pages: Optional[int] = None,
+                 kv_dtype: Optional[str] = None, page_size: int = 16,
+                 num_pages: Optional[int] = None,
                  device: DeviceLike = None):
         if num_slots < 1 or max_seq < 2:
             raise ValueError(
                 f"need num_slots >= 1 and max_seq >= 2, got "
                 f"{num_slots}/{max_seq}")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_dtype must be None (dense) or 'int8', got "
+                f"{kv_dtype!r}")
         if page_size < 1 or max_seq % page_size:
             raise ValueError(
                 f"page_size {page_size} must divide max_seq {max_seq}")
@@ -210,11 +230,13 @@ class PagedKVCache:
         self.num_pages = int(num_pages)
         self.trash = self.num_pages
         self.dtype = dtype
+        self.kv_dtype = kv_dtype
+        self.quantized = kv_dtype == "int8"
         self.device = resolve_device(device)
         shape = (self.num_pages + 1, self.num_layers, self.page_size,
                  self.num_heads, self.head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.k = _zero_buf(shape, dtype, self.quantized, self.device)
+        self.v = _zero_buf(shape, dtype, self.quantized, self.device)
         self._bt_host = np.full((self.num_slots, self.pages_per_seq),
                                 self.trash, np.int32)
         self._bt_dev = torch.from_numpy(self._bt_host.copy()).to(self.device)
@@ -290,8 +312,8 @@ class PagedKVCache:
         self.pool.reset()
         self._bt_host[:] = self.trash
         self._bt_dirty = True
-        self.k.zero_()
-        self.v.zero_()
+        for t in kv_leaves(self.k) + kv_leaves(self.v):
+            t.zero_()
         self.lengths.zero_()
 
     # -- page mapping (the host decides, the block table records) ------------
@@ -339,8 +361,8 @@ class PagedKVCache:
         it, so the new occupant writes its divergent rows without
         touching the sharers. Returns the new page."""
         pid = self.pool.alloc()
-        self.k[pid].copy_(self.k[src_pid])
-        self.v[pid].copy_(self.v[src_pid])
+        for t in kv_leaves(self.k) + kv_leaves(self.v):
+            t[pid].copy_(t[src_pid])
         self._map_page(slot, pid)
         self.cow_splits += 1
         return pid
@@ -357,7 +379,8 @@ class PagedKVCache:
 
     def page_nbytes(self) -> int:
         """Device bytes of ONE physical page across both arenas and every
-        layer: the unit of the prefix store's byte counters."""
+        layer (codes and scales of an int8 arena): the unit of the prefix
+        store's byte counters."""
         return self.kv_bytes() // (self.num_pages + 1)
 
     def host_lengths(self) -> np.ndarray:

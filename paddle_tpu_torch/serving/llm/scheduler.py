@@ -24,10 +24,16 @@ with prefix reuse (``prefix_cache=True``: a hit prefills only the
 prompt's tail behind a cached head; the slot layout copies the head from
 a host :class:`PrefixStore`, the paged one shares its pages) and draft-
 model speculative decoding (``spec_k > 0`` with a ``draft_model``: a
-tick emits 1 to k+1 tokens, ``spec.py``). The knobs of later slices (int8
-weights or KV, ``measure_mfu``) raise ``NotImplementedError`` naming the
-queue item in ``ROADMAP.md``; crash recovery (evacuation for replay),
-migration and weight hot-swap are not ported yet.
+tick emits 1 to k+1 tokens, ``spec.py``), and int8 serving
+(``weight_dtype="int8"``: per-out-channel int8 projection weights;
+``kv_dtype="int8"``: int8 KV rows with a scale each), alone or together,
+on both layouts. As in the JAX package the config refuses prefix reuse
+and speculation over int8 KV, and the slot engine a shared
+``prefix_store`` over it; speculation over int8 weights, which the JAX
+package takes and then fails in its verify, is refused at construction.
+``measure_mfu`` raises ``NotImplementedError`` naming its queue item in
+``ROADMAP.md``; crash recovery (evacuation for replay), migration and
+weight hot-swap are not ported yet.
 """
 from __future__ import annotations
 
@@ -729,6 +735,11 @@ class LLMEngine(DrainableEngineBase):
                 weight_dtype=cfg.weight_dtype, kv_dtype=cfg.kv_dtype)
             # an explicit store (engines sharing one) turns reuse on even
             # when the config's flag is off
+            if prefix_store is not None and cfg.kv_dtype == "int8":
+                raise ValueError(
+                    "a shared PrefixStore requires a dense KV cache "
+                    "(kv_dtype='float32'): prefix export/insert moves raw "
+                    "float rows between engines")
             self._prefix_store = prefix_store
             if self._prefix_store is None and cfg.prefix_cache:
                 self._prefix_store = PrefixStore(

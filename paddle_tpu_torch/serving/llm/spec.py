@@ -254,6 +254,15 @@ class GPTSpecDecoder:
                  exec_cache: Optional[ExecutableCache] = None):
         if k < 1:
             raise ValueError(f"speculation depth k must be >= 1, got {k}")
+        if target.weight_dtype == "int8":
+            # the JAX package takes this config and fails at its first
+            # spec step: its verify multiplies the quantized weight dict
+            # as a dense matrix (a TypeError); refused here, at build
+            raise ValueError(
+                "speculative decoding (spec_k > 0) needs float32 target "
+                "weights: the verify step multiplies dense weight "
+                "matrices and has no int8 form. Set weight_dtype="
+                "'float32' or spec_k=0.")
         self.target = target
         self.k = int(k)
         self.dspec = GPTDecodeSpec.from_model(draft_model)

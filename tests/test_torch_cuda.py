@@ -1898,3 +1898,227 @@ def test_graphed_recompute_step_with_dropout_equals_eager_and_plain(cuda):
         for n, p in res[lane][1].items():
             torch.testing.assert_close(res["graphed"][1][n], p, rtol=1e-5,
                                        atol=1e-5, msg=f"{lane} {n}")
+
+
+# -- int8 serving and the quantization package --------------------------------
+
+_INT8 = {"w8": ("int8", "float32"), "kv8": ("float32", "int8"),
+         "w8kv8": ("int8", "int8")}
+
+
+def _spread_model(cuda):
+    """The small GPT with weights spread wider than its init, so greedy
+    tokens vary from step to step."""
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(8)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() > 1:
+                p.normal_(0.0, 0.3 / MODEL["hidden_size"] ** 0.5 * 4,
+                          generator=gen)
+    return model
+
+
+@pytest.mark.parametrize("combo", list(_INT8))
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_graphed_int8_engine_gives_the_eager_lanes_tokens(cuda, layout,
+                                                          combo):
+    """int8 weights, int8 KV and both, on each layout: the captured decode
+    step (one capture, a replay a tick) gives the eager lane's greedy
+    tokens bitwise; on the paged layout B4 launches once a layer a step
+    with dense pages and never over int8 pages ("auto" takes the gather
+    lane there); int8 KV holds >= 1.8x fp32's sequences in its bytes."""
+    w, kvd = _INT8[combo]
+    model = _spread_model(cuda)
+    rng = np.random.default_rng(11)
+    prompts = [(rng.integers(0, MODEL["vocab_size"], n).tolist(), {})
+               for n in (5, 7, 10, 13)]
+    before = tpa.paged_attention.launches
+    cfg = dict(weight_dtype=w, kv_dtype=kvd)
+    if layout == "paged":
+        cfg.update(kv_layout="paged", page_size=4)
+    lanes = _serve_lanes(model, prompts, **cfg)
+    (graphed, eng), (eager, eager_eng) = lanes["graphed"], lanes["eager"]
+    assert graphed == eager
+    assert all(len(t) == 8 for t in graphed)
+    fn = eng.decoder.decode_fn(4, 64)
+    assert fn.trace_counter["traces"] == 1
+    assert fn.replays == eng.stats()["stats"]["serving.llm.decode_ticks"]
+    launched = tpa.paged_attention.launches - before
+    if layout == "paged" and kvd == "float32":
+        assert eng.decoder.attn_impl == "kernel"
+        assert launched == MODEL["num_layers"] * (_steps(eng)
+                                                  + _steps(eager_eng))
+    else:
+        assert launched == 0
+    if kvd == "int8":
+        assert eng._batcher.kv.quantized
+        if layout == "paged":
+            assert eng.decoder.attn_impl == "gather"
+        dense = eng.decoder.__class__(model, **(
+            {"page_size": 4} if layout == "paged" else {})).new_kv(4, 64)
+        assert dense.kv_bytes() / eng.stats()["kv_bytes"] >= 1.8
+
+
+def _dequantized_model(model):
+    """A float copy of ``model`` whose projection weights are the int8
+    engine's dequantized ``q * s``."""
+    from paddle_tpu_torch.quantization import quantize_weight_int8
+    twin = GPTForCausalLM(GPTConfig(**MODEL), device=model.gpt.word_embeddings
+                          .weight.device, seed=0).eval()
+    twin.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        for lyr in twin.gpt.decoder.layers:
+            a = lyr.self_attn
+            for lin in (a.q_proj, a.k_proj, a.v_proj, a.out_proj,
+                        lyr.linear1, lyr.linear2):
+                q, s = quantize_weight_int8(lin.weight, quant_axis=1)
+                lin.weight.copy_(q.float() * s)
+    return twin
+
+
+def _parts_at_near_ties(model, prompts, ref, got, noise=1e-3):
+    """Where ``got`` parts from ``ref``, the plain forward's top-2 logits
+    at the first differing step lie within ``noise``."""
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    from paddle_tpu_torch.serving.llm.decode import prefill_forward
+    dec = GPTStaticDecoder(model)
+    for p, a, b in zip(prompts, ref, got):
+        if a == b:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = torch.tensor([list(p) + list(a[:t])], dtype=torch.int32,
+                           device=dec.device)
+        with torch.no_grad():
+            lraw, _, _ = prefill_forward(dec.spec, dec.params(), seq,
+                                         torch.tensor([seq.shape[1]],
+                                                      dtype=torch.int32,
+                                                      device=dec.device))
+        top = lraw[0].topk(2).values
+        assert float(top[0] - top[1]) <= noise
+
+
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_int8_weight_tokens_match_the_dequantized_fp32_engine(cuda, layout):
+    """An int8-weight engine multiplies by the codes and scales the
+    product; an fp32 engine over the dequantized weights ``q * s`` differs
+    from it only by the reassociated rounding, so their greedy tokens are
+    equal but where the fp32 lane's top two logits nearly tie."""
+    model = _spread_model(cuda)
+    twin = _dequantized_model(model)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, MODEL["vocab_size"], n).tolist()
+               for n in (5, 9, 14, 20)]
+    cfg = ({"kv_layout": "paged", "page_size": 4} if layout == "paged"
+           else {})
+    out = {}
+    for name, m, w in (("int8", model, "int8"), ("deq", twin, "float32")):
+        eng = LLMEngine(m, LLMEngineConfig(
+            num_slots=4, max_seq=64, prefill_buckets=(8, 16, 32),
+            weight_dtype=w, **cfg))
+        try:
+            out[name] = [eng.generate(p, max_new_tokens=10)["tokens"]
+                         for p in prompts]
+        finally:
+            eng.drain(timeout=60)
+    _parts_at_near_ties(twin, prompts, out["deq"], out["int8"])
+
+
+def test_int8_kv_row_error_within_two_percent(cuda):
+    """One decode step from the same state, fp32 KV against int8 KV: the
+    rows the int8 step writes dequantize within 2% of the fp32 rows'
+    range (the JAX package's bar)."""
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    from paddle_tpu_torch.serving.llm.kvcache import (dequantize_kv,
+                                                      quantize_kv_rows)
+    model = _spread_model(cuda)
+    d32 = GPTStaticDecoder(model)
+    d8 = GPTStaticDecoder(model, kv_dtype="int8")
+    k32, k8 = d32.new_kv(2, 16), d8.new_kv(2, 16)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(13)
+    for buf32, buf8 in ((k32.k, k8.k), (k32.v, k8.v)):
+        x = torch.randn(buf32.shape, generator=gen, device=cuda) * 0.3
+        q = quantize_kv_rows(x)
+        buf8["q"].copy_(q["q"])
+        buf8["s"].copy_(q["s"])
+        buf32.copy_(dequantize_kv(q))
+    for kv in (k32, k8):
+        kv.lengths.copy_(torch.tensor([3, 11], dtype=torch.int32))
+    last = torch.tensor([5, 7], dtype=torch.int32, device=cuda)
+    d32.decode_logits(k32, d32.params(), last)
+    d8.decode_logits(k8, d8.params(), last)
+    ref = torch.stack([k32.k, k32.v])
+    got = torch.stack([dequantize_kv(k8.k), dequantize_kv(k8.v)])
+    err = float((ref - got).abs().max() / ref.abs().max())
+    assert err < 0.02, err
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 3, 5), (7, 24, 33), (16, 16, 16),
+                                   (17, 100, 130), (256, 768, 3072)])
+def test_int8_matmul_on_the_card_is_the_exact_product(cuda, m, k, n):
+    """``torch._int_mm``'s shape rules on the card (more than 16 rows; K
+    and N multiples of 8) are met by padding with zero codes: the int32
+    product equals the exact one (float64 on the card) bit for bit."""
+    from paddle_tpu_torch.quantization import int8_matmul, int8_matmul_plain
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    got = int8_matmul(a, b)
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got, int8_matmul_plain(a, b))
+    assert torch.equal(got.cpu(), (a.cpu().long() @ b.cpu().long()).int())
+
+
+@pytest.mark.parametrize("act", [None, 3.0], ids=["weight_only", "int8"])
+def test_int8_linear_on_the_card_matches_the_cpu(cuda, act):
+    """Int8Linear on the card against the same layer on the CPU: the int8
+    lane's int32 product exactly, the output at 1e-5."""
+    from paddle_tpu_torch.quantization import Int8Linear
+    g = torch.Generator().manual_seed(14)
+    w, b = torch.randn(40, 24, generator=g), torch.randn(24, generator=g)
+    x = torch.randn(3, 19, 40, generator=g)
+    cpu = Int8Linear.from_float(w, bias=b, act_scale=act)
+    card = Int8Linear.from_float(w.to(cuda), bias=b.to(cuda), act_scale=act)
+    assert torch.equal(card.weight_q.cpu(), cpu.weight_q)
+    torch.testing.assert_close(card(x.to(cuda)).cpu(), cpu(x), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_requantized_int8_weights_reach_the_captured_decode_step(cuda):
+    """The int8 decoder's programs bind its code and scale tensors; after
+    an in-place weight change ``params()`` re-quantizes into them, and
+    the replayed step equals the eager step on the new weights bitwise."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.serving import ExecutableCache
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    from paddle_tpu_torch.serving.llm.decode import (SamplingParams,
+                                                     pack_sampling)
+    model = _spread_model(cuda)
+    dec = GPTStaticDecoder(model, max_top_k=0, weight_dtype="int8",
+                           exec_cache=ExecutableCache())
+    kv = dec.new_kv(4, 64)
+    p = dec.params()
+    fin = torch.zeros(4, dtype=torch.bool, device=cuda)
+    samp = pack_sampling([SamplingParams()] * 4, cuda)
+    last = torch.tensor([3, 9, 1, 2], dtype=torch.int32, device=cuda)
+    kv.lengths.copy_(torch.tensor([4, 8, 1, 20], dtype=torch.int32))
+    for _ in range(2):                       # capture, then a replay
+        dec.decode_step(kv, p, fin, last, samp, None)
+    fn = dec.decode_fn(4, 64)
+    assert fn.trace_counter["traces"] == 1 and fn.replays == 1
+    with torch.no_grad():
+        for q in model.parameters():
+            q.mul_(-1.25)
+    assert dec.params() is not None
+    saved = kv.lengths.clone()
+    with graphs.disable_graphs():
+        ref = dec.decode_logits(kv, dec.params(), last).argmax(-1)
+    kv.lengths.copy_(saved)
+    got, _ = dec.decode_step(kv, dec.params(), fin, last, samp, None)
+    assert fn.replays == 2
+    assert torch.equal(got.long(), ref)

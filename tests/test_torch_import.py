@@ -95,8 +95,9 @@ def _tiny_model():
 
 
 @pytest.mark.parametrize("kw,engine_kw,exc,match", [
-    (dict(kv_layout="slot", kv_dtype="int8"), {}, NotImplementedError,
-     "queue A7"),
+    # int8 KV and weights are ported: these cases construct and serve
+    # (exc None)
+    (dict(kv_layout="slot", kv_dtype="int8"), {}, None, None),
     # prefix reuse and speculation are ported: the reference's own gates
     # remain, a spec engine without a draft and a paged engine given a
     # host store, and the config's refusal of either knob over int8 KV
@@ -104,10 +105,10 @@ def _tiny_model():
      "draft_model"),
     (dict(kv_layout="paged", page_size=4, prefix_cache=True),
      dict(prefix_store="store"), NotImplementedError, "prefix_cache=True"),
-    (dict(kv_layout="paged", page_size=4, kv_dtype="int8"), {},
-     NotImplementedError, "queue A7"),
-    (dict(kv_layout="paged", page_size=4, weight_dtype="int8"), {},
-     NotImplementedError, "queue A7"),
+    (dict(kv_layout="paged", page_size=4, kv_dtype="int8"), {}, None,
+     None),
+    (dict(kv_layout="paged", page_size=4, weight_dtype="int8"), {}, None,
+     None),
     (dict(kv_layout="slot", spec_k=2), {}, ValueError, "draft_model"),
     (dict(kv_layout="slot", kv_dtype="int8", prefix_cache=True), {},
      ValueError, "prefix_cache requires a dense KV cache"),
@@ -115,13 +116,35 @@ def _tiny_model():
      dict(draft_model="draft"), ValueError,
      "speculative decoding .* requires a dense KV cache"),
     (dict(measure_mfu=True), {}, NotImplementedError, "queue A8"),
+    # speculation over int8 weights, which the reference takes and then
+    # fails in its verify, and a shared store over int8 KV (the
+    # reference's gate) are refused at construction
+    (dict(kv_layout="slot", weight_dtype="int8", spec_k=2),
+     dict(draft_model="draft"), ValueError, "weight_dtype='float32'"),
+    (dict(kv_layout="paged", page_size=4, weight_dtype="int8", spec_k=2),
+     dict(draft_model="draft"), ValueError, "weight_dtype='float32'"),
+    (dict(kv_layout="slot", kv_dtype="int8"), dict(prefix_store="store"),
+     ValueError, "dense KV cache"),
 ], ids=["slot", "spec", "prefix", "int8_kv", "int8_weights",
-        "slot_spec_without_draft", "prefix_int8", "spec_int8", "mfu"])
+        "slot_spec_without_draft", "prefix_int8", "spec_int8", "mfu",
+        "spec_int8_weights", "paged_spec_int8_weights",
+        "shared_store_int8_kv"])
 def test_later_slice_knobs_raise(kw, engine_kw, exc, match):
     from paddle_tpu_torch.serving.llm import PrefixStore
     model = _tiny_model()
     objs = {"store": PrefixStore(), "draft": model}
     engine_kw = {k: objs[v] for k, v in engine_kw.items()}
+    if exc is None:
+        eng = LLMEngine(model, LLMEngineConfig(max_seq=16, warmup=False,
+                                               **kw), **engine_kw)
+        try:
+            out = eng.generate([3, 1, 4], max_new_tokens=4)
+        finally:
+            eng.drain(timeout=60)
+        assert len(out["tokens"]) == 4
+        assert eng.decoder.weight_dtype == kw.get("weight_dtype", "float32")
+        assert eng._batcher.kv.quantized == (kw.get("kv_dtype") == "int8")
+        return
     with pytest.raises(exc, match=match):
         LLMEngine(model, LLMEngineConfig(max_seq=16, warmup=False, **kw),
                   **engine_kw)

@@ -130,9 +130,17 @@ def test_cache_alloc_free_reset_and_double_free_guard():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(kv_dtype="int8"), "A7"), (dict(mesh=object()), "A10")],
+    (dict(kv_dtype="int8"), None), (dict(mesh=object()), "A10")],
     ids=["int8", "mesh"])
 def test_cache_later_slice_knobs_raise(kw, item):
+    """A slot-sharded mesh (A10) raises; int8 KV is ported and builds its
+    codes and per-row scales (item None)."""
+    if item is None:
+        kv = StaticKVCache(2, 1, 8, 1, 4, device="cpu", **kw)
+        assert kv.quantized and kv.k["q"].dtype == torch.int8
+        assert tuple(kv.k["s"].shape) == (2, 1, 8)
+        assert kv.kv_bytes() == 2 * (2 * 8 * 4 + 2 * 8 * 4)
+        return
     with pytest.raises(NotImplementedError, match=item):
         StaticKVCache(2, 1, 8, 1, 4, device="cpu", **kw)
 
@@ -311,16 +319,15 @@ def test_prefill_and_decode_match_jax_decoder(models):
 
 
 def test_decoder_knobs_of_later_slices_raise(models):
-    """The A10 mesh and A7 int8 raises stay; prefix reuse (A6) is ported,
-    and the paged decoder keeps the reference's refusal of a bulk prefix
-    insert (it shares pages instead)."""
+    """The A10 mesh raise stays; prefix reuse (A6) and int8 KV (A7) are
+    ported, and the paged decoder keeps the reference's refusal of a bulk
+    prefix insert (it shares pages instead)."""
     _, pm = models
     dec = GPTStaticDecoder(pm)
     assert dec.tail_prefill_fn(1, 8) is dec.tail_prefill_fn(1, 8)
     with pytest.raises(NotImplementedError, match="block table"):
         GPTPagedDecoder(pm, page_size=4).insert_prefix(None, None, None, 0)
-    with pytest.raises(NotImplementedError, match="A7"):
-        GPTStaticDecoder(pm, kv_dtype="int8")
+    assert GPTStaticDecoder(pm, kv_dtype="int8").new_kv(2, 8).quantized
     with pytest.raises(NotImplementedError, match="A10"):
         GPTStaticDecoder(pm, mesh=object())
     with pytest.raises(ValueError, match="positions"):
