@@ -223,7 +223,42 @@ Phases (any failure raises and the script exits non-zero):
    over dense pages and none over int8 pages (the gather lane), and
    ``Int8Linear``'s int8 x int8 lane (``torch._int_mm``, padded) equal to
    its exact int32 product at BERT-base's FFN shape and an odd shape,
-   timed against the weight-only lane.
+   timed against the weight-only lane;
+20. the hapi loop as users write it: (a) ResNet-50 (1000 classes, seed
+   0) through ``Model.fit`` over an ``io.DataLoader`` of 4 worker
+   processes on an in-memory ``io.Dataset`` of 2048 seeded 224x224
+   images (8 batches of 256, shuffled), each worker's shared-memory ring
+   sized to hold a batch, with ``LarsMomentum(0.1, 0.9, lars_coeff
+   0.001, lars_weight_decay 5e-4)``, ``CrossEntropyLoss`` and
+   ``Accuracy(topk=(1, 5))``, fp32 then O1 bf16, graphed, an
+   ``ExponentialMovingAverage`` updated by a callback after each step:
+   imgs/s over the fit and steady (a batch's interval: the host's wait
+   on the loader and the step; and the step alone) beside phase 12's
+   resident-batch ``train_batch`` (an earlier run's), the host's wait on
+   the loader a batch, ring and
+   queue messages (held: every batch through the rings), the EMA
+   update's ms; ``evaluate`` under ``ema.apply()`` through the captured
+   eval program and on the eager lane (imgs/s; held: top-1 and top-5
+   equal, every parameter's ``data_ptr`` kept across apply and
+   restore), ``predict`` on a batch, the LARS update alone against its
+   byte bound; (b) BERT-base under bench.py's MLM head through ``fit``
+   with ``Lamb(1e-3, lamb_weight_decay 0.01)`` over a ``DataLoader`` of
+   6 batches of seeded ids, O1 bf16, graphed (tokens/s beside phase 13's
+   O1 AdamW), then ``evaluate`` over 2 batches through the captured eval
+   program (capture, replay) and on the eager lane (held: B1 12 launches
+   a batch in each; the losses printed, bitwise or their difference), the
+   Lamb update alone against its byte bound; (c) YOLOv3-DarkNet53 (80
+   classes, 608x608) over 2 batches of 8: forward, ``decode``
+   (``multiclass_nms`` on B5) and ``DetectionMAP`` in both AP versions
+   against seeded ground truth (about half of each image's detections
+   moved a few pixels, two random boxes, a fifth difficult), held equal
+   to the mAP of the same decode through B5's plain version; (d) LeNet,
+   batch 64, 5 ``train_batch`` steps with each of Adamax, Adagrad,
+   Adadelta, RMSProp (plain and centered), Ftrl, Lamb, LarsMomentum,
+   ``LookAhead`` (over Momentum, k 2) and ``ModelAverage`` (over
+   Momentum, windows 2-3, then an ``eval_batch`` under ``apply()``),
+   graphed against the eager lane: losses, weights and optimizer state
+   bitwise (cuDNN deterministic).
 
 Each model, its programs and its cache are released between phases
 (``release_memory``): GPT-3 1.3B, ResNet-50, BERT-base, YOLOv3 and the
@@ -244,7 +279,10 @@ of the port runs on either), just before phase 13's kernel checks and
 read after them, just before phase 14 and read after it, just before
 phase 15 and read after it, just before each of phase 16's four
 lanes and read after it, and just before phase 17's engine runs,
-phase 18's and phase 19's and read after each (B4 there runs in the plain
+phase 18's and phase 19's and read after each, and around each of
+phase 20's paths (ResNet-50 fit fp32, fit O1 and evaluate, BERT fit and
+evaluate, the mAP path's kernel lane, the LeNet rules; only BERT's
+evaluate launches B1 and only the mAP path B5) (B4 there runs in the plain
 paged steps only, 24 launches a step; in phase 19 in the paged runs over
 dense pages, int8 weights included, and in none over int8 pages; the
 prefills, tail prefills and the verify attend densely, as the JAX
@@ -4493,6 +4531,515 @@ def run_int8_phase(torch, model, pa_mod, dev, smi, prompts, cfg,
     return out, launched
 
 
+# -- phase 20: the hapi loop as users write it ------------------------------
+
+HAPI_IMAGES = 2048          # ResNet-50 fit: 8 batches of RESNET_BATCH
+HAPI_WORKERS = 4
+HAPI_EVAL_BATCHES = 2
+HAPI_BERT_STEPS = 6
+HAPI_EMA_DECAY = 0.999
+HAPI_DET_BATCHES, HAPI_DET_BATCH = 2, 8
+HAPI_LENET_BATCH, HAPI_LENET_STEPS = 64, 5
+#: phase 12's graphed train_batch on a resident batch and phase 13's O1
+#: AdamW, and their updates alone, as an earlier run of this script
+#: measured them on an H100 80GB HBM3 at 700 W; printed beside
+RESNET_RESIDENT_IMGS_S = {"fp32": 570.1, "o1": 914.7}
+BERT_O1_ADAMW_TOKENS_S = 143_548
+MOMENTUM_UPDATE_MS, ADAMW_UPDATE_MS, ADAMW_BOUND_MS = 1.58, 9.01, 1.111
+
+
+def _step_timer(torch):
+    """A callback recording each train batch's wall (begin to end, the
+    end after ``float(loss)`` synchronized) and the host's wait between
+    batches (the previous end to this begin: the loader's next batch)."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepTimer(Callback):
+        def __init__(self):
+            super().__init__()
+            self.walls, self.waits, self.logs = [], [], []
+            self._end = None
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._begin = time.perf_counter()
+            if self._end is not None:
+                self.waits.append((self._begin - self._end) * 1e3)
+
+        def on_train_batch_end(self, step, logs=None):
+            self._end = time.perf_counter()
+            self.walls.append((self._end - self._begin) * 1e3)
+            self.logs.append(dict(logs or {}))
+
+    return StepTimer()
+
+
+def _ema_callback(torch, ema):
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class EMAUpdate(Callback):
+        def __init__(self):
+            super().__init__()
+            self.ms = []
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ema.update()
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+
+    return EMAUpdate()
+
+
+def _steady(timer):
+    """Medians over the steps after the first (which captures): the
+    step's wall, and the batch's interval (the host's wait on the loader
+    before the step, and the step)."""
+    return (float(np.median(timer.walls[1:])),
+            float(np.median([w + s for w, s in zip(timer.waits,
+                                                   timer.walls[1:])])))
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _resident(loader, n):
+    """The first ``n`` batches of a loader, kept on the device."""
+    out = []
+    for batch in loader:
+        out.append(batch)
+        if len(out) == n:
+            break
+    return out
+
+
+def hapi_resnet(torch, dev, smi, reset_counters, read_counters):
+    """Phase 20's ResNet-50: ``fit`` with LARS and ``Accuracy(topk=(1,
+    5))`` over a ``DataLoader`` of HAPI_WORKERS worker processes whose
+    rings hold a batch, fp32 then O1 bf16 (graphed), the EMA updated by a
+    callback after each step; ``evaluate`` under ``ema.apply()`` graphed
+    and eager; ``predict``; the LARS update timed alone."""
+    from paddle_tpu_torch import Model, amp, io, metric, nn
+    from paddle_tpu_torch.core import graphs, shm_ring
+    from paddle_tpu_torch.optimizer import (ExponentialMovingAverage,
+                                            LarsMomentum)
+    from paddle_tpu_torch.vision.models import resnet50
+
+    class Images(io.Dataset):
+        def __init__(self, x, y):
+            self.x, self.y = x, y
+
+        def __getitem__(self, i):
+            return self.x[i], self.y[i]
+
+        def __len__(self):
+            return len(self.x)
+
+    if not shm_ring.available():
+        raise RuntimeError("phase 20: the shared-memory ring did not build")
+    rng = np.random.default_rng(20)
+    x = rng.random((HAPI_IMAGES, 3, RESNET_SIZE, RESNET_SIZE),
+                   dtype=np.float32)
+    y = rng.integers(0, RESNET_CLASSES, HAPI_IMAGES).astype(np.int64)
+    ds = Images(x, y)
+    batch_bytes = RESNET_BATCH * x[0].nbytes + RESNET_BATCH * 8
+    capacity = batch_bytes + (1 << 20)
+    torch.manual_seed(0)
+    net = resnet50(num_classes=RESNET_CLASSES, device=dev, seed=0)
+    model = Model(net, device=dev)
+    model.prepare(LarsMomentum(0.1, momentum=0.9, lars_coeff=0.001,
+                               lars_weight_decay=5e-4,
+                               parameters=net.parameters(), device=dev),
+                  nn.CrossEntropyLoss(),
+                  metrics=metric.Accuracy(topk=(1, 5)))
+    ema = ExponentialMovingAverage(HAPI_EMA_DECAY,
+                                   parameters=net.parameters())
+    ptrs = [p.data_ptr() for p in net.parameters()]
+    log(f"ResNet-50 fit: LarsMomentum(0.1, 0.9, lars_coeff 0.001, "
+        f"lars_weight_decay 5e-4), Accuracy(topk=(1, 5)), {HAPI_IMAGES} "
+        f"seeded images in a Dataset, batch {RESNET_BATCH}, "
+        f"{HAPI_WORKERS} workers, rings of {capacity} B (a batch is "
+        f"{batch_bytes} B); {smi}")
+    res, launches = {}, {}
+    for prec in ("fp32", "o1"):
+        cast = amp.auto_cast if prec == "o1" else contextlib.nullcontext
+        if prec == "o1":
+            # the fp32 programs are not run again: free their graphs'
+            # pool before O1 captures its own
+            model._invalidate_compiled()
+        loader = io.DataLoader(ds, batch_size=RESNET_BATCH, shuffle=True,
+                               num_workers=HAPI_WORKERS, timeout=120,
+                               shm_capacity=capacity, device=dev)
+        timer, ema_cb = _step_timer(torch), _ema_callback(torch, ema)
+        reset_counters()
+        np.random.seed(0)
+        with cast():
+            _, wall = _timed(torch, lambda: model.fit(
+                loader, epochs=1, verbose=2, log_freq=4,
+                callbacks=[ema_cb, timer]))
+        launches[f"hapi_resnet50_fit_{prec}"] = read_counters()
+        st, n_batches = loader.stats, HAPI_IMAGES // RESNET_BATCH
+        if st["queue"] != 0 or st["shm"] != n_batches:
+            raise RuntimeError(f"ResNet-50 fit {prec}: {st['shm']} batches "
+                               f"through the rings and {st['queue']} "
+                               f"through the queue (all {n_batches} must "
+                               f"take the rings)")
+        losses = [d["loss"] for d in timer.logs]
+        if not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"ResNet-50 fit {prec}: losses {losses}")
+        steady, interval = _steady(timer)
+        r = {"fit_imgs_per_s": HAPI_IMAGES / wall * 1e3,
+             "steady_imgs_per_s": RESNET_BATCH / interval * 1e3,
+             "step_only_imgs_per_s": RESNET_BATCH / steady * 1e3,
+             "step_wall_ms": timer.walls, "steady_step_ms": steady,
+             "steady_interval_ms": interval,
+             "resident_train_batch_imgs_per_s":
+                 RESNET_RESIDENT_IMGS_S[prec],
+             "loader_wait_ms": timer.waits,
+             "loader_wait_median_ms": float(np.median(timer.waits)),
+             "loader_main_ms_per_batch": {
+                 k[:-2]: st[k] * 1e3 / st["batches"]
+                 for k in ("wait_s", "pop_s", "convert_s")},
+             "shm_messages": st["shm"], "queue_messages": st["queue"],
+             "losses": losses,
+             "acc_top1": [float(d["acc_top1"][0]) for d in timer.logs],
+             "acc_top5": [float(d["acc_top1"][1]) for d in timer.logs],
+             "ema_update_ms": ema_cb.ms,
+             "ema_update_median_ms": float(np.median(ema_cb.ms))}
+        log(f"ResNet-50 fit {prec}: {r['fit_imgs_per_s']:.1f} imgs/s over "
+            f"the fit ({wall:.0f} ms, the first step captures), steady "
+            f"{r['steady_imgs_per_s']:.1f} imgs/s (a batch every "
+            f"{interval:.1f} ms, median; the step alone {steady:.1f} ms, "
+            f"{r['step_only_imgs_per_s']:.1f} imgs/s) "
+            f"against train_batch on a resident batch "
+            f"{RESNET_RESIDENT_IMGS_S[prec]} (an earlier run); host wait on "
+            f"the loader {r['loader_wait_median_ms']:.2f} ms a batch "
+            f"(median; the main process's mean ms a batch, the first "
+            f"included: {r['loader_main_ms_per_batch']}); {st['shm']} ring "
+            f"and {st['queue']} "
+            f"queue messages; EMA update {r['ema_update_median_ms']:.3f} "
+            f"ms; losses {[round(v, 4) for v in losses]}")
+        res[prec] = r
+    # evaluate under the EMA weights, graphed and eager, on two resident
+    # batches (the program's throughput, not the loader's)
+    eval_batches = _resident(io.DataLoader(
+        io.Subset(ds, range(HAPI_EVAL_BATCHES * RESNET_BATCH)),
+        batch_size=RESNET_BATCH, device=dev), HAPI_EVAL_BATCHES)
+    n_eval = HAPI_EVAL_BATCHES * RESNET_BATCH
+    reset_counters()
+    with cudnn_deterministic(torch), ema.apply():
+        if [p.data_ptr() for p in net.parameters()] != ptrs:
+            raise RuntimeError("ema.apply() moved a parameter")
+        model.evaluate(eval_batches, verbose=0)         # captures
+        g_ms, e_ms = [], []
+        for _ in range(3):
+            graphed, ms = _timed(torch, lambda: model.evaluate(
+                eval_batches, verbose=0))
+            g_ms.append(ms)
+            with graphs.disable_graphs():
+                eager, ms = _timed(torch, lambda: model.evaluate(
+                    eval_batches, verbose=0))
+            e_ms.append(ms)
+        g_ms, e_ms = float(np.median(g_ms)), float(np.median(e_ms))
+        pred = model.predict([eval_batches[0][:1]], stack_outputs=True)
+    launches["hapi_resnet50_evaluate"] = read_counters()
+    if [p.data_ptr() for p in net.parameters()] != ptrs:
+        raise RuntimeError("ema.restore() moved a parameter")
+    if graphed["acc_top1"] != eager["acc_top1"]:
+        raise RuntimeError(f"ResNet-50 evaluate: top-1/top-5 of the "
+                           f"program {graphed['acc_top1']} against the eager "
+                           f"lane's {eager['acc_top1']}")
+    if pred[0].shape != (RESNET_BATCH, RESNET_CLASSES) or \
+            not np.isfinite(pred[0]).all():
+        raise RuntimeError(f"ResNet-50 predict: {pred[0].shape}")
+    ev = {"graphed": graphed, "eager": eager,
+          "graphed_imgs_per_s": n_eval / g_ms * 1e3,
+          "eager_imgs_per_s": n_eval / e_ms * 1e3,
+          "loss_equal": graphed["loss"] == eager["loss"],
+          "loss_rel_diff": abs(graphed["loss"] - eager["loss"])
+          / abs(eager["loss"]),
+          "data_ptrs_unchanged": True}
+    log(f"ResNet-50 evaluate under ema.apply(): graphed "
+        f"{ev['graphed_imgs_per_s']:.1f} imgs/s, eager "
+        f"{ev['eager_imgs_per_s']:.1f}; top-1/top-5 {graphed['acc_top1']} "
+        f"both lanes; loss {graphed['loss']!r} / {eager['loss']!r}; "
+        f"predict {pred[0].shape}; data_ptrs kept across apply/restore")
+    res["evaluate"] = ev
+    res["lars_update"] = profile_update(
+        torch, model, "ResNet-50 LarsMomentum update (one replay)",
+        passes=5)
+    log(f"  against Momentum's {MOMENTUM_UPDATE_MS} ms (an earlier run)")
+    model._invalidate_compiled()
+    del model, net, ema, ds, x, eval_batches
+    release_memory(torch)
+    return res, launches
+
+
+def hapi_bert(torch, fa_mod, dev, bcfg, smi, reset_counters,
+              read_counters):
+    """Phase 20's BERT-base (``bcfg``): ``fit`` with Lamb over a
+    ``DataLoader`` of seeded ids (O1 bf16, graphed), then ``evaluate``
+    through the captured eval program (B1 once a layer a batch), graphed
+    and eager; the Lamb update timed alone."""
+    from paddle_tpu_torch import amp, io
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.optimizer import Lamb
+    model = _bert_model(torch, dev, bcfg)
+    model.prepare(Lamb(1e-3, lamb_weight_decay=0.01,
+                       parameters=model.network.parameters(), device=dev),
+                  model._loss)
+    ids = np.random.RandomState(20).randint(
+        0, bcfg.vocab_size, (HAPI_BERT_STEPS * BERT_BATCH, BERT_SEQ)) \
+        .astype(np.int64)
+    loader = io.DataLoader(io.TensorDataset([ids, ids]),
+                           batch_size=BERT_BATCH, device=dev)
+    log(f"BERT-base fit: Lamb(1e-3, lamb_weight_decay 0.01), O1 bf16, "
+        f"{HAPI_BERT_STEPS} batches of [{BERT_BATCH}, {BERT_SEQ}] seeded ids "
+        f"through a DataLoader; {smi}")
+    timer = _step_timer(torch)
+    launches = {}
+    reset_counters()
+    with amp.auto_cast():
+        model.fit(loader, epochs=1, verbose=0, callbacks=[timer])
+    launches["hapi_bert_fit"] = read_counters()
+    losses = [d["loss"] for d in timer.logs]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"BERT-base fit: losses {losses}")
+    steady, interval = _steady(timer)
+    res = {"losses": losses, "step_wall_ms": timer.walls,
+           "loader_wait_ms": timer.waits,
+           "tokens_per_s": BERT_BATCH * BERT_SEQ / interval * 1e3,
+           "step_only_tokens_per_s": BERT_BATCH * BERT_SEQ / steady * 1e3,
+           "o1_adamw_tokens_per_s": BERT_O1_ADAMW_TOKENS_S}
+    log(f"BERT-base fit: {res['tokens_per_s']:.0f} tokens/s steady (a "
+        f"batch every {interval:.1f} ms, median; the step alone "
+        f"{steady:.1f} ms, {res['step_only_tokens_per_s']:.0f} tokens/s) "
+        f"against phase 13's O1 AdamW "
+        f"{BERT_O1_ADAMW_TOKENS_S} (an earlier run); losses "
+        f"{[round(v, 4) for v in losses]}")
+    eids = np.random.RandomState(21).randint(
+        0, bcfg.vocab_size, (HAPI_EVAL_BATCHES * BERT_BATCH, BERT_SEQ))
+    eval_batches = [[torch.from_numpy(b).to(dev)] * 2
+                    for b in np.split(eids, HAPI_EVAL_BATCHES)]
+    n_tok = HAPI_EVAL_BATCHES * BERT_BATCH * BERT_SEQ
+    reset_counters()
+    per_call = []
+    with amp.auto_cast():
+        for lane in ("capture", "graphed", "eager"):
+            ctx = graphs.disable_graphs() if lane == "eager" \
+                else contextlib.nullcontext()
+            before = fa_mod.flash_attention_fwd.launches
+            with ctx:
+                logs, ms = _timed(torch, lambda: model.evaluate(
+                    eval_batches, verbose=0))
+            per_call.append(fa_mod.flash_attention_fwd.launches - before)
+            res[f"evaluate_{lane}"] = {"loss": logs["loss"], "ms": ms}
+    launches["hapi_bert_evaluate"] = read_counters()
+    by_dtype = {c.__name__: dict(c.launches_by_dtype)
+                for c in _counters(fa_mod)}
+    want = bcfg.num_layers * HAPI_EVAL_BATCHES
+    if per_call != [want] * 3:
+        raise RuntimeError(f"BERT-base evaluate: B1 launched {per_call} "
+                           f"times in the three evaluate calls, {want} "
+                           f"({bcfg.num_layers} a batch) expected in each")
+    g, e = res["evaluate_graphed"]["loss"], res["evaluate_eager"]["loss"]
+    res.update(b1_launches_per_evaluate=per_call,
+               b1_launches_per_batch=bcfg.num_layers,
+               eval_tokens_per_s_graphed=n_tok / res["evaluate_graphed"][
+                   "ms"] * 1e3,
+               eval_tokens_per_s_eager=n_tok / res["evaluate_eager"]["ms"]
+               * 1e3, eval_loss_equal=g == e,
+               eval_loss_rel_diff=abs(g - e) / abs(e))
+    log(f"BERT-base evaluate (O1): B1 {per_call} launches in the "
+        f"capture, graphed and eager calls ({bcfg.num_layers} a batch); "
+        f"{res['eval_tokens_per_s_graphed']:.0f} tokens/s graphed, "
+        f"{res['eval_tokens_per_s_eager']:.0f} eager; loss {g!r} graphed, "
+        f"{e!r} eager ("
+        + ("bitwise equal" if g == e else f"differ by {abs(g - e)!r}") + ")")
+    res["lamb_update"] = profile_update(
+        torch, model, "BERT-base Lamb update (one replay)", passes=7)
+    log(f"  against AdamW's {ADAMW_UPDATE_MS} ms (bound {ADAMW_BOUND_MS}; "
+        f"an earlier run)")
+    model._invalidate_compiled()
+    del model, eval_batches
+    release_memory(torch)
+    return res, launches, by_dtype
+
+
+def _seeded_ground_truth(dets, counts, rng, slots=50):
+    """Ground truth for mAP on random weights: about half of each image's
+    detections (moved by a few pixels) and two random boxes, a fifth of
+    them difficult."""
+    n = dets.shape[0]
+    box = np.zeros((n, slots, 4), np.float32)
+    lab = np.zeros((n, slots), np.int64)
+    dif = np.zeros((n, slots), np.int64)
+    for i in range(n):
+        d = dets[i, :counts[i]]
+        d = d[d[:, 0] >= 0]
+        pick = d[rng.random(len(d)) < 0.5][:slots - 2]
+        b = pick[:, 2:6] + rng.normal(0, 4, (len(pick), 4))
+        xy = rng.random((2, 2)) * (DET_SIZE - 100)
+        b = np.concatenate([b, np.concatenate([xy, xy + 60], 1)])
+        m = len(b)
+        box[i, :m] = b
+        lab[i, :m] = np.concatenate([pick[:, 0].astype(np.int64),
+                                     rng.integers(0, DET_CLASSES, 2)])
+        dif[i, :m] = rng.random(m) < 0.2
+    return box, lab, dif
+
+
+def hapi_yolov3_map(torch, nms_mod, det_mod, dev, reset_counters,
+                    read_counters):
+    """Phase 20's YOLOv3-DarkNet53 mAP: HAPI_DET_BATCHES batches of
+    HAPI_DET_BATCH 608x608 images through the forward and ``decode``
+    (``yolo_box``, ``multiclass_nms`` on B5) into ``DetectionMAP`` in both
+    AP versions, against the same detections through B5's plain
+    version: the mAPs must be equal."""
+    from paddle_tpu_torch import metric
+    from paddle_tpu_torch.vision.models import yolov3_darknet53
+    det = yolov3_darknet53(num_classes=DET_CLASSES, device=dev,
+                           seed=0).eval()
+    rng = np.random.default_rng(20)
+    maps = {lane: {v: metric.DetectionMAP(DET_CLASSES, ap_version=v)
+                   for v in ("integral", "11point")}
+            for lane in ("kernel", "plain")}
+    reset_counters()
+    ms = []
+    batches = [_det_batch(torch, rng, HAPI_DET_BATCH, dev)
+               for _ in range(HAPI_DET_BATCHES)]
+    kernel_dets = []
+    for img, hw in batches:
+        def run():
+            with torch.inference_mode():
+                return det.decode(det(img), hw, **DET_DECODE)
+        (dk, ck), t = _timed(torch, run)
+        ms.append(t)
+        kernel_dets.append((dk.cpu().numpy(), ck.cpu().numpy()))
+    launches = read_counters()
+    if launches["greedy_nms"] < 1:
+        raise RuntimeError("phase 20: B5 was not launched by the mAP "
+                           "path's multiclass_nms")
+    kernel_nms = det_mod.greedy_nms
+    det_mod.greedy_nms = nms_mod.greedy_nms_plain
+    try:
+        plain_dets = []
+        for img, hw in batches:
+            with torch.inference_mode():
+                dp, cp = det.decode(det(img), hw, **DET_DECODE)
+            plain_dets.append((dp.cpu().numpy(), cp.cpu().numpy()))
+    finally:
+        det_mod.greedy_nms = kernel_nms
+    same = True
+    for (dk, ck), (dp, cp) in zip(kernel_dets, plain_dets):
+        same &= np.array_equal(dk, dp) and np.array_equal(ck, cp)
+        gt = _seeded_ground_truth(dk, ck, rng)
+        for lane, (d, c) in (("kernel", (dk, ck)), ("plain", (dp, cp))):
+            for m in maps[lane].values():
+                m.update(d, c, *gt)
+    res = {v: {lane: maps[lane][v].accumulate() for lane in maps}
+           for v in ("integral", "11point")}
+    log(f"YOLOv3 mAP over {HAPI_DET_BATCHES} batches of {HAPI_DET_BATCH}: "
+        f"{res}; detections of B5 and of its plain version "
+        f"{'equal' if same else 'DIFFER'}; B5 launches "
+        f"{launches['greedy_nms']}; forward + decode {ms} ms")
+    for v, r in res.items():
+        if r["kernel"] != r["plain"] or not same:
+            raise RuntimeError(f"YOLOv3 {v} mAP from B5's detections "
+                               f"{r['kernel']} against the plain lane's "
+                               f"{r['plain']}")
+    res.update(b5_launches=launches["greedy_nms"], eval_ms=ms,
+               detections_equal=same)
+    del det, batches
+    release_memory(torch)
+    return res, launches
+
+
+def hapi_lenet_rules(torch, dev):
+    """Phase 20's other rules on LeNet (batch HAPI_LENET_BATCH): each of
+    Adamax, Adagrad, Adadelta, RMSProp (plain and centered), Ftrl, Lamb,
+    LarsMomentum, LookAhead (over Momentum, k 2) and ModelAverage (over
+    Momentum, windows 2-3) for HAPI_LENET_STEPS graphed ``train_batch``
+    steps against the eager lane on fresh weights: losses, weights and
+    optimizer state bitwise (cuDNN deterministic)."""
+    from paddle_tpu_torch import Model, nn, optimizer
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.incubate.optimizer import LookAhead, ModelAverage
+    from paddle_tpu_torch.vision.models import LeNet
+    rng = np.random.default_rng(20)
+    xs = rng.random((HAPI_LENET_STEPS, HAPI_LENET_BATCH, 1, 28, 28),
+                    dtype=np.float32)
+    ys = rng.integers(0, 10, (HAPI_LENET_STEPS, HAPI_LENET_BATCH))
+    rules = {
+        "Adamax": ("Adamax", dict(learning_rate=0.01)),
+        "Adagrad": ("Adagrad", dict(learning_rate=0.01)),
+        "Adadelta": ("Adadelta", dict(learning_rate=0.5)),
+        "RMSProp": ("RMSProp", dict(learning_rate=0.001, momentum=0.5)),
+        "RMSProp centered": ("RMSProp", dict(learning_rate=0.001,
+                                             momentum=0.5, centered=True)),
+        "Ftrl": ("Ftrl", dict(learning_rate=0.02, l1=0.01, l2=0.02)),
+        "Lamb": ("Lamb", dict(learning_rate=0.01)),
+        "LarsMomentum": ("LarsMomentum", dict(learning_rate=0.1)),
+        "LookAhead": ("Momentum", dict(learning_rate=0.05, momentum=0.9)),
+        "ModelAverage": ("Momentum", dict(learning_rate=0.05,
+                                          momentum=0.9)),
+    }
+    res = {}
+    for name, (cls, kw) in rules.items():
+        lanes = {}
+        for lane in ("graphed", "eager"):
+            net = LeNet(device=dev, seed=0)
+            model = Model(net, device=dev)
+            opt = getattr(optimizer, cls)(parameters=net.parameters(),
+                                          device=dev, **kw)
+            model.prepare(opt, nn.CrossEntropyLoss())
+            after, avg = (lambda: None), None
+            if name == "LookAhead":
+                la = LookAhead(opt, alpha=0.5, k=2)
+                la._track()
+                after = la._after_inner_step
+            elif name == "ModelAverage":
+                avg = ModelAverage(0.5, parameters=net.parameters(),
+                                   min_average_window=2,
+                                   max_average_window=3)
+                after = avg.step
+            ctx = graphs.disable_graphs() if lane == "eager" \
+                else contextlib.nullcontext()
+            with ctx, cudnn_deterministic(torch):
+                losses = []
+                for x, y in zip(xs, ys):
+                    losses.append(model.train_batch([x], [y])[0])
+                    after()
+                if avg is not None:
+                    with avg.apply():
+                        losses.append(model.eval_batch([xs[0]], [ys[0]])[0])
+            state = {k: v.detach().clone()
+                     for k, v in net.state_dict().items()}
+            state.update({k: v.clone() for k, v in
+                          opt.state_dict().items()
+                          if isinstance(v, torch.Tensor)})
+            lanes[lane] = (losses, state)
+        equal = lanes["graphed"][0] == lanes["eager"][0] and all(
+            torch.equal(lanes["graphed"][1][k], v)
+            for k, v in lanes["eager"][1].items())
+        losses = lanes["graphed"][0]
+        log(f"LeNet {name}: graphed {'==' if equal else '!='} eager "
+            f"(losses, weights, state bitwise), losses "
+            f"{[round(v, 5) for v in losses]}")
+        if not equal or not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"LeNet {name}: graphed lane "
+                               f"{lanes['graphed'][0]} against eager "
+                               f"{lanes['eager'][0]}")
+        res[name] = {"losses": losses, "graphed_equals_eager": equal}
+    release_memory(torch)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -4820,6 +5367,28 @@ def main() -> int:
     del model
     release_memory(torch)
 
+    # -- phase 20: the hapi loop as users write it ----------------------------
+    stamp("20 hapi fit and evaluate")
+    hapi_res, hapi_launches = hapi_resnet(torch, dev, smi, reset_counters,
+                                          read_counters)
+    hapi_bert_res, bert_launches_20, bert_dtypes_20 = hapi_bert(
+        torch, fa_mod, dev, bcfg, smi, reset_counters, read_counters)
+    hapi_launches.update(bert_launches_20)
+    hapi_map, map_launches = hapi_yolov3_map(
+        torch, nms_mod, det_mod, dev, reset_counters, read_counters)
+    hapi_launches["hapi_yolov3_map"] = map_launches
+    reset_counters()
+    hapi_rules = hapi_lenet_rules(torch, dev)
+    hapi_launches["hapi_lenet_rules"] = read_counters()
+    log(f"hapi paths launches: {hapi_launches}")
+    for path, counts in hapi_launches.items():
+        expect = {"hapi_bert_evaluate": "flash_attention_fwd",
+                  "hapi_yolov3_map": "greedy_nms"}.get(path)
+        for n, c in counts.items():
+            if (c > 0) != (n == expect):
+                raise RuntimeError(f"{path}: kernel {n} launched {c} "
+                                   f"times")
+
     # -- summary --------------------------------------------------------------
     paths = {"serving": serve_launches, "serving_slot": slot_launches,
              "generate": gen_launches, "training": train_launches,
@@ -4830,10 +5399,11 @@ def main() -> int:
              "serving_c6": c6_launches, "training_yolov3": yolo_launches,
              **{f"training_gpt_s4096_{k}": v for k, v in long_paths.items()},
              "serving_prefix": prefix_launches, "serving_spec": spec_launches,
-             "serving_int8": int8_launches}
+             "serving_int8": int8_launches, **hapi_launches}
     amp_dtypes["bert_flash_checks"] = bert_dtypes
     amp_dtypes.update({f"training_gpt_s4096_{k}": v
                        for k, v in long_dtypes.items()})
+    amp_dtypes["hapi_bert_evaluate"] = bert_dtypes_20
 
     def launches(name):
         by_path = {k: v[name] for k, v in paths.items()}
@@ -4883,6 +5453,10 @@ def main() -> int:
     log(f"serving, prefix reuse: {json.dumps(prefix)}")
     log(f"serving, speculative decode: {json.dumps(spec)}")
     log(f"serving, int8: {json.dumps(int8)}")
+    log("hapi: " + json.dumps({"resnet50": hapi_res,
+                               "bert_base": hapi_bert_res,
+                               "yolov3_map": hapi_map,
+                               "lenet_rules": hapi_rules}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

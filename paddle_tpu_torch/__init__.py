@@ -7,14 +7,17 @@ and runs on an NVIDIA H100. It imports ``torch`` and never ``jax`` or
 wrote in Pallas is a hand-written CUDA kernel under ``csrc/`` with a plain
 PyTorch version beside it, which CPU tensors take.
 """
-from . import amp, framework_io, nn, optimizer, quantization, regularizer
+from . import (amp, framework_io, incubate, io, metric, nn, optimizer,
+               quantization, regularizer)
 from .core.device import resolve_device
 from .core.generator import seed
 from .framework_io import load, save, state_dict_from_reference
-from .hapi import Model
+from .hapi import Model, summary
+from .io import DataLoader
 
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device", "seed", "amp", "framework_io", "load",
-           "save", "state_dict_from_reference", "Model", "nn", "optimizer",
+__all__ = ["resolve_device", "seed", "amp", "framework_io", "incubate",
+           "io", "metric", "load", "save", "state_dict_from_reference",
+           "Model", "summary", "DataLoader", "nn", "optimizer",
            "quantization", "regularizer"]

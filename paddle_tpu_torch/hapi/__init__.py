@@ -1,5 +1,5 @@
 """The high-level training API (counterpart of ``paddle_tpu/hapi``)."""
 from . import callbacks
-from .model import Model
+from .model import Model, summary
 
-__all__ = ["Model", "callbacks"]
+__all__ = ["Model", "summary", "callbacks"]

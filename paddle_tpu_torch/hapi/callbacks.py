@@ -1,10 +1,14 @@
 """hapi callbacks (counterpart of ``paddle_tpu/hapi/callbacks.py``:
 ``Callback``, ``CallbackList``, ``ProgBarLogger``, ``ModelCheckpoint``,
-``EarlyStopping``, ``LRScheduler`` and ``config_callbacks``). ``VisualDL``,
-``FaultToleranceCallback`` and ``AnomalyGuardCallback`` are not ported yet
-(ROADMAP A8)."""
+``EarlyStopping``, ``LRScheduler``, ``VisualDL`` and
+``config_callbacks``). The logs a ``Model`` passes hold the loss and
+each metric's result under its first name; ``config_callbacks`` hands
+the metric names to every callback in ``params["metrics"]``.
+``FaultToleranceCallback`` and ``AnomalyGuardCallback`` are not ported
+yet (ROADMAP A8)."""
 from __future__ import annotations
 
+import json
 import os
 import time
 
@@ -208,6 +212,41 @@ class LRScheduler(Callback):
         s = self._sched()
         if s is not None and self.by_epoch:
             s.step()
+
+
+class VisualDL(Callback):
+    """Appends each train batch's logs to ``<log_dir>/metrics.jsonl``, one
+    JSON object a line (``{"step": n, key: value, ...}``), which a
+    dashboard can tail (reference ``:211-245``)."""
+
+    def __init__(self, log_dir="./log"):
+        super().__init__()
+        self.log_dir = log_dir
+        self._f = None
+        self._step = 0
+
+    def on_train_begin(self, logs=None):
+        os.makedirs(self.log_dir, exist_ok=True)
+        self._f = open(os.path.join(self.log_dir, "metrics.jsonl"), "a")
+
+    def on_train_batch_end(self, step, logs=None):
+        if self._f and logs:
+            rec = {"step": self._step,
+                   **{k: _scalar(v) for k, v in logs.items()}}
+            self._f.write(json.dumps(rec) + "\n")
+            self._step += 1
+
+    def on_train_end(self, logs=None):
+        if self._f:
+            self._f.close()
+            self._f = None
+
+
+def _scalar(v):
+    try:
+        return float(np.ravel(v)[0])
+    except (TypeError, ValueError):
+        return str(v)
 
 
 def config_callbacks(callbacks=None, model=None, epochs=None, steps=None,

@@ -1,7 +1,8 @@
 """paddle.Model, the Keras-like training API (counterpart of
-``paddle_tpu/hapi/model.py``; ``prepare``, the compiled train step and
-``train_batch``/``train_batches``/``train_loop`` at ``:90-650`` are the
-contract).
+``paddle_tpu/hapi/model.py``: ``prepare``, the compiled train step,
+``train_batch``/``train_batches``/``train_loop``, the compiled eval and
+predict programs, ``fit``/``evaluate``/``predict`` over datasets and
+loaders, and ``summary``).
 
 The JAX package compiles forward, loss, value-and-grad, clip, coupled
 regularizer and optimizer update into one program per input signature
@@ -32,6 +33,26 @@ A program's outputs are its own buffers, read before the next call.
 The model's dropout generator (``core.generator.default_generator``) is
 registered with every graph, so each replay draws fresh masks.
 
+With metrics attached (``prepare(metrics=...)``), the train program
+also returns the predictions, into its own output buffers, and
+``train_batch`` and ``eval_batch`` return each metric's ``update`` of
+its ``compute`` on them (the reference's ``want_preds``); without
+metrics the predictions are not kept. ``train_batches`` and
+``train_loop`` refuse metrics, as the reference's do.
+
+``eval_batch`` and ``predict_batch`` run a compiled program too: one
+per signature and form (with the loss, without it, or predict), in an
+LRU of 64 (``_eval_fns``, the reference's ``_eval_fns``), captured in
+eval mode (the network is switched to eval outside the capture) and
+dropped with the train programs. ``predict_batch`` returns copies of
+the program's outputs.
+
+``fit``, ``evaluate`` and ``predict`` take a ``io.Dataset`` (made into
+an ``io.DataLoader`` on the model's device with ``batch_size``,
+``shuffle`` and ``num_workers``), an ``io.DataLoader`` or any iterable
+of batches, and log the reference's keys: the loss, then each metric's
+``accumulate()`` under its first name.
+
 ``train_batch(update=False)`` runs the gradients-only program and adds
 its gradients to each parameter's ``.grad``; the next ``update=True``
 call adds its own and applies the sum through the eager
@@ -47,14 +68,15 @@ Inputs may be NumPy arrays or tensors; they are copied to the model's
 device.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: metrics and ``Dataset``/``DataLoader`` inputs (A9),
-``attach_step_meter`` and a numerical sentinel on the optimizer (A8).
+item: ``attach_step_meter`` and a numerical sentinel on the optimizer
+(A8).
 ``prepare(amp_configs=...)`` raises as well, where the reference accepts
 and ignores it: mixed precision is ``amp.auto_cast`` around
 ``train_batch`` (with ``amp.decorate`` for O2).
 """
 from __future__ import annotations
 
+import itertools
 import os
 from collections import OrderedDict
 from typing import List
@@ -66,11 +88,15 @@ from .. import amp, framework_io
 from ..core.device import DeviceLike, resolve_device
 from ..core.generator import default_generator
 from ..core.graphs import GraphPool, Program
+from ..io import DataLoader, Dataset
+from ..metric import Metric
 from ..nn.clip import ClipGradByGlobalNorm, _clips, _sq_norm
 from .callbacks import CallbackList, config_callbacks
 
 #: compiled train steps kept per model (the reference's LRU bound)
 _TRAIN_FNS_MAX = 16
+#: compiled eval and predict programs kept per model (the reference's)
+_EVAL_FNS_MAX = 64
 #: elements of one piece of train_loop's flat update: the update's
 #: temporaries are this size, not the whole buffer's
 _FLAT_CHUNK = 1 << 26
@@ -118,9 +144,11 @@ class Model:
         self._labels = labels
         self._optimizer = None
         self._loss = None
+        self._metrics: List[Metric] = []
         self.stop_training = False
         self._train_state = _TrainState(self._device)
         self._train_fns = OrderedDict()
+        self._eval_fns = OrderedDict()
         self._invalidate_compiled()
 
     def attach_step_meter(self, meter=None):
@@ -134,6 +162,8 @@ class Model:
         for ts in self._train_fns.values():
             ts["fn"].release()
             ts["grads_fn"].release()
+        for ef in self._eval_fns.values():
+            ef["fn"].release()
         if getattr(self, "_fused_loop", None) is not None:
             self._fused_loop["fn"].release()
         self._train_step_fn = None
@@ -142,12 +172,11 @@ class Model:
         self._fused_loop = None
         # sig -> compiled train step, least recently used first
         self._train_fns = OrderedDict()
+        # (sig, form) -> compiled eval or predict program, the same way
+        self._eval_fns = OrderedDict()
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None):
-        if metrics:
-            raise NotImplementedError("Model.prepare: metrics are not "
-                                      "ported yet (ROADMAP A9)")
         if amp_configs is not None:
             raise NotImplementedError(
                 "Model.prepare: amp_configs is not taken; the reference "
@@ -160,6 +189,12 @@ class Model:
         self._optimizer = optimizer
         self._loss = loss
         self._invalidate_compiled()
+        if metrics is None:
+            self._metrics = []
+        elif isinstance(metrics, Metric):
+            self._metrics = [metrics]
+        else:
+            self._metrics = list(metrics)
 
     # ------------------------------------------------------------------
     def _batch(self, inputs, labels):
@@ -200,6 +235,9 @@ class Model:
         fixed_pos = [i for i, t in enumerate(state)
                      if i >= len(params) or not t.requires_grad]
         opt, loss_fn, n_x = self._optimizer, self._loss, sig[1]
+        # the predictions are an extra write a step (a [B, S, vocab]
+        # logits tensor for an LM head): kept only for metrics
+        want_preds = sig[3]
         # the optimizer's positions of the trainable parameters it holds
         held = {} if opt is None else {
             id(p): i for i, p in enumerate(opt._parameter_list)}
@@ -212,13 +250,15 @@ class Model:
                 loss = loss_fn(*preds, *inputs[n_x:])
                 grads = torch.autograd.grad(loss, trainable,
                                             allow_unused=True)
-            return loss.detach(), [torch.zeros_like(p) if g is None else g
-                                   for p, g in zip(trainable, grads)]
+            preds = [p.detach() for p in preds] if want_preds else []
+            return loss.detach(), preds, [
+                torch.zeros_like(p) if g is None else g
+                for p, g in zip(trainable, grads)]
 
         def step(params, holder, *inputs):
-            loss, grads = value_and_grad(inputs)
+            loss, preds, grads = value_and_grad(inputs)
             opt._apply_update([i for i, _ in upd], [grads[j] for _, j in upd])
-            return loss
+            return loss, preds
 
         def grads_only(params, holder, *inputs):
             return value_and_grad(inputs)
@@ -254,7 +294,8 @@ class Model:
 
     def _signature(self, xs, ys, drop=0):
         return (tuple((tuple(t.shape[drop:]), str(t.dtype))
-                      for t in xs + ys), len(xs), amp.state_key())
+                      for t in xs + ys), len(xs), amp.state_key(),
+                bool(self._metrics))
 
     def _accumulate(self, ts, grads):
         with torch.no_grad():
@@ -262,7 +303,8 @@ class Model:
                 p.grad = g.clone() if p.grad is None else p.grad + g
 
     def train_batch(self, inputs, labels=None, update=True):
-        """One training step on one batch; returns ``(loss, [])``. With
+        """One training step on one batch; returns ``(loss, metrics)``,
+        each metric's ``update`` on this batch's predictions. With
         ``update=False`` the gradients only accumulate into ``.grad``."""
         if self._loss is None or (update and self._optimizer is None):
             raise RuntimeError("Model.train_batch: call prepare(optimizer, "
@@ -273,8 +315,8 @@ class Model:
         self.network.train()
         opt = self._optimizer
         if not update or any(p.grad is not None for p in ts["trainable"]):
-            loss, grads = ts["grads_fn"](self._program_params(ts, False),
-                                         self._train_state, *args)
+            loss, preds, grads = ts["grads_fn"](
+                self._program_params(ts, False), self._train_state, *args)
             self._accumulate(ts, grads)
             if update:
                 # finishing an accumulation window: the eager optimizer
@@ -286,10 +328,19 @@ class Model:
         else:
             opt._ensure_state()
             opt._fill_scalars()
-            loss = ts["fn"](self._program_params(ts, True),
-                            self._train_state, *args)
+            loss, preds = ts["fn"](self._program_params(ts, True),
+                                   self._train_state, *args)
             opt._global_step += 1
-        return float(loss), []
+        return float(loss), self._update_metrics(preds, ys)
+
+    def _update_metrics(self, preds, labels):
+        """Each metric's ``update`` of its ``compute`` on ``preds`` (read
+        before the program's next call overwrites them)."""
+        out = []
+        for m in self._metrics:
+            r = m.compute(*preds, *labels)
+            out.append(m.update(r if not isinstance(r, tuple) else r[0]))
+        return out
 
     # -- K steps in one call ----------------------------------------------
     def _prepare_multi_step(self, name, inputs, labels):
@@ -300,6 +351,10 @@ class Model:
         if self._loss is None or self._optimizer is None:
             raise RuntimeError(f"Model.{name}: call prepare(optimizer, "
                                "loss) first")
+        if self._metrics:
+            raise ValueError(
+                f"{name}: detach metrics (prepare(..., metrics=None)); "
+                "per-step predictions are not materialized")
         xs, ys = self._batch(inputs, labels)
         K = int(xs[0].shape[0])
         ts = self._get_train_step(self._signature(xs, ys, drop=1))
@@ -322,6 +377,8 @@ class Model:
             args = self._static_inputs(ts, [t[k] for t in xs + ys])
             opt._fill_scalars()
             loss = fn(params(), self._train_state, *args)
+            if isinstance(loss, (tuple, list)):
+                loss = loss[0]
             if losses is None:
                 losses = torch.empty(K, dtype=loss.dtype, device=loss.device)
             losses[k].copy_(loss)
@@ -484,6 +541,8 @@ class Model:
                 for other in self._train_fns.values():
                     other["fn"].release()
                     other["grads_fn"].release()
+                for other in self._eval_fns.values():
+                    other["fn"].release()
 
         @torch.no_grad()
         def update():
@@ -528,32 +587,73 @@ class Model:
         return {"fn": Program(fused_step), "pack": pack, "params": params,
                 "update": update, "layout": layout, "pieces": pieces}
 
-    @torch.no_grad()
-    def eval_batch(self, inputs, labels=None):
-        """Forward and loss in eval mode; returns ``(loss or None, [])``."""
-        xs, ys = self._batch(inputs, labels)
-        self.network.eval()
-        preds = self._forward(xs)
-        if self._loss is None or not ys:
-            return None, []
-        return float(self._loss(*preds, *ys)), []
+    # -- the compiled eval and predict programs ---------------------------
+    def _get_eval_step(self, key, with_loss):
+        ef = self._eval_fns.get(key)
+        if ef is None:
+            ef = self._build_eval_step(key[0][1], with_loss)
+            if len(self._eval_fns) >= _EVAL_FNS_MAX:
+                _, old = self._eval_fns.popitem(last=False)
+                old["fn"].release()
+            self._eval_fns[key] = ef
+        else:
+            self._eval_fns.move_to_end(key)
+        return ef
 
-    @torch.no_grad()
-    def predict_batch(self, inputs):
-        """The network's outputs in eval mode (one tensor, or a list)."""
-        xs, _ = self._batch(inputs, None)
+    def _build_eval_step(self, n_x, with_loss):
+        """``raw(params, holder, *inputs) -> (preds, loss)`` in eval mode
+        and without gradients, as a ``Program``: the forward, and the
+        loss when ``with_loss`` (a zero otherwise)."""
+        params = [p for _, p in self.network.named_parameters()]
+        buffers = [b for _, b in self.network.named_buffers()]
+        loss_fn = self._loss
+
+        @torch.no_grad()
+        def ev(params, holder, *inputs):
+            preds = self._forward(inputs[:n_x])
+            if with_loss:
+                loss = loss_fn(*preds, *inputs[n_x:])
+            else:
+                loss = torch.zeros((), device=self._device)
+            return preds, loss
+
+        return {"fn": Program(ev), "params": [params, buffers],
+                "inputs": None}
+
+    def _run_eval(self, xs, ys, form):
+        key = (self._signature(xs, ys)[:3], form)
+        ef = self._get_eval_step(key, form == "loss")
+        args = self._static_inputs(ef, xs + ys)
+        # the mode is switched outside the program: it is captured in
+        # eval mode and replays eval-mode kernels
         self.network.eval()
-        out = self._forward(xs)
+        return ef["fn"](ef["params"], self._train_state, *args)
+
+    def eval_batch(self, inputs, labels=None):
+        """Forward and loss in eval mode through the signature's compiled
+        program; returns ``(loss or None, metrics)``."""
+        xs, ys = _listed(inputs, labels)
+        with_loss = self._loss is not None and bool(ys)
+        preds, loss = self._run_eval(xs, ys,
+                                     "loss" if with_loss else "forward")
+        metrics = self._update_metrics(preds, ys)
+        return (float(loss) if with_loss else None), metrics
+
+    def predict_batch(self, inputs):
+        """The network's outputs in eval mode (one tensor, or a list),
+        copied out of the signature's compiled program."""
+        xs, _ = _listed(inputs, None)
+        preds, _ = self._run_eval(xs, [], "predict")
+        out = [p.clone() for p in preds]
         return out[0] if len(out) == 1 else out
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _batches(data, what):
-        if isinstance(data, (torch.utils.data.Dataset,
-                             torch.utils.data.DataLoader)):
-            raise NotImplementedError(
-                f"Model.{what}: Dataset/DataLoader inputs are not ported "
-                "yet (ROADMAP A9); pass an iterable of batches")
+    def _as_loader(self, data, batch_size, shuffle, num_workers):
+        """A ``Dataset`` as a ``DataLoader`` on the model's device; a
+        ``DataLoader`` or any other iterable of batches as it is."""
+        if isinstance(data, Dataset):
+            return DataLoader(data, batch_size=batch_size, shuffle=shuffle,
+                              num_workers=num_workers, device=self._device)
         return data
 
     @staticmethod
@@ -564,22 +664,31 @@ class Model:
             return [batch[0]], []
         return [batch], []
 
+    def _metric_logs(self, logs, values):
+        for m, r in zip(self._metrics, values):
+            name = m.name()
+            logs[name if isinstance(name, str) else name[0]] = r
+        return logs
+
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,
             drop_last=False, shuffle=True, num_workers=0, callbacks=None,
             accumulate_grad_batches=1, num_iters=None):
-        """Train over an iterable of batches (each ``[*inputs, label]``)
-        for ``epochs``, with the callbacks of :func:`config_callbacks`
-        (the ``LRScheduler`` callback steps the optimizer's scheduler
-        after every batch)."""
+        """Train over a ``Dataset``, a ``DataLoader`` or an iterable of
+        batches (each ``[*inputs, label]``) for ``epochs``, evaluating on
+        ``eval_data`` every ``eval_freq`` epochs, with the callbacks of
+        :func:`config_callbacks` (the ``LRScheduler`` callback steps the
+        optimizer's scheduler after every batch). Each batch's logs hold
+        the loss and every metric's result on the batch."""
         if accumulate_grad_batches != 1:
             raise NotImplementedError(
                 "Model.fit: accumulate_grad_batches is not taken (the "
                 "reference accepts and ignores it); use "
                 "train_batch(update=False)")
-        loader = self._batches(train_data, "fit")
-        eval_loader = self._batches(eval_data, "fit") \
-            if eval_data is not None else None
+        loader = self._as_loader(train_data, batch_size, shuffle,
+                                 num_workers)
+        eval_loader = self._as_loader(eval_data, batch_size, False,
+                                      num_workers)
         try:
             steps = len(loader)
         except TypeError:
@@ -587,18 +696,22 @@ class Model:
         cbks = config_callbacks(callbacks, model=self, epochs=epochs,
                                 steps=steps, log_freq=log_freq,
                                 verbose=verbose, save_freq=save_freq,
-                                save_dir=save_dir, metrics=[])
+                                save_dir=save_dir,
+                                metrics=[m.name() for m in self._metrics])
         self.stop_training = False
         cbks.on_train_begin()
         it = 0
         logs = {}
         for epoch in range(epochs):
             cbks.on_epoch_begin(epoch)
+            for m in self._metrics:
+                m.reset()
+            logs = {}
             for step, batch in enumerate(loader):
                 cbks.on_train_batch_begin(step)
                 xs, ys = self._split_batch(batch)
-                loss, _ = self.train_batch(xs, ys)
-                logs = {"loss": loss}
+                loss, metrics = self.train_batch(xs, ys)
+                logs = self._metric_logs({"loss": loss}, metrics)
                 cbks.on_train_batch_end(step, logs)
                 it += 1
                 if num_iters is not None and it >= num_iters:
@@ -615,14 +728,19 @@ class Model:
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
                  num_workers=0, callbacks=None, num_samples=None,
                  _inner=False):
-        """Mean loss over an iterable of batches, as ``{"loss": ...}``."""
+        """The mean loss and each metric's ``accumulate()`` over a
+        ``Dataset``, ``DataLoader`` or iterable of batches."""
+        loader = self._as_loader(eval_data, batch_size, False, num_workers)
+        for m in self._metrics:
+            m.reset()
         losses: List[float] = []
-        for batch in self._batches(eval_data, "evaluate"):
+        for batch in loader:
             xs, ys = self._split_batch(batch)
             loss, _ = self.eval_batch(xs, ys)
             if loss is not None:
                 losses.append(loss)
         logs = {"loss": float(np.mean(losses))} if losses else {}
+        self._metric_logs(logs, [m.accumulate() for m in self._metrics])
         if callbacks is not None and _inner:
             CallbackList(callbacks).on_eval_end(logs)
         elif verbose:
@@ -631,11 +749,13 @@ class Model:
 
     def predict(self, test_data, batch_size=1, num_workers=0,
                 stack_outputs=False, callbacks=None, verbose=1):
-        """The network's outputs over an iterable of batches, as NumPy
-        arrays (one per batch, or a list per batch for several
-        outputs)."""
+        """The network's outputs over a ``Dataset``, ``DataLoader`` or
+        iterable of batches, as NumPy arrays: one per batch (a list per
+        batch for several outputs), or with ``stack_outputs`` and one
+        output, ``[all batches concatenated]``."""
+        loader = self._as_loader(test_data, batch_size, False, num_workers)
         outputs = []
-        for batch in self._batches(test_data, "predict"):
+        for batch in loader:
             xs, _ = self._split_batch(batch)
             out = self.predict_batch(xs)
             outputs.append(out.cpu().numpy() if isinstance(out, torch.Tensor)
@@ -664,3 +784,43 @@ class Model:
 
     def parameters(self, *args, **kwargs):
         return list(self.network.parameters())
+
+    def summary(self, input_size=None, dtype=None):
+        return summary(self.network, input_size, dtype)
+
+
+def summary(net: torch.nn.Module, input_size=None, dtypes=None):
+    """A table of the sublayers with the parameters and buffers each holds
+    itself, and the totals (reference ``:875-913``); returns
+    ``{"total_params", "trainable_params"}``. ``input_size`` and
+    ``dtypes`` are not read, as in the reference."""
+    rows = []
+    for name, layer in net.named_modules():
+        if name == "":
+            continue
+        n = sum(t.numel() for t in itertools.chain(
+            layer._parameters.values(), layer._buffers.values())
+            if t is not None)
+        rows.append((name, type(layer).__name__, n))
+    seen = set()
+    total = trainable = 0
+    for _, p in net.named_parameters():
+        if id(p) not in seen:
+            seen.add(id(p))
+            total += p.numel()
+            trainable += p.numel() if p.requires_grad else 0
+    for _, b in net.named_buffers():
+        if id(b) not in seen:
+            seen.add(id(b))
+            total += b.numel()
+    print("-" * 64)
+    print(f"{'Layer':<36}{'Type':<18}{'Params':>10}")
+    print("=" * 64)
+    for name, kind, n in rows:
+        print(f"{name:<36}{kind:<18}{n:>10}")
+    print("=" * 64)
+    print(f"Total params: {total}")
+    print(f"Trainable params: {trainable}")
+    print(f"Non-trainable params: {total - trainable}")
+    print("-" * 64)
+    return {"total_params": total, "trainable_params": trainable}

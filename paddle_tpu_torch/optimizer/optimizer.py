@@ -1,5 +1,5 @@
-"""The optimizer base and SGD, Momentum, Adam and AdamW (counterpart of
-``paddle_tpu/optimizer/optimizer.py:25-340``).
+"""The optimizer base, its eleven rules and ``ExponentialMovingAverage``
+(counterpart of ``paddle_tpu/optimizer/optimizer.py``).
 
 Each optimizer defines one update rule ``_update(p, g, state, lr, step,
 ctx) -> (p, state)``; :meth:`Optimizer.step` applies it parameter
@@ -25,22 +25,31 @@ cannot carry paddle's ``p.name``, so ``parameters`` may hold ``(name,
 parameter)`` pairs, as ``module.named_parameters()`` gives them; a bare
 parameter's name is "" (the JAX package passes ``p.name or ""``, which is
 "" for every parameter a layer creates unnamed). ``_elementwise_update``
-marks a rule that is elementwise in ``(p, g, state)`` (all four here), so
-``Model.train_loop`` may run it on coalesced flat buffers.
+marks a rule that is elementwise in ``(p, g, state)`` (SGD, Momentum,
+Adam and AdamW, as in the reference), so ``Model.train_loop`` may run it
+on coalesced flat buffers; the other seven leave it False and
+``train_loop`` falls back to per-step ``train_batch`` for them.
+
+Written in place, a rule reads every old value before it overwrites it
+(Adadelta's update reads the old ``avg_sq_update``, Ftrl's ``sigma`` the
+old ``squared`` and its ``linear`` the old parameter, Lamb's and
+LarsMomentum's norms the parameter before it moves). Lamb's trust ratio
+and LarsMomentum's local lr are ``torch.where`` on float32 norms held on
+the device, never a Python branch, so a captured step holds them.
 
 ``state_dict`` keys are the JAX package's (``param_{i}.moment1``,
-``.moment2``, ``.velocity``, ``.master``, ``global_step``,
+``.moment2``, ``.velocity``, ``.master``, ``.moment``, ``.inf_norm``,
+``.avg_sq_grad``, ``.avg_sq_update``, ``.mean_square``, ``.momentum``,
+``.mean_grad``, ``.squared``, ``.linear``, ``global_step``,
 ``LR_Scheduler``), ``i`` being the parameter's position in
 ``parameters``, so a ``.pdopt`` file moves between the packages;
 :meth:`set_state_dict` copies into the live state in place. Like every
 entry point of the port, an optimizer lives on CUDA unless ``device``
 says otherwise, and refuses parameters elsewhere.
-
-Not ported yet (ROADMAP A4): Adamax, Adagrad, Adadelta, RMSProp, Lamb,
-LarsMomentum, Ftrl and ExponentialMovingAverage.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import numpy as np
@@ -386,3 +395,302 @@ class AdamW(Adam):
         work.mul_(self._scalar(("decay", ratio, coeff),
                                lambda: 1.0 - lr * coeff))
         return super()._update(p, g, s, lr, step)
+
+
+def _zeros(p, fill=0.0):
+    return torch.full(p.shape, fill, dtype=p.dtype, device=p.device)
+
+
+def _norm32(t):
+    """``sqrt(sum(t ** 2))`` in float32, on the device."""
+    return t.float().square().sum().sqrt()
+
+
+class Adamax(Optimizer):
+    """Adam with an infinity-norm second moment (reference ``:343``)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None, *, device: DeviceLike = None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, device=device)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _init_state(self, p):
+        return {"moment": _zeros(p), "inf_norm": _zeros(p)}
+
+    def _update(self, p, g, s, lr, step, ctx=None):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        m = s["moment"].mul_(b1).add_((1 - b1) * g)
+        u = torch.maximum(s["inf_norm"].mul_(b2), g.abs(),
+                          out=s["inf_norm"])
+        lrc = self._scalar(("lr_bc", b1), lambda: lr / (1 - b1 ** step))
+        p.sub_(lrc * m / (u + eps))
+        return p, s
+
+
+class Adagrad(Optimizer):
+    """Per-element lr scaled by the summed squared gradients (reference
+    ``:364``)."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 initial_accumulator_value=0.0, *, device: DeviceLike = None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, device=device)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _init_state(self, p):
+        return {"moment": _zeros(p, self._init_acc)}
+
+    def _update(self, p, g, s, lr, step, ctx=None):
+        m = s["moment"].add_(g * g)
+        p.sub_(lr * g / (m.sqrt() + self._epsilon))
+        return p, s
+
+
+class Adadelta(Optimizer):
+    """reference ``:383``. The update reads the old ``avg_sq_update``
+    before it moves."""
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None, *, device: DeviceLike = None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, device=device)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _init_state(self, p):
+        return {"avg_sq_grad": _zeros(p), "avg_sq_update": _zeros(p)}
+
+    def _update(self, p, g, s, lr, step, ctx=None):
+        rho, eps = self._rho, self._epsilon
+        ag = s["avg_sq_grad"].mul_(rho).add_((1 - rho) * g * g)
+        au = s["avg_sq_update"]
+        upd = g * torch.sqrt(au + eps) / torch.sqrt(ag + eps)
+        au.mul_(rho).add_((1 - rho) * upd * upd)
+        p.sub_(lr * upd)
+        return p, s
+
+
+class RMSProp(Optimizer):
+    """reference ``:403``, plain and ``centered``."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None, *, device: DeviceLike = None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, device=device)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _init_state(self, p):
+        st = {"mean_square": _zeros(p), "momentum": _zeros(p)}
+        if self._centered:
+            st["mean_grad"] = _zeros(p)
+        return st
+
+    def _update(self, p, g, s, lr, step, ctx=None):
+        rho, eps = self._rho, self._epsilon
+        ms = s["mean_square"].mul_(rho).add_((1 - rho) * g * g)
+        if self._centered:
+            mg = s["mean_grad"].mul_(rho).add_((1 - rho) * g)
+            denom = torch.sqrt(ms - mg * mg + eps)
+        else:
+            denom = torch.sqrt(ms + eps)
+        mom = s["momentum"].mul_(self._momentum).add_(lr * g / denom)
+        p.sub_(mom)
+        return p, s
+
+
+class Lamb(Optimizer):
+    """Layer-wise adaptive Adam (reference ``:436``): the Adam direction
+    plus ``lamb_weight_decay * p``, scaled by the trust ratio
+    ``|p| / |r|`` (1 where either norm is 0), both norms in float32 on
+    the device. ``exclude_from_weight_decay_fn`` is not taken: the
+    reference stores it and never reads it."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None, name=None,
+                 *, device: DeviceLike = None):
+        if exclude_from_weight_decay_fn is not None:
+            raise NotImplementedError(
+                "Lamb: exclude_from_weight_decay_fn is not taken; the "
+                "reference stores it and never reads it, so every "
+                "parameter is decayed by lamb_weight_decay")
+        super().__init__(learning_rate, parameters, None, grad_clip, name,
+                         device=device)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._lamb_wd = lamb_weight_decay
+
+    def _init_state(self, p):
+        return {"moment1": _zeros(p), "moment2": _zeros(p)}
+
+    def _update(self, p, g, s, lr, step, ctx=None):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        m = s["moment1"].mul_(b1).add_((1 - b1) * g)
+        v = s["moment2"].mul_(b2).add_((1 - b2) * g * g)
+        mhat = m / self._scalar(("bc", b1), lambda: 1 - b1 ** step)
+        vhat = v / self._scalar(("bc", b2), lambda: 1 - b2 ** step)
+        r = mhat / (torch.sqrt(vhat) + eps) + self._lamb_wd * p
+        w_norm, r_norm = _norm32(p), _norm32(r)
+        trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            1.0)
+        p.sub_((lr * trust).to(p.dtype) * r)
+        return p, s
+
+
+class LarsMomentum(Optimizer):
+    """Momentum with a layer-wise local lr (reference ``:464``):
+    ``lr * lars_coeff * |p| / (|g| + lars_weight_decay * |p|)``, ``lr``
+    where either norm is 0; both norms in float32 on the device, taken
+    before the velocity moves."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, parameters=None, grad_clip=None,
+                 name=None, *, device: DeviceLike = None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name,
+                         device=device)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_wd = lars_weight_decay
+
+    def _init_state(self, p):
+        return {"velocity": _zeros(p)}
+
+    def _update(self, p, g, s, lr, step, ctx=None):
+        w_norm, g_norm = _norm32(p), _norm32(g)
+        local_lr = torch.where(
+            (w_norm > 0) & (g_norm > 0),
+            lr * self._lars_coeff * w_norm / (g_norm
+                                              + self._lars_wd * w_norm),
+            lr)
+        v = s["velocity"].mul_(self._momentum).add_(
+            local_lr.to(p.dtype) * (g + self._lars_wd * p))
+        p.sub_(v)
+        return p, s
+
+
+class Ftrl(Optimizer):
+    """Follow-the-regularized-leader (reference ``:490``). ``sigma``
+    reads the old ``squared``, ``linear`` the old parameter."""
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None, *, device: DeviceLike = None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, device=device)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _init_state(self, p):
+        return {"squared": _zeros(p), "linear": _zeros(p)}
+
+    def _update(self, p, g, s, lr, step, ctx=None):
+        lp = self._lr_power
+        sq = s["squared"]
+        new_sq = sq + g * g
+        sigma = (torch.pow(new_sq, -lp) - torch.pow(sq + 1e-30, -lp)) / lr
+        lin = s["linear"].add_(g).sub_(sigma * p)
+        sq.copy_(new_sq)
+        quad = torch.pow(new_sq, -lp) / lr + 2 * self._l2
+        p.copy_((lin.clamp(-self._l1, self._l1) - lin) / quad)
+        return p, s
+
+
+class ExponentialMovingAverage:
+    """EMA of the trainable parameters (reference ``:519-611``):
+    ``ema = decay * ema + (1 - decay) * p`` after each ``update()``, with
+    the ``thres_steps`` ramp ``min(decay, (1 + n) / (10 + n))``, and the
+    shadows bias-corrected by ``1 - prod(decays)`` on :meth:`apply`.
+
+    The reference swaps the parameters' arrays on ``apply``/``restore``.
+    Here a parameter never moves, since every captured program reads it
+    where it is: ``apply`` copies the parameters into backups the EMA
+    keeps and the corrected shadows into the parameters, in place, and
+    :meth:`restore` copies the backups back. The update is one
+    multi-tensor pass over every shadow (``torch._foreach_*``), as the
+    reference fuses it into one program. Pass ``parameters=`` here or
+    to the first ``update()``; a ``(name, parameter)`` pair is taken as
+    the optimizers take it."""
+
+    def __init__(self, decay=0.999, thres_steps=None, name=None,
+                 parameters=None):
+        self._decay = float(decay)
+        self._thres_steps = thres_steps
+        self._step = 0
+        self._decay_pow = 1.0
+        self._params, self._shadows, self._backups = [], [], []
+        self._ids = set()
+        self._applied = False
+        if parameters is not None:
+            self._register(parameters)
+
+    def _register(self, params):
+        for item in params:
+            p = item[1] if isinstance(item, tuple) else item
+            if id(p) not in self._ids and p.requires_grad:
+                self._ids.add(id(p))
+                self._params.append(p)
+                self._shadows.append(torch.zeros_like(p,
+                                                      requires_grad=False))
+
+    @torch.no_grad()
+    def update(self, parameters=None):
+        """One EMA step over the registered (or given) parameters."""
+        if parameters is not None:
+            self._register(parameters)
+        elif not self._params:
+            raise ValueError(
+                "no parameters registered; pass parameters= to the "
+                "constructor or to the first update()")
+        self._step += 1
+        d = self._decay
+        if self._thres_steps is not None:
+            d = min(d, (1.0 + self._step) / (10.0 + self._step))
+        self._decay_pow *= d
+        # the reference's float32 d and 1 - d
+        d32 = np.float32(d)
+        torch._foreach_mul_(self._shadows, float(d32))
+        torch._foreach_add_(self._shadows, torch._foreach_mul(
+            self._params, float(np.float32(1.0) - d32)))
+
+    def apply(self, parameters=None, need_restore=True):
+        """Context manager: the parameters hold their bias-corrected EMA
+        values inside the block (restored after unless
+        ``need_restore=False``). Raises before any ``update()``."""
+        if parameters is not None:
+            self._register(parameters)
+
+        @contextlib.contextmanager
+        def ctx():
+            if self._step == 0:
+                raise RuntimeError(
+                    "ExponentialMovingAverage.apply() before any update(): "
+                    "the shadow values are still zero-initialized")
+            corr = 1.0 - self._decay_pow
+            with torch.no_grad():
+                while len(self._backups) < len(self._params):
+                    self._backups.append(torch.empty_like(
+                        self._params[len(self._backups)],
+                        requires_grad=False))
+                torch._foreach_copy_(self._backups, self._params)
+                torch._foreach_copy_(self._params, self._shadows)
+                if corr > 0:
+                    torch._foreach_div_(self._params, corr)
+            self._applied = True
+            try:
+                yield self
+            finally:
+                if need_restore:
+                    self.restore()
+        return ctx()
+
+    @torch.no_grad()
+    def restore(self, parameters=None):
+        """Copy the values from before :meth:`apply` back into the
+        parameters (nothing when none is applied)."""
+        if self._applied:
+            torch._foreach_copy_(self._params, self._backups)
+            self._applied = False

@@ -5,7 +5,9 @@ and the paged engine through the kernels at a small size, ``generate`` in
 its three cache modes and the default static-slot engine against the CPU,
 the YOLOv3 detection path (greedy NMS on the card against the CPU), and
 the engine's prefix reuse and speculative decode, graphed against eager,
-with B4 over shared pages.
+with B4 over shared pages, and the `Model` loop: each optimizer rule's
+graphed step, the compiled eval program, EMA/ModelAverage/LookAhead in
+place, and a `DataLoader` through the shared-memory ring.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither jax nor the JAX package, so on a machine with a card but
@@ -2122,3 +2124,181 @@ def test_requantized_int8_weights_reach_the_captured_decode_step(cuda):
     got, _ = dec.decode_step(kv, dec.params(), fin, last, samp, None)
     assert fn.replays == 2
     assert torch.equal(got.long(), ref)
+
+
+# -- the hapi loop: the other optimizer rules, eval programs, EMA and
+# -- incubate wrappers, the DataLoader --------------------------------------
+
+LENET_X = np.random.default_rng(11).random((6, 16, 1, 28, 28),
+                                           dtype=np.float32)
+LENET_Y = np.random.default_rng(12).integers(0, 10, (6, 16))
+
+_RULES = {
+    "adamax": ("Adamax", dict(learning_rate=0.01)),
+    "adagrad": ("Adagrad", dict(learning_rate=0.05)),
+    "adadelta": ("Adadelta", dict(learning_rate=0.5)),
+    "rmsprop": ("RMSProp", dict(learning_rate=0.01, momentum=0.5)),
+    "rmsprop_centered": ("RMSProp", dict(learning_rate=0.01, momentum=0.5,
+                                         centered=True)),
+    "lamb": ("Lamb", dict(learning_rate=0.01)),
+    "lars": ("LarsMomentum", dict(learning_rate=0.1)),
+    "ftrl": ("Ftrl", dict(learning_rate=0.1, l1=0.01, l2=0.02)),
+}
+
+
+def _lenet_model(cuda, rule="adamax", metrics=None):
+    from paddle_tpu_torch import Model, nn, optimizer
+    from paddle_tpu_torch.vision.models import LeNet
+    net = LeNet(device=cuda, seed=0)
+    cls, kw = _RULES[rule]
+    model = Model(net, device=cuda)
+    model.prepare(getattr(optimizer, cls)(parameters=net.parameters(),
+                                          device=cuda, **kw),
+                  nn.CrossEntropyLoss(), metrics=metrics)
+    return model, net
+
+
+def _state(net):
+    return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+
+@pytest.mark.parametrize("rule", sorted(_RULES))
+def test_graphed_rule_train_batch_equals_the_eager_lane(cuda, rule):
+    """Each of the seven rules (and centered RMSProp) inside the captured
+    train step: five replays against five eager steps, losses, weights
+    and optimizer state bitwise (cuDNN deterministic)."""
+    from paddle_tpu_torch.core import graphs
+    res = {}
+    for lane in ("graphed", "eager"):
+        model, net = _lenet_model(cuda, rule)
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        with ctx, _cudnn_deterministic():
+            losses = [model.train_batch([x], [y])[0]
+                      for x, y in zip(LENET_X[:5], LENET_Y[:5])]
+        opt = {k: v.clone() for k, v in model._optimizer.state_dict().items()
+               if isinstance(v, torch.Tensor)}
+        res[lane] = (losses, _state(net), opt, model)
+    prog = res["graphed"][3]._train_step_fn["fn"]
+    assert prog.trace_counter["traces"] == 1 and prog.replays == 4
+    assert res["graphed"][0] == res["eager"][0]
+    assert all(np.isfinite(res["graphed"][0]))
+    for i in (1, 2):
+        for k, v in res["eager"][i].items():
+            assert torch.equal(res["graphed"][i][k], v), k
+
+
+def test_captured_eval_program_equals_eager_eval_batch(cuda):
+    """eval_batch and predict_batch replay one captured program per
+    signature: the loss and top-k accuracy bitwise those of the eager
+    lane; BERT's eval program launches B1 once a layer a call."""
+    from paddle_tpu_torch import metric
+    from paddle_tpu_torch.core import graphs
+    model, _ = _lenet_model(cuda, metrics=metric.Accuracy(topk=(1, 5)))
+    with _cudnn_deterministic():
+        model.train_batch([LENET_X[0]], [LENET_Y[0]])
+        graphed = [model.eval_batch([x], [y]) for x, y in
+                   zip(LENET_X[1:4], LENET_Y[1:4])]
+        pred = model.predict_batch([LENET_X[1]])
+        with graphs.disable_graphs():
+            eager = [model.eval_batch([x], [y]) for x, y in
+                     zip(LENET_X[1:4], LENET_Y[1:4])]
+            epred = model.predict_batch([LENET_X[1]])
+    assert len(model._eval_fns) == 2
+    ef = model._eval_fns[next(iter(model._eval_fns))]["fn"]
+    assert ef.trace_counter["traces"] == 1 and ef.replays == 2
+    for (gl, gm), (el, em) in zip(graphed, eager):
+        assert gl == el
+        np.testing.assert_array_equal(gm[0], em[0])
+    assert pred.is_cuda and torch.equal(pred, epred)
+    bert, _ = _bert_model(cuda)
+    ids = torch.from_numpy(BERT_IDS[0]).to(cuda)
+    before = tfa.flash_attention_fwd.launches
+    losses = [bert.eval_batch([ids], [ids])[0] for _ in range(3)]
+    assert tfa.flash_attention_fwd.launches - before == 3 * \
+        BERT_SMALL["num_layers"]
+    with graphs.disable_graphs():
+        assert bert.eval_batch([ids], [ids])[0] == losses[0] == losses[2]
+
+
+def _ptrs(net):
+    return [p.data_ptr() for p in net.parameters()]
+
+
+@pytest.mark.parametrize("wrapper", ["ema", "model_average", "lookahead"])
+def test_averaging_wrappers_keep_addresses_and_captured_eval_reads_them(
+        cuda, wrapper):
+    """EMA, ModelAverage and LookAhead copy into the parameters in place:
+    the addresses never change, and an eval program captured before
+    ``apply`` reads the averaged weights (its loss equal to the eager
+    lane's under the same ``apply``); graphed training with the wrapper
+    equals its eager lane bitwise."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.incubate.optimizer import LookAhead, ModelAverage
+    from paddle_tpu_torch.optimizer import ExponentialMovingAverage
+    res = {}
+    for lane in ("graphed", "eager"):
+        model, net = _lenet_model(cuda, "adamax")
+        ptrs = _ptrs(net)
+        if wrapper == "ema":
+            w = ExponentialMovingAverage(0.8, parameters=net.parameters())
+            after = w.update
+        elif wrapper == "model_average":
+            w = ModelAverage(0.5, parameters=net.parameters(),
+                             min_average_window=2, max_average_window=3)
+            after = w.step
+        else:
+            w = LookAhead(model._optimizer, alpha=0.5, k=2)
+            w._track()
+            after = w._after_inner_step
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        with ctx, _cudnn_deterministic():
+            for x, y in zip(LENET_X[:5], LENET_Y[:5]):
+                model.train_batch([x], [y])
+                after()
+            plain = model.eval_batch([LENET_X[5]], [LENET_Y[5]])[0]
+            if wrapper == "lookahead":
+                applied = plain
+            else:
+                with w.apply():
+                    applied = model.eval_batch([LENET_X[5]],
+                                               [LENET_Y[5]])[0]
+                    assert _ptrs(net) == ptrs
+            again = model.eval_batch([LENET_X[5]], [LENET_Y[5]])[0]
+        assert _ptrs(net) == ptrs and again == plain
+        if wrapper != "lookahead":
+            assert applied != plain
+        res[lane] = (plain, applied, _state(net))
+    assert res["graphed"][:2] == res["eager"][:2]
+    for k, v in res["eager"][2].items():
+        assert torch.equal(res["graphed"][2][k], v), k
+
+
+def test_dataloader_on_cuda_yields_cuda_tensors_through_the_ring(cuda):
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core import shm_ring
+
+    class Images(io.Dataset):
+        def __init__(self):
+            self.x = LENET_X.reshape(-1, 1, 28, 28)
+            self.y = LENET_Y.reshape(-1)
+
+        def __getitem__(self, i):
+            return self.x[i], self.y[i]
+
+        def __len__(self):
+            return len(self.x)
+
+    assert shm_ring.available()
+    ds = Images()
+    dl = io.DataLoader(ds, batch_size=16, num_workers=2, timeout=30,
+                       device=cuda)
+    got = list(dl)
+    assert dl.stats["shm"] == 6 and dl.stats["queue"] == 0
+    for i, (x, y) in enumerate(got):
+        assert x.is_cuda and y.is_cuda and y.dtype == torch.int64
+        np.testing.assert_array_equal(x.cpu().numpy(), LENET_X[i])
+        np.testing.assert_array_equal(y.cpu().numpy(), LENET_Y[i])
+    single = list(io.DataLoader(ds, batch_size=16, device=cuda))
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(got, single))
