@@ -281,7 +281,30 @@ Phases (any failure raises and the script exits non-zero):
    capture succeeds; a replay on an input holding an inf returns the
    non-finite result); (d) with no ``set_device`` call ``to_tensor``
    lands on ``cuda:0``, its ``place`` is ``CUDAPlace(0)`` and
-   ``get_device()`` is ``"gpu:0"``.
+   ``get_device()`` is ``"gpu:0"``;
+22. a paddle program written from the op surface: GPT-3 1.3B as a user's
+   ``nn.Layer`` (``tests/test_torch_op_table.py`` ``op_built_gpt``: every
+   weight a ``create_parameter`` with ``ParamAttr(initializer=Assign(...))``
+   taken by name from ``GPTForCausalLM``'s seed-0 state dict; the forward
+   from ``F.embedding``, ``arange``/``unsqueeze``/``tile``,
+   ``F.layer_norm``, ``matmul`` and ``+``, ``reshape``,
+   ``F.flash_attention(causal=True)``, ``F.gelu``, the tied head; the loss
+   through slicing, ``reshape`` and ``F.cross_entropy``) at phase 21's
+   shape and recipe: (a) 3 dygraph steps in fp32 and 3 under O1 bf16,
+   B1, B2 and B3 24 launches a step each, the losses against phase 21's
+   ``GPTForCausalLM`` dygraph losses (bitwise where the op sequence is
+   the layers', else within 1e-4 relative fp32 or 2e-2 O1 with the op
+   that parts named), funnel calls, step wall, device ms and idle share
+   beside phase 21's; (b) the same program through ``Model.train_batch``,
+   graphed (one capture) and eager, losses bitwise equal; (c) the dense
+   variant (the reference's dense branch) for one fp32 step: loss within
+   1e-4 and gradient global norm within 1e-3 of the flash variant's
+   first step, and its peak memory (at ``[4, 1024]``, or ``[1, 1024]``
+   for both where it does not fit); (d) the op table
+   (``tests/test_torch_op_table.py`` ``CUDA_CASES``, every ported op of the
+   dense surface but the tie cases) on CUDA against the CPU, forward and
+   gradient, and the random ops' determinism and moments on the card,
+   printed as ``n held of n``.
 
 Each model, its programs and its cache are released between phases
 (``release_memory``): GPT-3 1.3B, ResNet-50, BERT-base, YOLOv3 and the
@@ -307,18 +330,23 @@ phase 20's paths (ResNet-50 fit fp32, fit O1 and evaluate, BERT fit and
 evaluate, the mAP path's kernel lane, the LeNet rules; only BERT's
 evaluate launches B1 and only the mAP path B5), and around each of phase
 21's dygraph paths (LeNet, which launches none, and the GPT's fp32 and
-O1 steps, B1-B3 24 each a step) (B4 there runs in the plain
+O1 steps, B1-B3 24 each a step), and around each of phase 22's (the
+op-built GPT's fp32 and O1 dygraph steps and its ``train_batch`` lanes,
+B1-B3 24 each a step) (B4 there runs in the plain
 paged steps only, 24 launches a step; in phase 19 in the paged runs over
 dense pages, int8 weights included, and in none over int8 pages; the
 prefills, tail prefills and the verify attend densely, as the JAX
 package's, so B1 launches nothing on any of them). The last two lines are a
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
-the script exits non-zero and prints no result.
+the script exits non-zero and prints no result. ``--phase 22`` runs,
+after the build, phase 21's two GPT-3 1.3B dygraph references and phase
+22 alone, and prints that phase's numbers only.
 """
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import math
 import os
@@ -1928,6 +1956,20 @@ def _counters(fa_mod):
             fa_mod.flash_attention_bwd_dkv)
 
 
+def _gpt_optimizer(net, dev, o2=False):
+    """Phase 7's AdamW (weight decay 0.01, global-norm clip 1.0; float32
+    masters with ``o2``) on a linear warmup over cosine decay, GPT-3
+    1.3B's published peak lr with a short warmup for a 5-step run."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(2e-4, T_max=1000),
+                            warmup_steps=2, start_lr=2e-5, end_lr=2e-4)
+    opt = AdamW(learning_rate=sched, parameters=net.parameters(),
+                weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0),
+                multi_precision=o2, device=dev)
+    return opt, sched
+
+
 def _train_model(torch, cfg, dev, impl, with_optimizer=True, o2=False):
     """GPT-3 1.3B wrapped in ``Model``, weights from seed 0, with AdamW
     (weight decay 0.01, global-norm clip 1.0, linear warmup over cosine
@@ -1937,20 +1979,13 @@ def _train_model(torch, cfg, dev, impl, with_optimizer=True, o2=False):
     from paddle_tpu_torch import Model, amp
     from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                          GPTPretrainingCriterion)
-    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
-    from paddle_tpu_torch.optimizer import AdamW, lr
     net = GPTForCausalLM(GPTConfig(**cfg, attn_impl=impl), device=dev,
                          seed=0)
     if o2:
         amp.decorate(net, level="O2")
     opt = sched = None
     if with_optimizer:
-        # GPT-3 1.3B's published peak lr, a short warmup for a 5-step run
-        sched = lr.LinearWarmup(lr.CosineAnnealingDecay(2e-4, T_max=1000),
-                                warmup_steps=2, start_lr=2e-5, end_lr=2e-4)
-        opt = AdamW(learning_rate=sched, parameters=net.parameters(),
-                    weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0),
-                    multi_precision=o2, device=dev)
+        opt, sched = _gpt_optimizer(net, dev, o2)
     model = Model(net, device=dev)
     model.prepare(opt, GPTPretrainingCriterion())
     return model, sched
@@ -5412,6 +5447,309 @@ def autograd_surface(torch, dev):
     return out
 
 
+# -- phase 22: a paddle program written from the op surface ------------------
+
+#: the op-built GPT's losses against GPTForCausalLM's dygraph losses of
+#: phase 21 from the same weights: bitwise where the program's op sequence
+#: is the layers', else within these, relative, with the op that parts
+OPG_TOL = {"fp32": 1e-4, "o1": 2e-2}
+#: the dense variant's first step against the flash variant's: the loss,
+#: and the gradients' global norm, relative
+DENSE_LOSS_TOL, DENSE_NORM_TOL = 1e-4, 1e-3
+
+
+def _op_table():
+    """``tests/test_torch_op_table.py``, which holds the op table, its
+    checks and the op-built GPT (it imports neither jax nor the JAX
+    package); ``tests/`` goes last on the path, so it shadows nothing."""
+    sys.path.append(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import test_torch_op_table
+    return test_torch_op_table
+
+
+def _op_gpt(torch, ct, cfg, dev, dense=False, with_optimizer=True):
+    """The op-built GPT-3 1.3B (``ct.op_built_gpt``: ``create_parameter``
+    with ``ParamAttr(initializer=Assign(...))`` for every weight, the
+    forward from Tensor ops) on the weights of ``GPTForCausalLM`` from
+    seed 0 (phase 21's), taken by name from its state dict, with phase
+    7's AdamW, clip and schedule (None, None without the optimizer)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    src = GPTForCausalLM(GPTConfig(**cfg, attn_impl="flash"), device=dev,
+                         seed=0)
+    net = ct.op_built_gpt(paddle, src.state_dict(), cfg["num_layers"],
+                          cfg["num_heads"], dense=dense)
+    del src
+    release_memory(torch)
+    if not with_optimizer:
+        return net, None, None
+    opt, sched = _gpt_optimizer(net, dev)
+    return net, opt, sched
+
+
+def _grad_norm(torch, net):
+    return float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(p.grad) for p in net.parameters()])))
+
+
+def op_gpt_dygraph(torch, fa_mod, ct, dev, cfg, ids, o1, ref,
+                   reset_counters, read_counters):
+    """Phase 22a: the op-built GPT-3 1.3B, DY_GPT_STEPS dygraph steps
+    (fp32, or the forward under ``auto_cast``, O1 bf16): B1, B2 and B3 24
+    launches a step each; the losses against ``GPTForCausalLM``'s
+    dygraph losses of phase 21 from the same weights (``ref``); the first
+    step's gradient norm (for the dense check); funnel calls a step, step
+    wall, device ms and idle share (two more steps, profiled)."""
+    from paddle_tpu_torch import amp, to_tensor
+    what = "O1 bf16" if o1 else "fp32"
+    cast = amp.auto_cast if o1 else contextlib.nullcontext
+    net, opt, sched = _op_gpt(torch, ct, cfg, dev)
+    x = to_tensor(ids)
+    norms = []
+
+    def one():
+        with cast():
+            loss = net.loss(net(x), x)
+        loss.backward()
+        if not norms:
+            norms.append(_grad_norm(torch, net))
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    reset_counters()
+    losses, walls = [], []
+    for step in range(DY_GPT_STEPS):
+        before = [c.launches for c in _counters(fa_mod)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(one()))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        sched.step()
+        launched = [c.launches - b for c, b in zip(_counters(fa_mod),
+                                                   before)]
+        log(f"op-built GPT-3 1.3B {what} step {step + 1}: loss "
+            f"{losses[-1]:.6f}, wall {walls[-1]:.1f} ms, launches "
+            f"B1/B2/B3 {launched}")
+        if launched != [cfg["num_layers"]] * 3:
+            raise RuntimeError(f"op-built {what} step {step + 1} launched "
+                               f"B1/B2/B3 {launched} times, not "
+                               f"{cfg['num_layers']} each")
+    launches = read_counters()
+    by_dtype = {c.__name__: dict(c.launches_by_dtype)
+                for c in _counters(fa_mod)}
+    calls = funnel_calls(one)
+    prof = profile_steps(torch, f"op-built GPT-3 1.3B {what} dygraph step",
+                         one, 2)
+    del net, opt, x
+    release_memory(torch)
+    tol = OPG_TOL["o1" if o1 else "fp32"]
+    cmp = check_lane_losses(losses, ref, f"op-built GPT-3 1.3B {what} vs "
+                            f"GPTForCausalLM dygraph (phase 21)", tol=tol)
+    if not cmp["bitwise"]:
+        # O1: the program adds each bias after a matmul_v2 (white-listed);
+        # the layers' linear (white-listed too) casts the bias with it.
+        # fp32: the op sequence and the parameter order are the layers'
+        cmp["parting_op"] = ("the bias add: matmul_v2 + add in float32 "
+                             "against linear in bfloat16") if o1 else \
+            "none named: the ops and the parameter order are the layers'"
+    out = {"losses": losses, "reference_losses": ref, **cmp,
+           "first_grad_norm": norms[0], "step_wall_ms": walls,
+           "funnel_calls_per_step": calls,
+           "profiled_step_wall_ms": prof["wall_ms"],
+           "step_device_ms": prof["device_ms"],
+           "idle_share": 1 - prof["device_ms"] / prof["wall_ms"],
+           "kernels_per_step": sum(r[1] for r in prof["kernels"])}
+    log(f"op-built GPT-3 1.3B {what}: {calls} funnel calls a step, step "
+        f"wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms, "
+        f"idle {100 * out['idle_share']:.1f}%, B1-B3 by type {by_dtype}")
+    return out, launches, by_dtype
+
+
+def op_gpt_model_lanes(torch, ct, dev, cfg, ids):
+    """Phase 22b: the op-built GPT as a ``Model`` network with its own
+    criterion, DY_GPT_STEPS ``train_batch`` calls on the graphed lane
+    (one capture: ``arange``, ``unsqueeze``, ``tile``, slicing and
+    ``matmul`` inside a CUDA graph) and on the eager lane, each on fresh
+    weights: the losses bitwise equal."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.core import graphs
+    lanes = {}
+    for lane in ("graphed", "eager"):
+        net, opt, sched = _op_gpt(torch, ct, cfg, dev)
+        model = Model(net, device=dev)
+        model.prepare(opt, net.loss)
+        ctx = graphs.disable_graphs() if lane == "eager" else \
+            contextlib.nullcontext()
+        losses = []
+        with ctx:
+            for _ in range(DY_GPT_STEPS):
+                losses.append(model.train_batch([ids], [ids])[0])
+                sched.step()
+        lanes[lane] = {"losses": losses}
+        if lane == "graphed":
+            lanes[lane].update(program_report(
+                model, "op-built GPT train_batch, graphed", DY_GPT_STEPS))
+        model._invalidate_compiled()
+        del model, net, opt
+        release_memory(torch)
+    lanes.update(check_lane_losses(
+        lanes["graphed"]["losses"], lanes["eager"]["losses"],
+        "op-built GPT train_batch, graphed vs eager lane", tol=0.0))
+    return lanes
+
+
+def op_gpt_dense(torch, ct, dev, cfg, ids, flash):
+    """Phase 22c: the dense variant (the reference's dense branch:
+    ``transpose``, ``triu(full(-1e9), 1)``, ``matmul``, ``F.softmax``)
+    for one fp32 forward and backward on the same weights and batch: its
+    loss within DENSE_LOSS_TOL of the flash variant's first step and its
+    gradients' global norm within DENSE_NORM_TOL; its peak memory. At
+    ``[4, 1024]`` if it fits beside the model and its gradients, else at
+    ``[1, 1024]`` for both variants."""
+    from paddle_tpu_torch import to_tensor
+    release_memory(torch)
+    out = {}
+    for rows in (ids.shape[0], 1):
+        batch = ids[:rows]
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            net, _, _ = _op_gpt(torch, ct, cfg, dev, dense=True,
+                                with_optimizer=False)
+            x = to_tensor(batch)
+            loss = net.loss(net(x), x)
+            loss.backward()
+            out = {"batch": list(batch.shape), "loss": float(loss),
+                   "grad_norm": _grad_norm(torch, net),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            del net, x, loss
+            release_memory(torch)
+            break
+        except torch.cuda.OutOfMemoryError:
+            log(f"dense variant at {list(batch.shape)} does not fit; "
+                f"retrying at [1, {batch.shape[1]}]")
+            release_memory(torch)
+    if out["batch"][0] != ids.shape[0]:
+        net, _, _ = _op_gpt(torch, ct, cfg, dev, with_optimizer=False)
+        x = to_tensor(ids[:1])
+        loss = net.loss(net(x), x)
+        loss.backward()
+        flash = {"losses": [float(loss)],
+                 "first_grad_norm": _grad_norm(torch, net)}
+        del net, x, loss
+        release_memory(torch)
+    out["flash_loss"] = flash["losses"][0]
+    out["flash_grad_norm"] = flash["first_grad_norm"]
+    out["loss_rel"] = abs(out["loss"] - out["flash_loss"]) / abs(
+        out["flash_loss"])
+    out["grad_norm_rel"] = abs(out["grad_norm"] - out["flash_grad_norm"]) \
+        / out["flash_grad_norm"]
+    log(f"op-built GPT-3 1.3B dense variant {out['batch']} fp32: loss "
+        f"{out['loss']:.6f} vs flash {out['flash_loss']:.6f} (rel "
+        f"{out['loss_rel']:.2e}), gradient norm {out['grad_norm']:.6f} vs "
+        f"{out['flash_grad_norm']:.6f} (rel {out['grad_norm_rel']:.2e}), "
+        f"peak {out['peak_gib']:.2f} GiB")
+    if out["loss_rel"] > DENSE_LOSS_TOL or \
+            out["grad_norm_rel"] > DENSE_NORM_TOL:
+        raise RuntimeError(f"phase 22 dense variant: {out}")
+    return out
+
+
+def op_table_on_the_card(torch, ct):
+    """Phase 22d: every case of the op table (``OP_CASES`` but the tie
+    cases) on CUDA against the CPU on the same seeded inputs, forward and
+    gradient, and the random ops' determinism and moments on the card;
+    ``n held of n``."""
+    import paddle_tpu_torch as paddle
+    held, failed = 0, []
+    t0 = time.perf_counter()
+    for case in ct.CUDA_CASES:
+        try:
+            ct.cuda_case_holds(case, paddle)
+            held += 1
+        except Exception as e:   # noqa: BLE001 (every case is reported)
+            failed.append(f"{case.name}: {str(e).splitlines()[0][:200]}")
+    random_fails = ct.random_ops_hold(paddle, "gpu")
+    n = len(ct.CUDA_CASES)
+    log(f"op table on the card: {held} held of {n} "
+        f"({time.perf_counter() - t0:.1f} s); random ops "
+        f"{'held' if not random_fails else random_fails}")
+    for f in failed:
+        log(f"  op table case failed: {f}")
+    if failed or random_fails:
+        raise RuntimeError(f"phase 22 op table: {len(failed)} of {n} cases "
+                           f"failed, random ops {random_fails}")
+    return {"held": held, "cases": n, "tie_cases_on_cpu_only":
+            len(ct.OP_CASES) - n, "random_ops": "held"}
+
+
+def run_op_program_phase(torch, fa_mod, dev, cfg, ids, dy, smi,
+                         reset_counters, read_counters):
+    """Phase 22: the op-built GPT-3 1.3B (fp32 and O1 dygraph, the
+    ``train_batch`` lanes, the dense variant) and the op table on the
+    card. Returns the phase's numbers and its launches by path."""
+    ct = _op_table()
+    out, launches, dtypes = {}, {}, {}
+    for o1 in (False, True):
+        key = "op_gpt_o1_bf16" if o1 else "op_gpt_fp32"
+        ref = dy["gpt_o1_bf16" if o1 else "gpt_fp32"]["losses"]
+        out[key], launches[key], dtypes[key] = op_gpt_dygraph(
+            torch, fa_mod, ct, dev, cfg, ids, o1, ref, reset_counters,
+            read_counters)
+        d = dy["gpt_o1_bf16" if o1 else "gpt_fp32"]
+        out[key]["beside_phase_21"] = {
+            "dygraph_step_wall_ms": d["profiled_step_wall_ms"],
+            "dygraph_device_ms": d["step_device_ms"],
+            "dygraph_idle_share": d["idle_share"],
+            "dygraph_funnel_calls": d["funnel_calls_per_step"]}
+        log(f"op-built {key} beside phase 21's GPTForCausalLM dygraph step "
+            f"({smi}): wall {out[key]['profiled_step_wall_ms']:.1f} vs "
+            f"{d['profiled_step_wall_ms']:.1f} ms, device "
+            f"{out[key]['step_device_ms']:.1f} vs {d['step_device_ms']:.1f} "
+            f"ms, idle {100 * out[key]['idle_share']:.1f}% vs "
+            f"{100 * d['idle_share']:.1f}%, funnel calls "
+            f"{out[key]['funnel_calls_per_step']} vs "
+            f"{d['funnel_calls_per_step']}")
+    reset_counters()
+    out["train_batch_lanes"] = op_gpt_model_lanes(torch, ct, dev, cfg, ids)
+    launches["op_gpt_train_batch"] = read_counters()
+    out["dense"] = op_gpt_dense(torch, ct, dev, cfg, ids, out["op_gpt_fp32"])
+    out["op_table"] = op_table_on_the_card(torch, ct)
+    return out, launches, dtypes
+
+
+def phase22_alone(torch, fa_mod, dev, smi):
+    """``python3 chip_smoke.py --phase 22``: after the build, phase 21's
+    two GPT-3 1.3B dygraph references (fp32 and O1) and phase 22, on a
+    batch of its own; prints the phase's numbers, not the summary
+    lines."""
+    ctrs = _counters(fa_mod)
+
+    def reset_counters():
+        for c in ctrs:
+            c.launches = 0
+            c.launches_by_dtype = {}
+        torch.cuda.reset_peak_memory_stats()
+
+    def read_counters():
+        return {c.__name__: c.launches for c in ctrs}
+
+    ids = np.random.default_rng(22).integers(
+        0, CFG_13B["vocab_size"], (4, CFG_13B["max_position_embeddings"]))
+    dy = {}
+    for o1 in (False, True):
+        dy["gpt_o1_bf16" if o1 else "gpt_fp32"], _, _ = dygraph_gpt(
+            torch, fa_mod, dev, CFG_13B, ids, o1, reset_counters,
+            read_counters)
+    opg, launches, dtypes = run_op_program_phase(
+        torch, fa_mod, dev, CFG_13B, ids, dy, smi, reset_counters,
+        read_counters)
+    log(f"op-built GPT paths launches: {launches}, B1-B3 by type {dtypes}")
+    log(f"op program: {json.dumps(opg)}")
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -5427,7 +5765,8 @@ def main() -> int:
         import paddle_tpu_torch
         from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
         from paddle_tpu_torch.ops import kernel_build
-        from paddle_tpu_torch.ops import flash_attention as fa_mod
+        fa_mod = importlib.import_module(
+            "paddle_tpu_torch.ops.flash_attention")
         from paddle_tpu_torch.ops import custom as nms_mod
         from paddle_tpu_torch.ops import detection as det_mod
         from paddle_tpu_torch.ops import paged_attention as pa_mod
@@ -5462,6 +5801,8 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "error")):
                 log(f"  {name}: {line.strip()}")
+    if sys.argv[1:] == ["--phase", "22"]:
+        return phase22_alone(torch, fa_mod, dev, smi)
     tc_libs = ("flash_attention_fwd", "flash_attention_bwd_dq",
                "flash_attention_bwd_dkv")
     tc = sass_tensor_counts(kernel_build, tc_libs)
@@ -5802,6 +6143,23 @@ def main() -> int:
     dy["autograd"] = autograd_surface(torch, dev)
     log(f"dygraph paths launches: {dy_launches}, B1-B3 by type {dy_dtypes}")
 
+    # -- phase 22: a paddle program written from the op surface ----------------
+    stamp("22 op-built GPT and the op table")
+    log(f"phase 22: GPT-3 1.3B written from Tensor ops (create_parameter "
+        f"with ParamAttr(Assign), reshape, flash_attention, matmul, "
+        f"cross_entropy) on GPTForCausalLM's seed-0 weights; the op table "
+        f"on the card; {smi}")
+    opg, opg_launches, opg_dtypes = run_op_program_phase(
+        torch, fa_mod, dev, CFG_13B, ids, dy, smi, reset_counters,
+        read_counters)
+    log(f"op-built GPT paths launches: {opg_launches}, B1-B3 by type "
+        f"{opg_dtypes}")
+    for path in ("op_gpt_fp32", "op_gpt_o1_bf16", "op_gpt_train_batch"):
+        for n in flash_names:
+            if opg_launches[path][n] < 1:
+                raise RuntimeError(f"kernel {n} was not launched on the "
+                                   f"{path} path")
+
     # -- summary --------------------------------------------------------------
     paths = {"serving": serve_launches, "serving_slot": slot_launches,
              "generate": gen_launches, "training": train_launches,
@@ -5812,12 +6170,14 @@ def main() -> int:
              "serving_c6": c6_launches, "training_yolov3": yolo_launches,
              **{f"training_gpt_s4096_{k}": v for k, v in long_paths.items()},
              "serving_prefix": prefix_launches, "serving_spec": spec_launches,
-             "serving_int8": int8_launches, **hapi_launches, **dy_launches}
+             "serving_int8": int8_launches, **hapi_launches, **dy_launches,
+             **opg_launches}
     amp_dtypes["bert_flash_checks"] = bert_dtypes
     amp_dtypes.update({f"training_gpt_s4096_{k}": v
                        for k, v in long_dtypes.items()})
     amp_dtypes["hapi_bert_evaluate"] = bert_dtypes_20
     amp_dtypes.update(dy_dtypes)
+    amp_dtypes.update(opg_dtypes)
 
     def launches(name):
         by_path = {k: v[name] for k, v in paths.items()}
@@ -5872,6 +6232,7 @@ def main() -> int:
                                "yolov3_map": hapi_map,
                                "lenet_rules": hapi_rules}))
     log(f"dygraph: {json.dumps(dy)}")
+    log(f"op program: {json.dumps(opg)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

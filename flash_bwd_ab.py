@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import os
 import statistics
 import subprocess
@@ -349,7 +350,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import chip_smoke as cs
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     from paddle_tpu_torch.ops import kernel_build as kb
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -11,8 +11,8 @@ PyTorch version beside it, which CPU tensors take.
 ``import paddle_tpu_torch as paddle`` gives the reference's top-level
 names that are ported (``paddle_tpu/__init__.py:110-156``): the
 :class:`Tensor` and :class:`Parameter`, ``to_tensor`` and the ported
-ops, grad mode, ``grad``, ``PyLayer``, devices and places, dtypes and
-flags, and the subpackages. A dygraph program runs on them as written
+ops (``linalg`` among them), ``ParamAttr``, grad mode, ``grad``,
+``PyLayer``, devices and places, dtypes and flags, and the subpackages. A dygraph program runs on them as written
 for the reference::
 
     paddle.set_device("cpu")            # or leave it: CUDA
@@ -40,9 +40,15 @@ from .framework_io import load, save, state_dict_from_reference
 from .hapi import Model, callbacks, summary
 from .io import DataLoader
 from .nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from .nn.layer_base import ParamAttr
 from .ops import *  # noqa: F401,F403
+from .ops import _late_alias, linalg
 from .ops.dispatch import disable_static, enable_static, in_dygraph_mode
+from .ops.linalg import cholesky, inverse, matrix_power
 from .tensor import rank
+
+_late_alias()                     # ops' fluid-era names, once nn is loaded
+from .ops import reverse  # noqa: E402
 
 in_dynamic_mode = in_dygraph_mode   # reference: paddle/__init__.py:268
 bool8 = bool_

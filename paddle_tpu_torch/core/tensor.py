@@ -470,6 +470,16 @@ class Parameter(torch.nn.Parameter):
         self.requires_grad_(not value)
 
     @property
+    def name(self):
+        """The name a ``ParamAttr`` gave (None by default); torch's own
+        ``Tensor.name`` cannot be written."""
+        return self.__dict__.get("_param_name")
+
+    @name.setter
+    def name(self, value):
+        self.__dict__["_param_name"] = value
+
+    @property
     def trainable(self):
         return self.requires_grad
 

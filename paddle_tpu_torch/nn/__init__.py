@@ -1,10 +1,10 @@
 """Layers of the port (counterpart of ``paddle_tpu/nn``)."""
-from . import functional
+from . import functional, initializer
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    GradientClipByGlobalNorm, GradientClipByNorm,
                    GradientClipByValue, clip_grad_norm_)
 from .container import Sequential
-from .layer_base import Layer
+from .layer_base import Layer, ParamAttr
 from .layers_activation import CrossEntropyLoss, LeakyReLU, ReLU, Tanh
 from .layers_common import (AdaptiveAvgPool1D, AdaptiveAvgPool2D, AvgPool1D,
                             AvgPool2D, BatchNorm1D, BatchNorm2D, Conv2D,
@@ -14,7 +14,7 @@ from .transformer import (CAUSAL_MASK, MultiHeadAttention, Transformer,
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
+__all__ = ["functional", "initializer", "ParamAttr", "ClipGradByGlobalNorm", "ClipGradByNorm",
            "ClipGradByValue", "GradientClipByGlobalNorm", "GradientClipByNorm",
            "GradientClipByValue", "clip_grad_norm_", "Layer", "Sequential",
            "CrossEntropyLoss", "LeakyReLU", "ReLU", "Tanh",

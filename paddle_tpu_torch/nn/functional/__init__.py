@@ -1,16 +1,66 @@
-"""Functional ops the port's layers are built from (counterpart of
-``paddle_tpu/nn/functional``)."""
-from .activation import gelu, leaky_relu, relu, softmax, tanh
-from .common import dropout, embedding, interpolate, linear, upsample
+"""Functional ops (counterpart of ``paddle_tpu/nn/functional``): the
+activations, common ops, norms and losses in full, ``conv2d`` and the
+pooling the port's layers use, ``flash_attention`` (whose wrapper
+launches the B1-B3 kernels on the card), ``pixel_shuffle``/
+``pixel_unshuffle`` and the in-place ``tanh_``, ``elu_`` and
+``softmax_``. The other convolutions and pools are ROADMAP.md queue A3;
+``gather_tree`` and the sampled losses come with A2's structured
+half."""
+from ...ops.flash_attention import flash_attention
+from ...ops.manipulation import cast as _cast
+from ...ops.manipulation import pixel_shuffle, pixel_unshuffle
+from ...ops.math import tanh as _tanh
+from .activation import *  # noqa: F401,F403
+from .activation import __all__ as _activation_all
+from .activation import elu, softmax
+from .common import *  # noqa: F401,F403
+from .common import __all__ as _common_all
 from .conv import conv2d
-from .loss import cross_entropy, nll_loss, softmax_with_cross_entropy
-from .norm import batch_norm, layer_norm
+from .loss import (binary_cross_entropy, binary_cross_entropy_with_logits,
+                   cosine_embedding_loss, cosine_similarity, cross_entropy,
+                   ctc_greedy_decoder, ctc_loss, dice_loss,
+                   hinge_embedding_loss, hinge_loss, huber_loss, kl_div,
+                   l1_loss, label_smooth, log_loss, margin_ranking_loss,
+                   mse_loss, nll_loss, rank_loss, sigmoid_focal_loss,
+                   smooth_l1_loss, softmax_with_cross_entropy,
+                   square_error_cost, triplet_margin_loss, warpctc)
+from .norm import (batch_norm, group_norm, instance_norm, layer_norm,
+                   local_response_norm, normalize)
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d, avg_pool1d,
                       avg_pool2d, max_pool1d, max_pool2d)
 
-__all__ = ["gelu", "leaky_relu", "relu", "softmax", "tanh", "dropout",
-           "embedding", "interpolate", "linear", "upsample", "conv2d",
-           "cross_entropy", "nll_loss", "softmax_with_cross_entropy",
-           "batch_norm", "layer_norm", "adaptive_avg_pool1d",
-           "adaptive_avg_pool2d", "avg_pool1d", "avg_pool2d", "max_pool1d",
-           "max_pool2d"]
+
+def _inplace(fn, x, *a, **k):
+    x._swap_payload(fn(x, *a, **k))     # recorded by autograd
+    return x
+
+
+def tanh_(x, name=None):
+    return _inplace(_tanh, x)
+
+
+def elu_(x, alpha=1.0, name=None):
+    return _inplace(elu, x, alpha)
+
+
+def softmax_(x, axis=-1, dtype=None, name=None):
+    out = softmax(x, axis)
+    if dtype is not None:
+        out = _cast(out, dtype)
+    x._swap_payload(out)
+    return x
+
+
+__all__ = sorted(set(_activation_all) | set(_common_all) | {
+    "flash_attention", "pixel_shuffle", "pixel_unshuffle", "conv2d",
+    "binary_cross_entropy", "binary_cross_entropy_with_logits",
+    "cosine_embedding_loss", "cosine_similarity", "cross_entropy",
+    "ctc_greedy_decoder", "ctc_loss", "dice_loss", "hinge_embedding_loss",
+    "hinge_loss", "huber_loss", "kl_div", "l1_loss", "label_smooth",
+    "log_loss", "margin_ranking_loss", "mse_loss", "nll_loss", "rank_loss",
+    "sigmoid_focal_loss", "smooth_l1_loss", "softmax_with_cross_entropy",
+    "square_error_cost", "triplet_margin_loss", "warpctc", "batch_norm",
+    "group_norm", "instance_norm", "layer_norm", "local_response_norm",
+    "normalize", "adaptive_avg_pool1d", "adaptive_avg_pool2d", "avg_pool1d",
+    "avg_pool2d", "max_pool1d", "max_pool2d", "tanh_", "elu_",
+    "softmax_"})

@@ -1,15 +1,33 @@
-"""Linear, dropout, embedding and nearest interpolation (counterpart of
-``paddle_tpu/nn/functional/common.py``, the part the GPT and YOLOv3
-paths use). Each runs through the dispatch funnel (``ops/dispatch.py``)
-under the reference's op name, where AMP casts its tensor inputs."""
+"""Common functionals (counterpart of ``paddle_tpu/nn/functional/common.py``):
+``linear``, the dropouts, ``embedding``, ``one_hot``, nearest
+``interpolate``/``upsample``, ``grid_sample``, ``affine_grid``,
+``bilinear``, ``pad``, ``temporal_shift``, ``npair_loss``,
+``sequence_mask``, ``diag_embed`` and ``unfold``. Each runs through the
+dispatch funnel (``ops/dispatch.py``) under the reference's op name,
+where AMP casts its tensor inputs. The dropout masks come from the
+port's seeded generator of the input's device through
+:func:`~paddle_tpu_torch.core.generator.draw`. Interpolation modes other
+than nearest are ROADMAP.md queue A9.
+"""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from ...core.dtypes import convert_dtype
 from ...core.generator import default_generator, draw
+from ...core.tensor import Tensor
+from ...ops.creation import diag_embed as _diag_embed
+from ...ops.creation import one_hot as _one_hot
 from ...ops.dispatch import apply
+from ...ops.manipulation import pad as _pad
+from ...ops.manipulation import unfold  # noqa: F401 (paddle exposes it here)
+
+__all__ = ["linear", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
+           "embedding", "one_hot", "interpolate", "upsample", "grid_sample",
+           "affine_grid", "bilinear", "pad", "temporal_shift", "npair_loss",
+           "sequence_mask", "diag_embed", "unfold"]
 
 
 def linear(x, weight, bias=None, name=None):
@@ -23,40 +41,86 @@ def _linear(x, weight, bias):
     return out + bias if bias is not None else out
 
 
-def dropout(x, p: float = 0.5, training: bool = True,
-            mode: str = "upscale_in_train",
+def dropout(x, p: float = 0.5, axis=None, training: bool = True,
+            mode: str = "upscale_in_train", name=None,
             generator: Optional[torch.Generator] = None):
     """paddle's two dropout modes. ``upscale_in_train`` scales kept
     values by ``1/(1-p)`` while training and is the identity otherwise;
     ``downscale_in_infer`` keeps values while training and scales by
-    ``1-p`` at inference. The mask is drawn from ``generator``, by default
-    the port's seeded generator of ``x``'s device
+    ``1-p`` at inference. ``axis`` drops whole slices: the mask varies
+    along those axes only. The mask is drawn from ``generator``, by
+    default the port's seeded generator of ``x``'s device
     (:func:`~paddle_tpu_torch.core.generator.default_generator`), through
     :func:`~paddle_tpu_torch.core.generator.draw`, so a recomputed block
     reuses its forward's mask."""
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"dropout mode {mode!r}")
-    return apply("dropout", _dropout, x, p=p, training=training, mode=mode,
-                 generator=generator)
+    if (not training or p == 0.0) and not (
+            mode == "downscale_in_infer" and not training):
+        return x            # no op, as the reference's (AMP casts nothing)
+    if axis is not None:
+        axis = list(axis) if isinstance(axis, (list, tuple)) else [axis]
+    return apply("dropout", _dropout, x, p=p, axis=axis, training=training,
+                 mode=mode, generator=generator)
 
 
-def _dropout(x, p, training, mode, generator):
+def _dropout(x, p, axis, training, mode, generator):
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:
             return x * (1.0 - p)
         return x
     if generator is None:
         generator = default_generator(x.device)
-    keep = draw(lambda: torch.rand(x.shape, generator=generator,
+    shape = x.shape if axis is None else [
+        s if i in axis else 1 for i, s in enumerate(x.shape)]
+    keep = draw(lambda: torch.rand(shape, generator=generator,
                                    device=x.device) < (1.0 - p))
     if mode == "upscale_in_train":
         return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
     return torch.where(keep, x, torch.zeros_like(x))
 
 
-def embedding(x, weight, padding_idx: Optional[int] = None, name=None):
+def dropout2d(x, p=0.5, training=True, data_format="NCHW", name=None):
+    """Whole channels dropped (the mask varies over batch and channel)."""
+    return dropout(x, p, axis=[0, 1] if data_format == "NCHW" else [0, 3],
+                   training=training)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW", name=None):
+    return dropout(x, p, axis=[0, 1] if data_format == "NCDHW" else [0, 4],
+                   training=training)
+
+
+# SELU's constants: alpha dropout keeps a SELU network's mean and variance
+_SELU_ALPHA = 1.6732632423543772
+_SELU_SCALE = 1.0507009873554805
+
+
+def _alpha_dropout(a, p):
+    alpha_p = -_SELU_ALPHA * _SELU_SCALE
+    g = default_generator(a.device)
+    keep = draw(lambda: torch.rand(a.shape, generator=g, device=a.device)
+                < (1.0 - p))
+    q = 1.0 - p
+    coef_a = (q + alpha_p ** 2 * q * p) ** -0.5
+    coef_b = -coef_a * alpha_p * p
+    return coef_a * torch.where(keep, a, torch.full_like(a, alpha_p)) + \
+        coef_b
+
+
+def alpha_dropout(x, p=0.5, training=True, name=None):
+    """Dropout that keeps a SELU network's statistics: dropped entries
+    take SELU's negative saturation, then an affine correction."""
+    if not training or p == 0.0:
+        return x
+    return apply("alpha_dropout", _alpha_dropout, x, p=p)
+
+
+def embedding(x, weight, padding_idx: Optional[int] = None,
+              sparse: bool = False, name=None):
     """Rows of ``weight`` at the ids ``x``, zero at ``padding_idx``; op
-    ``lookup_table_v2``."""
+    ``lookup_table_v2`` (``sparse`` is accepted and ignored, as in the
+    JAX package)."""
     return apply("lookup_table_v2", _embedding, x, weight,
                  padding_idx=padding_idx)
 
@@ -67,6 +131,10 @@ def _embedding(x, weight, padding_idx):
         out = torch.where((x == padding_idx)[..., None],
                           torch.zeros_like(out), out)
     return out
+
+
+def one_hot(x, num_classes, name=None):
+    return _one_hot(x, num_classes)
 
 
 def interpolate(x, size=None, scale_factor=None, mode: str = "nearest",
@@ -114,3 +182,133 @@ def upsample(x, size=None, scale_factor=None, mode: str = "nearest",
              data_format: str = "NCHW", name=None):
     return interpolate(x, size, scale_factor, mode, align_corners,
                        align_mode, data_format, name)
+
+
+def _grid_sample(a, g, mode, padding_mode, align_corners):
+    n, c, h, w = a.shape
+    gx, gy = g[..., 0], g[..., 1]
+    if align_corners:
+        fx, fy = (gx + 1) * 0.5 * (w - 1), (gy + 1) * 0.5 * (h - 1)
+    else:
+        fx, fy = ((gx + 1) * w - 1) * 0.5, ((gy + 1) * h - 1) * 0.5
+    bidx = torch.arange(n, device=a.device).reshape(n, 1, 1)
+
+    def sample(ix, iy):
+        inside = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+        vals = a[bidx, :, iy.clamp(0, h - 1), ix.clamp(0, w - 1)]
+        vals = torch.movedim(vals, -1, 1)           # [N, C, Hg, Wg]
+        if padding_mode == "zeros":
+            vals = torch.where(inside[:, None], vals, torch.zeros_like(vals))
+        return vals
+
+    if mode == "nearest":
+        return sample(torch.round(fx).long(), torch.round(fy).long())
+    x0, y0 = torch.floor(fx).long(), torch.floor(fy).long()
+    wx = (fx - x0).to(a.dtype)[:, None]
+    wy = (fy - y0).to(a.dtype)[:, None]
+    return (sample(x0, y0) * (1 - wx) * (1 - wy)
+            + sample(x0 + 1, y0) * wx * (1 - wy)
+            + sample(x0, y0 + 1) * (1 - wx) * wy
+            + sample(x0 + 1, y0 + 1) * wx * wy)
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True, name=None):
+    """Sample ``x`` ``[N, C, H, W]`` at ``grid`` ``[N, Hg, Wg, 2]`` (x, y
+    in [-1, 1]), bilinear or nearest, zeros or border padding
+    (reference: operators/grid_sampler_op.cc)."""
+    return apply("grid_sampler", _grid_sample, x, grid, mode=mode,
+                 padding_mode=padding_mode, align_corners=align_corners)
+
+
+def _affine_grid(th, h, w, align_corners):
+    if align_corners:
+        xs = torch.linspace(-1, 1, w, dtype=th.dtype, device=th.device)
+        ys = torch.linspace(-1, 1, h, dtype=th.dtype, device=th.device)
+    else:
+        xs = (torch.arange(w, dtype=th.dtype, device=th.device) * 2 + 1) \
+            / w - 1
+        ys = (torch.arange(h, dtype=th.dtype, device=th.device) * 2 + 1) \
+            / h - 1
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")      # [H, W]
+    base = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)
+    return torch.einsum("hwk,njk->nhwj", base, th)
+
+
+def affine_grid(theta, out_shape, align_corners=True, name=None):
+    """The sampling grid ``[N, H, W, 2]`` of the affine maps ``theta``
+    ``[N, 2, 3]`` (reference: operators/affine_grid_op.cc)."""
+    if isinstance(out_shape, (Tensor, torch.Tensor)):
+        out_shape = out_shape.tolist()
+    _, _, h, w = [int(v) for v in out_shape]
+    return apply("affine_grid", _affine_grid, theta, h=h, w=w,
+                 align_corners=align_corners)
+
+
+def _bilinear(a, b, w, bias):
+    out = torch.einsum("bi,oij,bj->bo", a, w, b)
+    return out + bias if bias is not None else out
+
+
+def bilinear(x1, x2, weight, bias=None, name=None):
+    """``x1ᵀ W_o x2 + b_o`` for each output ``o`` (reference:
+    operators/bilinear_tensor_product_op.cc)."""
+    return apply("bilinear_tensor_product", _bilinear, x1, x2, weight, bias)
+
+
+def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):
+    return _pad(x, pad, mode, value, data_format, name)
+
+
+def _temporal_shift(a, seg_num, shift_ratio):
+    nt, c, h, w = a.shape
+    v = a.reshape(nt // seg_num, seg_num, c, h, w)
+    fold = int(c * shift_ratio)
+    left = torch.cat([v[:, 1:, :fold], torch.zeros_like(v[:, :1, :fold])], 1)
+    right = torch.cat([torch.zeros_like(v[:, :1, fold:2 * fold]),
+                       v[:, :-1, fold:2 * fold]], 1)
+    return torch.cat([left, right, v[:, :, 2 * fold:]], 2).reshape(
+        nt, c, h, w)
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW",
+                   name=None):
+    """Shift a ``shift_ratio`` of the channels one segment back and as
+    many forward (reference: operators/temporal_shift_op.cc)."""
+    return apply("temporal_shift", _temporal_shift, x, seg_num=seg_num,
+                 shift_ratio=shift_ratio)
+
+
+def _npair_loss(a, p, y, l2_reg):
+    sim = torch.matmul(a, p.t())
+    y = y.reshape(-1, 1)
+    tgt = (y == y.t()).to(sim.dtype)
+    tgt = tgt / torch.sum(tgt, dim=1, keepdim=True)
+    ce = -torch.mean(torch.sum(tgt * torch.log_softmax(sim, dim=1), dim=1))
+    reg = l2_reg * (torch.mean(torch.sum(a * a, 1))
+                    + torch.mean(torch.sum(p * p, 1))) / 2
+    return ce + reg
+
+
+def npair_loss(anchor, positive, labels, l2_reg=0.002):
+    return apply("npair_loss", _npair_loss, anchor, positive, labels,
+                 l2_reg=l2_reg)
+
+
+def _sequence_mask(lens, maxlen, dtype):
+    m = lens.shape[-1] if maxlen is None else int(maxlen)
+    rng = torch.arange(m, device=lens.device)
+    return (rng < lens[..., None]).to(dtype)
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    """``mask[..., j] = j < x[...]`` for ``j < maxlen`` (reference:
+    sequence_mask_op.cc). With no ``maxlen`` the mask is as wide as
+    ``x``'s last axis, as the JAX package's (which traces the op, so it
+    never reads the lengths; paddle takes their maximum)."""
+    return apply("sequence_mask", _sequence_mask, x, maxlen=maxlen,
+                 dtype=convert_dtype(dtype))
+
+
+def diag_embed(x, offset=0, dim1=-2, dim2=-1):
+    return _diag_embed(x, offset, dim1, dim2)

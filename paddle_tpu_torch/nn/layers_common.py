@@ -15,8 +15,12 @@ and drawn from an explicit ``torch.Generator`` by
 Xavier-uniform weights and zero biases for ``Linear``, ``Normal(0,
 std)`` for ``Embedding``, ones and zeros for ``LayerNorm`` and
 ``BatchNorm2D``, ``Uniform(+-sqrt(1/fan_in))`` weights and biases for
-``Conv2D``. A ``ParamAttr`` other than ``None`` or ``False`` (no
-parameter) is not ported yet (ROADMAP.md queue A2, ``nn/initializer``).
+``Conv2D``. ``weight_attr``/``bias_attr`` take a ``ParamAttr``, an
+initializer or ``False`` (no parameter), as the reference's layers do: an
+attribute's initializer makes the parameter at construction and again at
+each :meth:`reset_parameters` (from its generator), and its
+learning-rate scale, regularizer, ``trainable`` and ``need_clip`` go on
+the ``Parameter``.
 """
 from __future__ import annotations
 
@@ -27,31 +31,66 @@ import torch
 from torch import nn
 
 from ..core.device import DeviceLike, resolve_device
-from ..core.tensor import Parameter
 from ..ops.manipulation import flatten
 from . import functional as F
-from .layer_base import Layer
+from . import initializer as I
+from .layer_base import Layer, ParamAttr, make_parameter
+
+
+class _Empty:
+    """Uninitialised data, for a parameter :meth:`reset_parameters`
+    fills."""
+
+    def __call__(self, shape, dtype, device, generator=None):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+
+def _param(layer, name, shape, attr, device, dtype, fill=None):
+    """Register parameter ``name`` made as ``attr`` says (None for
+    ``False``); with no initializer in ``attr`` the data is ``fill``'s
+    (uninitialised by default, for :meth:`reset_parameters`). An
+    initializer is kept in ``layer._attr_inits`` for
+    :func:`_reinit`."""
+    a = ParamAttr._to_attr(attr)
+    if a is not False and a.initializer is not None:
+        layer.__dict__.setdefault("_attr_inits", {})[name] = a.initializer
+    p = make_parameter(shape, a, dtype, default_initializer=fill or _Empty(),
+                       device=device)
+    setattr(layer, name, p)
+    return p
+
+
+def _reinit(layer, name, generator) -> bool:
+    """Re-draw parameter ``name`` from its attribute's initializer, if it
+    has one (True), from ``generator``."""
+    init = layer.__dict__.get("_attr_inits", {}).get(name)
+    p = getattr(layer, name)
+    if init is None or p is None:
+        return False
+    p.copy_(init(list(p.shape), p.dtype, p.device, generator))
+    return True
 
 
 class Linear(Layer):
     """``y = x @ W + b`` with ``W`` of shape ``[in_features, out_features]``."""
 
     def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True, *, device: DeviceLike = None,
-                 dtype=torch.float32):
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 device: DeviceLike = None, dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
-        self.weight = Parameter(torch.empty(
-            (in_features, out_features), device=dev, dtype=dtype))
-        self.bias = Parameter(torch.zeros(
-            (out_features,), device=dev, dtype=dtype)) if bias else None
+        _param(self, "weight", [in_features, out_features], weight_attr,
+               dev, dtype)
+        _param(self, "bias", [out_features], bias_attr, dev, dtype,
+               I.Constant(0.0))
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        fan_in, fan_out = self.weight.shape
-        limit = math.sqrt(6.0 / (fan_in + fan_out))
-        self.weight.uniform_(-limit, limit, generator=generator)
-        if self.bias is not None:
+        if not _reinit(self, "weight", generator):
+            fan_in, fan_out = self.weight.shape
+            limit = math.sqrt(6.0 / (fan_in + fan_out))
+            self.weight.uniform_(-limit, limit, generator=generator)
+        if self.bias is not None and not _reinit(self, "bias", generator):
             self.bias.zero_()
 
     def forward(self, x):
@@ -63,7 +102,8 @@ class Linear(Layer):
 
 
 class LayerNorm(Layer):
-    def __init__(self, normalized_shape, epsilon: float = 1e-5, *,
+    def __init__(self, normalized_shape, epsilon: float = 1e-5,
+                 weight_attr=None, bias_attr=None, name=None, *,
                  device: DeviceLike = None, dtype=torch.float32):
         super().__init__()
         if isinstance(normalized_shape, int):
@@ -71,15 +111,18 @@ class LayerNorm(Layer):
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
         dev = resolve_device(device)
-        self.weight = Parameter(torch.ones(
-            self._normalized_shape, device=dev, dtype=dtype))
-        self.bias = Parameter(torch.zeros(
-            self._normalized_shape, device=dev, dtype=dtype))
+        _param(self, "weight", self._normalized_shape, weight_attr, dev,
+               dtype, I.Constant(1.0))
+        _param(self, "bias", self._normalized_shape, bias_attr, dev, dtype,
+               I.Constant(0.0))
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        self.weight.fill_(1.0)
-        self.bias.zero_()
+        if self.weight is not None and not _reinit(self, "weight",
+                                                   generator):
+            self.weight.fill_(1.0)
+        if self.bias is not None and not _reinit(self, "bias", generator):
+            self.bias.zero_()
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,
@@ -88,18 +131,20 @@ class LayerNorm(Layer):
 
 class Embedding(Layer):
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 padding_idx: Optional[int] = None, *, init_std: float = 1.0,
+                 padding_idx: Optional[int] = None, sparse: bool = False,
+                 weight_attr=None, name=None, *, init_std: float = 1.0,
                  device: DeviceLike = None, dtype=torch.float32):
         super().__init__()
         self._padding_idx = padding_idx
         self._init_std = float(init_std)
         dev = resolve_device(device)
-        self.weight = Parameter(torch.empty(
-            (num_embeddings, embedding_dim), device=dev, dtype=dtype))
+        _param(self, "weight", [num_embeddings, embedding_dim], weight_attr,
+               dev, dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        self.weight.normal_(0.0, self._init_std, generator=generator)
+        if not _reinit(self, "weight", generator):
+            self.weight.normal_(0.0, self._init_std, generator=generator)
         if self._padding_idx is not None:
             self.weight[self._padding_idx].zero_()
 
@@ -121,17 +166,10 @@ class Dropout(Layer):
         self.mode = mode
 
     def forward(self, x):
-        return F.dropout(x, self.p, self.training, self.mode)
+        return F.dropout(x, self.p, training=self.training, mode=self.mode)
 
     def extra_repr(self):
         return f"p={self.p}, mode={self.mode}"
-
-
-def _check_attr(attr, what: str):
-    if attr is not None and attr is not False:
-        raise NotImplementedError(
-            f"{what}: ParamAttr is not ported yet: a later slice of the "
-            f"port (ROADMAP.md queue A2, nn/initializer)")
 
 
 class Conv2D(Layer):
@@ -146,8 +184,6 @@ class Conv2D(Layer):
                  bias_attr=None, data_format: str = "NCHW", *,
                  device: DeviceLike = None, dtype=torch.float32):
         super().__init__()
-        _check_attr(weight_attr, "Conv2D weight_attr")
-        _check_attr(bias_attr, "Conv2D bias_attr")
         ks = list(kernel_size) if isinstance(kernel_size, (list, tuple)) \
             else [kernel_size] * 2
         self._stride = stride
@@ -157,17 +193,16 @@ class Conv2D(Layer):
         self._data_format = data_format
         self._fan_in = in_channels * ks[0] * ks[1] // groups
         dev = resolve_device(device)
-        self.weight = Parameter(torch.empty(
-            [out_channels, in_channels // groups] + ks, device=dev,
-            dtype=dtype))
-        self.bias = None if bias_attr is False else Parameter(
-            torch.empty((out_channels,), device=dev, dtype=dtype))
+        _param(self, "weight", [out_channels, in_channels // groups] + ks,
+               weight_attr, dev, dtype)
+        _param(self, "bias", [out_channels], bias_attr, dev, dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         limit = math.sqrt(1.0 / self._fan_in)
-        self.weight.uniform_(-limit, limit, generator=generator)
-        if self.bias is not None:
+        if not _reinit(self, "weight", generator):
+            self.weight.uniform_(-limit, limit, generator=generator)
+        if self.bias is not None and not _reinit(self, "bias", generator):
             self.bias.uniform_(-limit, limit, generator=generator)
 
     def forward(self, x):
@@ -193,17 +228,15 @@ class BatchNorm2D(Layer):
                  name=None, *, device: DeviceLike = None,
                  dtype=torch.float32):
         super().__init__()
-        _check_attr(weight_attr, "BatchNorm2D weight_attr")
-        _check_attr(bias_attr, "BatchNorm2D bias_attr")
         self._momentum = momentum
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
         dev = resolve_device(device)
-        self.weight = None if weight_attr is False else Parameter(
-            torch.ones((num_features,), device=dev, dtype=dtype))
-        self.bias = None if bias_attr is False else Parameter(
-            torch.zeros((num_features,), device=dev, dtype=dtype))
+        _param(self, "weight", [num_features], weight_attr, dev, dtype,
+               I.Constant(1.0))
+        _param(self, "bias", [num_features], bias_attr, dev, dtype,
+               I.Constant(0.0))
         self.register_buffer("_mean", torch.zeros(
             (num_features,), device=dev, dtype=torch.float32))
         self.register_buffer("_variance", torch.ones(
@@ -211,9 +244,10 @@ class BatchNorm2D(Layer):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        if self.weight is not None:
+        if self.weight is not None and not _reinit(self, "weight",
+                                                   generator):
             self.weight.fill_(1.0)
-        if self.bias is not None:
+        if self.bias is not None and not _reinit(self, "bias", generator):
             self.bias.zero_()
 
     def forward(self, x):

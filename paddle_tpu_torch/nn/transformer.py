@@ -23,7 +23,8 @@ package, both Paddle's own behaviour: ``TransformerDecoderLayer`` returns
 incremental cache alone, so its cache cannot be fed back for a second
 step), and ``TransformerDecoder.gen_cache(do_zip=True)`` zips the
 per-layer pairs (the JAX package ignores ``do_zip``). ``weight_attr`` and
-``bias_attr`` other than None raise (ROADMAP.md queue A2).
+``bias_attr`` (a ``ParamAttr``, an initializer or ``False``) go to every
+``Linear`` of a layer, as in the reference.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from ..core.device import DeviceLike
 from ..ops.flash_attention import SUPPORTED_HEAD_DIMS, flash_attention
 from ..ops.math import matmul
 from . import functional as F
-from .layers_common import Dropout, LayerNorm, Linear, _check_attr
+from .layers_common import Dropout, LayerNorm, Linear
 from .layer_base import Layer
 
 
@@ -72,11 +73,6 @@ def _activation(name: str):
     raise ValueError(f"activation {name!r} not in ('relu', 'gelu')")
 
 
-def _check_attrs(weight_attr, bias_attr, what: str):
-    _check_attr(weight_attr, f"{what} weight_attr")
-    _check_attr(bias_attr, f"{what} bias_attr")
-
-
 class MultiHeadAttention(Layer):
     Cache = collections.namedtuple("Cache", ["k", "v"])
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
@@ -87,7 +83,6 @@ class MultiHeadAttention(Layer):
                  bias_attr=None, attn_impl: str = "auto", *,
                  device: DeviceLike = None):
         super().__init__()
-        _check_attrs(weight_attr, bias_attr, "MultiHeadAttention")
         self.embed_dim = embed_dim
         self.kdim = kdim or embed_dim
         self.vdim = vdim or embed_dim
@@ -102,10 +97,12 @@ class MultiHeadAttention(Layer):
             raise ValueError(f"attn_impl {attn_impl!r} not in "
                              "('auto', 'dense', 'flash')")
         self.attn_impl = attn_impl
-        self.q_proj = Linear(embed_dim, embed_dim, device=device)
-        self.k_proj = Linear(self.kdim, embed_dim, device=device)
-        self.v_proj = Linear(self.vdim, embed_dim, device=device)
-        self.out_proj = Linear(embed_dim, embed_dim, device=device)
+        attrs = dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                     device=device)
+        self.q_proj = Linear(embed_dim, embed_dim, **attrs)
+        self.k_proj = Linear(self.kdim, embed_dim, **attrs)
+        self.v_proj = Linear(self.vdim, embed_dim, **attrs)
+        self.out_proj = Linear(embed_dim, embed_dim, **attrs)
 
     def _flash_eligible(self, attn_mask, cache) -> bool:
         if self.attn_impl == "dense":
@@ -180,7 +177,8 @@ class MultiHeadAttention(Layer):
             product = product + mask
         weights = F.softmax(product)
         if self.dropout:
-            weights = F.dropout(weights, self.dropout, self.training)
+            weights = F.dropout(weights, self.dropout,
+                                training=self.training)
         out = matmul(weights, v).permute(0, 2, 1, 3)        # [B, L, H, D]
         out = self.out_proj(out.reshape(out.shape[0], out.shape[1],
                                         self.embed_dim))
@@ -201,16 +199,17 @@ class TransformerEncoderLayer(Layer):
                  bias_attr=None, attn_impl: str = "auto", *,
                  device: DeviceLike = None):
         super().__init__()
-        _check_attrs(weight_attr, bias_attr, "TransformerEncoderLayer")
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(
-            d_model, nhead, attn_dropout, attn_impl=attn_impl,
-            device=device)
-        self.linear1 = Linear(d_model, dim_feedforward, device=device)
+            d_model, nhead, attn_dropout, weight_attr=weight_attr,
+            bias_attr=bias_attr, attn_impl=attn_impl, device=device)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr, device=device)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, device=device)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr, device=device)
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
         self.dropout1 = Dropout(dropout)
@@ -292,17 +291,20 @@ class TransformerDecoderLayer(Layer):
                  normalize_before: bool = False, weight_attr=None,
                  bias_attr=None, *, device: DeviceLike = None):
         super().__init__()
-        _check_attrs(weight_attr, bias_attr, "TransformerDecoderLayer")
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
+        attrs = dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                     device=device)
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
-                                            device=device)
+                                            **attrs)
         self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
-                                             device=device)
-        self.linear1 = Linear(d_model, dim_feedforward, device=device)
+                                             **attrs)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr, device=device)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, device=device)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr, device=device)
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
         self.norm3 = LayerNorm(d_model, device=device)
@@ -400,13 +402,13 @@ class Transformer(Layer):
                  bias_attr=None, custom_encoder=None, custom_decoder=None,
                  *, device: DeviceLike = None):
         super().__init__()
-        _check_attrs(weight_attr, bias_attr, "Transformer")
         if custom_encoder is not None:
             self.encoder = custom_encoder
         else:
             enc_layer = TransformerEncoderLayer(
                 d_model, nhead, dim_feedforward, dropout, activation,
-                attn_dropout, act_dropout, normalize_before, device=device)
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr, device=device)
             enc_norm = (LayerNorm(d_model, device=device)
                         if normalize_before else None)
             self.encoder = TransformerEncoder(enc_layer, num_encoder_layers,
@@ -416,7 +418,8 @@ class Transformer(Layer):
         else:
             dec_layer = TransformerDecoderLayer(
                 d_model, nhead, dim_feedforward, dropout, activation,
-                attn_dropout, act_dropout, normalize_before, device=device)
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr, device=device)
             dec_norm = (LayerNorm(d_model, device=device)
                         if normalize_before else None)
             self.decoder = TransformerDecoder(dec_layer, num_decoder_layers,

@@ -1,12 +1,12 @@
 """The ``paddle.tensor`` namespace (counterpart of
-``paddle_tpu/tensor/__init__.py``): the ported ops under their
-``paddle.tensor.*`` import path, and ``rank``."""
+``paddle_tpu/tensor/__init__.py``): the op library under its
+``paddle.tensor.*`` import path, ``linalg``, and ``rank``."""
 import torch
 
 from ..core.tensor import Tensor
-from ..ops.creation import *  # noqa: F401,F403
-from ..ops.manipulation import *  # noqa: F401,F403
-from ..ops.math import *  # noqa: F401,F403
+from ..ops import *  # noqa: F401,F403
+from ..ops import linalg  # noqa: F401
+from ..ops.linalg import cholesky, inverse, matrix_power  # noqa: F401
 
 
 def rank(input):

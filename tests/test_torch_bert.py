@@ -10,6 +10,8 @@ cross entropy) trained 10 ``Model.train_batch`` steps with AdamW (lr
 pooler's included (it gets no gradient and AdamW only decays it), 3 O1
 bfloat16 steps at 2e-2, and the port's flash lane (the plain version of
 B1 on the CPU) against its dense lane."""
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -28,7 +30,8 @@ from paddle_tpu_torch import amp  # noqa: E402
 from paddle_tpu_torch import nn as tnn  # noqa: E402
 from paddle_tpu_torch import optimizer as topt  # noqa: E402
 from paddle_tpu_torch.models import bert as tbert  # noqa: E402
-from paddle_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+tfa = importlib.import_module(  # noqa: E402
+    "paddle_tpu_torch.ops.flash_attention")
 
 TOL = 1e-5
 CURVE_TOL = 1e-4

@@ -17,6 +17,7 @@ without jax it runs on its own, without the repository's conftest:
         tests/test_torch_cuda.py
 """
 import contextlib
+import importlib
 
 import numpy as np
 import pytest
@@ -25,10 +26,13 @@ import torch
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.ops import custom as tcustom
 from paddle_tpu_torch.ops import detection as tdet
-from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
 from paddle_tpu_torch.serving.llm.paged import GPTPagedDecoder
+from test_torch_op_table import (CUDA_CASES, cuda_case_holds,
+                                 random_ops_hold)
+
+tfa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -2471,3 +2475,20 @@ def test_capture_with_check_nan_inf_on_succeeds(cuda, port_device):
         P.set_flags({"FLAGS_check_nan_inf": False})
     assert prog.trace_counter["traces"] == 1 and prog.replays == 1
     torch.testing.assert_close(again, first, rtol=0, atol=0)
+
+
+# -- the op table (``tests/test_torch_op_table.py``) on the card: each
+# case on CUDA against the CPU, and the random ops by seed and moments. --
+
+@pytest.mark.parametrize("case", CUDA_CASES, ids=repr)
+def test_op_table_on_the_card_matches_the_cpu(cuda, case):
+    import paddle_tpu_torch as P
+    cuda_case_holds(case, P)
+
+
+def test_random_ops_on_the_card_repeat_under_seed_and_hold_moments(cuda):
+    """The random creation ops on the card: equal draws after the same
+    ``seed``, and their bounds and moments."""
+    import paddle_tpu_torch as P
+    failures = random_ops_hold(P, "gpu")
+    assert not failures, failures

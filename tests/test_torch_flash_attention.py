@@ -2,6 +2,8 @@
 package's Pallas kernel run in interpret mode, and the wrapper's contract
 on the CPU. The CUDA kernel is held against its plain version in
 ``test_torch_cuda.py``."""
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -12,7 +14,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from paddle_tpu.core.tensor import Tensor  # noqa: E402
 from paddle_tpu.ops import pallas_attention as jfa  # noqa: E402
-from paddle_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+tfa = importlib.import_module(  # noqa: E402
+    "paddle_tpu_torch.ops.flash_attention")
 
 
 def _inputs(seed, b, sq, skv, h, d):

@@ -3,6 +3,8 @@ against the JAX package's Pallas backward run in interpret mode, the
 differentiable ``flash_attention`` against ``jax.grad``, a float64
 gradcheck, and the wrappers' contract on the CPU. The CUDA kernels are
 held against their plain versions in ``test_torch_cuda.py``."""
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from paddle_tpu.ops import pallas_attention as jfa  # noqa: E402
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM  # noqa: E402
-from paddle_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+tfa = importlib.import_module(  # noqa: E402
+    "paddle_tpu_torch.ops.flash_attention")
 
 BLOCK = 16          # the Pallas blocks; sequences are padded to them
 

@@ -6,6 +6,8 @@ at 1e-5 through ``Model.train_batch``), dropout under recompute
 (gradients bitwise equal to the step without it, the generator left
 where it would be), and ``GradientMergeOptimizer`` over k = 1, 2, 4 with
 and without averaging."""
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -28,7 +30,8 @@ from paddle_tpu_torch.core import generator  # noqa: E402
 from paddle_tpu_torch.distributed.fleet import utils  # noqa: E402
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,  # noqa: E402
                                      GPTPretrainingCriterion)
-from paddle_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+tfa = importlib.import_module(  # noqa: E402
+    "paddle_tpu_torch.ops.flash_attention")
 
 TOL = 1e-5
 # bench.py:290-295, the GPT at S = 4096 at its CPU size

@@ -1,6 +1,8 @@
 """The GPT forward of the port against the JAX package at the ``entry()``
 flagship config (vocab 256, hidden 128, 2 layers, 4 heads, seq 32), and
 the weight carry between the packages both ways."""
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,8 @@ from paddle_tpu_torch import framework_io  # noqa: E402
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM  # noqa: E402
 from paddle_tpu_torch.nn import LayerNorm, Linear  # noqa: E402
 from paddle_tpu_torch.nn import functional as F  # noqa: E402
-from paddle_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+tfa = importlib.import_module(  # noqa: E402
+    "paddle_tpu_torch.ops.flash_attention")
 
 FLAGSHIP = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=4,
                 intermediate_size=512, max_position_embeddings=32,

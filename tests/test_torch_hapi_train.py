@@ -4,6 +4,8 @@
 gradients, the parameters after one AdamW step, a 10-step loss curve,
 gradient accumulation, eval, ``fit`` with the LRScheduler callback,
 save/load, the losses, and the seeded dropout generator."""
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +29,8 @@ from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,  # noqa: E402
                                      GPTPretrainingCriterion)
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm  # noqa: E402
 from paddle_tpu_torch.nn import functional as F  # noqa: E402
-from paddle_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+tfa = importlib.import_module(  # noqa: E402
+    "paddle_tpu_torch.ops.flash_attention")
 
 FLAGSHIP = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=4,
                 intermediate_size=512, max_position_embeddings=32,

@@ -58,7 +58,7 @@ def _arrays():
 
 
 def _port_net(arrays):
-    net = P.nn.Sequential(P.nn.Linear(8, 16, bias=False, device="cpu"),
+    net = P.nn.Sequential(P.nn.Linear(8, 16, bias_attr=False, device="cpu"),
                           P.nn.BatchNorm1D(16, device="cpu"),
                           torch.nn.ReLU(), P.nn.Linear(16, 4, device="cpu"))
     net.load_state_dict(P.state_dict_from_reference(arrays, "cpu"))

@@ -20,6 +20,7 @@ from paddle_tpu import nn as jnn  # noqa: E402
 from paddle_tpu.core.tensor import Tensor  # noqa: E402
 from paddle_tpu.models import GPTConfig as JGPTConfig  # noqa: E402
 from paddle_tpu.models import GPTForCausalLM as JGPT  # noqa: E402
+import paddle_tpu_torch as P  # noqa: E402
 from paddle_tpu_torch import framework_io, nn  # noqa: E402
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM  # noqa: E402
 from paddle_tpu_torch.nn import transformer as ttr  # noqa: E402
@@ -292,8 +293,19 @@ def test_transformer_forward_and_names_match_jax(normalize_before):
     (nn.Transformer, (E, H, 1, 1, FF)),
 ], ids=["mha", "decoder_layer", "transformer"])
 def test_param_attr_raises_naming_a2(cls, args):
-    with pytest.raises(NotImplementedError, match="A2"):
-        cls(*args, weight_attr=object(), device="cpu")
+    """ParamAttr came with queue A2's dense slice: the layer takes it, and
+    every Linear inside gets its initializer and its attributes."""
+    attr = P.ParamAttr(initializer=P.nn.initializer.Constant(0.25),
+                       learning_rate=0.5, need_clip=False)
+    layer = cls(*args, weight_attr=attr, bias_attr=False, device="cpu")
+    linears = [m for m in layer.modules() if isinstance(m, nn.Linear)]
+    assert linears
+    for lin in linears:
+        assert torch.equal(lin.weight.detach(),
+                           torch.full_like(lin.weight, 0.25))
+        assert lin.bias is None
+        assert lin.weight.optimize_attr["learning_rate"] == 0.5
+        assert lin.weight.need_clip is False
 
 
 def test_gpt_incremental_forward_matches_jax_and_full():
