@@ -304,7 +304,42 @@ Phases (any failure raises and the script exits non-zero):
    (``tests/test_torch_op_table.py`` ``CUDA_CASES``, every ported op of the
    dense surface but the tie cases) on CUDA against the CPU, forward and
    gradient, and the random ops' determinism and moments on the card,
-   printed as ``n held of n``.
+   printed as ``n held of n``;
+23. a BERT-base CRF tagger as a paddle user writes it (PaddleNLP's
+   BERT-CRF for MSRA-NER, ``tests/test_torch_op_table.py``
+   ``bert_crf_tagger``: ``BertModel(BertConfig())`` with its dropouts, a
+   ``Linear(768, 7)`` emission head over IOB tags of PER/ORG/LOC, a
+   ``create_parameter([9, 7])`` transition, the loss
+   ``linear_chain_crf(...).mean()``, the decode ``crf_decoding``, F1 from
+   ``chunk_eval(IOB, 3)``) on [32, 128] seeded ids with lengths 64-128 and
+   valid IOB tags: (a) 10 ``Model.train_batch`` steps of AdamW, graphed
+   (one capture) and eager, losses bitwise equal, no kernel (attention
+   dense under dropout); (b) ``Model.evaluate`` and ``Model.predict``
+   through their captured programs (the Viterbi path inside the predict
+   program), B1 12 launches a batch; (c) the captured predict's paths
+   bitwise the eager lane's; (d) ``crf_decoding`` on the card against the
+   CPU on the same emissions (equal, or the two paths' scores within
+   1e-5 relative: a near tie); (e) step ms, predict tokens/s and the
+   CRF's share of an eager step's device time; then the structured ops'
+   table cases (``CUDA_CASES`` of ``STRUCTURED``) on CUDA against the CPU
+   and the host-reading ops (``HOST_CASES``) eagerly, ``n held of n``, the
+   structured draws repeated under one seed, and the capture lane of
+   ``ops.cond`` (``cond_net``: a ``train_batch`` graphed against eager,
+   bitwise, its branch not taken ``sqrt`` of a negative input) and a
+   ``while_loop`` under a capture, which raises;
+24. GPT-3 1.3B (phase 3's weights, seed 0) decoded by beam search as a
+   user writes it: ``nn.BeamSearchDecoder`` and ``nn.dynamic_decode``, 2
+   prompts of 64 seeded tokens ending in the start token, 4 beams, 32
+   steps, under ``no_grad``, with two cells (``gpt_beam_cells``): (a) the
+   incremental cache, the prefix prefilled once and tiled to the beams,
+   its ``Cache`` leaves reordered by parent every step, attention dense
+   (no kernel); (b) the token history as the state, the whole prefix a
+   step with no cache, attention through B1 (24 launches a step). Both
+   cells' ids equal under the beam near-tie rule (:func:`beam_near_ties`:
+   where they part, the candidates the cells ranked differently lie
+   within the cells' summed log-probability difference) and scores
+   within 1e-4 relative where the ids are equal; tokens/s and step ms of
+   each cell.
 
 Each model, its programs and its cache are released between phases
 (``release_memory``): GPT-3 1.3B, ResNet-50, BERT-base, YOLOv3 and the
@@ -332,7 +367,10 @@ evaluate launches B1 and only the mAP path B5), and around each of phase
 21's dygraph paths (LeNet, which launches none, and the GPT's fp32 and
 O1 steps, B1-B3 24 each a step), and around each of phase 22's (the
 op-built GPT's fp32 and O1 dygraph steps and its ``train_batch`` lanes,
-B1-B3 24 each a step) (B4 there runs in the plain
+B1-B3 24 each a step), and around each of phase 23's (the tagger's
+training lanes, none; its evaluate and predict, B1 12 a batch) and
+phase 24's (the cached cell, none; the full-prefix cell, B1 24 a step)
+(B4 there runs in the plain
 paged steps only, 24 launches a step; in phase 19 in the paged runs over
 dense pages, int8 weights included, and in none over int8 pages; the
 prefills, tail prefills and the verify attend densely, as the JAX
@@ -341,7 +379,8 @@ package's, so B1 launches nothing on any of them). The last two lines are a
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result. ``--phase 22`` runs,
 after the build, phase 21's two GPT-3 1.3B dygraph references and phase
-22 alone, and prints that phase's numbers only.
+22 alone, and prints that phase's numbers only; ``--phase 23`` and
+``--phase 24`` run that phase alone after the build.
 """
 from __future__ import annotations
 
@@ -5656,22 +5695,31 @@ def op_gpt_dense(torch, ct, dev, cfg, ids, flash):
     return out
 
 
+def cases_on_the_card(ct, cases):
+    """``(held, failures)`` of ``ct.cuda_case_holds`` over ``cases``."""
+    import paddle_tpu_torch as paddle
+    held, failed = 0, []
+    for case in cases:
+        try:
+            ct.cuda_case_holds(case, paddle)
+            held += 1
+        except Exception as e:   # noqa: BLE001 (every case is reported)
+            failed.append(f"{case.name}: {str(e).splitlines()[0][:200]}")
+    return held, failed
+
+
 def op_table_on_the_card(torch, ct):
     """Phase 22d: every case of the op table (``OP_CASES`` but the tie
     cases) on CUDA against the CPU on the same seeded inputs, forward and
     gradient, and the random ops' determinism and moments on the card;
     ``n held of n``."""
     import paddle_tpu_torch as paddle
-    held, failed = 0, []
     t0 = time.perf_counter()
-    for case in ct.CUDA_CASES:
-        try:
-            ct.cuda_case_holds(case, paddle)
-            held += 1
-        except Exception as e:   # noqa: BLE001 (every case is reported)
-            failed.append(f"{case.name}: {str(e).splitlines()[0][:200]}")
+    # the dense surface's cases; phase 23 holds the structured half's
+    cases = [c for c in ct.CUDA_CASES if c.module not in ct.STRUCTURED]
+    held, failed = cases_on_the_card(ct, cases)
     random_fails = ct.random_ops_hold(paddle, "gpu")
-    n = len(ct.CUDA_CASES)
+    n = len(cases)
     log(f"op table on the card: {held} held of {n} "
         f"({time.perf_counter() - t0:.1f} s); random ops "
         f"{'held' if not random_fails else random_fails}")
@@ -5680,8 +5728,9 @@ def op_table_on_the_card(torch, ct):
     if failed or random_fails:
         raise RuntimeError(f"phase 22 op table: {len(failed)} of {n} cases "
                            f"failed, random ops {random_fails}")
-    return {"held": held, "cases": n, "tie_cases_on_cpu_only":
-            len(ct.OP_CASES) - n, "random_ops": "held"}
+    dense = sum(c.module not in ct.STRUCTURED for c in ct.OP_CASES)
+    return {"held": held, "cases": n, "tie_cases_on_cpu_only": dense - n,
+            "random_ops": "held"}
 
 
 def run_op_program_phase(torch, fa_mod, dev, cfg, ids, dy, smi,
@@ -5719,22 +5768,475 @@ def run_op_program_phase(torch, fa_mod, dev, cfg, ids, dy, smi,
     return out, launches, dtypes
 
 
-def phase22_alone(torch, fa_mod, dev, smi):
-    """``python3 chip_smoke.py --phase 22``: after the build, phase 21's
-    two GPT-3 1.3B dygraph references (fp32 and O1) and phase 22, on a
-    batch of its own; prints the phase's numbers, not the summary
-    lines."""
-    ctrs = _counters(fa_mod)
+# -- phase 23: a BERT-base CRF tagger ------------------------------------------
+
+#: the tagger's batch (MSRA-NER lengths 64-128 of 128), its train steps
+#: and its eval/predict batches
+CRF_BATCH, CRF_SEQ, CRF_STEPS, CRF_EVAL_BATCHES = 32, 128, 10, 2
+
+
+def _tagger(torch, ct, dev, cfg):
+    """Phase 23's tagger (``ct.bert_crf_tagger`` over BERT-base from seed
+    0) under ``Model`` with AdamW(5e-5); the port's generator seeded 23
+    first, so every build draws the same weights and masks."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.models import BertModel
+    from paddle_tpu_torch.optimizer import AdamW
+    paddle.seed(23)
+    net, loss = ct.bert_crf_tagger(paddle, BertModel(cfg, device=dev,
+                                                     seed=0),
+                                   cfg.hidden_size)
+    model = Model(net)
+    model.prepare(AdamW(learning_rate=5e-5, parameters=net.parameters(),
+                        device=dev), loss)
+    return model, net
+
+
+def _path_scores(em, tr, paths, lens):
+    """float64 score of each row's tag path (start, emissions,
+    transitions, stop) over its length."""
+    out = []
+    for e, p, n in zip(em.astype(np.float64), paths, lens):
+        p = p[:n]
+        out.append(tr[0, p[0]] + tr[1, p[-1]] + e[np.arange(n), p].sum()
+                   + tr[2:][p[:-1], p[1:]].sum())
+    return np.array(out)
+
+
+def structured_ops_on_the_card(torch, ct):
+    """Phase 23's table check: the structured half's cases on CUDA against
+    the CPU (``CUDA_CASES`` of ``ct.STRUCTURED``) and the host-reading
+    ops run eagerly on the card (``HOST_CASES``), forward and gradient,
+    and the structured draws repeated under one seed; ``n held of n``."""
+    import paddle_tpu_torch as paddle
+    cases = [c for c in ct.CUDA_CASES if c.module in ct.STRUCTURED] + \
+        list(ct.HOST_CASES)
+    t0 = time.perf_counter()
+    held, failed = cases_on_the_card(ct, cases)
+    random_fails = ct.structured_draws_hold(paddle, "gpu")
+    n = len(cases)
+    log(f"structured op table on the card: {held} held of {n} "
+        f"({len(ct.HOST_CASES)} host-reading ops run eagerly; "
+        f"{time.perf_counter() - t0:.1f} s); draws "
+        f"{'repeat under one seed' if not random_fails else random_fails}")
+    for f in failed:
+        log(f"  structured case failed: {f}")
+    if failed or random_fails:
+        raise RuntimeError(f"phase 23 op table: {len(failed)} of {n} cases "
+                           f"failed, draws {random_fails}")
+    return {"held": held, "cases": n, "host_cases": len(ct.HOST_CASES),
+            "draws": "repeat under one seed"}
+
+
+def cond_capture_lane(torch, ct, dev):
+    """Phase 23's control flow: ``ct.cond_net`` through
+    ``Model.train_batch`` graphed (``ops.cond`` selects between both
+    branches in the capture, no host read) against eager (which reads the
+    predicate), 5 SGD steps, losses and weights bitwise; then the
+    ``while_loop`` variant, which runs eagerly and raises under a
+    capture."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.optimizer import SGD
+    rng = np.random.default_rng(1)
+    X = torch.from_numpy(rng.random((64, 4), dtype=np.float32)).to(dev)
+    Y = torch.from_numpy(rng.random((64, 1), dtype=np.float32)).to(dev)
+
+    def build(loop=False):
+        paddle.seed(0)
+        net = ct.cond_net(paddle, loop)
+        model = Model(net)
+        model.prepare(SGD(learning_rate=0.05, parameters=net.parameters(),
+                          device=dev),
+                      lambda pred, y: ((pred - y) ** 2).mean())
+        return model, net
+    out = {}
+    for lane in ("graphed", "eager"):
+        model, net = build()
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        with ctx:
+            losses = [model.train_batch([X], [Y])[0] for _ in range(5)]
+        out[lane] = (losses, [p.detach().clone() for p in net.parameters()])
+    (gl, gp), (el, ep) = out["graphed"], out["eager"]
+    equal = gl == el and all(torch.equal(a, b) for a, b in zip(gp, ep))
+    finite = all(math.isfinite(v) for v in gl) and all(
+        bool(torch.isfinite(p).all()) for p in gp)
+    model, _ = build(loop=True)
+    with graphs.disable_graphs():
+        eager_loop = model.train_batch([X], [Y])[0]
+    model, _ = build(loop=True)
+    try:
+        model.train_batch([X], [Y])
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e).splitlines()[0][:80]
+    log(f"ops.cond under a train_batch capture: losses {gl} graphed, "
+        f"{'bitwise equal to eager' if equal else f'eager {el}'}; finite "
+        f"{finite}; while_loop eager loss {eager_loop:.6f}, under a "
+        f"capture raised: {raised!r}")
+    if not (equal and finite and raised and math.isfinite(eager_loop)):
+        raise RuntimeError("phase 23 control flow: cond lanes "
+                           f"{gl} / {el}, finite {finite}, while_loop "
+                           f"under capture raised {raised!r}")
+    return {"cond_losses": gl, "cond_lanes_bitwise": equal,
+            "while_loop_capture_raises": raised}
+
+
+def crf_tagger_phase(torch, fa_mod, dev, smi, reset_counters,
+                     read_counters, cfg=None):
+    """Phase 23 (module docstring) on BERT-base (``cfg``, by default
+    ``BertConfig()``): returns (results, launches by path, B1-B3 launches
+    by type)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.models import BertConfig
+    ct = _op_table()
+    cfg = BertConfig() if cfg is None else cfg
+    rng = np.random.default_rng(23)
+    n_rows = CRF_BATCH * (1 + CRF_EVAL_BATCHES)
+    lens = rng.integers(CRF_SEQ // 2, CRF_SEQ + 1, n_rows)
+    ids = rng.integers(0, cfg.vocab_size, (n_rows, CRF_SEQ))
+    tags = ct.iob_tags(rng, lens, CRF_SEQ)
+    on = [torch.from_numpy(a).to(dev) for a in (ids, lens, tags)]
+    X, Y = [t[:CRF_BATCH] for t in on[:2]], [on[2][:CRF_BATCH]]
+    batches = [[t[CRF_BATCH * (i + 1):CRF_BATCH * (i + 2)] for t in on]
+               for i in range(CRF_EVAL_BATCHES)]
+    log(f"phase 23: BERT-base ({cfg}) + Linear({cfg.hidden_size}, "
+        f"{ct.NER_TAGS}) + CRF transition create_parameter"
+        f"([{ct.NER_TAGS + 2}, {ct.NER_TAGS}]), AdamW(5e-5), [{CRF_BATCH}, "
+        f"{CRF_SEQ}] seeded ids, lengths {int(lens.min())}-"
+        f"{int(lens.max())}, IOB tags of PER/ORG/LOC; {smi}")
+    res, launches = {}, {}
+    # (a) training, graphed and eager
+    for lane in ("graphed", "eager"):
+        model, net = _tagger(torch, ct, dev, cfg)
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        reset_counters()
+        losses, walls = [], []
+        with ctx:
+            for _ in range(CRF_STEPS):
+                sync(torch, dev)
+                t0 = time.perf_counter()
+                losses.append(model.train_batch(X, Y)[0])
+                sync(torch, dev)
+                walls.append((time.perf_counter() - t0) * 1e3)
+        launches[f"crf_tagger_train_{lane}"] = read_counters()
+        step_ms = float(np.median(walls[2:]))
+        res[f"train_{lane}"] = {
+            "losses": losses, "step_ms": step_ms,
+            "tokens_per_s": CRF_BATCH * CRF_SEQ / step_ms * 1e3}
+        if lane == "eager":
+            # (e) the CRF's share of an eager step's device time
+            with graphs.disable_graphs():
+                prof = profile_train_step(
+                    torch, model, None, False, "eager", batch=(X, Y),
+                    count=CRF_BATCH * CRF_SEQ, op_parts=(
+                        ("crf_forward", r"^crf$"),
+                        ("crf_backward", "link:crf")),
+                    labels=((paddle.ops, "linear_chain_crf", "crf"),))
+            by = prof["device_ms_by_part"]
+            crf_ms = by["crf_forward"] + by["crf_backward"]
+            res["crf_share"] = {
+                "crf_forward_ms": by["crf_forward"],
+                "crf_backward_ms": by["crf_backward"],
+                "step_device_ms": prof["device_busy_ms"],
+                "share": crf_ms / prof["device_busy_ms"],
+                "eager_step_wall_ms": prof["step_ms"],
+                "kernels_per_step": prof["kernels_per_step"]}
+        else:
+            tagger, tagger_net = model, net
+            continue
+        model._invalidate_compiled()
+        del model, net
+    g, e = res["train_graphed"]["losses"], res["train_eager"]["losses"]
+    res["train_lanes_bitwise"] = g == e
+    log(f"tagger train_batch: losses {[round(v, 4) for v in g]} graphed, "
+        + ("bitwise equal to eager" if g == e else f"eager {e}")
+        + f"; step {res['train_graphed']['step_ms']:.2f} ms graphed, "
+        f"{res['train_eager']['step_ms']:.2f} ms eager "
+        f"({res['train_graphed']['tokens_per_s']:.0f} / "
+        f"{res['train_eager']['tokens_per_s']:.0f} tokens/s); the CRF "
+        f"(forward {res['crf_share']['crf_forward_ms']:.3f} + backward "
+        f"{res['crf_share']['crf_backward_ms']:.3f} ms) is "
+        f"{100 * res['crf_share']['share']:.1f}% of an eager step's "
+        f"{res['crf_share']['step_device_ms']:.2f} device ms")
+    if g != e or not all(math.isfinite(v) for v in g):
+        raise RuntimeError(f"phase 23: tagger lanes {g} graphed, {e} eager")
+    for lane in ("graphed", "eager"):
+        if any(launches[f"crf_tagger_train_{lane}"].values()):
+            raise RuntimeError(f"a port kernel launched on the tagger's "
+                               f"{lane} training path (dropout trains: "
+                               f"attention is dense)")
+    # (b) evaluate and predict through their captured programs
+    per_batch = cfg.num_layers
+    reset_counters()
+    ev = {}
+    for lane in ("capture", "graphed", "eager"):
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        before = fa_mod.flash_attention_fwd.launches
+        with ctx:
+            logs, ms = _timed(torch, lambda: tagger.evaluate(
+                batches, verbose=0))
+        ev[lane] = {"loss": logs["loss"], "ms": ms,
+                    "b1": fa_mod.flash_attention_fwd.launches - before}
+    launches["crf_tagger_evaluate"] = read_counters()
+    reset_counters()
+    pred = {}
+    for lane in ("capture", "graphed", "eager"):
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        before = fa_mod.flash_attention_fwd.launches
+        with ctx:
+            outs, ms = _timed(torch, lambda: tagger.predict(
+                batches, verbose=0))
+        pred[lane] = {"outs": outs, "ms": ms,
+                      "b1": fa_mod.flash_attention_fwd.launches - before}
+    launches["crf_tagger_predict"] = read_counters()
+    by_dtype = {c.__name__: dict(c.launches_by_dtype)
+                for c in _counters(fa_mod)}
+    want = per_batch * CRF_EVAL_BATCHES
+    got_b1 = [ev[k]["b1"] for k in ev] + [pred[k]["b1"] for k in pred]
+    n_tok = CRF_EVAL_BATCHES * CRF_BATCH * CRF_SEQ
+    # (c) the captured predict's paths against the eager lane's
+    same_paths = all(
+        np.array_equal(a[2], b[2]) for a, b in zip(
+            pred["graphed"]["outs"], pred["eager"]["outs"]))
+    paths = np.concatenate([o[2] for o in pred["graphed"]["outs"]])
+    lens_eval = lens[CRF_BATCH:]
+    f1 = paddle.ops.chunk_eval(paths, tags[CRF_BATCH:], "IOB", ct.NER_TYPES,
+                               lens_eval)
+    # (d) crf_decoding on the card against the CPU on the same emissions
+    em = np.concatenate([o[0] for o in pred["graphed"]["outs"]])
+    tr = tagger.network.transition.detach().cpu().numpy()
+    cpu_paths = paddle.ops.crf_decoding(
+        torch.from_numpy(em), torch.from_numpy(tr),
+        length=torch.from_numpy(lens_eval)).numpy()
+    differ = np.nonzero((cpu_paths != paths).any(1))[0]
+    s_card = _path_scores(em, tr, paths, lens_eval)
+    s_cpu = _path_scores(em, tr, cpu_paths, lens_eval)
+    rel = np.abs(s_card - s_cpu) / np.abs(s_cpu)
+    near = [(int(r), float(rel[r])) for r in differ]
+    res.update(
+        evaluate={k: {"loss": v["loss"], "ms": v["ms"], "b1": v["b1"]}
+                  for k, v in ev.items()},
+        eval_losses_bitwise=ev["graphed"]["loss"] == ev["eager"]["loss"],
+        predict={k: {"ms": v["ms"], "b1": v["b1"],
+                     "tokens_per_s": n_tok / v["ms"] * 1e3}
+                 for k, v in pred.items()},
+        predict_paths_bitwise=same_paths, b1_per_batch=per_batch,
+        chunk_eval={"precision": f1[0], "recall": f1[1], "f1": f1[2],
+                    "infer_chunks": f1[3], "label_chunks": f1[4],
+                    "correct_chunks": f1[5]},
+        card_vs_cpu_paths={"rows": len(paths), "differ": near})
+    log(f"tagger evaluate: loss {ev['graphed']['loss']!r} graphed, "
+        f"{ev['eager']['loss']!r} eager, {ev['graphed']['ms']:.1f} / "
+        f"{ev['eager']['ms']:.1f} ms; predict "
+        f"{res['predict']['graphed']['tokens_per_s']:.0f} tokens/s graphed, "
+        f"{res['predict']['eager']['tokens_per_s']:.0f} eager; B1 {got_b1} "
+        f"in the capture, graphed and eager calls of evaluate then predict "
+        f"({per_batch} a batch); paths "
+        f"{'bitwise equal' if same_paths else 'DIFFER'} graphed vs eager; "
+        f"card vs CPU crf_decoding: {len(near)} of {len(paths)} rows "
+        f"differ {near}; chunk_eval F1 {f1[2]:.4f} (random weights)")
+    if got_b1 != [want] * 6 or not same_paths or \
+            not res["eval_losses_bitwise"] or any(r > 1e-5 for _, r in near):
+        raise RuntimeError(f"phase 23: B1 {got_b1} (want {want} each), "
+                           f"predict paths equal {same_paths}, eval losses "
+                           f"equal {res['eval_losses_bitwise']}, card vs "
+                           f"CPU paths {near}")
+    tagger._invalidate_compiled()
+    del tagger, tagger_net, pred
+    release_memory(torch)
+    res["op_table"] = structured_ops_on_the_card(torch, ct)
+    reset_counters()
+    res["control_flow"] = cond_capture_lane(torch, ct, dev)
+    launches["cond_train_batch"] = read_counters()
+    release_memory(torch)
+    return res, launches, by_dtype
+
+
+# -- phase 24: GPT-3 1.3B decoded by beam search ---------------------------------
+
+#: prompts, their length, beams and decode steps
+BEAM_B, BEAM_PROMPT, BEAM_K, BEAM_STEPS = 2, 64, 4, 32
+#: relative tolerance of the two cells' final scores
+BEAM_SCORE_TOL = 1e-4
+
+
+def beam_replay(torch, logps, B, K, end):
+    """``dynamic_decode``'s selection replayed on a cell's recorded
+    log-probabilities (``[B * K, V]`` a step): per step (tokens, parents,
+    the top K + 1 candidate scores), and the final scores."""
+    dev = logps[0].device
+    log_probs = torch.zeros((B, K), device=dev)
+    log_probs[:, 1:] = -1e9
+    finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    steps = []
+    for lp in logps:
+        V = lp.shape[-1]
+        fmask = torch.full((V,), -1e9, device=dev)
+        fmask[end] = 0.0
+        lp = torch.where(finished[..., None], fmask, lp.reshape(B, K, V))
+        vals, idx = torch.sort((log_probs[..., None] + lp).reshape(B, K * V),
+                               dim=1, descending=True, stable=True)
+        parent, token = idx[:, :K] // V, idx[:, :K] % V
+        log_probs = vals[:, :K]
+        finished = torch.take_along_dim(finished, parent, 1) | (token == end)
+        steps.append((token, parent, vals[:, :K + 1]))
+    return steps, log_probs
+
+
+def beam_near_ties(torch, rec_a, rec_b, B, K, end):
+    """The beam near-tie rule between two cells' recorded steps: per batch
+    row, the first step whose selection parts (tokens or parents) and,
+    there, the smallest gap between adjacent candidates of the top K + 1,
+    which must not exceed the cells' accumulated log-probability
+    difference (both cells scored the same histories until then). Returns
+    [(row, step, gap, noise)]; raises where a gap exceeds its noise."""
+    sa, _ = beam_replay(torch, rec_a, B, K, end)
+    sb, _ = beam_replay(torch, rec_b, B, K, end)
+    out = []
+    for b in range(B):
+        noise = 0.0
+        for t, ((ta, pa, va), (tb, pb, _)) in enumerate(zip(sa, sb)):
+            rows = slice(b * K, (b + 1) * K)
+            noise += float((rec_a[t][rows] - rec_b[t][rows]).abs().max())
+            if torch.equal(ta[b], tb[b]) and torch.equal(pa[b], pb[b]):
+                continue
+            gap = float((va[b, :-1] - va[b, 1:]).min())
+            out.append((b, t, gap, 2 * noise))
+            if gap > 2 * noise:
+                raise RuntimeError(
+                    f"beam search: row {b} parts between the cells at step "
+                    f"{t} where the nearest candidates lie {gap:.3e} apart, "
+                    f"beyond the cells' difference {2 * noise:.3e}")
+            break
+    return out
+
+
+def beam_phase(torch, fa_mod, dev, smi, reset_counters, read_counters,
+               cfg=CFG_13B):
+    """Phase 24 (module docstring) on the GPT of ``cfg`` (GPT-3 1.3B):
+    returns (results, launches by path, B1-B3 launches by type)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    ct = _op_table()
+    model = GPTForCausalLM(GPTConfig(**cfg, attn_impl="flash"),
+                           device=dev, seed=0).eval()
+    rng = np.random.default_rng(24)
+    prompts = rng.integers(0, cfg["vocab_size"], (BEAM_B, BEAM_PROMPT))
+    start = int(prompts[0, -1])
+    prompts[:, -1] = start
+    end = cfg["vocab_size"] - 1
+    log(f"phase 24: GPT-3 1.3B (seed 0) beam search, {BEAM_B} prompts of "
+        f"{BEAM_PROMPT} seeded tokens ending in start token {start}, "
+        f"{BEAM_K} beams, {BEAM_STEPS} steps, end token {end}; {smi}")
+    res, launches, recs = {}, {}, {}
+    for name, cached in (("cached", True), ("full_prefix", False)):
+        rec = []
+        with torch.no_grad():
+            cell, inits = ct.gpt_beam_cells(paddle, model, prompts, cached)
+
+            def recorded(ids, states, cell=cell, rec=rec):
+                logits, states = cell(ids, states)
+                rec.append(torch.log_softmax(logits._data.float(), dim=-1))
+                return logits, states
+            dec = paddle.nn.BeamSearchDecoder(recorded, start, end, BEAM_K)
+            paddle.nn.dynamic_decode(dec, inits=inits, max_step_num=2)
+            rec.clear()
+            reset_counters()
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            ids, scores = paddle.nn.dynamic_decode(dec, inits=inits,
+                                                   max_step_num=BEAM_STEPS)
+            sync(torch, dev)
+            wall = (time.perf_counter() - t0) * 1e3
+        launches[f"beam_{name}"] = read_counters()
+        _, replayed = beam_replay(torch, rec, BEAM_B, BEAM_K, end)
+        if not torch.equal(replayed, scores._data):
+            raise RuntimeError(f"phase 24 {name}: the replayed selection "
+                               f"does not give dynamic_decode's scores")
+        recs[name] = rec
+        res[name] = {"ids": ids.numpy(), "scores": scores.numpy(),
+                     "wall_ms": wall, "step_ms": wall / BEAM_STEPS,
+                     "beam_tokens_per_s": BEAM_B * BEAM_K * BEAM_STEPS
+                     / wall * 1e3,
+                     "b1": launches[f"beam_{name}"]["flash_attention_fwd"]}
+        log(f"beam {name}: {wall:.1f} ms for {BEAM_STEPS} steps "
+            f"({res[name]['step_ms']:.2f} ms a step, "
+            f"{res[name]['beam_tokens_per_s']:.0f} beam tokens/s), B1 "
+            f"{res[name]['b1']} launches; best scores "
+            f"{res[name]['scores'][:, 0].tolist()}")
+    by_dtype = {c.__name__: dict(c.launches_by_dtype)
+                for c in _counters(fa_mod)}
+    near = beam_near_ties(torch, recs["cached"], recs["full_prefix"],
+                          BEAM_B, BEAM_K, end)
+    a, b = res["cached"], res["full_prefix"]
+    parted = {r for r, *_ in near}
+    same = [r for r in range(BEAM_B) if r not in parted]
+    ids_equal = all(np.array_equal(a["ids"][r], b["ids"][r]) for r in same)
+    rel = max([float(np.abs(a["scores"][r] - b["scores"][r]).max()
+                     / np.abs(b["scores"][r]).max()) for r in same] or [0.0])
+    want_b1 = cfg["num_layers"] * BEAM_STEPS
+    log(f"beam cells: ids {'equal' if ids_equal else 'DIFFER'} on rows "
+        f"{same}, near ties {near}; scores within {rel:.3e} relative; B1 "
+        f"{a['b1']} cached (0 expected), {b['b1']} full prefix "
+        f"({want_b1} expected)")
+    if not ids_equal or rel > BEAM_SCORE_TOL or a["b1"] != 0 or \
+            b["b1"] != want_b1:
+        raise RuntimeError(f"phase 24: ids equal {ids_equal}, scores "
+                           f"{rel:.3e}, B1 {a['b1']} / {b['b1']}")
+    for k in ("cached", "full_prefix"):
+        res[k]["ids"] = res[k]["ids"].tolist()
+        res[k]["scores"] = res[k]["scores"].tolist()
+    res.update(near_ties=near, scores_rel_diff=rel)
+    del model, recs
+    release_memory(torch)
+    return res, launches, by_dtype
+
+
+def counter_fns(torch, fa_mod, extra=()):
+    """``(reset_counters, read_counters)`` over B1-B3's launch counts (and
+    their counts by type) and ``extra``'s; the reset also resets the peak
+    memory statistics."""
+    ctrs = (*_counters(fa_mod), *extra)
 
     def reset_counters():
         for c in ctrs:
             c.launches = 0
+        for c in _counters(fa_mod):
             c.launches_by_dtype = {}
         torch.cuda.reset_peak_memory_stats()
 
     def read_counters():
         return {c.__name__: c.launches for c in ctrs}
+    return reset_counters, read_counters
 
+
+def phase_alone(torch, fa_mod, dev, smi, phase, extra_counters):
+    """``python3 chip_smoke.py --phase 23|24``: after the build, that
+    phase alone; prints its numbers, not the summary lines."""
+    reset_counters, read_counters = counter_fns(torch, fa_mod,
+                                                extra_counters)
+    fn = crf_tagger_phase if phase == 23 else beam_phase
+    out, launches, dtypes = fn(torch, fa_mod, dev, smi, reset_counters,
+                               read_counters)
+    log(f"phase {phase} paths launches: {launches}, B1-B3 by type {dtypes}")
+    log(f"phase {phase}: {json.dumps(out)}")
+    return 0
+
+
+def phase22_alone(torch, fa_mod, dev, smi):
+    """``python3 chip_smoke.py --phase 22``: after the build, phase 21's
+    two GPT-3 1.3B dygraph references (fp32 and O1) and phase 22, on a
+    batch of its own; prints the phase's numbers, not the summary
+    lines."""
+    reset_counters, read_counters = counter_fns(torch, fa_mod)
     ids = np.random.default_rng(22).integers(
         0, CFG_13B["vocab_size"], (4, CFG_13B["max_position_embeddings"]))
     dy = {}
@@ -5803,6 +6305,9 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     if sys.argv[1:] == ["--phase", "22"]:
         return phase22_alone(torch, fa_mod, dev, smi)
+    if sys.argv[1:] in (["--phase", "23"], ["--phase", "24"]):
+        return phase_alone(torch, fa_mod, dev, smi, int(sys.argv[2]),
+                           (pa_mod.paged_attention, nms_mod.greedy_nms))
     tc_libs = ("flash_attention_fwd", "flash_attention_bwd_dq",
                "flash_attention_bwd_dkv")
     tc = sass_tensor_counts(kernel_build, tc_libs)
@@ -5842,18 +6347,8 @@ def main() -> int:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"model: GPT-3 1.3B, {n_params} parameters, fp32, random weights "
         f"(seed 0)")
-    all_counters = (*_counters(fa_mod), pa_mod.paged_attention,
-                    nms_mod.greedy_nms)
-
-    def reset_counters():
-        for c in all_counters:
-            c.launches = 0
-        for c in _counters(fa_mod):
-            c.launches_by_dtype = {}
-        torch.cuda.reset_peak_memory_stats()
-
-    def read_counters():
-        return {c.__name__: c.launches for c in all_counters}
+    reset_counters, read_counters = counter_fns(
+        torch, fa_mod, (pa_mod.paged_attention, nms_mod.greedy_nms))
 
     reset_counters()
     run_forward(torch, model, fa_mod, rng, CFG_13B, dev)
@@ -6160,6 +6655,31 @@ def main() -> int:
                 raise RuntimeError(f"kernel {n} was not launched on the "
                                    f"{path} path")
 
+    # -- phase 23: a BERT-base CRF tagger ------------------------------------
+    stamp("23 BERT-base CRF tagger and the structured ops")
+    crf, crf_launches, crf_dtypes = crf_tagger_phase(
+        torch, fa_mod, dev, smi, reset_counters, read_counters)
+    log(f"tagger paths launches: {crf_launches}, B1-B3 by type "
+        f"{crf_dtypes}")
+    for path, counts in crf_launches.items():
+        for n, c in counts.items():
+            want = path in ("crf_tagger_evaluate", "crf_tagger_predict") \
+                and n == "flash_attention_fwd"
+            if (c > 0) != want:
+                raise RuntimeError(f"{path}: kernel {n} launched {c} times")
+
+    # -- phase 24: GPT-3 1.3B decoded by beam search ---------------------------
+    stamp("24 GPT-3 1.3B beam search")
+    beam, beam_launches, beam_dtypes = beam_phase(
+        torch, fa_mod, dev, smi, reset_counters, read_counters)
+    log(f"beam search paths launches: {beam_launches}, B1-B3 by type "
+        f"{beam_dtypes}")
+    for path, counts in beam_launches.items():
+        for n, c in counts.items():
+            want = path == "beam_full_prefix" and n == "flash_attention_fwd"
+            if (c > 0) != want:
+                raise RuntimeError(f"{path}: kernel {n} launched {c} times")
+
     # -- summary --------------------------------------------------------------
     paths = {"serving": serve_launches, "serving_slot": slot_launches,
              "generate": gen_launches, "training": train_launches,
@@ -6171,13 +6691,15 @@ def main() -> int:
              **{f"training_gpt_s4096_{k}": v for k, v in long_paths.items()},
              "serving_prefix": prefix_launches, "serving_spec": spec_launches,
              "serving_int8": int8_launches, **hapi_launches, **dy_launches,
-             **opg_launches}
+             **opg_launches, **crf_launches, **beam_launches}
     amp_dtypes["bert_flash_checks"] = bert_dtypes
     amp_dtypes.update({f"training_gpt_s4096_{k}": v
                        for k, v in long_dtypes.items()})
     amp_dtypes["hapi_bert_evaluate"] = bert_dtypes_20
     amp_dtypes.update(dy_dtypes)
     amp_dtypes.update(opg_dtypes)
+    amp_dtypes["crf_tagger_evaluate_predict"] = crf_dtypes
+    amp_dtypes["beam_full_prefix"] = beam_dtypes
 
     def launches(name):
         by_path = {k: v[name] for k, v in paths.items()}
@@ -6233,6 +6755,8 @@ def main() -> int:
                                "lenet_rules": hapi_rules}))
     log(f"dygraph: {json.dumps(dy)}")
     log(f"op program: {json.dumps(opg)}")
+    log(f"BERT-base CRF tagger: {json.dumps(crf)}")
+    log(f"GPT-3 1.3B beam search: {json.dumps(beam)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
-"""Layers of the port (counterpart of ``paddle_tpu/nn``)."""
+"""Layers of the port (counterpart of ``paddle_tpu/nn``), and the beam
+decoder ``BeamSearchDecoder``/``dynamic_decode`` (reference ``:29``)."""
 from . import functional, initializer
+from .beam_decode import BeamSearchDecoder, dynamic_decode
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    GradientClipByGlobalNorm, GradientClipByNorm,
                    GradientClipByValue, clip_grad_norm_)
@@ -23,4 +25,5 @@ __all__ = ["functional", "initializer", "ParamAttr", "ClipGradByGlobalNorm", "Cl
            "MaxPool2D", "Upsample", "Dropout", "Embedding", "LayerNorm",
            "Linear", "CAUSAL_MASK", "MultiHeadAttention", "Transformer",
            "TransformerDecoder", "TransformerDecoderLayer",
-           "TransformerEncoder", "TransformerEncoderLayer"]
+           "TransformerEncoder", "TransformerEncoderLayer",
+           "BeamSearchDecoder", "dynamic_decode"]

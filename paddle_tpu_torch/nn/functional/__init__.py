@@ -2,10 +2,11 @@
 activations, common ops, norms and losses in full, ``conv2d`` and the
 pooling the port's layers use, ``flash_attention`` (whose wrapper
 launches the B1-B3 kernels on the card), ``pixel_shuffle``/
-``pixel_unshuffle`` and the in-place ``tanh_``, ``elu_`` and
-``softmax_``. The other convolutions and pools are ROADMAP.md queue A3;
-``gather_tree`` and the sampled losses come with A2's structured
-half."""
+``pixel_unshuffle``, the in-place ``tanh_``, ``elu_`` and ``softmax_``,
+the sampled heads of ``sampled`` and ``ops.beam``'s ``gather_tree``
+(reference ``:25-32``). The other convolutions and pools are ROADMAP.md
+queue A3."""
+from ...ops.beam import gather_tree
 from ...ops.flash_attention import flash_attention
 from ...ops.manipulation import cast as _cast
 from ...ops.manipulation import pixel_shuffle, pixel_unshuffle
@@ -28,6 +29,8 @@ from .norm import (batch_norm, group_norm, instance_norm, layer_norm,
                    local_response_norm, normalize)
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d, avg_pool1d,
                       avg_pool2d, max_pool1d, max_pool2d)
+from .sampled import (class_center_sample, hierarchical_sigmoid,
+                      hsigmoid_loss, nce, sample_logits, sampling_id)
 
 
 def _inplace(fn, x, *a, **k):
@@ -63,4 +66,6 @@ __all__ = sorted(set(_activation_all) | set(_common_all) | {
     "group_norm", "instance_norm", "layer_norm", "local_response_norm",
     "normalize", "adaptive_avg_pool1d", "adaptive_avg_pool2d", "avg_pool1d",
     "avg_pool2d", "max_pool1d", "max_pool2d", "tanh_", "elu_",
-    "softmax_"})
+    "softmax_", "gather_tree", "class_center_sample",
+    "hierarchical_sigmoid", "hsigmoid_loss", "nce", "sample_logits",
+    "sampling_id"})

@@ -36,11 +36,12 @@ __all__ = ["Layer", "ParamAttr"]
 
 
 def _has_tensor(args) -> bool:
+    """Whether ``args`` holds a Tensor, in its lists and tuples too (a
+    list of ``Cache`` namedtuples of Tensors)."""
     for a in args:
         if isinstance(a, Tensor):
             return True
-        if isinstance(a, (list, tuple)) and any(isinstance(x, Tensor)
-                                                for x in a):
+        if isinstance(a, (list, tuple)) and _has_tensor(a):
             return True
     return False
 
@@ -63,10 +64,11 @@ def _holds_tensor(out) -> bool:
 def _unwrap(a):
     if isinstance(a, Tensor):
         return a._data
-    if isinstance(a, (list, tuple)) and any(isinstance(x, Tensor)
-                                            for x in a):
-        items = [x._data if isinstance(x, Tensor) else x for x in a]
-        return items if isinstance(a, list) else tuple(items)
+    if isinstance(a, (list, tuple)) and _has_tensor(a):
+        items = [_unwrap(x) for x in a]
+        if isinstance(a, list):
+            return items
+        return type(a)(*items) if hasattr(a, "_fields") else tuple(items)
     return a
 
 

@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from ..core.device import DeviceLike
+from ..core.tensor import Tensor
 from ..ops.flash_attention import SUPPORTED_HEAD_DIMS, flash_attention
 from ..ops.math import matmul
 from . import functional as F
@@ -127,11 +128,14 @@ class MultiHeadAttention(Layer):
     def gen_cache(self, key, value=None, type=None):
         """``type=StaticCache``: K/V of ``key``/``value`` computed once.
         Otherwise an incremental ``Cache`` with no rows, ``[B, H, 0, D]``
-        in ``key``'s type and device."""
+        in ``key``'s type and device (of Tensors for a Tensor ``key``)."""
         if type == MultiHeadAttention.StaticCache:
             return self.compute_kv(key, key if value is None else value)
-        k = torch.zeros((key.shape[0], self.num_heads, 0, self.head_dim),
-                        dtype=key.dtype, device=key.device)
+        raw = key._data if isinstance(key, Tensor) else key
+        k = torch.zeros((raw.shape[0], self.num_heads, 0, self.head_dim),
+                        dtype=raw.dtype, device=raw.device)
+        if raw is not key:
+            k = Tensor._wrap(k)
         return self.Cache(k, k)
 
     def forward(self, query, key=None, value=None, attn_mask=None,

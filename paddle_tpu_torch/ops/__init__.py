@@ -3,9 +3,11 @@
 
 ``ops.dispatch`` is the funnel every op runs through; ``ops.creation``,
 ``ops.math``, ``ops.manipulation`` and ``ops.linalg`` hold the dense op
-surface of the reference, whose names this package re-exports (the
-structured half, ``ops/{extras,segment,sequence,control_flow,beam,crf}``,
-is ROADMAP.md queue A2's next slice). ``_attach_methods`` puts the
+surface of the reference, and ``ops.segment``, ``ops.sequence``,
+``ops.beam``, ``ops.crf``, ``ops.control_flow`` and ``ops.extras`` its
+structured half; this package re-exports their names as the reference's
+does (``:19-45``: ``control_flow``'s ``increment`` and ``sequence``'s
+``sequence_mask`` are the names here). ``_attach_methods`` puts the
 reference's method table on :class:`~paddle_tpu_torch.core.tensor.Tensor`
 (``:48``), with its in-place variants (``:139``), operator dunders
 (``:166``) and ``T``; :func:`_late_alias`, which the package's
@@ -36,6 +38,23 @@ from .dispatch import (OP_REGISTRY, apply, apply_raw,  # noqa: F401
 from .flash_attention import flash_attention  # noqa: F401
 from .manipulation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
+from .control_flow import (array_length, array_read,  # noqa: F401,E402
+                           array_write, case, cond, create_array, increment,
+                           switch_case, while_loop)
+from .segment import (segment_max, segment_mean,  # noqa: F401,E402
+                      segment_min, segment_pool, segment_sum)
+from .extras import *  # noqa: F401,F403,E402
+from .crf import (chunk_eval, crf_decoding,  # noqa: F401,E402
+                  linear_chain_crf, viterbi_decode)
+from .sequence import (im2sequence, sequence_concat,  # noqa: F401,E402
+                       sequence_conv, sequence_enumerate, sequence_erase,
+                       sequence_expand, sequence_expand_as,
+                       sequence_first_step, sequence_last_step,
+                       sequence_mask, sequence_pad, sequence_pool,
+                       sequence_reverse, sequence_slice, sequence_softmax,
+                       sequence_unpad)
+from .beam import (beam_search, beam_search_decode,  # noqa: F401,E402
+                   ctc_align, edit_distance, gather_tree)
 
 
 def _attach_methods():

@@ -24,7 +24,10 @@ Tracer::TraceOp).
    ops torch tensors (the layers' internals, ``Model``, the engines, the
    captured programs) keeps its types and pays only the funnel's checks.
 
-Flat arguments take a fast path with no pytree flattening. A captured
+Inside a branch that ``ops.cond`` selects under a capture,
+:data:`_BRANCH_GATE` gates the gradient of every input before step 3
+(``ops/control_flow.py``). Flat arguments take a fast path with no
+pytree flattening. A captured
 program's replay runs none of this. While :data:`_PROF_ACTIVE` is set
 (the profiler, ROADMAP queue A11, sets it) each op runs inside
 ``torch.profiler.record_function("op::" + name)``. The port runs eagerly
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -43,7 +47,8 @@ from ..core.tensor import Tensor
 
 __all__ = ["apply", "apply_raw", "OP_REGISTRY", "registered_ops",
            "register_op", "defop", "register_amp_handler",
-           "in_dygraph_mode", "enable_static", "disable_static"]
+           "in_dygraph_mode", "enable_static", "disable_static",
+           "capturing", "host_array"]
 
 #: op name -> the most recent implementation run under it (reference:
 #: OpInfoMap); every op that has run in this process is here
@@ -53,6 +58,9 @@ OP_REGISTRY = {}
 _AMP_HANDLER = [None]
 #: per-op profiler annotation on/off
 _PROF_ACTIVE = [False]
+#: ``fn(tensors) -> tensors`` gating the gradients of a branch that
+#: ``ops.cond`` selects between under a capture, or None
+_BRANCH_GATE = [None]
 _NAN_INF = _FLAGS["check_nan_inf"]
 
 
@@ -79,6 +87,27 @@ def disable_static():
     """A no-op: the port is always in dygraph mode."""
 
 
+def capturing() -> bool:
+    """True inside a CUDA graph capture on the current stream: the port's
+    counterpart of the JAX package's tracer, where no value can be read
+    on the host."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def host_array(op: str, what: str, x) -> np.ndarray:
+    """``x`` (a Tensor, torch tensor or host data) as a NumPy array read on
+    the host for op ``op``; raises ``ValueError`` inside a capture (the
+    JAX package fails the same read under a tracer)."""
+    if capturing():
+        raise ValueError(f"{op} reads {what} on the host, which a CUDA "
+                         f"graph capture cannot do; call it outside the "
+                         f"captured program")
+    x = x._data if isinstance(x, Tensor) else x
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
 def apply(name: str, fn: Callable, *args, **attrs):
     """Run op ``name``, implemented by ``fn`` over torch tensors, through
     the funnel (module docstring)."""
@@ -101,6 +130,7 @@ def _run(name, fn, args, attrs):
                 attrs[k] = v._data
                 wrap = True
     handler = _AMP_HANDLER[0]
+    gate = _BRANCH_GATE[0]
     if nested:
         leaves, spec = pytree.tree_flatten(args)
         if any(isinstance(x, Tensor) for x in leaves):
@@ -109,6 +139,8 @@ def _run(name, fn, args, attrs):
                       for x in leaves]
         if handler is not None:
             leaves = handler(name, leaves)
+        if gate is not None:
+            leaves = gate(leaves)
         args = pytree.tree_unflatten(list(leaves), spec)
     else:
         if wrap:
@@ -116,6 +148,11 @@ def _run(name, fn, args, attrs):
                          for a in args)
         if handler is not None:
             args = handler(name, args)
+        if gate is not None:
+            args = gate(args)
+    if gate is not None and attrs:
+        keys = list(attrs)
+        attrs = dict(zip(keys, gate([attrs[k] for k in keys])))
     out = fn(*args, **attrs)
     if _NAN_INF.value:
         _check_nan_inf(name, out)

@@ -29,8 +29,11 @@ from paddle_tpu_torch.ops import detection as tdet
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
 from paddle_tpu_torch.serving.llm.paged import GPTPagedDecoder
-from test_torch_op_table import (CUDA_CASES, cuda_case_holds,
-                                 random_ops_hold)
+from test_torch_op_table import (CUDA_CASES, HOST_CASES, NER_TAGS,
+                                 bert_crf_tagger, cond_net,
+                                 cuda_case_holds, gpt_beam_cells,
+                                 iob_tags, random_ops_hold,
+                                 structured_draws_hold)
 
 tfa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
 
@@ -2492,3 +2495,164 @@ def test_random_ops_on_the_card_repeat_under_seed_and_hold_moments(cuda):
     import paddle_tpu_torch as P
     failures = random_ops_hold(P, "gpu")
     assert not failures, failures
+
+
+# -- the structured half: host ops, draws, control flow, CRF, beam ----------
+
+@pytest.mark.parametrize("case", HOST_CASES, ids=repr)
+def test_host_reading_ops_run_eagerly_on_the_card(cuda, case):
+    """The ops that read lengths or tags on the host, run eagerly on CUDA
+    tensors: the CPU's results."""
+    import paddle_tpu_torch as P
+    cuda_case_holds(case, P)
+
+
+def test_structured_random_ops_on_the_card_repeat_under_seed(cuda):
+    """The structured half's draws on the card: on CUDA, equal after the
+    same ``seed``, and a ``seed`` argument independent of it."""
+    import paddle_tpu_torch as P
+    failures = structured_draws_hold(P, "gpu")
+    assert not failures, failures
+
+
+def _cond_model(cuda, loop=False):
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.optimizer import SGD
+    P.seed(0)
+    net = cond_net(P, loop)
+    model = Model(net)
+    model.prepare(SGD(learning_rate=0.05, parameters=net.parameters()),
+                  lambda pred, y: ((pred - y) ** 2).mean())
+    return model, net
+
+
+def test_cond_under_a_model_capture_matches_eager(cuda):
+    """``Model.train_batch`` whose forward calls ``ops.cond``: the captured
+    program selects between both branches with no host read; its losses
+    and weights bitwise those of the eager lane, which reads the
+    predicate; no NaN from the branch not taken."""
+    from paddle_tpu_torch.core import graphs
+    rng = np.random.default_rng(1)
+    X = torch.from_numpy(rng.random((8, 4), dtype=np.float32)).to(cuda)
+    Y = torch.from_numpy(rng.random((8, 1), dtype=np.float32)).to(cuda)
+    out = []
+    for lane in ("graphed", "eager"):
+        model, net = _cond_model(cuda)
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        with ctx:
+            losses = [model.train_batch([X], [Y])[0] for _ in range(5)]
+        out.append((losses, [p.detach().clone() for p in net.parameters()]))
+        if lane == "graphed":
+            fn = model._train_step_fn["fn"]
+            assert fn.trace_counter["traces"] == 1 and fn.replays >= 3
+    (gl, gp), (el, ep) = out
+    assert gl == el and all(np.isfinite(gl)) and gl[-1] < gl[0]
+    for a, b in zip(gp, ep):
+        assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+
+
+def test_while_loop_raises_under_a_model_capture(cuda):
+    from paddle_tpu_torch.core import graphs
+    X = torch.ones((2, 4), device=cuda)
+    model, _ = _cond_model(cuda, loop=True)
+    with graphs.disable_graphs():
+        assert np.isfinite(model.train_batch([X], [X[:, :1]])[0])
+    model, _ = _cond_model(cuda, loop=True)
+    with pytest.raises(NotImplementedError, match="trip count"):
+        model.train_batch([X], [X[:, :1]])
+
+
+def _tagger(cuda, dropout):
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.models import BertConfig, BertModel
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = BertConfig(**BERT_SMALL, hidden_dropout_prob=dropout,
+                     attention_dropout_prob=dropout)
+    import paddle_tpu_torch as P
+    P.seed(0)
+    torch.manual_seed(0)
+    net, loss = bert_crf_tagger(P, BertModel(cfg, device=cuda, seed=0),
+                                cfg.hidden_size)
+    model = Model(net)
+    model.prepare(AdamW(learning_rate=1e-4, parameters=net.parameters()),
+                  loss)
+    return model
+
+
+def test_bert_crf_tagger_graphed_equals_eager_and_predict_launches_b1(cuda):
+    """The BERT-CRF tagger: ``train_batch`` graphed and eager bitwise
+    (dropout 0.1, dense attention, no kernel), the captured predict
+    program's Viterbi paths bitwise the eager lane's, B1 once a layer a
+    predict call."""
+    from paddle_tpu_torch.core import graphs
+    rng = np.random.default_rng(2)
+    n = rng.integers(32, 65, 4)
+    ids = torch.from_numpy(rng.integers(0, BERT_SMALL["vocab_size"],
+                                        (4, 64))).to(cuda)
+    lens = torch.from_numpy(n).to(cuda)
+    tags = torch.from_numpy(iob_tags(rng, n, 64)).to(cuda)
+    out = []
+    for lane in ("graphed", "eager"):
+        model = _tagger(cuda, 0.1)
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        before = [c.launches for c in (tfa.flash_attention_fwd,
+                                       tfa.flash_attention_bwd_dq)]
+        with ctx:
+            losses = [model.train_batch([ids, lens], [tags])[0]
+                      for _ in range(3)]
+        assert [c.launches for c in (tfa.flash_attention_fwd,
+                                     tfa.flash_attention_bwd_dq)] == before
+        out.append((losses, model))
+    (gl, gm), (el, em) = out
+    assert gl == el and all(np.isfinite(gl))
+    before = tfa.flash_attention_fwd.launches
+    paths = [gm.predict_batch([ids, lens])[2] for _ in range(2)]
+    assert tfa.flash_attention_fwd.launches - before == \
+        2 * BERT_SMALL["num_layers"]
+    with graphs.disable_graphs():
+        epath = gm.predict_batch([ids, lens])[2]
+    assert torch.equal(paths[1], epath) and paths[1].dtype == torch.int64
+    assert int(paths[1].max()) < NER_TAGS
+
+
+def test_dynamic_decode_on_the_card_matches_the_cpu(cuda):
+    """A tiny GPT beam-decoded on the card with the cached cell (its
+    ``Cache`` leaves reordered by parent every step) and the full-prefix
+    cell (B1 once a layer a step): the CPU's scores at 1e-4 and its ids,
+    unless two beams lie within 1e-4 (a near tie)."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import device as tdevice
+    net = GPTForCausalLM(GPTConfig(**dict(MODEL, hidden_size=256)),
+                         device="cpu", seed=0).eval()
+    prompts = np.random.default_rng(3).integers(0, 256, (2, 12))
+    prompts[:, -1] = 5
+    saved = tdevice._CURRENT[0]
+    res = {}
+    try:
+        for place in ("cpu", "gpu"):
+            P.set_device(place)
+            model = net.to("cuda" if place == "gpu" else "cpu")
+            for cached in (True, False):
+                cell, inits = gpt_beam_cells(P, model, prompts, cached)
+                before = tfa.flash_attention_fwd.launches
+                dec = P.nn.BeamSearchDecoder(cell, 5, 255, 4)
+                ids, sc = P.nn.dynamic_decode(dec, inits=inits,
+                                              max_step_num=6)
+                res[place, cached] = (ids.numpy(), sc.numpy(),
+                                      tfa.flash_attention_fwd.launches
+                                      - before)
+    finally:
+        tdevice._CURRENT[0] = saved
+    for cached in (True, False):
+        # equal ids, or beams that swapped on a near tie: scores agree
+        np.testing.assert_allclose(res["gpu", cached][1],
+                                   res["cpu", cached][1], rtol=1e-4)
+        if not np.array_equal(res["gpu", cached][0], res["cpu", cached][0]):
+            gap = np.abs(np.diff(res["cpu", cached][1], axis=1)).min()
+            assert gap < 1e-4, (cached, res["gpu", cached][0],
+                                res["cpu", cached][0])
+    assert res["gpu", True][2] == 0
+    assert res["gpu", False][2] == 6 * MODEL["num_layers"]

@@ -64,6 +64,12 @@ def test_import_leaves_no_jax_in_subprocess():
         "import paddle_tpu_torch.ops.dispatch, paddle_tpu_torch.ops.creation\n"
         "import paddle_tpu_torch.autograd, paddle_tpu_torch.tensor\n"
         "import paddle_tpu_torch.nn.layer_base\n"
+        "import paddle_tpu_torch.ops.segment, paddle_tpu_torch.ops.sequence\n"
+        "import paddle_tpu_torch.ops.beam, paddle_tpu_torch.ops.crf\n"
+        "import paddle_tpu_torch.ops.control_flow\n"
+        "import paddle_tpu_torch.ops.extras, paddle_tpu_torch.incubate\n"
+        "import paddle_tpu_torch.nn.functional.sampled\n"
+        "import paddle_tpu_torch.nn.beam_decode\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(repr(bad))\n")
@@ -156,3 +162,41 @@ def test_later_slice_knobs_raise(kw, engine_kw, exc, match):
     with pytest.raises(exc, match=match):
         LLMEngine(model, LLMEngineConfig(max_seq=16, warmup=False, **kw),
                   **engine_kw)
+
+
+@pytest.mark.parametrize("knob,exc,match", [
+    ("while_loop_in_capture", NotImplementedError, "trip count"),
+    ("class_center_sample_group", NotImplementedError, "A10"),
+    ("static_cond", NotImplementedError, "A11"),
+    ("static_while_loop", NotImplementedError, "A11"),
+    ("segment_without_num_segments_in_capture", ValueError, "num_segments"),
+    ("sequence_pad_without_maxlen_in_capture", ValueError, "capture"),
+])
+def test_structured_knobs_raise(monkeypatch, knob, exc, match):
+    """The structured half's refusals: what a capture cannot run, the
+    model-parallel group of ``class_center_sample`` and control flow in a
+    static Program."""
+    import numpy as np
+    from paddle_tpu_torch.ops import dispatch
+    P = paddle_tpu_torch
+    x = P.to_tensor(np.zeros((3, 2), np.float32), place="cpu")
+    n = P.to_tensor(np.array([1, 2]), place="cpu")
+    if knob.endswith("in_capture"):
+        monkeypatch.setattr(dispatch, "capturing", lambda: True)
+    if knob.startswith("static"):
+        monkeypatch.setattr(dispatch, "in_dygraph_mode", lambda: False)
+    call = {
+        "while_loop_in_capture": lambda: P.ops.while_loop(
+            lambda v: v.sum() < 1.0, lambda v: [v + 1.0], [x]),
+        "class_center_sample_group": lambda: P.nn.functional.
+        class_center_sample(n, 4, 2, group="mp"),
+        "static_cond": lambda: P.ops.cond(True, lambda: x, lambda: x),
+        "static_while_loop": lambda: P.ops.while_loop(
+            lambda v: False, lambda v: [v], [x]),
+        "segment_without_num_segments_in_capture": lambda: P.incubate.
+        segment_sum(x, P.to_tensor(np.array([0, 0, 1]), place="cpu")),
+        "sequence_pad_without_maxlen_in_capture": lambda: P.ops.
+        sequence_pad(x, 0.0, length=n),
+    }[knob]
+    with pytest.raises(exc, match=match):
+        call()

@@ -1,7 +1,11 @@
-"""The op table of the port's dense op surface, and the op-built GPT.
+"""The op table of the port's op surface, and the op-built GPT.
 
-Every ported op of ``ops/{creation,manipulation,math,linalg}.py`` and
-``nn/functional/{activation,common,norm,loss}.py`` is a case
+Every ported op of ``ops/{creation,manipulation,math,linalg}.py``,
+``nn/functional/{activation,common,norm,loss}.py`` and, of the
+structured half, ``ops/{segment,sequence,beam,crf,extras}.py`` and
+``nn/functional/sampled.py`` (all but the random ops, which
+``test_torch_ops_extras.py`` and ``test_torch_functional_sampled.py``
+hold by their draws) is a case
 (:class:`OpCase`) in ``OP_CASES``. A case's op takes the package (``m``,
 the JAX package or the port) and its input Tensors, made from seeded
 NumPy arrays, so the same case runs through either. The CPU tests
@@ -84,15 +88,18 @@ class OpCase:
     gradient's; ``tie`` keeps the case off the card (CUDA's order for
     equal keys is not defined); ``cuda=False`` keeps it off the card for
     the reason in ``why``; ``ref=False`` keeps it off the JAX comparison
-    for the reason in ``why``."""
+    for the reason in ``why``; ``host=True`` marks an op that reads its
+    input on the host, which the card runs eagerly only
+    (``HOST_CASES``), never inside a capture."""
 
     def __init__(self, name, op, makers, module, grad=None, tol=1e-5,
                  gtol=1e-4, tie=False, cuda=True, ref=True, why="",
-                 cuda_tol=None):
+                 cuda_tol=None, host=False):
         self.name, self.op, self.makers, self.module = name, op, makers, \
             module
-        self.tol, self.gtol, self.tie = tol, gtol, tie
-        self.cuda, self.ref, self.why = cuda and not tie, ref, why
+        self.tol, self.gtol, self.tie, self.host = tol, gtol, tie, host
+        self.cuda = cuda and not tie and not host
+        self.ref, self.why = ref, why
         self.cuda_tol = cuda_tol if cuda_tol is not None else max(tol, 1e-5)
         self.grad = grad
 
@@ -1054,13 +1061,261 @@ def _loss_cases():
     return cases
 
 
+
+
+def _sorted_ids(n, k):
+    """``n`` sorted segment ids in ``[0, k)`` with segment 1 empty."""
+    def make(rng):
+        ids = np.sort(rng.integers(0, k, n))
+        ids[ids == 1] = 0
+        return ids.astype(np.int64)
+    return make
+
+
+def _tied_rows(n, d):
+    """``[n, d]`` floats whose first two rows are equal (a tie inside a
+    segment)."""
+    def make(rng):
+        a = rng.standard_normal((n, d)).astype(np.float32)
+        a[1] = a[0]
+        return a
+    return make
+
+
+def _unpool_idx(n, c, k, hw):
+    def make(rng):
+        return np.stack([np.stack([rng.permutation(hw)[:k]
+                                   for _ in range(c)]) for _ in range(n)]
+                        ).reshape(n, c, int(k ** .5), int(k ** .5)
+                                  ).astype(np.int64)
+    return make
+
+
+def _iob(n, t, types):
+    """Valid IOB tag rows (:func:`iob_tags`)."""
+    def make(rng):
+        return iob_tags(rng, [t] * n, t, types)
+    return make
+
+
+def _structured_cases():
+    C, F, I, A = OpCase, _F, _I, _A
+    L = lambda *v: A(list(v), np.int64)  # noqa: E731
+    host = dict(host=True)
+    inc = lambda m: m.incubate  # noqa: E731
+    o = lambda m: m.ops  # noqa: E731
+    cases = []
+    for kind in ("sum", "mean", "max", "min"):
+        cases.append(C(f"segment_{kind}", lambda m, d, i, k=kind: getattr(
+            inc(m), f"segment_{k}")(d, i, num_segments=5),
+            [F(9, 3), _sorted_ids(9, 4)], "segment"))
+        cases.append(C(f"segment_{kind}_ties", lambda m, d, i, k=kind:
+                       getattr(inc(m), f"segment_{k}")(d, i, 3),
+                       [_tied_rows(6, 2), L(0, 0, 0, 2, 2, 2)], "segment"))
+    cases += [
+        C("segment_pool_mean", lambda m, d, i: inc(m).segment_pool(
+            d, i, "MEAN", 4), [F(7, 2, 2), _sorted_ids(7, 4)], "segment"),
+        C("segment_sum_host", lambda m, d, i: inc(m).segment_sum(d, i),
+          [F(7, 3), _sorted_ids(7, 4)], "segment", **host),
+        # sequence
+        C("sequence_mask_maxlen", lambda m, x: o(m).sequence_mask(
+            x, maxlen=6, dtype="float32"), [L(2, 0, 5)], "sequence"),
+        C("sequence_mask_host", lambda m, x: o(m).sequence_mask(x),
+          [L(2, 4, 3)], "sequence", **host),
+        C("sequence_pad", lambda m, x, n: o(m).sequence_pad(
+            x, 0.5, maxlen=5, length=n), [F(9, 2), L(2, 4, 3)], "sequence"),
+        C("sequence_pad_host", lambda m, x, n: o(m).sequence_pad(
+            x, -1.0, length=n), [F(9, 2), L(2, 4, 3)], "sequence", **host),
+        C("sequence_unpad", lambda m, x, n: o(m).sequence_unpad(x, n),
+          [F(3, 4, 2), L(2, 4, 1)], "sequence", **host),
+    ]
+    for pt in ("sum", "average", "sqrt", "max", "min", "first", "last"):
+        cases.append(C(f"sequence_pool_{pt}", lambda m, x, n, p=pt:
+                       o(m).sequence_pool(x, p, n),
+                       [F(3, 5, 2), L(2, 5, 1)], "sequence"))
+    cases += [
+        C("sequence_pool_dense", lambda m, x: o(m).sequence_pool(x, "max"),
+          [F(2, 4, 3)], "sequence"),
+        C("sequence_first_step", lambda m, x, n: o(m).sequence_first_step(
+            x, n), [F(2, 4, 3), L(3, 1)], "sequence"),
+        C("sequence_last_step", lambda m, x, n: o(m).sequence_last_step(
+            x, n), [F(2, 4, 3), L(3, 1)], "sequence"),
+        C("sequence_softmax", lambda m, x, n: o(m).sequence_softmax(x, n),
+          [F(3, 5), L(5, 2, 0)], "sequence"),
+        C("sequence_softmax_dense", lambda m, x: o(m).sequence_softmax(x),
+          [F(2, 4)], "sequence"),
+        C("sequence_reverse", lambda m, x, n: o(m).sequence_reverse(x, n),
+          [F(2, 5, 2), L(3, 5)], "sequence"),
+        C("sequence_reverse_dense", lambda m, x: o(m).sequence_reverse(x),
+          [F(2, 4)], "sequence"),
+        C("sequence_expand", lambda m, x, n: o(m).sequence_expand(x, n),
+          [F(3, 2), L(2, 0, 3)], "sequence", **host),
+        C("sequence_expand_as", lambda m, x, y: o(m).sequence_expand_as(
+            x, y), [F(2, 3), F(6, 1)], "sequence"),
+        C("sequence_concat", lambda m, a, b, na, nb: o(m).sequence_concat(
+            [a, b], [na, nb]), [F(2, 3, 2), F(2, 4, 2), L(2, 3), L(4, 1)],
+          "sequence"),
+        C("sequence_slice", lambda m, x, off, n: o(m).sequence_slice(
+            x, off, n), [F(2, 5, 2), L(1, 0), L(3, 2)], "sequence"),
+        C("sequence_enumerate", lambda m, x, n: o(m).sequence_enumerate(
+            x, 3, 0, n), [I(1, 9, 2, 5), L(5, 3)], "sequence"),
+        C("sequence_enumerate_dense", lambda m, x: o(m).sequence_enumerate(
+            x, 2, pad_value=-1), [I(1, 9, 2, 4)], "sequence"),
+        C("sequence_erase", lambda m, x, n: o(m).sequence_erase(
+            x, [2, 4], n), [I(0, 6, 2, 6), L(6, 4)], "sequence"),
+        C("sequence_conv", lambda m, x, w, b, n: o(m).sequence_conv(
+            x, w, b, 3, -1, lengths=n),
+          [F(2, 5, 3), F(9, 4), F(4), L(5, 3)], "sequence"),
+        C("sequence_conv_default", lambda m, x, w: o(m).sequence_conv(
+            x, w, context_length=2), [F(2, 4, 3), F(6, 2)], "sequence"),
+        C("im2sequence", lambda m, x: o(m).im2sequence(
+            x, (2, 2), (1, 2), (0, 1, 1, 0)), [F(2, 3, 5, 5)], "sequence"),
+        # beam
+        C("gather_tree", lambda m, i, p: m.nn.functional.gather_tree(i, p),
+          [I(0, 9, 5, 2, 3), I(0, 3, 5, 2, 3)], "beam"),
+        C("beam_search", lambda m, pi, ps, sc: o(m).beam_search(
+            pi, ps, None, sc, 3, 4), [I(0, 5, 2, 3), F(2, 3), F(2, 3, 5)],
+          "beam"),
+        C("beam_search_not_accumulated", lambda m, pi, ps, sc:
+          o(m).beam_search(pi, ps, None, sc, 2, 0, is_accumulated=False),
+          [I(0, 3, 2, 2), F(2, 2), F(2, 2, 4)], "beam"),
+        C("beam_search_decode", lambda m, i, p, sc: o(m).beam_search_decode(
+            i, p, sc), [I(0, 9, 4, 2, 3), I(0, 3, 4, 2, 3), F(2, 3)],
+          "beam"),
+        C("ctc_align", lambda m, x, n: o(m).ctc_align(
+            x, 0, True, -1, lengths=n), [I(0, 4, 2, 8), L(8, 5)], "beam"),
+        C("ctc_align_keep_repeats", lambda m, x: o(m).ctc_align(
+            x, 1, merge_repeated=False), [I(0, 3, 2, 6)], "beam"),
+        C("edit_distance", lambda m, h, r, nh, nr: o(m).edit_distance(
+            h, r, True, nh, nr), [I(0, 4, 3, 5), I(0, 4, 3, 4), L(5, 3, 0),
+                                  L(4, 2, 3)], "beam"),
+        C("edit_distance_raw", lambda m, h, r: o(m).edit_distance(
+            h, r, normalized=False), [I(0, 3, 2, 4), I(0, 3, 2, 5)], "beam"),
+        # crf
+        C("linear_chain_crf", lambda m, e, t, y, n: o(m).linear_chain_crf(
+            e, t, y, n), [F(3, 6, 4), F(6, 4), I(0, 4, 3, 6), L(6, 4, 1)],
+          "crf"),
+        C("linear_chain_crf_full", lambda m, e, t, y: o(m).linear_chain_crf(
+            e, t, y), [F(2, 5, 3), F(5, 3), I(0, 3, 2, 5)], "crf"),
+        C("crf_decoding", lambda m, e, t, n: o(m).crf_decoding(
+            e, t, length=n), [F(3, 6, 4), F(6, 4), L(6, 4, 1)], "crf"),
+        C("crf_decoding_label", lambda m, e, t, y, n: o(m).crf_decoding(
+            e, t, y, n), [F(3, 6, 4), F(6, 4), I(0, 4, 3, 6), L(6, 4, 2)],
+          "crf"),
+        C("viterbi_decode", lambda m, p, t, n: o(m).viterbi_decode(p, t, n),
+          [F(3, 6, 5), F(5, 5), L(6, 3, 1)], "crf"),
+        C("viterbi_decode_no_bos_eos", lambda m, p, t: o(m).viterbi_decode(
+            p, t, include_bos_eos_tag=False), [F(2, 4, 3), F(3, 3)], "crf"),
+        C("chunk_eval_iob", lambda m, a, b, n: o(m).chunk_eval(
+            a, b, "IOB", 3, n), [_iob(3, 12, 3), _iob(3, 12, 3), L(12, 9, 5)],
+          "crf", **host),
+        C("chunk_eval_iobes", lambda m, a, b: o(m).chunk_eval(
+            a, b, "IOBES", 2, excluded_chunk_types=[1]),
+          [I(0, 9, 2, 10), I(0, 9, 2, 10)], "crf", **host),
+        # extras
+        C("shape", lambda m, x: o(m).shape(x), [F(3, 4)], "extras"),
+        C("size", lambda m, x: o(m).size(x), [F(3, 4)], "extras"),
+        C("assign_value", lambda m: o(m).assign_value(
+            [2, 3], "float32", list(range(6))), [], "extras"),
+        C("fill_constant_batch_size_like", lambda m, x:
+          o(m).fill_constant_batch_size_like(x, [1, 4], "float32", 2.0),
+          [F(3, 2)], "extras"),
+        C("pad_constant_like", lambda m, x, y: o(m).pad_constant_like(
+            x, y, 1.5), [F(4, 5), F(2, 3)], "extras"),
+        C("squared_l2_distance", lambda m, x, y: o(m).squared_l2_distance(
+            x, y), [F(4, 3), F(4, 3)], "extras"),
+        C("bpr_loss", lambda m, x, y: o(m).bpr_loss(x, y),
+          [F(4, 5), I(0, 5, 4, 1)], "extras"),
+        C("modified_huber_loss", lambda m, x, y: o(m).modified_huber_loss(
+            x, y), [F(8, 1, lo=-2, hi=2), I(0, 2, 8, 1)], "extras"),
+        C("teacher_student_sigmoid_loss", lambda m, x, y:
+          o(m).teacher_student_sigmoid_loss(x, y),
+          [F(8, 1), F(8, 1, lo=-2, hi=2)], "extras"),
+        C("center_loss", lambda m, x, y, c: o(m).center_loss(x, y, c, 0.2),
+          [F(5, 3), I(0, 4, 5), F(4, 3)], "extras"),
+        C("center_loss_fixed", lambda m, x, y, c: o(m).center_loss(
+            x, y, c, update_center=False), [F(5, 3), I(0, 4, 5), F(4, 3)],
+          "extras"),
+        C("margin_rank_loss", lambda m, y, a, b: o(m).margin_rank_loss(
+            y, a, b, 0.2), [A([[1.], [-1.], [1.], [-1.]]), F(4, 1), F(4, 1)],
+          "extras"),
+        C("mean_iou", lambda m, p, y: o(m).mean_iou(p, y, 5),
+          [I(0, 4, 10), I(0, 4, 10)], "extras"),
+        C("precision_recall", lambda m, p, y: o(m).precision_recall(p, y, 4),
+          [F(6, 4, lo=0, hi=1), I(0, 4, 6, 1)], "extras", grad=False),
+        C("positive_negative_pair", lambda m, s, y, q:
+          o(m).positive_negative_pair(s, y, q),
+          [F(8, 1), I(0, 3, 8, 1), I(0, 2, 8, 1)], "extras", grad=False),
+        C("affine_channel", lambda m, x, a, b: o(m).affine_channel(x, a, b),
+          [F(2, 3, 4, 4), F(3), F(3)], "extras"),
+        C("affine_channel_nhwc", lambda m, x, a, b: o(m).affine_channel(
+            x, a, b, "NHWC"), [F(2, 4, 4, 3), F(3), F(3)], "extras"),
+        C("data_norm", lambda m, x, n, s, q: o(m).data_norm(x, n, s, q),
+          [F(4, 3), F(3, lo=1, hi=5), F(3), F(3, lo=1, hi=5)], "extras"),
+        C("batch_fc", lambda m, x, w, b: o(m).batch_fc(x, w, b),
+          [F(2, 3, 4), F(2, 4, 5), F(2, 1, 5)], "extras"),
+        C("partial_concat", lambda m, a, b: o(m).partial_concat(
+            [a, b], 1, 2), [F(3, 5), F(3, 5)], "extras"),
+        C("partial_sum", lambda m, a, b: o(m).partial_sum([a, b], -3),
+          [F(3, 5), F(3, 5)], "extras"),
+        C("cvm", lambda m, x: o(m).cvm(x), [F(4, 5, lo=0, hi=3)], "extras"),
+        C("cvm_drop", lambda m, x: o(m).cvm(x, False), [F(4, 5)], "extras"),
+        C("filter_by_instag", lambda m, x, t: o(m).filter_by_instag(
+            x, t, [1, 3], out_val_if_empty=-2),
+          [F(4, 3), I(0, 5, 4, 2)], "extras"),
+        C("row_conv", lambda m, x, w: o(m).row_conv(x, w),
+          [F(2, 5, 3), F(3, 3)], "extras"),
+        C("conv_shift", lambda m, x, y: o(m).conv_shift(x, y),
+          [F(2, 7), F(2, 3)], "extras"),
+        C("add_position_encoding", lambda m, x: o(m).add_position_encoding(
+            x, 0.5, 2.0), [F(2, 5, 6)], "extras"),
+        C("add_position_encoding_odd", lambda m, x:
+          o(m).add_position_encoding(x), [F(1, 3, 7)], "extras"),
+        C("correlation", lambda m, x, y: o(m).correlation(
+            x, y, 2, 1, 2, 1, 1), [F(1, 2, 6, 6), F(1, 2, 6, 6)], "extras"),
+        C("correlation_strided", lambda m, x, y: o(m).correlation(
+            x, y, 2, 1, 2, 2, 2), [F(1, 2, 6, 6), F(1, 2, 6, 6)], "extras"),
+        C("similarity_focus", lambda m, x: o(m).similarity_focus(
+            x, 1, [0, 2]), [F(2, 3, 4, 5)], "extras", grad=False),
+        C("fsp", lambda m, x, y: o(m).fsp(x, y),
+          [F(2, 3, 4, 4), F(2, 5, 4, 4)], "extras"),
+        C("spp_max", lambda m, x: o(m).spp(x, 3), [F(2, 3, 8, 8)],
+          "extras"),
+        C("spp_avg", lambda m, x: o(m).spp(x, 2, "avg"), [F(1, 2, 6, 6)],
+          "extras"),
+        C("max_unpool2d", lambda m, x, i: o(m).max_unpool2d(x, i, 2),
+          [F(1, 2, 2, 2), _unpool_idx(1, 2, 4, 16)], "extras"),
+        C("match_matrix_tensor", lambda m, x, y, w, nx, ny:
+          o(m).match_matrix_tensor(x, y, w, nx, ny),
+          [F(2, 3, 4), F(2, 5, 6), F(4, 2, 6), L(3, 2), L(5, 4)], "extras"),
+        # sampled (the deterministic heads)
+        C("F.hsigmoid_loss", lambda m, x, y, w, b: _f(m).hsigmoid_loss(
+            x, y, 6, w, b), [F(4, 3), I(0, 6, 4), F(5, 3), F(5)], "sampled"),
+        C("F.hsigmoid_loss_pow2", lambda m, x, y, w: _f(m).hsigmoid_loss(
+            x, y, 8, w), [F(5, 3), I(0, 8, 5, 1), F(7, 3)], "sampled"),
+        C("F.hsigmoid_loss_custom", lambda m, x, y, w, pt, pc, b:
+          _f(m).hierarchical_sigmoid(x, y, 5, w, b, pt, pc),
+          [F(3, 4), I(0, 5, 3), F(6, 4),
+           A([[0, 2, -1], [1, 4, 5], [3, -1, -1]], np.int64),
+           A([[1, 0, 0], [0, 1, 1], [1, 0, 0]], np.int64), F(6, 1)],
+          "sampled"),
+    ]
+    return cases
+
+
 #: every case of the op table, by module
 OP_CASES = (_math_cases() + _manipulation_cases() + _creation_cases()
             + _linalg_cases() + _activation_cases() + _common_cases()
-            + _norm_cases() + _loss_cases())
+            + _norm_cases() + _loss_cases() + _structured_cases())
 
-#: the cases run on the card (ties stay on the CPU)
+#: the cases run on the card (ties and host reads stay on the CPU)
 CUDA_CASES = [c for c in OP_CASES if c.cuda]
+
+#: the ops that read on the host, run eagerly on the card
+HOST_CASES = [c for c in OP_CASES if c.host]
+
+#: the structured half's modules (phase 23 of ``chip_smoke.py``)
+STRUCTURED = ("segment", "sequence", "beam", "crf", "extras", "sampled")
 
 
 def cuda_case_holds(case, port):
@@ -1196,6 +1451,158 @@ def random_ops_hold(P, place):
             elif not checks[name](a):
                 fails.append(f"{name}: bounds or moments off (mean "
                              f"{a.mean():.4f}, std {a.std():.4f})")
+    finally:
+        tdevice._CURRENT[0] = saved
+    return fails
+
+
+# -- the BERT-CRF tagger: a sequence labeller as a paddle user writes one ----
+
+#: MSRA-NER's IOB tags over PER, ORG and LOC: ``2 * type`` opens a chunk
+#: (B), ``2 * type + 1`` continues it (I), ``2 * NER_TYPES`` is O
+NER_TYPES = 3
+NER_TAGS = 2 * NER_TYPES + 1
+
+
+def iob_tags(rng, lengths, T, types=NER_TYPES):
+    """Valid IOB rows ``[len(lengths), T]`` (O past each length)."""
+    out = np.full((len(lengths), T), 2 * types, np.int64)
+    for r, n in enumerate(lengths):
+        i = 0
+        while i < n:
+            if rng.random() < 0.3:
+                ty, span = int(rng.integers(0, types)), int(rng.integers(1, 5))
+                span = min(span, n - i)
+                out[r, i] = 2 * ty
+                out[r, i + 1:i + span] = 2 * ty + 1
+                i += span
+            else:
+                i += 1
+    return out
+
+
+def bert_crf_tagger(m, bert, hidden, num_tags=NER_TAGS):
+    """PaddleNLP's BERT + CRF tagger for MSRA-NER, as a paddle user writes
+    it for package ``m``: ``(network, loss)``. The network maps ``(ids,
+    lengths)`` to the emissions (a ``Linear`` over ``bert``'s sequence
+    output) and the lengths, and in eval mode also to the Viterbi path
+    (``crf_decoding``); the transition ``[num_tags + 2, num_tags]`` is a
+    ``create_parameter``; the loss is ``linear_chain_crf(...).mean()``.
+    The head names its initializer (the reference's default,
+    Xavier-uniform): a port layer without one is drawn only by
+    ``reset_parameters``."""
+    class BertCrfTagger(m.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.bert = bert
+            self.emission = m.nn.Linear(hidden, num_tags, weight_attr=(
+                m.ParamAttr(initializer=m.nn.initializer.XavierUniform())))
+            self.transition = self.create_parameter([num_tags + 2,
+                                                     num_tags])
+
+        def forward(self, ids, lengths):
+            seq, _ = self.bert(ids)
+            em = self.emission(seq)
+            if self.training:
+                return em, lengths
+            return em, lengths, m.ops.crf_decoding(em, self.transition,
+                                                   length=lengths)
+
+    net = BertCrfTagger()
+
+    class CrfLoss(m.nn.Layer):
+        def forward(self, em, lengths, *rest):
+            return m.ops.linear_chain_crf(em, net.transition, rest[-1],
+                                          lengths).mean()
+    return net, CrfLoss()
+
+
+def cond_net(m, loop=False):
+    """The JAX package's ``cond`` train step (``tests/test_control_flow.py``
+    ``:99-124``) for package ``m``: ``Linear(4, 1)`` and a forward that
+    branches on its data, the branch not taken (while the mean stays
+    under 100) taking ``sqrt`` of a negative input; with ``loop``, a
+    ``while_loop`` whose trip count is read from the data instead. The
+    weight's initializer is named, as :func:`bert_crf_tagger`'s."""
+    class CondNet(m.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = m.nn.Linear(4, 1, weight_attr=m.ParamAttr(
+                initializer=m.nn.initializer.XavierUniform()))
+
+        def forward(self, x):
+            h = self.fc(x)
+            if loop:
+                return m.ops.while_loop(lambda v: m.sum(v) < 100.0,
+                                        lambda v: [v * 2.0 + 1.0], [h])[0]
+            return m.ops.cond(m.mean(h) < 100.0, lambda: h,
+                              lambda: m.sqrt(-m.abs(h) - 1.0))
+    return CondNet()
+
+
+# -- beam search over a GPT, as a user writes it --------------------------------
+
+def gpt_beam_cells(m, model, prompts, cached):
+    """The two cells a user writes to beam-decode a GPT whose prompts end
+    in the start token: ``(cell, inits)``. Cached: the prefix before the
+    last token prefilled once into the incremental cache, one token a
+    step; full prefix: the token history as the state, the whole prefix a
+    step with no cache."""
+    pre = m.to_tensor(np.asarray(prompts)[:, :-1].astype(np.int64))
+    if cached:
+        _, cache = model(pre, cache=model.gpt.gen_cache(pre))
+
+        def cell(ids, c):
+            logits, c = model(m.reshape(ids, [-1, 1]), cache=c)
+            return logits[:, -1], c
+        return cell, cache
+
+    def cell(ids, hist):
+        hist = m.concat([hist, m.reshape(ids, [-1, 1]).astype(hist.dtype)],
+                        axis=1)
+        return model(hist)[:, -1], hist
+    return cell, pre
+
+
+def structured_draws_hold(P, place):
+    """The structured half's draws on ``place``: on it, equal after the
+    same ``P.seed``, and ``shuffle_batch``'s ``seed`` argument
+    independent of it. Returns the list of failures."""
+    from paddle_tpu_torch.core import device as tdevice
+    saved = tdevice._CURRENT[0]
+    P.set_device(place)
+    F = P.nn.functional
+    fails = []
+    try:
+        x = P.to_tensor(np.arange(64, dtype=np.float32).reshape(32, 2))
+        w = P.to_tensor(np.random.default_rng(0).standard_normal(
+            (20, 2)).astype(np.float32))
+        y = P.to_tensor(np.arange(32) % 20)
+        draws = {
+            "shuffle_batch": lambda: P.ops.shuffle_batch(x)[1],
+            "uniform_like": lambda: P.ops.uniform_random_batch_size_like(
+                x, [1, 3]),
+            "gaussian_like": lambda: P.ops.gaussian_random_batch_size_like(
+                x, [1, 3]),
+            "nce": lambda: F.nce(x, y[:, None], w, num_neg_samples=4,
+                                 sampler="log_uniform"),
+            "sampling_id": lambda: F.sampling_id(F.softmax(x)),
+            "sample_logits": lambda: F.sample_logits(
+                F.linear(x, w.T), y[:, None], 5)[0],
+            "class_center_sample": lambda: F.class_center_sample(
+                y[:4], 20, 8)[1]}
+        for name, make in draws.items():
+            P.seed(3)
+            a = make()
+            P.seed(3)
+            if a.place != P.CUDAPlace(0) and place == "gpu":
+                fails.append(f"{name}: on {a.place}, not the card")
+            elif not np.array_equal(a.numpy(), make().numpy()):
+                fails.append(f"{name}: draws differ under one seed")
+        a = P.ops.shuffle_batch(x, seed=5)[1].numpy()
+        P.seed(99)
+        if not np.array_equal(a, P.ops.shuffle_batch(x, seed=5)[1].numpy()):
+            fails.append("shuffle_batch(seed=5) follows the global seed")
     finally:
         tdevice._CURRENT[0] = saved
     return fails
