@@ -339,7 +339,37 @@ Phases (any failure raises and the script exits non-zero):
    where they part, the candidates the cells ranked differently lie
    within the cells' summed log-probability difference) and scores
    within 1e-4 relative where the ids are equal; tokens/s and step ms of
-   each cell.
+   each cell;
+25. MobileNetV3-Large (BASELINE config 2's PaddleClas model,
+   ``vision.models.mobilenet_v3_large()``: scale 1.0, 1000 classes, 224 x
+   224, random weights from seed 0, seeded synthetic images and labels):
+   (a) 10 ``Model.train_batch`` steps at batch 128 with Momentum(0.9),
+   L2Decay and a CosineAnnealingDecay schedule, fp32 and O1 bf16, each
+   graphed (one capture) and eager under cuDNN's deterministic
+   algorithms, losses and BN statistics bitwise equal between the lanes;
+   (b) ``Model.predict`` over 4 batches of 64 through its captured
+   program (top-1 equal to the eager lane's), then 64 single-image
+   requests at once through the dynamic-batching ``Engine`` over the same
+   network in eval mode, each answer's top-1 the direct predict's (or a
+   near tie there); (c) the A3 table on the card: the A3 functionals'
+   op cases (``ct.A3``) and the layer table (``LAYER_CASES``) on CUDA
+   against the CPU, forward, gradient and state, ``n held of n``; (d)
+   imgs/s of training (fp32, O1) and predict, the engine's p50 and p99
+   latency, peak memory; no kernel of the port is on this path;
+26. a ViT-B/16 written from ``nn`` layers (PaddleClas's
+   ``ViT_base_patch16_224``, ``tests/test_torch_op_table.py`` ``vit``:
+   ``Conv2D`` patch embedding, class token and position embedding from
+   ``create_parameter``, a ``LayerList`` of 12 pre-norm blocks with
+   ``MultiHeadAttention`` and ``GELU``, ``Softmax`` in the predict
+   program; every dropout 0, so attention takes the flash route): (a) 10
+   O1 bf16 ``Model.train_batch`` steps of AdamW at batch 64 (S = 197:
+   every backward meets a tail tile), graphed and eager, losses bitwise
+   equal, B1, B2 and B3 exactly 12 launches a step each; (b) one fp32
+   step with ``attn_impl="flash"`` against ``"dense"``, the loss within
+   1e-4 relative and each gradient within GRAD_TOL; (c) ``Model.predict``
+   through its captured program, B1 12 launches a batch; (d) step ms,
+   imgs/s and B1-B3's share of the O1 step's device time from one
+   profiled step.
 
 Each model, its programs and its cache are released between phases
 (``release_memory``): GPT-3 1.3B, ResNet-50, BERT-base, YOLOv3 and the
@@ -369,8 +399,11 @@ O1 steps, B1-B3 24 each a step), and around each of phase 22's (the
 op-built GPT's fp32 and O1 dygraph steps and its ``train_batch`` lanes,
 B1-B3 24 each a step), and around each of phase 23's (the tagger's
 training lanes, none; its evaluate and predict, B1 12 a batch) and
-phase 24's (the cached cell, none; the full-prefix cell, B1 24 a step)
-(B4 there runs in the plain
+phase 24's (the cached cell, none; the full-prefix cell, B1 24 a step),
+and around each of phase 25's (the four training lanes, the serving
+path and the A3 table, none) and phase 26's (the O1 training lanes,
+B1-B3 12 each a step; the predict program, B1 12 a batch; the flash and
+dense steps, B1-B3 12 each on the flash one) (B4 there runs in the plain
 paged steps only, 24 launches a step; in phase 19 in the paged runs over
 dense pages, int8 weights included, and in none over int8 pages; the
 prefills, tail prefills and the verify attend densely, as the JAX
@@ -379,8 +412,9 @@ package's, so B1 launches nothing on any of them). The last two lines are a
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result. ``--phase 22`` runs,
 after the build, phase 21's two GPT-3 1.3B dygraph references and phase
-22 alone, and prints that phase's numbers only; ``--phase 23`` and
-``--phase 24`` run that phase alone after the build.
+22 alone, and prints that phase's numbers only; ``--phase 23``,
+``--phase 24``, ``--phase 25`` and ``--phase 26`` run that phase alone
+after the build.
 """
 from __future__ import annotations
 
@@ -650,16 +684,22 @@ LONG_CHECK = (1, 4096, 2, 64)
 #: GB of score matrices; LONG_CHECK holds the same kernels to them
 NO_F64_TAGS = ("s4096",)
 
+#: B1-B3 at phase 26's ViT-B/16 attention: B=64, S=197 (196 patches and
+#: the class token; every backward ends on a tail tile), H=12, D=64
+VIT_ATTN = (64, 197, 12, 64)
+
 
 def _flash_cases(torch, with_gen):
     """Phase 2's B1-B3 cases, (type name, dtype, B, Sq, Skv, H, D, causal,
     summary tag): the training path's B=4, S=1024, H=16, D=128, the odd
     length and Sq != Skv cases, BERT-base's shape (BERT_ATTN, tag
-    "bert"), the long-context GPT's (LONG_ATTN, tag "s4096", and
-    LONG_CHECK, tag "s4096_check"), and for B1 the short causal lengths
-    of generate's recompute lane (GEN_FLASH_LENS)."""
+    "bert"), the ViT-B/16's (VIT_ATTN, tag "vit"), the long-context
+    GPT's (LONG_ATTN, tag "s4096", and LONG_CHECK, tag "s4096_check"),
+    and for B1 the short causal lengths of generate's recompute lane
+    (GEN_FLASH_LENS)."""
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     b, s, h, d = BERT_ATTN
+    vb, vs, vh, vd = VIT_ATTN
     lb, ls, lh, ld = LONG_ATTN
     cb, cs, ch, cd = LONG_CHECK
     cases = [("fp32", f32, 4, 1024, 1024, 16, 128, True, None),
@@ -673,6 +713,8 @@ def _flash_cases(torch, with_gen):
              ("fp32", f32, 4, 1024, 640, 16, 128, False, None),
              ("fp32", f32, b, s, s, h, d, False, "bert"),
              ("bf16", bf16, b, s, s, h, d, False, "bert"),
+             ("fp32", f32, vb, vs, vs, vh, vd, False, "vit"),
+             ("bf16", bf16, vb, vs, vs, vh, vd, False, "vit"),
              ("fp32", f32, cb, cs, cs, ch, cd, True, "s4096_check"),
              ("bf16", bf16, cb, cs, cs, ch, cd, True, "s4096_check"),
              ("fp32", f32, lb, ls, ls, lh, ld, True, "s4096"),
@@ -6200,6 +6242,470 @@ def beam_phase(torch, fa_mod, dev, smi, reset_counters, read_counters,
     return res, launches, by_dtype
 
 
+# -- phase 25: MobileNetV3-Large trained and served (BASELINE config 2) -------
+
+#: PaddleClas's MobileNetV3_large_x1_0 at full width (scale 1.0, 1000
+#: classes, 224 x 224): train batch and steps, the predict batches and the
+#: engine's single-image requests
+MB_BATCH, MB_SIZE, MB_CLASSES, MB_STEPS = 128, 224, 1000, 10
+MB_PRED_BATCH, MB_PRED_BATCHES, MB_REQUESTS = 64, 4, 64
+#: the engine's answer against the direct predict: the same top-1, or a
+#: near tie in the direct predict's logits (top two within this of the
+#: largest |logit|), where batches of another size may round the other way
+MB_NEAR_TIE = 1e-4
+
+
+def _mobilenet_model(torch, dev):
+    """MobileNetV3-Large from seed 0 under ``Model`` with Momentum(0.9),
+    L2Decay(2e-5) and a CosineAnnealingDecay(0.05) schedule over the
+    phase's steps (PaddleClas's recipe, its learning rate scaled to batch
+    128); returns (model, schedule)."""
+    from paddle_tpu_torch import Model, nn
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay
+    from paddle_tpu_torch.regularizer import L2Decay
+    from paddle_tpu_torch.vision.models import mobilenet_v3_large
+    net = mobilenet_v3_large(num_classes=MB_CLASSES, device=dev, seed=0)
+    sched = CosineAnnealingDecay(0.05, T_max=MB_STEPS)
+    model = Model(net, device=dev)
+    model.prepare(Momentum(learning_rate=sched, momentum=0.9,
+                           parameters=net.parameters(),
+                           weight_decay=L2Decay(2e-5), device=dev),
+                  nn.CrossEntropyLoss())
+    return model, sched
+
+
+def a3_table_on_the_card(torch, ct):
+    """Phase 25c: the A3 functionals' op cases (``ct.A3``) and every case
+    of the A3 layer table (``ct.LAYER_CASES``) on CUDA against the CPU,
+    forward and gradient (and a layer's state after the call); ``n held
+    of n``."""
+    import paddle_tpu_torch as paddle
+    t0 = time.perf_counter()
+    ops = [c for c in ct.CUDA_CASES if c.module in ct.A3]
+    held, failed = cases_on_the_card(ct, ops)
+    for case in ct.LAYER_CASES:
+        try:
+            ct.layer_case_holds(case, paddle)
+            held += 1
+        except Exception as e:   # noqa: BLE001 (every case is reported)
+            failed.append(f"{case.name}: {str(e).splitlines()[0][:200]}")
+    n = len(ops) + len(ct.LAYER_CASES)
+    log(f"A3 table on the card: {held} held of {n} ({len(ops)} op cases, "
+        f"{len(ct.LAYER_CASES)} layer cases; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    for f in failed:
+        log(f"  A3 case failed: {f}")
+    if failed:
+        raise RuntimeError(f"phase 25 A3 table: {len(failed)} of {n} cases "
+                           f"failed")
+    return {"held": held, "cases": n, "op_cases": len(ops),
+            "layer_cases": len(ct.LAYER_CASES)}
+
+
+def _mobilenet_lane(torch, dev, x, y, prec, lane):
+    """One training lane: P.seed(0), a fresh model, MB_STEPS train_batch
+    calls (the schedule stepped after each), graphed or eager, under
+    cuDNN's deterministic algorithms. Returns (results, model, buffers
+    after the steps)."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import graphs
+    cast = amp.auto_cast if prec == "o1" else contextlib.nullcontext
+    torch.cuda.reset_peak_memory_stats()
+    P.seed(0)
+    model, sched = _mobilenet_model(torch, dev)
+    ctx = graphs.disable_graphs() if lane == "eager" \
+        else contextlib.nullcontext()
+    losses, walls = [], []
+    with ctx, cudnn_deterministic(torch):
+        for _ in range(MB_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with cast():
+                losses.append(model.train_batch([x], [y])[0])
+            walls.append((time.perf_counter() - t0) * 1e3)
+            sched.step()
+    buffers = {k: b.detach().clone()
+               for k, b in model.network.named_buffers()}
+    step_ms = float(np.median(walls[2:]))
+    res = {"losses": losses, "step_wall_ms": walls, "step_ms": step_ms,
+           "imgs_per_s": MB_BATCH / step_ms * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"MobileNetV3-Large {prec} {lane} lane: losses "
+        f"{[round(v, 6) for v in losses]}, step {step_ms:.1f} ms "
+        f"({res['imgs_per_s']:.0f} imgs/s), peak {res['peak_gib']:.2f} GiB")
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"MobileNetV3-Large {prec} {lane}: {losses}")
+    if lane == "graphed":
+        res.update(program_report(model, f"MobileNetV3-Large {prec} "
+                                  f"graphed lane", MB_STEPS))
+    return res, model, buffers
+
+
+def _stacked(outs):
+    """The batches of a one-output network (``Model.predict``'s, or the
+    engine's answers), stacked."""
+    return np.concatenate([o[0] if isinstance(o, (list, tuple)) else o
+                           for o in outs])
+
+
+def _top1_agree(got, ref):
+    """(rows whose top-1 differs and is no near tie, near ties) of logits
+    ``got`` against ``ref``."""
+    bad, near = [], []
+    for i in np.nonzero(got.argmax(1) != ref.argmax(1))[0]:
+        top2 = np.sort(ref[i])[-2:]
+        if top2[1] - top2[0] <= MB_NEAR_TIE * np.abs(ref[i]).max():
+            near.append(int(i))
+        else:
+            bad.append(int(i))
+    return bad, near
+
+
+def mobilenet_serving(torch, model, dev):
+    """Phase 25b: ``Model.predict`` over MB_PRED_BATCHES batches of
+    MB_PRED_BATCH through its captured program (capture, graphed, eager;
+    the graphed top-1 ids equal to the eager lane's), then MB_REQUESTS
+    single-image requests at once through the dynamic-batching ``Engine``
+    over the same network in eval mode, each answer's top-1 equal to the
+    direct predict's (or a near tie), with p50 and p99 latency."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.serving import Engine, EngineConfig
+    rng = np.random.default_rng(25)
+    imgs = rng.random((MB_PRED_BATCHES * MB_PRED_BATCH, 3, MB_SIZE, MB_SIZE),
+                      dtype=np.float32)
+    batches = [[torch.from_numpy(imgs[i:i + MB_PRED_BATCH]).to(dev)]
+               for i in range(0, len(imgs), MB_PRED_BATCH)]
+    model.network.eval()
+    pred = {}
+    for lane in ("capture", "graphed", "eager"):
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        with ctx, cudnn_deterministic(torch):
+            outs, ms = _timed(torch, lambda: model.predict(batches,
+                                                           verbose=0))
+        pred[lane] = {"logits": _stacked(outs), "ms": ms,
+                      "imgs_per_s": len(imgs) / ms * 1e3}
+    same = bool((pred["graphed"]["logits"].argmax(1)
+                 == pred["eager"]["logits"].argmax(1)).all())
+    net = model.network
+
+    def serve(img):
+        with torch.inference_mode():
+            return net(img)
+    eng = Engine(serve, EngineConfig(batch_buckets=(1, 2, 4, 8, 16, 32, 64),
+                                     max_batch=64, max_batch_delay=0.005),
+                 device=dev)
+    eng.submit([imgs[:8]]).result(timeout=600)     # the worker's warm-up
+    done = []
+    t0 = time.perf_counter()
+    futs = eng.submit_many([[imgs[i:i + 1]] for i in range(MB_REQUESTS)])
+    for f in futs:
+        f.add_done_callback(lambda _f: done.append(time.perf_counter()))
+    answers = _stacked([f.result(timeout=600) for f in futs])
+    wall = time.perf_counter() - t0
+    batches_run = eng.stats()["stats"]["serving.batches"] - 1
+    eng.drain(timeout=60)
+    lat = (np.array(done) - t0) * 1e3
+    bad, near = _top1_agree(answers, pred["eager"]["logits"][:MB_REQUESTS])
+    res = {"predict": {k: {"ms": v["ms"], "imgs_per_s": v["imgs_per_s"]}
+                       for k, v in pred.items()},
+           "predict_top1_graphed_equals_eager": same,
+           "engine": {"requests": MB_REQUESTS, "batches": batches_run,
+                      "wall_s": wall, "latency_ms_p50": float(
+                          np.percentile(lat, 50)),
+                      "latency_ms_p99": float(np.percentile(lat, 99)),
+                      "top1_differs": bad, "near_ties": near}}
+    log(f"MobileNetV3-Large predict {len(imgs)} images in batches of "
+        f"{MB_PRED_BATCH}: {pred['graphed']['imgs_per_s']:.0f} imgs/s "
+        f"graphed, {pred['eager']['imgs_per_s']:.0f} eager (capture call "
+        f"{pred['capture']['ms']:.1f} ms); top-1 graphed "
+        f"{'equals' if same else 'DIFFERS from'} eager; engine: "
+        f"{MB_REQUESTS} single-image requests in {batches_run} batches, "
+        f"{wall:.3f} s, latency p50 {res['engine']['latency_ms_p50']:.1f} "
+        f"ms p99 {res['engine']['latency_ms_p99']:.1f} ms; top-1 against "
+        f"the direct predict: {MB_REQUESTS - len(bad) - len(near)} equal, "
+        f"near ties {near}, differing {bad}")
+    if not same or bad:
+        raise RuntimeError(f"phase 25 serving: predict top-1 graphed vs "
+                           f"eager equal {same}, engine rows {bad} differ")
+    return res
+
+
+def mobilenet_phase(torch, fa_mod, dev, smi, reset_counters,
+                    read_counters):
+    """Phase 25 (module docstring): returns (results, launches by
+    path)."""
+    ct = _op_table()
+    rng = np.random.default_rng(250)
+    x = torch.from_numpy(rng.random((MB_BATCH, 3, MB_SIZE, MB_SIZE),
+                                    dtype=np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, MB_CLASSES, (MB_BATCH,))).to(dev)
+    log(f"phase 25: MobileNetV3-Large (scale 1.0, {MB_CLASSES} classes), "
+        f"batch {MB_BATCH} at {MB_SIZE}x{MB_SIZE}, Momentum(0.9), "
+        f"L2Decay(2e-5), CosineAnnealingDecay(0.05, {MB_STEPS}), random "
+        f"weights (seed 0), cuDNN deterministic; {smi}")
+    res, launches, kept = {}, {}, None
+    for prec in ("fp32", "o1"):
+        lanes = {}
+        for lane in ("graphed", "eager"):
+            reset_counters()
+            out, model, buf = _mobilenet_lane(torch, dev, x, y, prec, lane)
+            launches[f"mobilenet_train_{prec}_{lane}"] = read_counters()
+            lanes[lane] = (out, buf)
+            if prec == "fp32" and lane == "graphed":
+                kept = model
+            else:
+                model._invalidate_compiled()
+            del model
+            release_memory(torch)
+        (g, gbuf), (e, ebuf) = lanes["graphed"], lanes["eager"]
+        g.update(check_lane_losses(g["losses"], e["losses"],
+                                   f"MobileNetV3-Large {prec} train_batch, "
+                                   f"graphed vs eager lane"))
+        same, worst = _state_diff(torch, gbuf, ebuf)
+        log(f"MobileNetV3-Large {prec} BN running statistics, graphed vs "
+            f"eager: " + ("bitwise equal" if same else
+                          f"worst relative {worst:.3e}"))
+        if worst > LANE_TOL:
+            raise RuntimeError(f"MobileNetV3-Large {prec}: buffers differ "
+                               f"by {worst}")
+        g["buffers_bitwise"] = same
+        res[f"train_{prec}"] = {"graphed": g, "eager": e}
+    reset_counters()
+    res["serving"] = mobilenet_serving(torch, kept, dev)
+    res["serving"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    launches["mobilenet_serving"] = read_counters()
+    kept._invalidate_compiled()
+    del kept
+    release_memory(torch)
+    reset_counters()
+    res["a3_table"] = a3_table_on_the_card(torch, ct)
+    launches["a3_table"] = read_counters()
+    log(f"MobileNetV3-Large: training {res['train_fp32']['graphed']['imgs_per_s']:.0f} "
+        f"imgs/s fp32, {res['train_o1']['graphed']['imgs_per_s']:.0f} O1 "
+        f"(graphed); predict "
+        f"{res['serving']['predict']['graphed']['imgs_per_s']:.0f} imgs/s; "
+        f"engine p50 {res['serving']['engine']['latency_ms_p50']:.1f} ms, "
+        f"p99 {res['serving']['engine']['latency_ms_p99']:.1f} ms; peak "
+        f"{max(res['train_fp32']['graphed']['peak_gib'], res['train_o1']['graphed']['peak_gib']):.2f} "
+        f"GiB training, {res['serving']['peak_gib']:.2f} GiB serving; {smi}")
+    release_memory(torch)
+    return res, launches, {}
+
+
+# -- phase 26: a ViT-B/16 written from nn layers --------------------------------
+
+#: PaddleClas's ViT_base_patch16_224: the O1 train batch and steps, the
+#: predict batches
+VIT_BATCH, VIT_STEPS, VIT_PRED_BATCHES = 64, 10, 2
+VIT_DEPTH = 12
+
+
+def _vit_model(torch, ct, dev, impl="auto"):
+    """``ct.vit`` at its defaults (ViT-B/16, 1000 classes) with
+    ``attn_impl=impl``, the generator seeded 26 first (so every build
+    draws the same weights), under ``Model`` with AdamW(5e-5, weight
+    decay 0.3: PaddleClas's, its rate scaled to batch 64)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.optimizer import AdamW
+    paddle.seed(26)
+    net = ct.vit(paddle, attn_impl=impl)
+    model = Model(net, device=dev)
+    model.prepare(AdamW(learning_rate=5e-5, parameters=net.parameters(),
+                        weight_decay=0.3, device=dev),
+                  paddle.nn.CrossEntropyLoss())
+    return model, net
+
+
+def _per_step(fa_mod, fn, steps):
+    """``fn()`` ``steps`` times; B1-B3's launches of each call."""
+    counts = []
+    for _ in range(steps):
+        before = [c.launches for c in _counters(fa_mod)]
+        fn()
+        counts.append([c.launches - b for c, b in zip(_counters(fa_mod),
+                                                      before)])
+    return counts
+
+
+def vit_flash_vs_dense(torch, ct, dev, x, y):
+    """Phase 26b: one fp32 step of the ViT with ``attn_impl="flash"``
+    against ``"dense"`` from the same weights, on the eager lane: the
+    losses within 1e-4 relative, every gradient within GRAD_TOL of its
+    largest entry but ``k_proj.bias``'s (zero but for rounding: held to
+    "tiny" against ``k_proj.weight``'s)."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.nn import functional as F
+    out = {}
+    with graphs.disable_graphs():
+        for impl in ("flash", "dense"):
+            _, net = _vit_model(torch, ct, dev, impl)
+            loss = F.cross_entropy(net(x), y)
+            loss.backward()
+            out[impl] = (float(loss.detach()), {n: p.grad.detach().clone()
+                                       for n, p in net.named_parameters()})
+            del net
+            release_memory(torch)
+    (lf, gf), (ld, gd) = out["flash"], out["dense"]
+    rel_loss = abs(lf - ld) / abs(ld)
+    worst, worst_name, tiny = 0.0, None, 0.0
+    for n, g in gd.items():
+        d = float((gf[n] - g).abs().max())
+        if n.endswith("k_proj.bias"):
+            w = n.replace("k_proj.bias", "k_proj.weight")
+            tiny = max(tiny, max(float(gf[n].abs().max()),
+                                 float(g.abs().max()))
+                       / float(gd[w].abs().max()))
+            continue
+        r = d / (float(g.abs().max()) or 1.0)
+        if r > worst:
+            worst, worst_name = r, n
+    log(f"ViT-B/16 fp32 step, flash (B1-B3) vs dense: loss {lf!r} vs "
+        f"{ld!r} (relative {rel_loss:.3e}, tol 1e-4); worst gradient "
+        f"{worst:.3e} of its max ({worst_name}, tol {GRAD_TOL}); k_proj "
+        f"bias gradients {tiny:.3e} of k_proj.weight's (zero but for "
+        f"rounding)")
+    if rel_loss > 1e-4 or worst > GRAD_TOL or tiny > 1e-3:
+        raise RuntimeError(f"phase 26 flash vs dense: loss {rel_loss}, "
+                           f"gradient {worst} ({worst_name}), k_proj bias "
+                           f"{tiny}")
+    return {"loss_flash": lf, "loss_dense": ld, "loss_rel": rel_loss,
+            "grad_worst_rel": worst, "grad_worst_name": worst_name,
+            "k_proj_bias_rel": tiny}
+
+
+def vit_phase(torch, fa_mod, dev, smi, reset_counters, read_counters):
+    """Phase 26 (module docstring): returns (results, launches by path,
+    B1-B3 launches by type)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import graphs
+    ct = _op_table()
+    rng = np.random.default_rng(26)
+    imgs = rng.random(((1 + VIT_PRED_BATCHES) * VIT_BATCH, 3, 224, 224),
+                      dtype=np.float32)
+    x = torch.from_numpy(imgs[:VIT_BATCH]).to(dev)
+    y = torch.from_numpy(rng.integers(0, 1000, (VIT_BATCH,))).to(dev)
+    log(f"phase 26: ViT-B/16 from nn layers (Conv2D patches, LayerList of "
+        f"{VIT_DEPTH} pre-norm blocks, MultiHeadAttention, GELU, Softmax "
+        f"in predict; PaddleClas ViT_base_patch16_224), batch {VIT_BATCH}, "
+        f"S = 197, AdamW(5e-5, weight decay 0.3), O1 bf16, random weights "
+        f"(seed 26); {smi}")
+    res, launches = {}, {}
+    for lane in ("graphed", "eager"):
+        model, net = _vit_model(torch, ct, dev)
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        reset_counters()
+        losses, walls = [], []
+
+        def step():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with amp.auto_cast():
+                losses.append(model.train_batch([x], [y])[0])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with ctx:
+            counts = _per_step(fa_mod, step, VIT_STEPS)
+        launches[f"vit_train_o1_{lane}"] = read_counters()
+        step_ms = float(np.median(walls[2:]))
+        res[f"train_o1_{lane}"] = {
+            "losses": losses, "step_ms": step_ms,
+            "imgs_per_s": VIT_BATCH / step_ms * 1e3,
+            "b1_b3_per_step": counts,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"ViT-B/16 O1 {lane} lane: losses "
+            f"{[round(v, 6) for v in losses]}, step {step_ms:.1f} ms "
+            f"({VIT_BATCH / step_ms * 1e3:.0f} imgs/s), B1/B2/B3 launches a "
+            f"step {counts}")
+        if any(c != [VIT_DEPTH] * 3 for c in counts):
+            raise RuntimeError(f"ViT {lane}: B1-B3 launched {counts} a "
+                               f"step, not {VIT_DEPTH} each")
+        if lane == "graphed":
+            res["train_o1_graphed"].update(program_report(
+                model, "ViT-B/16 O1 graphed lane", VIT_STEPS))
+            # (d) the B1-B3 share of the O1 step's device time
+            prof = profile_train_step(
+                torch, model, None, True, "graphed", batch=([x], [y]),
+                count=VIT_BATCH, unit="imgs", parts=GPT_PARTS)
+            by = prof["device_ms_by_part"]
+            res["o1_profile"] = {
+                "step_device_ms": prof["device_busy_ms"],
+                "flash_b1_b3_ms": by["flash_B1_B3"], "gemm_ms": by["gemm"],
+                "flash_share": by["flash_B1_B3"] / prof["device_busy_ms"],
+                "idle_share": prof["idle_share"],
+                "kernels_per_step": prof["kernels_per_step"]}
+            vit_model, vit_net = model, net
+            continue
+        model._invalidate_compiled()
+        del model, net
+        release_memory(torch)
+    g, e = res["train_o1_graphed"], res["train_o1_eager"]
+    g.update(check_lane_losses(g["losses"], e["losses"],
+                               "ViT-B/16 O1 train_batch, graphed vs eager "
+                               "lane"))
+    if not g["bitwise"]:
+        raise RuntimeError(f"ViT O1 lanes not bitwise: {g['losses']} vs "
+                           f"{e['losses']}")
+    by_dtype = {c.__name__: dict(c.launches_by_dtype)
+                for c in _counters(fa_mod)}
+    # (c) predict through its captured program: B1 once a block a batch
+    batches = [[torch.from_numpy(imgs[VIT_BATCH * (i + 1):
+                                      VIT_BATCH * (i + 2)]).to(dev)]
+               for i in range(VIT_PRED_BATCHES)]
+    vit_net.eval()
+    reset_counters()
+    pred = {}
+    for lane in ("capture", "graphed", "eager"):
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        before = fa_mod.flash_attention_fwd.launches
+        with ctx:
+            outs, ms = _timed(torch, lambda: vit_model.predict(batches,
+                                                               verbose=0))
+        pred[lane] = {"probs": _stacked(outs), "ms": ms,
+                      "b1": fa_mod.flash_attention_fwd.launches - before,
+                      "imgs_per_s": VIT_PRED_BATCHES * VIT_BATCH / ms * 1e3}
+    launches["vit_predict"] = read_counters()
+    want = VIT_DEPTH * VIT_PRED_BATCHES
+    got_b1 = [p["b1"] for p in pred.values()]
+    same = bool((pred["graphed"]["probs"].argmax(1)
+                 == pred["eager"]["probs"].argmax(1)).all())
+    sums = float(np.abs(pred["graphed"]["probs"].sum(1) - 1).max())
+    res["predict"] = {k: {"ms": v["ms"], "b1": v["b1"],
+                          "imgs_per_s": v["imgs_per_s"]}
+                      for k, v in pred.items()}
+    res["predict"]["top1_graphed_equals_eager"] = same
+    log(f"ViT-B/16 predict (Softmax) {VIT_PRED_BATCHES} batches of "
+        f"{VIT_BATCH}: {pred['graphed']['imgs_per_s']:.0f} imgs/s graphed, "
+        f"{pred['eager']['imgs_per_s']:.0f} eager; B1 {got_b1} in the "
+        f"capture, graphed and eager calls ({want} each); top-1 "
+        f"{'equal' if same else 'DIFFERS'} graphed vs eager; probabilities "
+        f"sum to 1 within {sums:.1e}")
+    if got_b1 != [want] * 3 or not same or sums > 1e-3:
+        raise RuntimeError(f"phase 26 predict: B1 {got_b1}, top-1 equal "
+                           f"{same}, sums {sums}")
+    vit_model._invalidate_compiled()
+    del vit_model, vit_net, pred
+    release_memory(torch)
+    # (b) the first training path whose backward meets a tail tile
+    reset_counters()
+    res["flash_vs_dense"] = vit_flash_vs_dense(torch, ct, dev, x, y)
+    launches["vit_flash_vs_dense"] = read_counters()
+    p = res["o1_profile"]
+    log(f"ViT-B/16 O1: step {g['step_ms']:.1f} ms graphed "
+        f"({g['imgs_per_s']:.0f} imgs/s), {e['step_ms']:.1f} ms eager; "
+        f"B1-B3 {p['flash_b1_b3_ms']:.2f} ms of a "
+        f"{p['step_device_ms']:.2f} ms device step "
+        f"({100 * p['flash_share']:.1f}%), GEMMs {p['gemm_ms']:.2f} ms; "
+        f"{smi}")
+    release_memory(torch)
+    return res, launches, by_dtype
+
+
 def counter_fns(torch, fa_mod, extra=()):
     """``(reset_counters, read_counters)`` over B1-B3's launch counts (and
     their counts by type) and ``extra``'s; the reset also resets the peak
@@ -6219,11 +6725,12 @@ def counter_fns(torch, fa_mod, extra=()):
 
 
 def phase_alone(torch, fa_mod, dev, smi, phase, extra_counters):
-    """``python3 chip_smoke.py --phase 23|24``: after the build, that
-    phase alone; prints its numbers, not the summary lines."""
+    """``python3 chip_smoke.py --phase 23|24|25|26``: after the build,
+    that phase alone; prints its numbers, not the summary lines."""
     reset_counters, read_counters = counter_fns(torch, fa_mod,
                                                 extra_counters)
-    fn = crf_tagger_phase if phase == 23 else beam_phase
+    fn = {23: crf_tagger_phase, 24: beam_phase, 25: mobilenet_phase,
+          26: vit_phase}[phase]
     out, launches, dtypes = fn(torch, fa_mod, dev, smi, reset_counters,
                                read_counters)
     log(f"phase {phase} paths launches: {launches}, B1-B3 by type {dtypes}")
@@ -6305,7 +6812,8 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     if sys.argv[1:] == ["--phase", "22"]:
         return phase22_alone(torch, fa_mod, dev, smi)
-    if sys.argv[1:] in (["--phase", "23"], ["--phase", "24"]):
+    if sys.argv[1:] in (["--phase", "23"], ["--phase", "24"],
+                        ["--phase", "25"], ["--phase", "26"]):
         return phase_alone(torch, fa_mod, dev, smi, int(sys.argv[2]),
                            (pa_mod.paged_attention, nms_mod.greedy_nms))
     tc_libs = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -6680,6 +7188,28 @@ def main() -> int:
             if (c > 0) != want:
                 raise RuntimeError(f"{path}: kernel {n} launched {c} times")
 
+    # -- phase 25: MobileNetV3-Large trained and served ---------------------
+    stamp("25 MobileNetV3-Large training and serving, the A3 table")
+    mobilenet, mb_launches, _ = mobilenet_phase(
+        torch, fa_mod, dev, smi, reset_counters, read_counters)
+    log(f"MobileNetV3-Large paths launches: {mb_launches}")
+    for path, counts in mb_launches.items():
+        if any(counts.values()):
+            raise RuntimeError(f"{path}: a port kernel launched {counts}")
+
+    # -- phase 26: a ViT-B/16 written from nn layers -------------------------
+    stamp("26 ViT-B/16 from nn layers")
+    vitres, vit_launches, vit_dtypes = vit_phase(
+        torch, fa_mod, dev, smi, reset_counters, read_counters)
+    log(f"ViT-B/16 paths launches: {vit_launches}, B1-B3 by type "
+        f"{vit_dtypes}")
+    for path, counts in vit_launches.items():
+        for n, c in counts.items():
+            want = n in flash_names and (path != "vit_predict"
+                                         or n == "flash_attention_fwd")
+            if (c > 0) != want:
+                raise RuntimeError(f"{path}: kernel {n} launched {c} times")
+
     # -- summary --------------------------------------------------------------
     paths = {"serving": serve_launches, "serving_slot": slot_launches,
              "generate": gen_launches, "training": train_launches,
@@ -6691,7 +7221,8 @@ def main() -> int:
              **{f"training_gpt_s4096_{k}": v for k, v in long_paths.items()},
              "serving_prefix": prefix_launches, "serving_spec": spec_launches,
              "serving_int8": int8_launches, **hapi_launches, **dy_launches,
-             **opg_launches, **crf_launches, **beam_launches}
+             **opg_launches, **crf_launches, **beam_launches,
+             **mb_launches, **vit_launches}
     amp_dtypes["bert_flash_checks"] = bert_dtypes
     amp_dtypes.update({f"training_gpt_s4096_{k}": v
                        for k, v in long_dtypes.items()})
@@ -6700,6 +7231,7 @@ def main() -> int:
     amp_dtypes.update(opg_dtypes)
     amp_dtypes["crf_tagger_evaluate_predict"] = crf_dtypes
     amp_dtypes["beam_full_prefix"] = beam_dtypes
+    amp_dtypes["vit_train_o1"] = vit_dtypes
 
     def launches(name):
         by_path = {k: v[name] for k, v in paths.items()}
@@ -6757,6 +7289,8 @@ def main() -> int:
     log(f"op program: {json.dumps(opg)}")
     log(f"BERT-base CRF tagger: {json.dumps(crf)}")
     log(f"GPT-3 1.3B beam search: {json.dumps(beam)}")
+    log(f"MobileNetV3-Large: {json.dumps(mobilenet)}")
+    log(f"ViT-B/16: {json.dumps(vitres)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

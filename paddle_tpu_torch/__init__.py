@@ -23,7 +23,7 @@ for the reference::
 from torch import dtype  # noqa: F401 (paddle.dtype: the dtypes' class)
 
 from . import (amp, autograd, framework_io, incubate, io, metric, nn,
-               optimizer, quantization, regularizer, tensor)
+               optimizer, quantization, regularizer, tensor, vision)
 from .autograd import PyLayer, PyLayerContext
 from .core import (CPUPlace, CUDAPlace, Place, TPUPlace, device_count,
                    get_device, get_flags, is_compiled_with_cuda,

@@ -1,11 +1,12 @@
 """Functional ops (counterpart of ``paddle_tpu/nn/functional``): the
-activations, common ops, norms and losses in full, ``conv2d`` and the
-pooling the port's layers use, ``flash_attention`` (whose wrapper
+activations, common ops, norms and losses in full, the convolutions
+(``conv1d/2d/3d``, their transposes, ``deformable_conv``), the pools
+(max, average, adaptive average and adaptive max, 1-D to 3-D),
+``flash_attention`` (whose wrapper
 launches the B1-B3 kernels on the card), ``pixel_shuffle``/
 ``pixel_unshuffle``, the in-place ``tanh_``, ``elu_`` and ``softmax_``,
 the sampled heads of ``sampled`` and ``ops.beam``'s ``gather_tree``
-(reference ``:25-32``). The other convolutions and pools are ROADMAP.md
-queue A3."""
+(reference ``:25-32``)."""
 from ...ops.beam import gather_tree
 from ...ops.flash_attention import flash_attention
 from ...ops.manipulation import cast as _cast
@@ -16,7 +17,8 @@ from .activation import __all__ as _activation_all
 from .activation import elu, softmax
 from .common import *  # noqa: F401,F403
 from .common import __all__ as _common_all
-from .conv import conv2d
+from .conv import *  # noqa: F401,F403
+from .conv import __all__ as _conv_all
 from .loss import (binary_cross_entropy, binary_cross_entropy_with_logits,
                    cosine_embedding_loss, cosine_similarity, cross_entropy,
                    ctc_greedy_decoder, ctc_loss, dice_loss,
@@ -27,8 +29,8 @@ from .loss import (binary_cross_entropy, binary_cross_entropy_with_logits,
                    square_error_cost, triplet_margin_loss, warpctc)
 from .norm import (batch_norm, group_norm, instance_norm, layer_norm,
                    local_response_norm, normalize)
-from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d, avg_pool1d,
-                      avg_pool2d, max_pool1d, max_pool2d)
+from .pooling import *  # noqa: F401,F403
+from .pooling import __all__ as _pooling_all
 from .sampled import (class_center_sample, hierarchical_sigmoid,
                       hsigmoid_loss, nce, sample_logits, sampling_id)
 
@@ -54,8 +56,9 @@ def softmax_(x, axis=-1, dtype=None, name=None):
     return x
 
 
-__all__ = sorted(set(_activation_all) | set(_common_all) | {
-    "flash_attention", "pixel_shuffle", "pixel_unshuffle", "conv2d",
+__all__ = sorted(set(_activation_all) | set(_common_all) | set(_conv_all)
+                 | set(_pooling_all) | {
+    "flash_attention", "pixel_shuffle", "pixel_unshuffle",
     "binary_cross_entropy", "binary_cross_entropy_with_logits",
     "cosine_embedding_loss", "cosine_similarity", "cross_entropy",
     "ctc_greedy_decoder", "ctc_loss", "dice_loss", "hinge_embedding_loss",
@@ -64,8 +67,7 @@ __all__ = sorted(set(_activation_all) | set(_common_all) | {
     "sigmoid_focal_loss", "smooth_l1_loss", "softmax_with_cross_entropy",
     "square_error_cost", "triplet_margin_loss", "warpctc", "batch_norm",
     "group_norm", "instance_norm", "layer_norm", "local_response_norm",
-    "normalize", "adaptive_avg_pool1d", "adaptive_avg_pool2d", "avg_pool1d",
-    "avg_pool2d", "max_pool1d", "max_pool2d", "tanh_", "elu_",
+    "normalize", "tanh_", "elu_",
     "softmax_", "gather_tree", "class_center_sample",
     "hierarchical_sigmoid", "hsigmoid_loss", "nce", "sample_logits",
     "sampling_id"})

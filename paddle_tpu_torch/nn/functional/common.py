@@ -1,13 +1,24 @@
 """Common functionals (counterpart of ``paddle_tpu/nn/functional/common.py``):
-``linear``, the dropouts, ``embedding``, ``one_hot``, nearest
+``linear``, the dropouts, ``embedding``, ``one_hot``,
 ``interpolate``/``upsample``, ``grid_sample``, ``affine_grid``,
 ``bilinear``, ``pad``, ``temporal_shift``, ``npair_loss``,
 ``sequence_mask``, ``diag_embed`` and ``unfold``. Each runs through the
 dispatch funnel (``ops/dispatch.py``) under the reference's op name,
 where AMP casts its tensor inputs. The dropout masks come from the
 port's seeded generator of the input's device through
-:func:`~paddle_tpu_torch.core.generator.draw`. Interpolation modes other
-than nearest are ROADMAP.md queue A9.
+:func:`~paddle_tpu_torch.core.generator.draw`.
+
+``interpolate`` follows the JAX package's arithmetic, which is not
+torch's: ``"nearest"`` takes source index ``floor(i * src / t)`` per
+axis; with ``align_corners`` every other mode is linear interpolation at
+``linspace(0, src - 1, t)`` per axis; otherwise ``"linear"``,
+``"bilinear"``, ``"trilinear"`` and ``"area"`` are ``jax.image.resize``'s
+triangle kernel and ``"bicubic"`` its Keys cubic (a = -0.5, where torch
+takes -0.75), both widened by the shrink factor when shrinking
+(``resize``'s default antialiasing): one weight matrix a resized axis
+(sample point ``(i + 0.5) * src / t - 0.5``, weights normalised to sum
+to one, zero where the point leaves ``[-0.5, src - 0.5]``), contracted
+with the input. ``align_mode`` is never read, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -140,40 +151,117 @@ def one_hot(x, num_classes, name=None):
 def interpolate(x, size=None, scale_factor=None, mode: str = "nearest",
                 align_corners: bool = False, align_mode: int = 0,
                 data_format: str = "NCHW", name=None):
-    """Resize the spatial axes (reference: interpolate_v2_op.cc). Only
-    ``"nearest"`` is ported, with paddle's source index
-    ``floor(i * src / t)`` per axis; the other modes raise
-    (ROADMAP.md queue A9)."""
-    if mode.lower() != "nearest":
-        raise NotImplementedError(
-            f"interpolate mode {mode!r} is not ported yet: a later slice "
-            f"of the port (ROADMAP.md queue A9)")
-    return apply("interpolate_v2", _nearest, x, size=size,
-                 scale_factor=scale_factor, data_format=data_format)
+    """Resize the spatial axes (reference: interpolate_v2_op.cc) to
+    ``size`` or ``scale_factor`` times their size, in ``mode``
+    (``"nearest"``, ``"linear"``, ``"bilinear"``, ``"trilinear"``,
+    ``"bicubic"`` or ``"area"``), with the JAX package's arithmetic
+    (module docstring); op ``interpolate_v2``."""
+    mode = mode.lower()
+    if mode not in _RESIZE_KERNELS:
+        raise ValueError(f"interpolate mode {mode!r}: one of "
+                         f"{sorted(_RESIZE_KERNELS)}")
+    if isinstance(size, Tensor):
+        size = size.numpy().tolist()
+    elif isinstance(size, (list, tuple)):
+        size = [int(v.item()) if isinstance(v, (Tensor, torch.Tensor))
+                else v for v in size]
+    return apply("interpolate_v2", _interpolate, x, size=size,
+                 scale_factor=scale_factor, mode=mode,
+                 align_corners=align_corners, data_format=data_format)
 
 
-def _nearest(x, size, scale_factor, data_format):
-    channel_last = data_format in ("NHWC", "NWC", "NDHWC")
-    off = 1 if channel_last else 2
+def _target(x, off, size, scale_factor):
     spatial = x.shape[off:off + x.dim() - 2]
     if size is not None:
         if isinstance(size, torch.Tensor):
             size = size.tolist()
-        tgt = [int(v) for v in (size if isinstance(size, (list, tuple))
-                                else [size])]
-    else:
-        sf = scale_factor if isinstance(scale_factor, (list, tuple)) \
-            else [scale_factor] * len(spatial)
-        tgt = [int(d * f) for d, f in zip(spatial, sf)]
+        return [int(v) for v in (size if isinstance(size, (list, tuple))
+                                 else [size])]
+    sf = scale_factor if isinstance(scale_factor, (list, tuple)) \
+        else [scale_factor] * len(spatial)
+    return [int(d * f) for d, f in zip(spatial, sf)]
+
+
+def _triangle(t):
+    return torch.clamp(1.0 - t.abs(), min=0.0)
+
+
+def _keys_cubic(t):
+    out = ((1.5 * t - 2.5) * t) * t + 1.0
+    out = torch.where(t >= 1.0, ((-0.5 * t + 2.5) * t - 4.0) * t + 2.0, out)
+    return torch.where(t >= 2.0, torch.zeros_like(t), out)
+
+
+#: interpolate mode -> ``jax.image.resize``'s kernel (None: nearest)
+_RESIZE_KERNELS = {"nearest": None, "linear": _triangle,
+                   "bilinear": _triangle, "trilinear": _triangle,
+                   "area": _triangle, "bicubic": _keys_cubic}
+
+
+def _resize_weights(src, t, kernel, device):
+    """``jax.image.resize``'s ``[src, t]`` weight matrix of one axis
+    (``compute_weight_mat``, antialiased), in float32."""
+    inv = src / t
+    f32 = dict(dtype=torch.float32, device=device)
+    sample = (torch.arange(t, **f32) + 0.5) * inv - 0.5
+    dist = (sample[None, :] - torch.arange(src, **f32)[:, None]).abs() \
+        / max(inv, 1.0)
+    w = kernel(dist)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * _F32_EPS,
+                    w / torch.where(total != 0, total,
+                                    torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= src - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+_F32_EPS = 1.1920928955078125e-07
+
+
+def _interpolate(x, size, scale_factor, mode, align_corners, data_format):
+    channel_last = data_format in ("NHWC", "NWC", "NDHWC")
+    off = 1 if channel_last else 2
+    tgt = _target(x, off, size, scale_factor)
     out = x
+    if mode == "nearest":
+        for d, t in enumerate(tgt):
+            src = x.shape[off + d]
+            # float32 arange times the float32 step, as the JAX package's
+            # weak-typed scale; a scalar, not a tensor from the host, so
+            # a CUDA graph can capture it
+            ii = torch.floor(torch.arange(t, dtype=torch.float32,
+                                          device=x.device)
+                             * (src / t)).long()
+            out = torch.index_select(out, off + d, ii)
+        return out
+    if not out.is_floating_point():
+        out = out.float()
+    if align_corners:
+        for d, t in enumerate(tgt):
+            axis = off + d
+            src = out.shape[axis]
+            ramp = torch.arange(t, dtype=torch.float32, device=x.device)
+            # jnp.linspace(0, src - 1, t): stop * (i / (t - 1))
+            coords = ramp * 0.0 if t == 1 or src == 1 else \
+                (ramp / (t - 1)) * (src - 1)
+            i0 = torch.floor(coords).long()
+            i1 = torch.clamp(i0 + 1, max=src - 1)
+            shape = [1] * out.dim()
+            shape[axis] = t
+            w1 = (coords - i0).to(out.dtype).reshape(shape)
+            out = torch.index_select(out, axis, i0) * (1 - w1) + \
+                torch.index_select(out, axis, i1) * w1
+        return out
     for d, t in enumerate(tgt):
-        src = x.shape[off + d]
-        # float32 arange times the float32 step, as the JAX package's
-        # weak-typed scale; a scalar, not a tensor from the host, so a
-        # CUDA graph can capture it
-        ii = torch.floor(torch.arange(t, dtype=torch.float32,
-                                      device=x.device) * (src / t)).long()
-        out = torch.index_select(out, off + d, ii)
+        axis = off + d
+        src = out.shape[axis]
+        if src == t:
+            continue        # resize skips an axis that keeps its size
+        w = _resize_weights(src, t, _RESIZE_KERNELS[mode],
+                            x.device).to(out.dtype)
+        out = torch.movedim(torch.tensordot(out, w, dims=([axis], [0])),
+                            -1, axis)
     return out
 
 

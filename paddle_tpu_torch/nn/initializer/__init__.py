@@ -55,9 +55,9 @@ class Initializer:
 
     @staticmethod
     def _normal(shape, dtype, device, generator, mean, std):
-        return _creation._std_normal(
-            [int(s) for s in shape], Initializer._dtype(dtype),
-            resolve_device(device), generator=generator) * std + mean
+        return _creation._normal_draw([int(s) for s in shape],
+                                      Initializer._dtype(dtype), mean, std,
+                                      resolve_device(device), generator)
 
 
 class Constant(Initializer):

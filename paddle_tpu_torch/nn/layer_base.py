@@ -1,5 +1,6 @@
 """The module boundary of the port (counterpart of
-``paddle_tpu/nn/layer_base.py``: ``Layer`` and ``ParamAttr``).
+``paddle_tpu/nn/layer_base.py``: ``Layer``, ``ParamAttr`` and
+``HookRemoveHelper``).
 
 :class:`Layer` is a ``torch.nn.Module``. Its ``__call__`` is where
 paddle's Tensors meet torch modules: when a Tensor comes in (as an
@@ -13,17 +14,41 @@ engines, the captured programs) keep torch types and pay nothing more
 unwrapped on the way out).
 Every layer of the port derives from it.
 
+The reference's own API sits beside torch's where their names meet
+(reference ``:63-338``): ``full_name``, the forward pre- and post-hooks
+(run in ``__call__`` around the unwrapping, in registration order, so a
+hook sees the caller's types: Tensors when Tensors came in; a pre-hook's
+non-None return replaces the positional inputs, a post-hook's the
+outputs), ``parameters``/``buffers`` (lists, ``include_sublayers=``),
+``named_parameters``/``named_buffers``, ``sublayers``/
+``named_sublayers``, ``add_sublayer``, ``add_parameter``,
+``register_buffer(name, tensor, persistable=)``, ``create_tensor``,
+``state_dict(include_sublayers=, structured_name_prefix=)``,
+``set_state_dict``/``load_dict`` (shape-checked, copied in place, so a
+captured program that bound the old storage reads the new values),
+``to(device, dtype, blocking)``, ``astype``, ``apply`` (the layer first,
+then its sublayers), ``clear_gradients`` and the reference's
+``__repr__``. torch's own keywords (``recurse=``, ``remove_duplicate=``,
+``prefix=``, ``keep_vars=``, ``destination=``, ``persistent=``) still
+work where torch's code passes them (``Module.state_dict`` recursing,
+``load_state_dict``, ``copy.deepcopy``, ``torch.utils.checkpoint``).
+``state_dict`` keeps torch's keys and order (each layer's parameters,
+then its persistent buffers, in registration order), which
+``framework_io`` and ``paddle.save`` have always written.
+
 :class:`ParamAttr` (reference ``:34``) names a parameter's initializer,
 learning-rate scale, regularizer, trainability and clipping;
 :meth:`Layer.create_parameter` (reference ``:82``) makes a
 :class:`~paddle_tpu_torch.core.tensor.Parameter` from it on the device
 entry points run on, setting ``optimize_attr``,
 ``regularizer`` and ``need_clip``, which the optimizers and the clips
-read. The rest of the reference's ``Layer`` API (``sublayers``, forward
-hooks, ``parameters(include_sublayers=)``) is ROADMAP.md queue A3.
+read.
 """
 from __future__ import annotations
 
+import collections
+
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -32,7 +57,7 @@ from ..core.device import resolve_device
 from ..core.tensor import Parameter, Tensor
 from . import initializer as I
 
-__all__ = ["Layer", "ParamAttr"]
+__all__ = ["Layer", "ParamAttr", "HookRemoveHelper"]
 
 
 def _has_tensor(args) -> bool:
@@ -70,6 +95,18 @@ def _unwrap(a):
             return items
         return type(a)(*items) if hasattr(a, "_fields") else tuple(items)
     return a
+
+
+class HookRemoveHelper:
+    """The handle a hook registration returns: ``remove()`` takes the
+    hook out (reference ``:25``)."""
+
+    def __init__(self, hooks, hook_id):
+        self._hooks = hooks
+        self._hook_id = hook_id
+
+    def remove(self):
+        self._hooks.pop(self._hook_id, None)
 
 
 class ParamAttr:
@@ -132,11 +169,50 @@ def make_parameter(shape, attr=None, dtype=None, is_bias=False,
     return p
 
 
+def _as_torch(v):
+    """A torch tensor of ``v`` (a Tensor, a torch tensor or an array)."""
+    if isinstance(v, Tensor):
+        return v._data
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.as_tensor(np.asarray(v))
+
+
 class Layer(torch.nn.Module):
     """A ``torch.nn.Module`` that takes and returns paddle Tensors at its
-    boundary (module docstring)."""
+    boundary, with the reference's ``Layer`` API (module docstring)."""
 
+    _global_counter = collections.defaultdict(int)
+
+    def __init__(self, name_scope=None, dtype="float32"):
+        super().__init__()
+        cls = type(self).__name__.lower()
+        Layer._global_counter[cls] += 1
+        self._full_name = name_scope or \
+            f"{cls}_{Layer._global_counter[cls] - 1}"
+        self._dtype = _dt.convert_dtype(dtype)
+        self._pre_hooks = collections.OrderedDict()
+        self._post_hooks = collections.OrderedDict()
+        self._hook_id = 0
+
+    # -- execution ------------------------------------------------------------
     def __call__(self, *args, **kwargs):
+        pre = self.__dict__.get("_pre_hooks")
+        post = self.__dict__.get("_post_hooks")
+        if pre:
+            for hook in list(pre.values()):
+                out = hook(self, args)
+                if out is not None:
+                    args = out if isinstance(out, tuple) else (out,)
+        out = self._call(args, kwargs)
+        if post:
+            for hook in list(post.values()):
+                o = hook(self, args, out)
+                if o is not None:
+                    out = o
+        return out
+
+    def _call(self, args, kwargs):
         if not (_has_tensor(args) or (kwargs
                                       and _has_tensor(kwargs.values()))):
             out = super().__call__(*args, **kwargs)
@@ -153,10 +229,192 @@ class Layer(torch.nn.Module):
             return Tensor._wrap(out)
         return pytree.tree_map_only(torch.Tensor, Tensor._wrap, out)
 
+    def register_forward_pre_hook(self, hook) -> HookRemoveHelper:
+        """``hook(layer, inputs)`` before each forward; a non-None return
+        replaces ``inputs`` (a tuple, or one value)."""
+        self._hook_id += 1
+        self._pre_hooks[self._hook_id] = hook
+        return HookRemoveHelper(self._pre_hooks, self._hook_id)
+
+    def register_forward_post_hook(self, hook) -> HookRemoveHelper:
+        """``hook(layer, inputs, outputs)`` after each forward; a non-None
+        return replaces ``outputs``."""
+        self._hook_id += 1
+        self._post_hooks[self._hook_id] = hook
+        return HookRemoveHelper(self._post_hooks, self._hook_id)
+
+    # -- parameters, buffers, sublayers ---------------------------------------
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
                          default_initializer=None):
         """A :class:`Parameter` made by :func:`make_parameter` on the
-        device entry points run on; not registered until it is assigned
-        to an attribute, as in the reference."""
-        return make_parameter(shape, attr, dtype, is_bias,
-                              default_initializer)
+        device entry points run on, in the layer's dtype by default; not
+        registered until it is assigned to an attribute, as in the
+        reference."""
+        return make_parameter(shape, attr, dtype or self.__dict__.get(
+            "_dtype"), is_bias, default_initializer)
+
+    def create_tensor(self, name=None, persistable=False, dtype=None):
+        """A zero scalar Tensor of ``dtype`` (the layer's by default)."""
+        return Tensor._wrap(torch.zeros(
+            [], dtype=_dt.convert_dtype(dtype) or self._dtype,
+            device=resolve_device()))
+
+    def add_parameter(self, name, parameter):
+        """Register ``parameter`` (made a :class:`Parameter` if it is not
+        one) as ``name``; None registers no data."""
+        if parameter is not None and not isinstance(parameter, Parameter):
+            parameter = Parameter(_as_torch(parameter).detach().clone())
+        if name not in self._parameters:
+            self.__dict__.pop(name, None)
+        self.register_parameter(name, parameter)
+        return parameter
+
+    def register_buffer(self, name, tensor, persistable=True, *,
+                        persistent=None):
+        """Register ``tensor`` as buffer ``name``, in the state dict
+        unless ``persistable`` (torch's ``persistent``) is False; returns
+        it."""
+        if persistent is not None:
+            persistable = persistent
+        if tensor is not None:
+            tensor = _as_torch(tensor)
+        super().register_buffer(name, tensor, persistent=bool(persistable))
+        return tensor
+
+    def add_sublayer(self, name, sublayer):
+        self.add_module(str(name), sublayer)
+        return sublayer
+
+    def parameters(self, include_sublayers=True, *, recurse=None):
+        """The parameters, each once, in registration order (a list)."""
+        return [p for _, p in self.named_parameters(
+            include_sublayers=include_sublayers, recurse=recurse)]
+
+    def named_parameters(self, prefix="", include_sublayers=True,
+                         include_self=True, *, recurse=None,
+                         remove_duplicate=True):
+        return super().named_parameters(
+            prefix, include_sublayers if recurse is None else recurse,
+            remove_duplicate)
+
+    def buffers(self, include_sublayers=True, *, recurse=None):
+        return [b for _, b in self.named_buffers(
+            include_sublayers=include_sublayers, recurse=recurse)]
+
+    def named_buffers(self, prefix="", include_sublayers=True, *,
+                      recurse=None, remove_duplicate=True):
+        return super().named_buffers(
+            prefix, include_sublayers if recurse is None else recurse,
+            remove_duplicate)
+
+    def sublayers(self, include_self=False):
+        return [m for _, m in self.named_sublayers(include_self=include_self)]
+
+    def named_sublayers(self, prefix="", include_self=False,
+                        layers_set=None):
+        """``(name, layer)`` of every sublayer, depth first in
+        registration order, each once."""
+        for name, m in self.named_modules(
+                memo=layers_set if layers_set is not None else set(),
+                prefix=prefix):
+            if m is not self or include_self:
+                yield name, m
+
+    def apply(self, fn):
+        """``fn`` on the layer, then on each sublayer (the reference's
+        order; torch's ``apply`` goes children first)."""
+        for m in self.sublayers(include_self=True):
+            fn(m)
+        return self
+
+    # -- state ----------------------------------------------------------------
+    def state_dict(self, destination=None, include_sublayers=True,
+                   structured_name_prefix="", use_hook=True, *,
+                   prefix=None, keep_vars=False):
+        """Parameters and persistable buffers by structured name, torch's
+        order (module docstring); ``include_sublayers=False`` keeps the
+        layer's own."""
+        if prefix is not None:          # torch's recursion
+            return super().state_dict(destination=destination,
+                                      prefix=prefix, keep_vars=keep_vars)
+        if include_sublayers:
+            return super().state_dict(destination=destination,
+                                      prefix=structured_name_prefix,
+                                      keep_vars=keep_vars)
+        dest = collections.OrderedDict() if destination is None \
+            else destination
+        self._save_to_state_dict(dest, structured_name_prefix, keep_vars)
+        return dest
+
+    @torch.no_grad()
+    def set_state_dict(self, state_dict, use_structured_name=True):
+        """Copy ``state_dict``'s values (Tensors, torch tensors or
+        arrays) into the layer's parameters and buffers in place, each
+        cast to its target's dtype; a shape that differs raises
+        ``ValueError``. Returns ``(missing, unexpected)`` keys."""
+        own = self.state_dict(keep_vars=True)
+        missing = []
+        for k, t in own.items():
+            if k not in state_dict:
+                missing.append(k)
+                continue
+            v = _as_torch(state_dict[k])
+            if tuple(v.shape) != tuple(t.shape):
+                raise ValueError(f"shape mismatch for {k}: "
+                                 f"{tuple(v.shape)} vs {tuple(t.shape)}")
+            t.copy_(v.to(device=t.device, dtype=t.dtype))
+        unexpected = [k for k in state_dict if k not in own]
+        return missing, unexpected
+
+    load_dict = set_state_dict
+
+    def clear_gradients(self):
+        for p in self.parameters():
+            p.clear_grad()
+
+    # -- casting --------------------------------------------------------------
+    def to(self, *args, device=None, dtype=None, blocking=None, **kwargs):
+        """``to(device=None, dtype=None, blocking=None)`` with paddle's
+        spellings (``"gpu"``, ``"float16"``), or torch's own arguments;
+        floating parameters and buffers only change type, as in both."""
+        rest = []
+        for a in args:
+            if isinstance(a, str):
+                try:
+                    dtype = _dt.convert_dtype(a)
+                    continue
+                except TypeError:
+                    a = resolve_device(a)
+            elif isinstance(a, torch.dtype):
+                dtype = a
+                continue
+            rest.append(a)
+        if isinstance(device, str):
+            device = resolve_device(device)
+        if device is not None:
+            kwargs["device"] = device
+        if dtype is not None:
+            kwargs["dtype"] = _dt.convert_dtype(dtype)
+            for m in self.modules():
+                if "_dtype" in m.__dict__:
+                    m._dtype = kwargs["dtype"]
+        return super().to(*rest, **kwargs)
+
+    def astype(self, dtype):
+        return self.to(dtype=dtype)
+
+    def full_name(self):
+        return self._full_name
+
+    def __repr__(self):
+        extra = self.extra_repr()
+        lines = [f"{type(self).__name__}({extra}" if extra
+                 else f"{type(self).__name__}("]
+        for name, sub in self._modules.items():
+            if sub is None:
+                continue
+            lines.append(f"  ({name}): "
+                         + "\n  ".join(repr(sub).split("\n")))
+        lines.append(")")
+        return "\n".join(lines) if len(lines) > 2 else \
+            f"{type(self).__name__}({extra})"

@@ -42,6 +42,7 @@ from ..ops.flash_attention import SUPPORTED_HEAD_DIMS, flash_attention
 from ..ops.math import matmul
 from . import functional as F
 from .layers_common import Dropout, LayerNorm, Linear
+from .container import LayerList
 from .layer_base import Layer
 
 
@@ -245,12 +246,12 @@ class TransformerEncoderLayer(Layer):
         return self.self_attn.gen_cache(src)
 
 
-def _clones(layer: nn.Module, n: int) -> nn.ModuleList:
+def _clones(layer: nn.Module, n: int) -> LayerList:
     """``layer`` and ``n - 1`` deep copies of it (the copies start equal;
     re-draw them with
     :func:`~paddle_tpu_torch.nn.layers_common.reset_parameters`)."""
-    return nn.ModuleList([layer] + [copy.deepcopy(layer)
-                                    for _ in range(n - 1)])
+    return LayerList([layer] + [copy.deepcopy(layer)
+                             for _ in range(n - 1)])
 
 
 class TransformerEncoder(Layer):
@@ -439,6 +440,6 @@ class Transformer(Layer):
     def generate_square_subsequent_mask(self, length: int):
         """``[length, length]`` float32: 0 on and below the diagonal,
         -inf above, on the model's device."""
-        dev = next(self.parameters()).device
+        dev = self.parameters()[0].device
         return torch.triu(torch.full((length, length), float("-inf"),
                                      dtype=torch.float32, device=dev), 1)

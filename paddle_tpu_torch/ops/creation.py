@@ -319,6 +319,14 @@ def rand(shape, dtype=None, name=None):
     return uniform(shape, dtype, 0.0, 1.0)
 
 
+def _normal_draw(shape, dtype, mean, std, device, generator=None):
+    """``normal_(mean, std)`` into a new tensor: the draw an in-place
+    ``normal_`` of the same generator makes."""
+    g = _gen(device, 0, generator)
+    return draw(lambda: torch.empty(shape, dtype=dtype, device=device)
+                .normal_(mean, std, generator=g))
+
+
 def _std_normal(shape, dtype, device, seed=0, generator=None):
     g = _gen(device, seed, generator)
     return draw(lambda: torch.randn(shape, dtype=dtype, device=device,

@@ -29,11 +29,11 @@ from paddle_tpu_torch.ops import detection as tdet
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
 from paddle_tpu_torch.serving.llm.paged import GPTPagedDecoder
-from test_torch_op_table import (CUDA_CASES, HOST_CASES, NER_TAGS,
-                                 bert_crf_tagger, cond_net,
+from test_torch_op_table import (CUDA_CASES, HOST_CASES, LAYER_CASES,
+                                 NER_TAGS, bert_crf_tagger, cond_net,
                                  cuda_case_holds, gpt_beam_cells,
-                                 iob_tags, random_ops_hold,
-                                 structured_draws_hold)
+                                 iob_tags, layer_case_holds,
+                                 random_ops_hold, structured_draws_hold)
 
 tfa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
 
@@ -2656,3 +2656,101 @@ def test_dynamic_decode_on_the_card_matches_the_cpu(cuda):
                                 res["cpu", cached][0])
     assert res["gpu", True][2] == 0
     assert res["gpu", False][2] == 6 * MODEL["num_layers"]
+
+
+# -- the rest of the nn layers (A3) ---------------------------------------------
+
+@pytest.mark.parametrize("case", LAYER_CASES, ids=repr)
+def test_layer_table_on_the_card_matches_the_cpu(cuda, case):
+    """Each A3 layer case on CUDA against the CPU from the same state:
+    outputs, state after the call and gradients."""
+    import paddle_tpu_torch as P
+    layer_case_holds(case, P)
+
+
+def _mlp_model(cuda, seed, hook=None):
+    import paddle_tpu_torch as P
+    P.seed(seed)
+    net = P.nn.Sequential(P.nn.Linear(8, 16, device=cuda), P.nn.GELU(),
+                          P.nn.Linear(16, 4, device=cuda))
+    if hook is not None:
+        net[0].register_forward_post_hook(hook)
+    model = P.Model(net)
+    model.prepare(P.optimizer.SGD(learning_rate=0.1,
+                                  parameters=net.parameters(), device=cuda),
+                  P.nn.CrossEntropyLoss())
+    return model, net
+
+
+def _mlp_batch(cuda):
+    rng = np.random.default_rng(19)
+    return (torch.from_numpy(rng.standard_normal((32, 8), dtype=np.float32)
+                             ).to(cuda),
+            torch.from_numpy(rng.integers(0, 4, (32,))).to(cuda))
+
+
+def test_set_state_dict_into_a_captured_program(cuda):
+    """``set_state_dict`` copies in place: after the capture, weights set
+    through it are what the replays read, so the next graphed step equals
+    an eager step from those weights."""
+    from paddle_tpu_torch.core import graphs
+    x, y = _mlp_batch(cuda)
+    model, net = _mlp_model(cuda, 0)
+    model.train_batch([x], [y])
+    model.train_batch([x], [y])
+    ptrs = [p.data_ptr() for p in net.parameters()]
+    _, other = _mlp_model(cuda, 1)
+    assert net.set_state_dict(other.state_dict()) == ([], [])
+    assert [p.data_ptr() for p in net.parameters()] == ptrs
+    got = [model.train_batch([x], [y])[0] for _ in range(2)]
+    assert model._train_step_fn["fn"].replays == 3
+    ref_model, _ = _mlp_model(cuda, 1)
+    with graphs.disable_graphs():
+        ref = [ref_model.train_batch([x], [y])[0] for _ in range(2)]
+    _equal_or_close(got, ref, "losses after set_state_dict")
+
+
+def test_forward_post_hook_under_train_batch(cuda):
+    """A post-hook that scales the first layer's output changes the
+    loss the same way in both lanes; its Python runs at every eager step
+    but only while the graphed lane captures (a replay runs none)."""
+    from paddle_tpu_torch.core import graphs
+    x, y = _mlp_batch(cuda)
+    res = {}
+    for lane in ("graphed", "eager"):
+        calls = []
+
+        def hook(layer, inputs, out, calls=calls):
+            calls.append(type(out))
+            return out * 2.0
+        model, _ = _mlp_model(cuda, 0, hook)
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        with ctx:
+            res[lane] = ([model.train_batch([x], [y])[0] for _ in range(4)],
+                         calls)
+    _equal_or_close(res["graphed"][0], res["eager"][0], "losses")
+    assert len(res["eager"][1]) == 4
+    assert 1 <= len(res["graphed"][1]) < 4
+    assert set(res["eager"][1]) == {torch.Tensor}
+    plain, _ = _mlp_model(cuda, 0)
+    with graphs.disable_graphs():
+        assert plain.train_batch([x], [y])[0] != res["eager"][0][0]
+
+
+def test_max_pool2d_mask_on_ties_matches_the_cpu(cuda):
+    """Windows of equal maxima: the card's index is the CPU's (the
+    first maximum in row-major order; column-major in a window two wide
+    with padding at its sides, as the JAX package's)."""
+    import paddle_tpu_torch as P
+    F = P.nn.functional
+    x = np.random.default_rng(4).integers(0, 2, (2, 3, 9, 8)).astype(
+        np.float32)
+    for kw in (dict(kernel_size=2), dict(kernel_size=3, stride=1,
+                                         padding=1),
+               dict(kernel_size=[3, 2], stride=[2, 1], padding=1)):
+        cpu = F.max_pool2d(torch.from_numpy(x), return_mask=True, **kw)
+        gpu = F.max_pool2d(torch.from_numpy(x).to(cuda), return_mask=True,
+                           **kw)
+        for a, b in zip(gpu, cpu):
+            assert torch.equal(a.cpu(), b), kw

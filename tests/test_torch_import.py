@@ -70,6 +70,13 @@ def test_import_leaves_no_jax_in_subprocess():
         "import paddle_tpu_torch.ops.extras, paddle_tpu_torch.incubate\n"
         "import paddle_tpu_torch.nn.functional.sampled\n"
         "import paddle_tpu_torch.nn.beam_decode\n"
+        "import paddle_tpu_torch.nn.container, paddle_tpu_torch.nn.utils\n"
+        "import paddle_tpu_torch.nn.layers_common\n"
+        "import paddle_tpu_torch.nn.layers_activation\n"
+        "import paddle_tpu_torch.nn.utils_weight_norm\n"
+        "import paddle_tpu_torch.nn.functional.conv\n"
+        "import paddle_tpu_torch.nn.functional.pooling\n"
+        "import paddle_tpu_torch.vision.models.mobilenet\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(repr(bad))\n")
@@ -198,5 +205,38 @@ def test_structured_knobs_raise(monkeypatch, knob, exc, match):
         "sequence_pad_without_maxlen_in_capture": lambda: P.ops.
         sequence_pad(x, 0.0, length=n),
     }[knob]
+    with pytest.raises(exc, match=match):
+        call()
+
+
+@pytest.mark.parametrize("knob,exc,match", [
+    ("conv2d_transpose_output_size", NotImplementedError, "never reads"),
+    ("conv3d_transpose_output_size", NotImplementedError, "never reads"),
+    ("avg_pool2d_divisor_override", NotImplementedError, "never reads"),
+    ("avg_pool3d_divisor_override", NotImplementedError, "never reads"),
+    ("mobilenet_v1_pretrained", RuntimeError, "network"),
+    ("mobilenet_v2_pretrained", RuntimeError, "network"),
+    ("mobilenet_v3_large_pretrained", RuntimeError, "network"),
+    ("mobilenet_v3_small_pretrained", RuntimeError, "network"),
+])
+def test_a3_knobs_raise(knob, exc, match):
+    """The rest of the nn layers' refusals: ``output_size`` of the
+    transposed convolutions and ``divisor_override`` of the average
+    pools, which the JAX package takes and never reads, and the
+    MobileNets' ``pretrained=True`` (no network), as the JAX package's."""
+    F = paddle_tpu_torch.nn.functional
+    models = paddle_tpu_torch.vision.models
+    x = torch.zeros(1, 2, 4, 4)
+    call = {
+        "conv2d_transpose_output_size": lambda: F.conv2d_transpose(
+            x, torch.zeros(2, 2, 3, 3), output_size=[6, 6]),
+        "conv3d_transpose_output_size": lambda: F.conv3d_transpose(
+            x[None], torch.zeros(2, 2, 1, 3, 3), output_size=[1, 6, 6]),
+        "avg_pool2d_divisor_override": lambda: F.avg_pool2d(
+            x, 2, divisor_override=4),
+        "avg_pool3d_divisor_override": lambda: F.avg_pool3d(
+            x[None], 2, divisor_override=8),
+    }.get(knob) or (lambda: getattr(models, knob[:-len("_pretrained")])(
+        pretrained=True))
     with pytest.raises(exc, match=match):
         call()

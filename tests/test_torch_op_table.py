@@ -152,6 +152,13 @@ def _leaves(out):
 
 
 def _np_of(v):
+    """NumPy of a Tensor, a Parameter or a torch tensor on any device."""
+    if v is None:
+        return None
+    import torch
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
     if hasattr(v, "numpy"):
         return np.asarray(v.numpy())
     return np.asarray(v)
@@ -1098,6 +1105,124 @@ def _iob(n, t, types):
     return make
 
 
+def _ties(*shape, levels=3):
+    """Floats from a few repeated levels: windows of equal maxima."""
+    def make(rng):
+        return rng.integers(0, levels, shape).astype(np.float32)
+    return make
+
+
+def _a3_cases():
+    """The A3 functionals: the convolutions, the pools and the
+    interpolation modes (``nn/functional/{conv,pooling,common}.py``)."""
+    C, F = OpCase, _F
+    cv, pl, it = "a3_conv", "a3_pool", "a3_interp"
+    cases = [
+        C("F.conv1d", lambda m, x, w, b: _f(m).conv1d(x, w, b, padding=1),
+          [F(2, 3, 7), F(4, 3, 3), F(4)], cv),
+        C("F.conv1d_nlc_stride_groups", lambda m, x, w: _f(m).conv1d(
+            x, w, stride=2, groups=2, data_format="NLC"),
+          [F(2, 9, 4), F(6, 2, 3)], cv),
+        C("F.conv2d_depthwise_same", lambda m, x, w: _f(m).conv2d(
+            x, w, stride=2, padding="SAME", groups=4),
+          [F(2, 4, 7, 7), F(4, 1, 5, 5)], cv),
+        C("F.conv3d", lambda m, x, w, b: _f(m).conv3d(
+            x, w, b, padding=[1, 0, 1], dilation=[1, 2, 1]),
+          [F(1, 2, 4, 6, 5), F(3, 2, 3, 2, 3), F(3)], cv),
+        C("F.conv3d_ndhwc_pairs", lambda m, x, w: _f(m).conv3d(
+            x, w, padding=[0, 1, 1, 0, 1, 1], data_format="NDHWC"),
+          [F(1, 3, 4, 4, 2), F(2, 2, 2, 2, 2)], cv),
+        C("F.conv1d_transpose", lambda m, x, w, b: _f(m).conv1d_transpose(
+            x, w, b, stride=2, padding=1, output_padding=1),
+          [F(2, 3, 5), F(3, 4, 3), F(4)], cv),
+        C("F.conv2d_transpose", lambda m, x, w, b: _f(m).conv2d_transpose(
+            x, w, b, stride=2, padding=1),
+          [F(2, 4, 3, 4), F(4, 3, 3, 3), F(3)], cv),
+        C("F.conv2d_transpose_groups_dilation", lambda m, x, w:
+          _f(m).conv2d_transpose(x, w, stride=[2, 1], padding=[1, 0],
+                                 output_padding=[1, 0], groups=2,
+                                 dilation=[1, 2]),
+          [F(1, 4, 3, 3), F(4, 2, 3, 2)], cv),
+        C("F.conv2d_transpose_pairs_nhwc", lambda m, x, w:
+          _f(m).conv2d_transpose(x, w, stride=2,
+                                 padding=[0, 1, 1, 2], output_padding=1,
+                                 data_format="NHWC"),
+          [F(1, 3, 4, 2), F(2, 3, 3, 3)], cv),
+        C("F.conv3d_transpose", lambda m, x, w, b: _f(m).conv3d_transpose(
+            x, w, b, stride=2, padding=1),
+          [F(1, 2, 3, 2, 3), F(2, 3, 3, 3, 3), F(3)], cv),
+        C("F.deformable_conv_v1", lambda m, x, o, w, b:
+          _f(m).deformable_conv(x, o * 1.5, w, bias=b, padding=1),
+          [F(2, 4, 5, 5), F(2, 18, 5, 5), F(3, 4, 3, 3), F(3)], cv),
+        C("F.deformable_conv_v2_groups", lambda m, x, o, mk, w:
+          _f(m).deformable_conv(x, o, w, mask=mk, stride=2,
+                                deformable_groups=2, groups=2),
+          [F(1, 4, 6, 6), F(1, 16, 3, 3), F(1, 8, 3, 3, lo=0, hi=1),
+           F(4, 2, 2, 2)], cv),
+        C("F.max_pool3d", lambda m, x: _f(m).max_pool3d(x, 2, padding=1),
+          [F(1, 2, 4, 5, 4)], pl),
+        C("F.max_pool3d_ceil_ndhwc", lambda m, x: _f(m).max_pool3d(
+            x, 3, 2, ceil_mode=True, data_format="NDHWC"),
+          [F(1, 5, 6, 4, 2)], pl),
+        C("F.avg_pool3d", lambda m, x: _f(m).avg_pool3d(x, 2, padding=1),
+          [F(1, 2, 4, 5, 4)], pl),
+        C("F.avg_pool3d_inclusive_ceil", lambda m, x: _f(m).avg_pool3d(
+            x, [2, 3, 2], 2, ceil_mode=True, exclusive=False),
+          [F(1, 2, 5, 5, 4)], pl),
+        C("F.adaptive_avg_pool3d", lambda m, x: _f(m).adaptive_avg_pool3d(
+            x, [2, 3, 2]), [F(1, 2, 5, 7, 4)], pl),
+        C("F.adaptive_max_pool1d", lambda m, x: _f(m).adaptive_max_pool1d(
+            x, 3), [F(2, 3, 8)], pl),
+        C("F.adaptive_max_pool2d", lambda m, x: _f(m).adaptive_max_pool2d(
+            x, [3, 2]), [F(2, 3, 7, 6)], pl),
+        C("F.adaptive_max_pool2d_uniform", lambda m, x:
+          _f(m).adaptive_max_pool2d(x, 2), [F(1, 2, 4, 6)], pl),
+        C("F.adaptive_max_pool3d", lambda m, x: _f(m).adaptive_max_pool3d(
+            x, [2, 2, 3]), [F(1, 2, 5, 4, 7)], pl),
+        C("F.max_pool2d_mask", lambda m, x: _f(m).max_pool2d(
+            x, 3, 2, padding=1, return_mask=True), [F(2, 3, 7, 6)], pl,
+          grad=False),
+        C("F.max_pool2d_mask_ties", lambda m, x: _f(m).max_pool2d(
+            x, 2, return_mask=True), [_ties(2, 2, 6, 6)], pl, grad=False),
+        C("F.max_pool2d_mask_ties_padded", lambda m, x: _f(m).max_pool2d(
+            x - 1.0, [3, 2], [2, 1], padding=[1, 1], return_mask=True),
+          [_ties(1, 2, 5, 5, levels=2)], pl, grad=False),
+        C("F.max_pool2d_mask_ties_padded_3x3", lambda m, x:
+          _f(m).max_pool2d(x - 1.0, 3, 1, padding=1, return_mask=True),
+          [_ties(1, 2, 5, 6, levels=2)], pl, grad=False),
+    ]
+    for mode in ("bilinear", "bicubic", "area"):
+        for kw, tag in ((dict(scale_factor=2), "up"),
+                        (dict(size=[3, 2]), "down"),
+                        (dict(size=[7, 3]), "mixed")):
+            cases.append(C(
+                f"F.interpolate_{mode}_{tag}", lambda m, x, mode=mode,
+                kw=kw: _f(m).interpolate(x, mode=mode, **kw),
+                [F(2, 3, 5, 6)], it))
+        cases.append(C(
+            f"F.interpolate_{mode}_align_corners", lambda m, x, mode=mode:
+            _f(m).interpolate(x, size=[7, 4], mode=mode,
+                              align_corners=True), [F(1, 2, 4, 5)], it))
+    cases += [
+        C("F.interpolate_linear_ncw", lambda m, x: _f(m).interpolate(
+            x, size=[11], mode="linear", data_format="NCW"),
+          [F(2, 3, 6)], it),
+        C("F.interpolate_bilinear_nhwc", lambda m, x: _f(m).interpolate(
+            x, scale_factor=[1.5, 0.5], mode="bilinear",
+            data_format="NHWC"), [F(1, 4, 6, 2)], it),
+        C("F.interpolate_trilinear", lambda m, x: _f(m).interpolate(
+            x, size=[5, 2, 7], mode="trilinear", data_format="NCDHW"),
+          [F(1, 2, 3, 4, 5)], it),
+        C("F.interpolate_trilinear_align_corners", lambda m, x:
+          _f(m).interpolate(x, scale_factor=2, mode="trilinear",
+                            align_corners=True, data_format="NCDHW"),
+          [F(1, 1, 2, 3, 2)], it),
+        C("F.upsample_bicubic", lambda m, x: _f(m).upsample(
+            x, size=[4, 9], mode="bicubic"), [F(1, 2, 3, 3)], it),
+    ]
+    return cases
+
+
 def _structured_cases():
     C, F, I, A = OpCase, _F, _I, _A
     L = lambda *v: A(list(v), np.int64)  # noqa: E731
@@ -1306,7 +1431,8 @@ def _structured_cases():
 #: every case of the op table, by module
 OP_CASES = (_math_cases() + _manipulation_cases() + _creation_cases()
             + _linalg_cases() + _activation_cases() + _common_cases()
-            + _norm_cases() + _loss_cases() + _structured_cases())
+            + _norm_cases() + _loss_cases() + _structured_cases()
+            + _a3_cases())
 
 #: the cases run on the card (ties and host reads stay on the CPU)
 CUDA_CASES = [c for c in OP_CASES if c.cuda]
@@ -1316,6 +1442,9 @@ HOST_CASES = [c for c in OP_CASES if c.host]
 
 #: the structured half's modules (phase 23 of ``chip_smoke.py``)
 STRUCTURED = ("segment", "sequence", "beam", "crf", "extras", "sampled")
+
+#: the A3 functionals' modules (phase 25 of ``chip_smoke.py``)
+A3 = ("a3_conv", "a3_pool", "a3_interp")
 
 
 def cuda_case_holds(case, port):
@@ -1454,6 +1583,339 @@ def random_ops_hold(P, place):
     finally:
         tdevice._CURRENT[0] = saved
     return fails
+
+
+# -- the A3 layer table -------------------------------------------------------
+
+class LayerCase(OpCase):
+    """One layer called on seeded inputs: ``build(m)`` makes the layer of
+    package ``m``, ``call(layer, *tensors)`` (by default ``layer(*ts)``)
+    runs it in training mode with ``train``, else in eval mode;
+    ``grad=False`` takes no gradient of the inputs; ``module`` is
+    ``"common"`` or ``"activation"`` (the activation and loss layers).
+    :func:`run_layer_case` gives its outputs, the gradients of a seeded
+    cotangent for its float inputs and its parameters, and its state
+    after the call (running statistics move in training)."""
+
+    def __init__(self, name, build, makers, call=None, train=False,
+                 tol=1e-5, gtol=1e-4, grad=True, module="common"):
+        super().__init__(name, None, makers, module, grad=grad, tol=tol,
+                         gtol=gtol)
+        self.build, self.train = build, train
+        self.call = call or (lambda layer, *ts: layer(*ts))
+
+
+def run_layer_case(m, case, place=None, state=None):
+    """``(outputs, input grads, {param: grad}, {name: state})`` of ``case``
+    through package ``m`` as NumPy arrays; with ``state`` (NumPy or
+    tensors by name) the layer's parameters and buffers are set from it
+    first (``set_state_dict``)."""
+    layer = case.build(m)
+    if state is not None:
+        missing, unexpected = layer.set_state_dict(state)
+        assert not missing and not unexpected, (case, missing, unexpected)
+    if case.train:
+        layer.train()
+    else:
+        layer.eval()
+    arrays = case.arrays()
+    floats = [a.dtype.kind == "f" for a in arrays]
+    kw = {} if place is None else {"place": place}
+    ts = [m.to_tensor(a, stop_gradient=not (f and case.grad), **kw)
+          for a, f in zip(arrays, floats)]
+    out = case.call(layer, *ts)
+    leaves = _leaves(out)
+    outs = [_np_of(v) for v in leaves]
+    after = {k: _np_of(v) for k, v in layer.state_dict().items()}
+    rng = np.random.default_rng(zlib.crc32(("cot" + case.name).encode()))
+    loss = None
+    for v in leaves:
+        if not v.stop_gradient and _np_of(v).dtype.kind == "f":
+            cot = m.to_tensor(rng.standard_normal(v.shape).astype(
+                np.float32), **kw)
+            term = (v * cot).sum()
+            loss = term if loss is None else loss + term
+    if loss is not None:
+        loss.backward()
+    grads = [_np_of(t.grad) if case.grad else None
+             for t, f in zip(ts, floats) if f]
+    pgrads = {n: _np_of(p.grad) for n, p in layer.named_parameters()}
+    return outs, grads, pgrads, after
+
+
+def assert_layer_case_close(case, got, ref, what, tol=None, gtol=None):
+    """``got`` against ``ref`` (:func:`run_layer_case`'s): outputs and
+    state within ``tol`` of the largest entry (the rest bitwise),
+    gradients within ``gtol``; parameter and state names equal."""
+    tol = case.tol if tol is None else tol
+    gtol = case.gtol if gtol is None else gtol
+    (outs, grads, pgrads, state), (routs, rgrads, rpgrads, rstate) = got, \
+        ref
+    assert sorted(pgrads) == sorted(rpgrads), (case, what, sorted(pgrads),
+                                               sorted(rpgrads))
+    assert sorted(state) == sorted(rstate), (case, what, sorted(state),
+                                             sorted(rstate))
+    names = sorted(pgrads)
+    assert_case_close(
+        case, (outs + [state[k] for k in sorted(state)],
+               grads + [pgrads[k] for k in names]),
+        (routs + [rstate[k] for k in sorted(rstate)],
+         rgrads + [rpgrads[k] for k in names]), what, tol, gtol)
+
+
+def _layer_cases():
+    """Every layer class of A3 (``nn/layers_common.py``,
+    ``nn/layers_activation.py``, ``nn/container.py``, the weight and
+    spectral norms), each on seeded inputs."""
+    L, F, I = LayerCase, _F, _I
+    n = lambda m: m.nn  # noqa: E731
+    act = "activation"
+    cases = [
+        L("Conv1D", lambda m: n(m).Conv1D(3, 4, 3, padding=1),
+          [F(2, 3, 7)]),
+        L("Conv2D_depthwise", lambda m: n(m).Conv2D(4, 4, 3, stride=2,
+                                                     padding=1, groups=4,
+                                                     bias_attr=False),
+          [F(2, 4, 7, 7)]),
+        L("Conv3D", lambda m: n(m).Conv3D(2, 3, [3, 2, 3], padding=1),
+          [F(1, 2, 4, 5, 4)]),
+        L("Conv1DTranspose", lambda m: n(m).Conv1DTranspose(
+            3, 4, 3, stride=2, padding=1, output_padding=1), [F(2, 3, 5)]),
+        L("Conv2DTranspose", lambda m: n(m).Conv2DTranspose(
+            4, 6, 3, stride=2, padding=1, groups=2), [F(2, 4, 3, 4)]),
+        L("Conv3DTranspose", lambda m: n(m).Conv3DTranspose(
+            2, 3, 2, stride=2), [F(1, 2, 2, 3, 2)]),
+        L("BatchNorm_train", lambda m: n(m).BatchNorm(3),
+          [F(4, 3, 5)], train=True),
+        L("BatchNorm3D_train", lambda m: n(m).BatchNorm3D(2),
+          [F(2, 2, 3, 3, 2)], train=True),
+        L("BatchNorm3D_eval", lambda m: n(m).BatchNorm3D(2),
+          [F(2, 2, 3, 3, 2)]),
+        L("SyncBatchNorm_train", lambda m: n(m).SyncBatchNorm(3),
+          [F(4, 3, 2, 2)], train=True),
+        L("SyncBatchNorm_converted", lambda m: n(m).SyncBatchNorm.
+          convert_sync_batchnorm(n(m).Sequential(
+              n(m).Conv2D(2, 3, 1), n(m).BatchNorm2D(3))),
+          [F(2, 2, 3, 3)], train=True),
+        L("GroupNorm", lambda m: n(m).GroupNorm(2, 4), [F(2, 4, 3, 3)]),
+        L("InstanceNorm1D", lambda m: n(m).InstanceNorm1D(3),
+          [F(2, 3, 6)]),
+        L("InstanceNorm2D", lambda m: n(m).InstanceNorm2D(3),
+          [F(2, 3, 4, 4)]),
+        L("InstanceNorm3D", lambda m: n(m).InstanceNorm3D(2),
+          [F(2, 2, 3, 2, 3)]),
+        L("LocalResponseNorm", lambda m: n(m).LocalResponseNorm(3),
+          [F(2, 5, 3, 3)]),
+        L("SpectralNorm", lambda m: n(m).SpectralNorm([4, 3, 2], dim=1,
+                                                      power_iters=2),
+          [F(4, 3, 2)]),
+        L("MaxPool3D", lambda m: n(m).MaxPool3D(2, padding=1),
+          [F(1, 2, 4, 5, 4)]),
+        L("AvgPool3D", lambda m: n(m).AvgPool3D(2, 1), [F(1, 2, 3, 4, 3)]),
+        L("AdaptiveAvgPool3D", lambda m: n(m).AdaptiveAvgPool3D(2),
+          [F(1, 2, 5, 4, 3)]),
+        L("AdaptiveMaxPool1D", lambda m: n(m).AdaptiveMaxPool1D(3),
+          [F(2, 3, 7)]),
+        L("AdaptiveMaxPool2D", lambda m: n(m).AdaptiveMaxPool2D([2, 3]),
+          [F(2, 3, 5, 7)]),
+        L("AdaptiveMaxPool3D", lambda m: n(m).AdaptiveMaxPool3D(2),
+          [F(1, 2, 4, 5, 3)]),
+        L("MaxPool2D_mask", lambda m: n(m).MaxPool2D(2, return_mask=True),
+          [F(2, 3, 4, 6)], grad=False),
+        L("Dropout_axis_eval", lambda m: n(m).Dropout(0.4, axis=1),
+          [F(2, 3, 4)]),
+        L("Dropout2D_eval", lambda m: n(m).Dropout2D(0.5),
+          [F(2, 3, 4, 4)]),
+        L("Dropout3D_eval", lambda m: n(m).Dropout3D(0.5),
+          [F(2, 3, 2, 2, 2)]),
+        L("AlphaDropout_eval", lambda m: n(m).AlphaDropout(0.3),
+          [F(3, 4)]),
+        L("Upsample_bilinear", lambda m: n(m).Upsample(
+            scale_factor=2, mode="bilinear"), [F(1, 2, 3, 4)]),
+        L("UpsamplingBilinear2D", lambda m: n(m).UpsamplingBilinear2D(
+            size=[5, 7]), [F(1, 2, 3, 4)]),
+        L("UpsamplingNearest2D", lambda m: n(m).UpsamplingNearest2D(
+            scale_factor=2), [F(1, 2, 3, 4)]),
+        L("PixelShuffle", lambda m: n(m).PixelShuffle(2), [F(1, 8, 2, 3)]),
+        L("Pad1D", lambda m: n(m).Pad1D([1, 2], mode="reflect"),
+          [F(2, 3, 5)]),
+        L("Pad2D", lambda m: n(m).Pad2D([1, 0, 2, 1], value=0.5),
+          [F(1, 2, 3, 4)]),
+        L("Pad3D", lambda m: n(m).Pad3D([1, 1, 0, 1, 1, 0],
+                                        mode="replicate"),
+          [F(1, 2, 2, 3, 2)]),
+        L("ZeroPad2D", lambda m: n(m).ZeroPad2D([1, 1, 0, 2]),
+          [F(1, 2, 3, 3)]),
+        L("CosineSimilarity", lambda m: n(m).CosineSimilarity(axis=1),
+          [F(3, 5), F(3, 5)]),
+        L("Bilinear", lambda m: n(m).Bilinear(3, 4, 5), [F(2, 3), F(2, 4)]),
+        L("Unfold", lambda m: n(m).Unfold([2, 2], 1, 1), [F(1, 2, 3, 3)]),
+        L("PReLU", lambda m: n(m).PReLU(3, 0.1), [F(2, 3, 4)], module=act),
+        L("PReLU_scalar", lambda m: n(m).PReLU(), [F(2, 3)], module=act),
+        L("RReLU_eval", lambda m: n(m).RReLU(), [F(3, 4)], module=act),
+        L("Maxout", lambda m: n(m).Maxout(2), [F(2, 6, 3)], module=act),
+        L("GLU", lambda m: n(m).GLU(1), [F(3, 4)], module=act),
+        L("GELU_tanh", lambda m: n(m).GELU(approximate=True), [F(3, 4)],
+          module=act),
+        L("Softmax_axis0", lambda m: n(m).Softmax(0), [F(3, 4)], module=act),
+        L("Hardtanh_bounds", lambda m: n(m).Hardtanh(-0.5, 2.0),
+          [F(3, 4)], module=act),
+        L("Softplus_beta", lambda m: n(m).Softplus(2.0, 3.0), [F(3, 4)],
+          module=act),
+        L("MSELoss", lambda m: n(m).MSELoss(), [F(3, 4), F(3, 4)], module=act),
+        L("L1Loss_sum", lambda m: n(m).L1Loss("sum"), [F(3, 4), F(3, 4)],
+          module=act),
+        L("NLLLoss", lambda m: n(m).NLLLoss(), [F(4, 5), I(0, 5, 4)],
+          module=act),
+        L("BCELoss", lambda m: n(m).BCELoss(),
+          [F(3, 4, lo=0.05, hi=0.95), F(3, 4, lo=0, hi=1)], module=act),
+        L("BCEWithLogitsLoss", lambda m: n(m).BCEWithLogitsLoss(),
+          [F(3, 4), F(3, 4, lo=0, hi=1)], module=act),
+        L("KLDivLoss", lambda m: n(m).KLDivLoss("batchmean"),
+          [F(3, 4), F(3, 4, lo=0.1, hi=1)], module=act),
+        L("SmoothL1Loss", lambda m: n(m).SmoothL1Loss(delta=0.5),
+          [F(3, 4), F(3, 4)], module=act),
+        L("MarginRankingLoss", lambda m: n(m).MarginRankingLoss(0.1),
+          [F(5), F(5), _A([1, -1, 1, 1, -1])], module=act),
+        L("CTCLoss", lambda m: n(m).CTCLoss(), [
+            _log_probs(6, 2, 4), _A([[1, 2, 1], [3, 1, 0]], np.int32),
+            _A([6, 5], np.int64), _A([3, 2], np.int64)], module=act),
+        L("CosineEmbeddingLoss", lambda m: n(m).CosineEmbeddingLoss(0.2),
+          [F(4, 3), F(4, 3), _A([1, -1, 1, -1], np.int64)], module=act),
+        L("TripletMarginLoss", lambda m: n(m).TripletMarginLoss(),
+          [F(4, 3), F(4, 3), F(4, 3)], module=act),
+        L("HSigmoidLoss", lambda m: n(m).HSigmoidLoss(3, 5),
+          [F(4, 3), _A([[0], [2], [4], [1]], np.int64)], module=act),
+        L("PairwiseDistance", lambda m: n(m).PairwiseDistance(),
+          [F(4, 3), F(4, 3)], module=act),
+        L("LayerList_LayerDict_ParameterList", _containers, [F(2, 3)]),
+        L("weight_norm", lambda m: n(m).utils.weight_norm(
+            n(m).Linear(3, 4), dim=1), [F(2, 3)]),
+        L("spectral_norm_hook", lambda m: n(m).utils.spectral_norm(
+            n(m).Linear(4, 3), n_power_iterations=2), [F(2, 4)]),
+    ]
+    plain = ["ReLU6", "GELU", "Sigmoid", "LogSoftmax", "ELU", "SELU",
+             "CELU", "Silu", "Swish", "Mish", "Hardswish", "Hardsigmoid",
+             "Hardshrink", "Softshrink", "Tanhshrink", "Softsign",
+             "LogSigmoid", "ThresholdedReLU"]
+    cases += [L(k, lambda m, k=k: getattr(n(m), k)(), [F(3, 4)],
+                call=lambda layer, x: layer(x * 3.0), module=act)
+              for k in plain]
+    return cases
+
+
+def _log_probs(t, b, c):
+    def make(rng):
+        z = rng.standard_normal((t, b, c))
+        return (z - np.log(np.exp(z).sum(-1, keepdims=True))).astype(
+            np.float32)
+    return make
+
+
+def _containers(m):
+    """A layer over ``LayerList`` (appended, inserted into, sliced),
+    ``LayerDict`` and ``ParameterList``."""
+    nn = m.nn
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.blocks = nn.LayerList([nn.Linear(3, 4)])
+            self.blocks.append(nn.Linear(4, 4))
+            self.blocks.insert(1, nn.Tanh())
+            self.heads = nn.LayerDict({"a": nn.Linear(4, 2)})
+            self.heads["b"] = nn.Linear(4, 2)
+            self.scales = nn.ParameterList(
+                [self.create_parameter([2], default_initializer=nn.
+                                       initializer.Constant(v))
+                 for v in (0.5, 2.0)])
+
+        def forward(self, x):
+            for blk in self.blocks[:3]:
+                x = blk(x)
+            return [self.heads[k](x) * p for k, p in zip(
+                self.heads.keys(), self.scales)]
+    return Net()
+
+
+#: every case of the A3 layer table
+LAYER_CASES = _layer_cases()
+
+
+def layer_case_holds(case, port):
+    """``case`` through the port on CUDA and on the CPU, from the same
+    state (the CPU build's, carried by ``set_state_dict``): outputs,
+    gradients and state after the call within the case's tolerances.
+    Raises AssertionError naming the case."""
+    from paddle_tpu_torch.core import device as tdevice
+    saved = tdevice._CURRENT[0]
+    try:
+        port.set_device("cpu")
+        state = case.build(port).state_dict()
+        ref = run_layer_case(port, case, place="cpu", state=state)
+        port.set_device("gpu")
+        got = run_layer_case(port, case, place="gpu", state=state)
+    finally:
+        tdevice._CURRENT[0] = saved
+    assert_layer_case_close(case, got, ref, "cuda vs cpu", tol=case.cuda_tol,
+                            gtol=max(case.gtol, 1e-4))
+
+
+def vit(m, image=224, patch=16, width=768, depth=12, heads=12,
+        classes=1000, mlp_ratio=4, epsilon=1e-6, attn_impl="auto"):
+    """A ViT written from package ``m``'s ``nn`` as a paddle user writes
+    one; by default PaddleClas's ``ViT_base_patch16_224`` (image 224,
+    patch 16, width 768, depth 12, 12 heads, MLP ratio 4, ``qkv_bias``,
+    LayerNorm epsilon 1e-6, 1000 classes, every dropout 0): a ``Conv2D``
+    patch embedding, a class token and position embedding from
+    ``create_parameter`` with ``TruncatedNormal(std=0.02)``, a
+    ``LayerList`` of pre-norm blocks (``LayerNorm``,
+    ``MultiHeadAttention``, residual; ``LayerNorm``, ``Linear``,
+    ``GELU``, ``Linear``, residual), a final ``LayerNorm`` and a
+    ``Linear`` head on the class token. It returns the logits in training
+    and their ``Softmax`` in eval (the predict program). ``attn_impl``
+    goes to every ``MultiHeadAttention``."""
+    nn = m.nn
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.norm1 = nn.LayerNorm(width, epsilon=epsilon)
+            self.attn = nn.MultiHeadAttention(width, heads,
+                                              attn_impl=attn_impl)
+            self.norm2 = nn.LayerNorm(width, epsilon=epsilon)
+            self.mlp = nn.Sequential(nn.Linear(width, width * mlp_ratio),
+                                     nn.GELU(),
+                                     nn.Linear(width * mlp_ratio, width))
+
+        def forward(self, x):
+            h = self.norm1(x)
+            x = x + self.attn(h, h, h)
+            return x + self.mlp(self.norm2(x))
+
+    class ViT(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            tokens = (image // patch) ** 2 + 1
+            attr = m.ParamAttr(
+                initializer=nn.initializer.TruncatedNormal(std=0.02))
+            self.patch_embed = nn.Conv2D(3, width, patch, stride=patch)
+            self.cls_token = self.create_parameter([1, 1, width], attr)
+            self.pos_embed = self.create_parameter([1, tokens, width], attr)
+            self.blocks = nn.LayerList([Block() for _ in range(depth)])
+            self.norm = nn.LayerNorm(width, epsilon=epsilon)
+            self.head = nn.Linear(width, classes)
+            self.softmax = nn.Softmax()
+
+        def forward(self, x):
+            x = m.transpose(m.flatten(self.patch_embed(x), 2), [0, 2, 1])
+            cls = m.expand(self.cls_token, [x.shape[0], 1, width])
+            x = m.concat([cls, x], axis=1) + self.pos_embed
+            for block in self.blocks:
+                x = block(x)
+            logits = self.head(self.norm(x)[:, 0])
+            return logits if self.training else self.softmax(logits)
+    return ViT()
 
 
 # -- the BERT-CRF tagger: a sequence labeller as a paddle user writes one ----

@@ -199,11 +199,16 @@ def test_pool_layers_match_jax(layer, args):
 
 
 def test_unported_pool_options_raise():
+    """The options the JAX package takes and never reads raise; the
+    index of ``max_pool2d(return_mask=True)`` is ported (its parity is
+    in ``test_torch_conv_pool_interp.py``)."""
     x = torch.zeros(1, 1, 4, 4)
-    with pytest.raises(NotImplementedError, match="A3"):
-        F.max_pool2d(x, 2, return_mask=True)
-    with pytest.raises(NotImplementedError, match="A3"):
+    out, idx = F.max_pool2d(x, 2, return_mask=True)
+    assert out.shape == idx.shape == (1, 1, 2, 2)
+    with pytest.raises(NotImplementedError, match="never reads"):
         F.avg_pool2d(x, 2, divisor_override=3)
+    with pytest.raises(NotImplementedError, match="never reads"):
+        F.max_pool1d(x[0], 2, return_mask=True)
 
 
 # -- Flatten and CrossEntropyLoss ---------------------------------------------

@@ -139,9 +139,13 @@ def test_nearest_interpolate_matches_jax(kw):
 
 
 def test_interpolate_other_modes_raise():
-    with pytest.raises(NotImplementedError, match="A9"):
+    """A mode neither package knows raises; the other modes are ported
+    (held against the JAX package in ``test_torch_conv_pool_interp.py``)."""
+    with pytest.raises(ValueError, match="mode"):
         F.interpolate(torch.zeros(1, 1, 2, 2), scale_factor=2,
-                      mode="bilinear")
+                      mode="lanczos")
+    assert F.interpolate(torch.zeros(1, 1, 2, 2), scale_factor=2,
+                         mode="bilinear").shape == (1, 1, 4, 4)
 
 
 def _names_shapes(sd):
