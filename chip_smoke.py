@@ -369,7 +369,55 @@ Phases (any failure raises and the script exits non-zero):
    1e-4 relative and each gradient within GRAD_TOL; (c) ``Model.predict``
    through its captured program, B1 12 launches a batch; (d) step ms,
    imgs/s and B1-B3's share of the O1 step's device time from one
-   profiled step.
+   profiled step;
+27. the PTB-large LSTM language model of Zaremba, Sutskever & Vinyals
+   2014 as a user writes it (``tests/test_torch_a9_table.py``
+   ``lstm_lm``: ``Embedding(10000, 1500)``, dropout 0.65, ``nn.LSTM(1500,
+   1500, num_layers=2, dropout=0.65)``, dropout, ``Linear(1500,
+   10000)``, cross entropy; every weight uniform in +-0.04, seed 27):
+   (a) 10 ``Model.train_batch`` steps of SGD(1.0) with the global norm
+   clipped at 10 on seeded ids [20, 35], fp32 and O1 bf16, each graphed
+   (one capture) and eager, losses bitwise equal between the lanes; (b)
+   ``Model.evaluate`` (dropout off) through its captured program, its
+   loss equal to the eager lane's; (c) the RNN table (``RNN_CASES``: every
+   class of ``nn/rnn.py``, ``sequence_length`` forward, reverse and
+   bidirectional, ``time_major``, initial states, GRU, SimpleRNN with
+   relu, a custom cell) on CUDA against the CPU, ``n held of n``; (d) step
+   ms and tokens/s (700 a step) of each lane and precision, peak memory,
+   the recurrent loops' share of an eager step's device time (the
+   ``rnn_scan_lstm`` ops' kernels and their backward), and beside them
+   ``torch.nn.LSTM`` (cuDNN) forward and backward at the same shapes, a
+   library yardstick only, against the port's ``nn.LSTM``, both captured
+   and replayed; no port kernel runs on this path;
+28. Faster R-CNN R50-FPN inference at PaddleDetection's release/2.0
+   settings (``configs/faster_rcnn/_base_/faster_rcnn_r50_fpn.yml``): the
+   port's ``resnet50`` C2-C5, an FPN of ``Conv2D`` (256 wide, P6 by
+   ``max_pool2d``), an RPN head, then ``tests/test_torch_a9_table.py``'s
+   ``rpn_to_rois`` (``anchor_generator`` and ``generate_proposals`` per
+   level, both images in one call, ``collect_fpn_proposals`` per image),
+   ``roi_features`` (``distribute_fpn_proposals``, ``roi_align`` 7 x 7 per
+   level) and, after a ``TwoFCHead(1024)``, ``detect`` (``box_coder``
+   decode, ``multiclass_nms``) on 2 seeded 800 x 1344 images, random
+   weights, fp32, ``no_grad``: (a) the path twice, outputs bitwise equal;
+   (b) every detection op call of the path run again on the CPU on copies
+   of its inputs, values within 1e-5, counts, masks and indices equal, a
+   differing kept set passing only at a named IoU near tie; (c) B5's
+   launches counted (one a ``generate_proposals`` call and one the
+   ``multiclass_nms`` call, 12 for two runs) and B5 timed at the path's
+   own scans (P2's proposals, P = 2 and k = 1000; the final NMS, P = 160
+   and k = 1000) against its plain version, bit-exact; (d) ms an image,
+   device ms by stage (backbone and FPN, proposals, RoIAlign, head, NMS),
+   peak memory;
+29. ResNet-50 O1 ``Model.fit`` for 4 batches of 128 through PaddleClas's
+   ImageNet train transforms (``RandomResizedCrop(224)``,
+   ``RandomHorizontalFlip``, ``Normalize``, ``Transpose``) in 4
+   ``io.DataLoader`` workers over a ``vision.datasets.DatasetFolder`` of
+   1,024 seeded ``.npy`` images (8 classes, sides 256-512, written under
+   ``build/`` and removed after): imgs/s, the host's wait on the loader
+   as a share of each batch interval, a transform's ms an image in one
+   process, the same step on a batch kept on the device; each of two
+   workers' first crop and flip equal the transforms run in the main
+   process under that worker's seed, bit for bit.
 
 Each model, its programs and its cache are released between phases
 (``release_memory``): GPT-3 1.3B, ResNet-50, BERT-base, YOLOv3 and the
@@ -403,7 +451,10 @@ phase 24's (the cached cell, none; the full-prefix cell, B1 24 a step),
 and around each of phase 25's (the four training lanes, the serving
 path and the A3 table, none) and phase 26's (the O1 training lanes,
 B1-B3 12 each a step; the predict program, B1 12 a batch; the flash and
-dense steps, B1-B3 12 each on the flash one) (B4 there runs in the plain
+dense steps, B1-B3 12 each on the flash one), and around each of phase
+27's (the four LSTM training lanes, the cuDNN yardstick and the RNN
+table, none), phase 28's (the path run twice: B5 12) and phase 29's (the
+fit, none) (B4 there runs in the plain
 paged steps only, 24 launches a step; in phase 19 in the paged runs over
 dense pages, int8 weights included, and in none over int8 pages; the
 prefills, tail prefills and the verify attend densely, as the JAX
@@ -412,9 +463,8 @@ package's, so B1 launches nothing on any of them). The last two lines are a
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result. ``--phase 22`` runs,
 after the build, phase 21's two GPT-3 1.3B dygraph references and phase
-22 alone, and prints that phase's numbers only; ``--phase 23``,
-``--phase 24``, ``--phase 25`` and ``--phase 26`` run that phase alone
-after the build.
+22 alone, and prints that phase's numbers only; ``--phase 23`` to
+``--phase 29`` run that phase alone after the build.
 """
 from __future__ import annotations
 
@@ -1588,7 +1638,8 @@ def profile_steps(torch, label, step, steps, ranges=(), memory=False):
     smi = sample()
     rows = []
     for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA") or e.key in ranges:
+        if not str(e.device_type).endswith("CUDA") or e.key in ranges \
+                or e.key.startswith("op::"):    # the funnel's op spans
             continue
         dt = getattr(e, "self_device_time_total", None)
         if dt is None:
@@ -6706,6 +6757,724 @@ def vit_phase(torch, fa_mod, dev, smi, reset_counters, read_counters):
     return res, launches, by_dtype
 
 
+# -- phase 27: the PTB-large LSTM language model ---------------------------
+
+#: Zaremba, Sutskever & Vinyals 2014 (arXiv:1409.2329), "large": 35
+#: unrolled steps, batch 20, vocabulary 10,000 (the network's widths are
+#: ``lstm_lm``'s defaults); steps of each lane
+LSTM_T, LSTM_BATCH, LSTM_VOCAB, LSTM_HIDDEN = 35, 20, 10000, 1500
+LSTM_STEPS = 10
+
+
+def _a9_table():
+    """``tests/test_torch_a9_table.py`` (the A9 cases and user programs;
+    it imports neither jax nor the JAX package)."""
+    _op_table()
+    import test_torch_a9_table
+    return test_torch_a9_table
+
+
+def _lstm_model(torch, c9, dev):
+    """The LM from seed 27 under ``Model`` with SGD(1.0) and the global
+    norm clipped at 10."""
+    import paddle_tpu_torch as P
+    P.seed(27)
+    net, loss = c9.lstm_lm(P)
+    model = P.Model(net, device=dev)
+    model.prepare(P.optimizer.SGD(
+        learning_rate=1.0, parameters=net.parameters(), device=dev,
+        grad_clip=P.nn.ClipGradByGlobalNorm(10.0)), loss)
+    return model
+
+
+def _lstm_lane(torch, c9, dev, x, y, prec, lane):
+    """LSTM_STEPS train_batch calls on fresh weights, the dropout stream
+    from seed 270 (so both lanes draw the same masks), graphed or eager;
+    then ``evaluate`` (dropout off) over two batches. Returns (results,
+    model)."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import graphs
+    cast = amp.auto_cast if prec == "o1" else contextlib.nullcontext
+    torch.cuda.reset_peak_memory_stats()
+    model = _lstm_model(torch, c9, dev)
+    P.seed(270)
+    ctx = graphs.disable_graphs() if lane == "eager" \
+        else contextlib.nullcontext()
+    losses, walls = [], []
+    with ctx:
+        for t in range(LSTM_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with cast():
+                losses.append(model.train_batch([x[t]], [y[t]])[0])
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with cast():
+            ev = model.evaluate([(x[0], y[0]), (x[1], y[1])], verbose=0)
+    step_ms = float(np.median(walls[2:]))
+    tokens = LSTM_BATCH * LSTM_T
+    res = {"losses": losses, "step_wall_ms": walls, "step_ms": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "eval_loss": ev["loss"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"LSTM LM {prec} {lane} lane: losses "
+        f"{[round(v, 6) for v in losses]}, step {step_ms:.2f} ms "
+        f"({res['tokens_per_s']:.0f} tokens/s), evaluate loss "
+        f"{ev['loss']!r}, peak {res['peak_gib']:.2f} GiB")
+    if not all(math.isfinite(v) for v in losses) or \
+            not math.isfinite(ev["loss"]):
+        raise RuntimeError(f"LSTM LM {prec} {lane}: {losses}, {ev}")
+    if lane == "graphed":
+        res.update(program_report(model, f"LSTM LM {prec} graphed lane",
+                                  LSTM_STEPS))
+    return res, model
+
+
+def lstm_loop_share(torch, model, x, y, prec):
+    """One eager O1 or fp32 step profiled by op: the device ms of the
+    recurrent loops (the ``rnn_scan_lstm`` ops' kernels, forward, and
+    their backward through the autograd link) against the step's."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.ops import dispatch
+    parts = (("rnn_loop_forward", r"^op::rnn_scan_lstm$"),
+             ("rnn_loop_backward", "link:op::rnn_scan_lstm"))
+    dispatch._PROF_ACTIVE[0] = True
+    try:
+        with graphs.disable_graphs():
+            prof = profile_train_step(
+                torch, model, None, prec == "o1", "eager",
+                batch=([x[0]], [y[0]]), count=LSTM_BATCH * LSTM_T,
+                op_parts=parts)
+    finally:
+        dispatch._PROF_ACTIVE[0] = False
+    by = prof["device_ms_by_part"]
+    loop = by["rnn_loop_forward"] + by["rnn_loop_backward"]
+    prof["rnn_loop_ms"] = loop
+    prof["rnn_loop_share"] = loop / prof["device_busy_ms"]
+    log(f"LSTM LM {prec} eager step: the recurrent loops {loop:.2f} ms "
+        f"(forward {by['rnn_loop_forward']:.2f}, backward "
+        f"{by['rnn_loop_backward']:.2f}) of {prof['device_busy_ms']:.2f} "
+        f"device ms ({100 * prof['rnn_loop_share']:.1f}%)")
+    return prof
+
+
+def lstm_vs_cudnn(torch, dev):
+    """The port's 2-layer ``nn.LSTM`` (dropout 0) against
+    ``torch.nn.LSTM`` (cuDNN) at the LM's shapes ([35, 20, 1500], time
+    major), forward and backward, each captured in a CUDA graph and
+    replayed, device clock behind a spin; cuDNN is a yardstick only."""
+    import paddle_tpu_torch as P
+    gen = torch.Generator(device="cuda").manual_seed(271)
+    x = torch.randn(LSTM_T, LSTM_BATCH, LSTM_HIDDEN, device=dev,
+                    generator=gen, requires_grad=True)
+    g = torch.randn(LSTM_T, LSTM_BATCH, LSTM_HIDDEN, device=dev,
+                    generator=gen)
+    P.seed(272)
+    port = P.nn.LSTM(LSTM_HIDDEN, LSTM_HIDDEN, num_layers=2,
+                     time_major=True)
+    ref = torch.nn.LSTM(LSTM_HIDDEN, LSTM_HIDDEN, num_layers=2).to(dev)
+
+    def port_step():
+        port(x)[0].backward(g)
+
+    def cudnn_step():
+        ref(x)[0].backward(g)
+
+    out = {}
+    for name, fn in (("port", port_step), ("cudnn", cudnn_step)):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        out[f"{name}_graphed_ms"] = time_ms(graph.replay, iters=10,
+                                            spin=True)
+        out[f"{name}_eager_ms"] = time_ms(fn, iters=5)
+        del graph
+    # the recurrent GEMMs' floor: 4 gates x (input + hidden) x hidden
+    # weights, a multiply-add each, per token and layer, times 3 for the
+    # backward; fp32 outside the tensor cores (TF32 is off)
+    flops = 3 * 2 * 2 * 4 * (2 * LSTM_HIDDEN) * LSTM_HIDDEN * \
+        LSTM_T * LSTM_BATCH
+    out["bound_ms"] = flops / PEAK_FP32 * 1e3
+    log(f"nn.LSTM 2x{LSTM_HIDDEN} at [{LSTM_T}, {LSTM_BATCH}] forward + "
+        f"backward: the port {out['port_graphed_ms']:.3f} ms graphed "
+        f"({out['port_eager_ms']:.3f} eager), torch.nn.LSTM (cuDNN, a "
+        f"yardstick) {out['cudnn_graphed_ms']:.3f} ms graphed "
+        f"({out['cudnn_eager_ms']:.3f} eager); fp32 FMA bound "
+        f"{out['bound_ms']:.3f} ms")
+    del port, ref, x, g
+    return out
+
+
+def rnn_table_on_the_card(torch, ct, c9):
+    """Phase 27c: every case of ``RNN_CASES`` on CUDA against the CPU
+    (forward, final states, gradients); ``n held of n``."""
+    t0 = time.perf_counter()
+    import paddle_tpu_torch as paddle
+    held, failed = 0, []
+    for case in c9.RNN_CASES:
+        try:
+            ct.layer_case_holds(case, paddle)
+            held += 1
+        except Exception as e:   # noqa: BLE001 (every case is reported)
+            failed.append(f"{case.name}: {str(e).splitlines()[0][:200]}")
+    n = len(c9.RNN_CASES)
+    log(f"RNN table on the card: {held} held of {n} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for f in failed:
+        log(f"  RNN case failed: {f}")
+    if failed:
+        raise RuntimeError(f"phase 27 RNN table: {len(failed)} of {n} "
+                           f"cases failed")
+    return {"held": held, "cases": n}
+
+
+def lstm_phase(torch, fa_mod, dev, smi, reset_counters, read_counters):
+    """Phase 27 (module docstring): returns (results, launches by
+    path)."""
+    ct, c9 = _op_table(), _a9_table()
+    ids = np.random.default_rng(270).integers(
+        0, LSTM_VOCAB, (LSTM_STEPS, LSTM_BATCH, LSTM_T + 1))
+    x = torch.from_numpy(ids[..., :-1]).to(dev)
+    y = torch.from_numpy(ids[..., 1:]).to(dev)
+    log(f"phase 27: the PTB-large LSTM LM (Embedding({LSTM_VOCAB}, "
+        f"{LSTM_HIDDEN}), LSTM 2x{LSTM_HIDDEN}, dropout 0.65, uniform "
+        f"+-0.04, Linear({LSTM_HIDDEN}, {LSTM_VOCAB})), batch {LSTM_BATCH} "
+        f"x {LSTM_T} steps, SGD(1.0), global norm clipped at 10, random "
+        f"weights (seed 27); {smi}")
+    res, launches = {}, {}
+    for prec in ("fp32", "o1"):
+        lanes = {}
+        for lane in ("graphed", "eager"):
+            reset_counters()
+            out, model = _lstm_lane(torch, c9, dev, x, y, prec, lane)
+            launches[f"lstm_train_{prec}_{lane}"] = read_counters()
+            if lane == "eager":
+                out["profile"] = lstm_loop_share(torch, model, x, y, prec)
+            lanes[lane] = out
+            model._invalidate_compiled()
+            del model
+            release_memory(torch)
+        g, e = lanes["graphed"], lanes["eager"]
+        if g["losses"] != e["losses"]:
+            raise RuntimeError(f"LSTM LM {prec}: graphed losses "
+                               f"{g['losses']} vs eager {e['losses']} (bitwise "
+                               f"equal required)")
+        if g["eval_loss"] != e["eval_loss"]:
+            raise RuntimeError(f"LSTM LM {prec}: evaluate {g['eval_loss']!r} "
+                               f"graphed vs {e['eval_loss']!r} eager")
+        log(f"LSTM LM {prec}: graphed and eager losses bitwise equal over "
+            f"{LSTM_STEPS} steps, evaluate losses equal")
+        res[f"train_{prec}"] = lanes
+    reset_counters()
+    res["vs_cudnn"] = lstm_vs_cudnn(torch, dev)
+    launches["lstm_vs_cudnn"] = read_counters()
+    release_memory(torch)
+    reset_counters()
+    res["rnn_table"] = rnn_table_on_the_card(torch, ct, c9)
+    launches["rnn_table"] = read_counters()
+    log(f"LSTM LM: fp32 {res['train_fp32']['graphed']['tokens_per_s']:.0f} "
+        f"tokens/s graphed ({res['train_fp32']['graphed']['step_ms']:.2f} ms "
+        f"a step), {res['train_fp32']['eager']['tokens_per_s']:.0f} eager; "
+        f"O1 {res['train_o1']['graphed']['tokens_per_s']:.0f} graphed "
+        f"({res['train_o1']['graphed']['step_ms']:.2f} ms), "
+        f"{res['train_o1']['eager']['tokens_per_s']:.0f} eager; peak "
+        f"{res['train_fp32']['graphed']['peak_gib']:.2f} GiB fp32; {smi}")
+    release_memory(torch)
+    return res, launches, {}
+
+
+# -- phase 28: Faster R-CNN R50-FPN inference ----------------------------------
+
+#: PaddleDetection release/2.0 faster_rcnn_r50_fpn's test reader: a batch
+#: of 2 images of 800 x 1344, 80 classes
+FRCNN_BATCH, FRCNN_H, FRCNN_W, FRCNN_CLASSES = 2, 800, 1344, 80
+#: detection ops held CUDA vs CPU: values at this tolerance
+FRCNN_TOL = 1e-5
+
+
+def _frcnn_model(torch, dev):
+    """ResNet-50 C2-C5 (the port's ``resnet50``), an FPN (lateral 1x1
+    and output 3x3 convolutions 256 wide, P6 by ``max_pool2d`` of P5 at
+    stride 2), the RPN head (a 3x3 convolution, then 1x1 ones to 3
+    scores and 12 deltas), and the box head (``TwoFCHead``: two Linear
+    of 1024 over the 7x7 RoI features) with its class scores (81) and
+    box deltas (4, class-agnostic: the port's ``multiclass_nms`` takes one
+    box a candidate, as the JAX package's). Random weights: the backbone
+    from seed 0, the rest from ``paddle.seed(28)``."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.vision.models import resnet50
+    nn, F = P.nn, P.nn.functional
+    P.seed(28)
+
+    class FasterRCNN(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.backbone = resnet50(num_classes=-1, with_pool=False,
+                                     device=dev, seed=0)
+            self.lateral = nn.LayerList([nn.Conv2D(c, 256, 1)
+                                         for c in (256, 512, 1024, 2048)])
+            self.fpn_out = nn.LayerList([nn.Conv2D(256, 256, 3, padding=1)
+                                         for _ in range(4)])
+            self.rpn_conv = nn.Conv2D(256, 256, 3, padding=1)
+            self.rpn_cls = nn.Conv2D(256, 3, 1)
+            self.rpn_box = nn.Conv2D(256, 12, 1)
+            self.fc6 = nn.Linear(256 * 7 * 7, 1024)
+            self.fc7 = nn.Linear(1024, 1024)
+            # class biases spread (N(0, 2)) so that, untrained, scores
+            # pass MultiClassNMS's 0.05 and the final scan keeps boxes
+            self.cls_score = nn.Linear(1024, FRCNN_CLASSES + 1,
+                                       bias_attr=P.ParamAttr(
+                                           initializer=nn.initializer.Normal(
+                                               0.0, 2.0)))
+            self.bbox_pred = nn.Linear(1024, 4)
+
+        def features(self, img):
+            b = self.backbone
+            x = b.maxpool(b.relu(b.bn1(b.conv1(img))))
+            cs = []
+            for layer in (b.layer1, b.layer2, b.layer3, b.layer4):
+                x = layer(x)
+                cs.append(x)
+            lat = [conv(c) for conv, c in zip(self.lateral, cs)]
+            for k in range(2, -1, -1):
+                lat[k] = lat[k] + F.interpolate(lat[k + 1], scale_factor=2,
+                                                mode="nearest")
+            ps = [conv(t) for conv, t in zip(self.fpn_out, lat)]
+            return ps + [F.max_pool2d(ps[-1], 1, stride=2)]
+
+        def rpn(self, feats):
+            hs = [F.relu(self.rpn_conv(f)) for f in feats]
+            return [self.rpn_cls(h) for h in hs], [self.rpn_box(h)
+                                                     for h in hs]
+
+        def head(self, pooled):
+            h = F.relu(self.fc6(P.flatten(pooled, 1)))
+            h = F.relu(self.fc7(h))
+            return self.cls_score(h), self.bbox_pred(h)
+
+    return FasterRCNN().eval()
+
+
+class _Recorder:
+    """A package proxy whose ``ops`` records each detection op call (its
+    name, arguments and outputs) for the CUDA-vs-CPU hold; everything
+    else is the package's."""
+
+    def __init__(self, pkg, names):
+        self._pkg, self.calls = pkg, []
+        rec = self
+
+        class Ops:
+            def __getattr__(_, name):
+                fn = getattr(pkg.ops, name)
+                if name not in names:
+                    return fn
+
+                def call(*a, **k):
+                    out = fn(*a, **k)
+                    rec.calls.append((name, a, k, out))
+                    return out
+                return call
+        self.ops = Ops()
+
+    def __getattr__(self, name):
+        return getattr(self._pkg, name)
+
+
+FRCNN_OPS = ("anchor_generator", "generate_proposals",
+             "collect_fpn_proposals", "distribute_fpn_proposals",
+             "roi_align", "box_coder", "multiclass_nms")
+
+
+def frcnn_path(torch, c9, net, pkg, img, im_shape, stage=None):
+    """The whole path on ``img``: backbone and FPN, RPN, proposals, RoI
+    features, head, decode and NMS. ``stage(name)`` gives a context for
+    each stage (profiler ranges). Returns (rois, pooled, detections,
+    counts)."""
+    stage = stage or (lambda name: contextlib.nullcontext())
+    with stage("frcnn.backbone_fpn"):
+        feats = net.features(img)
+    with stage("frcnn.proposals"):
+        scores, deltas = net.rpn(feats)
+        rois, rois_num = c9.rpn_to_rois(pkg, feats, scores, deltas,
+                                        im_shape)
+    with stage("frcnn.roi_align"):
+        pooled = c9.roi_features(pkg, feats[:4], rois, rois_num)
+    with stage("frcnn.head"):
+        logits, box_d = net.head(pooled)
+    with stage("frcnn.nms"):
+        var = torch.tensor(c9.FRCNN["box_variances"], device=img.device)
+        dets, counts = c9.detect(pkg, rois, logits, box_d, var,
+                                 img.shape[0])
+    return rois, pooled, dets, counts
+
+
+def _to_cpu(v):
+    import torch
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu()
+    if isinstance(v, (list, tuple)):
+        return type(v)(_to_cpu(x) for x in v)
+    return v
+
+
+def _flat_tensors(v):
+    import torch
+    if isinstance(v, torch.Tensor):
+        return [v]
+    if isinstance(v, (list, tuple)):
+        return [t for x in v for t in _flat_tensors(x)]
+    return []
+
+
+def _with_scans(det_mod, store, fn):
+    """``fn()`` with the greedy scans it runs recorded in ``store`` (their
+    IoU, valid and threshold inputs, in order)."""
+    real = det_mod.greedy_nms
+
+    def rec(iou, valid, thr, eta=1.0):
+        store.append((iou, valid, thr))
+        return real(iou, valid, thr, eta)
+    det_mod.greedy_nms = rec
+    try:
+        return fn()
+    finally:
+        det_mod.greedy_nms = real
+
+
+def frcnn_ops_hold(torch, det_mod, calls):
+    """Phase 28b: each recorded detection op call run again on the CPU on
+    copies of its CUDA inputs: float outputs within FRCNN_TOL of the
+    largest entry, integer and boolean outputs (counts, masks, restore
+    index) equal. Where a kept set differs, the greedy scans' IoU inputs
+    of both devices are compared: a pair on opposite sides of the
+    threshold is a named near tie (ROADMAP C4); any other difference
+    fails. Returns (held, near ties, worst error)."""
+    import paddle_tpu_torch as P
+    held, near, worst = 0, [], 0.0
+    for name, a, k, out in calls:
+        op = getattr(P.ops, name)
+        cpu_scans = []
+        ref = _with_scans(det_mod, cpu_scans,
+                          lambda: op(*_to_cpu(a), **_to_cpu(k)))
+        got, want = _flat_tensors(out), _flat_tensors(ref)
+        ok, err = len(got) == len(want), 0.0
+        for g, w in zip(got, want):
+            g = g.detach().cpu()
+            if g.shape != w.shape:
+                ok = False
+            elif g.is_floating_point() and w.numel():
+                e = float((g - w).abs().max()) / max(
+                    1.0, float(w.abs().max()))
+                err = max(err, e)
+                ok = ok and e <= FRCNN_TOL
+            elif not g.is_floating_point():
+                ok = ok and torch.equal(g, w)
+        worst = max(worst, err)
+        if ok:
+            held += 1
+            continue
+        # a kept set differs: an overlap on the other side of the
+        # threshold on the two devices is a near tie
+        cuda_scans = []
+        _with_scans(det_mod, cuda_scans, lambda: op(*a, **k))
+        tie = None
+        for (ic, _, _), (ip, vp, tp) in zip(cuda_scans, cpu_scans):
+            thr = tp[:, None, None].expand_as(ip)
+            flip = ((ic.cpu() > thr) != (ip > thr)) & (vp[:, :, None] != 0)
+            if bool(flip.any()):
+                m = float((ip[flip] - thr[flip]).abs().max())
+                tie = m if tie is None else max(tie, m)
+        if tie is None or tie > 1e-5:
+            raise RuntimeError(f"phase 28: {name} on the card differs from "
+                               f"the CPU (worst {err:.3e}; IoU near-tie "
+                               f"margin {tie})")
+        near.append({"op": name, "iou_margin": tie})
+        log(f"  {name}: a kept set differs at an IoU near-tie (margin "
+            f"{tie:.2e}), named")
+    return held, near, worst
+
+
+def frcnn_nms_times(torch, nms_mod, scans):
+    """B5 at the path's shapes, from the scans the path ran (its IoU,
+    valid and threshold inputs): kernel against plain bit for bit, timed
+    on the device's clock, with its byte bound for this data."""
+    out = []
+    for label, (iou, valid, thr) in scans:
+        kept = nms_mod.greedy_nms(iou, valid, thr, 1.0)
+        ref = nms_mod.greedy_nms_plain(iou, valid, thr, 1.0)
+        mism = int((kept != ref).sum().item())
+        if mism:
+            raise RuntimeError(f"B5 at {label}: {mism} mismatches")
+        ms = time_ms(lambda: nms_mod.greedy_nms(iou, valid, thr, 1.0),
+                     spin=True)
+        plain_ms = time_ms(lambda: nms_mod.greedy_nms_plain(
+            iou, valid, thr, 1.0), iters=3)
+        bms, full_ms = nms_bound(torch, valid, kept)
+        p_n, k = valid.shape
+        row = {"shape": f"P={p_n} k={k}", "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bms, "bound_ms_full_iou": full_ms,
+               "kept_per_problem": int(kept.sum().item()) / p_n,
+               "mismatches": 0}
+        log(f"B5 at Faster R-CNN's {label} (P={p_n}, k={k}): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"(whole matrices {full_ms:.4f}), {row['kept_per_problem']:.1f} "
+            f"kept a problem, bit-exact")
+        out.append((label, row))
+    return out
+
+
+def frcnn_phase(torch, fa_mod, dev, smi, reset_counters, read_counters):
+    """Phase 28 (module docstring): returns (results, launches by
+    path)."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.ops import custom as nms_mod
+    from paddle_tpu_torch.ops import detection as det_mod
+    from torch.profiler import ProfilerActivity, profile
+    c9 = _a9_table()
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    img = torch.rand(FRCNN_BATCH, 3, FRCNN_H, FRCNN_W, device=dev,
+                     generator=gen)
+    im_shape = torch.tensor([[FRCNN_H, FRCNN_W]] * FRCNN_BATCH,
+                            dtype=torch.float32, device=dev)
+    net = _frcnn_model(torch, dev)
+    log(f"phase 28: Faster R-CNN R50-FPN (PaddleDetection release/2.0 "
+        f"faster_rcnn_r50_fpn: FPN 256 over P2-P6, anchors 32-512 at "
+        f"strides 4-64, ratios 0.5/1/2, proposals pre/post 1000, NMS 0.7, "
+        f"RoIAlign 7x7 sampling 0 aligned, TwoFCHead 1024, "
+        f"{FRCNN_CLASSES} classes, MultiClassNMS 0.05/0.5/100), batch "
+        f"{FRCNN_BATCH} of {FRCNN_H}x{FRCNN_W}, fp32, no_grad, random "
+        f"weights (seeds 0 and 28); {smi}")
+    res, launches = {}, {}
+    outs = []
+    with torch.no_grad():
+        frcnn_path(torch, c9, net, P, img, im_shape)         # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            outs.append([v.clone() for v in frcnn_path(
+                torch, c9, net, P, img, im_shape)])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches["frcnn_inference"] = read_counters()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        levels = len(c9.FRCNN["strides"])
+        want = 2 * (levels + 1)
+        got_b5 = launches["frcnn_inference"]["greedy_nms"]
+        log(f"Faster R-CNN path twice: outputs "
+            f"{'bitwise equal' if same else 'DIFFER'}; B5 launched "
+            f"{got_b5} times (expected {want}: one a generate_proposals "
+            f"call, {levels} levels, and one a multiclass_nms call, both "
+            f"images in each); wall {walls[1]:.1f} ms "
+            f"({walls[1] / FRCNN_BATCH:.1f} ms an image), peak "
+            f"{peak:.2f} GiB")
+        if not same or got_b5 != want:
+            raise RuntimeError(f"phase 28: repeat bitwise {same}, B5 "
+                               f"launches {got_b5} (expected {want})")
+        rois, pooled, dets, counts = outs[0]
+        if not (torch.isfinite(dets).all() and torch.isfinite(pooled).all()
+                and dets.shape == (FRCNN_BATCH, 100, 6)
+                and int(counts.min()) > 0):
+            raise RuntimeError(f"phase 28: detections {tuple(dets.shape)}, "
+                               f"counts {counts.tolist()}")
+        # (b) every detection op of the path on the CPU, on its inputs
+        rec, path_scans = _Recorder(P, FRCNN_OPS), []
+        _with_scans(det_mod, path_scans, lambda: frcnn_path(
+            torch, c9, net, rec, img, im_shape))
+        # the P2 level's proposals and the final NMS
+        scans = {"generate_proposals (P2)": path_scans[0],
+                 "multiclass_nms": path_scans[-1]}
+        t0 = time.perf_counter()
+        held, near, worst = frcnn_ops_hold(torch, det_mod, rec.calls)
+        log(f"Faster R-CNN detection ops on the card against the CPU: "
+            f"{held} held of {len(rec.calls)} calls (worst relative "
+            f"{worst:.3e}, tolerance {FRCNN_TOL}), near ties {near} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        # (d) each stage's device time from one profiled run
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            frcnn_path(torch, c9, net, P, img, im_shape,
+                       stage=torch.profiler.record_function)
+            torch.cuda.synchronize()
+        events = prof.events()
+        stages = {n: _kernel_ms(torch, events, f"frcnn.{n}")
+                  for n in ("backbone_fpn", "proposals", "roi_align", "head",
+                            "nms")}
+        log("Faster R-CNN device ms by stage: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in stages.items()))
+    res.update({"repeat_bitwise": same, "b5_launches_per_path": got_b5 // 2,
+                "wall_ms": walls, "ms_per_image": walls[1] / FRCNN_BATCH,
+                "peak_gib": peak, "device_ms_by_stage": stages,
+                "ops_held": held, "ops_calls": len(rec.calls),
+                "ops_worst_rel": worst, "near_ties": near,
+                "detections_per_image": counts.tolist()})
+    del rec, outs, rois, pooled, dets
+    release_memory(torch)
+    res["b5"] = dict(frcnn_nms_times(torch, nms_mod, list(scans.items())))
+    del net, img, scans, path_scans
+    release_memory(torch)
+    log(f"Faster R-CNN: {res['ms_per_image']:.1f} ms an image, stages "
+        f"{stages}, peak {peak:.2f} GiB; {smi}")
+    return res, launches, {}
+
+
+# -- phase 29: ResNet-50 through PaddleClas's ImageNet input pipeline -------
+
+#: 1,024 seeded images of 8 classes, sides in [256, 512], in batches of
+#: 128 through 4 loader workers; 4 O1 batches
+PIPE_IMAGES, PIPE_CLASSES, PIPE_BATCH, PIPE_WORKERS = 1024, 8, 128, 4
+PIPE_SIDES = (256, 512)
+
+
+def _pipeline_transforms():
+    from paddle_tpu_torch.vision import transforms as T
+    return T.Compose([T.RandomResizedCrop(224), T.RandomHorizontalFlip(),
+                      T.Normalize(mean=[123.675, 116.28, 103.53],
+                                  std=[58.395, 57.12, 57.375],
+                                  data_format="HWC"), T.Transpose()])
+
+
+def _write_image_folder(root):
+    """PIPE_IMAGES seeded HWC uint8 ``.npy`` images in PIPE_CLASSES class
+    directories under ``root`` (made anew)."""
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(29)
+    for i in range(PIPE_IMAGES):
+        d = os.path.join(root, f"class_{i % PIPE_CLASSES}")
+        os.makedirs(d, exist_ok=True)
+        h, w = rng.integers(PIPE_SIDES[0], PIPE_SIDES[1] + 1, 2)
+        np.save(os.path.join(d, f"{i:05d}.npy"),
+                rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+
+
+def pipeline_crop_check(torch, ds, dev):
+    """The first image each of 2 workers transforms equals the transforms
+    run here under that worker's ``random.seed`` (the iterator's seed
+    plus the worker's id): one crop and one flip, bit for bit."""
+    import random
+    import paddle_tpu_torch as P
+    sub = P.io.Subset(ds, range(8))
+    loader = P.io.DataLoader(sub, batch_size=4, num_workers=2, timeout=120,
+                             device=dev)
+    np.random.seed(290)
+    seed = np.random.RandomState(290).randint(0, 2 ** 31)
+    batches = [b[0].cpu().numpy() for b in loader]
+    tf = ds.transform
+    for wid in (0, 1):
+        random.seed(seed + wid)
+        want = tf(np.load(ds.samples[4 * wid][0]))
+        if not np.array_equal(batches[wid][0], want):
+            raise RuntimeError(f"phase 29: worker {wid}'s first image "
+                               f"differs from the CPU transforms")
+    log("pipeline check: each worker's first crop and flip equal the CPU "
+        "transforms under its seed, bit for bit")
+    return True
+
+
+def pipeline_phase(torch, fa_mod, dev, smi, reset_counters, read_counters):
+    """Phase 29 (module docstring): returns (results, launches by
+    path)."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import shm_ring
+    from paddle_tpu_torch.vision.models import resnet50
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_imagenet")
+    t0 = time.perf_counter()
+    _write_image_folder(root)
+    made_s = time.perf_counter() - t0
+    tf = _pipeline_transforms()
+    ds = P.vision.datasets.DatasetFolder(root, transform=tf)
+    log(f"phase 29: ResNet-50 O1 fit over a DatasetFolder of "
+        f"{len(ds)} seeded .npy images ({PIPE_CLASSES} classes, sides "
+        f"{PIPE_SIDES[0]}-{PIPE_SIDES[1]}, written in {made_s:.1f} s), "
+        f"RandomResizedCrop(224), RandomHorizontalFlip, Normalize, "
+        f"Transpose in {PIPE_WORKERS} loader workers, batch {PIPE_BATCH}; "
+        f"{smi}")
+    if not shm_ring.available():
+        raise RuntimeError("phase 29: the shared-memory ring did not build")
+    res, launches = {}, {}
+    # a transform's cost in one process, an image at a time
+    t0 = time.perf_counter()
+    for i in range(32):
+        ds[i]
+    res["transform_ms_per_image"] = (time.perf_counter() - t0) * 1e3 / 32
+    res["crop_check"] = pipeline_crop_check(torch, ds, dev)
+    torch.manual_seed(0)
+    net = resnet50(num_classes=1000, device=dev, seed=0)
+    model = P.Model(net, device=dev)
+    model.prepare(P.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                       parameters=net.parameters(),
+                                       weight_decay=1e-4, device=dev),
+                  P.nn.CrossEntropyLoss())
+    batch_bytes = PIPE_BATCH * (3 * 224 * 224 * 4 + 8)
+    loader = P.io.DataLoader(ds, batch_size=PIPE_BATCH, shuffle=True,
+                             num_workers=PIPE_WORKERS, timeout=300,
+                             shm_capacity=batch_bytes + (1 << 20),
+                             device=dev, drop_last=True)
+    timer = _step_timer(torch)
+    n_batches = 4
+    reset_counters()
+    np.random.seed(29)
+    with amp.auto_cast():
+        _, wall = _timed(torch, lambda: model.fit(
+            loader, epochs=1, verbose=0, num_iters=n_batches,
+            callbacks=[timer]))
+    launches["pipeline_fit_o1"] = read_counters()
+    losses = [d["loss"] for d in timer.logs]
+    if len(losses) != n_batches or not all(math.isfinite(v)
+                                           for v in losses):
+        raise RuntimeError(f"phase 29: losses {losses}")
+    intervals = [w + s for w, s in zip(timer.waits, timer.walls[1:])]
+    shares = [w / i for w, i in zip(timer.waits, intervals)]
+    steady, interval = _steady(timer)
+    # the same step on a batch kept on the device
+    xs, ys = _resident(P.io.DataLoader(P.io.Subset(ds, range(PIPE_BATCH)),
+                                       batch_size=PIPE_BATCH, device=dev),
+                       1)[0]
+    with amp.auto_cast():
+        model.train_batch([xs], [ys])
+        walls = []
+        for _ in range(5):
+            _, ms = _timed(torch, lambda: model.train_batch([xs], [ys]))
+            walls.append(ms)
+    resident = PIPE_BATCH / float(np.median(walls)) * 1e3
+    res.update({"fit_wall_ms": wall, "losses": losses,
+                "imgs_per_s": PIPE_BATCH / interval * 1e3,
+                "batch_interval_ms": intervals,
+                "loader_wait_ms": timer.waits,
+                "loader_wait_share": shares,
+                "step_ms": steady,
+                "resident_imgs_per_s": resident,
+                "phase20_resident_o1_imgs_per_s":
+                    RESNET_RESIDENT_IMGS_S["o1"],
+                "loader_stats": {k: v for k, v in loader.stats.items()}})
+    log(f"ResNet-50 O1 fit through the pipeline: {res['imgs_per_s']:.1f} "
+        f"imgs/s (a batch every {interval:.1f} ms, median after the "
+        f"capture), the host's wait on the loader "
+        f"{[round(100 * v, 1) for v in shares]}% of each batch interval; "
+        f"the step on a resident batch {resident:.1f} imgs/s (phase 20's "
+        f"resident O1 figure {RESNET_RESIDENT_IMGS_S['o1']}, an earlier "
+        f"run); a transform {res['transform_ms_per_image']:.2f} ms an "
+        f"image in one process; losses {[round(v, 4) for v in losses]}")
+    model._invalidate_compiled()
+    del model, net, loader, xs, ys
+    release_memory(torch)
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return res, launches, {}
+
+
 def counter_fns(torch, fa_mod, extra=()):
     """``(reset_counters, read_counters)`` over B1-B3's launch counts (and
     their counts by type) and ``extra``'s; the reset also resets the peak
@@ -6725,12 +7494,13 @@ def counter_fns(torch, fa_mod, extra=()):
 
 
 def phase_alone(torch, fa_mod, dev, smi, phase, extra_counters):
-    """``python3 chip_smoke.py --phase 23|24|25|26``: after the build,
+    """``python3 chip_smoke.py --phase 23`` to ``29``: after the build,
     that phase alone; prints its numbers, not the summary lines."""
     reset_counters, read_counters = counter_fns(torch, fa_mod,
                                                 extra_counters)
     fn = {23: crf_tagger_phase, 24: beam_phase, 25: mobilenet_phase,
-          26: vit_phase}[phase]
+          26: vit_phase, 27: lstm_phase, 28: frcnn_phase,
+          29: pipeline_phase}[phase]
     out, launches, dtypes = fn(torch, fa_mod, dev, smi, reset_counters,
                                read_counters)
     log(f"phase {phase} paths launches: {launches}, B1-B3 by type {dtypes}")
@@ -6812,8 +7582,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     if sys.argv[1:] == ["--phase", "22"]:
         return phase22_alone(torch, fa_mod, dev, smi)
-    if sys.argv[1:] in (["--phase", "23"], ["--phase", "24"],
-                        ["--phase", "25"], ["--phase", "26"]):
+    if sys.argv[1:] in [["--phase", str(n)] for n in range(23, 30)]:
         return phase_alone(torch, fa_mod, dev, smi, int(sys.argv[2]),
                            (pa_mod.paged_attention, nms_mod.greedy_nms))
     tc_libs = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -7210,6 +7979,36 @@ def main() -> int:
             if (c > 0) != want:
                 raise RuntimeError(f"{path}: kernel {n} launched {c} times")
 
+    # -- phase 27: the PTB-large LSTM language model --------------------------
+    stamp("27 PTB-large LSTM LM")
+    lstm, lstm_launches, _ = lstm_phase(torch, fa_mod, dev, smi,
+                                        reset_counters, read_counters)
+    log(f"LSTM LM paths launches: {lstm_launches}")
+    for path, counts in lstm_launches.items():
+        if any(counts.values()):
+            raise RuntimeError(f"{path}: a port kernel launched {counts}")
+
+    # -- phase 28: Faster R-CNN R50-FPN inference ------------------------------
+    stamp("28 Faster R-CNN R50-FPN")
+    frcnn, frcnn_launches, _ = frcnn_phase(torch, fa_mod, dev, smi,
+                                           reset_counters, read_counters)
+    log(f"Faster R-CNN paths launches: {frcnn_launches}")
+    for path, counts in frcnn_launches.items():
+        for n, c in counts.items():
+            if (c > 0) != (n == "greedy_nms"):
+                raise RuntimeError(f"{path}: kernel {n} launched {c} times")
+    b5.update({f"frcnn_{k.split(' ')[0]}": v
+               for k, v in frcnn["b5"].items()})
+
+    # -- phase 29: ResNet-50 through PaddleClas's input pipeline --------------
+    stamp("29 ImageNet input pipeline")
+    pipe, pipe_launches, _ = pipeline_phase(torch, fa_mod, dev, smi,
+                                            reset_counters, read_counters)
+    log(f"input pipeline paths launches: {pipe_launches}")
+    for path, counts in pipe_launches.items():
+        if any(counts.values()):
+            raise RuntimeError(f"{path}: a port kernel launched {counts}")
+
     # -- summary --------------------------------------------------------------
     paths = {"serving": serve_launches, "serving_slot": slot_launches,
              "generate": gen_launches, "training": train_launches,
@@ -7222,7 +8021,8 @@ def main() -> int:
              "serving_prefix": prefix_launches, "serving_spec": spec_launches,
              "serving_int8": int8_launches, **hapi_launches, **dy_launches,
              **opg_launches, **crf_launches, **beam_launches,
-             **mb_launches, **vit_launches}
+             **mb_launches, **vit_launches, **lstm_launches,
+             **frcnn_launches, **pipe_launches}
     amp_dtypes["bert_flash_checks"] = bert_dtypes
     amp_dtypes.update({f"training_gpt_s4096_{k}": v
                        for k, v in long_dtypes.items()})
@@ -7291,6 +8091,9 @@ def main() -> int:
     log(f"GPT-3 1.3B beam search: {json.dumps(beam)}")
     log(f"MobileNetV3-Large: {json.dumps(mobilenet)}")
     log(f"ViT-B/16: {json.dumps(vitres)}")
+    log(f"PTB-large LSTM LM: {json.dumps(lstm)}")
+    log(f"Faster R-CNN R50-FPN: {json.dumps(frcnn)}")
+    log(f"ImageNet input pipeline: {json.dumps(pipe)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,11 @@ PyTorch version beside it, which CPU tensors take.
 ``import paddle_tpu_torch as paddle`` gives the reference's top-level
 names that are ported (``paddle_tpu/__init__.py:110-156``): the
 :class:`Tensor` and :class:`Parameter`, ``to_tensor`` and the ported
-ops (``linalg`` among them), ``ParamAttr``, grad mode, ``grad``,
-``PyLayer``, devices and places, dtypes and flags, and the subpackages. A dygraph program runs on them as written
-for the reference::
+ops (``linalg`` and the detection ops among them), ``ParamAttr``, grad
+mode, ``grad``, ``PyLayer``, devices and places, dtypes and flags,
+``batch`` (``reader``'s), and the subpackages (``vision``, ``text``,
+``reader``, ``distributed`` among them). A dygraph program runs on them
+as written for the reference::
 
     paddle.set_device("cpu")            # or leave it: CUDA
     x = paddle.to_tensor(images)
@@ -22,8 +24,9 @@ for the reference::
 """
 from torch import dtype  # noqa: F401 (paddle.dtype: the dtypes' class)
 
-from . import (amp, autograd, framework_io, incubate, io, metric, nn,
-               optimizer, quantization, regularizer, tensor, vision)
+from . import (amp, autograd, distributed, framework_io, incubate, io,
+               metric, nn, optimizer, quantization, reader, regularizer,
+               tensor, text, vision)
 from .autograd import PyLayer, PyLayerContext
 from .core import (CPUPlace, CUDAPlace, Place, TPUPlace, device_count,
                    get_device, get_flags, is_compiled_with_cuda,
@@ -38,6 +41,7 @@ from .core.generator import get_rng_state, seed, set_rng_state
 from .core.tensor import Parameter, Tensor
 from .framework_io import load, save, state_dict_from_reference
 from .hapi import Model, callbacks, summary
+from .reader import batch
 from .io import DataLoader
 from .nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .nn.layer_base import ParamAttr

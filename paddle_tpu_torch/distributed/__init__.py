@@ -1,7 +1,10 @@
 """paddle.distributed (counterpart of ``paddle_tpu/distributed``): so far
-``fleet.utils``'s activation recompute and gradient merge. Collectives,
+``fleet.utils``'s activation recompute and gradient merge, and the
+bulk-ingestion datasets ``InMemoryDataset``/``QueueDataset`` in a world
+of one (``distributed/dataset.py``, also under ``fleet``). Collectives,
 the mesh, data, tensor, pipeline and sequence parallelism (ring-flash)
 and the elastic runtime are ROADMAP.md queue A10."""
 from . import fleet
+from .dataset import DatasetBase, InMemoryDataset, QueueDataset
 
-__all__ = ["fleet"]
+__all__ = ["fleet", "DatasetBase", "InMemoryDataset", "QueueDataset"]

@@ -7,9 +7,12 @@ reference's do (``RandomSampler``, ``random_split``, the workers' seed),
 so the same ``np.random.seed`` gives the same batches in both packages.
 
 Workers run NumPy only: the dataset's ``__getitem__`` and the collate
-function, in processes forked from the trainer. They never touch torch
-or CUDA (a child that runs torch ops after the parent's thread pool and
-CUDA are up can hang). Each batch goes back through the port's
+function, in processes forked from the trainer. Worker ``w`` seeds
+NumPy's and Python's global generators with the iterator's seed plus
+``w`` (the JAX package seeds NumPy's only, so its forked workers replay
+one Python stream: every worker the same random crops and flips). They
+never touch torch or CUDA (a child that runs torch ops after the
+parent's thread pool and CUDA are up can hang). Each batch goes back through the port's
 shared-memory ring (``core/shm_ring.py``, one ring per worker, per
 iterator, named ``/ptt_dl_<pid>_<serial>_<worker>``), with only its
 size on the queue; a batch larger than the ring (``shm_capacity``, 64
@@ -35,6 +38,7 @@ import itertools
 import math
 import os
 import queue as _queue
+import random
 import time
 import traceback
 
@@ -321,6 +325,10 @@ def _worker_loop(dataset, index_queue, out_queue, collate_fn, wid,
     the queue) and through the queue when the batch is larger than the
     ring."""
     np.random.seed((seed + wid) & 0xFFFFFFFF)
+    # Python's generator too (the random transforms draw from it): a
+    # forked worker would otherwise replay its parent's stream, every
+    # worker the same crops and flips
+    random.seed((seed + wid) & 0xFFFFFFFF)
     _worker_info[0] = _WorkerInfo(wid, num_workers, dataset, seed)
     ring = None
     if shm_name is not None:

@@ -2,9 +2,9 @@
 ``:2-39``): ``Layer``, the containers, the common, activation and loss
 layers (``nn.loss`` names the latter module, as ``paddle.nn.loss``
 does), the transformer, the beam decoder, the clips, ``nn.utils`` and
-the weight and spectral norms. ``FLASH_CROSSOVER`` is a TPU constant the
-port does not carry, and ``nn.RNN`` and its kin are ROADMAP.md queue
-A9."""
+the weight and spectral norms, and the recurrent layers (``nn.RNN``,
+``LSTM``, ``GRU``, ``SimpleRNN``, ``BiRNN`` and their cells, ``nn/rnn.py``).
+``FLASH_CROSSOVER`` is a TPU constant the port does not carry."""
 from . import functional, initializer
 from . import layers_activation as loss
 from . import utils
@@ -16,6 +16,8 @@ from .container import LayerDict, LayerList, ParameterList, Sequential
 from .layer_base import HookRemoveHelper, Layer, ParamAttr
 from .layers_activation import *  # noqa: F401,F403
 from .layers_activation import __all__ as _activation_all
+from .rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell, RNNCellBase,
+                  SimpleRNN, SimpleRNNCell)
 from .layers_common import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
                             AdaptiveAvgPool3D, AdaptiveMaxPool1D,
                             AdaptiveMaxPool2D, AdaptiveMaxPool3D,
@@ -60,4 +62,5 @@ __all__ = ["functional", "initializer", "loss", "utils", "Layer",
            "TransformerDecoderLayer", "TransformerEncoder",
            "TransformerEncoderLayer", "BeamSearchDecoder", "dynamic_decode",
            "weight_norm", "remove_weight_norm", "spectral_norm",
-           "spectral_norm_fn"]
+           "spectral_norm_fn", "RNNCellBase", "SimpleRNNCell", "LSTMCell",
+           "GRUCell", "RNN", "SimpleRNN", "LSTM", "GRU", "BiRNN"]

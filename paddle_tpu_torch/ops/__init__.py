@@ -5,7 +5,7 @@
 ``ops.math``, ``ops.manipulation`` and ``ops.linalg`` hold the dense op
 surface of the reference, and ``ops.segment``, ``ops.sequence``,
 ``ops.beam``, ``ops.crf``, ``ops.control_flow`` and ``ops.extras`` its
-structured half; this package re-exports their names as the reference's
+structured half, ``ops.detection`` the detection ops; this package re-exports their names as the reference's
 does (``:19-45``: ``control_flow``'s ``increment`` and ``sequence``'s
 ``sequence_mask`` are the names here). ``_attach_methods`` puts the
 reference's method table on :class:`~paddle_tpu_torch.core.tensor.Tensor`
@@ -55,6 +55,14 @@ from .sequence import (im2sequence, sequence_concat,  # noqa: F401,E402
                        sequence_unpad)
 from .beam import (beam_search, beam_search_decode,  # noqa: F401,E402
                    ctc_align, edit_distance, gather_tree)
+from .detection import (anchor_generator, bipartite_match,  # noqa: F401,E402
+                        box_clip, box_coder, box_decoder_and_assign,
+                        collect_fpn_proposals, deformable_psroi_pooling,
+                        density_prior_box, distribute_fpn_proposals,
+                        generate_proposals, iou_similarity, matrix_nms,
+                        multiclass_nms, polygon_box_transform, prior_box,
+                        prroi_pool, psroi_pool, roi_align, roi_pool,
+                        smooth_l1, target_assign, yolo_box, yolov3_loss)
 
 
 def _attach_methods():

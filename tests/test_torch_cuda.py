@@ -35,6 +35,10 @@ from test_torch_op_table import (CUDA_CASES, HOST_CASES, LAYER_CASES,
                                  iob_tags, layer_case_holds,
                                  random_ops_hold, structured_draws_hold)
 
+from test_torch_a9_table import (DET_CASES, FRCNN, RNN_CASES,  # noqa: E402
+                                 detect, frcnn_inputs, lstm_lm, roi_features,
+                                 rpn_to_rois)
+
 tfa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
 
 pytestmark = pytest.mark.cuda
@@ -2754,3 +2758,159 @@ def test_max_pool2d_mask_on_ties_matches_the_cpu(cuda):
                            **kw)
         for a, b in zip(gpu, cpu):
             assert torch.equal(a.cpu(), b), kw
+
+
+# -- A9: the recurrent layers, the detection ops, the input pipeline --------
+
+@pytest.mark.parametrize("case", RNN_CASES, ids=repr)
+def test_rnn_table_on_the_card_matches_the_cpu(cuda, case):
+    """Each recurrent layer case on CUDA against the CPU from the same
+    weights: outputs, final states and gradients."""
+    import paddle_tpu_torch as P
+    layer_case_holds(case, P)
+
+
+@pytest.mark.parametrize("case", DET_CASES, ids=repr)
+def test_detection_table_on_the_card_matches_the_cpu(cuda, case):
+    """Each detection op case on CUDA against the CPU: forward (masks,
+    indices, counts bitwise) and gradient."""
+    import paddle_tpu_torch as P
+    cuda_case_holds(case, P)
+
+
+def _lm_model(cuda, seed=27, dropout=0.65):
+    import paddle_tpu_torch as P
+    P.seed(seed)
+    net, loss = lstm_lm(P, vocab=500, hidden=64, layers=2, dropout=dropout)
+    net.to(cuda)
+    model = P.Model(net)
+    model.prepare(P.optimizer.SGD(learning_rate=1.0,
+                                  parameters=net.parameters(), device=cuda,
+                                  grad_clip=P.nn.ClipGradByGlobalNorm(10.0)),
+                  loss)
+    return model
+
+
+@pytest.mark.parametrize("o1", [False, True], ids=["fp32", "o1"])
+def test_lstm_lm_graphed_equals_eager_on_the_card(cuda, o1):
+    """The LSTM LM (2 layers of 64, dropout 0.65) trained 4 steps by
+    ``train_batch``: the captured program's losses bitwise the eager
+    lane's (the loop and the dropout masks capture), no port kernel
+    launched; the eval program's loss equal to the eager one's."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import graphs
+    ids = np.random.default_rng(0).integers(0, 500, (4, 8, 13))
+    x = torch.from_numpy(ids[..., :-1]).to(cuda)
+    y = torch.from_numpy(ids[..., 1:]).to(cuda)
+    before = tcustom.greedy_nms.launches + tpa.paged_attention.launches
+    losses = {}
+    for lane in ("graphed", "eager"):
+        model = _lm_model(cuda)
+        P.seed(5)
+        ctx = graphs.disable_graphs() if lane == "eager" \
+            else contextlib.nullcontext()
+        amp = P.amp.auto_cast(level="O1", dtype="bfloat16") if o1 \
+            else contextlib.nullcontext()
+        with ctx, amp:
+            losses[lane] = [float(model.train_batch([x[t]], [y[t]])[0])
+                            for t in range(4)]
+            losses[lane + "_eval"] = [float(model.eval_batch(
+                [x[0]], [y[0]])[0]) for _ in range(2)]
+    assert losses["graphed"] == losses["eager"]
+    assert losses["graphed_eval"] == losses["eager_eval"]
+    assert tcustom.greedy_nms.launches + tpa.paged_attention.launches == \
+        before
+
+
+def test_nms_kernel_at_k1000_matches_plain_bit_exactly(cuda):
+    """B5 at ``generate_proposals``' k = 1000 (Faster R-CNN's
+    ``pre_nms_top_n``), one problem an image, threshold 0.7."""
+    iou, valid, thr = _nms_case(1000, 4, 1000, "boxes")
+    valid[:] = 1
+    thr[:] = 0.7
+    ic, vc, tc = iou.to(cuda), valid.to(cuda), thr.to(cuda)
+    got = tcustom.greedy_nms(ic, vc, tc, 1.0)
+    assert torch.equal(got, tcustom.greedy_nms_plain(ic, vc, tc, 1.0))
+    assert torch.equal(got.cpu(), tcustom.greedy_nms_plain(iou, valid, thr,
+                                                           1.0))
+
+
+def test_faster_rcnn_chain_on_the_card_matches_the_cpu(cuda):
+    """The RPN-to-NMS chain at a small size on CUDA against the CPU: rois
+    and detections equal (kept sets exact), pooled features at 1e-5; B5
+    launched once for each level's ``generate_proposals`` (both images in
+    one launch) and once for ``multiclass_nms``."""
+    import paddle_tpu_torch as P
+    cfg = dict(FRCNN, pre_nms_top_n=200, post_nms_top_n=64, keep_top_k=40,
+               refer_scale=48)
+    feats, scores, deltas, im = frcnn_inputs(size=(96, 128), width=8)
+    rng = np.random.default_rng(6)
+    r = 2 * cfg["post_nms_top_n"]
+    logits = (rng.permutation(r * 6).reshape(r, 6) / (r * 6) * 12 - 6
+              ).astype(np.float32)
+    box_d = rng.uniform(-0.5, 0.5, (r, 4)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        before = tcustom.greedy_nms.launches
+        rois, num = rpn_to_rois(P, [t(f) for f in feats],
+                                [t(s) for s in scores],
+                                [t(d) for d in deltas], t(im), cfg)
+        pooled = roi_features(P, [t(f) for f in feats[:4]], rois, num, cfg)
+        dets, counts = detect(P, rois, t(logits), t(box_d),
+                              t(np.array(cfg["box_variances"], np.float32)),
+                              2, cfg)
+        out[str(dev)] = [v.cpu() for v in (rois, pooled, dets, counts)]
+        launched = tcustom.greedy_nms.launches - before
+    assert launched == len(FRCNN["strides"]) + 1
+    (a_r, a_p, a_d, a_c), (b_r, b_p, b_d, b_c) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(a_r, b_r, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(a_p, b_p, rtol=1e-5, atol=1e-5)
+    assert torch.equal(a_c, b_c) and torch.equal(a_d[..., 0], b_d[..., 0])
+    torch.testing.assert_close(a_d, b_d, rtol=1e-5, atol=1e-4)
+
+
+def test_roi_align_on_the_card_at_the_p2_tap_grid(cuda):
+    """``roi_align`` at a P2-like level (the 8 x 8 tap grid) on 300 rois,
+    CUDA against the CPU within 1e-5 of the largest entry, and bitwise
+    repeatable."""
+    import paddle_tpu_torch as P
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 16, 100, 120)).astype(np.float32)
+    xy = rng.uniform(-20, 420, (300, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(4, 300, (300, 2))],
+                          1).astype(np.float32)
+    kw = dict(spatial_scale=0.25, sampling_ratio=0, aligned=True,
+              rois_num=np.array([150, 150]))
+    ref = P.ops.roi_align(torch.from_numpy(x), torch.from_numpy(rois), 7,
+                          **kw)
+    xc, rc = torch.from_numpy(x).to(cuda), torch.from_numpy(rois).to(cuda)
+    got = P.ops.roi_align(xc, rc, 7, **kw)
+    assert torch.equal(got, P.ops.roi_align(xc, rc, 7, **kw))
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+def test_transforms_in_loader_workers_feed_the_card(cuda, tmp_path):
+    """PaddleClas's train transforms on a ``DatasetFolder`` of ``.npy``
+    images through a 2-worker ``DataLoader`` onto the card, run to its
+    end: float32 NCHW batches on CUDA."""
+    import paddle_tpu_torch as P
+    T = P.vision.transforms
+    rng = np.random.default_rng(8)
+    for c in ("a", "b"):
+        (tmp_path / c).mkdir()
+        for i in range(4):
+            np.save(tmp_path / c / f"{i}.npy", rng.integers(
+                0, 256, (20 + i, 24, 3)).astype(np.uint8))
+    tf = T.Compose([T.RandomResizedCrop(16), T.RandomHorizontalFlip(),
+                    T.Normalize(mean=[123.675, 116.28, 103.53],
+                                std=[58.395, 57.12, 57.375],
+                                data_format="HWC"), T.Transpose()])
+    ds = P.vision.datasets.DatasetFolder(str(tmp_path), transform=tf)
+    loader = P.io.DataLoader(ds, batch_size=4, num_workers=2, timeout=60)
+    batches = list(loader)
+    assert len(batches) == 2
+    x, y = batches[0]
+    assert x.is_cuda and x.dtype == torch.float32 and \
+        tuple(x.shape) == (4, 3, 16, 16)

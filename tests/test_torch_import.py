@@ -77,8 +77,38 @@ def test_import_leaves_no_jax_in_subprocess():
         "import paddle_tpu_torch.nn.functional.conv\n"
         "import paddle_tpu_torch.nn.functional.pooling\n"
         "import paddle_tpu_torch.vision.models.mobilenet\n"
+        "import paddle_tpu_torch.nn.rnn, paddle_tpu_torch.reader\n"
+        "import paddle_tpu_torch.vision.transforms.functional\n"
+        "import paddle_tpu_torch.vision.datasets, paddle_tpu_torch.text\n"
+        "import paddle_tpu_torch.distributed.dataset\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_a9_modules_pull_in_no_jax_pil_or_reference():
+    """The input pipeline's modules (``vision``, its transforms, datasets,
+    image IO and ops, ``text``, ``reader``, the bulk datasets) import
+    neither jax, nor the JAX package, nor PIL (which the machine with the
+    card lacks): PIL is imported only inside a call that decodes."""
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch.vision.transforms\n"
+        "import paddle_tpu_torch.vision.transforms.det_transforms\n"
+        "import paddle_tpu_torch.vision.datasets\n"
+        "import paddle_tpu_torch.vision.image, paddle_tpu_torch.vision.ops\n"
+        "import paddle_tpu_torch.vision, paddle_tpu_torch.text\n"
+        "import paddle_tpu_torch.text.datasets, paddle_tpu_torch.reader\n"
+        "import paddle_tpu_torch.distributed.dataset\n"
+        "import paddle_tpu_torch.nn.rnn, paddle_tpu_torch.ops.detection\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'paddle_tpu', 'PIL'))\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
