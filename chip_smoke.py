@@ -464,7 +464,26 @@ Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result. ``--phase 22`` runs,
 after the build, phase 21's two GPT-3 1.3B dygraph references and phase
 22 alone, and prints that phase's numbers only; ``--phase 23`` to
-``--phase 29`` run that phase alone after the build.
+``--phase 30`` run that phase alone after the build.
+
+Phase 30 drives the host-plane substrate on GPT-3 1.3B: live MFU on
+phase 7's graphed fp32 and O1 ``train_batch`` (``attach_step_meter``;
+``train.flops_per_step`` held within 10% of the analytic count and the
+losses bitwise those of an unmetered model), ``measure_mfu`` on the
+slot and the paged ``LLMEngine`` over phase 4's 8 requests (tokens equal
+to the unmetered engines'), the disabled span's host ns and the spans a
+tick and a step record, the decode tick and the O1 step with tracing off
+and on in alternating rounds, a ``Profiler`` around 3 graphed steps
+(B1-B3's kernels in its trace) and one eager step (the funnel's
+``op::`` ranges), the exported Chrome trace's nesting, a SIGTERM drain
+of the metered paged engine and of a classifier ``Engine`` (an armed
+flight dump each) and a preemption-guard drain of the metered slot
+engine, and one CUDA graph captured while a profile runs (its result or
+its fault is printed). Its launch counts are set to 0 before and read
+after each path: the two train lanes (B1-B3 24 each a step), the
+tracing rounds and profiles, each serving engine (B4 24 a paged step,
+the metered engine's count included; the prefills attend densely, and
+the slot engines launch none) and the tick rounds.
 """
 from __future__ import annotations
 
@@ -475,6 +494,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -7475,6 +7495,522 @@ def pipeline_phase(torch, fa_mod, dev, smi, reset_counters, read_counters):
     return res, launches, {}
 
 
+# -- phase 30: the host-plane substrate ---------------------------------------
+
+#: phase 30's train steps a precision (fp32, then O1), metered and not;
+#: the profiler's graphed steps; the tracing on/off rounds
+OBS_STEPS = 2
+OBS_PROFILED_STEPS = 3
+OBS_ROUNDS = 4
+OBS_TICKS = 10              # decode ticks a round
+OBS_TRAIN_ITERS = 2         # O1 train steps a round
+OBS_SPAN_CALLS = 200_000    # disabled span() calls timed on the host
+#: the step meter's count against the analytic count (the reference's
+#: own tolerance, tests/test_observability.py's MFU agreement)
+OBS_FLOPS_TOL = 0.10
+OBS_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+               "flash_bwd_dkv_kernel")
+
+
+def analytic_step_flops(cfg, batch, seq):
+    """GPT train-step FLOPs under the MAC convention: 3 x the forward's
+    products, ``3*T*(12*L*h^2 + h*V)``, plus B1-B3's causal attention by
+    PERF.md's formulas (4, 6 and 8 FLOPs a pair a head-dim element),
+    halved."""
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    t, h, n_l = batch * seq, cfg["hidden_size"], cfg["num_layers"]
+    dense = 3 * t * (12 * n_l * h * h + h * cfg["vocab_size"])
+    pairs = fa.attention_pairs(seq, seq, True)
+    return dense + n_l * 18 * batch * h * pairs / 2
+
+
+def _wall_rounds(torch, fns, rounds):
+    """Host wall ms a call of each function (each ends in a host fetch,
+    so the wall is the device's too), in alternating rounds, the order
+    reversed every other round: {name: median round ms}, and every
+    round's ms by name."""
+    per = {n: [] for n in fns}
+    for r in range(rounds):
+        for n in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            t0 = time.perf_counter()
+            calls = fns[n]()
+            per[n].append((time.perf_counter() - t0) * 1e3 / calls)
+    return {n: float(np.median(v)) for n, v in per.items()}, per
+
+
+def _traced(tracer, on, fn, n):
+    def run():
+        (tracer.enable if on else tracer.disable)()
+        for _ in range(n):
+            fn()
+        tracer.disable()
+        return n
+    return run
+
+
+def _spans_of(tracer, fn):
+    """The spans one call of ``fn`` records, by name (the ring keeps
+    them: the exported trace reads it)."""
+    ring = tracer.default_tracer()
+    before = len(ring.spans())
+    tracer.enable()
+    try:
+        fn()
+    finally:
+        tracer.disable()
+    names = [s["name"] for s in ring.spans()[before:]]
+    return {n: names.count(n) for n in sorted(set(names))}
+
+
+def disabled_span_ns(tracer, calls=OBS_SPAN_CALLS):
+    """Host ns of one ``with span(...)`` while tracing is off (best of 3
+    timed loops, the empty loop's cost taken off)."""
+    span = tracer.span
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            with span("serving.llm/decode_tick"):
+                pass
+        t1 = time.perf_counter_ns()
+        for _ in range(calls):
+            pass
+        t2 = time.perf_counter_ns()
+        best = min(best, ((t1 - t0) - (t2 - t1)) / calls)
+    return best
+
+
+def _obs_train_lane(torch, cfg, dev, ids, meter, registry):
+    """GPT-3 1.3B (phase 7's model, seed 0, AdamW, lr fixed) through
+    OBS_STEPS graphed fp32 train_batch steps, then OBS_STEPS O1 bf16
+    steps; with ``meter`` a StepMeter on ``registry``. Returns the model,
+    the losses by precision and, metered, each precision's FLOPs a step,
+    last MFU and step times."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.observability import stepmeter
+    model, _ = _train_model(torch, cfg, dev, "flash")
+    if meter:
+        model.attach_step_meter(stepmeter.StepMeter(registry=registry,
+                                                    device=dev))
+    losses, metered = {}, {}
+    for prec in ("fp32", "o1"):
+        losses[prec] = []
+        for _ in range(OBS_STEPS):
+            with (amp.auto_cast() if prec == "o1"
+                  else contextlib.nullcontext()):
+                loss, _ = model.train_batch([ids], [ids])
+            losses[prec].append(loss)
+            if not math.isfinite(loss):
+                raise RuntimeError(f"phase 30 {prec} loss {loss}")
+        if meter:
+            flops, mfu = (registry.get("train.flops_per_step"),
+                          registry.get("train.mfu"))
+            # the last step's wall, from its MFU
+            metered[prec] = {
+                "flops_per_step": flops, "mfu": mfu,
+                "last_step_ms": flops / mfu / model._step_meter.peak_flops
+                * 1e3}
+    return model, losses, metered
+
+
+def _obs_engine(model, cfg, layout, measure):
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+    kw = (dict(kv_layout="paged", page_size=16, paged_attn_impl="kernel")
+          if layout == "paged" else dict(kv_layout="slot"))
+    return LLMEngine(model, LLMEngineConfig(
+        num_slots=8, max_seq=cfg["max_position_embeddings"], seed=0,
+        measure_mfu=measure, **kw))
+
+
+def _obs_serve(eng, prompts, interrupt=None):
+    """Phase 4's 8 greedy requests, 32 new tokens each; ``interrupt()``
+    runs once the first request has streamed 2 tokens (the others then
+    in flight or queued). Returns the token lists."""
+    reqs = [eng.submit(p, max_new_tokens=32, stream=(i == 0))
+            for i, p in enumerate(prompts)]
+    if interrupt is not None:
+        it = reqs[0].iter_tokens(timeout=600)
+        next(it)
+        next(it)
+        interrupt()
+    results = [r.result(timeout=600) for r in reqs]
+    for r in results:
+        if len(r["tokens"]) != 32:
+            raise RuntimeError(f"request {r['req_id']} returned "
+                               f"{len(r['tokens'])} tokens, not 32")
+    return [r["tokens"] for r in results]
+
+
+def _metered_stats(eng, lane, tokens):
+    """A metered engine's count, its last tick's MFU, and the MFU at its
+    median tick (``mfu`` is the last tick's gauge)."""
+    stats = eng.stats()
+    st, tick = stats["stats"], stats["histograms"][
+        "serving.llm.decode_tick_ms"]
+    flops = st.get("serving.llm.decode_flops_per_tick")
+    peak = eng._batcher._peak_flops
+    return {"metered_equal": tokens == lane["plain_tokens"],
+            "decode_flops_per_tick": flops, "mfu": st.get("serving.llm.mfu"),
+            "tick_ms_p50": tick["p50"],
+            "mfu_at_p50_tick": flops / (tick["p50"] / 1e3) / peak
+            if flops else None}
+
+
+def _flight_lines(directory):
+    dumps = sorted(f for f in os.listdir(directory)
+                   if f.startswith("flight_"))
+    out = []
+    for f in dumps:
+        with open(os.path.join(directory, f)) as fh:
+            out.append([json.loads(line) for line in fh if line.strip()])
+    return out
+
+
+def _check_dump(lines, engine, what):
+    kinds = [line.get("kind") for line in lines[1:]]
+    ok = (lines[0]["schema"] == "paddle-tpu-flight/2"
+          and lines[0]["reason"] == "sigterm_drain"
+          and any(e.get("kind") == "sigterm_drain"
+                  and e.get("engine") == engine for e in lines)
+          and "span" in kinds and kinds[-1] == "stats")
+    if not ok:
+        raise RuntimeError(f"{what}: the flight dump lacks the "
+                           f"sigterm_drain event, spans or stats: {kinds}")
+    return {"lines": len(lines), "spans": kinds.count("span"),
+            "stats": len(lines[-1]["stats"])}
+
+
+def _nested(child, parent):
+    return (parent["ts"] <= child["ts"] and child["ts"] + child["dur"]
+            <= parent["ts"] + parent["dur"] + 1e-3
+            and child["tid"] == parent["tid"])
+
+
+def check_trace_nesting(events):
+    """The exported spans nest as the JAX package's: a signature's first
+    ``train/step`` holds its ``jit/compile`` and the meter's
+    ``observability/cost_analysis``; an engine's warm-up compiles at
+    depth 0 in the constructing thread; ``serving.llm/prefill`` and
+    ``serving.llm/decode_tick`` run at depth 0 in the worker, and a
+    metered engine's first plain tick holds its cost analysis."""
+    xev = [e for e in events if e["ph"] == "X"]
+    by = {}
+    for e in xev:
+        by.setdefault(e["name"], []).append(e)
+    need = ("train/step", "jit/compile", "serving.llm/prefill",
+            "serving.llm/decode_tick", "observability/cost_analysis")
+    missing = [n for n in need if n not in by]
+    if missing:
+        raise RuntimeError(f"exported trace lacks spans {missing}")
+    steps = by["train/step"]
+    in_steps = [c for c in by["jit/compile"]
+                if any(_nested(c, s) for s in steps)]
+    cost_in_steps = [c for c in by["observability/cost_analysis"]
+                     if any(_nested(c, s) for s in steps)]
+    cost_in_ticks = [c for c in by["observability/cost_analysis"]
+                     if any(_nested(c, t)
+                            for t in by["serving.llm/decode_tick"])]
+    warm = [c for c in by["jit/compile"]
+            if c.get("args", {}).get("depth", 0) == 0]
+    worker_roots = all(e.get("args", {}).get("depth", 0) == 0
+                       for n in ("serving.llm/prefill",
+                                 "serving.llm/decode_tick")
+                       for e in by[n])
+    out = {"spans": {n: len(v) for n, v in sorted(by.items())},
+           "compiles_in_train_steps": len(in_steps),
+           "cost_analysis_in_train_steps": len(cost_in_steps),
+           "cost_analysis_in_decode_ticks": len(cost_in_ticks),
+           "warmup_compiles_at_depth_0": len(warm),
+           "serving_spans_at_depth_0": worker_roots}
+    if not (in_steps and cost_in_steps and cost_in_ticks and warm
+            and worker_roots and all(c["args"]["depth"] >= 1
+                                     for c in in_steps)):
+        raise RuntimeError(f"the exported spans do not nest as the "
+                           f"reference's: {out}")
+    return out
+
+
+def _profiled_kernels(path):
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    return names
+
+
+def capture_under_profiler(torch, dev, log_dir):
+    """One CUDA graph captured while a Profiler runs: a program whose
+    function goes through the op funnel (so a ``record_function`` range
+    opens inside the capture); then two replays against the plain
+    product. Returns the result or the fault, never raises."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.core import graphs
+
+    class _State:
+        graph_pool = graphs.GraphPool(dev)
+
+    x = torch.randn(256, 256, device=dev)
+    prog = graphs.Program(lambda params, state, a: P.matmul(a, a),
+                          name="capture_under_profiler")
+    try:
+        with profiler.Profiler(log_dir=log_dir) as prof:
+            prog([], _State, x)
+            for _ in range(2):
+                out = prog([], _State, x)
+        torch.cuda.synchronize()
+        err = float((out - x @ x).abs().max())
+        res = {"captured": prog.trace_counter["traces"] == 1,
+               "replays": prog.replays, "max_abs_err": err,
+               "op_range_in_trace": "op::matmul_v2" in _profiled_kernels(
+                   prof.trace_path)}
+        if not (res["captured"] and err < 1e-3 and (
+                res["replays"] == 2 or dev.type != "cuda")):
+            res["fault"] = "the capture did not replay the product"
+        return res
+    except Exception as e:  # noqa: BLE001 -- reported, not hidden
+        return {"fault": f"{type(e).__name__}: {e}"}
+
+
+def observability_phase(torch, fa_mod, dev, smi, reset_counters,
+                        read_counters):
+    """Phase 30 (module docstring): the host-plane substrate on GPT-3
+    1.3B. Returns (results, launches by path, B1-B3 by type)."""
+    import signal
+    import tempfile
+    from paddle_tpu_torch import amp, observability as obs
+    from paddle_tpu_torch.core import graphs, monitor
+    from paddle_tpu_torch.distributed.elastic import PreemptionGuard
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.observability import export, flight, tracer
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.serving.engine import Engine, EngineConfig
+    from paddle_tpu_torch.serving.llm.decode import SamplingParams
+    from paddle_tpu_torch.serving.llm.scheduler import GenerationRequest
+    cfg = CFG_13B
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    os.environ["PADDLE_TPU_FLIGHT_DIR"] = os.path.join(work, "flight")
+    os.makedirs(os.environ["PADDLE_TPU_FLIGHT_DIR"])
+    rng = np.random.default_rng(0)          # phase 3's seed
+    prompts = [rng.integers(0, cfg["vocab_size"], n).tolist()
+               for n in PROMPT_LENS]
+    ids = rng.integers(0, cfg["vocab_size"],
+                       (4, cfg["max_position_embeddings"]))
+    log(f"phase 30: spans, the flight recorder, live MFU and preemption "
+        f"drains on GPT-3 1.3B (seed 0; phase 7's [4, 1024] batch, phase "
+        f"4's 8 requests; fp32 TF32 off and O1 bf16); {smi}")
+    out, launches, dtypes = {}, {}, {}
+    prev_sigterm = signal.getsignal(signal.SIGTERM)
+    span_ns = disabled_span_ns(tracer)
+
+    # -- MFU, training: unmetered, then metered with tracing on ---------
+    reg = monitor.default_registry()
+    for k in [k for k in reg.stats() if k.startswith("train.")]:
+        reg.reset(k)
+    reset_counters()
+    plain_model, plain_losses, _ = _obs_train_lane(torch, cfg, dev, ids,
+                                                   False, None)
+    plain_model._invalidate_compiled()
+    del plain_model
+    release_memory(torch)
+    obs.enable()
+    model, losses, metered = _obs_train_lane(torch, cfg, dev, ids, True,
+                                             reg)
+    launches["obs_train"] = read_counters()
+    dtypes["obs_train"] = {c.__name__: dict(c.launches_by_dtype)
+                           for c in _counters(fa_mod)}
+    if losses != plain_losses:
+        raise RuntimeError(f"metered losses {losses} are not the "
+                           f"unmetered {plain_losses}")
+    analytic = analytic_step_flops(cfg, *ids.shape)
+    for prec, m in metered.items():
+        rel = m["flops_per_step"] / analytic - 1
+        m["vs_analytic"] = rel
+        if abs(rel) > OBS_FLOPS_TOL:
+            raise RuntimeError(f"{prec} train.flops_per_step "
+                               f"{m['flops_per_step']:.6g} is {rel:+.2%} "
+                               f"off the analytic {analytic:.6g}")
+    out["train"] = {"losses": losses, "metered": metered,
+                    "analytic_flops": analytic,
+                    "peak_flops": model._step_meter.peak_flops}
+    log(f"train MFU (MAC convention, peak {model._step_meter.peak_flops:.4g}"
+        f" FLOP/s): {json.dumps(metered)}; analytic {analytic:.6g}; "
+        f"losses bitwise equal to the unmetered lane's {losses}")
+
+    # spans of a step, tracing cost on the step, the profiler
+    o1 = amp.auto_cast
+
+    def o1_step():
+        with o1():
+            model.train_batch([ids], [ids])
+
+    out["train"]["spans_per_step"] = _spans_of(tracer, o1_step)
+    reset_counters()
+    medians, rounds = _wall_rounds(torch, {
+        "disabled": _traced(tracer, False, o1_step, OBS_TRAIN_ITERS),
+        "enabled": _traced(tracer, True, o1_step, OBS_TRAIN_ITERS)},
+        OBS_ROUNDS)
+    out["train"]["tracing_ms"] = {"median": medians, "rounds": rounds}
+    prof_dir = os.path.join(work, "prof")
+    with profiler.Profiler(log_dir=prof_dir) as prof:
+        for _ in range(OBS_PROFILED_STEPS):
+            o1_step()
+            prof.step()
+    names = _profiled_kernels(prof.trace_path)
+    seen = {k: any(k in n for n in names) for k in OBS_KERNELS}
+    with profiler.Profiler(log_dir=os.path.join(work, "prof_eager")) as pe:
+        with graphs.disable_graphs(), o1():
+            model.train_batch([ids], [ids])
+    eager_ops = sorted(n for n in _profiled_kernels(pe.trace_path)
+                       if n.startswith("op::"))
+    launches["obs_rounds_and_profiles"] = read_counters()
+    out["profiler"] = {"graphed_steps_kernels": seen,
+                       "step_info": prof.step_info(),
+                       "eager_step_op_ranges": eager_ops[:20],
+                       "eager_step_op_range_count": len(eager_ops)}
+    if not all(seen.values()) or not eager_ops:
+        raise RuntimeError(f"profiler traces: kernels {seen}, op ranges "
+                           f"{eager_ops[:5]}")
+    log(f"train step tracing (O1, {OBS_ROUNDS} alternating rounds of "
+        f"{OBS_TRAIN_ITERS} steps): {json.dumps(medians)} ms a step; spans "
+        f"a step {out['train']['spans_per_step']}; profiler: "
+        f"{json.dumps(out['profiler'])}")
+    model._invalidate_compiled()
+    del model
+    release_memory(torch)
+
+    # -- MFU, serving; the drains -----------------------------------------
+    smodel = GPTForCausalLM(GPTConfig(**cfg, attn_impl="flash"), device=dev,
+                            seed=0).eval()
+    serving = {}
+    obs.disable()
+    for layout in ("paged", "slot"):
+        reset_counters()
+        eng = _obs_engine(smodel, cfg, layout, False)
+        plain_tokens = _obs_serve(eng, prompts)
+        eng.drain(timeout=120)
+        launches[f"obs_serving_{layout}"] = read_counters()
+        serving[layout] = {"plain_tokens": plain_tokens}
+        if layout == "paged":
+            # the decode tick with tracing off and on, on this engine's
+            # batcher (its worker has stopped)
+            b = eng._batcher
+            for i in range(8):
+                b.admit(GenerationRequest(
+                    prompts[i][:16], SamplingParams(max_new_tokens=900)))
+            tick_spans = _spans_of(tracer, b.tick)
+            reset_counters()
+            t_med, t_rounds = _wall_rounds(torch, {
+                "disabled": _traced(tracer, False, b.tick, OBS_TICKS),
+                "enabled": _traced(tracer, True, b.tick, OBS_TICKS)},
+                OBS_ROUNDS)
+            launches["obs_tick_rounds"] = read_counters()
+            b.abort_all(lambda req: RuntimeError("phase 30: done"))
+            serving["tick_tracing_ms"] = {"median": t_med,
+                                          "rounds": t_rounds,
+                                          "spans_per_tick": tick_spans}
+        del eng
+        release_memory(torch)
+    obs.enable()
+    flight_dir = os.environ["PADDLE_TPU_FLIGHT_DIR"]
+    # paged, metered, drained by a real SIGTERM in flight
+    reset_counters()
+    eng = _obs_engine(smodel, cfg, "paged", True)
+    chain = eng.install_drain_signal_handler()
+    try:
+        tokens = _obs_serve(eng, prompts,
+                            lambda: signal.raise_signal(signal.SIGTERM))
+        if not eng._stopped.wait(120):
+            raise RuntimeError("the SIGTERM drain did not stop the worker")
+    finally:
+        chain.uninstall()
+    launches["obs_serving_paged_metered"] = read_counters()
+    serving["paged"].update(_metered_stats(eng, serving["paged"], tokens),
+                            draining=eng.draining)
+    dumps = _flight_lines(flight_dir)
+    if len(dumps) != 1:
+        raise RuntimeError(f"{len(dumps)} flight dumps after the SIGTERM "
+                           f"drain, not 1")
+    serving["paged"]["flight_dump"] = _check_dump(dumps[0], "serving.llm",
+                                                  "LLMEngine")
+    del eng
+    release_memory(torch)
+    # slot, metered, drained by the preemption guard
+    reset_counters()
+    eng = _obs_engine(smodel, cfg, "slot", True)
+    guard = PreemptionGuard(install=False)
+    eng.arm_preemption(guard)
+    tokens = _obs_serve(eng, prompts, guard.preempt)
+    if not eng._stopped.wait(120):
+        raise RuntimeError("the preemption drain did not stop the worker")
+    launches["obs_serving_slot_metered"] = read_counters()
+    serving["slot"].update(
+        _metered_stats(eng, serving["slot"], tokens),
+        preemption_drains=eng.registry.get("serving.llm.preemption_drains"))
+    del eng, smodel
+    release_memory(torch)
+    # the classifier Engine, drained by a real SIGTERM with work queued
+    gate = threading.Event()
+
+    def slow(x):
+        gate.wait(60)
+        return x * 2
+
+    ceng = Engine(slow, EngineConfig(batch_buckets=(1, 2, 4), max_batch=4,
+                                     max_batch_delay=0.0), device=dev)
+    chain = ceng.install_drain_signal_handler()
+    try:
+        futs = [ceng.submit([np.full((1, 8), i, np.float32)])
+                for i in range(12)]
+        signal.raise_signal(signal.SIGTERM)
+        gate.set()
+        if not ceng._stopped.wait(120):
+            raise RuntimeError("the Engine's SIGTERM drain did not stop")
+    finally:
+        gate.set()
+        chain.uninstall()
+    done = sum(bool(np.all(f.result(60)[0] == 2 * i))
+               for i, f in enumerate(futs))
+    dumps = _flight_lines(flight_dir)
+    engine_dump = _check_dump(dumps[-1], "serving", "Engine")
+    restored = signal.getsignal(signal.SIGTERM) == prev_sigterm
+    serving["engine_drain"] = {"requests": len(futs), "completed": done,
+                               "flight_dump": engine_dump,
+                               "handlers_restored": restored}
+    for layout in ("paged", "slot"):
+        s = serving[layout]
+        if not s["metered_equal"] or not s["decode_flops_per_tick"] \
+                or not s["mfu"]:
+            raise RuntimeError(f"{layout} measure_mfu: {s}")
+        s.pop("plain_tokens")
+    if serving["slot"]["preemption_drains"] != 1 or done != len(futs) \
+            or not restored or not serving["paged"]["draining"]:
+        raise RuntimeError(f"drains: {serving}")
+    out["serving"] = serving
+    log(f"serving MFU and drains: {json.dumps(serving)}")
+
+    # -- the exported trace, the capture under the profiler -----------------
+    path = os.path.join(work, "trace.json")
+    n = export.export_chrome_trace(path)
+    out["trace"] = dict(check_trace_nesting(
+        export.load_chrome_trace(path)["traceEvents"]), exported=n,
+        dropped=tracer.default_tracer().dropped)
+    obs.disable()
+    tracer.default_tracer().clear()
+    flight.default_recorder().clear()
+    out["capture_under_profiler"] = capture_under_profiler(
+        torch, dev, os.path.join(work, "prof_capture"))
+    out["disabled_span_ns"] = span_ns
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"exported trace: {json.dumps(out['trace'])}; capture under the "
+        f"profiler: {json.dumps(out['capture_under_profiler'])}; a "
+        f"disabled span {span_ns:.1f} ns on the host; phase 30 "
+        f"{out['seconds']:.1f} s")
+    import shutil
+    shutil.rmtree(work, ignore_errors=True)
+    os.environ.pop("PADDLE_TPU_FLIGHT_DIR", None)
+    return out, launches, dtypes
+
+
 def counter_fns(torch, fa_mod, extra=()):
     """``(reset_counters, read_counters)`` over B1-B3's launch counts (and
     their counts by type) and ``extra``'s; the reset also resets the peak
@@ -7500,7 +8036,7 @@ def phase_alone(torch, fa_mod, dev, smi, phase, extra_counters):
                                                 extra_counters)
     fn = {23: crf_tagger_phase, 24: beam_phase, 25: mobilenet_phase,
           26: vit_phase, 27: lstm_phase, 28: frcnn_phase,
-          29: pipeline_phase}[phase]
+          29: pipeline_phase, 30: observability_phase}[phase]
     out, launches, dtypes = fn(torch, fa_mod, dev, smi, reset_counters,
                                read_counters)
     log(f"phase {phase} paths launches: {launches}, B1-B3 by type {dtypes}")
@@ -7582,7 +8118,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     if sys.argv[1:] == ["--phase", "22"]:
         return phase22_alone(torch, fa_mod, dev, smi)
-    if sys.argv[1:] in [["--phase", str(n)] for n in range(23, 30)]:
+    if sys.argv[1:] in [["--phase", str(n)] for n in range(23, 31)]:
         return phase_alone(torch, fa_mod, dev, smi, int(sys.argv[2]),
                            (pa_mod.paged_attention, nms_mod.greedy_nms))
     tc_libs = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -8009,6 +8545,20 @@ def main() -> int:
         if any(counts.values()):
             raise RuntimeError(f"{path}: a port kernel launched {counts}")
 
+    # -- phase 30: spans, the flight recorder, MFU and drains ----------------
+    stamp("30 the host-plane substrate")
+    obsres, obs_launches, obs_dtypes = observability_phase(
+        torch, fa_mod, dev, smi, reset_counters, read_counters)
+    log(f"phase 30 paths launches: {obs_launches}, B1-B3 by type "
+        f"{obs_dtypes}")
+    for path, names in (("obs_train", flash_names),
+                        ("obs_serving_paged_metered",
+                         ("paged_attention",))):
+        for n in names:
+            if obs_launches[path][n] < 1:
+                raise RuntimeError(f"kernel {n} was not launched on the "
+                                   f"{path} path")
+
     # -- summary --------------------------------------------------------------
     paths = {"serving": serve_launches, "serving_slot": slot_launches,
              "generate": gen_launches, "training": train_launches,
@@ -8022,7 +8572,7 @@ def main() -> int:
              "serving_int8": int8_launches, **hapi_launches, **dy_launches,
              **opg_launches, **crf_launches, **beam_launches,
              **mb_launches, **vit_launches, **lstm_launches,
-             **frcnn_launches, **pipe_launches}
+             **frcnn_launches, **pipe_launches, **obs_launches}
     amp_dtypes["bert_flash_checks"] = bert_dtypes
     amp_dtypes.update({f"training_gpt_s4096_{k}": v
                        for k, v in long_dtypes.items()})
@@ -8032,6 +8582,7 @@ def main() -> int:
     amp_dtypes["crf_tagger_evaluate_predict"] = crf_dtypes
     amp_dtypes["beam_full_prefix"] = beam_dtypes
     amp_dtypes["vit_train_o1"] = vit_dtypes
+    amp_dtypes.update(obs_dtypes)
 
     def launches(name):
         by_path = {k: v[name] for k, v in paths.items()}
@@ -8094,6 +8645,7 @@ def main() -> int:
     log(f"PTB-large LSTM LM: {json.dumps(lstm)}")
     log(f"Faster R-CNN R50-FPN: {json.dumps(frcnn)}")
     log(f"ImageNet input pipeline: {json.dumps(pipe)}")
+    log(f"host-plane substrate: {json.dumps(obsres)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -63,6 +63,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from ..observability import tracer as _otrace
+
 __all__ = ["Program", "GraphPool", "disable_graphs", "graphs_enabled",
            "counted", "scratch_owner"]
 
@@ -288,10 +290,15 @@ class Program:
     None. ``trace_counter["traces"]`` counts captures (first sightings
     on the CPU), ``capture_ms`` each capture's wall time, ``replays`` the
     replays. :meth:`release` drops every graph (an ``ExecutableCache``
-    eviction or ``clear`` calls it)."""
+    eviction or ``clear`` calls it). A first call (warm-up and capture)
+    is a ``jit/compile`` span carrying ``span_attrs`` (``{"fn": name}``;
+    the ``ExecutableCache`` puts its key there)."""
 
-    def __init__(self, raw: Callable):
+    def __init__(self, raw: Callable, name: Optional[str] = None):
         self.raw = raw
+        # a functools.partial is named after its function
+        self.span_attrs = {"fn": name or getattr(
+            getattr(raw, "func", raw), "__name__", "program")}
         self.trace_counter = {"traces": 0}
         self.capture_ms: List[float] = []
         self.replays = 0
@@ -308,7 +315,8 @@ class Program:
             per_state = self._bound.get(state)
             bound = None if per_state is None else per_state.get(gen)
         if bound is None:
-            return self._first_call(params, state, inputs, gen)
+            with _otrace.span("jit/compile", dict(self.span_attrs)):
+                return self._first_call(params, state, inputs, gen)
         bound.check_params(params)
         bound.load(inputs)
         if bound.graph is None:

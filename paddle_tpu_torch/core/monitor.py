@@ -1,19 +1,28 @@
-"""Named counters, gauges and histograms (counterpart of
-``paddle_tpu/core/monitor.py``). The serving engines own registries of
-their own; the process-wide one (:func:`default_registry`, written by
-:func:`stat_add`, :func:`stat_set` and :func:`stat_observe`) holds the
-stats of process-wide subsystems, as the reference's does: ``amp.*``
-(``GradScaler``'s ``found_inf_steps`` and ``loss_scale``).
+"""Named counters, gauges, labeled gauges and histograms (counterpart of
+``paddle_tpu/core/monitor.py``; reference: paddle/fluid/platform/
+monitor.h:77 StatRegistry, STAT_ADD :130). The serving engines own
+registries of their own; the process-wide one (:func:`default_registry`,
+written by :func:`stat_add`, :func:`stat_set`, :func:`stat_set_labeled`
+and :func:`stat_observe`) holds the stats of process-wide subsystems, as
+the reference's does: ``amp.*``, ``train.*`` (the step meter) and the
+tracer's ``observability.*``. :meth:`StatRegistry.snapshot` is the one
+consistent view that the Prometheus render and the flight dump read.
 :func:`device_memory_stats` reads ``torch.cuda.memory_stats``."""
 from __future__ import annotations
 
 import threading
 from collections import deque
-from typing import Dict, Union
+from typing import Dict, Tuple, Union
 
 import torch
 
 Number = Union[int, float]
+
+#: sorted ``(key, value)`` pairs: the identity of one labeled series.
+LabelSet = Tuple[Tuple[str, str], ...]
+
+#: default reservoir bound per histogram (quantiles track recent samples).
+DEFAULT_HIST_SAMPLES = 2048
 
 
 class _Histogram:
@@ -22,7 +31,7 @@ class _Histogram:
 
     __slots__ = ("count", "total", "vmin", "vmax", "samples")
 
-    def __init__(self, max_samples: int = 2048):
+    def __init__(self, max_samples: int = DEFAULT_HIST_SAMPLES):
         self.count = 0
         self.total = 0.0
         self.vmin = float("inf")
@@ -66,32 +75,75 @@ class _Histogram:
 
 
 class StatRegistry:
-    """Thread-safe scalar stats (``add``/``set``) and histograms
-    (``observe``), read by dotted prefix."""
+    """Thread-safe scalar stats (``add`` counts, ``set`` gauges), labeled
+    gauges and histograms (``observe``), read by name, by dotted prefix
+    or all at once (``snapshot``)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._stats: Dict[str, Number] = {}
         self._hists: Dict[str, _Histogram] = {}
+        self._labeled: Dict[str, Dict[LabelSet, Number]] = {}
+        # exposition kind per scalar: "counter" (add) or "gauge" (set);
+        # the first writer wins, so the TYPE line stays stable
+        self._kinds: Dict[str, str] = {}
 
     def add(self, name: str, value: Number) -> Number:
         with self._lock:
             self._stats[name] = self._stats.get(name, 0) + value
+            self._kinds.setdefault(name, "counter")
             return self._stats[name]
 
     def set(self, name: str, value: Number):
         with self._lock:
             self._stats[name] = value
+            self._kinds.setdefault(name, "gauge")
 
     def get(self, name: str, default: Number = 0) -> Number:
         with self._lock:
             return self._stats.get(name, default)
 
-    def observe(self, name: str, value: Number):
+    def set_labeled(self, name: str, labels: Dict[str, str], value: Number):
+        """A gauge with label dimensions, one series per label set; the
+        labels are sorted, so their order never forks a series."""
+        key = tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+        with self._lock:
+            self._labeled.setdefault(name, {})[key] = value
+
+    def labeled(self, name: str) -> Dict[LabelSet, Number]:
+        with self._lock:
+            return dict(self._labeled.get(name, {}))
+
+    def reset(self, name: str = None):
+        with self._lock:
+            if name is None:
+                self._stats.clear()
+                self._hists.clear()
+                self._labeled.clear()
+                self._kinds.clear()
+            else:
+                self._stats.pop(name, None)
+                self._hists.pop(name, None)
+                self._labeled.pop(name, None)
+                self._kinds.pop(name, None)
+
+    def stats(self) -> Dict[str, Number]:
+        with self._lock:
+            return dict(self._stats)
+
+    def stats_with_prefix(self, prefix: str) -> Dict[str, Number]:
+        with self._lock:
+            return {k: v for k, v in self._stats.items()
+                    if k.startswith(prefix)}
+
+    def observe(self, name: str, value: Number,
+                max_samples: int = DEFAULT_HIST_SAMPLES):
+        """One sample of a distribution; quantiles read the newest
+        ``max_samples``."""
         with self._lock:
             h = self._hists.get(name)
             if h is None:
-                h = self._hists[name] = _Histogram()
+                h = self._hists[name] = _Histogram(max_samples)
             h.observe(value)
 
     def quantile(self, name: str, q: float, default: float = 0.0) -> float:
@@ -99,15 +151,42 @@ class StatRegistry:
             h = self._hists.get(name)
             return h.quantile(q) if h is not None else default
 
-    def stats_with_prefix(self, prefix: str) -> Dict[str, Number]:
+    def histogram(self, name: str) -> Dict[str, float]:
+        """count/sum/min/max/mean/p50/p95/p99; zeros if never observed."""
         with self._lock:
-            return {k: v for k, v in self._stats.items()
-                    if k.startswith(prefix)}
+            h = self._hists.get(name)
+            return h.summary() if h is not None else _Histogram(1).summary()
+
+    def histograms(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            return {k: h.summary() for k, h in self._hists.items()}
 
     def histograms_with_prefix(self, prefix: str) -> Dict[str, Dict]:
         with self._lock:
             return {k: h.summary() for k, h in self._hists.items()
                     if k.startswith(prefix)}
+
+    def snapshot(self) -> Dict[str, Dict]:
+        """Every stat, kind, histogram and labeled series under ONE lock
+        acquisition, so a counter never disagrees with its histogram.
+        The exposition paths (Prometheus, ``print_stats``, flight dumps)
+        read this."""
+        with self._lock:
+            return {
+                "stats": dict(self._stats),
+                "kinds": dict(self._kinds),
+                "histograms": {k: h.summary()
+                               for k, h in self._hists.items()},
+                "labeled": {k: dict(v) for k, v in self._labeled.items()},
+            }
+
+    def print_stats(self):
+        snap = self.snapshot()
+        for k, v in sorted(snap["stats"].items()):
+            print(f"STAT {k} = {v}")
+        for k, s in sorted(snap["histograms"].items()):
+            print(f"HIST {k} = count={s['count']} p50={s['p50']:.6g} "
+                  f"p95={s['p95']:.6g} p99={s['p99']:.6g}")
 
 
 _REGISTRY = StatRegistry()
@@ -130,9 +209,15 @@ def stat_get(name: str, default: Number = 0) -> Number:
     return _REGISTRY.get(name, default)
 
 
-def stat_observe(name: str, value: Number):
+def stat_set_labeled(name: str, labels: Dict[str, str], value: Number):
+    """A labeled gauge on the default registry."""
+    _REGISTRY.set_labeled(name, labels, value)
+
+
+def stat_observe(name: str, value: Number,
+                 max_samples: int = DEFAULT_HIST_SAMPLES):
     """A histogram sample on the default registry."""
-    _REGISTRY.observe(name, value)
+    _REGISTRY.observe(name, value, max_samples)
 
 
 def stat_quantile(name: str, q: float, default: float = 0.0) -> float:

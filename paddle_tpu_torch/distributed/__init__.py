@@ -1,9 +1,12 @@
 """paddle.distributed (counterpart of ``paddle_tpu/distributed``): so far
 ``fleet.utils``'s activation recompute and gradient merge, and the
 bulk-ingestion datasets ``InMemoryDataset``/``QueueDataset`` in a world
-of one (``distributed/dataset.py``, also under ``fleet``). Collectives,
-the mesh, data, tensor, pipeline and sequence parallelism (ring-flash)
-and the elastic runtime are ROADMAP.md queue A10."""
+of one (``distributed/dataset.py``, also under ``fleet``), and the
+single-process half of the elastic contract (``distributed/elastic.py``:
+``PreemptionGuard``, ``ChainedSignalHandler``, ``RestartBudget``, the
+exit codes). Collectives, the mesh, data, tensor, pipeline and sequence
+parallelism (ring-flash) and the elastic runtime (the launcher, the
+cohort supervisor) are ROADMAP.md queue A10."""
 from . import fleet
 from .dataset import DatasetBase, InMemoryDataset, QueueDataset
 

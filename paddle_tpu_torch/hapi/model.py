@@ -67,9 +67,20 @@ is not elementwise, a clip that is not global-norm, master weights).
 Inputs may be NumPy arrays or tensors; they are copied to the model's
 device.
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: ``attach_step_meter`` and a numerical sentinel on the optimizer
-(A8).
+``attach_step_meter()`` opts into live MFU
+(``observability.stepmeter``): at a signature's first metered step its
+forward and gradients run once eagerly under the FLOP counter, with the
+dropout generator and the buffers put back (the optimizer's update is
+element-wise, which the counter does not count), and every metered
+``train_batch`` publishes ``train.mfu``, ``train.flops_per_step`` and
+``train.step_ms`` over the step's wall (the loss fetch synchronises).
+With a meter or tracing on, ``train_batch`` is a ``train/step`` span; a
+program's first call is ``jit/compile``; an exception out of ``fit``
+records the ``train_loop_exception`` flight event and dumps the flight
+recorder when it is armed.
+
+Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
+item: a numerical sentinel on the optimizer (A8's sentinel, slice 22).
 ``prepare(amp_configs=...)`` raises as well, where the reference accepts
 and ignores it: mixed precision is ``amp.auto_cast`` around
 ``train_batch`` (with ``amp.decorate`` for O2).
@@ -78,6 +89,7 @@ from __future__ import annotations
 
 import itertools
 import os
+import time
 from collections import OrderedDict
 from typing import List
 
@@ -92,6 +104,8 @@ from ..core.graphs import GraphPool, Program
 from ..io import DataLoader, Dataset
 from ..metric import Metric
 from ..nn.clip import ClipGradByGlobalNorm, _clips, _sq_norm
+from ..observability import flight as _flight
+from ..observability import tracer as _otrace
 from .callbacks import CallbackList, config_callbacks
 
 #: compiled train steps kept per model (the reference's LRU bound)
@@ -149,14 +163,42 @@ class Model:
         self._loss = None
         self._metrics: List[Metric] = []
         self.stop_training = False
+        self._step_meter = None         # opt-in MFU (attach_step_meter)
         self._train_state = _TrainState(self._device)
         self._train_fns = OrderedDict()
         self._eval_fns = OrderedDict()
         self._invalidate_compiled()
 
     def attach_step_meter(self, meter=None):
-        raise NotImplementedError("Model.attach_step_meter: MFU accounting "
-                                  "is not ported yet (ROADMAP A8)")
+        """Opt into live MFU: every ``train_batch`` publishes
+        ``train.mfu``, ``train.flops_per_step`` and ``train.step_ms``
+        (default: a ``StepMeter(prefix="train")`` against the peak of the
+        model's device). The FLOPs are counted once per train-step
+        signature. Returns the meter."""
+        if meter is None:
+            from ..observability.stepmeter import StepMeter
+            meter = StepMeter(prefix="train", device=self._device)
+        self._step_meter = meter
+        return meter
+
+    def _count_step_flops(self, ts, args):
+        """FLOPs of one step of this signature (MAC convention): its
+        forward and gradients run once eagerly under the counter, never
+        inside a capture. What that run moves is put back: the dropout
+        generator's state and the buffers (BatchNorm's statistics)."""
+        from ..observability import stepmeter as _sm
+        gen = default_generator(self._device)
+        gen_state = gen.get_state()
+        buffers = [b for _, b in self.network.named_buffers()]
+        saved = [b.detach().clone() for b in buffers]
+        try:
+            with _otrace.span("observability/cost_analysis"):
+                return _sm.compiled_flops(ts["value_and_grad"], args)
+        finally:
+            gen.set_state(gen_state)
+            with torch.no_grad():
+                for b, v in zip(buffers, saved):
+                    b.copy_(v)
 
     def _invalidate_compiled(self):
         """Drop every compiled program and its graphs: they hold the
@@ -266,7 +308,9 @@ class Model:
         def grads_only(params, holder, *inputs):
             return value_and_grad(inputs)
 
-        return {"fn": Program(step), "grads_fn": Program(grads_only),
+        return {"fn": Program(step, name="train_step"),
+                "grads_fn": Program(grads_only, name="train_grads"),
+                "value_and_grad": value_and_grad,
                 "state": state, "trainable": trainable,
                 "fixed_pos": fixed_pos, "n_x": n_x, "inputs": None}
 
@@ -309,6 +353,20 @@ class Model:
         """One training step on one batch; returns ``(loss, metrics)``,
         each metric's ``update`` on this batch's predictions. With
         ``update=False`` the gradients only accumulate into ``.grad``."""
+        meter = self._step_meter
+        if meter is None and not _otrace._ENABLED[0]:
+            return self._train_batch_impl(inputs, labels, update)
+        t0 = time.perf_counter()
+        with _otrace.span("train/step"):
+            out = self._train_batch_impl(inputs, labels, update)
+        if meter is not None:
+            # the impl's float(loss) synchronises: the wall is the step's
+            ts = self._train_step_fn
+            meter.step(time.perf_counter() - t0,
+                       flops=ts.get("flops") if ts else None)
+        return out
+
+    def _train_batch_impl(self, inputs, labels, update):
         if self._loss is None or (update and self._optimizer is None):
             raise RuntimeError("Model.train_batch: call prepare(optimizer, "
                                "loss) first")
@@ -316,6 +374,10 @@ class Model:
         ts = self._get_train_step(self._signature(xs, ys))
         args = self._static_inputs(ts, xs + ys)
         self.network.train()
+        if self._step_meter is not None and "flops" not in ts:
+            # once per signature, before (never inside) its capture
+            ts["flops"] = self._count_step_flops(ts, args)
+            self._step_meter.set_flops_per_step(ts["flops"])
         opt = self._optimizer
         if not update or any(p.grad is not None for p in ts["trainable"]):
             loss, preds, grads = ts["grads_fn"](
@@ -705,27 +767,36 @@ class Model:
         cbks.on_train_begin()
         it = 0
         logs = {}
-        for epoch in range(epochs):
-            cbks.on_epoch_begin(epoch)
-            for m in self._metrics:
-                m.reset()
-            logs = {}
-            for step, batch in enumerate(loader):
-                cbks.on_train_batch_begin(step)
-                xs, ys = self._split_batch(batch)
-                loss, metrics = self.train_batch(xs, ys)
-                logs = self._metric_logs({"loss": loss}, metrics)
-                cbks.on_train_batch_end(step, logs)
-                it += 1
-                if num_iters is not None and it >= num_iters:
+        try:
+            for epoch in range(epochs):
+                cbks.on_epoch_begin(epoch)
+                for m in self._metrics:
+                    m.reset()
+                logs = {}
+                for step, batch in enumerate(loader):
+                    cbks.on_train_batch_begin(step)
+                    xs, ys = self._split_batch(batch)
+                    loss, metrics = self.train_batch(xs, ys)
+                    logs = self._metric_logs({"loss": loss}, metrics)
+                    cbks.on_train_batch_end(step, logs)
+                    it += 1
+                    if num_iters is not None and it >= num_iters:
+                        break
+                cbks.on_epoch_end(epoch, logs)
+                if eval_loader is not None and (epoch + 1) % eval_freq == 0:
+                    self.evaluate(eval_loader, verbose=verbose,
+                                  callbacks=cbks.callbacks, _inner=True)
+                if self.stop_training or (num_iters is not None
+                                          and it >= num_iters):
                     break
-            cbks.on_epoch_end(epoch, logs)
-            if eval_loader is not None and (epoch + 1) % eval_freq == 0:
-                self.evaluate(eval_loader, verbose=verbose,
-                              callbacks=cbks.callbacks, _inner=True)
-            if self.stop_training or (num_iters is not None
-                                      and it >= num_iters):
-                break
+        except Exception as e:
+            # the post-mortem timeline of the guarded loop; a dump only
+            # when the flight recorder is armed
+            _flight.record_event("train_loop_exception",
+                                 {"error": f"{type(e).__name__}: {e}",
+                                  "iteration": it})
+            _flight.dump_if_armed("train_loop_exception")
+            raise
         cbks.on_train_end(logs)
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,

@@ -29,8 +29,8 @@ Inside a branch that ``ops.cond`` selects under a capture,
 (``ops/control_flow.py``). Flat arguments take a fast path with no
 pytree flattening. A captured
 program's replay runs none of this. While :data:`_PROF_ACTIVE` is set
-(the profiler, ROADMAP queue A11, sets it) each op runs inside
-``torch.profiler.record_function("op::" + name)``. The port runs eagerly
+(``profiler._ACTIVE``: a ``paddle_tpu_torch.profiler.Profiler`` runs)
+each op runs inside ``torch.profiler.record_function("op::" + name)``. The port runs eagerly
 only: :func:`enable_static` raises.
 """
 from __future__ import annotations
@@ -44,6 +44,7 @@ from torch.utils import _pytree as pytree
 from ..core.errors import EnforceNotMet
 from ..core.flags import _REGISTRY as _FLAGS
 from ..core.tensor import Tensor
+from ..profiler import _ACTIVE as _PROF_ACTIVE
 
 __all__ = ["apply", "apply_raw", "OP_REGISTRY", "registered_ops",
            "register_op", "defop", "register_amp_handler",
@@ -56,8 +57,6 @@ OP_REGISTRY = {}
 
 #: ``fn(op_name, args) -> args``, the AMP cast hook, or None
 _AMP_HANDLER = [None]
-#: per-op profiler annotation on/off
-_PROF_ACTIVE = [False]
 #: ``fn(tensors) -> tensors`` gating the gradients of a branch that
 #: ``ops.cond`` selects between under a capture, or None
 _BRANCH_GATE = [None]

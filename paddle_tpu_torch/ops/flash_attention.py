@@ -15,7 +15,9 @@ answers that. Each wrapper
 :func:`flash_attention_bwd_dkv`) runs its kernel for CUDA tensors and its
 plain version for CPU tensors (the counterpart of the JAX package's
 interpret mode), and counts its launches. There is no fallback: a CUDA
-input a kernel does not take raises.
+input a kernel does not take raises. While ``observability.stepmeter``
+counts FLOPs, each wrapper adds its kernel's work (:func:`_note`), which
+the counter cannot see, and hides its plain version's ops from it.
 
 :func:`flash_attention` goes through :class:`FlashAttentionFunction` on
 every device: its forward is :func:`flash_attention_fwd`, it saves q, k, v,
@@ -51,6 +53,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..core import graphs
+from ..observability import stepmeter as _sm
 from .dispatch import apply
 
 __all__ = ["flash_attention", "flash_attention_fwd",
@@ -58,7 +61,8 @@ __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_bwd_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dkv_plain", "attention_delta",
-           "FlashAttentionFunction", "SUPPORTED_HEAD_DIMS"]
+           "FlashAttentionFunction", "SUPPORTED_HEAD_DIMS",
+           "attention_pairs"]
 
 _NEG_INF = -1e30
 
@@ -173,6 +177,44 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = False,
     args = (q, k, v, dout, lse, delta, causal, scale)
     return (flash_attention_bwd_dq_plain(*args, dq_dt),
             *flash_attention_bwd_dkv_plain(*args, dk_dt, dv_dt))
+
+
+def attention_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs one head attends: ``Sq*Skv``, or under the
+    top-left causal mask ``sum_i min(i+1, Skv)``."""
+    if not causal:
+        return sq * skv
+    n = min(sq, skv)
+    return n * (n + 1) // 2 + (sq - n) * skv
+
+
+#: FLOPs (two a multiply-add) per head-dim element per attended pair:
+#: B1 two products, B2 three (S, dP, dQ), B3 four (S, dP, dK, dV)
+_PAIR_FLOPS = {"flash_attention_fwd": 4.0, "flash_attention_bwd_dq": 6.0,
+               "flash_attention_bwd_dkv": 8.0}
+
+
+def _note(kernel, q, k, causal):
+    """While a FLOP count runs (``observability.stepmeter``), add this
+    kernel's work on these shapes; PERF.md's bounds use the same
+    formulas."""
+    if _sm.counting() and not (q.is_cuda
+                               and torch.cuda.is_current_stream_capturing()):
+        b, sq, h, d = q.shape
+        _sm.note_kernel_flops(kernel, _PAIR_FLOPS[kernel] * b * h * d
+                              * attention_pairs(sq, k.shape[1], causal))
+
+
+def _plain(kernels, q, k, causal, fn, *args):
+    """``fn(*args)``, a plain version; while a FLOP count runs its ops are
+    hidden from the counter and ``kernels``' work is noted instead, so
+    the CPU counts what the kernels count on the card."""
+    if not _sm.counting():
+        return fn(*args)
+    for kernel in kernels:
+        _note(kernel, q, k, causal)
+    with _sm.uncounted():
+        return fn(*args)
 
 
 def _check(q, k, v):
@@ -307,7 +349,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     _check(q, k, v)
     if not _on_kernel("flash attention", q, k, v):
         with torch.no_grad():
-            return flash_attention_fwd_plain(q, k, v, causal, scale)
+            return _plain(("flash_attention_fwd",), q, k, causal,
+                          flash_attention_fwd_plain, q, k, v, causal, scale)
     _check_aligned("flash attention", q, k, v)
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -316,6 +359,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     strides = _strides(q, k, v, out)
     lib, fn = _entry("flash_attention_fwd", "pt_flash_attention_fwd", 5, 1)
     _count(flash_attention_fwd, q.dtype)
+    _note("flash_attention_fwd", q, k, causal)
     _run(lib, "pt_flash_attention_error_string", "flash attention kernel", q,
          lambda stream: fn(
              q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -337,8 +381,9 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
     dt = dtype or q.dtype
     if not _on_kernel("flash attention dq", q, k, v, dout, lse, delta):
         with torch.no_grad():
-            return flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta,
-                                                causal, scale, dt)
+            return _plain(("flash_attention_bwd_dq",), q, k, causal,
+                          flash_attention_bwd_dq_plain, q, k, v, dout, lse,
+                          delta, causal, scale, dt)
     _check_aligned("flash attention dq", q, k, v, dout)
     b, sq, h, d = q.shape
     dq = torch.empty((b, sq, h, d), dtype=dt, device=q.device)
@@ -347,6 +392,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
     lib, fn = _entry("flash_attention_bwd_dq", "pt_flash_attention_bwd_dq",
                      7, 2)
     _count(flash_attention_bwd_dq, q.dtype)
+    _note("flash_attention_bwd_dq", q, k, causal)
     _run(lib, "pt_flash_attention_bwd_dq_error_string",
          "flash attention dq kernel", q,
          lambda stream: fn(
@@ -369,8 +415,9 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
     dk_dt, dv_dt = dk_dtype or k.dtype, dv_dtype or v.dtype
     if not _on_kernel("flash attention dkv", q, k, v, dout, lse, delta):
         with torch.no_grad():
-            return flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta,
-                                                 causal, scale, dk_dt, dv_dt)
+            return _plain(("flash_attention_bwd_dkv",), q, k, causal,
+                          flash_attention_bwd_dkv_plain, q, k, v, dout, lse,
+                          delta, causal, scale, dk_dt, dv_dt)
     _check_aligned("flash attention dkv", q, k, v, dout)
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -382,6 +429,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
     lib, fn = _entry("flash_attention_bwd_dkv", "pt_flash_attention_bwd_dkv",
                      8, 3)
     _count(flash_attention_bwd_dkv, q.dtype)
+    _note("flash_attention_bwd_dkv", q, k, causal)
     _run(lib, "pt_flash_attention_bwd_dkv_error_string",
          "flash attention dkv kernel", q,
          lambda stream: fn(
@@ -420,9 +468,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,
     need_q, need_k, need_v = needs_input_grad
     if q.device.type == "cpu":
         _check_bwd(q, k, v, dout, lse, delta)
-        dq, dk, dv = flash_attention_bwd_plain(
-            q, k, v, out, lse, dout, causal, scale, delta,
-            (dq_dt, dk_dt, dv_dt))
+        dq, dk, dv = _plain(
+            ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"), q, k,
+            causal, flash_attention_bwd_plain, q, k, v, out, lse, dout,
+            causal, scale, delta, (dq_dt, dk_dt, dv_dt))
     else:
         dq = dk = dv = None
         if need_q:

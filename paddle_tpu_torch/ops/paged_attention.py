@@ -43,6 +43,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core import graphs
+from ..observability import stepmeter as _sm
 
 __all__ = ["paged_attention", "paged_attention_plain", "chunk_pages_for",
            "takes"]
@@ -150,6 +151,22 @@ def paged_attention_plain(q, k_arena, v_arena, block_tables, positions,
     return out.to(q.dtype)
 
 
+def _note(q, k_arena, block_tables, positions):
+    """While a FLOP count runs (``observability.stepmeter``), add the
+    kernel's work on this data: ``4*rows*H*D``, ``rows`` the KV rows the
+    sequences attend (``positions + 1``, at most their pages' rows), as
+    PERF.md's bound counts it. Reads the positions on the host, so never
+    inside a capture."""
+    if not _sm.counting() or (q.is_cuda
+                              and torch.cuda.is_current_stream_capturing()):
+        return False
+    cap = block_tables.shape[1] * k_arena.shape[1]
+    rows = int((positions.long() + 1).clamp(max=cap).sum().item())
+    _sm.note_kernel_flops("paged_attention",
+                          4.0 * rows * q.shape[1] * q.shape[2])
+    return True
+
+
 def _lib():
     from .kernel_build import load
     lib = load("paged_attention")
@@ -196,8 +213,12 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
     if len({t.device for t in tensors}) != 1:
         raise ValueError("paged_attention: all inputs must share a device")
     if q.device.type == "cpu":
-        return paged_attention_plain(q, k_arena, v_arena, block_tables,
-                                     positions, scale)
+        if not _note(q, k_arena, block_tables, positions):
+            return paged_attention_plain(q, k_arena, v_arena, block_tables,
+                                         positions, scale)
+        with _sm.uncounted():
+            return paged_attention_plain(q, k_arena, v_arena, block_tables,
+                                         positions, scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     if q.dtype not in _DTYPES or k_arena.dtype != q.dtype \
@@ -236,6 +257,7 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
             pps, k_arena.shape[0], chunk, strides, block_tables.stride(0),
             float(sc), _DTYPES[q.dtype], vec, stream)
     paged_attention.launches += 1
+    _note(q, k_arena, block_tables, positions)
     from .kernel_build import check
     check(lib, "pt_paged_attention_error_string", code,
           "paged attention kernel")

@@ -9,13 +9,15 @@ dispatched shape always comes from the closed bucket set.
 
 A head request larger than every bucket becomes an *oversize* batch of
 one request; the engine either splits it into max-bucket chunks or
-rejects it at submit time, per configuration.
+rejects it at submit time, per configuration. Coalescing (not the idle
+wait for a first request) is a ``serving/form_batch`` span.
 """
 from __future__ import annotations
 
 import time
 from typing import List, Optional
 
+from ..observability import tracer as _otrace
 from .buckets import BucketSpec
 from .queue import BatchQueue
 from .request import InferenceRequest
@@ -58,7 +60,8 @@ class DynamicBatcher:
         first = self._queue.take(timeout=timeout)
         if first is None:
             return None
-        return self._coalesce(first)
+        with _otrace.span("serving/form_batch"):
+            return self._coalesce(first)
 
     def _coalesce(self, first: InferenceRequest) -> Batch:
         spec = self._buckets

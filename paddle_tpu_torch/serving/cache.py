@@ -11,6 +11,9 @@ cache and replay it after (the CPU runs them eagerly); an eviction or
 memory. The detection ``Engine`` serves any callable, which it does not
 capture, so its entries mark the first sighting of a padded signature.
 The counters (hits, misses, evictions) keep the JAX package's meaning.
+A miss's compile happens at a program's first call, so the
+``jit/compile`` span is there (``core.graphs.Program``), carrying the
+entry's key as the JAX package's span does.
 The persistent tiers (JAX's compilation cache and the
 serialized-executable store) are XLA-only and not ported.
 """
@@ -19,6 +22,8 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+from ..core.graphs import Program
 
 #: signature element: ((dim, ...), dtype-string) per input array
 SigT = Tuple[Tuple[Tuple[int, ...], str], ...]
@@ -65,6 +70,8 @@ class ExecutableCache:
                 return entry
             self.misses += 1
         made = compile_fn()
+        if isinstance(made, Program):
+            made.span_attrs = {"cache_key": repr(key)[:200]}
         evicted = []
         with self._lock:
             winner = self._entries.setdefault(key, made)

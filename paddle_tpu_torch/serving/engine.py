@@ -15,12 +15,21 @@ fill, latency and batch time histograms, cache counters). Drain is
 graceful: admission stops, queued work flushes, every admitted future
 resolves. :meth:`DrainableEngineBase.kill` is the hard stop.
 
+Preemption: ``arm_preemption(guard)`` makes the worker begin a drain
+the moment the elastic :class:`~paddle_tpu_torch.distributed.elastic.
+PreemptionGuard` sees SIGTERM (counted as ``preemption_drains``);
+``install_drain_signal_handler`` arms the engine's own SIGTERM/SIGINT
+drain on the chained-handler substrate, so it composes with the guard's
+handler instead of replacing it. The handler only sets a flag; the
+worker closes the queue at its next poll and, after a signalled drain,
+records the ``sigterm_drain`` flight event and dumps the flight
+recorder when it is armed (a hard kill records ``engine_killed``). Each
+batch runs inside a ``serving/execute_batch`` span.
+
 The model is a callable ``fn(*tensors) -> tensor or list of tensors``
 taking one tensor per request input, rows first, on the engine's
 device. Predictors and ``jit.save`` artifact paths are not ported yet
-(ROADMAP.md queue A11); preemption guards and signal handlers neither
-(A8). Tracing spans and the flight recorder of the JAX package are not
-ported (A8).
+(ROADMAP.md queue A11).
 """
 from __future__ import annotations
 
@@ -34,6 +43,9 @@ import torch
 
 from ..core.device import DeviceLike, resolve_device
 from ..core.monitor import StatRegistry
+from ..distributed.elastic import ChainedSignalHandler, PreemptionGuard
+from ..observability import flight as _flight
+from ..observability import tracer as _otrace
 from .batcher import Batch, DynamicBatcher
 from .buckets import BucketSpec, pad_rows, pad_seq, unpad_rows
 from .cache import ExecutableCache, signature_of
@@ -83,7 +95,9 @@ class DrainableEngineBase:
 
     Subclasses call :meth:`_init_serving_base` in ``__init__``, own a
     ``BatchQueue`` in ``self._queue`` and run one worker thread that
-    polls :attr:`draining`.
+    polls :attr:`draining`. ``_on_drain_signal`` only sets flags (a
+    signal handler must not take the queue's lock, which the interrupted
+    thread may hold); the worker closes the queue at its next poll.
     """
 
     def _init_serving_base(self, registry: Optional[StatRegistry],
@@ -92,6 +106,9 @@ class DrainableEngineBase:
         self._prefix = stat_prefix
         self._draining = threading.Event()
         self._stopped = threading.Event()
+        self._guard: Optional[PreemptionGuard] = None
+        self._signal_chain: Optional[ChainedSignalHandler] = None
+        self._drain_signaled = False  # set only by _on_drain_signal
         self._admission_paused = threading.Event()
         self._killed = threading.Event()
         self._kill_reason = ""
@@ -104,17 +121,55 @@ class DrainableEngineBase:
     def draining(self) -> bool:
         return self._draining.is_set()
 
-    def arm_preemption(self, guard=None):
-        raise _later("arm_preemption (drain on a PreemptionGuard)", "A8")
+    def arm_preemption(self, guard: Optional[PreemptionGuard] = None):
+        """Begin a graceful drain when ``guard`` observes preemption; with
+        no argument a fresh guard is installed (chained handlers).
+        Returns the guard."""
+        self._guard = guard if guard is not None else PreemptionGuard()
+        return self._guard
 
     def install_drain_signal_handler(self, signals=None):
-        raise _later("install_drain_signal_handler", "A8")
+        """Arm SIGTERM/SIGINT (or ``signals``) to drain the engine,
+        chaining any handler already installed (a PreemptionGuard's).
+        Returns the handler; ``uninstall()`` restores the previous ones.
+        Off the main thread it installs nothing (``installed`` False)."""
+        if self._signal_chain is not None and self._signal_chain.installed:
+            return self._signal_chain
+        kwargs = {} if signals is None else {"signals": tuple(signals)}
+        self._signal_chain = ChainedSignalHandler(
+            self._on_drain_signal, **kwargs)
+        self._signal_chain.install()
+        return self._signal_chain
+
+    def _on_drain_signal(self, signum, frame):
+        """The signal handler: flags only. The worker closes the queue
+        and writes the flight dump, outside signal context."""
+        self._drain_signaled = True
+        self._draining.set()
 
     def begin_drain(self):
         """Stop admission and let the worker flush the queue
-        (non-blocking)."""
+        (non-blocking). Not for signal context: it takes the queue's
+        lock (signal handlers go through ``_on_drain_signal``)."""
         self._draining.set()
         self._queue.close()
+
+    def _poll_drain(self):
+        """The worker's poll point: start a drain the guard asked for,
+        or finish one a signal flagged (closing the queue)."""
+        if self._guard is not None and self._guard.preempted \
+                and not self._draining.is_set():
+            self._stat_add("preemption_drains", 1)
+            self.begin_drain()
+        elif self._draining.is_set() and not self._queue.closed:
+            self._queue.close()
+
+    def _dump_signalled_drain(self):
+        """After a signalled drain: the ``sigterm_drain`` flight event
+        and, when armed, the dump (on the worker, never in the handler)."""
+        if self._drain_signaled:
+            _flight.record_event("sigterm_drain", {"engine": self._prefix})
+            _flight.dump_if_armed("sigterm_drain")
 
     @property
     def admission_paused(self) -> bool:
@@ -305,6 +360,7 @@ class Engine(DrainableEngineBase):
         poll = max(0.01, self._config.max_batch_delay)
         try:
             while not self._killed.is_set():
+                self._poll_drain()
                 batch = self._batcher.next_batch(timeout=poll)
                 self._stat_set("queue_depth", len(self._queue))
                 self._stat_set("deadline_evicted",
@@ -329,6 +385,11 @@ class Engine(DrainableEngineBase):
                         fut.set_exception(exc)
                     except InvalidStateError:
                         pass  # resolved by a racing finish; verdict stands
+                _flight.record_event(
+                    "engine_killed",
+                    {"engine": self._prefix, "reason": self._kill_reason,
+                     "aborted": len(victims)})
+            self._dump_signalled_drain()
             self._stopped.set()
 
     def _publish_cache_stats(self):
@@ -351,6 +412,10 @@ class Engine(DrainableEngineBase):
                 else np.asarray(o) for o in outs]
 
     def _execute(self, batch: Batch):
+        with _otrace.span("serving/execute_batch"):
+            self._execute_inner(batch)
+
+    def _execute_inner(self, batch: Batch):
         t0 = time.monotonic()
         reqs = batch.requests
         try:

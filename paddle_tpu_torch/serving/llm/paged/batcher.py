@@ -33,6 +33,7 @@ from typing import Optional
 
 import numpy as np
 
+from ....observability import tracer as _otrace
 from ...request import RequestTooLarge
 from ..scheduler import ContinuousBatcher, GenerationRequest
 from .decode import GPTPagedDecoder
@@ -88,10 +89,13 @@ class PagedBatcher(ContinuousBatcher):
 
     # -- admission -----------------------------------------------------------
     def admit(self, req: GenerationRequest):
-        self._drain_pending()
-        if self._pending or not self._try_admit(req):
-            self._park_or_fail(req)
-        self._publish_pages()
+        # a span of its own (the JAX package's paged admission has none),
+        # so a paged engine's trace reads as a slot engine's
+        with _otrace.span("serving.llm/prefill"):
+            self._drain_pending()
+            if self._pending or not self._try_admit(req):
+                self._park_or_fail(req)
+            self._publish_pages()
 
     def _drain_pending(self):
         while self._pending:
@@ -249,6 +253,16 @@ class PagedBatcher(ContinuousBatcher):
             f"sequence"))
         self._stat_add("pages_evicted_midstream", 1)
         self._stat_add("evicted_midstream", 1)
+
+    # -- mfu -----------------------------------------------------------------
+    def _measure_decode_flops(self):
+        """``measure_mfu`` on pages: the paged decode step's own count
+        (the JAX package's probe compiles the slot program, which a paged
+        engine never runs, and so reports nothing). The step reads the
+        device block tables, refreshed first as ``decode_step`` does; on
+        the kernel lane B4 adds the rows the live positions attend."""
+        self.kv.refresh_block_tables()
+        super()._measure_decode_flops()
 
     # -- exits ---------------------------------------------------------------
     def abort_all(self, exc_factory):

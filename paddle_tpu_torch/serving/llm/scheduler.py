@@ -31,9 +31,18 @@ on both layouts. As in the JAX package the config refuses prefix reuse
 and speculation over int8 KV, and the slot engine a shared
 ``prefix_store`` over it; speculation over int8 weights, which the JAX
 package takes and then fails in its verify, is refused at construction.
-``measure_mfu`` raises ``NotImplementedError`` naming its queue item in
-``ROADMAP.md``; crash recovery (evacuation for replay), migration and
-weight hot-swap are not ported yet.
+``measure_mfu`` counts the decode step's FLOPs once, at the first plain
+tick (``observability.stepmeter``: the step run once on the live state,
+with the lengths and the generator put back), publishes
+``decode_flops_per_tick`` and, every plain tick, ``mfu`` over the
+tick's wall time (token fetch included: delivered MFU). Admission is a
+``serving.llm/prefill`` span, ticks ``serving.llm/decode_tick`` or
+``serving.llm/spec_tick``. Preemption and signal drains are the
+engine base's (``arm_preemption``, ``install_drain_signal_handler``);
+the worker records ``engine_killed``, ``llm_worker_death`` and
+``sigterm_drain`` in the flight recorder, dumping it when armed on the
+last two. Crash recovery (evacuation for replay), migration and weight
+hot-swap are not ported yet.
 """
 from __future__ import annotations
 
@@ -48,6 +57,8 @@ import numpy as np
 import torch
 
 from ...core.monitor import StatRegistry
+from ...observability import flight as _flight
+from ...observability import tracer as _otrace
 from ..buckets import pow2_buckets
 from ..cache import ExecutableCache, default_cache
 from ..engine import DrainableEngineBase
@@ -56,7 +67,6 @@ from ..request import (Deadline, DeadlineExceeded, EngineDraining,
                        EngineKilled, RequestTooLarge)
 from .decode import (GPTDecoderBase, GPTStaticDecoder, SamplingParams,
                      pack_sampling)
-from .kvcache import _later
 from .prefix import PrefixStore
 from .spec import GPTSpecDecoder
 
@@ -324,6 +334,10 @@ class ContinuousBatcher:
                                  device=self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(config.seed)
+        # measure_mfu: FLOPs of THE decode step, counted at the first
+        # plain tick (0.0 when nothing was counted), and the peak
+        self._decode_flops: Optional[float] = None
+        self._peak_flops: Optional[float] = None
 
     # -- introspection -------------------------------------------------------
     @property
@@ -454,6 +468,10 @@ class ContinuousBatcher:
         """Prefill ``req`` into a free slot and deliver its first token.
         The caller guarantees ``free_slots > 0`` and a bucket-fitting
         prompt (``submit`` validated both)."""
+        with _otrace.span("serving.llm/prefill"):
+            self._admit_inner(req)
+
+    def _admit_inner(self, req: GenerationRequest):
         t0 = self._clock()
         slot = self.kv.alloc()
         entry, reuse_n = None, 0
@@ -480,11 +498,13 @@ class ContinuousBatcher:
             return 0
         if self.spec is not None:
             if self._spec_room_ok():
-                return self._spec_tick()
+                with _otrace.span("serving.llm/spec_tick"):
+                    return self._spec_tick()
             # near the end of a row there is no room for k+1 candidate
             # rows: the plain one-token step instead
             self._stat_add("spec.fallback_ticks", 1)
-        return self._plain_tick()
+        with _otrace.span("serving.llm/decode_tick"):
+            return self._plain_tick()
 
     def _spec_room_ok(self) -> bool:
         """True when every active slot can take k+1 candidate rows: its
@@ -556,6 +576,8 @@ class ContinuousBatcher:
         return emitted
 
     def _plain_tick(self) -> int:
+        if self.config.measure_mfu and self._decode_flops is None:
+            self._measure_decode_flops()
         t0 = self._clock()
         nxt, finished = self.decoder.decode_step(
             self.kv, self._params, self._finished, self._last,
@@ -572,6 +594,9 @@ class ContinuousBatcher:
         self._stat_add("tokens_generated", n)
         self._stat_add("decode_ticks", 1)
         self._stat_set("tokens_per_sec", n / dt)
+        if self._decode_flops:
+            # the tick's wall includes the token fetch: delivered MFU
+            self._stat_set("mfu", self._decode_flops / dt / self._peak_flops)
         now = self._clock()
         for slot, req in list(self._reqs.items()):
             if req.expired:
@@ -585,6 +610,30 @@ class ContinuousBatcher:
             req._t_last = now
             self._maybe_finish(slot, req, tok)
         return n
+
+    def _measure_decode_flops(self):
+        """Count THE decode step's FLOPs once (``measure_mfu``): its plain
+        function runs once, eagerly, on the live cache (never inside a
+        capture), and what it moves is put back: the lengths it advances
+        and the generator it draws from. The K/V rows it writes at each
+        slot's next position are the rows the real step writes there."""
+        from ...observability import stepmeter as _sm
+        fn = self.decoder.decode_fn(self.kv.num_slots, self.kv.max_seq)
+        lengths = self.kv.lengths.clone()
+        gen_state = self._gen.get_state()
+        try:
+            with _otrace.span("observability/cost_analysis"), \
+                    torch.no_grad():
+                flops = _sm.compiled_flops(
+                    fn.raw, self._params, self.kv, self._finished,
+                    self._last, self._samp_vecs, self._gen)
+        finally:
+            self.kv.lengths.copy_(lengths)
+            self._gen.set_state(gen_state)
+        self._peak_flops = _sm.default_peak_flops(self.device)
+        self._decode_flops = flops if flops else 0.0
+        if flops:
+            self._stat_set("decode_flops_per_tick", flops)
 
     def _maybe_finish(self, slot: int, req: GenerationRequest, tok: int):
         s = req.sampling
@@ -700,8 +749,6 @@ class LLMEngine(DrainableEngineBase):
                  prefix_store: Optional[PrefixStore] = None):
         self._config = config or LLMEngineConfig()
         cfg = self._config
-        if cfg.measure_mfu:
-            raise _later("measure_mfu", "A8")
         self._init_serving_base(registry, cfg.stat_prefix)
         # `is not None`: an empty ExecutableCache has len() 0 and is falsy
         self._cache = cache if cache is not None else default_cache()
@@ -899,15 +946,8 @@ class LLMEngine(DrainableEngineBase):
         try:
             while True:
                 if self._killed.is_set():
-                    # queued requests were failed by kill() itself
-                    self._batcher.abort_all(
-                        lambda req: EngineKilled(
-                            f"engine hard-killed ({self._kill_reason}) "
-                            f"with request {req.req_id} in flight after "
-                            f"{len(req.tokens)} tokens"))
                     return
-                if self._draining.is_set() and not self._queue.closed:
-                    self._queue.close()
+                self._poll_drain()
                 free = self._batcher.free_slots
                 if free > 0:
                     timeout = 0.0 if self._batcher.active else cfg.idle_poll
@@ -922,13 +962,35 @@ class LLMEngine(DrainableEngineBase):
                 elif self._draining.is_set() and len(self._queue) == 0:
                     break
         except BaseException as e:  # worker death must not strand futures
+            _flight.record_event(
+                "llm_worker_death",
+                {"error": f"{type(e).__name__}: {e}",
+                 "active": self._batcher.active,
+                 "queued": len(self._queue)})
+            _flight.dump_if_armed("llm_worker_death")
             self._batcher.abort_all(
                 lambda req, e=e: RuntimeError(
                     f"LLM worker died while request {req.req_id} was in "
                     f"flight: {e!r}"))
             raise
         finally:
+            if self._killed.is_set():
+                self._abort_killed()
+            self._dump_signalled_drain()
             self._stopped.set()
+
+    def _abort_killed(self):
+        """After a hard kill: abort the in-flight sequences (kill() failed
+        the queued ones) and record ``engine_killed``."""
+        n = self._batcher.active
+        self._batcher.abort_all(
+            lambda req: EngineKilled(
+                f"engine hard-killed ({self._kill_reason}) with request "
+                f"{req.req_id} in flight after {len(req.tokens)} tokens"))
+        _flight.record_event(
+            "engine_killed", {"engine": self._prefix,
+                              "reason": self._kill_reason, "aborted": n,
+                              "evacuated": 0})
 
 
 def _require_draft(draft_model):

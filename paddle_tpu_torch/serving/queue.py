@@ -6,7 +6,8 @@ rejects at once with ``block=False``) and raises :class:`QueueFull`, so
 load shedding is an explicit error. Deadline-expired requests are evicted
 at the head and their futures fail before any device work is spent.
 Items duck-type ``expired``, ``fail_expired()``, ``fail(exc)`` and
-``req_id``.
+``req_id``. Each ``put`` is a ``serving/queue_put`` span, so a blocked
+admission shows on the timeline beside the worker's batches.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import time
 from collections import deque
 from typing import Callable, Optional
 
+from ..observability import tracer as _otrace
 from .request import EngineDraining, QueueFull
 
 
@@ -57,6 +59,10 @@ class BatchQueue:
             self._not_full.notify_all()
 
     def put(self, req, block: bool = True, timeout: Optional[float] = None):
+        with _otrace.span("serving/queue_put"):
+            self._put(req, block, timeout)
+
+    def _put(self, req, block: bool, timeout: Optional[float]):
         with self._not_full:
             if self._closed:
                 raise EngineDraining("engine is draining; request rejected")

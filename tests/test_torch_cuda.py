@@ -7,7 +7,9 @@ the YOLOv3 detection path (greedy NMS on the card against the CPU), and
 the engine's prefix reuse and speculative decode, graphed against eager,
 with B4 over shared pages, and the `Model` loop: each optimizer rule's
 graphed step, the compiled eval program, EMA/ModelAverage/LookAhead in
-place, and a `DataLoader` through the shared-memory ring.
+place, and a `DataLoader` through the shared-memory ring; the host-plane
+substrate: metered train steps and engines unchanged, the kernels' FLOP
+formulas counted, a drain by signal and a capture under the profiler.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither jax nor the JAX package, so on a machine with a card but
@@ -2914,3 +2916,158 @@ def test_transforms_in_loader_workers_feed_the_card(cuda, tmp_path):
     x, y = batches[0]
     assert x.is_cuda and x.dtype == torch.float32 and \
         tuple(x.shape) == (4, 3, 16, 16)
+
+
+# -- the host-plane substrate on the card ------------------------------------
+
+def _metered_lane(cuda, meter, dropout):
+    from paddle_tpu_torch import Model, amp
+    from paddle_tpu_torch.core.monitor import StatRegistry
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.observability.stepmeter import StepMeter
+    from paddle_tpu_torch.optimizer import AdamW
+    net = GPTForCausalLM(GPTConfig(**dict(MODEL, hidden_dropout_prob=dropout),
+                                   attn_impl="flash"), device=cuda, seed=0)
+    m = Model(net, device=cuda)
+    m.prepare(AdamW(parameters=net.parameters(), device=cuda),
+              GPTPretrainingCriterion())
+    reg = StatRegistry()
+    ids = np.random.RandomState(3).randint(0, 256, (4, 64))
+    import paddle_tpu_torch as P
+    P.seed(5)
+    losses, flops = [], []
+    for i, o1 in enumerate((False, False, True, True)):
+        # "late": attached after the fp32 signature's capture
+        if meter and i == (1 if meter == "late" else 0):
+            m.attach_step_meter(StepMeter(registry=reg, device=cuda))
+        with (amp.auto_cast() if o1 else contextlib.nullcontext()):
+            losses.append(m.train_batch([ids], [ids])[0])
+        flops.append(reg.get("train.flops_per_step"))
+    return losses, flops, reg
+
+
+def test_metered_graphed_train_steps_keep_their_losses(cuda):
+    """The step meter counts each signature once, eagerly and never inside
+    a capture (before it, or after it for a meter attached late), and
+    puts the dropout generator back: the graphed fp32 and O1 losses are
+    bitwise those of an unmetered model, and the count is the products
+    plus B1-B3's formulas exactly."""
+    for dropout in (0.0, 0.1):
+        plain, _, _ = _metered_lane(cuda, False, dropout)
+        for when in ("late", True):
+            metered, flops, reg = _metered_lane(cuda, when, dropout)
+            assert metered == plain
+    t, s, h, v, layers = 4 * 64, 64, 128, 256, 2
+    pairs = tfa.attention_pairs(s, s, True)
+    want = 3 * t * (12 * layers * h * h + h * v) \
+        + layers * 18 * 4 * h * pairs / 2
+    assert flops == [want] * 4
+    assert reg.get("train.mfu") > 0
+    assert reg.histogram("train.step_ms")["count"] == 4
+
+
+def test_flash_and_paged_flop_formulas_counted_on_the_card(cuda):
+    from paddle_tpu_torch.observability import stepmeter as sm
+    q, k, v = (torch.from_numpy(x).to(cuda)
+               for x in _qkv(11, 2, 128, 128, 4, 64))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+
+    def step():
+        out = tfa.FlashAttentionFunction.apply(q, k, v, True, None)
+        out.sum().backward()
+
+    before = [w.launches for w in (tfa.flash_attention_fwd,
+                                   tfa.flash_attention_bwd_dq,
+                                   tfa.flash_attention_bwd_dkv)]
+    _, raw, by = sm.count_flops(step)
+    after = [w.launches for w in (tfa.flash_attention_fwd,
+                                  tfa.flash_attention_bwd_dq,
+                                  tfa.flash_attention_bwd_dkv)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    one = 2 * 2 * 4 * 64 * tfa.attention_pairs(128, 128, True)
+    assert by == {"flash_attention_fwd": 2 * one,
+                  "flash_attention_bwd_dq": 3 * one,
+                  "flash_attention_bwd_dkv": 4 * one}
+    assert raw == 9 * one
+    qp, kb, vb, bt, pos = (torch.from_numpy(x).to(cuda)
+                           for x in _paged_case(12))
+    _, raw, by = sm.count_flops(tpa.paged_attention, qp, kb[:, 1],
+                                vb[:, 1], bt, pos)
+    cap = bt.shape[1] * kb.shape[2]
+    rows = int((pos.long() + 1).clamp(max=cap).sum())
+    assert by == {"paged_attention": 4.0 * rows * qp.shape[1] * qp.shape[2]}
+
+
+@pytest.mark.parametrize("layout", ["paged", "slot"])
+def test_measure_mfu_keeps_the_engine_tokens(cuda, layout):
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    kw = dict(kv_layout="paged", page_size=16, paged_attn_impl="kernel") \
+        if layout == "paged" else {}
+    prompts = [[3, 1, 4, 1, 5], list(range(1, 20)), [9, 2]]
+    out = {}
+    for measure in (False, True):
+        eng = LLMEngine(model, LLMEngineConfig(num_slots=4, max_seq=64,
+                                               measure_mfu=measure, **kw))
+        try:
+            reqs = [eng.submit(p, max_new_tokens=12, do_sample=True,
+                               temperature=1.3, top_k=16) for p in prompts]
+            greedy = eng.generate([7, 7, 7], max_new_tokens=12)["tokens"]
+            out[measure] = ([r.result(timeout=120)["tokens"] for r in reqs],
+                            greedy)
+            st = eng.stats()["stats"]
+        finally:
+            eng.drain(timeout=60)
+    assert out[True] == out[False]
+    assert st["serving.llm.decode_flops_per_tick"] > 0
+    assert st["serving.llm.mfu"] > 0
+
+
+def test_sigterm_drains_the_engine_on_the_card(cuda, tmp_path, monkeypatch):
+    import signal
+    from paddle_tpu_torch import observability as obs
+    monkeypatch.setenv("PADDLE_TPU_FLIGHT_DIR", str(tmp_path))
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    eng = LLMEngine(model, LLMEngineConfig(
+        num_slots=2, max_seq=64, kv_layout="paged", page_size=16,
+        paged_attn_impl="kernel"))
+    prev = signal.getsignal(signal.SIGTERM)
+    obs.enable()
+    chain = eng.install_drain_signal_handler()
+    try:
+        reqs = [eng.submit([1, 2, 3], max_new_tokens=20, stream=True)] + [
+            eng.submit([4 + i], max_new_tokens=10) for i in range(4)]
+        it = reqs[0].iter_tokens(timeout=60)
+        next(it)
+        signal.raise_signal(signal.SIGTERM)
+        assert eng.draining
+        assert len([next(it)] + list(it)) == 19
+        assert [len(r.result(60)["tokens"]) for r in reqs[1:]] == [10] * 4
+        assert eng._stopped.wait(60)
+    finally:
+        chain.uninstall()
+        obs.disable()
+        eng.drain(timeout=60)
+    assert signal.getsignal(signal.SIGTERM) == prev
+    assert len(list(tmp_path.glob("flight_*.jsonl"))) == 1
+
+
+def test_capture_while_a_profiler_runs(cuda, tmp_path):
+    """A CUDA graph captured under an active Profiler, its function
+    opening the funnel's record_function range inside the capture;
+    replays give the product."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.core import graphs
+
+    class _State:
+        graph_pool = graphs.GraphPool(cuda)
+
+    x = torch.randn(128, 128, device=cuda)
+    prog = graphs.Program(lambda params, state, a: P.matmul(a, a))
+    with profiler.Profiler(log_dir=str(tmp_path)):
+        prog([], _State, x)
+        out = prog([], _State, x)
+    torch.cuda.synchronize()
+    assert prog.trace_counter["traces"] == 1 and prog.replays == 1
+    torch.testing.assert_close(out, x @ x)

@@ -263,12 +263,21 @@ def test_unported_options_raise():
     assert len(m._metrics) == 1
     with pytest.raises(NotImplementedError, match="A4"):
         m.prepare(None, None, amp_configs={"level": "O1"})
-    with pytest.raises(NotImplementedError, match="A8"):
-        m.attach_step_meter()
+    # the step meter is ported: attach_step_meter now publishes
+    from paddle_tpu_torch.core.monitor import StatRegistry
+    from paddle_tpu_torch.observability import StepMeter
+    reg = StatRegistry()
+    meter = m.attach_step_meter(StepMeter(registry=reg, device="cpu"))
+    assert meter.peak_flops == 1.0e12      # the CPU's proxy peak
     m.prepare(topt.SGD(parameters=net.parameters(), device="cpu"),
               torch.nn.functional.mse_loss)
     zeros = np.zeros((2, 2), np.float32)
     m.fit(P.io.TensorDataset([zeros, zeros]), batch_size=2, verbose=0)
+    # the forward's and the weight gradient's [2, 2] x [2, 2] products,
+    # 8 multiply-adds each (the input needs no gradient)
+    assert reg.get("train.flops_per_step") == 2 * (2 * 2 * 2)
+    assert reg.get("train.mfu") > 0
+    assert reg.histogram("train.step_ms")["count"] == 1
     with pytest.raises(RuntimeError, match="prepare"):
         P.Model(net, device="cpu").train_batch([np.zeros((1, 2))])
     with pytest.raises(ValueError, match="device"):

@@ -58,6 +58,9 @@ def test_import_leaves_no_jax_in_subprocess():
         "import paddle_tpu_torch.ops.custom, paddle_tpu_torch.ops.detection\n"
         "import paddle_tpu_torch.vision, paddle_tpu_torch.serving.engine\n"
         "import paddle_tpu_torch.amp, paddle_tpu_torch.ops.math\n"
+        "import paddle_tpu_torch.profiler, paddle_tpu_torch.observability\n"
+        "import paddle_tpu_torch.distributed.elastic\n"
+        "import paddle_tpu_torch.utils.resilience\n"
         "import paddle_tpu_torch.core.tensor, paddle_tpu_torch.core.dtypes\n"
         "import paddle_tpu_torch.core.flags, paddle_tpu_torch.core.errors\n"
         "import paddle_tpu_torch.core.autograd_engine\n"
@@ -166,7 +169,7 @@ def _tiny_model():
     (dict(kv_layout="paged", page_size=4, kv_dtype="int8", spec_k=2),
      dict(draft_model="draft"), ValueError,
      "speculative decoding .* requires a dense KV cache"),
-    (dict(measure_mfu=True), {}, NotImplementedError, "queue A8"),
+    (dict(measure_mfu=True), {}, None, None),
     # speculation over int8 weights, which the reference takes and then
     # fails in its verify, and a shared store over int8 KV (the
     # reference's gate) are refused at construction
@@ -193,6 +196,10 @@ def test_later_slice_knobs_raise(kw, engine_kw, exc, match):
         finally:
             eng.drain(timeout=60)
         assert len(out["tokens"]) == 4
+        if kw.get("measure_mfu"):
+            st = eng.stats()["stats"]
+            assert st["serving.llm.decode_flops_per_tick"] > 0
+            assert st["serving.llm.mfu"] > 0
         assert eng.decoder.weight_dtype == kw.get("weight_dtype", "float32")
         assert eng._batcher.kv.quantized == (kw.get("kv_dtype") == "int8")
         return

@@ -201,11 +201,18 @@ def test_oversize_reject_and_deadline():
 
 
 def test_unported_parts_raise_and_cuda_is_the_default(monkeypatch):
+    # preemption and signal drains are ported: arm, then drain
+    from paddle_tpu_torch.distributed.elastic import PreemptionGuard
     eng = _engine()
-    with pytest.raises(NotImplementedError, match="A8"):
-        eng.arm_preemption()
-    with pytest.raises(NotImplementedError, match="A8"):
-        eng.install_drain_signal_handler()
+    guard = eng.arm_preemption(PreemptionGuard(install=False))
+    chain = eng.install_drain_signal_handler(signals=())
+    assert chain.installed and eng._guard is guard
+    fut = eng.submit([np.ones((2, 2), np.float32)])
+    guard.preempt()
+    assert eng._stopped.wait(30)
+    assert fut.done() and eng.draining
+    assert eng.stats()["stats"]["serving.preemption_drains"] == 1
+    chain.uninstall()
     eng.drain(30)
     with pytest.raises(NotImplementedError, match="A11"):
         Engine("model_prefix", device="cpu")
