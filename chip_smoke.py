@@ -464,7 +464,7 @@ Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result. ``--phase 22`` runs,
 after the build, phase 21's two GPT-3 1.3B dygraph references and phase
 22 alone, and prints that phase's numbers only; ``--phase 23`` to
-``--phase 30`` run that phase alone after the build.
+``--phase 31`` run that phase alone after the build.
 
 Phase 30 drives the host-plane substrate on GPT-3 1.3B: live MFU on
 phase 7's graphed fp32 and O1 ``train_batch`` (``attach_step_meter``;
@@ -484,6 +484,41 @@ after each path: the two train lanes (B1-B3 24 each a step), the
 tracing rounds and profiles, each serving engine (B4 24 a paged step,
 the metered engine's count included; the prefills attend densely, and
 the slot engines launch none) and the tick rounds.
+
+Phase 31 drives training that survives faults on GPT-3 1.3B, O1 bf16,
+graphed, on phase 7's ``[4, 1024]`` shape with its dropout 0: (1) the
+skip lane, ``fit`` with ``AnomalyGuardCallback`` and a NaN injected into
+the gradients at the second of 4 guarded steps (through a FaultInjector
+the phase owns), its parameters, moments and step count bitwise those
+of a guarded run that drops that batch's update by hand,
+``sentinel.host_syncs`` equal to the guarded steps; (2) the costs: the
+guarded route (the captured gradients program, the probe's graph, the
+eager update) against the fused graphed step in alternating rounds,
+wall and device ms, the probe's device ms against its byte bound, the
+host ms of an async snapshot of the full state and the step's peak
+memory with its clones held; (3) the rollback lane at full width and 2
+layers (time: a full checkpoint writes for about a minute): ``fit``
+with ``AnomalyGuardCallback(ladder rollback, async snapshots)``, a NaN
+at epoch 1's first step restores epoch 0's snapshot into the live
+model (bitwise) and training completes; the async commit's enqueue,
+fetch and write ms, then a sync ``save_sharded`` of that state, its
+bytes and GB/s, the sha256 seconds and ``load_sharded`` seconds; (4)
+the kill lane at the same size: a child process (``--ft-child train``)
+fits with ``AnomalyGuardCallback`` and
+``FaultToleranceCallback(async_save=True)`` (each epoch's commit drained
+before the next) and is killed mid-epoch 1 by ``step:3:crash`` (exit
+43); a second child (``--ft-child resume``) restores the last committed
+epoch and fits on, its losses bitwise those of the same fit run unbroken
+in this process, then halts on a NaN under a ``("halt",)`` ladder with
+``DIVERGENCE_EXIT_CODE`` and one flight dump. The killed child runs
+beside the unbroken fit, which times nothing, after the 1.3B lanes have
+freed the card's memory; the costs and the rollback lane's I/O times
+are taken with no child running.
+Everything is written under a temporary directory removed at the end. Its launch counts are
+set to 0 before and read after each path: the guarded fit and the
+manual skip (B1-B3 24 each a step), the cost rounds and profiles, the
+rollback fit and the unbroken fit (2 each a step), and the resumed
+child's, which it prints.
 """
 from __future__ import annotations
 
@@ -8011,6 +8046,569 @@ def observability_phase(torch, fa_mod, dev, smi, reset_counters,
     return out, launches, dtypes
 
 
+# -- phase 31: training that survives faults ----------------------------------
+FT_STEPS = 4               # guarded O1 steps of the skip lane
+FT_NAN_FIRE = 2            # the grads site's firing the NaN lands on
+FT_ROUNDS = 4              # alternating guarded/unguarded rounds
+FT_ROUND_STEPS = 2         # O1 steps a round
+FT_CKPT_LAYERS = 2         # depth of the checkpoint lanes (full width)
+FT_EPOCHS = 3              # epochs of the kill lane
+FT_RB_EPOCHS = 2           # epochs of the rollback lane
+FT_EPOCH_STEPS = 2         # batches an epoch in both
+FT_CRASH_STEP = 3          # step:N:crash of the killed child: mid epoch 1
+FT_CHILD_TIMEOUT = 300
+
+
+def _ft_cfg(layers=None):
+    return dict(CFG_13B, num_layers=layers or CFG_13B["num_layers"])
+
+
+def _ft_batches(cfg, n, seed):
+    rng = np.random.default_rng(seed)
+    return [(x, x) for x in (rng.integers(
+        0, cfg["vocab_size"], (4, cfg["max_position_embeddings"]))
+        for _ in range(n))]
+
+
+def _own_injector(spec):
+    """The process-wide FaultInjector set to ``spec`` (None: back to the
+    environment's) for the in-process lanes."""
+    from paddle_tpu_torch.utils import resilience
+    resilience._INJECTOR = None if spec is None else \
+        resilience.FaultInjector(spec)
+
+
+def _train_state(model, to=None):
+    """Copies of the parameters, the optimizer's tensors and its step
+    count (on the device, or on ``to``): what the bitwise checks
+    compare."""
+    out = {f"p.{k}": v.detach().to(to, copy=True)
+           for k, v in model.network.state_dict().items()}
+    for k, v in model._optimizer.state_dict().items():
+        out[f"o.{k}"] = v.to(to, copy=True) if hasattr(v, "clone") else v
+    return out
+
+
+def _states_equal(torch, a, b):
+    bad = [k for k in a if (not torch.equal(a[k], b[k])
+                            if hasattr(a[k], "shape") else a[k] != b[k])]
+    return sorted(a) == sorted(b) and not bad, bad[:5]
+
+
+def _loss_log():
+    """A fit callback keeping each batch's loss (the fit loop's float)."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class LossLog(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(np.ravel(logs["loss"])[0]))
+    return LossLog()
+
+
+def ft_skip_lane(torch, fa_mod, dev, reset_counters, read_counters):
+    """GPT-3 1.3B O1 graphed through ``fit`` with AnomalyGuardCallback and
+    a NaN injected into the gradients at guarded step FT_NAN_FIRE, against
+    a guarded run that drops that batch's update by hand; returns the
+    second model (for the cost lane), the results and the launches."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.hapi.callbacks import AnomalyGuardCallback
+    from paddle_tpu_torch.sentinel import Sentinel, SentinelConfig
+    cfg = _ft_cfg()
+    batches = _ft_batches(cfg, FT_STEPS, 31)
+    reg = monitor.default_registry()
+    for k in [k for k in reg.stats() if k.startswith("sentinel.")]:
+        reg.reset(k)
+    launches = {}
+    model, _ = _train_model(torch, cfg, dev, "flash")
+    log(f"phase 31 skip lane: model built, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    guard = AnomalyGuardCallback(config=SentinelConfig(ladder=("skip_step",)))
+    losses = _loss_log()
+    _own_injector(f"grads:{FT_NAN_FIRE}:nan")
+    reset_counters()
+    try:
+        with amp.auto_cast():
+            model.fit(batches, epochs=1, verbose=0,
+                      callbacks=[guard, losses])
+    finally:
+        _own_injector(None)
+    launches["fault_tolerance_skip"] = read_counters()
+    mem = {"allocated_gib_after_fit": torch.cuda.memory_allocated() / 2**30,
+           "peak_gib_fit": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"phase 31 skip lane memory: {json.dumps(mem)}")
+    syncs = reg.get("sentinel.host_syncs")
+    want = cfg["num_layers"] * FT_STEPS
+    bad = {n: c for n, c in launches["fault_tolerance_skip"].items()
+           if n in [f.__name__ for f in _counters(fa_mod)] and c != want}
+    if bad or syncs != FT_STEPS or guard.sentinel.anomalies != 1 \
+            or reg.get("sentinel.skipped_steps") != 1:
+        raise RuntimeError(f"skip lane: launches {bad} (want {want} each), "
+                           f"host syncs {syncs} (want {FT_STEPS}), "
+                           f"anomalies {guard.sentinel.anomalies}")
+    skipped = _train_state(model)
+    guarded_step = model._optimizer._global_step
+    fit_losses, anomalies = losses.losses, guard.sentinel.anomalies
+    model._invalidate_compiled()
+    del model, guard, losses    # the callbacks hold the model too
+    release_memory(torch)
+
+    model, sched = _train_model(torch, cfg, dev, "flash")
+    opt = model._optimizer
+    Sentinel(SentinelConfig(ladder=("skip_step",)), optimizer=opt)
+    manual = []
+    reset_counters()
+    with amp.auto_cast():
+        for i, (x, y) in enumerate(batches):
+            if i == FT_NAN_FIRE - 1:
+                manual.append(model.train_batch([x], [y], update=False)[0])
+                opt.clear_grad()
+            else:
+                manual.append(model.train_batch([x], [y])[0])
+            sched.step()        # the LRScheduler callback's step in fit
+    launches["fault_tolerance_manual_skip"] = read_counters()
+    equal, bad = _states_equal(torch, skipped, _train_state(model))
+    if not equal or fit_losses != manual or \
+            guarded_step != opt._global_step:
+        raise RuntimeError(f"skip lane: the guarded run's state differs from "
+                           f"the manual skip's at {bad}; losses "
+                           f"{fit_losses} vs {manual}")
+    del skipped
+    out = {"steps": FT_STEPS, "nan_at_step": FT_NAN_FIRE - 1,
+           "anomalies": anomalies,
+           "skipped_steps": reg.get("sentinel.skipped_steps"),
+           "losses": fit_losses, "host_syncs": syncs,
+           "state_bitwise_manual_skip": True,
+           "optimizer_steps": guarded_step,
+           "b1_b3_per_guarded_step": cfg["num_layers"], **mem}
+    log(f"phase 31 skip lane: NaN gradients at guarded step "
+        f"{FT_NAN_FIRE} of {FT_STEPS} skipped; parameters, moments and "
+        f"step count bitwise the manual skip's; host syncs {syncs}; losses "
+        f"{fit_losses}")
+    return model, out, launches
+
+
+def ft_cost_lane(torch, fa_mod, dev, model, reset_counters, read_counters):
+    """The guarded route against the fused graphed step on one model, in
+    alternating rounds; the probe alone against its byte bound; the peak
+    memory of a step with an async snapshot's clones held."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.incubate.checkpoint import async_ckpt
+    from paddle_tpu_torch.sentinel import Sentinel, SentinelConfig
+    cfg = _ft_cfg()
+    x = _ft_batches(cfg, 1, 32)[0][0]
+    opt = model._optimizer
+    sentinel = opt._sentinel or Sentinel(SentinelConfig(
+        ladder=("skip_step",)), optimizer=opt)
+
+    def steps(guarded):
+        def run():
+            if guarded:
+                sentinel.attach(opt)
+            else:
+                sentinel.detach(opt)
+            with amp.auto_cast():
+                for _ in range(FT_ROUND_STEPS):
+                    model.train_batch([x], [x])
+            return FT_ROUND_STEPS
+        return run
+
+    reset_counters()
+    steps(False)()              # the fused step's capture, outside rounds
+    medians, rounds = _wall_rounds(torch, {"guarded": steps(True),
+                                           "unguarded": steps(False)},
+                                   FT_ROUNDS)
+    launches = {"fault_tolerance_costs": read_counters()}
+    def one_step():
+        with amp.auto_cast():
+            model.train_batch([x], [x])
+
+    prof = {}
+    for name in ("guarded", "unguarded"):
+        if name == "guarded":
+            sentinel.attach(opt)
+        else:
+            sentinel.detach(opt)
+        prof[name] = profile_steps(torch, f"phase 31 {name} O1 step",
+                                   one_step, FT_ROUND_STEPS)
+    sentinel.attach(opt)
+    one_step()
+    # the probe's replay alone (the fetch after it left out), on the
+    # profiler's device timeline
+    prog = next(iter(sentinel.guard._probes.values()))
+    holder = sentinel.guard._holders[torch.device(dev)]
+    bound = prog._bound[holder][None]
+    grads = bound.inputs[:-1]
+    probe = profile_steps(torch, "phase 31 probe replay",
+                          lambda: prog([], holder, *bound.inputs), 5)
+    probe_ms = probe["device_ms"]
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+    probe_bound = grad_bytes / PEAK_BYTES * 1e3
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one_step()
+    base_peak = torch.cuda.max_memory_allocated()
+    state = {"model": model.network.state_dict(),
+             "optimizer": opt.state_dict()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = async_ckpt.snapshot(state)
+    enqueue_host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    one_step()
+    clone_peak = torch.cuda.max_memory_allocated()
+    clone_bytes = sum(v.numel() * v.element_size()
+                      for v in snap.flat.values() if hasattr(v, "numel"))
+    del snap, state
+    out = {"wall_ms_median": medians, "wall_ms_rounds": rounds,
+           "device_ms": {n: p["device_ms"] for n, p in prof.items()},
+           "profiled_wall_ms": {n: p["wall_ms"] for n, p in prof.items()},
+           "probe_device_ms": probe_ms, "probe_bound_ms": probe_bound,
+           "probe_kernels": sum(r[1] for r in probe["kernels"]),
+           "probe_host_wall_ms": probe["wall_ms"],
+           "probe_bound_by": "bytes", "gradient_bytes": grad_bytes,
+           "probe_gradients": len(grads),
+           "snapshot_host_ms_full_state": enqueue_host_ms,
+           "snapshot_bytes": clone_bytes,
+           "peak_gib_step": base_peak / 2**30,
+           "peak_gib_step_with_snapshot": clone_peak / 2**30}
+    log(f"phase 31 costs (O1, {FT_ROUNDS} alternating rounds of "
+        f"{FT_ROUND_STEPS} steps): wall ms a step {json.dumps(medians)}; "
+        f"device ms {json.dumps(out['device_ms'])}; probe {probe_ms:.3f} ms "
+        f"device over {len(grads)} gradients ({grad_bytes / 1e9:.3f} GB; "
+        f"byte bound {probe_bound:.3f} ms); snapshot of the full state "
+        f"{clone_bytes / 1e9:.3f} GB in {enqueue_host_ms:.2f} ms host; peak "
+        f"{base_peak / 2**30:.2f} GiB a step, "
+        f"{clone_peak / 2**30:.2f} GiB with the snapshot held")
+    return out, launches
+
+
+def ft_rollback_lane(torch, fa_mod, dev, work, reset_counters,
+                     read_counters):
+    """GPT-3 1.3B's width at FT_CKPT_LAYERS layers, O1 graphed, through
+    ``fit`` with AnomalyGuardCallback(ladder rollback, async snapshots):
+    epoch 0 ends in a snapshot, a NaN at epoch 1's first step rolls the
+    live model back to it (bitwise), and epoch 1's second step trains
+    from it; then the checkpoint's sync save, checksum and load times."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.hapi.callbacks import (AnomalyGuardCallback,
+                                                 Callback)
+    from paddle_tpu_torch.incubate.checkpoint import (
+        load_sharded, read_health_stamp, save_sharded, sharded)
+    from paddle_tpu_torch.sentinel import SentinelConfig
+    cfg = _ft_cfg(FT_CKPT_LAYERS)
+    batches = _ft_batches(cfg, FT_EPOCH_STEPS, 33)
+    reg = monitor.default_registry()
+    for k in list(reg.histograms()):
+        if k.startswith("ckpt.async."):
+            reg.reset(k)
+    model, _ = _train_model(torch, cfg, dev, "flash")
+    guard = AnomalyGuardCallback(
+        save_dir=os.path.join(work, "guard"),
+        config=SentinelConfig(ladder=("rollback",)), async_snapshots=True)
+    seen = {}
+
+    class Check(Callback):
+        def on_epoch_end(self, epoch, logs=None):
+            if epoch == 0:
+                seen["snapshot"] = _train_state(model)
+
+        def on_train_batch_end(self, step, logs=None):
+            r = guard.sentinel.last_report
+            if r is not None and r.rolled_back_to is not None \
+                    and "restored" not in seen:
+                seen["restored"] = _states_equal(
+                    torch, seen["snapshot"], _train_state(model))
+                seen["rolled_back_to"] = r.rolled_back_to
+
+    losses = _loss_log()
+    _own_injector(f"grads:{FT_EPOCH_STEPS + 1}:nan")
+    reset_counters()
+    try:
+        with amp.auto_cast():
+            model.fit(batches, epochs=FT_RB_EPOCHS, verbose=0,
+                      callbacks=[Check(), guard, losses])
+    finally:
+        _own_injector(None)
+    launches = {"fault_tolerance_rollback": read_counters()}
+    snaps = guard.rollback.steps()
+    stamps = {s: read_health_stamp(os.path.join(
+        guard.rollback.path, f"snap_{s}"))["healthy"] for s in snaps}
+    if not seen.get("restored", (False,))[0] or \
+            not all(math.isfinite(v) for v in losses.losses) or \
+            len(losses.losses) != FT_RB_EPOCHS * FT_EPOCH_STEPS:
+        raise RuntimeError(f"rollback lane: restored {seen.get('restored')}, "
+                           f"losses {losses.losses}")
+    hist = {k: reg.histogram(f"ckpt.async.{k}") for k in
+            ("enqueue_ms", "fetch_ms", "write_ms", "commit_ms")}
+    state = {"model": model.network.state_dict(),
+             "optimizer": model._optimizer.state_dict()}
+    path = os.path.join(work, "sync")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_sharded(state, path)
+    save_s = time.perf_counter() - t0
+    shards = os.path.join(path, "shards_0.npz")
+    nbytes = os.path.getsize(shards)
+    t0 = time.perf_counter()
+    sharded._sha256_of(shards)
+    sha_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_sharded(path, return_tensor=False, device="cpu")
+    load_s = time.perf_counter() - t0
+    live = state["model"]
+    if not all(torch.equal(back["model"][k], v.cpu()) for k, v in
+               live.items()):
+        raise RuntimeError("rollback lane: the sync checkpoint did not load "
+                           "back bitwise")
+    out = {"layers": FT_CKPT_LAYERS, "losses": losses.losses,
+           "rolled_back_to": seen["rolled_back_to"],
+           "restored_bitwise_snapshot": True, "snapshots": stamps,
+           "async_ms": {k: {q: v.get(q) for q in ("count", "p50", "max")}
+                        for k, v in hist.items()},
+           "checkpoint_bytes": nbytes, "sync_save_s": save_s,
+           "sync_save_gb_s": nbytes / save_s / 1e9, "sha256_s": sha_s,
+           "sha256_gb_s": nbytes / sha_s / 1e9, "load_s": load_s,
+           "load_gb_s": nbytes / load_s / 1e9}
+    log(f"phase 31 rollback lane ({FT_CKPT_LAYERS} layers at full width): "
+        f"rolled back to snapshot {seen['rolled_back_to']}, live state "
+        f"bitwise the snapshot, training completed (losses "
+        f"{losses.losses}); snapshots {stamps}; async "
+        f"{json.dumps(out['async_ms'])}; sync save_sharded "
+        f"{nbytes / 1e9:.3f} GB in {save_s:.2f} s "
+        f"({out['sync_save_gb_s']:.3f} GB/s), sha256 {sha_s:.2f} s, "
+        f"load_sharded {load_s:.2f} s")
+    model._invalidate_compiled()
+    del model, state, back
+    release_memory(torch)
+    return out, launches
+
+
+def ft_child(torch, argv):
+    """``chip_smoke.py --ft-child {train,resume} SAVE_DIR LOG``: the kill
+    lane's child. Fit GPT-3 1.3B's width at FT_CKPT_LAYERS layers, O1
+    graphed, FT_EPOCHS epochs of FT_EPOCH_STEPS batches, with
+    AnomalyGuardCallback and FaultToleranceCallback(async_save=True)
+    (each epoch's commit drained before the next epoch, so the resume
+    point is the last epoch ended), appending each batch's loss to LOG;
+    ``resume`` first restores ``SAVE_DIR/latest`` and fits the epochs
+    after it, prints its launches, then halts: a ladder ``("halt",)``
+    sentinel on a NaN step exits with DIVERGENCE_EXIT_CODE."""
+    import importlib
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.hapi import callbacks as cbs
+    from paddle_tpu_torch.incubate.checkpoint import read_health_stamp
+    from paddle_tpu_torch.observability import flight
+    from paddle_tpu_torch.sentinel import Sentinel, SentinelConfig
+    from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.ops import custom, paged_attention
+    mode, save_dir, log_path = argv[:3]
+    dev = resolve_device()
+    fa_mod = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    reset_counters, read_counters = counter_fns(
+        torch, fa_mod, (paged_attention.paged_attention, custom.greedy_nms))
+    cfg = _ft_cfg(FT_CKPT_LAYERS)
+    model, _ = _train_model(torch, cfg, dev, "flash")
+    latest = os.path.join(save_dir, "latest")
+    start = read_health_stamp(latest)["step"] + 1 \
+        if mode == "resume" and os.path.isdir(latest) else 0
+
+    class FT(cbs.FaultToleranceCallback):
+        def on_epoch_end(self, epoch, logs=None):   # the run's epoch
+            super().on_epoch_end(epoch + start, logs)
+
+    # the resumed child's own checkpoints are never read: it saves none
+    ft = FT(save_dir, async_save=True,
+            save_freq=FT_EPOCHS + 1 if start else 1)
+    if start:
+        ft.set_model(model)
+        ft.restore()
+
+    class Log(cbs.Callback):
+        def on_epoch_begin(self, epoch, logs=None):
+            self.epoch = epoch + start
+
+        def on_train_batch_end(self, step, logs=None):
+            with open(log_path, "a") as f:
+                f.write(f"{self.epoch} {step} "
+                        f"{float(np.ravel(logs['loss'])[0])!r}\n")
+
+        def on_epoch_end(self, epoch, logs=None):
+            ft._ckpt.wait()
+
+    reset_counters()
+    with amp.auto_cast():
+        model.fit(_ft_batches(cfg, FT_EPOCH_STEPS, 34),
+                  epochs=FT_EPOCHS - start, verbose=0,
+                  callbacks=[cbs.AnomalyGuardCallback(), ft, Log()])
+    print(json.dumps({"resumed_from_epoch": start - 1,
+                      "launches": read_counters()}), flush=True)
+    Sentinel(SentinelConfig(ladder=("halt",)),
+             optimizer=model._optimizer)
+    flight.arm()
+    _own_injector("grads:1:nan")
+    with amp.auto_cast():
+        model.train_batch(*_ft_batches(cfg, 1, 34)[0])
+    return 0          # not reached: the halt exits
+
+
+class _Child:
+    """One ``--ft-child`` process, its output in files under ``work``."""
+
+    def __init__(self, mode, work, env):
+        self.mode, self.t0 = mode, time.perf_counter()
+        self.out = open(os.path.join(work, f"{mode}.out"), "w+")
+        self.err = open(os.path.join(work, f"{mode}.err"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ft-child", mode,
+             os.path.join(work, "ft"), os.path.join(work, "log")],
+            env=env, stdout=self.out, stderr=self.err, text=True)
+
+    def wait(self, code):
+        """Its exit, held to ``code``: (stdout, seconds)."""
+        try:
+            rc = self.proc.wait(FT_CHILD_TIMEOUT)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        seconds = time.perf_counter() - self.t0
+        self.out.seek(0)
+        self.err.seek(0)
+        out, err = self.out.read(), self.err.read()
+        self.out.close()
+        self.err.close()
+        if rc != code:
+            raise RuntimeError(f"kill lane: the {self.mode} child exited "
+                               f"{rc}, not {code}: {err[-2000:]}")
+        return out, seconds
+
+
+def _child_env(work, spec=None):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PADDLE_TPU_FAULT_SPEC", "PADDLE_TPU_FLIGHT")}
+    env["PADDLE_TPU_FLIGHT_DIR"] = os.path.join(work, "flight")
+    if spec:
+        env["PADDLE_TPU_FAULT_SPEC"] = spec
+    return env
+
+
+def ft_kill_lane(torch, fa_mod, dev, work, reset_counters, read_counters):
+    """A child hard-killed mid-epoch 1 by ``step:N:crash`` (while this
+    process runs the same guarded fit unbroken, small and timing
+    nothing), then a child resuming from the last committed epoch and
+    halting: its losses after the resume bitwise the unbroken run's."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed.elastic import DIVERGENCE_EXIT_CODE
+    from paddle_tpu_torch.hapi import callbacks as cbs
+    from paddle_tpu_torch.utils.resilience import FAULT_CRASH_EXIT_CODE
+    killed = _Child("train", work,
+                    _child_env(work, f"step:{FT_CRASH_STEP}:crash"))
+    try:
+        cfg = _ft_cfg(FT_CKPT_LAYERS)
+        model, _ = _train_model(torch, cfg, dev, "flash")
+        ref = _loss_log()
+        reset_counters()
+        # the same guarded fit, without checkpoints (they change no number)
+        with amp.auto_cast():
+            model.fit(_ft_batches(cfg, FT_EPOCH_STEPS, 34),
+                      epochs=FT_EPOCHS, verbose=0,
+                      callbacks=[cbs.AnomalyGuardCallback(), ref])
+        launches = {"fault_tolerance_unbroken": read_counters()}
+        ref_losses = ref.losses
+        model._invalidate_compiled()
+        del model, ref              # the callback holds the model too
+        release_memory(torch)
+    finally:
+        _, crash_s = killed.wait(FAULT_CRASH_EXIT_CODE)
+    resumed = _Child("resume", work, _child_env(work))
+    stdout, resume_s = resumed.wait(DIVERGENCE_EXIT_CODE)
+    child = json.loads([ln for ln in stdout.splitlines()
+                        if ln.startswith("{")][-1])
+    launches["fault_tolerance_resumed_child"] = child["launches"]
+    flight_dir = os.path.join(work, "flight")
+    dumps = os.listdir(flight_dir) if os.path.isdir(flight_dir) else []
+    if len(dumps) != 1:
+        raise RuntimeError(f"kill lane: {len(dumps)} flight dumps after the "
+                           f"halt, not 1")
+    with open(os.path.join(flight_dir, dumps[0])) as f:
+        header = json.loads(f.readline())
+    rows = [ln.split() for ln in open(os.path.join(work, "log"))]
+    got = {(int(e), int(st)): float(v) for e, st, v in rows}
+    start = child["resumed_from_epoch"] + 1
+    resumed_losses = [got[(e, st)] for e in range(start, FT_EPOCHS)
+                      for st in range(FT_EPOCH_STEPS)]
+    want = ref_losses[start * FT_EPOCH_STEPS:]
+    killed_at = len(rows) - len(resumed_losses)
+    if start != 1 or resumed_losses != want or \
+            header.get("reason") != "sentinel_halt":
+        raise RuntimeError(f"kill lane: resumed from epoch {start - 1}; "
+                           f"losses after the resume {resumed_losses} vs "
+                           f"the unbroken run's {want}; dump {header}")
+    out = {"layers": FT_CKPT_LAYERS, "crash_exit_code": FAULT_CRASH_EXIT_CODE,
+           "killed_after_batches": killed_at,
+           "resumed_from_epoch": start - 1,
+           "resumed_losses": resumed_losses,
+           "resumed_bitwise_unbroken": True,
+           "halt_exit_code": DIVERGENCE_EXIT_CODE,
+           "halt_flight_dump": header.get("reason"),
+           "child_s": {"killed": crash_s, "resumed_and_halted": resume_s}}
+    log(f"phase 31 kill lane: the child exited {FAULT_CRASH_EXIT_CODE} "
+        f"(step:{FT_CRASH_STEP}:crash) after {killed_at} batches, the "
+        f"second resumed from epoch {start - 1} with losses bitwise the "
+        f"unbroken run's ({resumed_losses}) and halted with "
+        f"{DIVERGENCE_EXIT_CODE}, dump {header.get('reason')}; children "
+        f"{crash_s:.1f} s and {resume_s:.1f} s")
+    return out, launches
+
+
+def fault_tolerance_phase(torch, fa_mod, dev, smi, reset_counters,
+                          read_counters):
+    """Phase 31 (module docstring): training that survives faults on GPT-3
+    1.3B. Returns (results, launches by path, B1-B3 by type)."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+    log(f"phase 31: the sentinel, rollback, async checkpoints and a killed "
+        f"and resumed fit on GPT-3 1.3B, O1 bf16 graphed, phase 7's "
+        f"[4, 1024] batches, dropout 0 as phase 7 has it; checkpoint lanes "
+        f"at {FT_CKPT_LAYERS} layers; {smi}")
+    out, launches, dtypes = {}, {}, {}
+    release_memory(torch)
+    out["allocated_gib_at_start"] = torch.cuda.memory_allocated() / 2**30
+    try:
+        model, out["skip"], paths = ft_skip_lane(
+            torch, fa_mod, dev, reset_counters, read_counters)
+        launches.update(paths)
+        out["costs"], paths = ft_cost_lane(torch, fa_mod, dev, model,
+                                           reset_counters, read_counters)
+        launches.update(paths)
+        model._invalidate_compiled()
+        del model
+        # the children need the card's memory this process cached
+        release_memory(torch)
+        out["kill_resume"], paths = ft_kill_lane(
+            torch, fa_mod, dev, work, reset_counters, read_counters)
+        launches.update(paths)
+        out["rollback"], paths = ft_rollback_lane(
+            torch, fa_mod, dev, work, reset_counters, read_counters)
+        launches.update(paths)
+        dtypes["fault_tolerance_rollback"] = {
+            c.__name__: dict(c.launches_by_dtype) for c in _counters(fa_mod)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 31 {out['seconds']:.1f} s")
+    return out, launches, dtypes
+
+
 def counter_fns(torch, fa_mod, extra=()):
     """``(reset_counters, read_counters)`` over B1-B3's launch counts (and
     their counts by type) and ``extra``'s; the reset also resets the peak
@@ -8030,13 +8628,14 @@ def counter_fns(torch, fa_mod, extra=()):
 
 
 def phase_alone(torch, fa_mod, dev, smi, phase, extra_counters):
-    """``python3 chip_smoke.py --phase 23`` to ``29``: after the build,
+    """``python3 chip_smoke.py --phase 23`` to ``31``: after the build,
     that phase alone; prints its numbers, not the summary lines."""
     reset_counters, read_counters = counter_fns(torch, fa_mod,
                                                 extra_counters)
     fn = {23: crf_tagger_phase, 24: beam_phase, 25: mobilenet_phase,
           26: vit_phase, 27: lstm_phase, 28: frcnn_phase,
-          29: pipeline_phase, 30: observability_phase}[phase]
+          29: pipeline_phase, 30: observability_phase,
+          31: fault_tolerance_phase}[phase]
     out, launches, dtypes = fn(torch, fa_mod, dev, smi, reset_counters,
                                read_counters)
     log(f"phase {phase} paths launches: {launches}, B1-B3 by type {dtypes}")
@@ -8091,6 +8690,8 @@ def main() -> int:
               f"this script ({e})", file=sys.stderr)
         return 2
 
+    if sys.argv[1:2] == ["--ft-child"]:
+        return ft_child(torch, sys.argv[2:])
     t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -8118,7 +8719,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     if sys.argv[1:] == ["--phase", "22"]:
         return phase22_alone(torch, fa_mod, dev, smi)
-    if sys.argv[1:] in [["--phase", str(n)] for n in range(23, 31)]:
+    if sys.argv[1:] in [["--phase", str(n)] for n in range(23, 32)]:
         return phase_alone(torch, fa_mod, dev, smi, int(sys.argv[2]),
                            (pa_mod.paged_attention, nms_mod.greedy_nms))
     tc_libs = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -8559,6 +9160,18 @@ def main() -> int:
                 raise RuntimeError(f"kernel {n} was not launched on the "
                                    f"{path} path")
 
+    # -- phase 31: training that survives faults ------------------------------
+    stamp("31 training that survives faults")
+    ftres, ft_launches, ft_dtypes = fault_tolerance_phase(
+        torch, fa_mod, dev, smi, reset_counters, read_counters)
+    log(f"phase 31 paths launches: {ft_launches}, B1-B3 by type "
+        f"{ft_dtypes}")
+    for path, counts in ft_launches.items():
+        for n in flash_names:
+            if counts[n] < 1:
+                raise RuntimeError(f"kernel {n} was not launched on the "
+                                   f"{path} path")
+
     # -- summary --------------------------------------------------------------
     paths = {"serving": serve_launches, "serving_slot": slot_launches,
              "generate": gen_launches, "training": train_launches,
@@ -8572,7 +9185,8 @@ def main() -> int:
              "serving_int8": int8_launches, **hapi_launches, **dy_launches,
              **opg_launches, **crf_launches, **beam_launches,
              **mb_launches, **vit_launches, **lstm_launches,
-             **frcnn_launches, **pipe_launches, **obs_launches}
+             **frcnn_launches, **pipe_launches, **obs_launches,
+             **ft_launches}
     amp_dtypes["bert_flash_checks"] = bert_dtypes
     amp_dtypes.update({f"training_gpt_s4096_{k}": v
                        for k, v in long_dtypes.items()})
@@ -8583,6 +9197,7 @@ def main() -> int:
     amp_dtypes["beam_full_prefix"] = beam_dtypes
     amp_dtypes["vit_train_o1"] = vit_dtypes
     amp_dtypes.update(obs_dtypes)
+    amp_dtypes.update(ft_dtypes)
 
     def launches(name):
         by_path = {k: v[name] for k, v in paths.items()}
@@ -8646,6 +9261,7 @@ def main() -> int:
     log(f"Faster R-CNN R50-FPN: {json.dumps(frcnn)}")
     log(f"ImageNet input pipeline: {json.dumps(pipe)}")
     log(f"host-plane substrate: {json.dumps(obsres)}")
+    log(f"training that survives faults: {json.dumps(ftres)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,8 @@ names that are ported (``paddle_tpu/__init__.py:110-156``): the
 ops (``linalg`` and the detection ops among them), ``ParamAttr``, grad
 mode, ``grad``, ``PyLayer``, devices and places, dtypes and flags,
 ``batch`` (``reader``'s), and the subpackages (``vision``, ``text``,
-``reader``, ``distributed``, ``profiler`` and ``observability`` among
-them). A dygraph program runs on them
+``reader``, ``distributed``, ``profiler``, ``observability`` and
+``sentinel`` among them). A dygraph program runs on them
 as written for the reference::
 
     paddle.set_device("cpu")            # or leave it: CUDA
@@ -27,8 +27,8 @@ from torch import dtype  # noqa: F401 (paddle.dtype: the dtypes' class)
 
 from . import (amp, autograd, distributed, framework_io, incubate, io,
                metric, nn, observability, optimizer, profiler,
-               quantization, reader, regularizer, tensor, text, utils,
-               vision)
+               quantization, reader, regularizer, sentinel, tensor, text,
+               utils, vision)
 from .autograd import PyLayer, PyLayerContext
 from .core import (CPUPlace, CUDAPlace, Place, TPUPlace, device_count,
                    get_device, get_flags, is_compiled_with_cuda,

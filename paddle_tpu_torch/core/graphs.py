@@ -375,6 +375,17 @@ class Program:
         self.capture_ms.append((time.perf_counter() - t0) * 1e3)
         return outs
 
+    def outputs(self, state, generator=None):
+        """The output buffers later calls for ``state`` (and
+        ``generator``) return, or None before its first call. A first
+        call on CUDA returns its warm-up's tensors instead; a caller that
+        keeps the outputs' addresses (the sentinel's probe reads the
+        gradients where they are) takes these."""
+        with self._lock:
+            per_state = self._bound.get(state)
+            bound = None if per_state is None else per_state.get(generator)
+        return None if bound is None else bound.outputs
+
     def release(self):
         """Drop every graph of this program."""
         with self._lock:

@@ -1,11 +1,10 @@
 """hapi callbacks (counterpart of ``paddle_tpu/hapi/callbacks.py``:
 ``Callback``, ``CallbackList``, ``ProgBarLogger``, ``ModelCheckpoint``,
-``EarlyStopping``, ``LRScheduler``, ``VisualDL`` and
+``EarlyStopping``, ``LRScheduler``, ``VisualDL``,
+``FaultToleranceCallback``, ``AnomalyGuardCallback`` and
 ``config_callbacks``). The logs a ``Model`` passes hold the loss and
 each metric's result under its first name; ``config_callbacks`` hands
-the metric names to every callback in ``params["metrics"]``.
-``FaultToleranceCallback`` and ``AnomalyGuardCallback`` are not ported
-yet (ROADMAP A8)."""
+the metric names to every callback in ``params["metrics"]``."""
 from __future__ import annotations
 
 import json
@@ -247,6 +246,203 @@ def _scalar(v):
         return float(np.ravel(v)[0])
     except (TypeError, ValueError):
         return str(v)
+
+
+class FaultToleranceCallback(Callback):
+    """Preemption-aware checkpointing for ``Model.fit`` (reference
+    ``:247``).
+
+    Arms a :class:`~paddle_tpu_torch.distributed.elastic.PreemptionGuard` (or
+    shares one passed in) and polls it every batch and epoch; on preemption
+    it commits a final checkpoint to ``save_dir`` and exits with the
+    reserved resume code, so ``launch --elastic`` restarts the rank without
+    burning the restart budget. Also fires the FaultInjector ``step`` site
+    each batch so kill-mid-step scenarios are scriptable in tests
+    (``PADDLE_TPU_FAULT_SPEC="step:7:crash"``).
+
+    ``async_save=True`` routes periodic saves through the crash-consistent
+    :class:`~paddle_tpu_torch.incubate.checkpoint.AsyncCheckpointer`
+    (sharded format under ``save_dir/<tag>``, device snapshots, atomic
+    commit, overlapped with training; the epoch rides in the health
+    stamp's ``step``); the preemption save and ``on_train_end`` drain
+    the writer so no snapshot is lost at exit. A ``StepWatchdog``
+    (given, or from ``PADDLE_TPU_STEP_DEADLINE_S``) is armed around
+    each train batch.
+    """
+
+    def __init__(self, save_dir, guard=None, save_freq=1, async_save=False,
+                 step_watchdog=None):
+        super().__init__()
+        self.save_dir = save_dir
+        self.save_freq = max(1, int(save_freq))
+        self._guard = guard
+        self._epoch = 0
+        self._async_save = bool(async_save)
+        self._ckpt = None
+        self._watchdog = step_watchdog
+
+    def _ensure_guard(self):
+        if self._guard is None:
+            from ..distributed.elastic import PreemptionGuard
+            self._guard = PreemptionGuard()
+        return self._guard
+
+    def on_train_begin(self, logs=None):
+        self._ensure_guard()
+        # collective watchdog (elastic_runtime), auto-armed from the cohort
+        # supervisor's PADDLE_TPU_STEP_DEADLINE_S the way the guard is from
+        # PADDLE_TPU_ELASTIC: each train batch is a guarded step, so a peer
+        # death mid-collective becomes exit 121 within the deadline
+        from ..distributed.elastic_runtime.watchdog import maybe_auto_watchdog
+        self._watchdog = maybe_auto_watchdog(self._watchdog)
+        if self._async_save and self._ckpt is None:
+            from ..incubate.checkpoint.async_ckpt import (
+                AsyncCheckpointer, cleanup_stale_staging)
+            if self.save_dir:
+                os.makedirs(self.save_dir, exist_ok=True)
+                cleanup_stale_staging(self.save_dir)
+            self._ckpt = AsyncCheckpointer()
+
+    def _ckpt_state(self):
+        state = {"model": dict(self.model.network.state_dict())}
+        if getattr(self.model, "_optimizer", None) is not None:
+            state["optimizer"] = dict(self.model._optimizer.state_dict())
+        return state
+
+    def _save(self, tag, drain=False):
+        if self.model is None or not self.save_dir:
+            return
+        os.makedirs(self.save_dir, exist_ok=True)
+        if self._ckpt is not None:
+            self._ckpt.save(self._ckpt_state(),
+                            os.path.join(self.save_dir, tag),
+                            step=self._epoch)
+            if drain:
+                self._ckpt.wait()
+        else:
+            self.model.save(os.path.join(self.save_dir, tag))
+
+    def restore(self, tag="latest"):
+        """Load an async-saved sharded checkpoint back into the model and
+        its optimizer, in place (the counterpart of ``Model.load`` for
+        ``async_save=True`` saves)."""
+        from ..incubate.checkpoint.auto_checkpoint import restore_into
+        from ..incubate.checkpoint.sharded import load_sharded
+        state = load_sharded(os.path.join(self.save_dir, tag),
+                             return_tensor=False, device="cpu")
+        restore_into(state, self.model.network,
+                     getattr(self.model, "_optimizer", None))
+
+    def _poll(self):
+        guard = self._ensure_guard()
+        if guard.preempted:
+            # the final checkpoint must be durable before the exit, so the
+            # async path drains the writer inside the save_fn
+            guard.exit_if_preempted(
+                save_fn=lambda: self._save("preempted", drain=True))
+
+    def on_train_batch_begin(self, step, logs=None):
+        if self._watchdog is not None:
+            self._watchdog.arm(step)
+
+    def on_train_batch_end(self, step, logs=None):
+        if self._watchdog is not None:
+            self._watchdog.disarm()
+        from ..utils.resilience import fault_injector
+        fault_injector().fire("step")
+        self._poll()
+
+    def on_epoch_end(self, epoch, logs=None):
+        self._epoch = epoch
+        if epoch % self.save_freq == 0:
+            self._save("latest")
+        self._poll()
+
+    def on_train_end(self, logs=None):
+        if self._watchdog is not None:
+            self._watchdog.disarm()
+        if self._ckpt is not None:
+            self._ckpt.wait()
+
+
+class AnomalyGuardCallback(Callback):
+    """Numerical-anomaly guarding for ``Model.fit`` (reference ``:360``).
+
+    Wires the :mod:`paddle_tpu_torch.sentinel` stack into the fit loop:
+
+    - attaches a :class:`~paddle_tpu_torch.sentinel.Sentinel` to the
+      model's optimizer, so NaN/Inf gradients are caught *before* the
+      update by the on-device probe (one 8-byte fetch per guarded step)
+      and the poisoned update is skipped;
+    - feeds each batch's logged loss into the EWMA z-score spike detector
+      (``Sentinel.feed_loss`` — no extra host syncs, the fit loop fetched
+      that float anyway);
+    - keeps health-stamped rollback snapshots under
+      ``save_dir/snapshots`` every ``snapshot_freq`` epochs (an epoch that
+      saw anomalies is stamped unhealthy, so the ``rollback`` rung never
+      restores into the divergence it is escaping);
+    - on escalation: quarantines the offending batch under
+      ``save_dir/quarantine``, rolls back, or halts with
+      ``DIVERGENCE_EXIT_CODE`` per the configured ladder.
+    """
+
+    def __init__(self, save_dir=None, config=None, snapshot_freq=1,
+                 keep_last=2, attach_optimizer=True, async_snapshots=False):
+        super().__init__()
+        self.save_dir = save_dir
+        self.snapshot_freq = max(1, int(snapshot_freq))
+        self.keep_last = keep_last
+        self.attach_optimizer = attach_optimizer
+        self.async_snapshots = bool(async_snapshots)
+        self._config = config
+        self.sentinel = None
+        self.rollback = None
+        self._epoch_anomalies = 0
+
+    def on_train_begin(self, logs=None):
+        from ..sentinel import (Sentinel, SentinelConfig, CheckpointRollback)
+        if self.sentinel is None:
+            cfg = self._config
+            if cfg is None:
+                qdir = (os.path.join(self.save_dir, "quarantine")
+                        if self.save_dir else None)
+                cfg = SentinelConfig(quarantine_dir=qdir)
+            if self.save_dir:
+                self.rollback = CheckpointRollback(
+                    os.path.join(self.save_dir, "snapshots"),
+                    model=self.model.network,
+                    optimizer=self.model._optimizer,
+                    keep_last=self.keep_last,
+                    async_save=self.async_snapshots)
+            self.sentinel = Sentinel(cfg, rollback=self.rollback)
+            self.sentinel.batch_getter = \
+                lambda: getattr(self.model, "_last_batch", None)
+        if self.attach_optimizer and self.model._optimizer is not None:
+            self.sentinel.attach(self.model._optimizer)
+
+    def on_epoch_begin(self, epoch, logs=None):
+        if self.sentinel is not None:
+            self._epoch_anomalies = self.sentinel.anomalies
+
+    def on_train_batch_end(self, step, logs=None):
+        loss = (logs or {}).get("loss")
+        if self.sentinel is not None and loss is not None:
+            loss = loss[0] if isinstance(loss, (list, tuple)) else loss
+            self.sentinel.feed_loss(np.asarray(loss).reshape(-1)[0])
+
+    def on_epoch_end(self, epoch, logs=None):
+        if self.rollback is None or epoch % self.snapshot_freq != 0:
+            return
+        healthy = (self.sentinel.anomalies == self._epoch_anomalies)
+        self.rollback.snapshot(
+            self.sentinel._step, healthy=healthy,
+            reason=None if healthy else
+            f"epoch {epoch} saw "
+            f"{self.sentinel.anomalies - self._epoch_anomalies} anomalies")
+
+    def on_train_end(self, logs=None):
+        if self.rollback is not None:
+            self.rollback.wait()  # async snapshots must land before exit
 
 
 def config_callbacks(callbacks=None, model=None, epochs=None, steps=None,

@@ -79,11 +79,23 @@ program's first call is ``jit/compile``; an exception out of ``fit``
 records the ``train_loop_exception`` flight event and dumps the flight
 recorder when it is armed.
 
-Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
-item: a numerical sentinel on the optimizer (A8's sentinel, slice 22).
-``prepare(amp_configs=...)`` raises as well, where the reference accepts
-and ignores it: mixed precision is ``amp.auto_cast`` around
-``train_batch`` (with ``amp.decorate`` for O2).
+An optimizer guarded by a numerical sentinel (``sentinel.Sentinel``
+attached) takes the reference's sentinel route in ``train_batch``: the
+captured gradients program (``grads_fn``) runs, each trainable
+parameter's ``.grad`` is bound to that program's own gradient buffer
+(the same tensors every replay, so the sentinel's captured probe reads
+them in place), the sentinel ``observe``s the device loss, the eager
+``Optimizer.step()`` asks it to approve the update (a refused step
+changes nothing), and the gradients are cleared. The route leaves the
+fused captured step: the update runs eagerly. ``fit`` keeps the batch in
+``_last_batch`` for the sentinel's quarantine dumps. ``train_batches``
+and ``train_loop`` do not consult the sentinel, as the reference's do
+not. A rollback copies the restored state into the live tensors in
+place, so the next replay reads it.
+
+``prepare(amp_configs=...)`` raises ``NotImplementedError``, where the
+reference accepts and ignores it: mixed precision is ``amp.auto_cast``
+around ``train_batch`` (with ``amp.decorate`` for O2).
 """
 from __future__ import annotations
 
@@ -227,10 +239,6 @@ class Model:
                 "Model.prepare: amp_configs is not taken; the reference "
                 "accepts and ignores it, and AMP is entered through "
                 "amp.auto_cast / GradScaler / decorate (ROADMAP A4)")
-        if getattr(optimizer, "_sentinel", None) is not None:
-            raise NotImplementedError("Model.prepare: the numerical "
-                                      "sentinel is not ported yet "
-                                      "(ROADMAP A8)")
         self._optimizer = optimizer
         self._loss = loss
         self._invalidate_compiled()
@@ -379,13 +387,31 @@ class Model:
             ts["flops"] = self._count_step_flops(ts, args)
             self._step_meter.set_flops_per_step(ts["flops"])
         opt = self._optimizer
-        if not update or any(p.grad is not None for p in ts["trainable"]):
+        sentinel = getattr(opt, "_sentinel", None) if update else None
+        pending = any(p.grad is not None for p in ts["trainable"])
+        if not update or pending or sentinel is not None:
             loss, preds, grads = ts["grads_fn"](
                 self._program_params(ts, False), self._train_state, *args)
-            self._accumulate(ts, grads)
+            if pending or not update:
+                self._accumulate(ts, grads)
+            else:
+                # the sentinel route: .grad is the program's own buffer,
+                # the same tensor every replay, which the probe reads (a
+                # first call on CUDA returned its warm-up's tensors: their
+                # values go into those buffers; the eager lane has none)
+                bound = ts["grads_fn"].outputs(self._train_state)
+                static = grads if bound is None else bound[2]
+                with torch.no_grad():
+                    for s, g in zip(static, grads):
+                        if s is not g:
+                            s.copy_(g)
+                for p, g in zip(ts["trainable"], static):
+                    p.grad = g
             if update:
-                # finishing an accumulation window: the eager optimizer
-                # applies the carried sum (clip and regularizer inside)
+                # the eager optimizer applies the gradients (clip and
+                # regularizer inside), after the sentinel's approval
+                if sentinel is not None:
+                    sentinel.observe(loss=loss)
                 opt.step()
                 opt.clear_grad()
                 for p in ts["trainable"]:
@@ -776,6 +802,7 @@ class Model:
                 for step, batch in enumerate(loader):
                     cbks.on_train_batch_begin(step)
                     xs, ys = self._split_batch(batch)
+                    self._last_batch = (xs, ys)  # for quarantine dumps
                     loss, metrics = self.train_batch(xs, ys)
                     logs = self._metric_logs({"loss": loss}, metrics)
                     cbks.on_train_batch_end(step, logs)

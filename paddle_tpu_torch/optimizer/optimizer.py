@@ -87,6 +87,8 @@ class Optimizer:
         # update, the scalars derived from them (see _scalar)
         self._lr_t = self._step_t = None
         self._memo = None
+        # set by sentinel.Sentinel.attach: step() asks it first
+        self._sentinel = None
 
     # -- lr -------------------------------------------------------------
     def get_lr(self) -> float:
@@ -207,7 +209,12 @@ class Optimizer:
     @torch.no_grad()
     def step(self):
         """One update of every parameter that has a gradient and requires
-        one: clip, coupled regularizer, update."""
+        one: clip, coupled regularizer, update. An attached sentinel
+        (``sentinel.Sentinel.attach``) approves the step first; a refused
+        step changes nothing (parameters, state, step count, scalars)."""
+        if self._sentinel is not None and \
+                not self._sentinel.approve_step(self):
+            return  # anomaly: the update is skipped, grads never applied
         self._ensure_state()
         idx = [i for i, p in enumerate(self._parameter_list)
                if p.grad is not None and p.requires_grad]

@@ -9,7 +9,10 @@ with B4 over shared pages, and the `Model` loop: each optimizer rule's
 graphed step, the compiled eval program, EMA/ModelAverage/LookAhead in
 place, and a `DataLoader` through the shared-memory ring; the host-plane
 substrate: metered train steps and engines unchanged, the kernels' FLOP
-formulas counted, a drain by signal and a capture under the profiler.
+formulas counted, a drain by signal and a capture under the profiler;
+training that survives faults: the guarded graphed step against the
+guarded eager one, an async snapshot against the steps queued behind it,
+a rollback into a live captured program, the probe's one sync.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither jax nor the JAX package, so on a machine with a card but
@@ -3071,3 +3074,153 @@ def test_capture_while_a_profiler_runs(cuda, tmp_path):
     torch.cuda.synchronize()
     assert prog.trace_counter["traces"] == 1 and prog.replays == 1
     torch.testing.assert_close(out, x @ x)
+
+
+# -- training that survives faults --------------------------------------------
+def _guarded(model, ladder=("skip_step",), rollback=None):
+    from paddle_tpu_torch.sentinel import Sentinel, SentinelConfig
+    return Sentinel(SentinelConfig(ladder=ladder, warmup_steps=10_000),
+                    optimizer=model._optimizer, rollback=rollback)
+
+
+def _live_state(model):
+    out = {k: v.detach().clone() for k, v in
+           model.network.state_dict().items()}
+    out.update({k: v.clone() for k, v in model._optimizer.state_dict().items()
+                if isinstance(v, torch.Tensor)})
+    return out
+
+
+def _same_state(a, b):
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "o1"])
+def test_guarded_graphed_step_equals_guarded_eager_step(cuda, precision,
+                                                        monkeypatch):
+    """The sentinel route (captured gradients program, the probe's graph,
+    the eager update) against the same route with graphs off, a NaN
+    skipped at the third step in both: losses and state bitwise, B1-B3
+    once a layer a step."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.utils import resilience
+    lanes = []
+    for eager in (False, True):
+        monkeypatch.setenv("PADDLE_TPU_FAULT_SPEC", "grads:3:nan")
+        resilience._reset_fault_injector_for_tests()
+        model, net = _train_model(cuda, precision)
+        s = _guarded(model)
+        before = _flash_counts()
+        losses = []
+        with graphs.disable_graphs() if eager else \
+                contextlib.nullcontext(), _cast(precision):
+            for ids in TRAIN_IDS:
+                losses.append(model.train_batch([ids], [ids])[0])
+        counts = [a - b for a, b in zip(_flash_counts(), before)]
+        lanes.append((losses, _live_state(model), counts, s.anomalies))
+        model._invalidate_compiled()
+    resilience._reset_fault_injector_for_tests()
+    (lg, sg, cg, ag), (le, se, ce, ae) = lanes
+    assert lg == le and _same_state(sg, se) and ag == ae == 1
+    assert cg == [MODEL["num_layers"] * len(TRAIN_IDS)] * 3
+
+
+def test_async_snapshot_taken_before_the_next_captured_step(cuda, tmp_path):
+    """``save()`` clones on the stream the next graph replay runs on, with
+    no host sync; the archive holds the state at ``save()``, not the state
+    after the steps queued behind it."""
+    from paddle_tpu_torch.incubate.checkpoint import (AsyncCheckpointer,
+                                                      load_sharded)
+    model, net = _train_model(cuda)
+    for ids in TRAIN_IDS[:2]:
+        model.train_batch([ids], [ids])          # captured by now
+    want = _live_state(model)
+    state = {"model": net.state_dict(),
+             "optimizer": model._optimizer.state_dict()}
+    ck = AsyncCheckpointer()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ticket = ck.save(state, str(tmp_path / "ck"), step=2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for ids in TRAIN_IDS[2:]:
+        model.train_batch([ids], [ids])          # replays, in place
+    assert ticket.wait(120) and ticket.committed
+    ck.close()
+    out = load_sharded(str(tmp_path / "ck"), return_tensor=False,
+                       device=cuda)
+    got = dict(out["model"])
+    got.update({k: v for k, v in out["optimizer"].items()
+                if isinstance(v, torch.Tensor)})
+    assert _same_state(got, want)
+    assert not torch.equal(net.gpt.word_embeddings.weight,
+                           want["gpt.word_embeddings.weight"])
+
+
+def test_rollback_into_a_live_captured_program(cuda, tmp_path,
+                                               monkeypatch):
+    """A NaN under the rollback rung restores the newest healthy snapshot
+    into the parameters and moments in place; the captured gradients
+    program's next replay trains from it: the losses after the rollback
+    equal a model loaded from the snapshot."""
+    from paddle_tpu_torch.sentinel import CheckpointRollback
+    from paddle_tpu_torch.utils import resilience
+    model, net = _train_model(cuda, "o1")
+    rb = CheckpointRollback(str(tmp_path / "snaps"), model=net,
+                            optimizer=model._optimizer, async_save=True)
+    s = _guarded(model, ("rollback",), rb)
+    with _cast("o1"):
+        model.train_batch([TRAIN_IDS[0]], [TRAIN_IDS[0]])
+        rb.snapshot(0)
+        snap = _live_state(model)
+        ptrs = [p.data_ptr() for p in net.parameters()]
+        model.train_batch([TRAIN_IDS[1]], [TRAIN_IDS[1]])
+        monkeypatch.setenv("PADDLE_TPU_FAULT_SPEC", "grads:1:nan")
+        resilience._reset_fault_injector_for_tests()
+        model.train_batch([TRAIN_IDS[2]], [TRAIN_IDS[2]])
+        monkeypatch.delenv("PADDLE_TPU_FAULT_SPEC")
+        resilience._reset_fault_injector_for_tests()
+        assert s.last_report.rolled_back_to == 0
+        assert _same_state(_live_state(model), snap)
+        assert [p.data_ptr() for p in net.parameters()] == ptrs
+        after = [model.train_batch([i], [i])[0] for i in TRAIN_IDS[3:]]
+    assert model._train_step_fn["grads_fn"].trace_counter["traces"] == 1
+    from paddle_tpu_torch.incubate.checkpoint import load_sharded
+    ref, rnet = _train_model(cuda, "o1")
+    st = load_sharded(str(tmp_path / "snaps" / "snap_0"),
+                      return_tensor=False, device="cpu")
+    rnet.set_state_dict(st["model"])
+    ref._optimizer.set_state_dict(st["optimizer"])
+    _guarded(ref)
+    with _cast("o1"):
+        want = [ref.train_batch([i], [i])[0] for i in TRAIN_IDS[3:]]
+    assert after == want
+
+
+def test_probe_is_one_sync_and_save_none(cuda):
+    """The guarded step's one host sync is the probe's fetch: under
+    ``set_sync_debug_mode("warn")`` ``approve_step`` warns once, and the
+    async checkpointer's ``save()`` not at all."""
+    import warnings
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.incubate.checkpoint import async_ckpt
+    model, net = _train_model(cuda)
+    s = _guarded(model)
+    model.train_batch([TRAIN_IDS[0]], [TRAIN_IDS[0]])   # the probe's capture
+    for p in net.parameters():
+        p.grad = torch.ones_like(p)
+    syncs = monitor.stat_get("sentinel.host_syncs")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ok = s.approve_step(model._optimizer)
+            snap = async_ckpt.snapshot({"model": net.state_dict()})
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    synced = [x for x in w if "synchroniz" in str(x.message)]
+    assert ok and len(synced) == 1, [str(x.message) for x in w]
+    assert monitor.stat_get("sentinel.host_syncs") == syncs + 1
+    host = async_ckpt._host_flat(snap)
+    assert all(v.device.type == "cpu" for v in host.values())

@@ -84,6 +84,15 @@ def test_import_leaves_no_jax_in_subprocess():
         "import paddle_tpu_torch.vision.transforms.functional\n"
         "import paddle_tpu_torch.vision.datasets, paddle_tpu_torch.text\n"
         "import paddle_tpu_torch.distributed.dataset\n"
+        "import paddle_tpu_torch.incubate.checkpoint\n"
+        "import paddle_tpu_torch.incubate.checkpoint.async_ckpt\n"
+        "import paddle_tpu_torch.incubate.checkpoint.auto_checkpoint\n"
+        "import paddle_tpu_torch.sentinel, paddle_tpu_torch.sentinel.guard\n"
+        "import paddle_tpu_torch.sentinel.policy\n"
+        "import paddle_tpu_torch.sentinel.rollback\n"
+        "import paddle_tpu_torch.sentinel.quarantine\n"
+        "import paddle_tpu_torch.distributed.elastic_runtime.watchdog\n"
+        "import paddle_tpu_torch.distributed.elastic_runtime.heartbeat\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(repr(bad))\n")
