@@ -454,7 +454,10 @@ B1-B3 12 each a step; the predict program, B1 12 a batch; the flash and
 dense steps, B1-B3 12 each on the flash one), and around each of phase
 27's (the four LSTM training lanes, the cuDNN yardstick and the RNN
 table, none), phase 28's (the path run twice: B5 12) and phase 29's (the
-fit, none) (B4 there runs in the plain
+fit, none), and around each of phase 32's five lanes (the fp32 park and
+the kill, B4 24 a decode step of every engine the lane built, the
+victim's and its resurrection's included; the roll, 2 a step at its 2
+layers; the int8 park and the handoff, none) (B4 there runs in the plain
 paged steps only, 24 launches a step; in phase 19 in the paged runs over
 dense pages, int8 weights included, and in none over int8 pages; the
 prefills, tail prefills and the verify attend densely, as the JAX
@@ -464,7 +467,7 @@ Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result. ``--phase 22`` runs,
 after the build, phase 21's two GPT-3 1.3B dygraph references and phase
 22 alone, and prints that phase's numbers only; ``--phase 23`` to
-``--phase 31`` run that phase alone after the build.
+``--phase 32`` run that phase alone after the build.
 
 Phase 30 drives the host-plane substrate on GPT-3 1.3B: live MFU on
 phase 7's graphed fp32 and O1 ``train_batch`` (``attach_step_meter``;
@@ -501,7 +504,7 @@ layers (time: a full checkpoint writes for about a minute): ``fit``
 with ``AnomalyGuardCallback(ladder rollback, async snapshots)``, a NaN
 at epoch 1's first step restores epoch 0's snapshot into the live
 model (bitwise) and training completes; the async commit's enqueue,
-fetch and write ms, then a sync ``save_sharded`` of that state, its
+fetch and write ms, then a sync ``save_sharded`` of its parameters, its
 bytes and GB/s, the sha256 seconds and ``load_sharded`` seconds; (4)
 the kill lane at the same size: a child process (``--ft-child train``)
 fits with ``AnomalyGuardCallback`` and
@@ -519,6 +522,42 @@ set to 0 before and read after each path: the guarded fit and the
 manual skip (B1-B3 24 each a step), the cost rounds and profiles, the
 rollback fit and the unbroken fit (2 each a step), and the resumed
 child's, which it prints.
+
+Phase 32 drives the LLM fleet's data path on GPT-3 1.3B (seed 0, fp32):
+two paged ``LLMEngine`` replicas (phase 4's config: 8 slots, 1024 rows,
+16-row pages, B4) under one ``Router`` on the one card, over phase 4's 8
+request lengths (prompts from phase 3's seed) at 32 new tokens each. (1)
+Park: the router's undisturbed run of the 8 requests is the reference;
+then the 8 again, streaming, and once every stream has 3 tokens the
+busier replica is parked: its sequences are exported (their pages read
+to the host) and imported into the sibling, and every stream must equal
+the reference bitwise, and no sequence fails; the export's and the
+import's ms and GB/s (the paged batcher's ``seq_export_ms`` and
+``seq_import_ms`` and their bytes), the pages copied and shared. (2) The
+same over int8 pages (the gather lane; B4 takes no int8 arena). (3)
+Kill: the busier replica hard-killed mid-stream; its journaled streams
+are replayed on the survivor through the dedup guard and held to (1)'s
+reference under the near-tie rule (the noise: a dense prefill of the
+prompt and 4 tokens against the decode steps that wrote those rows, the
+first token's logits and the next step's), with no stream divergence (a
+divergence fails the phase with the logit gap at its position); the
+health loop resurrects the victim, whose engine captures its programs
+while the survivor decodes (kept busy by a pump until the victim is
+healthy); the time from the kill to each replayed stream's first new
+token. (4) Roll: at 2 layers and full width (the checkpoint's I/O), one
+model per replica, ``WeightSwapper.roll`` to a committed, health-stamped
+checkpoint of seed 1's weights under 4 pumping streams: every finished
+stream equals the old or the new weights' engine by its
+``weights_version``, bitwise, at least one sequence migrated, no
+admitted stream and no migrated sequence failing, no swap adding a
+program to the executable cache (each engine's
+``weight_swap_compiles``); the checkpoint's reads and each swap's ms as
+the swapper and the engines record them. (5) Handoff: roles ("prefill",
+"decode") over one shared host ``PrefixStore`` (slot layout, phase 17's
+buckets, ``prefill_threshold`` 256): the 4 long prompts hand off, the
+decode replica reuses their heads, and the tokens equal one slot
+engine's under phase 17's prefix rule (noise: the tail prefill behind
+the prefill replica's head rows against the full prefill).
 """
 from __future__ import annotations
 
@@ -577,13 +616,20 @@ LOOP_STEPS = 5      # O1 bf16 steps of one train_loop call
 #: ROUNDS alternating rounds of ROUND_ITERS calls against the kernels, on
 #: the device's clock behind a spin of SPIN_CYCLES (~25 ms)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
-ROUNDS = 5
+ROUNDS = 3
 ROUND_ITERS = 20
+#: steps a train step's profile times, then records (after one warm-up)
+PROFILE_STEPS = 1
 SPIN_CYCLES = 50_000_000
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """One line of the run's record, after the seconds since the script
+    started (where the time goes, phase by phase and lane by lane)."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def time_ms(fn, iters=20, warmup=3, spin=False):
@@ -2599,7 +2645,8 @@ def profile_train_step(torch, model, ids, o1, lane, batch=None,
         setattr(mod, attr, _labelled(torch, fn, label))
     try:
         prof = profile_steps(torch, f"{what} train step "
-                             f"{tuple(xs[0].shape)}, {lane}", step, 2,
+                             f"{tuple(xs[0].shape)}, {lane}", step,
+                             PROFILE_STEPS,
                              ranges=("optimizer.update",
                                      *(lb for _, _, lb in labels)))
     finally:
@@ -2613,13 +2660,13 @@ def profile_train_step(torch, model, ids, o1, lane, batch=None,
                 out[name] += ms
                 break
     if eager and op_parts:
-        out = op_attribution(torch, prof["events"], op_parts, 2)
-    elif eager:       # the profile's two steps' events
+        out = op_attribution(torch, prof["events"], op_parts, PROFILE_STEPS)
+    elif eager:       # the profiled steps' events
         if "casts" not in out:
             out["casts"] = _kernel_ms(torch, prof["events"],
-                                      "aten::_to_copy") / 2
+                                      "aten::_to_copy") / PROFILE_STEPS
         out["optimizer"] = _kernel_ms(torch, prof["events"],
-                                      "optimizer.update") / 2
+                                      "optimizer.update") / PROFILE_STEPS
     out["other"] = prof["device_ms"] - sum(out.values())
     wall, busy = prof["wall_ms"], prof["device_ms"]
     kernels = sum(r[1] for r in prof["kernels"])
@@ -5507,7 +5554,8 @@ def dygraph_gpt(torch, fa_mod, dev, cfg, ids, o1, reset_counters,
     by_dtype = {c.__name__: dict(c.launches_by_dtype)
                 for c in _counters(fa_mod)}
     calls = funnel_calls(one)
-    prof = profile_steps(torch, f"GPT-3 1.3B {what} dygraph step", one, 2)
+    prof = profile_steps(torch, f"GPT-3 1.3B {what} dygraph step", one,
+                         PROFILE_STEPS)
     del model, net, opt, crit, x
     release_memory(torch)
     ref_model, ref_sched = _train_model(torch, cfg, dev, "flash")
@@ -5728,7 +5776,7 @@ def op_gpt_dygraph(torch, fa_mod, ct, dev, cfg, ids, o1, ref,
                 for c in _counters(fa_mod)}
     calls = funnel_calls(one)
     prof = profile_steps(torch, f"op-built GPT-3 1.3B {what} dygraph step",
-                         one, 2)
+                         one, PROFILE_STEPS)
     del net, opt, x
     release_memory(torch)
     tol = OPG_TOL["o1" if o1 else "fp32"]
@@ -7216,8 +7264,10 @@ def frcnn_ops_hold(torch, det_mod, calls):
     for name, a, k, out in calls:
         op = getattr(P.ops, name)
         cpu_scans = []
+        t0 = time.perf_counter()
         ref = _with_scans(det_mod, cpu_scans,
                           lambda: op(*_to_cpu(a), **_to_cpu(k)))
+        log(f"  {name} on the CPU: {time.perf_counter() - t0:.2f} s")
         got, want = _flat_tensors(out), _flat_tensors(ref)
         ok, err = len(got) == len(want), 0.0
         for g, w in zip(got, want):
@@ -7536,7 +7586,7 @@ def pipeline_phase(torch, fa_mod, dev, smi, reset_counters, read_counters):
 #: the profiler's graphed steps; the tracing on/off rounds
 OBS_STEPS = 2
 OBS_PROFILED_STEPS = 3
-OBS_ROUNDS = 4
+OBS_ROUNDS = 2
 OBS_TICKS = 10              # decode ticks a round
 OBS_TRAIN_ITERS = 2         # O1 train steps a round
 OBS_SPAN_CALLS = 200_000    # disabled span() calls timed on the host
@@ -8049,7 +8099,7 @@ def observability_phase(torch, fa_mod, dev, smi, reset_counters,
 # -- phase 31: training that survives faults ----------------------------------
 FT_STEPS = 4               # guarded O1 steps of the skip lane
 FT_NAN_FIRE = 2            # the grads site's firing the NaN lands on
-FT_ROUNDS = 4              # alternating guarded/unguarded rounds
+FT_ROUNDS = 2              # alternating guarded/unguarded rounds
 FT_ROUND_STEPS = 2         # O1 steps a round
 FT_CKPT_LAYERS = 2         # depth of the checkpoint lanes (full width)
 FT_EPOCHS = 3              # epochs of the kill lane
@@ -8347,8 +8397,9 @@ def ft_rollback_lane(torch, fa_mod, dev, work, reset_counters,
                            f"losses {losses.losses}")
     hist = {k: reg.histogram(f"ckpt.async.{k}") for k in
             ("enqueue_ms", "fetch_ms", "write_ms", "commit_ms")}
-    state = {"model": model.network.state_dict(),
-             "optimizer": model._optimizer.state_dict()}
+    # the sync timings on the parameters alone (0.82 GB; with the AdamW
+    # moments 2.47 GB, three times the seconds for the same rates)
+    state = {"model": model.network.state_dict()}
     path = os.path.join(work, "sync")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -8609,6 +8660,694 @@ def fault_tolerance_phase(torch, fa_mod, dev, smi, reset_counters,
     return out, launches, dtypes
 
 
+# -- phase 32: the LLM fleet's data path ---------------------------------------
+
+FLEET_NEW = 32            # phase 4's new tokens a request
+FLEET_AT = 3              # tokens every stream has before a park or a kill
+FLEET_ROLL_LAYERS = 2     # the roll's depth (full width): its checkpoint I/O
+FLEET_ROLL_STREAMS = 4    # pumping streams through the roll
+FLEET_HANDOFF_AT = 256    # the handoff lane's prefill_threshold
+FLEET_STORE_MB = 8192     # its shared host prefix store
+FLEET_REPLAY_K = 4        # the replay noise's resume point (tokens)
+FLEET_TIMEOUT = 600.0     # every wait of the phase
+
+
+def _fleet_cfg(**kw):
+    """Phase 4's paged engine config (8 slots, 1024 rows, 16-row pages,
+    B4), per replica."""
+    from paddle_tpu_torch.serving.llm import LLMEngineConfig
+    return LLMEngineConfig(**dict(dict(
+        num_slots=8, max_seq=CFG_13B["max_position_embeddings"],
+        kv_layout="paged", page_size=16, paged_attn_impl="kernel",
+        seed=0), **kw))
+
+
+class _FleetLog:
+    """Every engine one lane's factories built, with the B4 launches each
+    of its decode steps makes (the layer count on the kernel lane, else
+    0)."""
+
+    def __init__(self):
+        self.engines = []
+
+    def track(self, eng, b4_per_step):
+        self.engines.append((eng, b4_per_step))
+        return eng
+
+    def factory(self, inner, b4_per_step):
+        return lambda replica: self.track(inner(replica), b4_per_step)
+
+    def b4(self):
+        """B4's launches by replica (stat prefix), and their sum: one a
+        layer a decode step on the kernel lane. A resurrected replica's
+        engine counts its ticks under its predecessor's prefix (one
+        registry), so a prefix's steps are its ticks plus one warm-up
+        step for each engine that warmed up under it."""
+        per, regs = {}, []
+        for eng, n in self.engines:
+            if not any(eng.registry is r for r in regs):
+                regs.append(eng.registry)
+            k = next(i for i, r in enumerate(regs) if r is eng.registry)
+            key = f"{eng._prefix}@registry{k}"
+            st = eng.registry.stats_with_prefix(eng._prefix + ".")
+            if key not in per:
+                per[key] = n * st.get(f"{eng._prefix}.decode_ticks", 0)
+            per[key] += n * st.get(f"{eng._prefix}.warmup_decode_steps", 0)
+        return per, sum(per.values())
+
+
+def _fleet_io(reg, kind):
+    """Every sequence export's or import's wall ms and payload bytes on a
+    router's engines, as the paged batcher records them (``seq_<kind>_ms``
+    and ``seq_<kind>_bytes``; an import's ms end with its host-to-device
+    copies)."""
+    hs = [h for k, h in reg.histograms().items()
+          if k.endswith(f".seq_{kind}_ms")]
+    n = sum(h["count"] for h in hs)
+    if not n:
+        return None
+    secs = sum(h["sum"] for h in hs) / 1e3
+    nbytes = sum(v for k, v in reg.stats().items()
+                 if k.endswith(f".seq_{kind}_bytes"))
+    return {"sequences": n, "ms_total": secs * 1e3,
+            "ms_max": max(h["max"] for h in hs), "bytes": nbytes,
+            "gb_per_s": nbytes / max(secs, 1e-9) / 1e9}
+
+
+def _fleet_check_b4(lane, launched, log_):
+    per, want = log_.b4()
+    got = launched["paged_attention"]
+    if got != want:
+        raise RuntimeError(f"phase 32 {lane}: B4 launched {got} times, not "
+                           f"the {want} of one a layer a decode step "
+                           f"({per})")
+    return per
+
+
+def _fleet_router(torch, log_, model_factory, cfg, b4_per_step, **rcfg):
+    from paddle_tpu_torch.core.monitor import StatRegistry
+    from paddle_tpu_torch.serving.router import (Router, RouterConfig,
+                                                 llm_replica_factory)
+    rcfg.setdefault("health_interval", 0.05)
+    reg = StatRegistry()
+    t0 = time.perf_counter()
+    router = Router(log_.factory(llm_replica_factory(model_factory, cfg),
+                                 b4_per_step),
+                    RouterConfig(num_replicas=2, kind="llm", **rcfg),
+                    registry=reg)
+    return router, reg, time.perf_counter() - t0
+
+
+def _fleet_wait(pred, what, timeout=FLEET_TIMEOUT, poll=0.0005):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"phase 32: timed out waiting for {what}")
+        time.sleep(poll)
+
+
+def _first_difference(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def fleet_park_lane(torch, model, prompts, kv_dtype, smi, reset_counters,
+                    read_counters):
+    """Phase 32 lanes 1 and 2: a 2-replica paged router (recovery on) on
+    the 8 requests, undisturbed (the reference), then again with the
+    busier replica parked once every stream has FLEET_AT tokens: every
+    stream must equal its undisturbed tokens bitwise."""
+    log_ = _FleetLog()
+    kw = {} if kv_dtype == "float32" else dict(kv_dtype="int8",
+                                                paged_attn_impl="auto")
+    b4 = CFG_13B["num_layers"] if kv_dtype == "float32" else 0
+    reset_counters()
+    router, reg, boot_s = _fleet_router(torch, log_, lambda r: model,
+                                        _fleet_cfg(**kw), b4)
+    try:
+        ref = [r.result(timeout=FLEET_TIMEOUT)["tokens"] for r in
+               [router.submit(p, max_new_tokens=FLEET_NEW) for p in prompts]]
+        reqs = [router.submit(p, max_new_tokens=FLEET_NEW, stream=True)
+                for p in prompts]
+        _fleet_wait(lambda: min(len(r.tokens) for r in reqs) >= FLEET_AT,
+                    f"{FLEET_AT} tokens on every stream")
+        at = [len(r.tokens) for r in reqs]
+        donor = max(router.replicas, key=lambda r: r.outstanding)
+        t0 = time.perf_counter()
+        if not router.park(donor.replica_id):
+            raise RuntimeError("phase 32: the park was refused")
+        park_ms = (time.perf_counter() - t0) * 1e3
+        got = [list(r.iter_tokens(timeout=FLEET_TIMEOUT)) for r in reqs]
+        stats = reg.stats()
+        lat = reg.histogram("fleet.migrate.latency_ms")
+        io = {k: _fleet_io(reg, k) for k in ("export", "import")}
+    finally:
+        router.drain(timeout=FLEET_TIMEOUT)
+    launched = read_counters()
+    per = _fleet_check_b4(f"park {kv_dtype}", launched, log_)
+    mig = {k.split("fleet.migrate.")[1]: v for k, v in stats.items()
+           if k.startswith("fleet.migrate.")}
+    pages = {k: sum(v for n, v in stats.items()
+                    if n.endswith(f".migrated_pages_{k}"))
+             for k in ("shared", "copied")}
+    out = {"kv_dtype": kv_dtype, "boot_s": boot_s, "park_ms": park_ms,
+           "donor": donor.replica_id, "tokens_at_park": at,
+           "migrate": mig, "migrate_latency_ms": lat.get("mean"),
+           "pages": pages, "export": io["export"], "import": io["import"],
+           "b4_by_engine": per,
+           "tokens_equal": sum(a == b for a, b in zip(ref, got))}
+    log(f"phase 32 park ({kv_dtype} pages; {smi}): 2 replicas booted in "
+        f"{boot_s:.1f} s; replica {donor.replica_id} parked at stream "
+        f"lengths {at} in {park_ms:.1f} ms (migration "
+        f"{out['migrate_latency_ms']}); {mig}; pages {pages}; export "
+        f"{out['export']}; import {out['import']}; {out['tokens_equal']}/"
+        f"{len(prompts)} streams bitwise the undisturbed run's; B4 by "
+        f"engine {per}")
+    for i, (a, b) in enumerate(zip(ref, got)):
+        if a != b:
+            raise RuntimeError(
+                f"phase 32 park {kv_dtype}: request {i} parts from the "
+                f"undisturbed run at step {_first_difference(a, b)}")
+    if len(ref[0]) != FLEET_NEW or mig.get("sequences_exported", 0) < 1 \
+            or mig.get("sequences_failed", 0) != 0:
+        raise RuntimeError(f"phase 32 park {kv_dtype}: {mig}")
+    return out, launched, ref
+
+
+def fleet_replay_noise(torch, model, dev, prompt, toks, k=FLEET_REPLAY_K):
+    """The kill lane's measured logit difference: a replay rebuilds by a
+    dense prefill the rows the undisturbed run wrote by decode steps. On
+    one request (eager, the kernel lane): the decode lane's logits for
+    token k against the dense prefill's of ``prompt + toks[:k]``, and the
+    next decode step's logits over the two caches; the larger."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.serving.llm.decode import (SamplingParams,
+                                                     pack_sampling,
+                                                     prefill_forward)
+    from paddle_tpu_torch.serving.llm.paged import GPTPagedDecoder
+    cfg = _fleet_cfg()
+    dec = GPTPagedDecoder(model, page_size=cfg.page_size, attn_impl="kernel")
+    kv, params = dec.new_kv(2, cfg.max_seq), dec.params()
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def padded(seq):
+        p = torch.zeros(1, cfg.bucket_for(len(seq)), dtype=torch.int32,
+                        device=dev)
+        p[0, :len(seq)] = i32(list(seq))
+        return p
+    one, two = (pack_sampling([SamplingParams()] * n, dev) for n in (1, 2))
+    fin = torch.zeros(2, dtype=torch.bool, device=dev)
+    seq = list(prompt) + list(toks[:k])
+    with graphs.disable_graphs(), torch.no_grad():
+        for s in (0, 1):
+            kv.alloc()
+            kv.ensure_pages(s, len(seq) + 2)
+        dec.prefill(kv, params, padded(prompt), i32([len(prompt)]), i32([0]),
+                    fin, one, None)
+        for t in toks[:k - 1]:
+            dec.decode_step(kv, params, fin, i32([t, 0]), two, None)
+        ldec = dec.decode_logits(kv, params, i32([toks[k - 1], 0]))[0]
+        dec.decode_step(kv, params, fin, i32([toks[k - 1], 0]), two, None)
+        lpre, _, _ = prefill_forward(dec.spec, params, padded(seq),
+                                     i32([len(seq)]))
+        dec.prefill(kv, params, padded(seq), i32([len(seq)]), i32([1]), fin,
+                    one, None)
+        step = dec.decode_logits(kv, params, i32([toks[k], toks[k]]))
+    first = float((ldec - lpre[0]).abs().max())
+    after = float((step[0] - step[1]).abs().max())
+    del kv
+    release_memory(torch)
+    return {"logit_diff_first": first, "logit_diff_next_step": after,
+            "noise": max(first, after), "resume_at": k}
+
+
+def _divergence_gap(torch, ref_dec, ref_params, prompt, ref, exc):
+    """The top-2 gap of the plain lane's logits where a replayed stream
+    failed the dedup guard (its message names the position)."""
+    import re
+    from paddle_tpu_torch.serving.llm.decode import prefill_forward
+    m = re.search(r"at position (\d+)", str(exc))
+    if m is None:
+        return None, None
+    pos = int(m.group(1))
+    seq = torch.tensor([list(prompt) + list(ref[:pos])], dtype=torch.int32,
+                       device=ref_dec.device)
+    with torch.no_grad():
+        lraw, _, _ = prefill_forward(ref_dec.spec, ref_params, seq,
+                                     torch.tensor([seq.shape[1]],
+                                                  dtype=torch.int32,
+                                                  device=ref_dec.device))
+    top = lraw[0].topk(2).values
+    return pos, float(top[0] - top[1])
+
+
+def fleet_kill_lane(torch, model, prompts, ref, noise, ref_dec, ref_params,
+                    smi, reset_counters, read_counters):
+    """Phase 32 lane 3: the busier replica hard-killed mid-stream; its
+    streams replay on the survivor through the dedup guard and are held
+    to the undisturbed run under the near-tie rule; the health loop
+    resurrects the victim, whose new engine captures its programs while
+    the survivor decodes (kept busy until the victim is healthy)."""
+    log_ = _FleetLog()
+    boots = []
+    reset_counters()
+
+    def ticks():
+        return sum(e.registry.get(f"{e._prefix}.decode_ticks", 0)
+                   for e, _ in log_.engines if not e._stopped.is_set())
+
+    def build(replica):
+        before, t0 = ticks(), time.perf_counter()
+        eng = inner(replica)
+        boots.append({"replica": replica.replica_id,
+                      "s": time.perf_counter() - t0,
+                      "sibling_ticks": ticks() - before})
+        return eng
+    from paddle_tpu_torch.core.monitor import StatRegistry
+    from paddle_tpu_torch.serving.router import (Router, RouterConfig,
+                                                 llm_replica_factory)
+    inner = log_.factory(llm_replica_factory(lambda r: model, _fleet_cfg()),
+                         CFG_13B["num_layers"])
+    reg = StatRegistry()
+    router = Router(build, RouterConfig(
+        num_replicas=2, kind="llm", health_interval=0.05,
+        restart_backoff=0.05, restart_backoff_cap=0.05), registry=reg)
+    arrivals, errors = {}, {}
+
+    def consume(i, req):
+        arrivals[i] = []
+        try:
+            for _ in req.iter_tokens(timeout=FLEET_TIMEOUT):
+                arrivals[i].append(time.perf_counter())
+        except Exception as e:  # held below, with the logit gap
+            errors[i] = e
+    stop = threading.Event()
+    pumped = []
+    try:
+        reqs = [router.submit(p, max_new_tokens=FLEET_NEW, stream=True)
+                for p in prompts]
+        readers = [threading.Thread(target=consume, args=(i, r), daemon=True)
+                   for i, r in enumerate(reqs)]
+        for t in readers:
+            t.start()
+        _fleet_wait(lambda: min(len(r.tokens) for r in reqs) >= FLEET_AT,
+                    f"{FLEET_AT} tokens on every stream")
+        victim = max(router.replicas, key=lambda r: r.outstanding)
+        survivor = router.replicas[1 - victim.replica_id]
+        dead, live = victim.engine, survivor.engine
+
+        def pump():
+            while not stop.is_set():
+                pumped.append(live.submit(prompts[0], max_new_tokens=FLEET_NEW
+                                          ).result(timeout=FLEET_TIMEOUT))
+        pumper = threading.Thread(target=pump, daemon=True)
+        pumper.start()
+        t_kill = time.perf_counter()
+        if not victim.kill("chaos: phase 32"):
+            raise RuntimeError("phase 32: the kill was refused")
+        if not dead._stopped.wait(FLEET_TIMEOUT):
+            raise RuntimeError("phase 32: the killed engine did not stop")
+        evac = {rec["req_id"] for rec in victim.last_kill_records
+                if rec.get("evacuated")}
+        at_kill = {i: len(r.tokens) for i, r in enumerate(reqs)
+                   if r.req_id in evac}
+        for t in readers:
+            t.join(FLEET_TIMEOUT)
+        if any(t.is_alive() for t in readers):
+            raise RuntimeError("phase 32: a replayed stream did not end")
+        _fleet_wait(lambda: victim.state == "HEALTHY"
+                    and victim.engine is not dead, "the resurrection",
+                    poll=0.01)
+        resurrected_s = time.perf_counter() - t_kill
+        stop.set()
+        pumper.join(FLEET_TIMEOUT)
+        if pumper.is_alive():
+            raise RuntimeError("phase 32: the survivor's pump did not end")
+        stats = reg.stats()
+        budget = router.budget.used
+    finally:
+        stop.set()
+        router.drain(timeout=FLEET_TIMEOUT)
+    launched = read_counters()
+    for i, e in errors.items():
+        pos, gap = _divergence_gap(torch, ref_dec, ref_params, prompts[i],
+                                   ref[i], e)
+        raise RuntimeError(
+            f"phase 32 kill: request {i} failed ({type(e).__name__}: {e}); "
+            f"the plain lane's top-2 gap at position {pos} is {gap}, the "
+            f"lanes' measured logit difference {noise['noise']:.3e}")
+    got = [list(r.tokens) for r in reqs]
+    parts = near_tie_parts(torch, ref_dec, ref_params, prompts, ref, got,
+                           noise["noise"], "phase 32 kill replay")
+    per = _fleet_check_b4("kill", launched, log_)
+    first = sorted((arrivals[i][n] - t_kill) * 1e3
+                   for i, n in at_kill.items() if len(arrivals[i]) > n)
+    divergence = sum(v for k, v in stats.items()
+                     if k.endswith(".stream_divergence"))
+    recovered = stats.get("fleet.migrate.sequences_recovered", 0)
+    capture = boots[-1] if len(boots) > 2 else None
+    out = {"evacuated": len(at_kill), "tokens_at_kill": at_kill,
+           "recovered": recovered, "stream_divergence": divergence,
+           "first_replayed_token_ms": first,
+           "resurrected_s": resurrected_s, "restarts_used": budget,
+           "boots": boots, "pumped_requests": len(pumped),
+           "noise": noise, "near_tie_parts": parts, "b4_by_engine": per,
+           "tokens_equal": sum(a == b for a, b in zip(ref, got))}
+    log(f"phase 32 kill ({smi}): replica {victim.replica_id} killed with "
+        f"{len(at_kill)} streams in flight at lengths {at_kill}; "
+        f"{recovered} replayed on replica {survivor.replica_id}, stream "
+        f"divergence {divergence}; first replayed token after "
+        f"{', '.join(f'{x:.1f}' for x in first)} ms; resurrected in "
+        f"{resurrected_s:.1f} s ({budget} restart), its boot "
+        f"{capture and round(capture['s'], 2)} s while the survivor ran "
+        f"{capture and capture['sibling_ticks']} decode ticks; "
+        f"{out['tokens_equal']}/{len(prompts)} streams bitwise the "
+        f"undisturbed run's, parts at (request, step, top-2 gap) {parts} "
+        f"under noise {noise}; B4 by engine {per}")
+    if divergence != 0 or recovered < 1 or budget != 1 or len(at_kill) < 1 \
+            or capture is None or capture["sibling_ticks"] < 1 \
+            or any(len(t) != FLEET_NEW for t in got):
+        raise RuntimeError(f"phase 32 kill: {out}")
+    return out, launched
+
+
+def fleet_tail_noise(torch, model, dev, prompt, start, buckets):
+    """The handoff lane's measured logit difference (phase 17's rule):
+    the decode replica's tail prefill behind the head rows the prefill
+    replica's full prefill wrote, against the single engine's full
+    prefill: first-token logits and the next decode step's over the two
+    caches (slot layout); the larger."""
+    from paddle_tpu_torch.serving.llm import (GPTStaticDecoder,
+                                              LLMEngineConfig)
+    from paddle_tpu_torch.serving.llm.decode import (prefill_forward,
+                                                     tail_forward)
+    from paddle_tpu_torch.serving.llm.kvcache import write_prompt_kv
+    cfg = LLMEngineConfig(max_seq=CFG_13B["max_position_embeddings"],
+                          prefill_buckets=buckets)
+    n = len(prompt)
+
+    def padded(seq):
+        p = torch.zeros(1, cfg.bucket_for(len(seq)), dtype=torch.int32,
+                        device=dev)
+        p[0, :len(seq)] = torch.tensor(list(seq), dtype=torch.int32,
+                                       device=dev)
+        return p
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+    dec = GPTStaticDecoder(model)
+    kv, params = dec.new_kv(2, cfg.max_seq), dec.params()
+    with torch.no_grad():
+        lfull, kf, vf = prefill_forward(dec.spec, params, padded(prompt),
+                                        i32([n]))
+        write_prompt_kv(kv.k, kv.v, kf, vf, [0])
+        write_prompt_kv(kv.k, kv.v, kf[:, :, :start], vf[:, :, :start], [1])
+        tail = padded(prompt[start:])
+        lt = tail.shape[1]
+
+        def write(li, k, v):
+            kv.k[1, li, start:start + lt] = k[0]
+            kv.v[1, li, start:start + lt] = v[0]
+        ltail, _, _ = tail_forward(
+            dec.spec, params, tail, i32([n - start]), i32([start]),
+            kv.max_seq, write, lambda li: (kv.k[1:2, li], kv.v[1:2, li]))
+        kv.lengths.fill_(n)
+        nxt = lfull.argmax(-1).to(torch.int32)
+        step = dec.decode_logits(kv, params, nxt.repeat(2))
+    first = float((lfull - ltail).abs().max())
+    after = float((step[0] - step[1]).abs().max())
+    del kv
+    release_memory(torch)
+    return {"logit_diff_first": first, "logit_diff_next_step": after,
+            "noise": max(first, after), "start": start, "prompt_len": n}
+
+
+def fleet_handoff_lane(torch, model, dev, prompts, ref_dec, ref_params, smi,
+                       reset_counters, read_counters):
+    """Phase 32 lane 5: roles ("prefill", "decode") over one shared host
+    PrefixStore (slot layout, phase 17's buckets): every prompt of
+    FLEET_HANDOFF_AT tokens or more hands its head off; the tokens are
+    held to one engine's under phase 17's prefix rule."""
+    from paddle_tpu_torch.core.monitor import StatRegistry
+    from paddle_tpu_torch.serving.llm import LLMEngineConfig, PrefixStore
+    from paddle_tpu_torch.serving.router import (Router, RouterConfig,
+                                                 llm_replica_factory)
+    base = dict(num_slots=8, max_seq=CFG_13B["max_position_embeddings"],
+                prefill_buckets=PREFIX_BUCKETS, seed=0)
+    reset_counters()
+    single = _engine_run(torch, model, base, prompts, FLEET_NEW)
+    single["engine"] = None
+    release_memory(torch)
+    reg = StatRegistry()
+    store = PrefixStore(capacity_bytes=FLEET_STORE_MB << 20, registry=reg)
+    roles = ("prefill", "decode")
+    t0 = time.perf_counter()
+    router = Router(
+        llm_replica_factory(lambda r: model, LLMEngineConfig(**base),
+                            roles=roles, prefix_store=store),
+        RouterConfig(kind="llm", num_replicas=2, roles=roles,
+                     prefill_threshold=FLEET_HANDOFF_AT, health_interval=0.2,
+                     auto_resurrect=False), registry=reg)
+    boot_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        reqs = [router.submit(p, max_new_tokens=FLEET_NEW) for p in prompts]
+        got = [r.result(timeout=FLEET_TIMEOUT)["tokens"] for r in reqs]
+        wall = time.perf_counter() - t0
+        stats, hist = reg.stats(), reg.histograms()
+        ps = store.stats()
+    finally:
+        router.drain(timeout=FLEET_TIMEOUT)
+    launched = read_counters()
+    longs = [p for p in prompts if len(p) >= FLEET_HANDOFF_AT]
+    longest = max(longs, key=len)
+    noise = fleet_tail_noise(torch, model, dev, longest,
+                             (len(longest) - 1) // 16 * 16, PREFIX_BUCKETS)
+    parts = near_tie_parts(torch, ref_dec, ref_params, prompts,
+                           single["tokens"], got, noise["noise"],
+                           "phase 32 handoff")
+    pre = "serving.router."
+    reused = stats.get("serving.llm.replica1.prefix.reused_tokens", 0)
+    out = {"boot_s": boot_s, "wall_s": wall,
+           "handoff_prefills": stats.get(pre + "handoff_prefills", 0),
+           "handoff_failed": stats.get(pre + "handoff_failed", 0),
+           "dispatched_role_prefill": stats.get(
+               pre + "dispatched_role_prefill", 0),
+           "dispatched_role_decode": stats.get(
+               pre + "dispatched_role_decode", 0),
+           "decode_reused_tokens": reused,
+           "decode_prefill_ms_p50": hist.get(
+               "serving.llm.replica1.prefill_ms", {}).get("p50"),
+           "prefill_prefill_ms_p50": hist.get(
+               "serving.llm.replica0.prefill_ms", {}).get("p50"),
+           "single_tokens_per_s": single["tokens_per_s"],
+           "tokens_per_s": sum(map(len, got)) / wall,
+           "store": ps, "noise": noise, "near_tie_parts": parts,
+           "tokens_equal": sum(a == b for a, b in zip(single["tokens"],
+                                                      got))}
+    log(f"phase 32 handoff ({smi}): roles {roles}, threshold "
+        f"{FLEET_HANDOFF_AT}, {len(longs)} long prompts; "
+        f"{out['handoff_prefills']} handoffs ({out['handoff_failed']} "
+        f"failed), the decode replica reused {reused} tokens, its prefill "
+        f"p50 {out['decode_prefill_ms_p50']} ms against the prefill "
+        f"replica's {out['prefill_prefill_ms_p50']} ms; store {ps}; "
+        f"{out['tokens_equal']}/{len(prompts)} token lists equal the single "
+        f"engine's, parts {parts} under noise {noise}; launches {launched}")
+    if out["handoff_prefills"] != len(longs) or out["handoff_failed"] \
+            or reused < FLEET_HANDOFF_AT or any(launched.values()):
+        raise RuntimeError(f"phase 32 handoff: {out}, launches {launched}")
+    return out, launched
+
+
+def fleet_roll_lane(torch, dev, prompts, work, smi, reset_counters,
+                    read_counters):
+    """Phase 32 lane 4: ``WeightSwapper.roll`` to a committed, health-
+    stamped checkpoint of other weights (seed 1), one model per replica,
+    at FLEET_ROLL_LAYERS layers and full width, under FLEET_ROLL_STREAMS
+    pumping streams: every finished stream is the old weights' or the new
+    weights' engine's, bitwise, by its version; no admitted stream and no
+    migrated sequence fails; no swap adds a program."""
+    from paddle_tpu_torch.incubate.checkpoint import commit_checkpoint
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import EngineDraining, NoHealthyReplicas
+    from paddle_tpu_torch.serving.fleet import WeightSwapper
+    from paddle_tpu_torch.serving.llm import LLMEngine
+    cfg2 = dict(CFG_13B, num_layers=FLEET_ROLL_LAYERS)
+
+    def build(seed):
+        return GPTForCausalLM(GPTConfig(**cfg2, attn_impl="flash"),
+                              device=dev, seed=seed).eval()
+    log_ = _FleetLog()
+    reset_counters()
+    pumped = prompts[:FLEET_ROLL_STREAMS]
+    refs = {}
+    for version, seed in ((0, 0), (1, 1)):
+        m = build(seed)
+        eng = log_.track(LLMEngine(m, _fleet_cfg()), FLEET_ROLL_LAYERS)
+        try:
+            reqs = [eng.submit(p, max_new_tokens=FLEET_NEW) for p in pumped]
+            refs[version] = [r.result(timeout=FLEET_TIMEOUT)["tokens"]
+                             for r in reqs]
+        finally:
+            eng.drain(timeout=FLEET_TIMEOUT)
+        if seed == 1:
+            ckpt = os.path.join(work, "ckpt-step1")
+            t0 = time.perf_counter()
+            commit_checkpoint({"model": m.state_dict()}, ckpt, healthy=True,
+                              step=1)
+            save_s = time.perf_counter() - t0
+            ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                             for f in os.listdir(ckpt))
+        del m, eng
+    release_memory(torch)
+    router, reg, boot_s = _fleet_router(
+        torch, log_, lambda r: build(0), _fleet_cfg(), FLEET_ROLL_LAYERS)
+    stop = threading.Event()
+    done, failed = [], []
+
+    def pump(i):
+        while not stop.is_set():
+            try:
+                r = router.submit(pumped[i], max_new_tokens=FLEET_NEW,
+                                  stream=True)
+            except (NoHealthyReplicas, EngineDraining):
+                time.sleep(0.01)     # a paused window: submit again
+                continue
+            except Exception as e:   # any other refusal fails the lane
+                failed.append(f"{type(e).__name__}: {e}")
+                return
+            try:
+                toks = list(r.iter_tokens(timeout=FLEET_TIMEOUT))
+                done.append((i, toks, r.result(timeout=5)["weights_version"]))
+            except Exception as e:   # an admitted stream failed
+                failed.append(f"{type(e).__name__}: {e}")
+    threads = [threading.Thread(target=pump, args=(i,), daemon=True)
+               for i in range(len(pumped))]
+    try:
+        for t in threads:
+            t.start()
+        _fleet_wait(lambda: sum(r.outstanding for r in router.replicas) >= 2,
+                    "two streams in flight")
+        t0 = time.perf_counter()
+        report = WeightSwapper(
+            router, reg, quiesce_timeout=FLEET_TIMEOUT,
+            probe_timeout=FLEET_TIMEOUT).roll(
+                os.path.join(work, "ckpt-step1"))
+        roll_s = time.perf_counter() - t0
+        _fleet_wait(lambda: any(v == 1 for _, _, v in done),
+                    "a stream on the new weights", poll=0.01)
+        stop.set()
+        for t in threads:
+            t.join(FLEET_TIMEOUT)
+        if any(t.is_alive() for t in threads):
+            raise RuntimeError("phase 32 roll: a pump did not end")
+        stats = reg.stats()
+        # the roll's checkpoint reads and each engine's swap, as the
+        # swapper and the engines record them
+        io = {k: reg.histogram(f"fleet.swap.{k}_ms")["sum"]
+              for k in ("eligible", "load")}
+        swaps = [{"engine": p, "swaps": stats.get(f"{p}.weight_swaps", 0),
+                  "version": stats.get(f"{p}.weights_version"),
+                  "ms": reg.histogram(f"{p}.weight_swap_ms")["max"],
+                  "compiles": stats.get(f"{p}.weight_swap_compiles")}
+                 for p in sorted({r.engine._prefix
+                                  for r in router.replicas})]
+    finally:
+        stop.set()
+        router.drain(timeout=FLEET_TIMEOUT)
+    launched = read_counters()
+    per = _fleet_check_b4("roll", launched, log_)
+    bad = [(i, v, _first_difference(t, refs[v][i])) for i, t, v in done
+           if t != refs[v][i]]
+    versions = sorted({v for _, _, v in done})
+    mig = {k.split("fleet.migrate.")[1]: v for k, v in stats.items()
+           if k.startswith("fleet.migrate.")}
+    out = {"layers": FLEET_ROLL_LAYERS, "checkpoint_bytes": ckpt_bytes,
+           "save_s": save_s, "boot_s": boot_s, "roll_s": roll_s,
+           "roll_checkpoint_io": io,
+           "swapped": report["swapped"], "versions": report["versions"],
+           "downtime_ms": report["downtime_ms"],
+           "migrated": report.get("migrated", {}), "migrate": mig,
+           "swaps": swaps, "streams": len(done),
+           "streams_by_version": {v: sum(1 for _, _, x in done if x == v)
+                                  for v in versions},
+           "failed": len(failed), "failed_kinds": sorted(
+               {f.split(":")[0] for f in failed}),
+           "b4_by_engine": per}
+    log(f"phase 32 roll ({FLEET_ROLL_LAYERS} layers, full width; {smi}): "
+        f"checkpoint {ckpt_bytes} bytes committed in {save_s:.1f} s; roll "
+        f"{roll_s:.2f} s (its checkpoint reads, ms {io}), swapped "
+        f"{report['swapped']} to {report['versions']}"
+        f", downtime ms {report['downtime_ms']}, migrated "
+        f"{out['migrated']}; {mig}; swaps {swaps}; {len(done)} streams "
+        f"finished {out['streams_by_version']} by version, {len(bad)} "
+        f"neither the old nor the new weights' ({bad}); {len(failed)} "
+        f"refused or failed {out['failed_kinds']}; B4 by engine {per}")
+    if bad or versions != [0, 1] or report["aborted"] \
+            or sorted(report["swapped"]) != [0, 1] \
+            or sum(out["migrated"].values()) < 1 \
+            or mig.get("sequences_failed", 0) != 0 or failed \
+            or any(s["swaps"] != 1 or s["compiles"] != 0 for s in swaps) \
+            or len(swaps) != 2:
+        raise RuntimeError(f"phase 32 roll: {out}")
+    return out, launched
+
+
+def fleet_phase(torch, fa_mod, dev, smi, reset_counters, read_counters):
+    """Phase 32 (module docstring): the LLM fleet's data path on GPT-3
+    1.3B, two paged replicas on one card. Returns (results, launches by
+    path, {})."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)          # phase 3's seed
+    prompts = [rng.integers(0, CFG_13B["vocab_size"], n).tolist()
+               for n in PROMPT_LENS]
+    log(f"phase 32: the LLM fleet's data path on GPT-3 1.3B (seed 0, fp32): "
+        f"two paged replicas under one Router on one card, phase 4's 8 "
+        f"request lengths x {FLEET_NEW} new tokens: a park, a park over "
+        f"int8 pages, a kill with replay and resurrection, a weight roll "
+        f"({FLEET_ROLL_LAYERS} layers), the prefill->decode handoff; {smi}")
+    out, launches = {}, {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    release_memory(torch)
+    try:
+        model = GPTForCausalLM(GPTConfig(**CFG_13B, attn_impl="flash"),
+                               device=dev, seed=0).eval()
+        ref_dec = GPTStaticDecoder(model)
+        ref_params = ref_dec.params()
+        out["park"], launches["fleet_park"], ref = fleet_park_lane(
+            torch, model, prompts, "float32", smi, reset_counters,
+            read_counters)
+        release_memory(torch)
+        noise = fleet_replay_noise(torch, model, dev, prompts[3], ref[3])
+        out["kill"], launches["fleet_kill"] = fleet_kill_lane(
+            torch, model, prompts, ref, noise, ref_dec, ref_params, smi,
+            reset_counters, read_counters)
+        release_memory(torch)
+        out["park_int8"], launches["fleet_park_int8"], _ = fleet_park_lane(
+            torch, model, prompts, "int8", smi, reset_counters,
+            read_counters)
+        release_memory(torch)
+        out["handoff"], launches["fleet_handoff"] = fleet_handoff_lane(
+            torch, model, dev, prompts, ref_dec, ref_params, smi,
+            reset_counters, read_counters)
+        del model, ref_dec, ref_params
+        release_memory(torch)
+        out["roll"], launches["fleet_roll"] = fleet_roll_lane(
+            torch, dev, prompts, work, smi, reset_counters, read_counters)
+        release_memory(torch)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 32 {out['seconds']:.1f} s")
+    return out, launches, {}
+
+
 def counter_fns(torch, fa_mod, extra=()):
     """``(reset_counters, read_counters)`` over B1-B3's launch counts (and
     their counts by type) and ``extra``'s; the reset also resets the peak
@@ -8628,14 +9367,14 @@ def counter_fns(torch, fa_mod, extra=()):
 
 
 def phase_alone(torch, fa_mod, dev, smi, phase, extra_counters):
-    """``python3 chip_smoke.py --phase 23`` to ``31``: after the build,
+    """``python3 chip_smoke.py --phase 23`` to ``32``: after the build,
     that phase alone; prints its numbers, not the summary lines."""
     reset_counters, read_counters = counter_fns(torch, fa_mod,
                                                 extra_counters)
     fn = {23: crf_tagger_phase, 24: beam_phase, 25: mobilenet_phase,
           26: vit_phase, 27: lstm_phase, 28: frcnn_phase,
           29: pipeline_phase, 30: observability_phase,
-          31: fault_tolerance_phase}[phase]
+          31: fault_tolerance_phase, 32: fleet_phase}[phase]
     out, launches, dtypes = fn(torch, fa_mod, dev, smi, reset_counters,
                                read_counters)
     log(f"phase {phase} paths launches: {launches}, B1-B3 by type {dtypes}")
@@ -8719,7 +9458,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     if sys.argv[1:] == ["--phase", "22"]:
         return phase22_alone(torch, fa_mod, dev, smi)
-    if sys.argv[1:] in [["--phase", str(n)] for n in range(23, 32)]:
+    if sys.argv[1:] in [["--phase", str(n)] for n in range(23, 33)]:
         return phase_alone(torch, fa_mod, dev, smi, int(sys.argv[2]),
                            (pa_mod.paged_attention, nms_mod.greedy_nms))
     tc_libs = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -9172,6 +9911,16 @@ def main() -> int:
                 raise RuntimeError(f"kernel {n} was not launched on the "
                                    f"{path} path")
 
+    # -- phase 32: the LLM fleet's data path -----------------------------------
+    stamp("32 the LLM fleet's data path")
+    fleet, fleet_launches, _ = fleet_phase(torch, fa_mod, dev, smi,
+                                           reset_counters, read_counters)
+    log(f"phase 32 paths launches: {fleet_launches}")
+    for path in ("fleet_park", "fleet_kill", "fleet_roll"):
+        if fleet_launches[path]["paged_attention"] < 1:
+            raise RuntimeError(f"kernel paged_attention was not launched on "
+                               f"the {path} path")
+
     # -- summary --------------------------------------------------------------
     paths = {"serving": serve_launches, "serving_slot": slot_launches,
              "generate": gen_launches, "training": train_launches,
@@ -9186,7 +9935,7 @@ def main() -> int:
              **opg_launches, **crf_launches, **beam_launches,
              **mb_launches, **vit_launches, **lstm_launches,
              **frcnn_launches, **pipe_launches, **obs_launches,
-             **ft_launches}
+             **ft_launches, **fleet_launches}
     amp_dtypes["bert_flash_checks"] = bert_dtypes
     amp_dtypes.update({f"training_gpt_s4096_{k}": v
                        for k, v in long_dtypes.items()})
@@ -9262,6 +10011,7 @@ def main() -> int:
     log(f"ImageNet input pipeline: {json.dumps(pipe)}")
     log(f"host-plane substrate: {json.dumps(obsres)}")
     log(f"training that survives faults: {json.dumps(ftres)}")
+    log(f"the LLM fleet's data path: {json.dumps(fleet)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

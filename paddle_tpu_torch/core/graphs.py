@@ -47,9 +47,14 @@ holding the graphed lane against the eager one; nothing enters that lane
 by itself. A failed capture or replay raises: there is no fallback.
 
 A replay does not call the kernels' Python wrappers, so their launch
-counts would miss it: at capture each :func:`counted` wrapper's count is
-put back to what it was (a capture launches nothing) and what the
-capture added is added again at every replay.
+counts would miss it: each kernel wrapper counts through
+:func:`note_launch`, which adds a launch recorded on a capturing stream
+to that capture's tally (a capture launches nothing; autograd records a
+captured backward from a thread of its own, on the capture's stream),
+and every replay adds the tally again. Engines on one card run their
+workers in threads of their own, one capturing while another replays:
+the sibling's launches are on other streams, and every count moves
+under one lock, so no launch is lost or counted twice.
 """
 from __future__ import annotations
 
@@ -75,9 +80,11 @@ _HELD = {"captures": 0, "was_enabled": False}
 _HELD_LOCK = threading.Lock()
 _LOCAL = threading.local()
 _TOKENS = itertools.count(1)
-#: kernel wrappers whose ``launches`` (and ``launches_by_dtype``) a
-#: replay adds to
-_COUNTED: List[Callable] = []
+#: guards every kernel wrapper's ``launches`` and ``launches_by_dtype``
+#: (engine workers launch and replay from threads of their own)
+_COUNT_LOCK = threading.Lock()
+#: the captures running: capture stream's handle -> the capture's tally
+_TALLIES: Dict[Any, dict] = {}
 
 
 @contextlib.contextmanager
@@ -122,11 +129,40 @@ def _collector_held():
                 gc.enable()
 
 
-def counted(wrapper: Callable) -> Callable:
-    """Register a kernel wrapper whose ``launches`` count replays must
-    keep honest; returns it."""
-    _COUNTED.append(wrapper)
-    return wrapper
+def _stream_key():
+    """The current CUDA stream's handle: the stream a wrapper just
+    launched on."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def note_launch(wrapper: Callable, dtype: Optional[str] = None):
+    """Count one launch of ``wrapper``'s kernel (and one of its inputs'
+    type ``dtype`` in ``launches_by_dtype``): in the tally of the capture
+    recording the current stream, else in the wrapper's counts."""
+    tally = _TALLIES.get(_stream_key()) if _TALLIES else None
+    with _COUNT_LOCK:
+        if tally is not None:
+            n, by = tally.get(wrapper, (0, {}))
+            tally[wrapper] = (n + 1, by)
+        else:
+            wrapper.launches += 1
+            by = wrapper.launches_by_dtype if dtype is not None else None
+        if dtype is not None:
+            by[dtype] = by.get(dtype, 0) + 1
+
+
+@contextlib.contextmanager
+def _tallying(key):
+    """Collect the :func:`note_launch` calls on the stream ``key`` (a
+    capture's) in a tally; yields it, ``{wrapper: (n, by dtype)}``."""
+    tally = {}
+    with _COUNT_LOCK:
+        _TALLIES[key] = tally
+    try:
+        yield tally
+    finally:
+        with _COUNT_LOCK:
+            _TALLIES.pop(key, None)
 
 
 def scratch_owner() -> Optional[int]:
@@ -192,17 +228,13 @@ def _leaves(params) -> List[torch.Tensor]:
     return []
 
 
-def _snapshot_counts():
-    return [(w.launches, dict(getattr(w, "launches_by_dtype", {})))
-            for w in _COUNTED]
-
-
 def _add_counts(deltas):
-    for w, (n, by) in zip(_COUNTED, deltas):
-        if n:
+    """Add a replay's launches: ``{wrapper: (n, by dtype)}``."""
+    with _COUNT_LOCK:
+        for w, (n, by) in deltas.items():
             w.launches += n
-        for k, v in by.items():
-            w.launches_by_dtype[k] = w.launches_by_dtype.get(k, 0) + v
+            for k, v in by.items():
+                w.launches_by_dtype[k] = w.launches_by_dtype.get(k, 0) + v
 
 
 class _Bound:
@@ -354,22 +386,12 @@ class Program:
                 if g is not None and g.device.type == "cuda"}
         for g in gens.values():
             graph.register_generator_state(g)
-        before = _snapshot_counts()
-        try:
-            with _collector_held(), _owning(pool), torch.cuda.graph(
-                    graph, pool=pool.handle, stream=stream,
-                    capture_error_mode="thread_local"):
-                static = self.raw(params, state, *inputs)
-        finally:
-            after = _snapshot_counts()
-            for w, (n, by) in zip(_COUNTED, before):
-                w.launches = n
-                if hasattr(w, "launches_by_dtype"):
-                    w.launches_by_dtype = by
-        bound.launches = [
-            (a - b, {k: v - by.get(k, 0) for k, v in aby.items()
-                     if v != by.get(k, 0)})
-            for (a, aby), (b, by) in zip(after, before)]
+        with _tallying(stream.cuda_stream) as tally, _collector_held(), \
+                _owning(pool), \
+                torch.cuda.graph(graph, pool=pool.handle, stream=stream,
+                                 capture_error_mode="thread_local"):
+            static = self.raw(params, state, *inputs)
+        bound.launches = tally
         caller.wait_stream(stream)
         bound.graph, bound.outputs = graph, static
         self.capture_ms.append((time.perf_counter() - t0) * 1e3)

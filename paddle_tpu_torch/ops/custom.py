@@ -151,7 +151,7 @@ def greedy_nms(iou, valid, thr, eta: float = 1.0):
         code = lib.pt_greedy_nms(iou.data_ptr(), valid.data_ptr(),
                                  thr.data_ptr(), kept.data_ptr(), p_n, k,
                                  float(eta), stream)
-    greedy_nms.launches += 1
+    graphs.note_launch(greedy_nms)
     from .kernel_build import check
     check(lib, "pt_greedy_nms_error_string", code, "greedy NMS kernel")
     return kept
@@ -159,4 +159,3 @@ def greedy_nms(iou, valid, thr, eta: float = 1.0):
 
 #: kernel launches since the count was last set to 0
 greedy_nms.launches = 0
-graphs.counted(greedy_nms)

@@ -331,10 +331,7 @@ def _run(lib, err_fn, what, q, call):
 
 def _count(wrapper, dtype):
     """One launch of ``wrapper``'s kernel on inputs of ``dtype``."""
-    wrapper.launches += 1
-    name = str(dtype).replace("torch.", "")
-    wrapper.launches_by_dtype[name] = \
-        wrapper.launches_by_dtype.get(name, 0) + 1
+    graphs.note_launch(wrapper, str(dtype).replace("torch.", ""))
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False,
@@ -446,7 +443,6 @@ for _w in (flash_attention_fwd, flash_attention_bwd_dq,
            flash_attention_bwd_dkv):
     _w.launches = 0
     _w.launches_by_dtype = {}
-    graphs.counted(_w)
 del _w
 
 

@@ -256,7 +256,7 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
             ws.data_ptr(), tickets.data_ptr(), s_n, h, d, k_arena.shape[1],
             pps, k_arena.shape[0], chunk, strides, block_tables.stride(0),
             float(sc), _DTYPES[q.dtype], vec, stream)
-    paged_attention.launches += 1
+    graphs.note_launch(paged_attention)
     _note(q, k_arena, block_tables, positions)
     from .kernel_build import check
     check(lib, "pt_paged_attention_error_string", code,
@@ -267,4 +267,3 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
 #: kernel launches since the count was last set to 0 (a graph's replay
 #: adds the launches it captured)
 paged_attention.launches = 0
-graphs.counted(paged_attention)

@@ -586,6 +586,11 @@ class GPTDecoderBase:
     def device(self) -> torch.device:
         return self._model.gpt.word_embeddings.weight.device
 
+    @property
+    def model(self):
+        """The GPT model the decoder reads its parameters from."""
+        return self._model
+
     def params(self):
         """The GPT parameter dict; with int8 weights its projection
         weights quantized into the decoder's resident tensors (written in

@@ -1,6 +1,5 @@
 """PagedBatcher: admission on pages at current lengths, not max_seq slots
-(counterpart of ``paddle_tpu/serving/llm/paged/batcher.py``; sequence
-migration is a later slice).
+(counterpart of ``paddle_tpu/serving/llm/paged/batcher.py``).
 
 With paged KV the scarce resource is the page pool, so admission asks
 "are there pages for THIS prompt at ITS length, plus headroom for the
@@ -25,10 +24,20 @@ sequences already running":
   ``bytes_copied``). A miss's page-aligned head is claimed by the store
   by reference. Gauges ``pages_free`` and ``pages_cow_splits`` publish
   the pool at every admission and tick.
+- **live migration** (between ticks, on the worker): ``export_all``
+  snapshots and detaches every live sequence as a host manifest (its
+  pages read once); ``import_manifest`` splices one in under the same
+  admission math as a new request (its page-aligned prompt head adopted
+  zero-copy from the prefix store when cached), writing the slot's
+  ``finished``, last-token and sampling entries in place, or returns
+  False with no side effect. Each export and import observes its wall
+  ms (``seq_export_ms``, ``seq_import_ms``) and adds its payload bytes
+  (``seq_export_bytes``, ``seq_import_bytes``: the pages it copied).
 """
 from __future__ import annotations
 
 import collections
+import time
 from typing import Optional
 
 import numpy as np
@@ -39,6 +48,14 @@ from ..scheduler import ContinuousBatcher, GenerationRequest
 from .decode import GPTPagedDecoder
 from .pool import PagedKVCache, PagesExhausted, pages_for_tokens
 from .prefix import PagedPrefixStore
+
+
+def _nbytes(pages) -> int:
+    """Bytes of a manifest's page payload (an array, or the int8
+    ``{"q", "s"}`` pair)."""
+    if isinstance(pages, dict):
+        return sum(int(a.nbytes) for a in pages.values())
+    return int(pages.nbytes)
 
 
 class PagedBatcher(ContinuousBatcher):
@@ -254,6 +271,120 @@ class PagedBatcher(ContinuousBatcher):
         self._stat_add("pages_evicted_midstream", 1)
         self._stat_add("evicted_midstream", 1)
 
+    # -- live sequence migration ---------------------------------------------
+    #: the paged substrate ships sequences as page payloads
+    supports_export = True
+
+    def export_all(self):
+        """Snapshot and detach every live sequence into host manifests
+        (worker thread, between ticks). A request still mid-replay from an
+        earlier resume ships without payload (its cache is not yet a
+        faithful transcript: the target replays it); pending
+        (page-starved) requests ship cold. On return the batcher holds
+        none of them."""
+        from ...fleet.migrate import SequenceManifest
+        sig = self.decoder.prefix_sig(self.kv)
+        out = []
+        for slot in sorted(self._reqs):
+            req = self._reqs[slot]
+            if req._replay_pos is None:
+                n_cached = req.seq_len - 1   # the last token is not cached
+                t0 = time.perf_counter()
+                _, k_pages, v_pages = self.decoder.export_sequence(
+                    self.kv, slot, n_cached)
+                self._stat_observe("seq_export_ms",
+                                   (time.perf_counter() - t0) * 1e3)
+                self._stat_add("seq_export_bytes",
+                               _nbytes(k_pages) + _nbytes(v_pages))
+                man = SequenceManifest(
+                    req, req.prompt, req.tokens, req.sampling,
+                    weights_version=req.weights_version,
+                    n_cached_tokens=n_cached, page_size=self.kv.page_size,
+                    sig=sig, k_pages=k_pages, v_pages=v_pages)
+            else:
+                man = SequenceManifest.for_queued(req)
+            out.append(man)
+            del self._reqs[slot]
+            self.kv.free(slot)
+            self._unpin_prefix(req)
+        while self._pending:
+            out.append(SequenceManifest.for_queued(self._pending.popleft()))
+        self._stat_set("pages_pending_requests", 0)
+        self._publish_pages()
+        return out
+
+    def import_manifest(self, man) -> bool:
+        """Splice a migrated sequence into a free slot, armed for the next
+        tick (worker thread, between ticks). Page-aligned prompt pages
+        this engine's prefix store holds are adopted zero-copy; the rest
+        are allocated and written from the payload. Returns False WITHOUT
+        side effects when the geometry differs or the slot table or the
+        pool cannot take it (the migrator then replays)."""
+        if man.sig != self.decoder.prefix_sig(self.kv) \
+                or man.page_size != self.kv.page_size:
+            return False
+        n_cached = man.n_cached_tokens
+        if not (0 < n_cached < self.config.max_seq) or not man.tokens:
+            return False
+        if self.kv.free_slots < 1:
+            return False
+        req = man.req
+        page = self.kv.page_size
+        total = pages_for_tokens(n_cached, page)
+        entry, reuse_n = None, 0
+        if self.prefix_store is not None:
+            entry, reuse_n = self.prefix_store.lookup(
+                req.prompt, min(req.prompt_len, n_cached), man.sig)
+            reuse_n = (reuse_n // page) * page   # whole pages only
+            if entry is not None and reuse_n <= 0:
+                self.prefix_store.unpin(entry)
+                entry, reuse_n = None, 0
+        shared = reuse_n // page
+        # _try_admit's math: the pages to write plus one lookahead page
+        # per running sequence
+        shortfall = (total - shared) + len(self._reqs) \
+            - self.kv.pool.free_pages
+        if shortfall > 0 and self.prefix_store is not None:
+            shortfall -= self.prefix_store.evict_unpinned(shortfall)
+        if shortfall > 0:
+            if entry is not None:
+                self.prefix_store.unpin(entry)
+            return False
+        slot = self.kv.alloc()
+        try:
+            if shared:
+                for pid in entry.page_ids[:shared]:
+                    self.kv.adopt_shared_page(slot, pid)
+                self.prefix_store.note_shared(shared * self.kv.page_nbytes())
+            t0 = time.perf_counter()
+            self.decoder.import_sequence(self.kv, slot, n_cached,
+                                         man.k_pages, man.v_pages,
+                                         shared_pages=shared)
+            # to the end of the host-to-device copies (the in-place page
+            # writes behind them are queued on the stream)
+            self._stat_observe("seq_import_ms",
+                               (time.perf_counter() - t0) * 1e3)
+            self._stat_add("seq_import_bytes",
+                           (_nbytes(man.k_pages) + _nbytes(man.v_pages))
+                           * (total - shared) // total)
+        except Exception:
+            self.kv.free(slot)
+            if entry is not None:
+                self.prefix_store.unpin(entry)
+            raise
+        req._prefix_entry = entry
+        req._t_last = None
+        self._reqs[slot] = req
+        # arm the programs' per-slot state in place: the next tick feeds
+        # the last emitted token and writes its row at n_cached
+        self._set_sampling(slot, req.sampling)
+        self._finished[slot] = False
+        self._last[slot] = int(req.tokens[-1])
+        self._stat_add("migrated_pages_shared", shared)
+        self._stat_add("migrated_pages_copied", total - shared)
+        self._publish_pages()
+        return True
+
     # -- mfu -----------------------------------------------------------------
     def _measure_decode_flops(self):
         """``measure_mfu`` on pages: the paged decode step's own count
@@ -265,6 +396,14 @@ class PagedBatcher(ContinuousBatcher):
         super()._measure_decode_flops()
 
     # -- exits ---------------------------------------------------------------
+    def evacuate(self):
+        out = super().evacuate()
+        while self._pending:
+            out.append(self._pending.popleft())
+        self._stat_set("pages_pending_requests", 0)
+        self._publish_pages()
+        return out
+
     def abort_all(self, exc_factory):
         super().abort_all(exc_factory)
         while self._pending:

@@ -28,7 +28,10 @@ decode step runs as a replayed CUDA graph (``core/graphs.py``), the
 kernel lane's 24 launches of B4 inside it at GPT-3 1.3B; the decoder
 refreshes the device block tables before each program runs. The tail
 prefill of prefix reuse attends densely over the gathered row, as the
-JAX package's does; sequence migration is a later slice of the port.
+JAX package's does. Sequence migration: ``export_sequence`` reads a live
+sequence's pages to the host (``PagedKVCache.read_pages``) and
+``import_sequence`` writes them into fresh pages of another cache in
+place and sets the slot's length, between ticks.
 
 int8 serving: with ``weight_dtype="int8"`` every block multiplies
 through ``decode._mm``, and the kernel lane runs B4 as with float
@@ -53,7 +56,8 @@ from ..decode import (GPTDecodeSpec, GPTDecoderBase, SamplingVectors,
                       _dense_only, _layer_norm, _mm, prefill_forward,
                       sample_prefill, sample_step, tail_forward)
 from ..kvcache import dequantize_kv, kv_layer_view, valid_mask
-from .pool import (PagedKVCache, paged_gather_rows, paged_write_prompt_rows,
+from .pool import (PagedKVCache, as_page_tensor, paged_gather_rows,
+                   paged_write_prompt_rows, pages_for_tokens,
                    paged_write_rows)
 
 
@@ -342,3 +346,52 @@ class GPTPagedDecoder(GPTDecoderBase):
         other on the same state)."""
         return paged_decode_logits(self.spec, params, kv, last_tokens,
                                    attn_impl or self.attn_impl)
+
+    # -- live sequence migration ---------------------------------------------
+    def export_sequence(self, kv: PagedKVCache, slot: int, n_tokens: int):
+        """The device half of a live sequence: host copies of the pages
+        backing its logical rows ``[0, n_tokens)``. Returns ``(page_ids,
+        k_pages, v_pages)``; the rest of a manifest (tokens, sampling,
+        position) the batcher has on the host. Between ticks."""
+        n_pages = pages_for_tokens(n_tokens, self.page_size)
+        pids = kv.slot_page_ids(slot)[:n_pages]
+        if len(pids) < n_pages:
+            raise ValueError(
+                f"slot {slot} maps {len(pids)} pages but {n_pages} are "
+                f"needed for {n_tokens} cached tokens")
+        k_pages, v_pages = kv.read_pages(pids)
+        return pids, k_pages, v_pages
+
+    def import_sequence(self, kv: PagedKVCache, slot: int, n_tokens: int,
+                        k_pages, v_pages, shared_pages: int = 0):
+        """Splice an exported sequence into ``slot``: its pages ``[0,
+        shared_pages)`` were adopted zero-copy from this cache's prefix
+        store; the rest are allocated here and filled from the payload
+        (one host-to-device copy per leaf, then each page in place). Sets
+        the slot's length, so the next tick writes the exact next token.
+        Returns the pages copied."""
+        total = pages_for_tokens(n_tokens, self.page_size)
+        if not (0 <= shared_pages <= total):
+            raise ValueError(
+                f"shared_pages {shared_pages} out of range for "
+                f"{total} total pages")
+        kv.ensure_pages(slot, n_tokens)
+        pids = kv.slot_page_ids(slot)
+
+        def _shipped(pages):
+            def _dev(a):
+                return as_page_tensor(a[shared_pages:total]).to(kv.device)
+            if isinstance(pages, dict):
+                return {n: _dev(pages[n]) for n in ("q", "s")}
+            return _dev(pages)
+
+        def _row(pages, j):
+            if isinstance(pages, dict):
+                return {n: pages[n][j] for n in ("q", "s")}
+            return pages[j]
+        kd, vd = _shipped(k_pages), _shipped(v_pages)
+        for i in range(shared_pages, total):
+            j = i - shared_pages
+            kv.write_page(pids[i], _row(kd, j), _row(vd, j))
+        kv.set_length(slot, n_tokens)
+        return total - shared_pages

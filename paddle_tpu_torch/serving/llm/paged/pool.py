@@ -33,9 +33,15 @@ sequence writes is its own (``adopt_copied_page``, the copy-on-write
 split). With ``kv_dtype="int8"`` each arena is a ``{"q": int8 codes,
 "s": float32 [P+1, L, page] scales}`` dict (``kvcache.py``'s
 representation, one scale a row): the writers quantize the rows they
-land and the gather returns both leaves. Sequence export and import
-(``read_pages``, ``write_page``) belong to the fleet's migration (queue A8
-of ROADMAP.md) and are not ported yet.
+land and the gather returns both leaves.
+
+Sequence migration (``serving/fleet/migrate.py``) reads and writes whole
+pages between ticks: ``read_pages`` gathers a sequence's pages with one
+``index_select`` and one device-to-host copy per arena leaf into pinned
+memory (NumPy, in the JAX package's ``[n, L, page, H, D]`` layout, or its
+``{"q", "s"}`` pair), and ``write_page`` copies one shipped page into the
+arena in place, so a captured decode program reads it at the arena's
+address.
 """
 from __future__ import annotations
 
@@ -176,6 +182,14 @@ def paged_gather_rows(buf, block_tables):
     g = buf[bt]
     sh = g.shape
     return g.reshape(sh[0], sh[1] * sh[2], sh[3], sh[4])
+
+
+def as_page_tensor(rows) -> torch.Tensor:
+    """A shipped page payload (a NumPy array, read-only ones included, or
+    a tensor) as a tensor, without copying what it need not."""
+    if isinstance(rows, np.ndarray) and not rows.flags.writeable:
+        rows = rows.copy()
+    return torch.as_tensor(rows)
 
 
 def pages_for_tokens(n_tokens: int, page_size: int) -> int:
@@ -366,6 +380,51 @@ class PagedKVCache:
         self._map_page(slot, pid)
         self.cow_splits += 1
         return pid
+
+    # -- sequence migration (between ticks: export and import) --------------
+    def read_pages(self, page_ids) -> Tuple[object, object]:
+        """Host copies of the K and V arena rows of ``page_ids``, stacked
+        over the pages: ``[n, L, page, H, D]`` NumPy arrays, or for an int8
+        arena ``{"q": ..., "s": [n, L, page]}``. One ``index_select`` (a
+        contiguous gather, never a strided view) and one device-to-host
+        copy per leaf, into pinned memory on CUDA (PyTorch's host cache
+        hands the blocks of earlier payloads back once they are dropped).
+        Runs on the engine worker between ticks."""
+        idx = torch.tensor([int(p) for p in page_ids], dtype=torch.long,
+                           device=self.device)
+
+        def _host(t):
+            rows = torch.index_select(t, 0, idx)
+            if rows.device.type != "cuda":
+                return rows.numpy()
+            out = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            out.copy_(rows)
+            return out.numpy()
+
+        def _take(buf):
+            if is_quantized_kv(buf):
+                return {n: _host(buf[n]) for n in ("q", "s")}
+            return _host(buf)
+        return _take(self.k), _take(self.v)
+
+    def write_page(self, pid: int, k_page, v_page):
+        """Install one shipped page (a ``read_pages`` row: an array or a
+        tensor per leaf) at physical page ``pid``, in place in both
+        arenas. The caller owns the page alone (mapped, refcount 1): a
+        shared or free page would let sharers see the write, so it
+        raises."""
+        if self.pool.refcount(pid) != 1:
+            raise ValueError(
+                f"write_page({pid}): refcount {self.pool.refcount(pid)} "
+                f"!= 1 - importing into a shared or free page would "
+                f"corrupt sharers")
+        for buf, page in ((self.k, k_page), (self.v, v_page)):
+            pairs = ([(buf[n], page[n]) for n in ("q", "s")]
+                     if is_quantized_kv(buf) else [(buf, page)])
+            for arena, rows in pairs:
+                dst = arena[pid]
+                dst.copy_(as_page_tensor(rows).to(device=dst.device,
+                                                  dtype=dst.dtype))
 
     def set_length(self, slot: int, n_tokens: int):
         """Set a slot's position in the device lengths (in place)."""

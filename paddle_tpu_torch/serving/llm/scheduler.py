@@ -41,12 +41,28 @@ tick's wall time (token fetch included: delivered MFU). Admission is a
 engine base's (``arm_preemption``, ``install_drain_signal_handler``);
 the worker records ``engine_killed``, ``llm_worker_death`` and
 ``sigterm_drain`` in the flight recorder, dumping it when armed on the
-last two. Crash recovery (evacuation for replay), migration and weight
-hot-swap are not ported yet.
+last two.
+
+Zero-loss serving (``serving/fleet/migrate.py``): control calls queued
+by :meth:`LLMEngine._run_on_worker` run on the worker at the top of its
+loop, between ticks, never under a replaying program. Over them a paged
+engine exports its live sequences as host manifests
+(``export_sequences``) and splices a sibling's in (``import_sequence``),
+the per-slot buffers written in place. ``enable_recovery`` arms the
+sequence journal (the worker notes the live requests each tick, O(1), no
+host sync) and makes ``kill`` evacuate in-flight streams for a replay
+elsewhere (``take_evacuated``, ``resubmit_for_recovery``) instead of
+failing them; a resumed request's dedup guard verifies each re-generated
+token against what its client already has. ``swap_weights`` installs a
+state dict into the quiesced engine's model in place
+(``Layer.set_state_dict``), so the captured programs read the new
+weights with no new capture, and stamps the new ``weights_version``.
 """
 from __future__ import annotations
 
+import collections
 import itertools
+import os
 import queue as _pyqueue
 import threading
 import time
@@ -63,8 +79,9 @@ from ..buckets import pow2_buckets
 from ..cache import ExecutableCache, default_cache
 from ..engine import DrainableEngineBase
 from ..queue import BatchQueue
+from ...utils.resilience import fault_injector
 from ..request import (Deadline, DeadlineExceeded, EngineDraining,
-                       EngineKilled, RequestTooLarge)
+                       EngineKilled, RequestTooLarge, TokenStreamDivergence)
 from .decode import (GPTDecoderBase, GPTStaticDecoder, SamplingParams,
                      pack_sampling)
 from .prefix import PrefixStore
@@ -78,13 +95,14 @@ class GenerationRequest:
     """One queued generation: prompt + sampling params + result future.
 
     The future resolves to ``{"tokens": [...], "finish_reason": ...,
-    "req_id": ...}``; with ``stream=True``, :meth:`iter_tokens` yields the
-    tokens as ticks produce them.
+    "req_id": ..., "weights_version": ...}``; with ``stream=True``,
+    :meth:`iter_tokens` yields the tokens as ticks produce them.
     """
 
     __slots__ = ("req_id", "prompt", "sampling", "deadline", "future",
                  "t_enqueue", "t_first_token", "tokens", "finish_reason",
-                 "_stream_q", "_clock", "_t_last", "_prefix_entry")
+                 "_stream_q", "_clock", "_t_last", "_prefix_entry",
+                 "weights_version", "_replay_pos", "_resume_offset")
 
     def __init__(self, prompt, sampling: SamplingParams,
                  deadline: Optional[Deadline] = None, stream: bool = False,
@@ -107,6 +125,17 @@ class GenerationRequest:
         # the prefix-store pin held while the request is in flight (the
         # batcher unpins it on every exit)
         self._prefix_entry = None
+        # stamped at admission from the batcher's weight generation; a
+        # generation runs on one generation (a swap waits for the slots to
+        # quiesce), so its result is old weights or new, never a mix
+        self.weights_version: Optional[int] = None
+        # the resume-dedup guard: after a migration or replay rebinds the
+        # request, `_replay_pos` is the next already-streamed token the
+        # engine must verify before a new one may flow; `_resume_offset`
+        # counts the generated tokens folded into the rebuilt prompt, so
+        # `seq_len` is the same across resumes
+        self._replay_pos: Optional[int] = None
+        self._resume_offset = 0
 
     @property
     def prompt_len(self) -> int:
@@ -114,8 +143,10 @@ class GenerationRequest:
 
     @property
     def seq_len(self) -> int:
-        """Prompt plus generated tokens."""
-        return self.prompt_len + len(self.tokens)
+        """The ORIGINAL prompt plus the generated tokens: the same across
+        resumes (a resumed prompt holds generated tokens, which
+        ``_resume_offset`` backs out)."""
+        return self.prompt_len - self._resume_offset + len(self.tokens)
 
     @property
     def expired(self) -> bool:
@@ -135,19 +166,63 @@ class GenerationRequest:
             f"generation request {self.req_id} exceeded its "
             f"{self.deadline.seconds}s deadline"))
 
-    def _emit(self, tok: int):
+    def begin_resume(self, n_resume: int) -> "GenerationRequest":
+        """Rebind the request for resumption elsewhere with ``n_resume``
+        generated tokens' state restored (a migrated KV splice or a
+        journal replay): the prompt becomes ``original_prompt +
+        tokens[:n_resume]``, so a plain prefill rebuilds the cache, and
+        the dedup guard arms: each re-generated token of
+        ``tokens[n_resume:]`` is verified against what the client has and
+        swallowed. Raises :class:`TokenStreamDivergence` when ``n_resume``
+        is past what the client has (a gap)."""
+        n = int(n_resume)
+        if n < 0 or n > len(self.tokens):
+            raise TokenStreamDivergence(
+                f"request {self.req_id}: cannot resume at token {n}; "
+                f"the client has {len(self.tokens)} - the restored "
+                f"state is AHEAD of the stream and would emit a gap")
+        base = self.prompt[:self.prompt.size - self._resume_offset]
+        self.prompt = (np.concatenate(
+            [base, np.asarray(self.tokens[:n], np.int32)]) if n else base)
+        self._resume_offset = n
+        self._replay_pos = n if n < len(self.tokens) else None
+        self._t_last = None
+        return self
+
+    def _emit(self, tok: int) -> bool:
+        """Deliver one token. During a resume replay it is checked against
+        the client's transcript and swallowed; a mismatch fails the
+        request with :class:`TokenStreamDivergence` and returns False
+        (the caller then forgets the slot without finishing it)."""
+        if self._replay_pos is not None:
+            pos = self._replay_pos
+            if pos < len(self.tokens):
+                if tok != self.tokens[pos]:
+                    self.fail(TokenStreamDivergence(
+                        f"request {self.req_id}: resumed stream produced "
+                        f"token {tok} at position {pos} but the client "
+                        f"already received {self.tokens[pos]} - refusing "
+                        f"to corrupt the stream"))
+                    return False
+                self._replay_pos = pos + 1
+                if self._replay_pos >= len(self.tokens):
+                    self._replay_pos = None
+                return True
+            self._replay_pos = None
         if self.t_first_token is None:
             self.t_first_token = self._clock()
         self.tokens.append(tok)
         if self._stream_q is not None:
             self._stream_q.put(tok)
+        return True
 
     def _finish(self, reason: str):
         self.finish_reason = reason
         if not self.future.done():
             self.future.set_result(
                 {"tokens": list(self.tokens), "finish_reason": reason,
-                 "req_id": self.req_id})
+                 "req_id": self.req_id,
+                 "weights_version": self.weights_version})
         if self._stream_q is not None:
             self._stream_q.put(_STREAM_END)
 
@@ -322,6 +397,9 @@ class ContinuousBatcher:
             self._draft_params = spec_decoder.draft_params()
         self._spec_proposed = 0
         self._spec_accepted = 0
+        #: the weight generation: the engine's swap_weights bumps it once
+        #: the slots quiesce; admission stamps it on each request
+        self.weights_version = 0
         self._reqs: Dict[int, GenerationRequest] = {}
         self._slot_samp: List[SamplingParams] = [
             SamplingParams() for _ in range(config.num_slots)]
@@ -347,6 +425,13 @@ class ContinuousBatcher:
     @property
     def free_slots(self) -> int:
         return self.kv.free_slots
+
+    def refresh_params(self):
+        """Read the model's parameters again after an in-place change (a
+        weight swap): the same tensors, so the captured programs read the
+        new values; with int8 weights this quantizes them again into the
+        decoder's resident tensors."""
+        self._params = self.decoder.params()
 
     # -- internals -----------------------------------------------------------
     def _stat_add(self, name, v):
@@ -392,6 +477,14 @@ class ContinuousBatcher:
         self._finished.copy_(finished)
         return nxt
 
+    def _set_sampling(self, slot: int, sampling: SamplingParams):
+        """Give ``slot`` its request's sampling, in place in the static
+        vectors the programs read."""
+        self._slot_samp[slot] = sampling
+        for dst, src in zip(self._samp_vecs,
+                            pack_sampling(self._slot_samp, self.device)):
+            dst.copy_(src)
+
     def _lookup_prefix(self, req: GenerationRequest, step: int):
         """The prefix store's hit for ``req`` (pinned) and its reusable
         token count, shrunk by ``step`` until the padded tail bucket fits
@@ -431,11 +524,9 @@ class ContinuousBatcher:
         the request leaves; a miss exports its head to the store), prefill
         the draft cache under speculation, and deliver the first token
         (the fetch streaming needs for time to first token)."""
+        req.weights_version = self.weights_version
         self._reqs[slot] = req
-        self._slot_samp[slot] = req.sampling
-        for dst, src in zip(self._samp_vecs,
-                            pack_sampling(self._slot_samp, self.device)):
-            dst.copy_(src)
+        self._set_sampling(slot, req.sampling)
         samp1 = pack_sampling([req.sampling], self.device)
         if entry is not None:
             req._prefix_entry = entry
@@ -458,7 +549,9 @@ class ContinuousBatcher:
         self._stat_observe("prefill_ms", (now - t0) * 1000.0)
         self._stat_observe("ttft_ms", (now - req.t_enqueue) * 1000.0)
         self._stat_add("prefills", 1)
-        req._emit(tok)
+        if not req._emit(tok):
+            self._forget(slot, req)
+            return
         req._t_last = now
         self._stat_add("tokens_generated", 1)
         self._maybe_finish(slot, req, tok)
@@ -564,7 +657,9 @@ class ContinuousBatcher:
         s = req.sampling
         for tok in toks:
             tok = int(tok)
-            req._emit(tok)
+            if not req._emit(tok):
+                self._forget(slot, req)
+                break
             emitted += 1
             if s.eos_token_id is not None and tok == int(s.eos_token_id):
                 self._release(slot, req, "stop")
@@ -603,7 +698,9 @@ class ContinuousBatcher:
                 self._evict(slot, req)
                 continue
             tok = int(toks[slot])
-            req._emit(tok)
+            if not req._emit(tok):
+                self._forget(slot, req)
+                continue
             if req._t_last is not None:
                 self._stat_observe("intertoken_ms",
                                    (now - req._t_last) * 1000.0)
@@ -672,8 +769,30 @@ class ContinuousBatcher:
             f"{len(req.tokens)} tokens"))
         self._stat_add("evicted_midstream", 1)
 
+    def _forget(self, slot: int, req: GenerationRequest):
+        """Reclaim the slot of a request that already resolved (the dedup
+        guard failed it mid-replay): free its resources, touch neither
+        its future nor its stream."""
+        del self._reqs[slot]
+        self.kv.free(slot)
+        self._unpin_prefix(req)
+        self._stat_add("stream_divergence", 1)
+
+    def evacuate(self) -> List[GenerationRequest]:
+        """Detach every in-flight request WITHOUT failing it (the
+        zero-loss half of a hard kill): slots and prefix pins are
+        reclaimed, the futures stay pending for the router's replay."""
+        out: List[GenerationRequest] = []
+        for slot, req in list(self._reqs.items()):
+            del self._reqs[slot]
+            self.kv.free(slot)
+            self._unpin_prefix(req)
+            out.append(req)
+        return out
+
     def abort_all(self, exc_factory):
-        """Fail every in-flight sequence (the worker died)."""
+        """Fail every in-flight sequence (a kill without recovery, or the
+        worker died)."""
         for slot, req in list(self._reqs.items()):
             del self._reqs[slot]
             self.kv.free(slot)
@@ -802,6 +921,17 @@ class LLMEngine(DrainableEngineBase):
                 self._decoder, cfg, self._registry,
                 prefix_store=self._prefix_store, spec_decoder=spec_decoder)
         self._queue = BatchQueue(max_size=cfg.max_queue)
+        # the between-tick control plane: closures queued here run on the
+        # worker at the top of its loop, never under a tick (sequence
+        # export and import touch batcher state and device buffers the
+        # captured programs read)
+        self._ctl: "collections.deque" = collections.deque()
+        # held by a caller's check-and-enqueue and by the worker's exit
+        # drain, so no call lands after the drain and waits out its timeout
+        self._ctl_lock = threading.Lock()
+        #: the crash-recovery journal, armed by :meth:`enable_recovery`
+        self.journal = None
+        self._evacuated: List[GenerationRequest] = []
         if cfg.warmup:
             self._batcher.warmup()
         self._worker = threading.Thread(
@@ -828,6 +958,10 @@ class LLMEngine(DrainableEngineBase):
         """The engine's prefix store (a host :class:`PrefixStore` on the
         slot layout, a ``PagedPrefixStore`` on the paged one), or None."""
         return self._prefix_store
+
+    @property
+    def role(self) -> str:
+        return self._config.role
 
     def submit(self, prompt, *, max_new_tokens: Optional[int] = None,
                do_sample: bool = False, temperature: float = 1.0,
@@ -886,13 +1020,213 @@ class LLMEngine(DrainableEngineBase):
         """Synchronous convenience: submit and wait."""
         return self.submit(prompt, **kw).result()
 
+    @property
+    def weights_version(self) -> int:
+        return self._batcher.weights_version
+
+    def swap_weights(self, state_dict: dict, *, timeout: float = 30.0,
+                     poll: float = 0.005) -> int:
+        """Live weight hot-swap: copy ``state_dict`` into the model in
+        place and read the parameters again, with no new engine and no
+        new capture (the programs read the weights where they lie, so the
+        executable cache's misses stay put). The caller pauses admission
+        first; this waits until every in-flight slot retires and the
+        queue is empty, so a generation runs on the old weights or on the
+        new ones, never a mix. Returns the new weights version, stamped
+        on every later request's result. Observes ``weight_swap_ms`` and
+        adds the cache misses the swap caused to
+        ``weight_swap_compiles``."""
+        if not (self._admission_paused.is_set() or self._draining.is_set()):
+            raise RuntimeError(
+                "swap_weights requires pause_admission() first: in-flight "
+                "sequences must quiesce before params change under them")
+        deadline = time.monotonic() + timeout
+        while self._batcher.active > 0 or len(self._queue) > 0:
+            if self._killed.is_set():
+                raise EngineKilled(
+                    f"engine hard-killed ({self._kill_reason}) while "
+                    f"quiescing for a weight swap")
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"engine did not quiesce within {timeout}s "
+                    f"(active={self._batcher.active}, "
+                    f"queued={len(self._queue)}); weight swap aborted")
+            time.sleep(poll)
+        # quiesced with admission closed: the worker touches no parameter
+        # (admission and ticks need a request) until this returns
+        t0 = time.perf_counter()
+        with _otrace.span("serving.llm/weight_swap"):
+            misses_before = self._cache.stats()["misses"]
+            self._decoder.model.set_state_dict(state_dict)
+            self._batcher.refresh_params()
+            self._batcher.weights_version += 1
+        self._stat_observe("weight_swap_ms",
+                           (time.perf_counter() - t0) * 1e3)
+        # programs the swap compiled or captured: 0 when it reuses them
+        self._stat_add("weight_swap_compiles",
+                       self._cache.stats()["misses"] - misses_before)
+        self._stat_add("weight_swaps", 1)
+        self._stat_set("weights_version", self._batcher.weights_version)
+        _flight.record_event(
+            "weight_swap",
+            {"engine": self._prefix,
+             "version": self._batcher.weights_version,
+             "cache_misses_before": misses_before})
+        return self._batcher.weights_version
+
+    # -- zero-loss serving: migration and crash recovery ---------------------
+    def _run_on_worker(self, fn, timeout: float = 30.0):
+        """Run ``fn`` on the worker at the top of its next loop, between
+        ticks; block until it ran and re-raise what it raised. A worker
+        that exits first fails the call with :class:`EngineKilled`."""
+        box: Dict[str, object] = {}
+        ev = threading.Event()
+        with self._ctl_lock:
+            if self._stopped.is_set():
+                raise EngineKilled(
+                    f"engine worker already stopped "
+                    f"({self._kill_reason or 'drained'})")
+            self._ctl.append((fn, box, ev))
+        if not ev.wait(timeout):
+            raise TimeoutError(
+                f"engine worker did not service the control call within "
+                f"{timeout}s")
+        if "exc" in box:
+            raise box["exc"]
+        return box.get("ret")
+
+    @property
+    def supports_migration(self) -> bool:
+        """True when live sequences can be exported and imported as page
+        payloads: the paged layout only (a slot engine still recovers by
+        journal replay)."""
+        return bool(getattr(self._batcher, "supports_export", False))
+
+    def export_sequences(self, *, timeout: float = 30.0) -> List:
+        """Snapshot and detach every live sequence, and the queued backlog
+        shipped cold, as host-side ``SequenceManifest``s
+        (``serving/fleet/migrate.py``). Pause admission first. Runs on the
+        worker between ticks; on return the engine holds none of them and
+        their futures are pending: ownership passes to the caller. Fault
+        site ``seq_export``."""
+        if not self.supports_migration:
+            raise NotImplementedError(
+                "sequence export requires the paged KV cache "
+                "(kv_layout='paged')")
+        action = fault_injector().fire("seq_export")
+        if action == "slow_io":
+            time.sleep(float(os.environ.get(
+                "PADDLE_TPU_FAULT_SLOW_IO_S", "1.0")))
+        elif action is not None:
+            raise RuntimeError(f"injected seq_export fault: {action}")
+        from ..fleet.migrate import SequenceManifest
+
+        def _export():
+            mans = self._batcher.export_all()
+            if len(self._queue):
+                for req in self._queue.take_many(len(self._queue),
+                                                 timeout=0.0):
+                    mans.append(SequenceManifest.for_queued(req))
+            return mans
+        mans = self._run_on_worker(_export, timeout=timeout)
+        self._stat_add("migrated_out", len(mans))
+        self._stat_set("queue_depth", len(self._queue))
+        return mans
+
+    def import_sequence(self, manifest, *, timeout: float = 30.0) -> bool:
+        """Splice a migrated sequence in and resume it at its next token.
+        False when the engine cannot take it (a cold, newer or
+        other-weights manifest, other geometry, pool pressure, the
+        ``seq_import`` fault site): the migrator falls back to replay."""
+        if self._killed.is_set() or self._draining.is_set() \
+                or self._stopped.is_set() or not self.supports_migration:
+            return False
+        from ..fleet.migrate import MANIFEST_VERSION
+        if manifest.version != MANIFEST_VERSION or manifest.cold:
+            return False
+        if manifest.weights_version != self.weights_version:
+            # KV computed under other weights never continues under these
+            return False
+        action = fault_injector().fire("seq_import")
+        if action == "slow_io":
+            time.sleep(float(os.environ.get(
+                "PADDLE_TPU_FAULT_SLOW_IO_S", "1.0")))
+        elif action is not None:
+            return False
+        ok = bool(self._run_on_worker(
+            lambda: self._batcher.import_manifest(manifest),
+            timeout=timeout))
+        if ok:
+            self._stat_add("migrated_in", 1)
+        return ok
+
+    def resubmit(self, req: GenerationRequest) -> bool:
+        """Adopt a request that never started decoding on its donor (a
+        migrated queue entry): it re-queues as if just submitted."""
+        if self._killed.is_set() or self._draining.is_set() \
+                or self._stopped.is_set():
+            return False
+        if req.tokens:       # partly streamed: the replay path
+            return self.resubmit_for_recovery(req, req.tokens)
+        self._queue.put(req, block=False)
+        self._stat_set("queue_depth", len(self._queue))
+        return True
+
+    def resubmit_for_recovery(self, req: GenerationRequest,
+                              resume_tokens) -> bool:
+        """Adopt an evacuated request by REPLAY: re-prefill
+        ``original_prompt + resume_tokens`` (the journaled transcript,
+        possibly a few tokens behind) and let the dedup guard verify and
+        swallow the re-generated gap. A transcript that contradicts the
+        client's stream fails the request and raises."""
+        if self._killed.is_set() or self._draining.is_set() \
+                or self._stopped.is_set():
+            return False
+        resume = [int(t) for t in resume_tokens]
+        n = min(len(resume), len(req.tokens))
+        if resume[:n] != req.tokens[:n]:
+            exc = TokenStreamDivergence(
+                f"request {req.req_id}: journaled transcript diverges "
+                f"from the client stream within the first {n} tokens")
+            req.fail(exc)
+            raise exc
+        # the rebuilt prompt must stay admissible; a shorter resume point
+        # is always safe (the gap is re-generated and verified)
+        cap = self._config.max_prompt_len \
+            - (req.prompt_len - req._resume_offset)
+        req.begin_resume(max(0, min(n, cap)))
+        self._queue.put(req, block=False)
+        self._stat_add("recovered", 1)
+        self._stat_set("queue_depth", len(self._queue))
+        return True
+
+    def enable_recovery(self, capacity: int = 1024):
+        """Arm crash recovery (idempotent): the worker notes the live
+        requests into a ``SequenceJournal`` each tick (flushed on its own
+        thread), and :meth:`kill` then evacuates in-flight requests,
+        futures pending, instead of failing them. Returns the journal."""
+        if self.journal is None:
+            from ..fleet.migrate import SequenceJournal
+            self.journal = SequenceJournal(
+                capacity=capacity, registry=self._registry,
+                stat_prefix=f"{self._prefix}.journal")
+        return self.journal
+
+    def take_evacuated(self) -> List[GenerationRequest]:
+        """Hand over the requests the worker detached at kill time
+        (futures pending); ownership passes to the caller, once."""
+        out, self._evacuated = self._evacuated, []
+        return out
+
     def kill(self, reason: str = "killed") -> List[dict]:
         """Hard kill, returning one record per affected request (id,
-        phase, tokens emitted): queued requests fail here, in-flight
-        generations are aborted with :class:`EngineKilled` by the worker
-        before its next tick."""
+        phase, tokens emitted, whether it is evacuated): queued requests
+        fail here; in-flight generations are evacuated for replay when
+        recovery is armed, else aborted with :class:`EngineKilled`, by
+        the worker before its next tick."""
+        journaled = self.journal is not None
         inflight = [{"req_id": r.req_id, "phase": "decode",
-                     "tokens": len(r.tokens)}
+                     "tokens": len(r.tokens), "evacuated": journaled}
                     for r in list(self._batcher._reqs.values())]
         return list(super().kill(reason)) + inflight
 
@@ -903,8 +1237,19 @@ class LLMEngine(DrainableEngineBase):
         inflight = list(self._batcher._reqs.values())
         self.begin_drain()
         self._stopped.wait(timeout)
+        if self.journal is not None:
+            self.journal.close()
         self._stat_set("queue_depth", 0)
         return inflight
+
+    close = drain
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.drain()
+        return False
 
     def stats(self) -> dict:
         """Scalar stats, histogram summaries, slot occupancy, the KV
@@ -945,6 +1290,14 @@ class LLMEngine(DrainableEngineBase):
         cfg = self._config
         try:
             while True:
+                while self._ctl:
+                    fn, box, ev = self._ctl.popleft()
+                    try:
+                        box["ret"] = fn()
+                    except BaseException as e:  # noqa: BLE001 -- boxed, re-raised on the calling thread
+                        box["exc"] = e
+                    finally:
+                        ev.set()
                 if self._killed.is_set():
                     return
                 self._poll_drain()
@@ -959,6 +1312,10 @@ class LLMEngine(DrainableEngineBase):
                 self._stat_set("slots_in_use", self._batcher.active)
                 if self._batcher.active:
                     self._batcher.tick()
+                    if self.journal is not None and self._batcher.active:
+                        # a reference enqueue: the journal's own thread
+                        # copies, the tick never pays for durability
+                        self.journal.note(self._batcher._reqs.values())
                 elif self._draining.is_set() and len(self._queue) == 0:
                     break
         except BaseException as e:  # worker death must not strand futures
@@ -977,20 +1334,35 @@ class LLMEngine(DrainableEngineBase):
             if self._killed.is_set():
                 self._abort_killed()
             self._dump_signalled_drain()
-            self._stopped.set()
+            # unblock any control call racing the worker's exit
+            with self._ctl_lock:
+                while self._ctl:
+                    fn, box, ev = self._ctl.popleft()
+                    box["exc"] = EngineKilled(
+                        "engine worker exited before servicing the "
+                        "control call")
+                    ev.set()
+                self._stopped.set()
 
     def _abort_killed(self):
-        """After a hard kill: abort the in-flight sequences (kill() failed
-        the queued ones) and record ``engine_killed``."""
+        """After a hard kill (kill() failed the queued requests): with
+        recovery armed EVACUATE the in-flight sequences, futures pending,
+        for the router's replay; else abort them. Records
+        ``engine_killed``."""
         n = self._batcher.active
-        self._batcher.abort_all(
-            lambda req: EngineKilled(
-                f"engine hard-killed ({self._kill_reason}) with request "
-                f"{req.req_id} in flight after {len(req.tokens)} tokens"))
+        if self.journal is not None:
+            self._evacuated.extend(self._batcher.evacuate())
+        else:
+            self._batcher.abort_all(
+                lambda req: EngineKilled(
+                    f"engine hard-killed ({self._kill_reason}) with request "
+                    f"{req.req_id} in flight after {len(req.tokens)} "
+                    f"tokens"))
         _flight.record_event(
-            "engine_killed", {"engine": self._prefix,
-                              "reason": self._kill_reason, "aborted": n,
-                              "evacuated": 0})
+            "engine_killed",
+            {"engine": self._prefix, "reason": self._kill_reason,
+             "aborted": 0 if self.journal is not None else n,
+             "evacuated": n if self.journal is not None else 0})
 
 
 def _require_draft(draft_model):

@@ -19,6 +19,14 @@ from ..utils.resilience import Deadline, DeadlineExceeded  # noqa: F401
 
 _REQ_IDS = itertools.count(1)
 
+#: Request phases and replica roles of the disaggregated LLM fleet: a
+#: request is prefill-phase when its prompt dominates its cost (a long
+#: prompt), else decode-phase; a replica's role says which phases it
+#: serves ("mixed" serves both).
+PHASE_PREFILL = "prefill"
+PHASE_DECODE = "decode"
+REPLICA_ROLES = (PHASE_PREFILL, PHASE_DECODE, "mixed")
+
 
 class ServingError(RuntimeError):
     """Base class for serving-side rejections."""
@@ -41,8 +49,20 @@ class RequestTooLarge(ServingError):
 
 class EngineKilled(ServingError):
     """The engine was hard-killed (the in-process analog of a replica
-    SIGKILL). Queued and in-flight requests fail with this error;
-    retryable, they never produced partial output."""
+    SIGKILL). Queued requests fail with this error (retryable: they never
+    produced partial output). In-flight generations of an engine with
+    recovery armed are not failed but evacuated and replayed onto
+    surviving replicas; only a sequence no survivor can adopt falls back
+    to this failure."""
+
+
+class TokenStreamDivergence(ServingError):
+    """A resumed token stream disagreed with what the client already
+    received: the resume-dedup guard of ``GenerationRequest`` raises it
+    when a migrated or replayed sequence would emit a duplicate, a gap or
+    another token at an already-streamed position, so the stream fails
+    instead of corrupting the client's output. Retryable; expected for
+    sampled streams recovered by replay."""
 
 
 class InferenceRequest:

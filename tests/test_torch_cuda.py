@@ -23,6 +23,7 @@ without jax it runs on its own, without the repository's conftest:
 """
 import contextlib
 import importlib
+import time
 
 import numpy as np
 import pytest
@@ -3224,3 +3225,124 @@ def test_probe_is_one_sync_and_save_none(cuda):
     assert monitor.stat_get("sentinel.host_syncs") == syncs + 1
     host = async_ckpt._host_flat(snap)
     assert all(v.device.type == "cpu" for v in host.values())
+
+
+# -- the fleet's data path (serving/fleet, paged export and import) -----------
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_read_pages_and_write_page_round_trip_bitwise(cuda, kv_dtype):
+    """``read_pages`` gathers pages to the host (NumPy, one leaf or the
+    int8 pair) and ``write_page`` puts each into another cache's fresh
+    page in place: bitwise, the arenas' addresses kept; a shared page is
+    refused."""
+    from paddle_tpu_torch.serving.llm.kvcache import kv_leaves
+    from paddle_tpu_torch.serving.llm.paged import PagedKVCache
+    kw = dict(num_slots=2, num_layers=3, max_seq=64, num_heads=4,
+              head_dim=32, kv_dtype=kv_dtype, page_size=16, device=cuda)
+    src, dst = PagedKVCache(**kw), PagedKVCache(**kw)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for t in kv_leaves(src.k) + kv_leaves(src.v):
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                  device=cuda, dtype=torch.int8))
+        else:
+            t.copy_(torch.rand(t.shape, generator=g, device=cuda) + 0.5)
+    src.alloc()
+    src.ensure_pages(0, 50)
+    pids = src.slot_page_ids(0)
+    k_pages, v_pages = src.read_pages(pids)
+    ptrs = [t.data_ptr() for t in kv_leaves(dst.k) + kv_leaves(dst.v)]
+    slot = dst.alloc()
+    dst.ensure_pages(slot, 50)
+    def page(p, i):
+        return {n: p[n][i] for n in p} if isinstance(p, dict) else p[i]
+    for i, pid in enumerate(dst.slot_page_ids(slot)):
+        dst.write_page(pid, page(k_pages, i), page(v_pages, i))
+    assert ptrs == [t.data_ptr() for t in kv_leaves(dst.k) + kv_leaves(dst.v)]
+    for a, b in zip(kv_leaves(src.k) + kv_leaves(src.v),
+                    kv_leaves(dst.k) + kv_leaves(dst.v)):
+        idx_a = torch.tensor(pids, device=cuda)
+        idx_b = torch.tensor(dst.slot_page_ids(slot), device=cuda)
+        assert a[idx_a].cpu().numpy().tobytes() == \
+            b[idx_b].cpu().numpy().tobytes()
+    leaf = k_pages["q"] if kv_dtype else k_pages
+    assert isinstance(leaf, np.ndarray) and leaf.shape == (4, 3, 16, 4, 32)
+    dst.adopt_shared_page(dst.alloc(), dst.slot_page_ids(slot)[0])
+    with pytest.raises(ValueError, match="refcount"):
+        dst.write_page(dst.slot_page_ids(slot)[0], page(k_pages, 0),
+                       page(v_pages, 0))
+
+
+def test_migrated_sequence_resumes_bitwise_through_the_kernel(cuda):
+    """A graphed paged engine's live sequence exported mid-stream and
+    imported into a sibling engine (through B4 on both) gives an
+    undisturbed engine's tokens bitwise; B4's launches are one a layer a
+    decode step over the three engines."""
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    cfg = dict(num_slots=4, max_seq=64, kv_layout="paged", page_size=16,
+               paged_attn_impl="kernel", prefill_buckets=(8, 32))
+    prompt = list(range(3, 23))
+    before = tpa.paged_attention.launches
+    engines = [LLMEngine(model, LLMEngineConfig(**cfg)) for _ in range(3)]
+    ref_eng, a, b = engines
+    try:
+        ref = ref_eng.generate(prompt, max_new_tokens=40)["tokens"]
+        req = a.submit(prompt, max_new_tokens=40, stream=True)
+        deadline = time.monotonic() + 60
+        while len(req.tokens) < 5 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        a.pause_admission()
+        man = a.export_sequences(timeout=30)[0]
+        assert b.import_sequence(man, timeout=30)
+        assert list(req.iter_tokens(timeout=120)) == ref
+    finally:
+        for e in engines:
+            e.drain(timeout=60)
+    steps = sum(e.stats()["stats"].get(k, 0) for e in engines
+                for k in ("serving.llm.decode_ticks",
+                          "serving.llm.warmup_decode_steps"))
+    assert tpa.paged_attention.launches - before == \
+        MODEL["num_layers"] * steps
+
+
+def test_a_capture_beside_a_replaying_engine_keeps_both_launch_counts(cuda):
+    """C12: an engine's warm-up captures its programs while a sibling
+    engine's worker replays its decode step on the same card. Each
+    thread's launches land once: B4's count is one a layer a decode step
+    of both engines, and both serve their tokens."""
+    import threading
+    model = GPTForCausalLM(GPTConfig(**dict(MODEL,
+                                            max_position_embeddings=256)),
+                           device=cuda, seed=0).eval()
+    cfg = LLMEngineConfig(num_slots=2, max_seq=256, kv_layout="paged",
+                          page_size=16, paged_attn_impl="kernel",
+                          prefill_buckets=(8, 64, 128))
+    before = tpa.paged_attention.launches
+    a = LLMEngine(model, cfg)
+    stop = threading.Event()
+    served = []
+
+    def pump():
+        while not stop.is_set():
+            served.append(a.generate([1, 2, 3], max_new_tokens=200))
+    t = threading.Thread(target=pump, daemon=True)
+    t.start()
+    try:
+        time.sleep(0.05)
+        ticks0 = a.stats()["stats"].get("serving.llm.decode_ticks", 0)
+        b = LLMEngine(model, cfg)                  # captures now
+        ticks1 = a.stats()["stats"].get("serving.llm.decode_ticks", 0)
+        stop.set()
+        t.join(timeout=120)
+        got = b.generate([1, 2, 3], max_new_tokens=200)["tokens"]
+    finally:
+        stop.set()
+        a.drain(timeout=60)
+        b.drain(timeout=60)
+    assert ticks1 > ticks0                         # a decoded meanwhile
+    assert served and all(s["tokens"] == got for s in served)
+    steps = sum(e.stats()["stats"].get(k, 0) for e in (a, b)
+                for k in ("serving.llm.decode_ticks",
+                          "serving.llm.warmup_decode_steps"))
+    assert tpa.paged_attention.launches - before == \
+        MODEL["num_layers"] * steps

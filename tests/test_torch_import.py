@@ -93,6 +93,11 @@ def test_import_leaves_no_jax_in_subprocess():
         "import paddle_tpu_torch.sentinel.quarantine\n"
         "import paddle_tpu_torch.distributed.elastic_runtime.watchdog\n"
         "import paddle_tpu_torch.distributed.elastic_runtime.heartbeat\n"
+        "import paddle_tpu_torch.serving.replica\n"
+        "import paddle_tpu_torch.serving.router\n"
+        "import paddle_tpu_torch.serving.fleet\n"
+        "import paddle_tpu_torch.serving.fleet.migrate\n"
+        "import paddle_tpu_torch.serving.fleet.swap\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(repr(bad))\n")
@@ -284,5 +289,44 @@ def test_a3_knobs_raise(knob, exc, match):
             x[None], 2, divisor_override=8),
     }.get(knob) or (lambda: getattr(models, knob[:-len("_pretrained")])(
         pretrained=True))
+    with pytest.raises(exc, match=match):
+        call()
+
+
+@pytest.mark.parametrize("knob,exc,match", [
+    ("router_model_axes", NotImplementedError, "A10"),
+    ("replica_mesh", NotImplementedError, "A10"),
+    ("predictor_replica_factory", NotImplementedError, "A11"),
+    ("fleet_autoscaler", NotImplementedError, "slice 24"),
+    ("fleet_trace_recorder", NotImplementedError, "slice 24"),
+    ("router_without_cuda", RuntimeError, "device='cpu'"),
+])
+def test_fleet_knobs_raise(monkeypatch, knob, exc, match):
+    """The fleet's refusals: model-parallel replicas (a mesh, the
+    router's ``model_axes``), inference-artifact replicas, the fleet's
+    autoscaler and trace replay (the next slice), and a router on no
+    device where CUDA is absent (the port asks for CUDA unless told
+    ``device="cpu"``)."""
+    from paddle_tpu_torch.serving import Replica, Router, RouterConfig
+    from paddle_tpu_torch.serving import predictor_replica_factory
+    if knob == "router_without_cuda":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def fleet_name(name):
+        exec(f"from paddle_tpu_torch.serving.fleet import {name}", {})
+    call = {
+        "router_model_axes": lambda: Router(
+            lambda r: None, RouterConfig(kind="llm",
+                                         model_axes={"model": 2}),
+            device="cpu"),
+        "replica_mesh": lambda: Replica(0, lambda r: None, device="cpu",
+                                        mesh=object()),
+        "predictor_replica_factory": lambda: predictor_replica_factory(
+            "/nonexistent/model"),
+        "fleet_autoscaler": lambda: fleet_name("Autoscaler"),
+        "fleet_trace_recorder": lambda: fleet_name("TraceRecorder"),
+        "router_without_cuda": lambda: Router(
+            lambda r: None, RouterConfig(kind="llm")),
+    }[knob]
     with pytest.raises(exc, match=match):
         call()
