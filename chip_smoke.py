@@ -467,7 +467,11 @@ Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result. ``--phase 22`` runs,
 after the build, phase 21's two GPT-3 1.3B dygraph references and phase
 22 alone, and prints that phase's numbers only; ``--phase 23`` to
-``--phase 32`` run that phase alone after the build.
+``--phase 33`` run that phase alone after the build. B4 chunks by its
+rule wherever the port's committed tuner table has no winner; its
+launches never read the tuner's disk cache (phase 33's search writes to
+a temporary cache of its own), and phase 2's B4 times are the rule's,
+with a committed winner's timed beside them.
 
 Phase 30 drives the host-plane substrate on GPT-3 1.3B: live MFU on
 phase 7's graphed fp32 and O1 ``train_batch`` (``attach_step_meter``;
@@ -558,6 +562,45 @@ buckets, ``prefill_threshold`` 256): the 4 long prompts hand off, the
 decode replica reuses their heads, and the tokens equal one slot
 engine's under phase 17's prefix rule (noise: the tail prefill behind
 the prefill replica's head rows against the full prefill).
+
+Phase 33 drives the host planes' front door on GPT-3 1.3B (seed 0,
+fp32), two paged replicas of phase 4's engine under one ``Router``. (1)
+HTTP: ``make_server(router=)`` on 127.0.0.1, port 0; phase 4's 8
+requests x 32 tokens posted from 8 client threads twice (4 streaming and
+4 not, then the other way round): every token list equal to the same
+router's in-process run of the 8 under the near-tie rule (noise: phase
+32's replay noise; counted bitwise), a prompt's streamed and plain
+lists equal, ``/healthz`` 200 with the aggregate, ``/statsz`` with the
+router and both replicas, ``/metricsz`` parsed as Prometheus text with
+the router's and both replicas' families; ``req_ms`` against the
+in-process ms. (2) On the same router: replica 1 parked, the 8 requests
+on replica 0 alone give one replica's capacity; then
+``Autoscaler(min 1, max 2)`` under ``TraceReplayer`` over
+``synthesize_trace(seed=0)`` at 1.5 times that capacity for 12 s, phase
+4's prompt lengths and 32 tokens, SLO p95 twice the one-replica batch's
+slowest request and a queue of 8: 0 drops, completed equal to offered,
+every result on weights version 0, a scale-up whose unpark booted, and
+a scale-down once calm; the time from the breach run's first tick to
+the unparked replica admitting (``fleet.autoscale.breach_to_up_ms``),
+the unpark's and the parks' ms, latency p50/p95, the retries. (3) The
+CLI: ``python -m paddle_tpu_torch.serving serve-llm --port 0`` at
+GPT-3 1.3B's widths (random weights) in a child process: the port line
+and boot seconds, ``/healthz``, one plain and one streaming
+``/generate`` of the same prompt with equal tokens, its slot engine on
+the card, and SIGTERM ending in "drained, bye" and exit 0. (4) The
+tuner: ``autotune_paged_attn`` at phase 4's B4 shape (8 x 16 x 128,
+16-row pages, the 64 pages of 1024 rows; recorded) and at 8 pages (not
+recorded) into a temporary cache, every candidate's device us beside
+the rule's; the winner read back from disk after ``clear_memo()`` while
+B4's launch-path lookup stays what it was before the search (the disk
+cache never reaches the main path), and B4 under the winner on phase
+2's inputs within 1e-4 of plain, bitwise repeatable, and captured and
+replayed in a CUDA graph bitwise. Its launch counts are set to 0 before
+and read after each lane: the HTTP lane and the autoscaler lane (B4 24
+a decode step of every engine, the resurrected replica's included), the
+CLI lane (every kernel 0, read from the child's ``/statsz``: its slot
+engine attends densely), and the tuner (its search's calls, then 6
+holding the winner).
 """
 from __future__ import annotations
 
@@ -1201,7 +1244,12 @@ def check_paged(torch, pa_mod, gen):
     s_n, h, d = q.shape
     page, pps = kb.shape[1], bt.shape[1]
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    chunk = pa_mod.chunk_pages_for(pps, s_n * h, n_sms)
+    # the checks launch as the main path does (the committed table's
+    # winner for this shape, else the rule); the row's times are the
+    # rule's, and a committed winner's are timed beside them
+    rule = pa_mod.BLOCKS_PER_SM
+    bps = pa_mod.paged_blocks_per_sm(h, d, page, q.dtype, q.device) or rule
+    chunk = pa_mod.chunk_pages_for(pps, s_n * h, n_sms, rule)
     row = None
     for name, pos in PAGED_CASES:
         positions = torch.tensor(pos, dtype=torch.int32, device="cuda")
@@ -1211,20 +1259,27 @@ def check_paged(torch, pa_mod, gen):
         torch.cuda.synchronize()
         same = torch.equal(out, again)
         err = (out - ref).abs().max().item()
-        def run():
-            return pa_mod.paged_attention(q, kb, vb, bt, positions)
+
+        def run(b=rule):
+            return pa_mod.paged_attention(q, kb, vb, bt, positions,
+                                          blocks_per_sm=b)
         ms = time_ms(run, spin=True)
         host_ms = host_time_ms(run)
         plain_ms = time_ms(
             lambda: pa_mod.paged_attention_plain(q, kb, vb, bt, positions),
             iters=5)
+        win_ms = None if bps == rule else time_ms(lambda: run(bps),
+                                                  spin=True)
         bms, by, rows = paged_bound(torch, q, kb, bt, positions)
         log(f"B4 paged {name} S={s_n} H={h} D={d} page={page} "
-            f"pages/seq={pps} fp32 ({chunk} pages a chunk, {n_sms} SMs): "
+            f"pages/seq={pps} fp32 (the rule: {chunk} pages a chunk, {rule}"
+            f" blocks an SM, {n_sms} SMs; the checks at {bps}): "
             f"max_abs_err {err:.3e} (tol {TOL['fp32']:.0e}), two launches "
             f"bitwise equal {same}; kernel {ms:.4f} ms (the wrapper's host "
             f"time a call {host_ms:.4f} ms) plain {plain_ms:.4f} ms bound "
-            f"{bms:.4f} ms ({by}), {rows} visible rows")
+            f"{bms:.4f} ms ({by}), {rows} visible rows"
+            + ("" if win_ms is None else
+               f"; the committed winner {bps} blocks an SM {win_ms:.4f} ms"))
         if not (same and err <= TOL["fp32"]
                 and bool(torch.isfinite(out).all())):
             raise RuntimeError(f"paged attention kernel disagrees with its "
@@ -1234,11 +1289,13 @@ def check_paged(torch, pa_mod, gen):
                    "plain_ms": plain_ms,
                    "bound_ms": bms, "bound_by": by, "library_ms": None,
                    "tolerance": TOL["fp32"], "bitwise_repeatable": same,
-                   "chunk_pages": chunk,
-                   "shape": f"S={s_n} H={h} D={d} page={page} "
-                            f"pages/seq={pps} fp32"}
+                   "chunk_pages": chunk, "blocks_per_sm": rule,
+                   "checked_blocks_per_sm": bps, "committed_winner_ms":
+                   win_ms, "shape": f"S={s_n} H={h} D={d} page={page} "
+                                    f"pages/seq={pps} fp32"}
         else:
             row.update(full_ms=ms, full_bound_ms=bms, full_max_abs_err=err,
+                       full_committed_winner_ms=win_ms,
                        full_shape="all 8 sequences at position 1023")
     row.update(check_paged_replay(torch, pa_mod, gen, q, kb, vb, bt))
     positions = torch.tensor(PAGED_CASES[0][1], dtype=torch.int32,
@@ -8734,14 +8791,17 @@ def _fleet_io(reg, kind):
             "gb_per_s": nbytes / max(secs, 1e-9) / 1e9}
 
 
-def _fleet_check_b4(lane, launched, log_):
+def _fleet_check_b4(lane, launched, log_, base=0):
+    """B4's launches in ``launched`` against one a layer a decode step of
+    every engine ``log_`` tracks, less ``base`` (its total before the
+    lane); returns (by engine, the lane's launches)."""
     per, want = log_.b4()
     got = launched["paged_attention"]
-    if got != want:
-        raise RuntimeError(f"phase 32 {lane}: B4 launched {got} times, not "
-                           f"the {want} of one a layer a decode step "
+    if got != want - base:
+        raise RuntimeError(f"{lane}: B4 launched {got} times, not the "
+                           f"{want - base} of one a layer a decode step "
                            f"({per})")
-    return per
+    return per, got
 
 
 def _fleet_router(torch, log_, model_factory, cfg, b4_per_step, **rcfg):
@@ -8804,7 +8864,7 @@ def fleet_park_lane(torch, model, prompts, kv_dtype, smi, reset_counters,
     finally:
         router.drain(timeout=FLEET_TIMEOUT)
     launched = read_counters()
-    per = _fleet_check_b4(f"park {kv_dtype}", launched, log_)
+    per, _ = _fleet_check_b4(f"phase 32 park {kv_dtype}", launched, log_)
     mig = {k.split("fleet.migrate.")[1]: v for k, v in stats.items()
            if k.startswith("fleet.migrate.")}
     pages = {k: sum(v for n, v in stats.items()
@@ -9001,7 +9061,7 @@ def fleet_kill_lane(torch, model, prompts, ref, noise, ref_dec, ref_params,
     got = [list(r.tokens) for r in reqs]
     parts = near_tie_parts(torch, ref_dec, ref_params, prompts, ref, got,
                            noise["noise"], "phase 32 kill replay")
-    per = _fleet_check_b4("kill", launched, log_)
+    per, _ = _fleet_check_b4("phase 32 kill", launched, log_)
     first = sorted((arrivals[i][n] - t_kill) * 1e3
                    for i, n in at_kill.items() if len(arrivals[i]) > n)
     divergence = sum(v for k, v in stats.items()
@@ -9258,7 +9318,7 @@ def fleet_roll_lane(torch, dev, prompts, work, smi, reset_counters,
         stop.set()
         router.drain(timeout=FLEET_TIMEOUT)
     launched = read_counters()
-    per = _fleet_check_b4("roll", launched, log_)
+    per, _ = _fleet_check_b4("phase 32 roll", launched, log_)
     bad = [(i, v, _first_difference(t, refs[v][i])) for i, t, v in done
            if t != refs[v][i]]
     versions = sorted({v for _, _, v in done})
@@ -9348,6 +9408,503 @@ def fleet_phase(torch, fa_mod, dev, smi, reset_counters, read_counters):
     return out, launches, {}
 
 
+# -- phase 33: the front door, the autoscaler, replay and the tuner ------------
+
+FRONT_SCALE_S = 12.0      # seconds of arrivals in the autoscaler's storm
+FRONT_OVERLOAD = 1.5      # the storm's rate over one replica's capacity
+FRONT_TIMEOUT = 600.0     # every wait of the phase
+TUNE_TRIALS = 5           # timed trials of each B4 candidate
+TUNE_ITERS = 20           # launches a trial
+
+
+def _http(url, payload=None, timeout=FRONT_TIMEOUT):
+    """(status, body bytes, content type) of a GET, or of a JSON POST."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, method="GET" if payload is None else "POST",
+        data=None if payload is None else json.dumps(payload).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read(), r.headers["Content-Type"]
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers["Content-Type"]
+
+
+def _generate_over_http(url, prompt, stream):
+    """One ``/generate`` of FLEET_NEW tokens: (tokens, the server's
+    req_ms, the client's wall ms)."""
+    t0 = time.perf_counter()
+    code, body, _ = _http(f"{url}/generate", {
+        "prompt": prompt, "max_new_tokens": FLEET_NEW, "stream": stream,
+        "timeout_s": FRONT_TIMEOUT})
+    wall = (time.perf_counter() - t0) * 1e3
+    if code != 200:
+        raise RuntimeError(f"phase 33: /generate answered {code}: {body!r}")
+    if not stream:
+        out = json.loads(body)
+        return out["tokens"], out["req_ms"], wall
+    lines = [json.loads(ln) for ln in body.splitlines() if ln]
+    if not lines[-1].get("done") or any("error" in ln for ln in lines):
+        raise RuntimeError(f"phase 33: the stream ended with {lines[-1]}")
+    return [ln["token"] for ln in lines[:-1]], lines[-1]["req_ms"], wall
+
+
+def _prometheus_ok(text):
+    """The families of a Prometheus text exposition (format 0.0.4), every
+    sample line parsed as ``name{labels} value``; raises on a line that
+    is neither."""
+    import re
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? '
+                        r'(-?[0-9.eE+-]+|NaN|[+-]Inf)$')
+    fams = set()
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            fams.add(ln.split()[2])
+        elif ln and not ln.startswith("#") and not sample.match(ln):
+            raise RuntimeError(f"phase 33: /metricsz line {ln!r} is not a "
+                               f"Prometheus sample")
+    return fams
+
+
+def _in_process(router, prompts):
+    """The 8 requests submitted at once to the router: (tokens, each
+    one's ms from the submit to its result)."""
+    done = {}
+    t0 = time.perf_counter()
+    reqs = [router.submit(p, max_new_tokens=FLEET_NEW) for p in prompts]
+    for i, r in enumerate(reqs):
+        r.future.add_done_callback(
+            lambda f, i=i: done.setdefault(i, time.perf_counter()))
+    toks = [r.result(timeout=FRONT_TIMEOUT)["tokens"] for r in reqs]
+    return toks, [(done[i] - t0) * 1e3 for i in range(len(reqs))]
+
+
+def front_http_lane(torch, router, log_, prompts, smi, reset_counters,
+                    read_counters):
+    """Phase 33 lane 1: the 8 requests through ``make_server(router=)``
+    on 127.0.0.1 from 8 client threads, twice (4 streaming and 4 not,
+    then the other way round), against the same router's in-process run;
+    ``/healthz``, ``/statsz`` and ``/metricsz``. Returns (results,
+    launches, in-process tokens, HTTP tokens by round)."""
+    from paddle_tpu_torch.serving.http import make_server
+    reset_counters()
+    _, base = log_.b4()
+    ref, inproc_ms = _in_process(router, prompts)
+    httpd = make_server(None, port=0, router=router)
+    srv = threading.Thread(target=httpd.serve_forever, daemon=True)
+    srv.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    rounds = []
+    try:
+        for flip in (0, 1):
+            got = [None] * len(prompts)
+
+            def client(i):
+                got[i] = _generate_over_http(url, prompts[i],
+                                             (i + flip) % 2 == 0)
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(FRONT_TIMEOUT)
+            if any(g is None for g in got):
+                raise RuntimeError("phase 33: a client thread failed")
+            rounds.append(got)
+        code, body, _ = _http(f"{url}/healthz")
+        health = json.loads(body)
+        if code != 200 or health["status"] != "ok" \
+                or len(health["replicas"]) != 2:
+            raise RuntimeError(f"phase 33: /healthz {code} {health}")
+        code, body, _ = _http(f"{url}/statsz")
+        st = json.loads(body)
+        if code != 200 or set(st["router"]["replicas"]) != {"0", "1"}:
+            raise RuntimeError(f"phase 33: /statsz {code} {list(st)}")
+        code, body, ctype = _http(f"{url}/metricsz")
+        fams = _prometheus_ok(body.decode())
+        want_fams = {"paddle_tpu_serving_router_dispatched_total",
+                     "paddle_tpu_serving_router_replica_healthy",
+                     *(f"paddle_tpu_serving_llm_replica{r}_tokens_generated"
+                       f"_total" for r in (0, 1))}
+        if code != 200 or not ctype.startswith("text/plain; version=0.0.4") \
+                or not want_fams <= fams:
+            raise RuntimeError(f"phase 33: /metricsz {code} {ctype} lacks "
+                               f"{sorted(want_fams - fams)}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.join(60)
+    launched = read_counters()
+    per, want = _fleet_check_b4("phase 33 http", launched, log_, base)
+    for i in range(len(prompts)):
+        if rounds[0][i][0] != rounds[1][i][0]:
+            raise RuntimeError(f"phase 33: request {i}'s streamed and plain "
+                               f"tokens differ")
+    req_ms = [[g[1] for g in r] for r in rounds]
+    out = {"requests": 2 * len(prompts), "streamed": len(prompts),
+           "in_process_ms": inproc_ms, "req_ms": req_ms,
+           "client_ms": [[g[2] for g in r] for r in rounds],
+           "bitwise": sum(g[0] == a for r in rounds
+                          for g, a in zip(r, ref)),
+           "healthz": health["status"], "metric_families": len(fams),
+           "b4_by_engine": per, "b4_launches": want}
+    log(f"phase 33 http ({smi}): {out['bitwise']}/{out['requests']} token "
+        f"lists bitwise the in-process run's; req_ms {req_ms} against "
+        f"in-process {[round(x, 1) for x in inproc_ms]}; /healthz ok, "
+        f"/statsz router and 2 replicas, /metricsz {len(fams)} families; "
+        f"B4 {want} ({per})")
+    return out, launched, ref, [[g[0] for g in r] for r in rounds]
+
+
+def _one_replica_capacity(router, prompts):
+    """Requests a second one replica serves: the 8 requests at once on
+    replica 0 alone (replica 1 parked); also their ms."""
+    t0 = time.perf_counter()
+    _, ms = _in_process(router, prompts)
+    wall = time.perf_counter() - t0
+    return len(prompts) / wall, ms
+
+
+def front_autoscale_lane(torch, router, log_, prompts, smi, reset_counters,
+                         read_counters):
+    """Phase 33 lane 2: ``Autoscaler(min 1, max 2)`` over the same router,
+    fed by ``TraceReplayer`` over ``synthesize_trace(seed=0)`` with phase
+    4's prompt lengths and FLEET_NEW tokens, at FRONT_OVERLOAD times the
+    measured capacity of one replica; then calm until a scale-down."""
+    from paddle_tpu_torch.serving.fleet import (SLO, Autoscaler,
+                                                AutoscalerConfig,
+                                                TraceReplayer,
+                                                synthesize_trace)
+    reg = router.registry
+    reset_counters()
+    _, base = log_.b4()
+    t0 = time.perf_counter()
+    if not router.park(1):
+        raise RuntimeError("phase 33: replica 1 was not parked")
+    park0_ms = (time.perf_counter() - t0) * 1e3
+    cap, one_ms = _one_replica_capacity(router, prompts)
+    rate = FRONT_OVERLOAD * cap
+    slo = SLO(p95_ms=2.0 * max(one_ms), max_queue=len(prompts),
+              min_replicas=1, max_replicas=2)
+    trace = synthesize_trace(int(rate * FRONT_SCALE_S), rate, seed=0,
+                             max_new_tokens=FLEET_NEW)
+    for i, rec in enumerate(trace):
+        rec["prompt_len"] = PROMPT_LENS[i % len(PROMPT_LENS)]
+    scaler = Autoscaler(router, slo, AutoscalerConfig(
+        interval_s=0.25, breach_ticks=2, calm_ticks=4, cooldown_s=2.0))
+    t_start = time.perf_counter()
+    with scaler:
+        rep = TraceReplayer(router, trace, vocab=CFG_13B["vocab_size"],
+                            request_timeout=FRONT_TIMEOUT, workers=256,
+                            default_max_new_tokens=FLEET_NEW).run()
+        deadline = time.monotonic() + FRONT_TIMEOUT
+        while scaler.stats().get("fleet.autoscale.scale_downs", 0) < 1:
+            if time.monotonic() > deadline:
+                raise RuntimeError("phase 33: no scale-down once calm")
+            time.sleep(0.05)
+    seconds = time.perf_counter() - t_start
+    stats = reg.stats()
+    launched = read_counters()
+    per, want = _fleet_check_b4("phase 33 autoscale", launched, log_, base)
+    hist = {k: reg.histogram(f"fleet.autoscale.{k}")
+            for k in ("breach_to_up_ms", "unpark_ms", "park_ms")}
+    mig = {k.split("fleet.migrate.")[1]: v for k, v in stats.items()
+           if k.startswith("fleet.migrate.")}
+    out = {"rate_rps": rate, "one_replica_rps": cap,
+           "one_replica_ms": one_ms, "slo_p95_ms": slo.p95_ms,
+           "slo_max_queue": slo.max_queue, "offered": rep["offered"],
+           "completed": rep["completed"], "dropped": rep["dropped"],
+           "retries": rep["retries"], "latency_p50_ms": rep["latency_p50_ms"],
+           "latency_p95_ms": rep["latency_p95_ms"],
+           "arrival_lag_p95_ms": rep["arrival_lag_p95_ms"],
+           "weights_versions": rep["weights_versions"],
+           "scale_ups": stats.get("fleet.autoscale.scale_ups", 0),
+           "scale_downs": stats.get("fleet.autoscale.scale_downs", 0),
+           "resurrections": stats.get("serving.router.resurrections", 0),
+           "ticks": stats.get("fleet.autoscale.ticks_total", 0),
+           "tick_errors": stats.get("fleet.autoscale.tick_errors", 0),
+           "breach_to_up_ms": hist["breach_to_up_ms"],
+           "unpark_ms": hist["unpark_ms"], "park_ms": hist["park_ms"],
+           "first_park_ms": park0_ms, "migrate": mig, "seconds": seconds,
+           "b4_by_engine": per, "b4_launches": want}
+    log(f"phase 33 autoscale ({smi}): one replica {cap:.2f} req/s, storm "
+        f"{rate:.2f} req/s x {FRONT_SCALE_S} s ({rep['offered']} requests), "
+        f"SLO p95 {slo.p95_ms:.0f} ms / queue {slo.max_queue}; completed "
+        f"{rep['completed']}, dropped {rep['dropped']}, retries "
+        f"{rep['retries']}; p50 {rep['latency_p50_ms']:.0f} ms p95 "
+        f"{rep['latency_p95_ms']:.0f} ms; ups {out['scale_ups']} downs "
+        f"{out['scale_downs']}; breach to admitting "
+        f"{hist['breach_to_up_ms'].get('max')} ms, unpark "
+        f"{hist['unpark_ms'].get('max')} ms, park {hist['park_ms']}; "
+        f"migrate {mig}; B4 {want}")
+    if rep["dropped"] or rep["completed"] != rep["offered"] \
+            or rep["weights_versions"] != {0: rep["offered"]}:
+        raise RuntimeError(f"phase 33 autoscale: {rep}")
+    if out["scale_ups"] < 1 or hist["breach_to_up_ms"].get("count", 0) < 1 \
+            or out["scale_downs"] < 1 or out["tick_errors"] \
+            or mig.get("sequences_failed", 0):
+        raise RuntimeError(f"phase 33 autoscale: no booted scale-up and "
+                           f"scale-down, or a failure: {out}")
+    return out, launched
+
+
+def front_cli_lane(torch, dev, prompt, smi, reset_counters, read_counters):
+    """Phase 33 lane 3: ``python -m paddle_tpu_torch.serving serve-llm
+    --port 0`` at GPT-3 1.3B's widths (random weights) in a child
+    process: the port line, ``/healthz``, one plain and one streaming
+    ``/generate`` of the same prompt, ``/statsz``'s slot layout, and
+    SIGTERM ending in "drained, bye" and exit 0. The launch counts are
+    the child's, from its ``/statsz`` after both requests: its slot
+    engine attends densely, so every kernel counts 0."""
+    import queue
+    import signal
+    reset_counters()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.serving", "serve-llm",
+           "--port", "0", "--device", str(dev),
+           "--vocab-size", str(CFG_13B["vocab_size"]),
+           "--hidden-size", str(CFG_13B["hidden_size"]),
+           "--num-layers", str(CFG_13B["num_layers"]),
+           "--num-heads", str(CFG_13B["num_heads"]),
+           "--max-positions", str(CFG_13B["max_position_embeddings"]),
+           "--num-slots", "8",
+           "--max-seq", str(CFG_13B["max_position_embeddings"]),
+           "--prefill-buckets", "64,{0},{1}".format(
+               CFG_13B["max_position_embeddings"] // 2,
+               CFG_13B["max_position_embeddings"]),
+           "--max-new-tokens", str(FLEET_NEW)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, out_lines = queue.Queue(), []
+
+    def read():
+        for ln in proc.stdout:
+            out_lines.append(ln)
+            lines.put(ln.strip())
+        lines.put(None)
+    threading.Thread(target=read, daemon=True).start()
+    try:
+        port = None
+        while port is None:
+            ln = lines.get(timeout=FRONT_TIMEOUT)
+            if ln is None:
+                raise RuntimeError("phase 33: serve-llm exited before its "
+                                   "port line: " + "".join(out_lines[-20:]))
+            if ln.startswith("PADDLE_TPU_SERVING_PORT="):
+                port = int(ln.split("=", 1)[1])
+        boot_s = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{port}"
+        code, body, _ = _http(f"{url}/healthz")
+        health = json.loads(body)
+        plain, plain_ms, _ = _generate_over_http(url, prompt, False)
+        streamed, stream_ms, _ = _generate_over_http(url, prompt, True)
+        stats = json.loads(_http(f"{url}/statsz")[1])
+        st, launched = stats["llm"], stats["kernel_launches"]
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=FRONT_TIMEOUT)
+        drain_s = time.perf_counter() - t1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+    while lines.get(timeout=60) is not None:
+        pass
+    text = "".join(out_lines)
+    here = read_counters()
+    out = {"boot_s": boot_s, "drain_s": drain_s, "exit_code": rc,
+           "healthz": [code, health], "kv_layout": st["kv_layout"],
+           "device": st["device"], "tokens_equal": plain == streamed,
+           "req_ms": [plain_ms, stream_ms], "child_launches": launched}
+    log(f"phase 33 cli ({smi}): serve-llm booted in {boot_s:.1f} s (the "
+        f"port line), /healthz {code} {health}, plain and streamed tokens "
+        f"equal {plain == streamed} ({len(plain)} tokens, req_ms "
+        f"{plain_ms:.1f} / {stream_ms:.1f}), engine {st['kv_layout']} on "
+        f"{st['device']}, the child's kernel launches {launched}; "
+        f"SIGTERM: exit {rc} in {drain_s:.1f} s")
+    if code != 200 or health.get("status") != "ok" or plain != streamed \
+            or len(plain) != FLEET_NEW or rc != 0 \
+            or "drained, bye" not in text or st["kv_layout"] != "slot" \
+            or st["device"] != str(dev) or set(launched) != set(here) \
+            or any(launched.values()) or any(here.values()):
+        raise RuntimeError(f"phase 33 cli: {out}\n{text[-2000:]}")
+    return out, launched
+
+
+def tuner_lane(torch, pa_mod, dev, gen, smi, reset_counters, read_counters):
+    """Phase 33 lane 4: ``autotune_paged_attn`` at phase 4's B4 shape (8
+    sequences, 16 heads of 128, 16-row pages, 64 pages: the 1024 rows)
+    into a temporary cache, recorded; at 8 pages (128 rows) not recorded;
+    then the winner read back from disk after ``clear_memo()`` while B4's
+    launch-path lookup stays what it was before the search, and B4 under
+    the winner on phase 2's inputs: within 1e-4 of plain, bitwise
+    repeatable, captured and replayed in a CUDA graph."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import tuner
+    from paddle_tpu_torch.core import graphs
+    work = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    old = os.environ.get("PADDLE_TPU_TUNE_CACHE")
+    os.environ["PADDLE_TPU_TUNE_CACHE"] = work
+    tuner.clear_memo()
+    main_bps = tuner.paged_blocks_per_sm(16, 128, 16, torch.float32, dev)
+    try:
+        reset_counters()
+        res = {pps: tuner.autotune_paged_attn(
+            8, 16, 128, 16, pages_per_seq=pps, trials=TUNE_TRIALS,
+            iters=TUNE_ITERS, record=pps == 64, device=dev)
+            for pps in (64, 8)}
+        in_search = read_counters()
+        searched = in_search["paged_attention"]
+        calls = sum(r["launches"] for r in res.values())
+        if searched != calls:
+            raise RuntimeError(f"phase 33 tuner: B4 launched {searched} "
+                               f"times in the search, not its {calls} calls")
+        win = res[64]["blocks_per_sm"]
+        tuner.clear_memo()
+        back = (tuner.get_paged_attn_config(16, 128, 16, "float32",
+                                            device=dev)
+                or {}).get("blocks_per_sm")
+        main_after = tuner.paged_blocks_per_sm(16, 128, 16, torch.float32,
+                                               dev)
+        q, kb, vb, bt = paged_case(torch, gen)
+        pos = torch.tensor(PAGED_CASES[0][1], dtype=torch.int32, device=dev)
+        reset_counters()
+        out = pa_mod.paged_attention(q, kb, vb, bt, pos, blocks_per_sm=win)
+        again = pa_mod.paged_attention(q, kb, vb, bt, pos,
+                                       blocks_per_sm=win)
+        ref = pa_mod.paged_attention_plain(q, kb, vb, bt, pos)
+        prog = graphs.Program(lambda params, state, q, positions:
+                              pa_mod.paged_attention(q, kb, vb, bt,
+                                                     positions,
+                                                     blocks_per_sm=win))
+        state = _GraphState(graphs, dev)
+        prog(None, state, q.clone(), pos.clone())
+        replays = [prog(None, state, q.clone(), pos.clone())
+                   for _ in range(3)]
+        torch.cuda.synchronize()
+        in_checks = read_counters()
+        held = in_checks["paged_attention"]
+        err = (out - ref).abs().max().item()
+        same = torch.equal(out, again)
+        replayed = all(torch.equal(r, out) for r in replays)
+        # the winner against the rule on phase 2's positions, in turns
+        # (outside the counted window)
+        ab = {"rule": [], "winner": []}
+        for lane in ("rule", "winner", "winner", "rule"):
+            bps = pa_mod.BLOCKS_PER_SM if lane == "rule" else win
+            ab[lane].append(time_ms(lambda: pa_mod.paged_attention(
+                q, kb, vb, bt, pos, blocks_per_sm=bps), spin=True))
+    finally:
+        if old is None:
+            os.environ.pop("PADDLE_TPU_TUNE_CACHE", None)
+        else:
+            os.environ["PADDLE_TPU_TUNE_CACHE"] = old
+        tuner.clear_memo()
+        shutil.rmtree(work, ignore_errors=True)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {}
+    for pps, r in res.items():
+        rule = repr({"blocks_per_sm": pa_mod.BLOCKS_PER_SM})
+        best = repr({"blocks_per_sm": r["blocks_per_sm"]})
+
+        def spread(k):
+            t = r["rounds"][k]
+            return (max(t) - min(t)) * 1e6
+        rows[pps] = {
+            "candidates": {k: {"us": v * 1e6, "chunk_pages":
+                               r["chunk_pages"][k],
+                               "trials_us": [t * 1e6 for t in
+                                             r["rounds"][k]]}
+                           for k, v in r["results"].items()},
+            "pruned_early": sorted(set(r["rounds"]) - set(r["results"])),
+            "winner": r["blocks_per_sm"], "winner_us": r["us"],
+            "rule_us": r["rule"]["us"],
+            "beats_rule_by_more_than_spread":
+                r["rule"]["us"] - r["us"] > max(spread(rule), spread(best)),
+            "launches": r["launches"]}
+        log(f"phase 33 tuner ({smi}): B4 8 x 16 x 128, page 16, {pps} pages "
+            f"a sequence, {n_sms} SMs: " + ", ".join(
+                f"{k} {v['us']:.2f} us ({v['chunk_pages']} pages a chunk)"
+                for k, v in rows[pps]["candidates"].items())
+            + f"; rule {r['rule']['us']:.2f} us, winner "
+              f"{r['blocks_per_sm']} at {r['us']:.2f} us, beats the rule "
+              f"by more than the trials' spread: "
+              f"{rows[pps]['beats_rule_by_more_than_spread']}")
+    out_row = {"shapes": rows, "winner": win, "read_back": back,
+               "main_path_blocks_per_sm": [main_bps, main_after],
+               "max_abs_err": err, "bitwise_repeatable": same,
+               "graph_replays_bitwise": replayed,
+               "phase2_positions_ms": ab,
+               "search_launches": searched, "check_launches": held}
+    log(f"phase 33 tuner: winner {win} read back from disk as {back}; "
+        f"B4's launch-path target {main_bps} before the search, {main_after}"
+        f" after (None: the rule); B4 under the winner on phase 2's inputs max_abs_err {err:.3e} (tol "
+        f"{TOL['fp32']:.0e}), bitwise repeatable {same}, 3 graph replays "
+        f"bitwise {replayed}; launches {searched} searching, {held} holding;"
+        f" at phase 2's positions in turns rule "
+        f"{'/'.join(f'{x:.4f}' for x in ab['rule'])} ms, winner "
+        f"{'/'.join(f'{x:.4f}' for x in ab['winner'])} ms")
+    if back != win or main_after != main_bps or err > TOL["fp32"] \
+            or not same or not replayed or held != 6:
+        raise RuntimeError(f"phase 33 tuner: {out_row}")
+    return out_row, {k: in_search[k] + in_checks[k] for k in in_search}
+
+
+def front_door_phase(torch, fa_mod, dev, smi, reset_counters, read_counters):
+    """Phase 33 (module docstring): the HTTP front door over two paged
+    replicas of GPT-3 1.3B, the SLO autoscaler under a replayed storm, the
+    ``serve-llm`` CLI, and the tuner's B4 family. Returns (results,
+    launches by path, {})."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops import paged_attention as pa_mod
+    from paddle_tpu_torch.serving.llm import GPTStaticDecoder
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)          # phase 3's seed
+    prompts = [rng.integers(0, CFG_13B["vocab_size"], n).tolist()
+               for n in PROMPT_LENS]
+    log(f"phase 33: the front door on GPT-3 1.3B (seed 0, fp32): HTTP over "
+        f"two paged replicas under one Router, the SLO autoscaler under a "
+        f"replayed storm, the serve-llm CLI, the tuner's B4 family; {smi}")
+    out, launches = {}, {}
+    release_memory(torch)
+    model = GPTForCausalLM(GPTConfig(**CFG_13B, attn_impl="flash"),
+                           device=dev, seed=0).eval()
+    log_ = _FleetLog()
+    router, _, boot_s = _fleet_router(torch, log_, lambda r: model,
+                                      _fleet_cfg(), CFG_13B["num_layers"])
+    out["boot_s"] = boot_s
+    try:
+        out["http"], launches["front_http"], ref, got = front_http_lane(
+            torch, router, log_, prompts, smi, reset_counters,
+            read_counters)
+        out["autoscale"], launches["front_autoscale"] = front_autoscale_lane(
+            torch, router, log_, prompts, smi, reset_counters, read_counters)
+    finally:
+        router.drain(timeout=FRONT_TIMEOUT)
+    if out["http"]["bitwise"] != 2 * len(prompts):
+        noise = fleet_replay_noise(torch, model, dev, prompts[3], ref[3])
+        ref_dec = GPTStaticDecoder(model)
+        out["http"]["near_tie_parts"] = [near_tie_parts(
+            torch, ref_dec, ref_dec.params(), prompts, ref, g,
+            noise["noise"], "phase 33 http") for g in got]
+        out["http"]["noise"] = noise
+    del router, model
+    release_memory(torch)
+    out["cli"], launches["front_cli"] = front_cli_lane(
+        torch, dev, prompts[3], smi, reset_counters, read_counters)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(33)
+    out["tuner"], launches["tuner"] = tuner_lane(
+        torch, pa_mod, dev, gen, smi, reset_counters, read_counters)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 33 {out['seconds']:.1f} s")
+    return out, launches, {}
+
+
 def counter_fns(torch, fa_mod, extra=()):
     """``(reset_counters, read_counters)`` over B1-B3's launch counts (and
     their counts by type) and ``extra``'s; the reset also resets the peak
@@ -9367,14 +9924,15 @@ def counter_fns(torch, fa_mod, extra=()):
 
 
 def phase_alone(torch, fa_mod, dev, smi, phase, extra_counters):
-    """``python3 chip_smoke.py --phase 23`` to ``32``: after the build,
+    """``python3 chip_smoke.py --phase 23`` to ``33``: after the build,
     that phase alone; prints its numbers, not the summary lines."""
     reset_counters, read_counters = counter_fns(torch, fa_mod,
                                                 extra_counters)
     fn = {23: crf_tagger_phase, 24: beam_phase, 25: mobilenet_phase,
           26: vit_phase, 27: lstm_phase, 28: frcnn_phase,
           29: pipeline_phase, 30: observability_phase,
-          31: fault_tolerance_phase, 32: fleet_phase}[phase]
+          31: fault_tolerance_phase, 32: fleet_phase,
+          33: front_door_phase}[phase]
     out, launches, dtypes = fn(torch, fa_mod, dev, smi, reset_counters,
                                read_counters)
     log(f"phase {phase} paths launches: {launches}, B1-B3 by type {dtypes}")
@@ -9458,7 +10016,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     if sys.argv[1:] == ["--phase", "22"]:
         return phase22_alone(torch, fa_mod, dev, smi)
-    if sys.argv[1:] in [["--phase", str(n)] for n in range(23, 33)]:
+    if sys.argv[1:] in [["--phase", str(n)] for n in range(23, 34)]:
         return phase_alone(torch, fa_mod, dev, smi, int(sys.argv[2]),
                            (pa_mod.paged_attention, nms_mod.greedy_nms))
     tc_libs = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -9921,6 +10479,16 @@ def main() -> int:
             raise RuntimeError(f"kernel paged_attention was not launched on "
                                f"the {path} path")
 
+    # -- phase 33: the front door, the autoscaler, replay and the tuner -------
+    stamp("33 the front door, the autoscaler, replay and the tuner")
+    front, front_launches, _ = front_door_phase(
+        torch, fa_mod, dev, smi, reset_counters, read_counters)
+    log(f"phase 33 paths launches: {front_launches}")
+    for path in ("front_http", "front_autoscale", "tuner"):
+        if front_launches[path]["paged_attention"] < 1:
+            raise RuntimeError(f"kernel paged_attention was not launched on "
+                               f"the {path} path")
+
     # -- summary --------------------------------------------------------------
     paths = {"serving": serve_launches, "serving_slot": slot_launches,
              "generate": gen_launches, "training": train_launches,
@@ -9935,7 +10503,7 @@ def main() -> int:
              **opg_launches, **crf_launches, **beam_launches,
              **mb_launches, **vit_launches, **lstm_launches,
              **frcnn_launches, **pipe_launches, **obs_launches,
-             **ft_launches, **fleet_launches}
+             **ft_launches, **fleet_launches, **front_launches}
     amp_dtypes["bert_flash_checks"] = bert_dtypes
     amp_dtypes.update({f"training_gpt_s4096_{k}": v
                        for k, v in long_dtypes.items()})
@@ -10012,6 +10580,7 @@ def main() -> int:
     log(f"host-plane substrate: {json.dumps(obsres)}")
     log(f"training that survives faults: {json.dumps(ftres)}")
     log(f"the LLM fleet's data path: {json.dumps(fleet)}")
+    log(f"the front door, the autoscaler and the tuner: {json.dumps(front)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -254,6 +254,18 @@ def _late_alias():
             setattr(mod, alias, getattr(mod, src))
 
 
+def kernel_launches():
+    """Each hand-written kernel's launches in this process, by its
+    wrapper's name (the ``launches`` counts of B1-B5's wrappers; a graph's
+    replay adds the launches it captured)."""
+    import importlib
+    fa, pa, nms = (importlib.import_module(f"{__name__}.{m}") for m in (
+        "flash_attention", "paged_attention", "custom"))
+    return {w.__name__: w.launches for w in (
+        fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+        fa.flash_attention_bwd_dkv, pa.paged_attention, nms.greedy_nms)}
+
+
 def _soft_relu(a, threshold):
     return torch.log1p(torch.exp(torch.clamp(a, -threshold, threshold)))
 

@@ -25,8 +25,10 @@ overlaps in shared memory while the other warps fold the previous
 tile's kept rows into the later candidates' running maxima); its source
 note says what bounds it on the H100 and how its design answers that.
 CPU tensors take the plain version :func:`greedy_nms_plain`; CUDA
-tensors launch the kernel or raise. Not kept from the TPU: the tuner's
-``unroll`` factor.
+tensors launch the kernel or raise. The tuner's ``nms`` family keeps its
+key and lookup (:func:`paddle_tpu_torch.tuner.get_nms_config`), but the
+kernel's tile (``T = 64``) is a compile-time constant, so it reads no
+winner; the TPU's loop ``unroll`` factor is not kept.
 """
 from __future__ import annotations
 

@@ -29,8 +29,16 @@ TPU kernel takes any type and head dim; rows of whole 16-byte vectors at
 bfloat16, a view shifted off 16 bytes) one element a lane. The arena
 arguments may be strided layer views (``arena[:, li]`` of a
 ``[P+1, L, page, H, D]`` arena): the kernel reads them through their
-strides, so a view is never copied. Not kept from the TPU: ``block_h``
-and the tuner's winners.
+strides, so a view is never copied.
+
+The tuner's ``paged_attn`` family (:mod:`paddle_tpu_torch.tuner`) tunes
+the split's target of blocks per SM in place of the TPU's ``block_h``:
+before the launch the wrapper looks the shape's winner up in the port's
+committed table (a dict hit keyed by a tuple after its first call; never
+the disk cache a search writes), and with none the rule's
+:data:`BLOCKS_PER_SM` stands, so the launch is what it was before the
+tuner. A winner changes only how many pages a chunk holds, never the
+arithmetic inside a chunk. The TPU's own winners are not kept.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ import torch
 
 from ..core import graphs
 from ..observability import stepmeter as _sm
+from ..tuner import paged_blocks_per_sm
 
 __all__ = ["paged_attention", "paged_attention_plain", "chunk_pages_for",
            "takes"]
@@ -59,13 +68,15 @@ BLOCKS_PER_SM = 8
 MAX_CHUNK_PAGES = 1024
 
 
-def chunk_pages_for(pages_per_seq: int, seq_heads: int, n_sms: int) -> int:
+def chunk_pages_for(pages_per_seq: int, seq_heads: int, n_sms: int,
+                    blocks_per_sm: int = BLOCKS_PER_SM) -> int:
     """Pages per chunk of B4's split: enough chunks that ``seq_heads``
     (sequences x heads) full sequences fill ``n_sms`` SMs with about
-    :data:`BLOCKS_PER_SM` blocks each, never more chunks than pages, then
-    the chunks as even as whole pages allow. A fixed rule of the shapes
-    and the card: it reads no data and no environment."""
-    chunks = -(-BLOCKS_PER_SM * n_sms // max(1, seq_heads))
+    ``blocks_per_sm`` (the rule's :data:`BLOCKS_PER_SM`, or the tuner's
+    winner) blocks each, never more chunks than pages, then the chunks as
+    even as whole pages allow. A fixed rule of the shapes and the card:
+    it reads no data and no environment."""
+    chunks = -(-blocks_per_sm * n_sms // max(1, seq_heads))
     chunks = max(1, min(pages_per_seq, chunks))
     return min(-(-pages_per_seq // chunks), MAX_CHUNK_PAGES)
 
@@ -180,7 +191,8 @@ def _lib():
 
 
 def paged_attention(q, k_arena, v_arena, block_tables, positions,
-                    scale: Optional[float] = None):
+                    scale: Optional[float] = None,
+                    blocks_per_sm: Optional[int] = None):
     """Single-token decode attention through a paged KV arena.
 
     ``q``: ``[S, H, D]``; ``k_arena``/``v_arena``: ``[P+1, page, H, D]``
@@ -191,7 +203,10 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
     :func:`takes` accepts, last dim contiguous) or raise. Int8 arenas
     (the ``{"q", "s"}`` pages of an int8 KV cache, or int8 tensors) raise
     on every device, as the JAX package's wrapper refuses them: their
-    decode dequantizes on the gather lane."""
+    decode dequantizes on the gather lane. ``blocks_per_sm`` forces the
+    split's target (the tuner's search passes it); by default it is the
+    committed table's winner for the shape, else :data:`BLOCKS_PER_SM`. The CPU's
+    plain version has no split and ignores it."""
     if any(isinstance(a, dict) or a.dtype == torch.int8
            for a in (k_arena, v_arena)):
         raise ValueError("paged_attention reads dense arenas (float32, "
@@ -244,8 +259,15 @@ def paged_attention(q, k_arena, v_arena, block_tables, positions,
     strides = (ctypes.c_int64 * 8)(
         *q.stride()[:2], *k_arena.stride()[:3], *v_arena.stride()[:3])
     lib = _lib()
+    if blocks_per_sm is None:
+        blocks_per_sm = paged_blocks_per_sm(
+            h, d, k_arena.shape[1], q.dtype, q.device) or BLOCKS_PER_SM
+    elif int(blocks_per_sm) < 1:
+        raise ValueError(f"paged_attention: blocks_per_sm must be >= 1, got "
+                         f"{blocks_per_sm}")
     with torch.cuda.device(q.device):
-        chunk = chunk_pages_for(pps, s_n * h, _sm_count(q.device.index))
+        chunk = chunk_pages_for(pps, s_n * h, _sm_count(q.device.index),
+                                int(blocks_per_sm))
         n_chunks = -(-pps // chunk)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         tickets, ws = _scratch(q.device, stream, s_n * h,

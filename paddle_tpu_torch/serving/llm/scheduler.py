@@ -1318,6 +1318,7 @@ class LLMEngine(DrainableEngineBase):
                         self.journal.note(self._batcher._reqs.values())
                 elif self._draining.is_set() and len(self._queue) == 0:
                     break
+                self._publish_cache_stats()
         except BaseException as e:  # worker death must not strand futures
             _flight.record_event(
                 "llm_worker_death",
@@ -1343,6 +1344,15 @@ class LLMEngine(DrainableEngineBase):
                         "control call")
                     ev.set()
                 self._stopped.set()
+
+    def _publish_cache_stats(self):
+        """The executable cache's counters as the engine's stats (the
+        reference's ``cache.hits``, ``cache.misses`` and ``recompiles``,
+        which ``/metricsz`` exposes)."""
+        s = self._cache.stats()
+        self._stat_set("cache.hits", s["hits"])
+        self._stat_set("cache.misses", s["misses"])
+        self._stat_set("recompiles", s["misses"])
 
     def _abort_killed(self):
         """After a hard kill (kill() failed the queued requests): with

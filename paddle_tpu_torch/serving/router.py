@@ -286,7 +286,8 @@ class Router:
 
     def set_trace_recorder(self, recorder) -> None:
         """Install a recorder (any object with ``on_request(args, kwargs,
-        phase)``; the fleet's ``TraceRecorder`` is slice 24 of the port)
+        phase)``, such as
+        :class:`~paddle_tpu_torch.serving.fleet.replay.TraceRecorder`)
         observing every accepted request (None removes it). The hook runs
         on the submitter's thread after dispatch."""
         self._trace_recorder = recorder
@@ -385,6 +386,10 @@ class Router:
             if replica_id not in self._parked:
                 return False
             self._parked.discard(replica_id)
+        # a park that migrated paused the replica's admission; the engine
+        # booted next must admit (the JAX package's unpark leaves the
+        # pause set, so its unparked paged replicas never admit again)
+        r.resume()
         self._registry.add(f"{self._prefix}.unpark_ups", 1)
         booted = False
         if r.drain(boot_timeout):   # flips DRAINING -> DEAD; idle => fast

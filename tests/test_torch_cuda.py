@@ -3346,3 +3346,142 @@ def test_a_capture_beside_a_replaying_engine_keeps_both_launch_counts(cuda):
                           "serving.llm.warmup_decode_steps"))
     assert tpa.paged_attention.launches - before == \
         MODEL["num_layers"] * steps
+
+
+# -- the tuner's B4 family and the HTTP front door ---------------------------------
+
+@pytest.fixture
+def tune_cache(tmp_path, monkeypatch):
+    """A fresh winner cache for the tuner, every memo tier reset."""
+    from paddle_tpu_torch import tuner
+    monkeypatch.setenv("PADDLE_TPU_TUNE_CACHE", str(tmp_path))
+    tuner.clear_memo()
+    yield tmp_path
+    tuner.clear_memo()
+
+
+@pytest.mark.parametrize("bps", [1, 4, 16, 64])
+def test_paged_kernel_under_a_winner_matches_plain_and_replays(
+        cuda, bps, tune_cache, monkeypatch):
+    """A winner in the committed table changes B4's chunking (GPT-3
+    1.3B's decode shape: 8 sequences x 16 heads x 128, 64 pages of 16),
+    and one only in the disk cache does not: the default launch takes the
+    committed one (bitwise the forced target's), stays within 1e-4 of the
+    plain version, repeats bitwise, and a CUDA graph captured under it
+    replays bitwise the eager launch."""
+    import json
+    from paddle_tpu_torch import tuner
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.tuner import store
+    q, ak, av, bt, _ = (torch.from_numpy(x).to(cuda) for x in _paged_case(
+        21, s_n=8, h=16, d=128, page=16, pps=64))
+    kb, vb = ak[:, 1], av[:, 1]
+    pos = torch.tensor([0, 15, 16, 255, 512, 1023, 640, 1000],
+                       dtype=torch.int32, device=cuda)
+    key = tuner.paged_key(16, 128, 16, "float32", device=cuda)
+    tuner.record_winner(key, {"blocks_per_sm": bps})
+    tuner.clear_memo()
+    assert tuner.paged_blocks_per_sm(16, 128, 16, torch.float32,
+                                     cuda) is None
+    table = tune_cache / "committed.json"
+    table.write_text(json.dumps({
+        "version": tuner.CACHE_VERSION, "platform": "defaults",
+        "entries": {key: {"config": {"blocks_per_sm": bps},
+                          "note": "a test's"}}}))
+    monkeypatch.setattr(store, "_DEFAULTS_FILE", str(table))
+    tuner.clear_memo()
+    assert tuner.paged_blocks_per_sm(16, 128, 16, torch.float32,
+                                     cuda) == bps
+    out = tpa.paged_attention(q, kb, vb, bt, pos)
+    forced = tpa.paged_attention(q, kb, vb, bt, pos, blocks_per_sm=bps)
+    again = tpa.paged_attention(q, kb, vb, bt, pos)
+    ref = tpa.paged_attention_plain(q, kb, vb, bt, pos)
+    assert torch.equal(out, forced) and torch.equal(out, again)
+    assert (out - ref).abs().max().item() <= 1e-4
+    prog = graphs.Program(lambda params, state, q, positions:
+                          tpa.paged_attention(q, kb, vb, bt, positions))
+    state = _State(cuda)
+    prog(None, state, q.clone(), pos.clone())
+    before = tpa.paged_attention.launches
+    for _ in range(3):
+        assert torch.equal(prog(None, state, q.clone(), pos.clone()), out)
+    assert prog.replays == 3 and tpa.paged_attention.launches == before + 3
+
+
+def test_autotune_paged_attn_records_a_winner_read_back(cuda, tune_cache):
+    """The search on the card: every candidate within B4's limits timed on
+    the device's clock, the rule's among them, its launches counted; by
+    default nothing is written, and with ``record`` the winner goes to
+    the platform's file and is read back from disk, while B4's launch
+    path keeps the rule."""
+    from paddle_tpu_torch import tuner
+    tag = tuner.platform_tag(cuda)
+    assert tag.startswith("cuda-sm")
+    tuner.autotune_paged_attn(4, 4, 32, 16, pages_per_seq=8, trials=1,
+                              iters=2, device=cuda)
+    assert not (tune_cache / f"winners-{tag}.json").exists()
+    before = tpa.paged_attention.launches
+    res = tuner.autotune_paged_attn(4, 4, 32, 16, pages_per_seq=8,
+                                    trials=2, iters=5, record=True,
+                                    device=cuda)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cands = tuner.paged_attn_candidates(4, 4, 8, n_sms)
+    assert {"blocks_per_sm": res["blocks_per_sm"]} in cands
+    assert set(res["results"]) <= {repr(c) for c in cands}
+    assert repr({"blocks_per_sm": tpa.BLOCKS_PER_SM}) in res["results"]
+    assert res["us"] == min(res["results"].values()) * 1e6 > 0
+    assert tpa.paged_attention.launches - before == res["launches"] > 0
+    assert (tune_cache / f"winners-{tag}.json").exists()
+    tuner.clear_memo()
+    assert tuner.get_paged_attn_config(4, 32, 16, "float32", device=cuda) \
+        == {"blocks_per_sm": res["blocks_per_sm"]}
+    assert tuner.paged_blocks_per_sm(4, 32, 16, torch.float32,
+                                     cuda) is None
+
+
+def test_http_generate_over_a_paged_engine_counts_b4(cuda):
+    """``/generate`` on the card, plain and streamed, over a graphed paged
+    engine: both give the engine's own tokens, B4's launches are one a
+    layer a decode step, and ``/statsz`` reports this process's count."""
+    import json
+    import threading
+    import urllib.request
+    from paddle_tpu_torch.serving.http import make_server
+    model = GPTForCausalLM(GPTConfig(**MODEL), device=cuda, seed=0).eval()
+    before = tpa.paged_attention.launches
+    eng = LLMEngine(model, LLMEngineConfig(
+        num_slots=4, max_seq=64, kv_layout="paged", page_size=16,
+        paged_attn_impl="kernel", prefill_buckets=(8, 32)))
+    httpd = make_server(None, port=0, llm_engine=eng)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/generate"
+
+    def post(payload):
+        req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.read()
+    try:
+        prompt = list(range(3, 23))
+        want = eng.generate(prompt, max_new_tokens=12)["tokens"]
+        plain = json.loads(post({"prompt": prompt, "max_new_tokens": 12}))
+        lines = [json.loads(ln) for ln in post(
+            {"prompt": prompt, "max_new_tokens": 12, "stream": True}
+        ).splitlines() if ln]
+        with urllib.request.urlopen(url.replace("/generate", "/statsz"),
+                                    timeout=60) as r:
+            reported = json.loads(r.read())["kernel_launches"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        eng.drain(timeout=60)
+    assert plain["tokens"] == want
+    assert [ln["token"] for ln in lines[:-1]] == want
+    steps = sum(eng.stats()["stats"].get(k, 0)
+                for k in ("serving.llm.decode_ticks",
+                          "serving.llm.warmup_decode_steps"))
+    assert steps > 0
+    assert tpa.paged_attention.launches - before == \
+        MODEL["num_layers"] * steps
+    assert reported["paged_attention"] == tpa.paged_attention.launches

@@ -98,6 +98,11 @@ def test_import_leaves_no_jax_in_subprocess():
         "import paddle_tpu_torch.serving.fleet\n"
         "import paddle_tpu_torch.serving.fleet.migrate\n"
         "import paddle_tpu_torch.serving.fleet.swap\n"
+        "import paddle_tpu_torch.serving.fleet.autoscaler\n"
+        "import paddle_tpu_torch.serving.fleet.replay\n"
+        "import paddle_tpu_torch.serving.http\n"
+        "import paddle_tpu_torch.serving.__main__\n"
+        "import paddle_tpu_torch.tuner, paddle_tpu_torch.tuner.runner\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(repr(bad))\n")
@@ -297,23 +302,24 @@ def test_a3_knobs_raise(knob, exc, match):
     ("router_model_axes", NotImplementedError, "A10"),
     ("replica_mesh", NotImplementedError, "A10"),
     ("predictor_replica_factory", NotImplementedError, "A11"),
-    ("fleet_autoscaler", NotImplementedError, "slice 24"),
-    ("fleet_trace_recorder", NotImplementedError, "slice 24"),
+    ("fleet_autoscaler_beyond_shells", ValueError, "replica shells"),
+    ("http_predict_bfloat16", ValueError, "NumPy has no bfloat16"),
     ("router_without_cuda", RuntimeError, "device='cpu'"),
 ])
 def test_fleet_knobs_raise(monkeypatch, knob, exc, match):
     """The fleet's refusals: model-parallel replicas (a mesh, the
-    router's ``model_axes``), inference-artifact replicas, the fleet's
-    autoscaler and trace replay (the next slice), and a router on no
-    device where CUDA is absent (the port asks for CUDA unless told
-    ``device="cpu"``)."""
+    router's ``model_axes``), inference-artifact replicas, an autoscaler
+    asked for more replicas than the router's shells, a ``bfloat16``
+    input to the HTTP ``/predict`` (NumPy has none without ``ml_dtypes``),
+    and a router on no device where CUDA is absent (the port asks for
+    CUDA unless told ``device="cpu"``)."""
+    import types
+    from paddle_tpu_torch.core.monitor import StatRegistry
     from paddle_tpu_torch.serving import Replica, Router, RouterConfig
-    from paddle_tpu_torch.serving import predictor_replica_factory
+    from paddle_tpu_torch.serving import http, predictor_replica_factory
+    from paddle_tpu_torch.serving.fleet import SLO, Autoscaler
     if knob == "router_without_cuda":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-
-    def fleet_name(name):
-        exec(f"from paddle_tpu_torch.serving.fleet import {name}", {})
     call = {
         "router_model_axes": lambda: Router(
             lambda r: None, RouterConfig(kind="llm",
@@ -323,8 +329,10 @@ def test_fleet_knobs_raise(monkeypatch, knob, exc, match):
                                         mesh=object()),
         "predictor_replica_factory": lambda: predictor_replica_factory(
             "/nonexistent/model"),
-        "fleet_autoscaler": lambda: fleet_name("Autoscaler"),
-        "fleet_trace_recorder": lambda: fleet_name("TraceRecorder"),
+        "fleet_autoscaler_beyond_shells": lambda: Autoscaler(
+            types.SimpleNamespace(replicas=[0], registry=StatRegistry()),
+            SLO(max_replicas=2)),
+        "http_predict_bfloat16": lambda: http._np_dtype("bfloat16"),
         "router_without_cuda": lambda: Router(
             lambda r: None, RouterConfig(kind="llm")),
     }[knob]
