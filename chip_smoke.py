@@ -110,7 +110,7 @@ Phases (any failure raises and the script exits non-zero):
 10. the detection path: YOLOv3-DarkNet53 (80 classes, width 1.0, COCO
    anchors, random weights from seed 0, fp32, eval) serving 16 single
    608x608 images submitted at once through the dynamic-batching
-   ``Engine`` (buckets 1/2/4/8, 50 ms batching delay), then 3 windows
+   ``Engine`` (buckets 1/2/4/8, 50 ms batching delay), then 2 windows
    of 64 more through the warm engine, timed for images/s; each batch is one
    forward and one ``decode`` whose greedy NMS runs on B5;
 11. checks and timings off the detection path: the forward's device time
@@ -601,6 +601,38 @@ a decode step of every engine, the resurrected replica's included), the
 CLI lane (every kernel 0, read from the child's ``/statsz``: its slot
 engine attends densely), and the tuner (its search's calls, then 6
 holding the winner).
+
+Phase 34 drives distributed training on the one card. (1) A world of
+one on NCCL: ``init_parallel_env()``, a dp1 x mp1 mesh, every collective
+of ``distributed/collective.py`` on CUDA tensors the identity, then
+GPT-3 1.3B laid out by ``tp_partition_specs`` and its [4, 1024] batch by
+``shard_batch`` (the ``dryrun_multichip`` path), 3 O1 AdamW steps
+through ``Model.train_batch`` on the graphed lane: losses bitwise those
+of the same model without a mesh, B1-B3 24 a step each. (2) Two NCCL
+ranks on the card: NCCL's "Duplicate GPU detected" refusal, kept. (3)
+Four ranks on the card over gloo (``dist.spawn(backend="gloo",
+gpus="0,0,0,0")``): (a) ``fleet.init`` with dp2 x mp2, the 4-layer GPT
+at 1.3B's width through ``distributed_model``/``distributed_optimizer``,
+3 fp32 AdamW steps on the eager lane (gloo cannot be captured; ``Model``
+says so): losses within 1e-4 relative of one process on the card, the
+gathered parameters within 1e-4 of each tensor's max or 5% of one
+AdamW step, the larger (k_proj.bias, whose gradient is zero up to
+rounding, held to Adam's step bound),
+B1-B3 4 a step a
+rank over its 8 local heads; (b) bench.py's ``bench_gpt_ring_flash``
+stack at 1.3B's width (2 layers, 16 heads of 128, B=1, S=32768, bf16,
+causal, 2 SGD steps) over an sp4 mesh with ``ring_flash_attention``:
+losses within 2e-2 of the stack in one process with B1-B3 over the whole
+sequence; the first forward's O and LSE against B1's and, at 256 rows,
+against the plain version; the first step's wq, wk and wv gradients,
+summed over the ranks, against the one-process run's (relative, bounds
+set from the errors measured on an H100); rank r launching
+B1-B3 (r + 1) times a layer a step (its future blocks launch nothing),
+the point-to-point blocks through pinned host memory (counted); (c)
+every collective once on CUDA tensors, a rank subgroup and the hybrid
+axes included, against NumPy, and the compressed all-reduce's int8
+codes equal to the CPU's. Each lane's wall, step ms and peak memory a
+rank are printed. The gloo timings say nothing about NCCL.
 """
 from __future__ import annotations
 
@@ -638,7 +670,7 @@ DET_CLASSES = 80
 DET_SIZE = 608
 DET_REQUESTS = 16
 DET_WINDOW = 64     # requests of each timed window after the burst
-DET_WINDOWS = 3
+DET_WINDOWS = 2
 DET_DECODE = dict(conf_thresh=0.01, nms_thresh=0.45, nms_top_k=400,
                   keep_top_k=100)
 
@@ -659,7 +691,7 @@ LOOP_STEPS = 5      # O1 bf16 steps of one train_loop call
 #: ROUNDS alternating rounds of ROUND_ITERS calls against the kernels, on
 #: the device's clock behind a spin of SPIN_CYCLES (~25 ms)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
-ROUNDS = 3
+ROUNDS = 2
 ROUND_ITERS = 20
 #: steps a train step's profile times, then records (after one warm-up)
 PROFILE_STEPS = 1
@@ -5434,7 +5466,7 @@ DY_GPT_STEPS = 3
 #: within this, relative, with the cause named in PERF.md
 DY_LOSS_TOL = 1e-6
 #: funnel calls a host-time round, and rounds (median kept)
-FUNNEL_CALLS, FUNNEL_ROUNDS = 10_000, 5
+FUNNEL_CALLS, FUNNEL_ROUNDS = 10_000, 3
 
 
 def funnel_calls(step):
@@ -9905,6 +9937,859 @@ def front_door_phase(torch, fa_mod, dev, smi, reset_counters, read_counters):
     return out, launches, {}
 
 
+# -- phase 34: distributed training, first half ------------------------------
+
+DIST_STEPS = 3            # train steps of the world-of-one and dp x mp lanes
+DIST_LR = 1e-4            # their AdamW's lr and epsilon: with the default
+DIST_EPS = 1e-6           # 1e-8 an element whose gradient is near zero
+#                           moves by a rounding-driven part of lr, so two
+#                           runs summing in other orders part by up to 2 lr
+#                           a step (as tests/test_torch_hapi_train.py)
+DIST_DP_LAYERS = 4        # depth of the four-rank dp2 x mp2 GPT (full width)
+DIST_BATCH = (4, 1024)    # global batch of both GPT lanes
+DIST_LOSS_RTOL = 1e-4     # dp2 x mp2 losses against one process, relative
+DIST_PARAM_TOL = 1e-4     # its gathered parameters, of each tensor's max,
+DIST_PARAM_LR_PART = 0.05  # or of one AdamW step (lr), the larger
+DIST_RING_SEQ = 32768     # bench_gpt_ring_flash's sequence, Tl = 8192 a rank
+DIST_RING_LAYERS = 2
+DIST_RING_STEPS = 2
+DIST_RING_HEADS = 16      # GPT-3 1.3B's width: 16 heads of 128
+DIST_RING_INIT_STD = 0.02
+DIST_RING_LOSS_TOL = 2e-2  # relative
+DIST_RING_O_TOL = 2e-2    # bf16: the ring's first O against whole-S B1's
+# the bounds below are about twice to ten times the errors measured on an
+# H100 (2.7e-3, 1.9e-6 and 4.4e-3 at most); whole-S B1's own O is 1.8e-3
+# from the plain version's
+DIST_RING_LSE_TOL = 2e-5  # its merged LSE against B1's and the plain
+#                           version's (f32 rows)
+DIST_RING_O_RTOL = 6e-3   # the ring's first O a rank, relative (Frobenius),
+#                           against whole-S B1's and against the plain
+#                           version at DIST_RING_PLAIN_ROWS rows
+DIST_RING_PLAIN_ROWS = 32  # rows at each end of each rank's chunk
+DIST_RING_GRAD_RTOL = 1e-2  # the first step's wq, wk, wv gradients of each
+#                           layer, summed over the ranks, relative
+#                           (Frobenius), against whole-S B1-B3's: wq's
+#                           comes only through B2's dQ, wk's and wv's only
+#                           through B3's dK and dV
+DIST_WORLD = 4
+DIST_TIMEOUT = 600
+
+
+def _dist_ids():
+    return np.random.default_rng(34).integers(
+        0, CFG_13B["vocab_size"], DIST_BATCH)
+
+
+def _dist_gpt(torch, dev, layers=None):
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = dict(CFG_13B, num_layers=layers or CFG_13B["num_layers"])
+    return GPTForCausalLM(GPTConfig(**cfg, attn_impl="flash"), device=dev,
+                          seed=0)
+
+
+def _dist_model(net, dev, wrap=lambda opt: opt):
+    """``Model`` over ``net`` with AdamW (lr DIST_LR, epsilon DIST_EPS,
+    weight decay 0.01),
+    passed through ``wrap`` (``fleet.distributed_optimizer``), and the GPT
+    criterion."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    opt = wrap(AdamW(learning_rate=DIST_LR, parameters=net.parameters(),
+                     weight_decay=0.01, epsilon=DIST_EPS, device=dev))
+    m = Model(net, device=dev)
+    m.prepare(opt, GPTPretrainingCriterion())
+    return m
+
+
+def _dist_steps(torch, m, x, steps, o1=False):
+    """``steps`` train_batch calls; returns (losses, step ms each)."""
+    from paddle_tpu_torch import amp
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (amp.auto_cast() if o1 else contextlib.nullcontext()):
+            losses.append(m.train_batch([x], [x])[0])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def collectives_at_world_one(torch, dev):
+    """Every collective of ``collective.py`` on CUDA tensors in the NCCL
+    world of one: each must be the identity (returns their names)."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    want = x.clone()
+    checked = []
+
+    def same(name, got):
+        got = got if isinstance(got, torch.Tensor) else x
+        if not torch.equal(got.reshape(-1)[:8], want):
+            raise RuntimeError(f"{name} at a world of one is not the "
+                               f"identity: {got}")
+        checked.append(name)
+    for op in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+        same(f"all_reduce_{op}", dist.all_reduce(x, getattr(C.ReduceOp, op)))
+    same("reduce", dist.reduce(x, 0))
+    same("broadcast", dist.broadcast(x, 0))
+    same("all_gather", dist.all_gather([], x)[0])
+    same("reduce_scatter", dist.reduce_scatter(None, x))
+    same("alltoall", dist.alltoall(x))
+    same("p2p_exchange", dist.p2p_exchange(x, 0, 0))
+    same("send", dist.send(x, 0))
+    same("recv", dist.recv(x, 0))
+    same("scatter", dist.scatter(x, [x], 0))
+    same("compressed_all_reduce", dist.compressed_all_reduce(x))
+    objs = dist.all_gather_object([], {"r": 0})
+    if objs != [{"r": 0}]:
+        raise RuntimeError(f"all_gather_object at a world of one: {objs}")
+    dist.barrier()
+    dist.wait(x)
+    return checked + ["all_gather_object", "barrier", "wait"]
+
+
+def dist_world1_lane(torch, fa_mod, dev, smi, reset_counters, read_counters):
+    """Lane 34.1: init_parallel_env on CUDA (NCCL, a world of one), a dp1
+    x mp1 mesh, GPT-3 1.3B laid out by ``tp_partition_specs`` and its
+    batch by ``shard_batch`` (the ``dryrun_multichip`` path), O1 AdamW
+    through ``Model.train_batch``, graphed, against the same model
+    without a mesh: losses bitwise. B1-B3 24 a step each."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.models import gpt as gpt_mod
+    out = {}
+    t0 = time.perf_counter()
+    env = dist.init_parallel_env()
+    out["backend"] = dist.env.backend()
+    mesh = dist.build_mesh({"dp": 1, "mp": 1})
+    dist.set_mesh(mesh)
+    out["collectives_identity"] = collectives_at_world_one(torch, dev)
+    ids = torch.as_tensor(_dist_ids(), device=dev)
+    try:
+        release_memory(torch)
+        net = _dist_gpt(torch, dev)
+        specs = gpt_mod.tp_partition_specs(net)
+        for name, p in list(net.named_parameters()):
+            dist.shard_tensor(p, specs[name], mesh)
+        m = _dist_model(net, dev)
+        x = dist.shard_batch(ids, mesh)
+        reset_counters()
+        losses, ms = _dist_steps(torch, m, x, DIST_STEPS, o1=True)
+        launches = read_counters()
+        dtypes = {c.__name__: dict(c.launches_by_dtype)
+                  for c in _counters(fa_mod)}
+        out.update(lane=m.lane, lane_reason=m.lane_reason, losses=losses,
+                   step_ms=ms, peak_gib=torch.cuda.max_memory_allocated()
+                   / 2 ** 30, rank=env.rank, world=env.world_size,
+                   traces=m._train_step_fn["fn"].trace_counter["traces"])
+        m._invalidate_compiled()
+        del m, net, x
+        release_memory(torch)
+        ref = _dist_model(_dist_gpt(torch, dev), dev)
+        ref_losses, ref_ms = _dist_steps(torch, ref, ids, DIST_STEPS,
+                                         o1=True)
+        ref._invalidate_compiled()
+        del ref
+        release_memory(torch)
+    finally:
+        dist.set_mesh(None)
+    out.update(ref_losses=ref_losses, ref_step_ms=ref_ms,
+               bitwise=losses == ref_losses,
+               seconds=time.perf_counter() - t0)
+    log(f"phase 34.1 world of one ({out['backend']}, dp1 x mp1 mesh, "
+        f"GPT-3 1.3B O1, lane {out['lane']}): losses {losses} vs no mesh "
+        f"{ref_losses}; step ms {[round(v, 1) for v in ms]} vs "
+        f"{[round(v, 1) for v in ref_ms]}; peak {out['peak_gib']:.2f} GiB; "
+        f"{out['seconds']:.1f} s; {smi}")
+    if out["lane"] != "graphed":
+        raise RuntimeError(f"phase 34.1: the world of one ran the "
+                           f"{out['lane']} lane ({out['lane_reason']})")
+    if not out["bitwise"]:
+        raise RuntimeError("phase 34.1: the mesh model's losses are not "
+                           "bitwise those without a mesh")
+    for c in _counters(fa_mod):
+        want = CFG_13B["num_layers"] * DIST_STEPS
+        if launches[c.__name__] != want:
+            raise RuntimeError(f"phase 34.1: {c.__name__} launched "
+                               f"{launches[c.__name__]} times, not {want}")
+    return out, launches, dtypes
+
+
+def _nccl_rank():
+    import paddle_tpu_torch.distributed as dist
+    dist.init_parallel_env()
+
+
+def nccl_refusal():
+    """Two NCCL ranks on the one card, started (not joined): NCCL refuses
+    them ("Duplicate GPU detected"); the port keeps the refusal, no
+    backend switch. Returns the ranks' context for
+    :func:`nccl_refused`."""
+    import paddle_tpu_torch.distributed as dist
+    return dist.spawn(_nccl_rank, nprocs=2, gpus="0,0", backend="nccl",
+                      join=False), time.perf_counter()
+
+
+def nccl_refused(started):
+    ctx, t0 = started
+    try:
+        ctx.join(DIST_TIMEOUT)
+    except RuntimeError as e:
+        if "Duplicate GPU" not in str(e):
+            raise
+        line = next(ln for ln in str(e).splitlines() if "Duplicate" in ln)
+        log(f"phase 34: NCCL refused two ranks on one card, as expected: "
+            f"{line.strip()} ({time.perf_counter() - t0:.1f} s)")
+        return line.strip()
+    raise RuntimeError("phase 34: NCCL took two ranks on one card")
+
+
+def _ring_weights(torch, dev):
+    """bench_gpt_ring_flash's stack at GPT-3 1.3B's width (bf16, seeded on
+    the device), and its x, y. bench.py draws N(0, 0.1) weights for its
+    E = 512; at E = 2048 each product would grow the activations 4.5
+    times and SGD at lr 0.1 diverges (NaN by the second step), so the
+    weights are N(0, 0.02), GPT-3's own init."""
+    E = CFG_13B["hidden_size"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(34)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g, device=dev)
+                * DIST_RING_INIT_STD).to(torch.bfloat16)
+    params = [[w(E, E), w(E, E), w(E, E), w(E, E), w(E, 2 * E),
+               w(2 * E, E)] for _ in range(DIST_RING_LAYERS)]
+    x = torch.randn((1, DIST_RING_SEQ, E), generator=g, device=dev).to(
+        torch.bfloat16)
+    y = torch.randn((1, DIST_RING_SEQ, E), generator=g, device=dev).to(
+        torch.bfloat16)
+    return params, x, y
+
+
+def _ring_layer(torch, h, lp, attn):
+    """One block of bench.py's ring stack: ``attn`` on ``[B, H, T, D]``."""
+    wq, wk, wv, wo, w1, w2 = lp
+    B, T, E = h.shape
+    H = DIST_RING_HEADS
+
+    def heads(w):
+        return (h @ w).reshape(B, T, H, E // H).transpose(1, 2)
+    o = attn(heads(wq), heads(wk), heads(wv))
+    h = h + o.transpose(1, 2).reshape(B, T, E) @ wo
+    return h + torch.nn.functional.gelu(h @ w1) @ w2
+
+
+def _ring_step(torch, params, x, y, attn, whole=lambda t: t,
+               reduced=lambda g: g):
+    """One SGD step (lr 0.1) of the stack; returns the loss and the
+    gradients it stepped with. ``whole`` makes the loss one value,
+    ``reduced`` a gradient the parameter's layout (on a mesh: the sum of
+    the ranks' partials)."""
+    flat = [p for lp in params for p in lp]
+    h = x
+    for lp in params:
+        h = _ring_layer(torch, h, lp, attn)
+    loss = whole(((h - y).float() ** 2).mean())
+    grads = [reduced(g) for g in torch.autograd.grad(loss, flat)]
+    with torch.no_grad():
+        for p, g in zip(flat, grads):
+            p -= 0.1 * g
+    return float(loss.detach()), grads
+
+
+def _qkv_grads(grads, local=lambda g: g):
+    """The wq, wk and wv gradients of each layer, on the host."""
+    return [local(grads[6 * i + j]).detach().cpu()
+            for i in range(DIST_RING_LAYERS) for j in range(3)]
+
+
+def _plain_rows():
+    """The query rows held to the plain version: DIST_RING_PLAIN_ROWS at
+    each end of each rank's chunk (the first see the fewest keys of the
+    chunk, the last the most)."""
+    tl, n = DIST_RING_SEQ // DIST_WORLD, DIST_RING_PLAIN_ROWS
+    return np.concatenate([np.r_[r * tl:r * tl + n, (r + 1) * tl - n:
+                                 (r + 1) * tl] for r in range(DIST_WORLD)])
+
+
+def plain_rows_attention(torch, q, k, v, rows):
+    """Causal attention's plain version at the query ``rows`` only, in
+    f32 from the same q, k, v ``[B, S, H, D]``: ``(o [B, H, R, D], lse
+    [B, H, R])`` on the host."""
+    idx = torch.as_tensor(rows, device=q.device)
+    qf = q[:, idx].float().transpose(1, 2) * q.shape[-1] ** -0.5
+    s = qf @ k.float().permute(0, 2, 3, 1)                  # [B, H, R, S]
+    keep = torch.arange(k.shape[1], device=q.device)[None, :] <= idx[:, None]
+    s = s.masked_fill(~keep, float("-inf"))
+    o = torch.softmax(s, -1) @ v.float().transpose(1, 2)
+    return o.cpu(), torch.logsumexp(s, -1).cpu()
+
+
+def _rel(a, b):
+    """``|a - b| / |b|`` (Frobenius) in float64."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def ring_reference(torch, dev):
+    """The ring stack in one process, B1-B3 over the whole sequence
+    (``flash_attention``), DIST_RING_STEPS steps: the losses, the first
+    step's wq, wk and wv gradients, the first layer's first-forward O and
+    LSE (B1 alone), and the plain version's at :func:`_plain_rows`."""
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    t0 = time.perf_counter()
+    params, x, y = _ring_weights(torch, dev)
+    with torch.no_grad():
+        wq, wk, wv = params[0][:3]
+        B, T, E = x.shape
+        H = DIST_RING_HEADS
+        q, k, v = ((x @ w).reshape(B, T, H, E // H) for w in (wq, wk, wv))
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        o_ref = o.transpose(1, 2).float().cpu()
+        lse_ref = lse.cpu()
+        plain = plain_rows_attention(torch, q, k, v, _plain_rows())
+        del q, k, v, o, lse
+    for p in (p for lp in params for p in lp):
+        p.requires_grad_(True)
+
+    def attn(q, k, v):
+        out, _ = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), causal=True)
+        return out.transpose(1, 2)
+    losses, ms, grads0 = [], [], None
+    for i in range(DIST_RING_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, grads = _ring_step(torch, params, x, y, attn)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss)
+        if i == 0:
+            grads0 = _qkv_grads(grads)
+        del grads
+    del params, x, y
+    release_memory(torch)
+    return {"losses": losses, "step_ms": ms,
+            "seconds": time.perf_counter() - t0}, o_ref, lse_ref, plain, \
+        grads0
+
+
+def dp_reference(torch, dev):
+    """The 4-layer GPT at full width in one process on the card: fp32
+    AdamW, DIST_STEPS steps on the global batch (eager, as the four-rank
+    lane runs); the losses and the parameters after the last step."""
+    from paddle_tpu_torch.core.graphs import disable_graphs
+    t0 = time.perf_counter()
+    net = _dist_gpt(torch, dev, DIST_DP_LAYERS)
+    m = _dist_model(net, dev)
+    ids = torch.as_tensor(_dist_ids(), device=dev)
+    with disable_graphs():
+        losses, ms = _dist_steps(torch, m, ids, DIST_STEPS)
+    params = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    del m, net
+    release_memory(torch)
+    return {"losses": losses, "step_ms": ms,
+            "seconds": time.perf_counter() - t0}, params
+
+
+def _rank_counts(fa_mod):
+    return {c.__name__: c.launches for c in _counters(fa_mod)}
+
+
+def _zero_counts(fa_mod):
+    for c in _counters(fa_mod):
+        c.launches = 0
+        c.launches_by_dtype = {}
+
+
+def _rank_dp_lane(torch, fa_mod, dev, work):
+    """Lane 34.2a on this rank: fleet.init (dp2 x mp2), the 4-layer GPT
+    at full width laid out by tp_partition_specs, distributed_model and
+    distributed_optimizer, fp32 AdamW through Model.train_batch (the
+    eager lane: gloo's collectives cannot be captured)."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import gpt as gpt_mod
+    t0 = time.perf_counter()
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = {"dp_degree": 2, "mp_degree": 2}
+    fleet.init(is_collective=True, strategy=st)
+    net = _dist_gpt(torch, dev, DIST_DP_LAYERS)
+    specs = gpt_mod.tp_partition_specs(net)
+    for name, p in list(net.named_parameters()):
+        dist.shard_tensor(p, specs[name])
+    net = fleet.distributed_model(net)
+    m = _dist_model(net, dev, fleet.distributed_optimizer)
+    x = dist.shard_batch(torch.as_tensor(_dist_ids(), device=dev))
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(fa_mod)
+    losses, ms = _dist_steps(torch, m, x, DIST_STEPS)
+    launches = _rank_counts(fa_mod)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sd = net.state_dict()                      # gathered, global shapes
+    if dist.get_rank() == 0:
+        torch.save({k: v.cpu() for k, v in sd.items()},
+                   os.path.join(work, "dp_params.pt"))
+    q = net.gpt.decoder.layers[0].self_attn.q_proj.weight
+    out = {"losses": losses, "step_ms": ms, "lane": m.lane,
+           "lane_reason": m.lane_reason, "launches": launches,
+           "peak_gib": peak, "local_q_proj": tuple(q.to_local().shape),
+           "mode": fleet.get_hybrid_communicate_group_().get_parallel_mode(),
+           "seconds": time.perf_counter() - t0}
+    del m, net, sd
+    dist.set_mesh(None)
+    dist.set_hybrid_communicate_group(None)
+    release_memory(torch)
+    return out
+
+
+def _rank_ring_lane(torch, fa_mod, dev):
+    """Lane 34.2b on this rank: the ring stack over an sp4 mesh, x and y
+    sequence-sharded, the weights replicated; the first layer's first
+    O and LSE from the ring's forward (counted apart), then
+    DIST_RING_STEPS SGD steps with ``ring_flash_attention``."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed.fleet import sequence_parallel as sp
+    t0 = time.perf_counter()
+    mesh = dist.build_mesh({"sp": DIST_WORLD})
+    dist.set_mesh(mesh)
+    params, x, y = _ring_weights(torch, dev)
+    B, T, E = x.shape
+    H = DIST_RING_HEADS
+    xs = dist.constrain(x, (None, "sp", None), mesh)
+    ys = dist.constrain(y, (None, "sp", None), mesh)
+    ps = [[dist.replicate_tensor(w, mesh).detach().requires_grad_(True)
+           for w in lp] for lp in params]
+    del params, x, y
+    with torch.no_grad():
+        g = sp._ring_group(mesh, "sp")
+        qkv = [(xs.to_local() @ w.to_local()).reshape(
+            B, T // DIST_WORLD, H, E // H).transpose(1, 2)
+            for w in ps[0][:3]]
+        o, lse = sp.ring_flash_forward(*qkv, g, True, None)
+        first = (o.float().cpu().numpy(), lse.cpu().numpy())
+    staged0 = dict(dist.collective.HOST_STAGED)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(fa_mod)
+
+    def attn(q, k, v):
+        return sp.ring_flash_attention(q, k, v, mesh=mesh, axis="sp",
+                                       causal=True)
+
+    def reduced(g):
+        from torch.distributed.tensor import Replicate
+        return g.redistribute(mesh, [Replicate()])
+    losses, ms = [], []
+    for i in range(DIST_RING_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, grads = _ring_step(torch, ps, xs, ys, attn, dist.mesh.full,
+                                 reduced)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss)
+        if i == 0:
+            # summed over the ranks: every rank holds the same values
+            grads0 = _qkv_grads(grads, lambda g: g.to_local())
+        del grads
+    launches = _rank_counts(fa_mod)
+    staged = {k: dist.collective.HOST_STAGED[k] - staged0[k]
+              for k in staged0}
+    out = {"losses": losses, "step_ms": ms, "launches": launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "first": first, "host_staged": staged,
+           "grad_sums": [float(g.double().sum()) for g in grads0],
+           "grads0": grads0 if dist.get_rank() == 0 else None,
+           "seconds": time.perf_counter() - t0}
+    del ps, xs, ys
+    dist.set_mesh(None)
+    release_memory(torch)
+    return out
+
+
+def _rank_collectives(torch, dev):
+    """Lane 34.2c on this rank: every collective once on CUDA tensors,
+    over the world, a rank subgroup and the hybrid axes; returns the
+    results as arrays (the parent holds them to NumPy), and the
+    compressed all-reduce's int8 codes and scales."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    r = dist.get_rank()
+    base = np.arange(8, dtype=np.float32) + 10 * r
+    x = torch.as_tensor(base, device=dev)
+    res = {}
+    for name in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+        t = x.clone()
+        dist.all_reduce(t, getattr(C.ReduceOp, name))
+        res[f"all_reduce_{name}"] = t.cpu().numpy()
+    sub = dist.new_group([1, 3])
+    t = x.clone()
+    dist.all_reduce(t, group=sub)
+    res["all_reduce_sub"] = t.cpu().numpy()
+    t = x.clone()
+    dist.broadcast(t, 2)
+    res["broadcast"] = t.cpu().numpy()
+    t = x.clone()
+    dist.broadcast(t, 3, group=sub)
+    res["broadcast_sub"] = t.cpu().numpy()
+    t = x.clone()
+    dist.reduce(t, 1)
+    res["reduce"] = t.cpu().numpy()
+    res["all_gather"] = dist.all_gather([], x).cpu().numpy()
+    if r in (1, 3):
+        res["all_gather_sub"] = dist.all_gather([], x, group=sub) \
+            .cpu().numpy()
+    res["reduce_scatter"] = dist.reduce_scatter(None, x).cpu().numpy()
+    res["alltoall"] = dist.alltoall(x).cpu().numpy()
+    res["p2p_exchange"] = dist.p2p_exchange(x.clone(), 0, 2).cpu().numpy()
+    t = x.clone()
+    if r == 3:
+        dist.send(t, 0)
+    elif r == 0:
+        dist.recv(t, 3)
+    res["send_recv"] = t.cpu().numpy()
+    t = torch.zeros_like(x)
+    dist.scatter(t, [x * 0 + i for i in range(DIST_WORLD)]
+                 if r == 2 else None, 2)
+    res["scatter"] = t.cpu().numpy()
+    res["objects"] = dist.all_gather_object([], ("rank", r))
+    dist.barrier()
+    dist.wait(x)
+    hcg = dist.HybridCommunicateGroup(dp_degree=2, mp_degree=2)
+    for axis, grp in (("dp", hcg.get_data_parallel_group()),
+                      ("mp", hcg.get_model_parallel_group())):
+        t = x.clone()
+        dist.all_reduce(t, group=grp)
+        res[f"all_reduce_{axis}"] = t.cpu().numpy()
+        res[f"members_{axis}"] = C._get_group(grp)._members()
+    dist.set_mesh(dist.build_mesh({"dp": DIST_WORLD}))
+    grad = torch.as_tensor(np.random.default_rng(r).standard_normal(
+        4096).astype(np.float32), device=dev)
+    q, s = C._block_quantize_int8(grad.reshape(-1, 256))
+    res["codes"], res["scales"] = q.cpu().numpy(), s.cpu().numpy()
+    t = grad.clone()
+    dist.compressed_all_reduce(t, C.ReduceOp.AVG, group=C.Group(axis="dp"))
+    res["compressed"] = t.cpu().numpy()
+    res["grad"] = grad.cpu().numpy()
+    dist.set_mesh(None)
+    dist.set_hybrid_communicate_group(None)
+    return res
+
+
+def _dist_rank(work):
+    """A rank of phase 34's world of four on the one card (gloo): lanes
+    34.2a, 34.2b and 34.2c; pickles its results into ``work``."""
+    import faulthandler
+    import pickle
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    faulthandler.enable()
+    fa_mod = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    t0 = time.perf_counter()
+    env = dist.init_parallel_env()
+    dev = dist.env._rank_device()
+    res = {"rank": env.rank, "backend": dist.env.backend(),
+           "init_s": time.perf_counter() - t0}
+    log(f"phase 34 rank {env.rank}: up in {res['init_s']:.1f} s")
+    res["collectives"] = _rank_collectives(torch, dev)
+    log(f"phase 34 rank {env.rank}: 34.2c done")
+    # the timed lanes wait for the parent's one-process references to
+    # leave the card
+    go = os.path.join(work, "go")
+    deadline = time.perf_counter() + DIST_TIMEOUT
+    while not os.path.exists(go):
+        if time.perf_counter() > deadline:
+            raise RuntimeError("phase 34: the parent never said go")
+        time.sleep(0.05)
+    res["dp"] = _rank_dp_lane(torch, fa_mod, dev, work)
+    log(f"phase 34 rank {env.rank}: 34.2a done")
+    res["ring"] = _rank_ring_lane(torch, fa_mod, dev)
+    log(f"phase 34 rank {env.rank}: 34.2b done")
+    res["imported"] = sorted(m for m in ("jax", "paddle_tpu")
+                             if m in sys.modules)
+    with open(os.path.join(work, f"rank{env.rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.env.destroy_process_group()
+
+
+def _check_collectives(results):
+    """Hold lane 34.2c's results to NumPy; returns the checks made."""
+    from paddle_tpu_torch.distributed import collective as C
+    n = DIST_WORLD
+    xs = [np.arange(8, dtype=np.float32) + 10 * r for r in range(n)]
+    red = {"SUM": sum(xs), "MAX": np.max(xs, 0), "MIN": np.min(xs, 0),
+           "PROD": np.prod(np.array(xs, np.float64), 0).astype(np.float32),
+           "AVG": sum(xs) / n}
+    checks = 0
+
+    def hold(name, got, want, exact=False):
+        nonlocal checks
+        if exact:
+            ok = np.array_equal(got, want)
+        else:
+            ok = np.allclose(got, want, rtol=1e-6, atol=1e-6)
+        if not ok:
+            raise RuntimeError(f"phase 34.2c {name}: {got} vs {want}")
+        checks += 1
+    codes_cpu = []
+    for r, res in enumerate(results):
+        c = res["collectives"]
+        for op, want in red.items():
+            hold(f"all_reduce_{op} rank {r}", c[f"all_reduce_{op}"], want)
+        hold(f"subgroup rank {r}", c["all_reduce_sub"],
+             xs[1] + xs[3] if r in (1, 3) else xs[r])
+        hold(f"broadcast rank {r}", c["broadcast"], xs[2], True)
+        hold(f"broadcast_sub rank {r}", c["broadcast_sub"],
+             xs[3] if r in (1, 3) else xs[r], True)
+        hold(f"reduce rank {r}", c["reduce"], sum(xs) if r == 1 else xs[r])
+        hold(f"all_gather rank {r}", c["all_gather"], np.stack(xs), True)
+        if r in (1, 3):
+            hold(f"all_gather_sub rank {r}", c["all_gather_sub"],
+                 np.stack([xs[1], xs[3]]), True)
+        hold(f"reduce_scatter rank {r}", c["reduce_scatter"],
+             sum(xs)[2 * r:2 * r + 2])
+        hold(f"alltoall rank {r}", c["alltoall"],
+             np.concatenate([xs[i][2 * r:2 * r + 2] for i in range(n)]),
+             True)
+        hold(f"p2p rank {r}", c["p2p_exchange"], xs[0] if r == 2 else xs[r],
+             True)
+        hold(f"send_recv rank {r}", c["send_recv"],
+             xs[3] if r == 0 else xs[r], True)
+        hold(f"scatter rank {r}", c["scatter"], np.full(8, r, np.float32),
+             True)
+        if c["objects"] != [("rank", i) for i in range(n)]:
+            raise RuntimeError(f"phase 34.2c objects: {c['objects']}")
+        for axis in ("dp", "mp"):
+            hold(f"all_reduce_{axis} rank {r}", c[f"all_reduce_{axis}"],
+                 sum(xs[i] for i in c[f"members_{axis}"]))
+        import torch
+        q, s = C._block_quantize_int8(torch.as_tensor(
+            c["grad"]).reshape(-1, 256))
+        hold(f"int8 codes rank {r}", c["codes"], q.numpy(), True)
+        hold(f"int8 scales rank {r}", c["scales"], s.numpy(), True)
+        codes_cpu.append(q)
+    mean = sum(res["collectives"]["grad"] for res in results) / n
+    bound = (n + 1) * max(np.abs(res["collectives"]["grad"]).max()
+                          for res in results) / 127
+    for r, res in enumerate(results):
+        got = res["collectives"]["compressed"]
+        if np.abs(got - mean).max() > bound or \
+                not np.array_equal(got, results[0]["collectives"]
+                                   ["compressed"]):
+            raise RuntimeError(f"phase 34.2c compressed rank {r}: "
+                               f"{np.abs(got - mean).max()} vs {bound}")
+        checks += 1
+    return checks
+
+
+def ring_errors(ring, o_ref, lse_ref, plain, gref):
+    """Lane 34.2b's ranks (``ring``) against the one-process run: the
+    first O and LSE a rank against whole-S B1's (``o_ref``, ``lse_ref``)
+    and against the plain version at :func:`_plain_rows` (``plain``), and
+    the first step's wq, wk, wv gradients summed over the ranks against
+    whole-S B1-B3's (``gref``)."""
+    tl = DIST_RING_SEQ // DIST_WORLD
+    o_ref, lse_ref = o_ref.numpy(), lse_ref.numpy()
+    o_plain, lse_plain = plain[0].numpy(), plain[1].numpy()
+    rows = _plain_rows()
+    e = {"first_o_max_abs_err": 0.0, "first_lse_max_abs_err": 0.0,
+         "first_o_rel_err": [], "first_o_plain_rel_err": [],
+         "first_lse_plain_max_abs_err": []}
+    for r, d in enumerate(ring):
+        o, lse = d["first"]
+        chunk = slice(r * tl, (r + 1) * tl)
+        e["first_o_max_abs_err"] = max(e["first_o_max_abs_err"], float(
+            np.abs(o - o_ref[:, :, chunk]).max()))
+        e["first_lse_max_abs_err"] = max(e["first_lse_max_abs_err"], float(
+            np.abs(lse - lse_ref[:, :, chunk]).max()))
+        e["first_o_rel_err"].append(_rel(o, o_ref[:, :, chunk]))
+        sel = (rows >= r * tl) & (rows < (r + 1) * tl)
+        mine = rows[sel] - r * tl
+        e["first_o_plain_rel_err"].append(_rel(o[:, :, mine],
+                                               o_plain[:, :, sel]))
+        e["first_lse_plain_max_abs_err"].append(float(np.abs(
+            lse[:, :, mine] - lse_plain[:, :, sel]).max()))
+    # whole-S B1 against the same plain rows: the bf16 floor
+    e["b1_o_plain_rel_err"] = _rel(o_ref[:, :, rows], o_plain)
+    names = [f"layer{i}.{w}" for i in range(DIST_RING_LAYERS)
+             for w in ("wq", "wk", "wv")]
+    got = [g.float().numpy() for g in ring[0]["grads0"]]
+    want = [g.float().numpy() for g in gref]
+    e["qkv_grad_rel_err"] = {n: _rel(a, b)
+                             for n, a, b in zip(names, got, want)}
+    e["qkv_grad_max_err_over_max"] = {
+        n: float(np.abs(a - b).max() / np.abs(b).max())
+        for n, a, b in zip(names, got, want)}
+    e["grads_equal_on_ranks"] = all(d["grad_sums"] == ring[0]["grad_sums"]
+                                    for d in ring)
+    return e
+
+
+def ring_hold(e):
+    """Raise where :func:`ring_errors`' ``e`` is out of tolerance."""
+    if e["first_o_max_abs_err"] > DIST_RING_O_TOL or \
+            e["first_lse_max_abs_err"] > DIST_RING_LSE_TOL or \
+            max(e["first_o_rel_err"]) > DIST_RING_O_RTOL:
+        raise RuntimeError("phase 34.2b: the ring's first O or LSE parts "
+                           "from whole-S B1's")
+    if max(e["first_o_plain_rel_err"]) > DIST_RING_O_RTOL or \
+            max(e["first_lse_plain_max_abs_err"]) > DIST_RING_LSE_TOL:
+        raise RuntimeError("phase 34.2b: the ring's first O or LSE parts "
+                           "from the plain version")
+    if max(e["qkv_grad_rel_err"].values()) > DIST_RING_GRAD_RTOL or \
+            not e["grads_equal_on_ranks"]:
+        raise RuntimeError("phase 34.2b: the ring's first-step gradients "
+                           "part from whole-S B1-B3's")
+
+
+def distributed_phase(torch, fa_mod, dev, smi, reset_counters,
+                      read_counters):
+    """Phase 34 (module docstring): distributed training, first half.
+    Returns (results, launches by path, B1-B3 launches by type)."""
+    import pickle
+    import tempfile
+    import paddle_tpu_torch.distributed as dist
+    t_phase = time.perf_counter()
+    log(f"phase 34: distributed training on one card; {smi}")
+    out, launches, dtypes = {}, {}, {}
+    # the refusal's two ranks start now and fail at their first NCCL
+    # call, beside lane 34.1
+    refusal = nccl_refusal()
+    w1, launches["dist_world1_nccl"], dtypes["dist_world1_nccl"] = \
+        dist_world1_lane(torch, fa_mod, dev, smi, reset_counters,
+                         read_counters)
+    out["world1"] = w1
+    out["nccl_two_ranks"] = nccl_refused(refusal)
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        # the four ranks import and meet (host work) while this process
+        # runs the one-process references on the card
+        world = dist.spawn(_dist_rank, args=(work,), nprocs=DIST_WORLD,
+                           gpus=",".join(["0"] * DIST_WORLD),
+                           backend="gloo", join=False)
+        try:
+            out["dp_reference"], ref_params = dp_reference(torch, dev)
+            out["ring_reference"], o_ref, lse_ref, plain, gref = \
+                ring_reference(torch, dev)
+        except BaseException:
+            world.terminate()
+            raise
+        open(os.path.join(work, "go"), "w").close()
+        world.join(DIST_TIMEOUT)
+        world_s = time.perf_counter() - t0
+        results = []
+        for r in range(DIST_WORLD):
+            with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        got_params = torch.load(os.path.join(work, "dp_params.pt"))
+    out["world4_s"] = world_s
+    for r, res in enumerate(results):
+        if res["imported"] or res["backend"] != "gloo" or res["rank"] != r:
+            raise RuntimeError(f"phase 34: rank {r}: {res['backend']}, "
+                               f"imported {res['imported']}")
+    # 34.2c
+    out["collective_checks"] = _check_collectives(results)
+    # 34.2a
+    ref = out["dp_reference"]["losses"]
+    dp = [res["dp"] for res in results]
+    worst = max(abs(a - b) / abs(b) for d in dp
+                for a, b in zip(d["losses"], ref))
+    # k_proj.bias's gradient is zero up to rounding (softmax ignores a
+    # score shift shared by all keys), so Adam moves it by a
+    # rounding-driven fraction of lr in each run: held to "tiny" (Adam's
+    # step bound, lr a step), the rest to each tensor's max
+    # AdamW normalizes each gradient, so an element whose gradient is
+    # near its epsilon moves by a rounding-driven part of lr: each
+    # tensor within DIST_PARAM_TOL of its max or DIST_PARAM_LR_PART of
+    # one step (lr), whichever is larger
+    tiny = DIST_STEPS * DIST_LR * 1.01
+    perr = {k: float((got_params[k] - v).abs().max()
+                     / max(float(v.abs().max()) * DIST_PARAM_TOL,
+                           DIST_PARAM_LR_PART * DIST_LR))
+            for k, v in ref_params.items() if not k.endswith("k_proj.bias")}
+    kbias = max(max(float(got_params[k].abs().max()),
+                    float(v.abs().max()))
+                for k, v in ref_params.items() if k.endswith("k_proj.bias"))
+    out["dp2_mp2"] = {
+        "losses": dp[0]["losses"], "ref_losses": ref,
+        "loss_rel_err": worst, "param_err_over_tol_max": max(perr.values()),
+        "param_worst": max(perr, key=perr.get),
+        "k_proj_bias_max_abs": kbias, "lane": dp[0]["lane"],
+        "lane_reason": dp[0]["lane_reason"], "mode": dp[0]["mode"],
+        "local_q_proj": dp[0]["local_q_proj"],
+        "step_ms": [d["step_ms"] for d in dp],
+        "peak_gib": [d["peak_gib"] for d in dp],
+        "seconds": [d["seconds"] for d in dp]}
+    launches["dist_dp2_mp2"] = {
+        n: sum(d["launches"].get(n, 0) for d in dp)
+        for n in launches["dist_world1_nccl"]}
+    log(f"phase 34.2a dp2 x mp2 (gloo, 4 ranks on one card, lane "
+        f"{dp[0]['lane']}): losses {dp[0]['losses']} vs one process {ref} "
+        f"(worst rel {worst:.3e}); params worst err over tolerance "
+        f"{max(perr.values()):.3e} ({out['dp2_mp2']['param_worst']}), "
+        f"k_proj.bias max |v| {kbias:.3e} (tiny: <= {tiny:.3e}); step ms "
+        f"a rank {out['dp2_mp2']['step_ms']}; peak GiB "
+        f"{out['dp2_mp2']['peak_gib']}; {smi}")
+    # 34.2b
+    rr = out["ring_reference"]["losses"]
+    ring = [res["ring"] for res in results]
+    e = ring_errors(ring, o_ref, lse_ref, plain, gref)
+    loss_err = max(abs(a - b) / abs(b) for d in ring
+                   for a, b in zip(d["losses"], rr))
+    out["sp4_ring_flash"] = {
+        "losses": ring[0]["losses"], "ref_losses": rr,
+        "loss_rel_err": loss_err, **e,
+        "step_ms": [d["step_ms"] for d in ring],
+        "peak_gib": [d["peak_gib"] for d in ring],
+        "host_staged": [d["host_staged"] for d in ring],
+        "launches_by_rank": [d["launches"] for d in ring],
+        "seconds": [d["seconds"] for d in ring]}
+    launches["dist_sp4_ring_flash"] = {
+        n: sum(d["launches"].get(n, 0) for d in ring)
+        for n in launches["dist_world1_nccl"]}
+    log(f"phase 34.2b sp4 ring-flash (S {DIST_RING_SEQ}, bf16, causal, gloo "
+        f"p2p through pinned host memory): losses {ring[0]['losses']} vs "
+        f"whole-S flash {rr} (rel err {loss_err:.3e}); first O max err "
+        f"{e['first_o_max_abs_err']:.3e}, LSE "
+        f"{e['first_lse_max_abs_err']:.3e}; first O relative err a rank "
+        f"{e['first_o_rel_err']}; against the plain version at "
+        f"{len(_plain_rows())} rows: O {e['first_o_plain_rel_err']}, LSE "
+        f"{e['first_lse_plain_max_abs_err']} (whole-S B1's O "
+        f"{e['b1_o_plain_rel_err']:.3e}); first-step gradients against "
+        f"whole-S B1-B3, relative {e['qkv_grad_rel_err']}, max over max "
+        f"{e['qkv_grad_max_err_over_max']}, equal on every rank "
+        f"{e['grads_equal_on_ranks']}; step ms a rank "
+        f"{out['sp4_ring_flash']['step_ms']}; launches by rank "
+        f"{out['sp4_ring_flash']['launches_by_rank']}; {smi}")
+    if worst > DIST_LOSS_RTOL or max(perr.values()) > 1.0 or kbias > tiny:
+        raise RuntimeError("phase 34.2a: dp2 x mp2 parts from one process")
+    if dp[0]["lane"] != "eager" or dp[0]["mode"] != "model":
+        raise RuntimeError(f"phase 34.2a: lane {dp[0]['lane']}, mode "
+                           f"{dp[0]['mode']}")
+    for r, d in enumerate(dp):
+        for n, c in d["launches"].items():
+            if c != DIST_DP_LAYERS * DIST_STEPS:
+                raise RuntimeError(f"phase 34.2a rank {r}: {n} launched "
+                                   f"{c} times")
+    if loss_err > DIST_RING_LOSS_TOL:
+        raise RuntimeError("phase 34.2b: the ring's losses part from "
+                           "whole-S flash's")
+    ring_hold(e)
+    for r, d in enumerate(ring):
+        want = (r + 1) * DIST_RING_LAYERS * DIST_RING_STEPS
+        for n, c in d["launches"].items():
+            if c != want:
+                raise RuntimeError(f"phase 34.2b rank {r}: {n} launched "
+                                   f"{c} times, not {want}")
+    dist.env.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 34 {out['seconds']:.1f} s (the world of four "
+        f"{world_s:.1f} s)")
+    return out, launches, dtypes
+
+
 def counter_fns(torch, fa_mod, extra=()):
     """``(reset_counters, read_counters)`` over B1-B3's launch counts (and
     their counts by type) and ``extra``'s; the reset also resets the peak
@@ -9924,7 +10809,7 @@ def counter_fns(torch, fa_mod, extra=()):
 
 
 def phase_alone(torch, fa_mod, dev, smi, phase, extra_counters):
-    """``python3 chip_smoke.py --phase 23`` to ``33``: after the build,
+    """``python3 chip_smoke.py --phase 23`` to ``34``: after the build,
     that phase alone; prints its numbers, not the summary lines."""
     reset_counters, read_counters = counter_fns(torch, fa_mod,
                                                 extra_counters)
@@ -9932,7 +10817,7 @@ def phase_alone(torch, fa_mod, dev, smi, phase, extra_counters):
           26: vit_phase, 27: lstm_phase, 28: frcnn_phase,
           29: pipeline_phase, 30: observability_phase,
           31: fault_tolerance_phase, 32: fleet_phase,
-          33: front_door_phase}[phase]
+          33: front_door_phase, 34: distributed_phase}[phase]
     out, launches, dtypes = fn(torch, fa_mod, dev, smi, reset_counters,
                                read_counters)
     log(f"phase {phase} paths launches: {launches}, B1-B3 by type {dtypes}")
@@ -10016,7 +10901,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     if sys.argv[1:] == ["--phase", "22"]:
         return phase22_alone(torch, fa_mod, dev, smi)
-    if sys.argv[1:] in [["--phase", str(n)] for n in range(23, 34)]:
+    if sys.argv[1:] in [["--phase", str(n)] for n in range(23, 35)]:
         return phase_alone(torch, fa_mod, dev, smi, int(sys.argv[2]),
                            (pa_mod.paged_attention, nms_mod.greedy_nms))
     tc_libs = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -10049,6 +10934,18 @@ def main() -> int:
     b4 = check_paged(torch, pa_mod, gen)
     b5 = check_nms(torch, nms_mod, det_mod, gen)
     torch.cuda.empty_cache()
+
+    # -- phase 34: distributed training, first half ---------------------------
+    # run while the card is clean: the later phases' engines, programs and
+    # caches leave tens of GiB allocated by the end, and phase 34 trains
+    # GPT-3 1.3B and starts four ranks on the card
+    stamp("34 distributed training (the world, collectives, dp/mp, ring)")
+    distres, dist_launches, dist_dtypes = distributed_phase(
+        torch, fa_mod, dev, smi, *counter_fns(
+            torch, fa_mod, (pa_mod.paged_attention, nms_mod.greedy_nms)))
+    log(f"phase 34 paths launches: {dist_launches}, B1-B3 by type "
+        f"{dist_dtypes}")
+    release_memory(torch)
 
     # -- phases 3 and 4: the serving path ------------------------------------
     stamp("3-4 serving path")
@@ -10503,7 +11400,9 @@ def main() -> int:
              **opg_launches, **crf_launches, **beam_launches,
              **mb_launches, **vit_launches, **lstm_launches,
              **frcnn_launches, **pipe_launches, **obs_launches,
-             **ft_launches, **fleet_launches, **front_launches}
+             **ft_launches, **fleet_launches, **front_launches,
+             **{p: {**dict.fromkeys(front_launches["front_http"], 0), **c}
+                for p, c in dist_launches.items()}}
     amp_dtypes["bert_flash_checks"] = bert_dtypes
     amp_dtypes.update({f"training_gpt_s4096_{k}": v
                        for k, v in long_dtypes.items()})
@@ -10515,6 +11414,7 @@ def main() -> int:
     amp_dtypes["vit_train_o1"] = vit_dtypes
     amp_dtypes.update(obs_dtypes)
     amp_dtypes.update(ft_dtypes)
+    amp_dtypes.update(dist_dtypes)
 
     def launches(name):
         by_path = {k: v[name] for k, v in paths.items()}
@@ -10581,6 +11481,7 @@ def main() -> int:
     log(f"training that survives faults: {json.dumps(ftres)}")
     log(f"the LLM fleet's data path: {json.dumps(fleet)}")
     log(f"the front door, the autoscaler and the tuner: {json.dumps(front)}")
+    log(f"distributed training: {json.dumps(distres)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 __all__ = ["seed", "default_generator", "get_rng_state", "set_rng_state",
-           "draw", "keeping_draws", "reusing_draws"]
+           "draw", "keeping_draws", "reusing_draws", "RNGStatesTracker",
+           "get_rng_state_tracker"]
 
 _LOCK = threading.Lock()
 _SEED = [0]
@@ -82,6 +83,57 @@ def set_rng_state(state: Dict[str, torch.Tensor]):
     """Restore states from :func:`get_rng_state`."""
     for name, s in state.items():
         default_generator(name).set_state(s)
+
+
+class RNGStatesTracker:
+    """Named generator states, so that e.g. tensor-parallel dropout draws
+    the same masks inside an ``mp`` group and other ones across ``dp``
+    ranks (the JAX package's; reference
+    ``fleet/meta_parallel/parallel_layers/random.py:30``). Inside
+    ``rng_state(name)`` the named state is the default generator of every
+    device it is used on."""
+
+    def __init__(self):
+        self._seeds: Dict[str, int] = {}
+        self._states: Dict[tuple, torch.Generator] = {}
+
+    def add(self, name: str, seed_value: int):
+        if name in self._seeds:
+            raise ValueError(f"RNG state {name} already exists")
+        self._seeds[name] = int(seed_value)
+
+    def reset(self):
+        self._seeds = {}
+        self._states = {}
+
+    @contextlib.contextmanager
+    def rng_state(self, name: str, device=None):
+        if name not in self._seeds:
+            raise KeyError(f"RNG state {name} not registered")
+        dev = _key(device)
+        gen = self._states.get((name, dev))
+        if gen is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(self._seeds[name])
+            self._states[(name, dev)] = gen
+        with _LOCK:
+            prev = _GENERATORS.get(dev)
+            _GENERATORS[dev] = gen
+        try:
+            yield
+        finally:
+            with _LOCK:
+                if prev is None:
+                    _GENERATORS.pop(dev, None)
+                else:
+                    _GENERATORS[dev] = prev
+
+
+_TRACKER = RNGStatesTracker()
+
+
+def get_rng_state_tracker() -> RNGStatesTracker:
+    return _TRACKER
 
 
 def draw(make: Callable[[], torch.Tensor]) -> torch.Tensor:

@@ -218,9 +218,21 @@ class GraphPool:
                    if tuple(seg.get("segment_pool_id", ())) == pool)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the storage a graph reads); a plain
+    tensor as it is. Taken without autograd: a recorded ``to_local`` of
+    a parameter would keep its gradient accumulator alive from the
+    default stream, and a later capture of its backward would fail."""
+    if type(t) is torch.Tensor:
+        return t
+    from ..distributed.mesh import local
+    with torch.no_grad():
+        return local(t)
+
+
 def _leaves(params) -> List[torch.Tensor]:
     if isinstance(params, torch.Tensor):
-        return [params]
+        return [_local(params)]
     if isinstance(params, dict):
         return [t for k in sorted(params) for t in _leaves(params[k])]
     if isinstance(params, (list, tuple)):
@@ -302,7 +314,7 @@ def _copy_out(static, new):
 
 def _record(outs, stream):
     if isinstance(outs, torch.Tensor):
-        outs.record_stream(stream)
+        _local(outs).record_stream(stream)
     elif isinstance(outs, (list, tuple)):
         for o in outs:
             _record(o, stream)

@@ -12,9 +12,8 @@ The port runs a world of one process, rank 0 of 1, where the JAX
 package asks ``jax.process_index()``/``process_count()``: every file is
 this process's and ``global_shuffle`` is ``local_shuffle``. If
 ``torch.distributed`` is initialised with more than one rank, the file
-sharding, ``global_shuffle`` and the global sizes raise, naming ROADMAP
-queue A10 (the collectives), as ``io.DistributedBatchSampler`` takes
-one rank of one.
+sharding, ``global_shuffle`` and the global sizes raise, naming the
+second slice of ROADMAP queue A10.
 """
 from __future__ import annotations
 
@@ -28,14 +27,15 @@ __all__ = ["DatasetBase", "InMemoryDataset", "QueueDataset"]
 
 
 def _one_process(what):
-    """Rank 0 of a world of one; raises naming A10 in a larger one."""
+    """Rank 0 of a world of one; raises naming A10's second slice in a
+    larger one."""
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized() and \
             dist.get_world_size() > 1:
         raise NotImplementedError(
-            f"{what} across {dist.get_world_size()} processes needs the "
-            f"collectives, which are not ported yet (ROADMAP queue A10); "
-            f"the port's datasets run in a world of one")
+            f"{what} across {dist.get_world_size()} processes is the "
+            f"second slice of ROADMAP queue A10 (not ported yet); the "
+            f"port's datasets run in a world of one")
     return 0, 1
 
 

@@ -13,8 +13,9 @@ supervisor and the serving router share. The exit codes and the
 ``PADDLE_TPU_ELASTIC`` variable are the JAX package's.
 
 Single-process code on the standard library alone: the guard must work
-before any device is touched. The launcher, the cohort supervisor and
-the collectives are ROADMAP.md queue A10.
+before any device is touched. The launcher and its ``--elastic``
+supervisor are ``distributed/launch.py``; the cohort supervisor is the
+second slice of ROADMAP.md queue A10.
 """
 from __future__ import annotations
 

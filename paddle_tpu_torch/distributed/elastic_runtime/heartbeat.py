@@ -3,7 +3,8 @@
 reads): the cohort generation a supervisor stamps into every child, and
 :func:`maybe_auto_sender`, which would start the beacon sender when the
 supervisor names a coordinator. The sender, the coordinator and the
-straggler detector are ROADMAP A10: with ``PADDLE_TPU_HEARTBEAT_ADDR``
+straggler detector are ROADMAP A10's second slice: with
+``PADDLE_TPU_HEARTBEAT_ADDR``
 set, :func:`maybe_auto_sender` raises naming it."""
 from __future__ import annotations
 
@@ -29,11 +30,12 @@ def cohort_generation() -> int:
 def maybe_auto_sender():
     """None outside a cohort supervisor; with
     :data:`HEARTBEAT_ADDR_VAR` set, the beacon sender it asks for is
-    ROADMAP A10 and this raises."""
+    ROADMAP A10's second slice and this raises."""
     addr = os.environ.get(HEARTBEAT_ADDR_VAR, "")
     if not addr:
         return None
     raise NotImplementedError(
         f"{HEARTBEAT_ADDR_VAR}={addr}: the heartbeat beacon sender (and its "
-        "coordinator) are ROADMAP A10; the port runs the step watchdog "
+        "coordinator) are ROADMAP A10's second slice; the port runs the "
+        "step watchdog "
         "without one")

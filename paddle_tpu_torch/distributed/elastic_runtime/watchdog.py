@@ -50,7 +50,7 @@ class StepWatchdog:
 
     ``on_timeout`` (tests) replaces the terminal dump+exit; ``exit_fn`` is
     injectable for the same reason. ``heartbeat`` is an optional beacon
-    sender (ROADMAP A10) that gets ``notify_step`` with each disarmed
+    sender (ROADMAP A10's second slice) that gets ``notify_step`` with each disarmed
     step's wall-time.
     """
 

@@ -26,9 +26,9 @@ and the eager lane of a train step run the same code. A ``recompute``
 inside another one's function runs its function directly: the outer one
 already drops the activations.
 
-``GradientMergeOptimizer`` is host code and ported as is.
-``LocalSGDOptimizer`` averages parameters across processes and raises
-until the collectives are ported (ROADMAP.md queue A10).
+``GradientMergeOptimizer`` is host code and ported as is;
+``LocalSGDOptimizer`` averages the parameters over the data-parallel
+ranks every ``k_steps`` with the port's collectives.
 """
 from __future__ import annotations
 
@@ -146,10 +146,42 @@ class GradientMergeOptimizer:
 
 class LocalSGDOptimizer:
     """reference: distributed/fleet/meta_optimizers/localsgd_optimizer.py
-    :25: k local steps between parameter averages across processes. The
-    average is a collective, not ported yet."""
+    :25: ``k_steps`` local optimizer steps between parameter averages
+    across the data-parallel ranks, from ``begin_step`` on. Each rank
+    trains its own replica on its own batches (plain parameters, not a
+    ``DataParallel`` model, whose gradients are reduced every step); the
+    average is an all-reduce (AVG) of every parameter over the ``dp``
+    group of the hybrid topology, or the whole world without one."""
 
     def __init__(self, inner_optimizer, k_steps=1, begin_step=1):
-        raise NotImplementedError(
-            "LocalSGDOptimizer averages parameters across processes; the "
-            "collectives are not ported yet (ROADMAP.md queue A10)")
+        self._inner = inner_optimizer
+        self._k = max(1, int(k_steps))
+        self._begin = max(1, int(begin_step))
+        self._t = 0
+
+    def __getattr__(self, name):
+        return getattr(object.__getattribute__(self, "_inner"), name)
+
+    @torch.no_grad()
+    def _average_params(self):
+        from .. import collective as C
+        from ..topology import get_hybrid_communicate_group
+        hcg = get_hybrid_communicate_group()
+        group = hcg.get_data_parallel_group() if hcg is not None else None
+        for p in self._inner._parameter_list:
+            C.all_reduce(p.detach(), op=C.ReduceOp.AVG, group=group)
+
+    def step(self):
+        self._inner.step()
+        self._t += 1
+        if self._t >= self._begin and (self._t - self._begin) % self._k == 0:
+            self._average_params()
+
+    def clear_grad(self, set_to_zero=False):
+        self._inner.clear_grad(set_to_zero)
+
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, **kw):
+        loss.backward()
+        self.step()

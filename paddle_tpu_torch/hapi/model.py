@@ -112,7 +112,9 @@ from .. import amp, framework_io
 from ..core.device import DeviceLike, resolve_device
 from ..core.generator import default_generator
 from ..core.tensor import Tensor
-from ..core.graphs import GraphPool, Program
+from ..core.graphs import (GraphPool, Program, disable_graphs,
+                           graphs_enabled)
+from ..distributed.mesh import full, is_dtensor, reduce_grad
 from ..io import DataLoader, Dataset
 from ..metric import Metric
 from ..nn.clip import ClipGradByGlobalNorm, _clips, _sq_norm
@@ -304,8 +306,10 @@ class Model:
                 grads = torch.autograd.grad(loss, trainable,
                                             allow_unused=True)
             preds = [p.detach() for p in preds] if want_preds else []
-            return loss.detach(), preds, [
-                torch.zeros_like(p) if g is None else g
+            # on a mesh: the loss's global value, each gradient laid out
+            # as its parameter (the data-parallel reduction, in the step)
+            return full(loss.detach()), preds, [
+                torch.zeros_like(p) if g is None else reduce_grad(p, g)
                 for p, g in zip(trainable, grads)]
 
         def step(params, holder, *inputs):
@@ -339,9 +343,11 @@ class Model:
         ``values``."""
         with torch.no_grad():
             if ts["inputs"] is None:
-                ts["inputs"] = [torch.empty(v.shape, dtype=v.dtype,
-                                            device=self._device).copy_(v)
-                                for v in values]
+                ts["inputs"] = [
+                    torch.empty_like(v).copy_(v) if is_dtensor(v) else
+                    torch.empty(v.shape, dtype=v.dtype,
+                                device=self._device).copy_(v)
+                    for v in values]
             else:
                 for buf, v in zip(ts["inputs"], values):
                     buf.copy_(v)
@@ -374,7 +380,37 @@ class Model:
                        flops=ts.get("flops") if ts else None)
         return out
 
+    @property
+    def lane(self) -> str:
+        """Where ``train_batch`` runs its step: "graphed" (a captured CUDA
+        graph, replayed), "eager" (the plain function on CUDA, inside
+        ``disable_graphs`` or for a model that cannot be captured: see
+        :attr:`lane_reason`) or "cpu"."""
+        if self._device.type != "cuda":
+            return "cpu"
+        if not graphs_enabled() or self.lane_reason is not None:
+            return "eager"
+        return "graphed"
+
+    @property
+    def lane_reason(self):
+        """Why a CUDA model runs eagerly by itself, or None: a model laid
+        out on a gloo mesh (gloo's collectives cannot be captured into a
+        CUDA graph)."""
+        p = next(iter(self.network.parameters()), None)
+        if self._device.type != "cuda" or p is None or not is_dtensor(p):
+            return None
+        import torch.distributed as dist
+        backend = dist.get_backend(p.device_mesh.get_group(0))
+        if backend != "nccl":
+            return (f"the model is laid out on a {backend} mesh, whose "
+                    f"collectives a CUDA graph cannot capture")
+        return None
+
     def _train_batch_impl(self, inputs, labels, update):
+        if self.lane_reason is not None and graphs_enabled():
+            with disable_graphs():
+                return self._train_batch_impl(inputs, labels, update)
         if self._loss is None or (update and self._optimizer is None):
             raise RuntimeError("Model.train_batch: call prepare(optimizer, "
                                "loss) first")
@@ -504,6 +540,12 @@ class Model:
         the flat buffers. Falls back to per-step :meth:`train_batch` when
         the configuration is not elementwise-safe (``_fused_loop`` is then
         None). Returns the K losses."""
+        if any(is_dtensor(p) for p in self.network.parameters()):
+            raise NotImplementedError(
+                "Model.train_loop packs the parameters, gradients and "
+                "optimizer state into one flat buffer a type, and a model "
+                "laid out on a mesh holds DTensor shards that cannot be "
+                "views of one buffer: use train_batch or train_batches")
         ts, opt, xs, ys, K = self._prepare_multi_step("train_loop", inputs,
                                                       labels)
         fused = self._build_fused_loop(ts)

@@ -7,8 +7,8 @@ in the JAX package's format (``sharded.py``), so either package loads
 the other's. ``async_ckpt`` is the crash-consistent writer (device
 snapshots off the step path, a bounded coalescing queue, one atomic
 ``os.replace`` publish) and ``auto_checkpoint`` the restart-safe epoch
-loop. One process on one card; the mesh and multi-process commits are
-ROADMAP A10.
+loop. One process on one card; mesh checkpoints and multi-process
+commits are the second slice of ROADMAP A10.
 """
 from .sharded import (save_sharded, load_sharded, AsyncSaver,  # noqa: F401
                       CheckpointIntegrityError, verify_checkpoint,

@@ -30,7 +30,7 @@
    (:func:`cleanup_stale_staging` renames the parked dir back).
 
 The port commits from one process: a ``torch.distributed`` world larger
-than one raises naming ROADMAP A10 (the JAX package's cooperative
+than one raises naming ROADMAP A10's second slice (the JAX package's cooperative
 per-host commit and its barrier).
 
 I/O failures retry on the writer thread (``utils.resilience.retry_call``)

@@ -21,7 +21,8 @@ The port is one process on one card: every tensor is written whole as
 shard 0 with the slice index a single-device JAX array has (``[None]``
 per axis) and ``spec`` null, under process index 0. A ``torch.distributed``
 world larger than one, and ``load_sharded(mesh=...)``, raise naming
-ROADMAP A10 (the mesh and multi-process commits). On load, a multi-shard
+ROADMAP A10's second slice (mesh checkpoints and multi-process
+commits). On load, a multi-shard
 archive a JAX mesh wrote is reassembled from its slice indices, as the
 JAX package does.
 
@@ -121,7 +122,8 @@ def _process_index() -> int:
         raise NotImplementedError(
             "checkpoints from a torch.distributed world of "
             f"{dist.get_world_size()} processes (per-process shard files, "
-            "the cooperative commit) are ROADMAP A10; the port commits "
+            "the cooperative commit) are ROADMAP A10's second slice; the "
+            "port commits "
             "from one process")
     return 0
 
@@ -454,11 +456,12 @@ def load_sharded(path: str, mesh=None, return_tensor: bool = True,
     (``return_tensor``) or torch tensors, in the saved nesting, scalars
     as saved. ``verify=True`` checksum-verifies every shard archive first
     and raises :class:`CheckpointIntegrityError` on a torn checkpoint.
-    ``mesh`` (re-sharding onto a mesh) is ROADMAP A10."""
+    ``mesh`` (re-sharding onto a mesh) is ROADMAP A10's second slice."""
     if mesh is not None:
         raise NotImplementedError(
             "load_sharded(mesh=...): re-sharding onto a device mesh is "
-            "ROADMAP A10; the port loads whole tensors onto one device")
+            "ROADMAP A10's second slice; the port loads whole tensors "
+            "onto one device")
     dev = resolve_device(device)
     with _otrace.span("checkpoint/load", {"path": path}):
         return _load_sharded_impl(path, dev, return_tensor, verify)

@@ -234,8 +234,10 @@ class BatchSampler(Sampler):
 
 class DistributedBatchSampler(BatchSampler):
     """Shards the index space across ``num_replicas`` ranks. Without
-    ``num_replicas``/``rank`` it takes the port's world, one process of
-    rank 0 (the collectives are ROADMAP A10)."""
+    ``num_replicas``/``rank`` it takes the data-parallel degree and rank
+    of the hybrid topology (``fleet.init``), else the process world's
+    (``distributed.get_world_size``/``get_rank``), so that each
+    data-parallel rank reads its own shard."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
@@ -243,8 +245,19 @@ class DistributedBatchSampler(BatchSampler):
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
-        self.nranks = 1 if num_replicas is None else num_replicas
-        self.local_rank = 0 if rank is None else rank
+        if num_replicas is None or rank is None:
+            from ..distributed import get_rank, get_world_size
+            from ..distributed.topology import get_hybrid_communicate_group
+            hcg = get_hybrid_communicate_group()
+            if hcg is not None:
+                world = hcg.get_data_parallel_world_size()
+                me = hcg.get_data_parallel_rank()
+            else:
+                world, me = get_world_size(), get_rank()
+            num_replicas = num_replicas or world
+            rank = rank if rank is not None else me
+        self.nranks = num_replicas
+        self.local_rank = rank
         self.epoch = 0
         self.num_samples = int(math.ceil(len(dataset) / self.nranks))
         self.total_size = self.num_samples * self.nranks

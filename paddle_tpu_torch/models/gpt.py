@@ -10,22 +10,27 @@ package's state dict 1:1, so weights carry over with
 Construction puts the parameters on ``device`` and draws them from a
 ``torch.Generator`` on that device seeded with ``seed``. ``generate``
 returns an int32 torch tensor on the model's device (the port has no
-Tensor class yet, ROADMAP.md queue A1). The draft-model config and the
-tensor- and pipeline-parallel plans are not ported yet.
+Tensor class yet, ROADMAP.md queue A1). :func:`tp_partition_specs` is the
+JAX package's tensor-parallel plan (``_TP_RULES``): laid out with
+``distributed.shard_tensor``, the model trains on a mesh (its attention
+runs the flash kernels on each rank's local heads). The pipeline plan is
+ROADMAP A10's second slice.
 """
 from __future__ import annotations
 
+import re
 import threading
 import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device
 from ..core.generator import default_generator
+from ..distributed.mesh import is_dtensor, like, replicated
 from ..nn.functional.loss import cross_entropy
 from ..nn.layer_base import Layer
 from ..nn.layers_common import Dropout, Embedding, LayerNorm, reset_parameters
@@ -112,12 +117,19 @@ class GPTModel(Layer):
         ``max_position_embeddings`` then gives the JAX package's tokens,
         where an index past the table would be a device-side assert on
         CUDA."""
+        w = self.word_embeddings.weight
+        if is_dtensor(w) and not is_dtensor(input_ids):
+            # a model laid out on a mesh: plain ids are the global batch,
+            # the same on every rank
+            input_ids = replicated(input_ids, w.device_mesh)
         if position_ids is None:
             seq_len = input_ids.shape[1]
             offset = int(cache[0].k.shape[2]) if cache is not None else 0
             position_ids = torch.arange(
                 offset, offset + seq_len, device=input_ids.device).expand(
                     input_ids.shape[0], seq_len)
+            if is_dtensor(input_ids):
+                position_ids = like(position_ids.contiguous(), input_ids)
         n_pos = self.config.max_position_embeddings
         pos = self.position_embeddings(position_ids.clamp(max=n_pos - 1))
         pos = torch.where((position_ids >= n_pos)[..., None],
@@ -180,6 +192,34 @@ class GPTPretrainingCriterion(Layer):
         v = logits.shape[-1]
         return cross_entropy(logits[:, :-1, :].reshape(-1, v),
                              labels[:, 1:].reshape(-1))
+
+
+# -- tensor-parallel plan -----------------------------------------------------
+
+_TP_RULES = (
+    # Megatron split: qkv + ffn-in are column-parallel (shard output dim),
+    # attn-out + ffn-out are row-parallel (shard input dim), the word
+    # embedding (and so the tied LM head) is sharded on the vocab dim
+    (r"\.(q_proj|k_proj|v_proj|linear1)\.weight$", (None, "mp")),
+    (r"\.(q_proj|k_proj|v_proj|linear1)\.bias$", ("mp",)),
+    (r"\.(out_proj|linear2)\.weight$", ("mp", None)),
+    (r"word_embeddings\.weight$", ("mp", None)),
+)
+
+
+def tp_partition_specs(model) -> Dict[str, tuple]:
+    """Per-parameter ``PartitionSpec`` axes (tuples; ``()`` replicated)
+    for tensor parallelism over the ``mp`` mesh axis, by parameter name
+    (the JAX package's rules, which name the same parameters)."""
+    specs = {}
+    for name, _ in model.named_parameters():
+        spec = ()
+        for pat, sp in _TP_RULES:
+            if re.search(pat, name):
+                spec = sp
+                break
+        specs[name] = spec
+    return specs
 
 
 #: tokens between the host-side "has every row hit eos?" probes: each

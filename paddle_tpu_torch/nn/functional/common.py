@@ -137,11 +137,22 @@ def embedding(x, weight, padding_idx: Optional[int] = None,
 
 
 def _embedding(x, weight, padding_idx):
-    out = weight[x.long()]
+    if type(weight) is not torch.Tensor and _is_dtensor(weight):
+        # a table laid out on a mesh is looked up where it lies
+        # (indexing would gather it)
+        from ...distributed.mesh import embedding
+        out = embedding(x, weight)
+    else:
+        out = weight[x.long()]
     if padding_idx is not None:
         out = torch.where((x == padding_idx)[..., None],
                           torch.zeros_like(out), out)
     return out
+
+
+def _is_dtensor(t):
+    from ...distributed.mesh import is_dtensor
+    return is_dtensor(t)
 
 
 def one_hot(x, num_classes, name=None):

@@ -61,11 +61,41 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
 
 def _cross_entropy(input, label, weight, ignore_index, reduction,
                    soft_label, axis, use_softmax):
+    if type(input) is not torch.Tensor and type(label) is torch.Tensor:
+        from ...distributed.mesh import is_dtensor, like
+        if is_dtensor(input):
+            # logits on a mesh: the labels (the global batch's) follow
+            label = like(label, input)
+    mesh_dim = _class_sharded(input, axis) if use_softmax and \
+        not soft_label and weight is None else None
+    if mesh_dim is not None:
+        # classes sharded over a mesh axis: the parallel cross entropy,
+        # where a log_softmax would gather every rank's logits
+        from ...distributed.mesh import vocab_parallel_nll
+        lab = label.long()
+        if lab.dim() == input.dim():
+            lab = lab.squeeze(axis)
+        valid = lab != ignore_index
+        safe = torch.where(valid, lab, torch.zeros_like(lab))
+        loss = vocab_parallel_nll(input, safe, mesh_dim)
+        return _finish_nll(loss, valid, safe, weight, reduction)
     logp = torch.log_softmax(input, dim=axis) if use_softmax \
         else torch.log(input.clamp_min(1e-30))
     if soft_label:
         return _reduce(-(label * logp).sum(dim=axis), reduction)
     loss, valid, safe = _pick(logp, label, axis, ignore_index)
+    return _finish_nll(loss, valid, safe, weight, reduction)
+
+
+def _class_sharded(input, axis):
+    if type(input) is torch.Tensor:
+        return None
+    from ...distributed.mesh import class_sharded_axis
+    return class_sharded_axis(input, axis)
+
+
+def _finish_nll(loss, valid, safe, weight, reduction):
+    """The per-entry ``loss`` weighted, ignored entries zeroed, reduced."""
     if weight is not None:
         loss = loss * weight[safe]
     loss = torch.where(valid, loss, torch.zeros_like(loss))

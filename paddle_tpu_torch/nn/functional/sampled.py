@@ -191,7 +191,7 @@ def class_center_sample(label, num_classes, num_samples, group=None,
     if group not in (None, False):
         raise NotImplementedError(
             "class_center_sample(group=...) samples across a model-parallel "
-            "group, which is not ported (ROADMAP queue A10); pass "
+            "group, which is the second slice of ROADMAP queue A10; pass "
             "group=None")
     C, S = int(num_classes), int(num_samples)
     if S > C:

@@ -47,6 +47,7 @@ read.
 from __future__ import annotations
 
 import collections
+import weakref
 
 import numpy as np
 import torch
@@ -95,6 +96,13 @@ def _unwrap(a):
             return items
         return type(a)(*items) if hasattr(a, "_fields") else tuple(items)
     return a
+
+
+def _is_dtensor(t) -> bool:
+    if type(t) is torch.Tensor or not isinstance(t, torch.Tensor):
+        return False
+    from ..distributed.mesh import is_dtensor
+    return is_dtensor(t)
 
 
 class HookRemoveHelper:
@@ -178,11 +186,25 @@ def _as_torch(v):
     return torch.as_tensor(np.asarray(v))
 
 
+#: every live Layer, deep copies included (``__new__`` runs for both), so
+#: ``distributed.shard_tensor`` can swap a parameter where it is held
+_LIVE_LAYERS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def live_layers():
+    return list(_LIVE_LAYERS)
+
+
 class Layer(torch.nn.Module):
     """A ``torch.nn.Module`` that takes and returns paddle Tensors at its
     boundary, with the reference's ``Layer`` API (module docstring)."""
 
     _global_counter = collections.defaultdict(int)
+
+    def __new__(cls, *args, **kwargs):
+        obj = super().__new__(cls)
+        _LIVE_LAYERS.add(obj)
+        return obj
 
     def __init__(self, name_scope=None, dtype="float32"):
         super().__init__()
@@ -338,12 +360,21 @@ class Layer(torch.nn.Module):
             return super().state_dict(destination=destination,
                                       prefix=prefix, keep_vars=keep_vars)
         if include_sublayers:
-            return super().state_dict(destination=destination,
+            dest = super().state_dict(destination=destination,
                                       prefix=structured_name_prefix,
                                       keep_vars=keep_vars)
-        dest = collections.OrderedDict() if destination is None \
-            else destination
-        self._save_to_state_dict(dest, structured_name_prefix, keep_vars)
+        else:
+            dest = collections.OrderedDict() if destination is None \
+                else destination
+            self._save_to_state_dict(dest, structured_name_prefix,
+                                     keep_vars)
+        if not keep_vars:
+            # a sharded parameter's value is its global one, gathered, as
+            # the JAX package's state_dict holds global arrays
+            for k, v in dest.items():
+                if _is_dtensor(v):
+                    from ..distributed.mesh import full
+                    dest[k] = full(v)
         return dest
 
     @torch.no_grad()
@@ -362,7 +393,12 @@ class Layer(torch.nn.Module):
             if tuple(v.shape) != tuple(t.shape):
                 raise ValueError(f"shape mismatch for {k}: "
                                  f"{tuple(v.shape)} vs {tuple(t.shape)}")
-            t.copy_(v.to(device=t.device, dtype=t.dtype))
+            v = v.to(device=t.device, dtype=t.dtype)
+            if _is_dtensor(t):
+                # each rank keeps its slice of the global value
+                from ..distributed.mesh import like
+                v = like(v, t)
+            t.copy_(v)
         unexpected = [k for k in state_dict if k not in own]
         return missing, unexpected
 

@@ -35,7 +35,8 @@ has ``reset_parameters(generator)``, which draws them again from
 registration order, so one seed fixes the whole model.
 
 ``SyncBatchNorm`` in one process is ``BatchNorm``, as the reference's
-eager mode is; statistics across ranks are ROADMAP.md queue A10.
+eager mode is; statistics across ranks are the second slice of
+ROADMAP.md queue A10.
 """
 from __future__ import annotations
 

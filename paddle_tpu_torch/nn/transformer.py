@@ -75,6 +75,38 @@ def _activation(name: str):
     raise ValueError(f"activation {name!r} not in ('relu', 'gelu')")
 
 
+def _sharded(*ts) -> bool:
+    return any(type(t) is not torch.Tensor and isinstance(t, torch.Tensor)
+               and _is_dtensor(t) for t in ts)
+
+
+def _is_dtensor(t):
+    from ..distributed.mesh import is_dtensor
+    return is_dtensor(t)
+
+
+def on_local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` over ``[B, L, H, D]`` DTensors, run on each rank's
+    local rows and heads (``local_map``): the placements must shard only
+    the batch (dim 0) and the heads (dim 2); k and v take q's. The
+    result is a DTensor laid out as q."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(q.placements)
+    for p in pl:
+        if not (isinstance(p, Replicate)
+                or (isinstance(p, Shard) and p.dim in (0, 2))):
+            raise ValueError(
+                f"attention on a mesh: q is laid out {pl}; only the batch "
+                f"(dim 0) and the heads (dim 2) may be sharded")
+    mesh = q.device_mesh
+    k = k.redistribute(mesh, pl)
+    v = v.redistribute(mesh, pl)
+    return local_map(fn, out_placements=list(pl),
+                     in_placements=(list(pl),) * 3,
+                     device_mesh=mesh)(q, k, v)
+
+
 class MultiHeadAttention(Layer):
     Cache = collections.namedtuple("Cache", ["k", "v"])
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
@@ -139,32 +171,9 @@ class MultiHeadAttention(Layer):
             k = Tensor._wrap(k)
         return self.Cache(k, k)
 
-    def forward(self, query, key=None, value=None, attn_mask=None,
-                cache=None):
-        """``out``; with ``need_weights`` also the attention weights, and
-        with a ``Cache`` also the grown ``Cache``, in that order (a tuple
-        when there is more than ``out``)."""
-        key = query if key is None else key
-        value = key if value is None else value
-        if self._flash_eligible(attn_mask, cache):
-            b, lq = query.shape[0], query.shape[1]
-            shape = (b, -1, self.num_heads, self.head_dim)
-            out, _ = flash_attention(
-                self.q_proj(query).reshape(shape),
-                self.k_proj(key).reshape(shape),
-                self.v_proj(value).reshape(shape),
-                causal=isinstance(attn_mask, _CausalMask))
-            return self.out_proj(out.reshape(b, lq, self.embed_dim))
-        q = self._split_heads(self.q_proj(query))
-        if isinstance(cache, self.StaticCache):
-            k, v = cache.k, cache.v
-        else:
-            k = self._split_heads(self.k_proj(key))
-            v = self._split_heads(self.v_proj(value))
-            if isinstance(cache, self.Cache):
-                k = torch.cat([cache.k, k], dim=2)
-                v = torch.cat([cache.v, v], dim=2)
-                cache = self.Cache(k, v)
+    def _dense(self, q, k, v, attn_mask):
+        """The dense core over ``[B, H, L, D]``: ``(out [B, H, Lq, D],
+        weights)``."""
         if isinstance(attn_mask, _CausalMask):
             # with an incremental cache lq < lk: query row i sits at
             # absolute position lk - lq + i, so the triu shifts by the
@@ -184,7 +193,74 @@ class MultiHeadAttention(Layer):
         if self.dropout:
             weights = F.dropout(weights, self.dropout,
                                 training=self.training)
-        out = matmul(weights, v).permute(0, 2, 1, 3)        # [B, L, H, D]
+        return matmul(weights, v), weights
+
+    def _sharded_forward(self, query, key, value, attn_mask, cache):
+        """Attention over DTensor activations (a model laid out on a
+        mesh): the projections run as DTensor ops, and the core runs on
+        each rank's local heads and batch rows through ``local_map``, so
+        the flash kernels see plain local tensors, never a gathered
+        DTensor. The heads must be sharded (or replicated), never the
+        head dim."""
+        if cache is not None or self.need_weights:
+            raise NotImplementedError(
+                "MultiHeadAttention on a mesh: incremental caches and "
+                "attention weights are not taken (the sharded model "
+                "trains; decode with the gathered state_dict)")
+        if attn_mask is not None and not isinstance(attn_mask,
+                                                    _CausalMask):
+            raise NotImplementedError(
+                "MultiHeadAttention on a mesh takes no mask or "
+                "CAUSAL_MASK")
+        b, lq = query.shape[0], query.shape[1]
+        shape = (b, -1, self.num_heads, self.head_dim)
+        q = self.q_proj(query).reshape(shape)
+        k = self.k_proj(key).reshape(shape)
+        v = self.v_proj(value).reshape(shape)
+        causal = isinstance(attn_mask, _CausalMask)
+        if self._flash_eligible(attn_mask, cache):
+            def core(ql, kl, vl):
+                return flash_attention(ql, kl, vl, causal=causal)[0]
+        else:
+            def core(ql, kl, vl):
+                out, _ = self._dense(ql.permute(0, 2, 1, 3),
+                                     kl.permute(0, 2, 1, 3),
+                                     vl.permute(0, 2, 1, 3), attn_mask)
+                return out.permute(0, 2, 1, 3)
+        out = on_local_heads(core, q, k, v)
+        return self.out_proj(out.reshape(b, lq, self.embed_dim))
+
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                cache=None):
+        """``out``; with ``need_weights`` also the attention weights, and
+        with a ``Cache`` also the grown ``Cache``, in that order (a tuple
+        when there is more than ``out``)."""
+        key = query if key is None else key
+        value = key if value is None else value
+        if _sharded(query, key, value):
+            return self._sharded_forward(query, key, value, attn_mask,
+                                         cache)
+        if self._flash_eligible(attn_mask, cache):
+            b, lq = query.shape[0], query.shape[1]
+            shape = (b, -1, self.num_heads, self.head_dim)
+            out, _ = flash_attention(
+                self.q_proj(query).reshape(shape),
+                self.k_proj(key).reshape(shape),
+                self.v_proj(value).reshape(shape),
+                causal=isinstance(attn_mask, _CausalMask))
+            return self.out_proj(out.reshape(b, lq, self.embed_dim))
+        q = self._split_heads(self.q_proj(query))
+        if isinstance(cache, self.StaticCache):
+            k, v = cache.k, cache.v
+        else:
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(value))
+            if isinstance(cache, self.Cache):
+                k = torch.cat([cache.k, k], dim=2)
+                v = torch.cat([cache.v, v], dim=2)
+                cache = self.Cache(k, v)
+        out, weights = self._dense(q, k, v, attn_mask)
+        out = out.permute(0, 2, 1, 3)                        # [B, L, H, D]
         out = self.out_proj(out.reshape(out.shape[0], out.shape[1],
                                         self.embed_dim))
         outs = [out]

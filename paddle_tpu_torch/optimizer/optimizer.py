@@ -221,7 +221,8 @@ class Optimizer:
         if not idx:
             return
         self._fill_scalars()
-        self._apply_update(idx, [self._parameter_list[i].grad for i in idx])
+        self._apply_update(idx, [_reduced(self._parameter_list[i])
+                                 for i in idx])
         self._global_step += 1
 
     @torch.no_grad()
@@ -306,8 +307,8 @@ class Momentum(Optimizer):
         self._nesterov = use_nesterov
 
     def _init_state(self, p):
-        return {"velocity": torch.zeros(p.shape, dtype=p.dtype,
-                                        device=p.device)}
+        return {"velocity": torch.zeros_like(
+            p, memory_format=torch.contiguous_format)}
 
     def _update(self, p, g, s, lr, step, ctx=None):
         v = s["velocity"].mul_(self._momentum).add_(g)
@@ -334,8 +335,7 @@ class Adam(Optimizer):
 
     def _init_state(self, p):
         dt = torch.float32 if self._multi_precision else p.dtype
-        st = {"moment1": torch.zeros(p.shape, dtype=dt, device=p.device),
-              "moment2": torch.zeros(p.shape, dtype=dt, device=p.device)}
+        st = {"moment1": _zeros_as(p, dt), "moment2": _zeros_as(p, dt)}
         if self._multi_precision and p.dtype != torch.float32:
             st["master"] = p.detach().float().clone()
         return st
@@ -404,8 +404,26 @@ class AdamW(Adam):
         return super()._update(p, g, s, lr, step)
 
 
+def _reduced(p):
+    """``p.grad``, laid out as ``p`` when it is a DTensor parameter (a
+    gradient partial over the data axis summed once; ``mesh.reduce_grad``)."""
+    g = p.grad
+    if type(g) is torch.Tensor or g is None:
+        return g
+    from ..distributed.mesh import reduce_grad
+    return reduce_grad(p, g)
+
+
 def _zeros(p, fill=0.0):
-    return torch.full(p.shape, fill, dtype=p.dtype, device=p.device)
+    return torch.full_like(p, fill, memory_format=torch.contiguous_format)
+
+
+def _zeros_as(p, dtype):
+    """Zeros of ``p``'s shape in ``dtype`` on its device, laid out as
+    ``p`` when it is a DTensor (a state on a mesh lives where its
+    parameter's shard does)."""
+    return torch.zeros_like(p, dtype=dtype,
+                            memory_format=torch.contiguous_format)
 
 
 def _norm32(t):

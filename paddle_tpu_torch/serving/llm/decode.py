@@ -684,7 +684,7 @@ class GPTStaticDecoder(GPTDecoderBase):
     ``tail_prefill`` / ``decode_step`` write it in place through the
     compiled programs that ``prefill_fn``/``tail_prefill_fn``/
     ``decode_fn`` hand out; ``insert_prefix`` copies a prefix-store entry
-    into a slot. A slot-sharded mesh is queue A10."""
+    into a slot. A slot-sharded mesh is queue A10's second slice."""
 
     def __init__(self, model, max_top_k: int = 64,
                  exec_cache: Optional[ExecutableCache] = None, mesh=None,

@@ -17,8 +17,8 @@ every write lands IN PLACE through the layer view, as the paged arena's
 do. The buffers and ``lengths`` keep their addresses for the life of
 the cache (``reset`` zeroes them in place), since the decoder's CUDA
 graphs bind them; ``graph_pool`` is the memory pool and capture stream
-those graphs share (``core/graphs.py``). A slot-sharded mesh is queue
-A10 in ROADMAP.md and raises naming it.
+those graphs share (``core/graphs.py``). A slot-sharded mesh is the
+second slice of queue A10 in ROADMAP.md and raises naming it.
 
 With ``kv_dtype="int8"`` each buffer is a dict, as the JAX package's:
 ``{"q": int8 [..., H, D] codes, "s": float32 [...] scales}``, one absmax

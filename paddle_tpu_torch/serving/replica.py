@@ -26,7 +26,7 @@ and returns a started engine. The JAX package gives each replica a device
 subset or a sub-mesh; the port runs its replicas on one card (they share
 ``device``, as the JAX package's share one device when it has fewer
 devices than replicas), and a ``mesh`` (model-parallel replicas) is
-ROADMAP.md queue A10.
+the second slice of ROADMAP.md queue A10.
 
 Lock discipline: every mutable attribute (``_state``, ``_engine``,
 ``_outstanding``, ``_dispatched``, ``_completed``, ``_restarts``,
@@ -75,7 +75,8 @@ class Replica:
         if mesh is not None:
             raise NotImplementedError(
                 "a replica over a device mesh (model-parallel serving) is "
-                "ROADMAP.md queue A10; the port's replicas run on one card")
+                "the second slice of ROADMAP.md queue A10; the port's "
+                "replicas run on one card")
         #: the device the factory builds the engine on
         self.device = resolve_device(device)
         self.checkpoint_root = checkpoint_root

@@ -27,7 +27,7 @@ Devices: the port serves on one card, so every replica runs on the
 router's ``device`` (CUDA unless given ``device="cpu"``), as the JAX
 package's replicas share one device when it has fewer devices than
 replicas (``mesh`` None). ``model_axes`` (model-parallel replicas) is
-ROADMAP.md queue A10.
+the second slice of ROADMAP.md queue A10.
 
 **Disaggregated prefill/decode fleet** (``kind="llm"`` with ``roles``):
 prefill is a throughput-bound batched matmul, decode a latency-bound
@@ -156,7 +156,8 @@ class Router:
         if self._config.model_axes:
             raise NotImplementedError(
                 f"model_axes={self._config.model_axes}: model-parallel "
-                f"replicas over device meshes are ROADMAP.md queue A10; "
+                f"replicas over device meshes are the second slice of "
+                f"ROADMAP.md queue A10; "
                 f"the port's replicas each run whole on one card")
         self.device = resolve_device(device)
         self._registry = registry or _mon.default_registry()

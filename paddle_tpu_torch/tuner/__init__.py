@@ -34,8 +34,9 @@ JAX package; a cached entry that is not such a config (the JAX package's
 the rule applies. ``flash_*``, ``nms`` and ``compress`` keep their keys
 and lookups so the API matches, but no kernel of the port reads them:
 B1–B3's tiles and B5's are compile-time constants
-(:func:`autotune_flash` raises saying so) and the compressed all-reduce
-is ROADMAP.md queue A10.
+(:func:`autotune_flash` raises saying so); the compressed all-reduce
+(``distributed/collective.py``) reads a cached block, and its search is
+ROADMAP.md queue A10's second slice.
 
 The platform part of a key is ``cuda-sm<major><minor>`` for a card (the
 H100 is ``cuda-sm90``) and ``cpu`` for the CPU: never the JAX package's
@@ -253,7 +254,7 @@ def get_nms_config(k: int, *, device: DeviceLike = None
 def get_compress_block(nelems: int, wire_dtype: str = "int8", *,
                        device: DeviceLike = None) -> Optional[int]:
     """The cached quantize block for a gradient-size family, or None (the
-    compressed all-reduce is ROADMAP.md queue A10)."""
+    compressed all-reduce then takes 256)."""
     cfg = _resolve(compress_key(nelems, wire_dtype, device=device))
     if not cfg:
         return None
@@ -287,12 +288,13 @@ def autotune_flash(*args, **kwargs):
 
 
 def autotune_compress(*args, **kwargs):
-    """The compressed all-reduce (``distributed/collective.py``) is not
-    ported."""
+    """Searching the compressed all-reduce's block is not ported (the
+    all-reduce itself is, ``distributed/collective.py``)."""
     raise NotImplementedError(
         "autotune_compress: the compressed all-reduce "
-        "(distributed/collective.py) is not ported yet: a later slice of "
-        "the port (ROADMAP.md queue A10)")
+        "(distributed/collective.py) is ported; searching its block is "
+        "the second slice of the port's distributed work (ROADMAP.md "
+        "queue A10)")
 
 
 def autotune_paged_attn(num_seqs: int, num_heads: int, head_dim: int,

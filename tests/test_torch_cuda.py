@@ -3485,3 +3485,107 @@ def test_http_generate_over_a_paged_engine_counts_b4(cuda):
     assert tpa.paged_attention.launches - before == \
         MODEL["num_layers"] * steps
     assert reported["paged_attention"] == tpa.paged_attention.launches
+
+
+# -- distributed training on the card (phase 34's contract at small sizes) --
+
+@pytest.fixture
+def nccl_world(cuda):
+    """A world of one on NCCL in this process, taken down after (the
+    port's default device restored)."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.core import device as core_device
+    saved = core_device._CURRENT[0]
+    dist.init_parallel_env()
+    try:
+        yield dist
+    finally:
+        dist.env.destroy_process_group()
+        core_device._CURRENT[0] = saved
+
+
+def test_nccl_world_of_one_collectives_are_the_identity(nccl_world):
+    dist = nccl_world
+    from paddle_tpu_torch.distributed import collective as C
+    assert dist.env.backend() == "nccl"
+    x = torch.arange(8, dtype=torch.float32, device="cuda")
+    want = x.clone()
+    for op in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+        assert torch.equal(dist.all_reduce(x, getattr(C.ReduceOp, op)), want)
+    for got in (dist.broadcast(x, 0), dist.reduce(x, 0),
+                dist.all_gather([], x)[0], dist.reduce_scatter(None, x),
+                dist.alltoall(x), dist.p2p_exchange(x, 0, 0),
+                dist.compressed_all_reduce(x), dist.scatter(x, [x], 0)):
+        assert torch.equal(got, want)
+    assert dist.all_gather_object([], 5) == [5]
+    dist.barrier()
+
+
+def test_graphed_data_parallel_step_is_bitwise_the_plain_step(nccl_world):
+    dist = nccl_world
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 256, (4, 32)), device="cuda")
+    losses, lanes, launches = [], [], []
+    for parallel in (True, False):
+        net = GPTForCausalLM(GPTConfig(**MODEL, attn_impl="flash"),
+                             device="cuda", seed=0)
+        if parallel:
+            dist.set_mesh(dist.build_mesh({"dp": 1}))
+            net = dist.DataParallel(net)
+        opt = AdamW(learning_rate=1e-3, parameters=net.parameters(),
+                    device="cuda")
+        m = Model(net, device="cuda")
+        m.prepare(opt, GPTPretrainingCriterion())
+        before = tfa.flash_attention_fwd.launches
+        losses.append([m.train_batch([ids], [ids])[0] for _ in range(3)])
+        launches.append(tfa.flash_attention_fwd.launches - before)
+        lanes.append(m.lane)
+        dist.set_mesh(None)
+    assert lanes == ["graphed", "graphed"]
+    assert losses[0] == losses[1]
+    assert launches == [3 * MODEL["num_layers"]] * 2
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 4, 64), (1, 8192, 16, 128)],
+                         ids=["s128_d64", "ring_chunk_d128"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_chunk_contract_on_b1_b3(cuda, causal, shape):
+    """The ring's chunk contract: B1 returns the row LSE; B2 and B3 take
+    a global LSE merged from another chunk and a delta computed outside,
+    and write float32 gradients for bfloat16 inputs; all within bf16
+    tolerance of the plain versions on the same inputs. The second shape
+    is a chunk of chip_smoke's sp4 ring at GPT-3 1.3B's width (S 32768
+    over four ranks, 16 heads of 128)."""
+    rng = np.random.default_rng(7)
+    b, s, h, d = shape
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32)
+                               * 0.5, device="cuda").to(torch.bfloat16)
+    q, k0, v0, k1, v1, do = (t(b, s, h, d) for _ in range(6))
+    o0, lse0 = tfa.flash_attention_fwd(q, k0, v0, causal)
+    o1, lse1 = tfa.flash_attention_fwd(q, k1, v1, False)
+    po0, plse0 = tfa.flash_attention_fwd_plain(q, k0, v0, causal)
+    assert float((lse0 - plse0).abs().max()) < 2e-3
+    assert float((o0.float() - po0.float()).abs().max()) < 2e-2
+    lse = torch.logaddexp(lse0, lse1)           # the merged, global rows
+    w0 = torch.exp(lse0 - lse).transpose(1, 2)[..., None]
+    w1 = torch.exp(lse1 - lse).transpose(1, 2)[..., None]
+    o = (o0.float() * w0 + o1.float() * w1).to(torch.bfloat16)
+    delta = tfa.attention_delta(o, do)
+    f32 = torch.float32
+    dq = tfa.flash_attention_bwd_dq(q, k0, v0, do, lse, delta, causal,
+                                    None, f32)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k0, v0, do, lse, delta, causal,
+                                         None, f32, f32)
+    pdq = tfa.flash_attention_bwd_dq_plain(q, k0, v0, do, lse, delta,
+                                           causal, None, f32)
+    pdk, pdv = tfa.flash_attention_bwd_dkv_plain(q, k0, v0, do, lse, delta,
+                                                 causal, None, f32, f32)
+    for got, ref in ((dq, pdq), (dk, pdk), (dv, pdv)):
+        assert got.dtype == f32
+        assert float((got - ref).abs().max()) <= \
+            2e-2 * float(ref.abs().max()) + 1e-6

@@ -326,7 +326,15 @@ def test_gradient_merge_matches_jax(k, avg):
 
 
 def test_local_sgd_raises_naming_a10():
-    opt = topt.SGD(learning_rate=0.1, parameters=[torch.nn.Parameter(
-        torch.zeros(2))], device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        utils.LocalSGDOptimizer(opt, k_steps=2)
+    """LocalSGD is ported (A10's first slice; the four-rank average is in
+    tests/test_torch_dist_parallel.py): in a world of one its average is
+    the identity, so it steps as its inner optimizer."""
+    p = torch.nn.Parameter(torch.zeros(2))
+    opt = utils.LocalSGDOptimizer(topt.SGD(learning_rate=0.1, parameters=[p],
+                                           device="cpu"), k_steps=2)
+    for i in range(3):
+        p.grad = torch.ones(2)
+        opt.step()
+        opt.clear_grad()
+        np.testing.assert_allclose(p.detach().numpy(), -0.1 * (i + 1),
+                                   rtol=1e-6)

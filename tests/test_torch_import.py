@@ -103,6 +103,19 @@ def test_import_leaves_no_jax_in_subprocess():
         "import paddle_tpu_torch.serving.http\n"
         "import paddle_tpu_torch.serving.__main__\n"
         "import paddle_tpu_torch.tuner, paddle_tpu_torch.tuner.runner\n"
+        "import paddle_tpu_torch.distributed.env\n"
+        "import paddle_tpu_torch.distributed.collective\n"
+        "import paddle_tpu_torch.distributed.mesh\n"
+        "import paddle_tpu_torch.distributed.topology\n"
+        "import paddle_tpu_torch.distributed.parallel\n"
+        "import paddle_tpu_torch.distributed.sharding\n"
+        "import paddle_tpu_torch.distributed.spawn_impl\n"
+        "import paddle_tpu_torch.distributed.launch\n"
+        "import paddle_tpu_torch.distributed.utils\n"
+        "import paddle_tpu_torch.distributed.cloud_utils\n"
+        "import paddle_tpu_torch.distributed.fleet.strategy\n"
+        "import paddle_tpu_torch.distributed.fleet.mp_layers\n"
+        "import paddle_tpu_torch.distributed.fleet.sequence_parallel\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(repr(bad))\n")
